@@ -1,0 +1,135 @@
+"""The port's CUDA NCC kernel on the card (marked ``cuda``; each test skips
+where ``torch.cuda.is_available()`` is false).
+
+This file imports only the port (no JAX), so it runs on a CUDA machine
+without JAX:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_kernel_cuda.py
+
+(``--noconftest`` skips tests/conftest.py, which configures JAX.)
+
+Tolerances:
+* kernel vs plain version on the same CUDA tensors: the fraction of cost
+  entries differing by more than 1e-4 stays below 1e-3, as in
+  test_torch_ncc.py. The kernel repeats the plain version's operations one
+  for one (-fmad=false, IEEE division), so on the H100 it is 0.
+* a whole photometric solve on the card vs the same solve on the CPU: the
+  draws are identical (integer threefry), but CUDA's and the CPU's exp, log
+  and sqrt may round an ulp apart, which flips float-tie adoptions; bounded
+  like test_torch_solver.py (at most 5% of pixels beyond 0.1% relative
+  depth), and both reach median |d-gt|/gt < 1%.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from mpmvs_torch.ops import ncc_cuda
+from mpmvs_torch.ops import random as pmrand
+from mpmvs_torch.ops import threefry as tf
+from mpmvs_torch.ops.ncc import ncc_refside
+from mpmvs_torch.ops.packing import packed_coords
+from mpmvs_torch.ops.propagation import _band_geometry, _pad_rows, step_halo
+from mpmvs_torch.params import PatchMatchParams
+from mpmvs_torch.solver import (build_solve_data, init_band_count,
+                                solve_band_rows, solve_view)
+from mpmvs_torch.utils.synthetic import make_plane_scene
+
+from torch_parity import frac_beyond, n
+
+torch.set_num_threads(1)
+
+pytestmark = pytest.mark.cuda
+
+FRAC_TOL = 1e-3
+SOLVE_FRAC_TOL = 0.05
+PARAMS = PatchMatchParams()
+
+
+@pytest.fixture(scope="module")
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+@pytest.fixture(scope="module")
+def data(dev):
+    scene = make_plane_scene(num_views=4, height=48, width=96, seed=7)
+    return build_solve_data(torch.as_tensor(scene.images, device=dev),
+                            scene.cameras.to(dev))
+
+
+def _band_args(data, K: int, scale: int, cap: bool):
+    """ncc_eval_multi's arguments for rows 16..31 of the packed phase-1
+    pixels, with K independent random plane fields."""
+    rows, y0, phase = 16, 16, 1
+    halo = step_halo(scale)
+    offs = PARAMS.tap_offsets(scale)
+    ref_pad = _pad_rows(data.ref_img, halo, halo)
+    refside = ncc_refside(ref_pad[y0:y0 + rows + 2 * halo], halo, rows, offs,
+                          PARAMS.sigma_spatial, PARAMS.sigma_color,
+                          pack_phase=phase)
+    W = data.ref_img.shape[1]
+    x, y = packed_coords(y0, rows, W // 2, phase, device=data.ref_img.device)
+    keys = tf.split(tf.PRNGKey(10 * scale + K, device=x.device), K)
+    planes = torch.stack([pmrand.random_plane_field(
+        keys[k], data.K_ref, x, y, data.depth_min, data.depth_max)
+        for k in range(K)])
+    return (refside, data.src_imgs, data.src_widths, data.src_heights, data.A,
+            data.b, data.K_ref, planes, x, y, offs, PARAMS.cost_max,
+            PARAMS.cap_radius(scale) if cap else 0.0)
+
+
+@pytest.mark.parametrize("cap", [True, False])
+@pytest.mark.parametrize("scale", [0, 2])
+@pytest.mark.parametrize("K", [1, 5, 9])
+def test_kernel_matches_plain(data, K, scale, cap):
+    args = _band_args(data, K, scale, cap)
+    before = ncc_cuda.COUNTS.kernel
+    got = ncc_cuda.ncc_eval_multi(*args)
+    want = ncc_cuda.ncc_eval_multi_plain(*args)
+    torch.cuda.synchronize()
+    assert ncc_cuda.COUNTS.kernel == before + 1
+    assert got.shape == (K, 3, 16, 48)
+    assert frac_beyond(got, want, 1e-4) < FRAC_TOL
+    valid = (want < PARAMS.cost_max).float().mean().item()
+    assert 0.1 < valid < 1.0  # both real costs and cost_max entries
+
+
+def test_kernel_wrapper_rejects_bad_inputs(data):
+    args = list(_band_args(data, 2, 0, True))
+    planes = args[7]
+    for bad, err in ((planes.double(), TypeError), (planes[..., :3], ValueError),
+                     (planes.cpu(), ValueError)):
+        args[7] = bad
+        with pytest.raises(err):
+            ncc_cuda.ncc_eval_multi_kernel(*args)
+    args[7] = planes
+    args[8] = args[8].cpu()  # x on the wrong device
+    with pytest.raises(ValueError, match="x is on"):
+        ncc_cuda.ncc_eval_multi_kernel(*args)
+
+
+def test_solve_on_card_goes_through_the_kernel(dev):
+    scene = make_plane_scene(num_views=3, height=64, width=80, seed=3)
+    params = PatchMatchParams(max_iterations=2, max_scale=0)
+    key = tf.PRNGKey(0)
+    ncc_cuda.COUNTS.reset()
+    on_card = solve_view(scene.images, scene.cameras, key, params,
+                         device=dev)
+    torch.cuda.synchronize()
+    kernel, plain = ncc_cuda.COUNTS.kernel, ncc_cuda.COUNTS.plain
+    br = solve_band_rows(params, 64, 80, 2)
+    n_bands = _band_geometry(64, 80, 2, 0, False, br)[2]
+    assert (kernel, plain) == (init_band_count(br, 64)
+                               + params.max_iterations * 2 * n_bands * 2, 0)
+    on_cpu = solve_view(scene.images, scene.cameras, key, params,
+                        device="cpu")
+    dc, dh = n(on_card.depth), n(on_cpu.depth)
+    assert on_card.depth.device.type == "cuda"
+    assert (np.abs(dc - dh) / dh > 1e-3).mean() <= SOLVE_FRAC_TOL
+    gt = scene.gt_depth[0]
+    for d in (dc, dh):
+        assert np.isfinite(d).all()
+        assert np.median(np.abs(d - gt) / gt) < 0.01
