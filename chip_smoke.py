@@ -2,13 +2,14 @@
 """Smoke test of the PyTorch port (mpmvs_torch) on one CUDA card.
 
     python3 chip_smoke.py            # all phases, one card
-    python3 chip_smoke.py --quick    # phases 1-2 only (build + kernel check)
+    python3 chip_smoke.py --quick    # phases 1, 2 and 5 (builds + kernel checks)
 
 Phases, in order; any failure raises and the script exits non-zero:
 
 1. Device and build: the card's name and power limit, and the ``nvcc``
-   build of ``mpmvs_torch/csrc/ncc_eval.cu`` with its time.
-2. Kernel vs plain: ``ncc_eval_multi`` on the card against its plain
+   builds of ``mpmvs_torch/csrc/ncc_eval.cu`` and ``bilateral_refine.cu``,
+   started together, with their time.
+2. NCC kernel vs plain: ``ncc_eval_multi`` on the card against its plain
    PyTorch version at K in {1, 5, 9}, S = 10, scales 0 and 2, on
    ground-truth and random planes at the default footprint cap; then both
    timed with CUDA events at the main path's band shape.
@@ -17,11 +18,24 @@ Phases, in order; any failure raises and the script exits non-zero:
    K=1 initial scoring of every pixel, and one half-iteration at scales 2,
    1 and 0; plus the scale-2 step with a constant-cost stand-in for the
    NCC, which times the eager glue around the kernel.
-4. The photometric slice at 3200x2130 with 1+10 views per estimated view
-   (3 of 11 views estimated): ``Pipeline.load_arrays`` + ``Pipeline.run`` (3 scales x 3 iterations, no geometric
-   pass, no prior), writing .dmb files and the fused PLY to a temporary
-   directory; checks depth accuracy, the PLY, and that every NCC call went
-   through the kernel, as often as the schedule implies.
+4. The photometric path at 3200x2130 with 1+10 views per estimated view
+   (3 of 11 views estimated): ``Pipeline.load_arrays`` + ``Pipeline.run``
+   (3 scales x 3 iterations, no geometric pass, no prior, no sky), writing
+   .dmb files and the fused PLY to a temporary directory; checks depth
+   accuracy, the PLY, and that every NCC call went through the kernel, as
+   often as the schedule implies.
+5. Bilateral kernel vs plain at 3200x2130: ``bilateral_refine`` on the card
+   against its plain version on view 0's guide image (its top fifth painted
+   sky blue from here on) with the sky net's probability, and on a
+   structured random image; max |diff| <= 1e-5 and at most 1e-4 of the
+   thresholded mask pixels differ; both timed with CUDA events.
+6. The full path: the same 1+10-view scene with the sky band, default
+   ``ConfigParams`` with ``sky_seg=True`` through ``Pipeline.run``: the
+   photometric pass, ``geom_0`` with its planar-prior sub-run, ``geom_1``,
+   sky masks, fusion. Checks depth accuracy on the non-sky rows after every
+   pass, each view's sky fraction against the painted band, that fusing
+   with the masks keeps no more points than without, and the launches of
+   both kernels against the stated schedule.
 
 The last three lines of standard output are the card's name and power limit
 (``nvidia-smi``), a JSON object describing each kernel, and
@@ -46,6 +60,21 @@ H_FULL, W_FULL = 2130, 3200   # the reference's max_image_size operating point
 N_SRC = 10                    # sources per reference view (bench.py's point)
 PHASE2_ROWS = 64              # band rows of the kernel-vs-plain check
 MISMATCH_TOL = 1e-3           # max fraction of entries differing by > 1e-4
+ESTIMATED = (0, 1, 2)         # views estimated in phases 4 and 6
+SKY_ROWS = H_FULL // 5        # top rows painted sky blue before phase 5
+SKY_BGR = (235.0, 180.0, 135.0)
+GROUND_MARGIN = 24            # rows below the band left out of depth checks
+BILATERAL_ERR_TOL = 1e-5      # max |kernel - plain| of the refined map
+BILATERAL_MASK_TOL = 1e-4     # max fraction of thresholded pixels differing
+SKY_FRAC_TOL = 0.02           # |sky fraction - painted fraction| per view
+# NCC launches per estimated view of the full path, from the schedule as
+# stated (one band of 2130 rows in every mode, asserted in main):
+#   photometric: 1 init + 3 scales x 3 iterations x 2 colours x 2 calls
+#   geom_0:      1 init + 2 iterations x 2 colours x 2 calls
+#   prior run:   1 init + 3 iterations x 2 colours x 2 calls
+#   geom_1:      1 init + 2 iterations x 2 colours x 2 calls
+NCC_PHOTOMETRIC, NCC_GEOM, NCC_PRIOR = 1 + 3 * 3 * 2 * 2, 1 + 2 * 2 * 2, \
+    1 + 3 * 2 * 2
 
 
 def log(msg: str):
@@ -86,6 +115,23 @@ def state_diff(a, b, mask):
            | (a.sel != b.sel)) & mask
     frac = bad.float().sum().item() / mask.float().sum().item()
     return frac, compare(a.cost, b.cost)[1]
+
+
+def view_sel():
+    """pair lists of the 11-view scene: ESTIMATED views take all others as
+    sources; the rest are sources only."""
+    V = N_SRC + 1
+    return [[j for j in range(V) if j != i] if i in ESTIMATED else []
+            for i in range(V)]
+
+
+def paint_sky(scene):
+    """Paint the top SKY_ROWS of every view flat sky blue (colours) and its
+    grey (images, cv2's BGR -> grey weights), in place, as the sky tests of
+    the JAX package do (tests/test_models.py:93-95)."""
+    b, g, r = SKY_BGR
+    scene.colors[:, :SKY_ROWS] = SKY_BGR
+    scene.images[:, :SKY_ROWS] = 0.114 * b + 0.587 * g + 0.299 * r
 
 
 def make_scene():
@@ -272,13 +318,10 @@ def phase_pipeline(scene, params):
     from mpmvs_torch.params import ConfigParams
     from mpmvs_torch.pipeline import Pipeline
 
-    V = N_SRC + 1
     # three estimated views: with two, each would be the other's only (and
     # so last) fusion source, which the reference's last-source rule never
     # counts, and the cloud would be empty
-    estimable = (0, 1, 2)
-    view_sel = [[j for j in range(V) if j != i] if i in estimable else []
-                for i in range(V)]
+    estimable = ESTIMATED
     S = N_SRC
     # the schedule as stated, not as the banding code computes it: the H100
     # band budget (8192 MB) holds 3200x2130 at S=10 in one band of all
@@ -292,7 +335,8 @@ def phase_pipeline(scene, params):
                            geom_iterations=0, planar_prior=False,
                            max_source_images=S)
         pipe = Pipeline(cfg, params, device="cuda", write_jpg=False)
-        pipe.load_arrays(scene.images, scene.colors, scene.cameras, view_sel)
+        pipe.load_arrays(scene.images, scene.colors, scene.cameras,
+                         view_sel())
         torch.cuda.reset_peak_memory_stats()
         COUNTS.reset()
         t0 = time.perf_counter()
@@ -312,7 +356,7 @@ def phase_pipeline(scene, params):
                 raise AssertionError(f"view {v}: depth map not finite/shaped")
             gt = scene.gt_depth[v]
             rel = float(np.median(np.abs(d - gt) / gt))
-            sec = pipe.solve_seconds[v]
+            sec = sum(t for u, stage, t in pipe.solve_log if u == v)
             log(f"  view {v}: solve {sec:.2f} s, {taps_view / sec / 1e9:.3f} "
                 f"Gtaps/s, median |d-gt|/gt {rel:.5f}")
             if not rel < 0.01:
@@ -331,10 +375,160 @@ def phase_pipeline(scene, params):
     return launches
 
 
+def phase_bilateral(scene):
+    """Phase 5. Returns (max |diff| over both inputs, kernel ms, plain ms)
+    with the times on the view-0 guide image."""
+    import torch
+    import torch.nn.functional as F
+    from mpmvs_torch.models import sky
+    from mpmvs_torch.ops import bilateral_cuda
+    from mpmvs_torch.utils.trace import cuda_time_ms
+
+    dev = torch.device("cuda")
+    net = sky.load_sky_net(device=dev)
+    bgr = torch.as_tensor(scene.colors[0], device=dev)
+    prob = sky.segment_sky(bgr, net)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    # structured random: colour blocks with sharp edges, per-pixel noise,
+    # and a smooth random probability
+    blocks = torch.rand((1, 3, 54, 80), generator=gen, device=dev) * 235.0
+    rbgr = (F.interpolate(blocks, size=(H_FULL, W_FULL), mode="nearest")[0]
+            .permute(1, 2, 0) + torch.rand((H_FULL, W_FULL, 3), generator=gen,
+                                           device=dev) * 20.0).contiguous()
+    logits = torch.randn((1, 1, 27, 40), generator=gen, device=dev) * 3.0
+    rprob = torch.sigmoid(F.interpolate(logits, size=(H_FULL, W_FULL),
+                                        mode="bilinear")[0, 0]).contiguous()
+    max_err = 0.0
+    for name, (g, p) in (("guide image + net probability", (bgr, prob)),
+                         ("structured random", (rbgr, rprob))):
+        got = bilateral_cuda.bilateral_refine(g, p)
+        want = bilateral_cuda.bilateral_refine_plain(g, p)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        frac = ((got > sky.THRESHOLD) != (want > sky.THRESHOLD)).float(
+        ).mean().item()
+        bitwise = (got == want).float().mean().item()
+        log(f"  {name}: max|diff| {err:.3e}, equal entries {bitwise:.6f}, "
+            f"thresholded pixels differing {frac:.3e} (mask fraction "
+            f"{(want > sky.THRESHOLD).float().mean().item():.4f})")
+        if not err <= BILATERAL_ERR_TOL or not frac <= BILATERAL_MASK_TOL:
+            raise AssertionError(f"bilateral kernel vs plain on {name}: "
+                                 f"max|diff| {err} (limit "
+                                 f"{BILATERAL_ERR_TOL}), mask fraction "
+                                 f"{frac} (limit {BILATERAL_MASK_TOL})")
+        max_err = max(max_err, err)
+    ms_kernel = cuda_time_ms(lambda: bilateral_cuda.bilateral_refine(bgr, prob),
+                             reps=10)
+    ms_plain = cuda_time_ms(
+        lambda: bilateral_cuda.bilateral_refine_plain(bgr, prob), reps=1)
+    taps = H_FULL * W_FULL * (2 * bilateral_cuda.RADIUS + 1) ** 2
+    log(f"  timing {W_FULL}x{H_FULL}, 37x37 taps: kernel {ms_kernel:.3f} ms "
+        f"({taps / ms_kernel / 1e6:.3f} Gtaps/s), plain {ms_plain:.3f} ms")
+    return max_err, ms_kernel, ms_plain
+
+
+def phase_full_path(scene, params):
+    """Phase 6: the default schedule with sky masks through Pipeline.run.
+    Returns (NCC launches, bilateral launches) counted during the run."""
+    import numpy as np
+    import torch
+    from mpmvs_torch.io import read_ply_binary
+    from mpmvs_torch.ops import bilateral_cuda, ncc_cuda
+    from mpmvs_torch.params import ConfigParams
+    from mpmvs_torch.pipeline import Pipeline
+
+    ground = slice(SKY_ROWS + GROUND_MARGIN, H_FULL)
+    errors = {}
+
+    with tempfile.TemporaryDirectory(prefix="mpmvs_full_") as out:
+        cfg = ConfigParams(input_folder=out, output_folder=out,
+                           max_source_images=N_SRC, sky_seg=True)
+        pipe = Pipeline(cfg, params, device="cuda", write_jpg=False)
+        pipe.load_arrays(scene.images, scene.colors, scene.cameras,
+                         view_sel())
+        log(f"  schedule: {[tag for tag, _, _ in pipe.pass_schedule()]}, "
+            f"sky masks, fusion")
+        mark_done = pipe._mark_pass_done
+
+        def check_pass(tag):
+            """Depth accuracy of every estimated view on the non-sky rows,
+            as the pass leaves it."""
+            for v in ESTIMATED:
+                d = pipe.views[v].result.depth[ground].cpu().numpy()
+                gt = scene.gt_depth[v][ground]
+                errors[(tag, v)] = float(np.median(np.abs(d - gt) / gt))
+            mark_done(tag)
+
+        pipe._mark_pass_done = check_pass
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ncc_cuda.COUNTS.reset()
+        bilateral_cuda.COUNTS.reset()
+        t0 = time.perf_counter()
+        ply = pipe.run(log=lambda m: log("  " + m))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        ncc = (ncc_cuda.COUNTS.kernel, ncc_cuda.COUNTS.plain)
+        bil = (bilateral_cuda.COUNTS.kernel, bilateral_cuda.COUNTS.plain)
+        peak = torch.cuda.max_memory_allocated()
+
+        for (tag, v), rel in errors.items():
+            log(f"  after {tag}: view {v} median |d-gt|/gt on rows "
+                f"{ground.start}-{H_FULL - 1} {rel:.5f}")
+        for v in ESTIMATED:
+            secs = {stage: [round(t, 3) for u, st, t in pipe.solve_log
+                            if u == v and st == stage]
+                    for stage in ("photometric", "geom", "prior_build",
+                                  "prior")}
+            log(f"  view {v} seconds: {secs}")
+        sky_s = pipe.timer.stats["sky_masks"].total
+        fusion_s = pipe.timer.stats["fusion"].total
+        n_sky = len(read_ply_binary(ply)[0])
+        masks = {v: pipe.views[v].sky_mask for v in ESTIMATED}
+        band = SKY_ROWS / H_FULL
+        for v, m in masks.items():
+            log(f"  view {v}: sky fraction {m.mean():.4f} (painted band "
+                f"{band:.4f}); sky pixels below the band "
+                f"{m[ground].mean():.2e}")
+        for v in ESTIMATED:
+            pipe.views[v].sky_mask = None
+        n_all = len(read_ply_binary(pipe.fuse(log=lambda m: None))[0])
+        n_prior = sum(stage == "prior" for _, stage, _ in pipe.solve_log)
+        log(f"  run {wall:.1f} s (sky stage {sky_s:.2f} s for "
+            f"{len(ESTIMATED)} views, fusion {fusion_s:.2f} s); peak memory "
+            f"{peak / 2**30:.3f} GiB; PLY {n_sky} points with sky masks, "
+            f"{n_all} without")
+
+    bad = {k: e for k, e in errors.items() if not e < 0.01}
+    if len(errors) != len(ESTIMATED) * len(pipe.pass_schedule()) or bad:
+        raise AssertionError(f"median rel error >= 1% on non-sky rows: {bad}")
+    off = {v: float(m.mean()) for v, m in masks.items()
+           if not abs(m.mean() - band) < SKY_FRAC_TOL}
+    if off:
+        raise AssertionError(f"sky fractions {off} not within {SKY_FRAC_TOL}"
+                             f" of the painted {band:.3f}")
+    if not 0 < n_sky <= n_all:
+        raise AssertionError(f"fusion: {n_sky} points with sky masks, "
+                             f"{n_all} without")
+    if n_prior < len(ESTIMATED):
+        log(f"  prior build returned None for {len(ESTIMATED) - n_prior} "
+            f"view(s): their {NCC_PRIOR} NCC launches drop out")
+    expected = (len(ESTIMATED) * (NCC_PHOTOMETRIC + 2 * NCC_GEOM)
+                + n_prior * NCC_PRIOR)
+    log(f"  launches: NCC {ncc[0]} (schedule implies {expected}), plain NCC "
+        f"{ncc[1]}; bilateral {bil[0]} (one per estimated view: "
+        f"{len(ESTIMATED)}), plain bilateral {bil[1]}")
+    if ncc != (expected, 0) or bil != (len(ESTIMATED), 0):
+        raise AssertionError(f"launches (kernel, plain): NCC {ncc}, expected "
+                             f"({expected}, 0); bilateral {bil}, expected "
+                             f"({len(ESTIMATED)}, 0)")
+    return ncc[0], bil[0]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
-                    help="phases 1-2 only, no result line")
+                    help="phases 1, 2 and 5 only, no result line")
     args = ap.parse_args(argv)
 
     if not os.path.isdir(os.path.join(HERE, "mpmvs_torch")):
@@ -346,7 +540,7 @@ def main(argv=None) -> int:
         print("no CUDA device: chip_smoke.py needs one card", file=sys.stderr)
         return 1
     sys.path.insert(0, HERE)
-    from mpmvs_torch.ops import ncc_cuda
+    from mpmvs_torch.ops import bilateral_cuda, ncc_cuda, nvcc
     from mpmvs_torch.params import PatchMatchParams
     from mpmvs_torch.solver import build_solve_data, solve_band_rows
 
@@ -358,39 +552,58 @@ def main(argv=None) -> int:
     log(f"phase 1: device {name}; nvidia-smi: {smi}; torch {torch.__version__}"
         f" CUDA {torch.version.cuda}")
     t0 = time.perf_counter()
-    ncc_cuda.build(verbose=True)
-    log(f"  kernel build {time.perf_counter() - t0:.2f} s")
+    nvcc.build_all({ncc_cuda.SOURCE: ncc_cuda.NVCC_FLAGS,
+                    bilateral_cuda.SOURCE: bilateral_cuda.NVCC_FLAGS},
+                   verbose=True)
+    log(f"  kernel builds (in parallel) {time.perf_counter() - t0:.2f} s")
 
     params = PatchMatchParams()
     scene = make_scene()
     data = build_solve_data(torch.as_tensor(scene.images, device=dev),
                             scene.cameras.to(dev))
-    band_rows = solve_band_rows(params, H_FULL, W_FULL, N_SRC)
-    if band_rows != H_FULL:
-        raise AssertionError(f"band rows {band_rows}: the H100 band budget "
-                             f"should hold {W_FULL}x{H_FULL} at S={N_SRC} "
-                             f"in one band")
+    for geom in (False, True):
+        band_rows = solve_band_rows(params, H_FULL, W_FULL, N_SRC, geom)
+        if band_rows != H_FULL:
+            raise AssertionError(f"band rows {band_rows} (geom/prior modes: "
+                                 f"{geom}): the H100 band budget should hold "
+                                 f"{W_FULL}x{H_FULL} at S={N_SRC} in one "
+                                 f"band")
 
-    log("phase 2: kernel vs plain")
+    log("phase 2: NCC kernel vs plain")
     worst, max_err, ms_k, ms_p = phase_kernel_vs_plain(data, scene, params,
                                                        band_rows)
-    if args.quick:
-        log(f"quick: worst mismatch {worst:.3e}, max err {max_err:.3e}")
-        return 0
-    log("phase 3: initial scoring and half-iterations, kernel vs plain")
-    max_err = max(max_err, phase_half_iteration(data, params, band_rows))
+    if not args.quick:
+        log("phase 3: initial scoring and half-iterations, kernel vs plain")
+        max_err = max(max_err, phase_half_iteration(data, params, band_rows))
     del data
     torch.cuda.empty_cache()
-    log("phase 4: photometric slice through Pipeline")
-    launches = phase_pipeline(scene, params)
+    if not args.quick:
+        log("phase 4: photometric path through Pipeline")
+        phase_pipeline(scene, params)
+    paint_sky(scene)
+    log("phase 5: bilateral kernel vs plain")
+    bil_err, bil_ms, bil_plain_ms = phase_bilateral(scene)
+    if args.quick:
+        log(f"quick: NCC worst mismatch {worst:.3e}, max err {max_err:.3e}; "
+            f"bilateral max err {bil_err:.3e}")
+        return 0
+    torch.cuda.empty_cache()
+    log("phase 6: full path (photometric, geom_0 + prior, geom_1, sky, "
+        "fusion) through Pipeline")
+    ncc_launches, bil_launches = phase_full_path(scene, params)
 
     log(smi)
     log(json.dumps({"kernels": [{
         "name": "ncc_eval_multi", "route": "cuda",
         "source": "mpmvs_torch/csrc/ncc_eval.cu",
         "replaces": "mpmvs_tpu/ops/pallas_ncc.py:94",
-        "launches": launches, "max_abs_err": max_err,
-        "ms": ms_k, "plain_ms": ms_p}]}))
+        "launches": ncc_launches, "max_abs_err": max_err,
+        "ms": ms_k, "plain_ms": ms_p}, {
+        "name": "bilateral_refine", "route": "cuda",
+        "source": "mpmvs_torch/csrc/bilateral_refine.cu",
+        "replaces": "mpmvs_tpu/ops/pallas_bilateral.py:41",
+        "launches": bil_launches, "max_abs_err": bil_err,
+        "ms": bil_ms, "plain_ms": bil_plain_ms}]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

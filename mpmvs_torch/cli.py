@@ -2,9 +2,11 @@
 
 ``python -m mpmvs_torch.cli --input <workspace> --device cuda`` (or
 ``mpmvs-torch``), with the flags of ``python -m mpmvs_tpu.cli``; flags
-override YAML keys. This slice runs the photometric pass and fusion: pass
-``--geom-iterations 0 --planar-prior 0`` (the geometric and prior passes
-raise ``NotImplementedError`` until they are ported).
+override YAML keys. The defaults run the reference's schedule: the
+photometric pass, two geometric passes with a planar-prior sub-run in the
+first, then fusion; ``--sky-seg 1`` adds sky masks before fusion.
+``--devices`` (views sharded over several GPUs) is not ported yet and
+raises ``NotImplementedError``.
 """
 
 from __future__ import annotations

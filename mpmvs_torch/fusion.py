@@ -18,7 +18,7 @@ step (the JAX package's documented relaxation).
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -39,6 +39,7 @@ class FusionInput(NamedTuple):
     normals: Tensor   # (V, H, W, 3) world frame
     colors: Tensor    # (V, H, W, 3) BGR float
     cameras: CameraStack
+    sky_masks: Optional[Tensor] = None  # (V, H, W) bool, True = sky (skip)
 
 
 class ViewFusion(NamedTuple):
@@ -72,6 +73,8 @@ def fuse_one_view(inp: FusionInput, masks: Tensor, ref_idx: int,
 
     x, y = geo.pixel_grid(H, W, device=dev)
     valid_ref = (depth_r > 0.0) & ~mask_r
+    if inp.sky_masks is not None:
+        valid_ref = valid_ref & ~inp.sky_masks[ref_idx]
 
     Xw = geo.backproject_world(K_r, R_r, C_r, x, y, depth_r)  # (H, W, 3)
 
@@ -221,20 +224,23 @@ def _mark_used(masks: Tensor, out: ViewFusion, ref_idx: int,
 
 
 def run_fusion(depths, normals, colors, cameras: CameraStack, scenes,
-               use_dynamic: bool = True, device=None):
+               use_dynamic: bool = True, sky_masks=None, device=None):
     """Fuse all estimated views into one point cloud.
 
     depths (V, H, W), normals (V, H, W, 3), colors (V, H, W, 3) BGR;
-    ``scenes``: list of Scene (src_ids[0] == ref id). Computes on
+    ``scenes``: list of Scene (src_ids[0] == ref id); ``sky_masks``
+    optional (V, H, W) bool, True where a reference pixel is sky and fuses
+    no point (fusion.py:103-104 of the JAX package). Computes on
     ``device`` (default: the device of ``cameras``). Returns (points,
-    normals, colors) numpy arrays. Sky masks join with the sky slice
-    (ROADMAP queue 1 item 11)."""
+    normals, colors) numpy arrays."""
     dev = torch.device(device) if device is not None else cameras.device
     f32 = lambda a: torch.as_tensor(a, dtype=torch.float32).to(dev)
     depths = f32(depths)
     V, H, W = depths.shape
     inp = FusionInput(depths=depths, normals=f32(normals), colors=f32(colors),
-                      cameras=cameras.to(dev))
+                      cameras=cameras.to(dev),
+                      sky_masks=None if sky_masks is None else
+                      torch.as_tensor(np.asarray(sky_masks, bool)).to(dev))
     masks = torch.zeros((V, H, W), dtype=torch.bool, device=dev)
     id2idx = {s.ref_id: i for i, s in enumerate(scenes) if s.estimate}
     max_src = max((len(s.src_ids) - 1 for s in scenes if s.estimate),

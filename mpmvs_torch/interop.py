@@ -1,9 +1,10 @@
 """Carry state and parameters from the JAX package into the port.
 
-numpy in, torch out: the JAX package's ``CameraStack``, ``PatchMatchState``,
-``SolveResult``, ``PatchMatchParams`` fields and ``PRNGKey`` go through
-``np.asarray`` (or ``dataclasses.asdict``) and come out as the port's types,
-so both packages compute on the same state. This module never imports JAX.
+numpy in, torch out: the JAX package's ``CameraStack``, ``SolveData``,
+``PatchMatchState``, ``SolveResult``, ``PatchMatchParams`` fields,
+``PRNGKey``, planar prior and sky-net layer list go through ``np.asarray``
+(or ``dataclasses.asdict``) and come out as the port's types, so both
+packages compute on the same state. This module never imports JAX.
 """
 
 from __future__ import annotations
@@ -15,7 +16,8 @@ import numpy as np
 import torch
 
 from mpmvs_torch.camera import CameraStack
-from mpmvs_torch.ops.propagation import PatchMatchState
+from mpmvs_torch.models.ncnn import NcnnLayer, NcnnNet
+from mpmvs_torch.ops.propagation import PatchMatchState, SolveData
 from mpmvs_torch.params import PatchMatchParams
 from mpmvs_torch.solver import SolveResult
 
@@ -67,3 +69,37 @@ def key_from_numpy(key, device=None) -> torch.Tensor:
     if k.shape != (2,) or k.dtype != np.uint32:
         raise ValueError(f"expected a uint32[2] key, got {k.dtype}{k.shape}")
     return torch.as_tensor(k.astype(np.int64), device=device)
+
+
+def solve_data_from_numpy(arrays: Mapping[str, object],
+                          device=None) -> SolveData:
+    """SolveData from a mapping of its field names to arrays; ``None`` or
+    missing optional fields (``src_depths``, ``prior_planes``,
+    ``prior_mask``) stay None, and the JAX package's quad-texture fields are
+    ignored. ``prior_mask`` becomes bool."""
+    out = {}
+    for f in SolveData._fields:
+        a = arrays.get(f)
+        if a is None:
+            continue
+        out[f] = _t(a, torch.bool if f == "prior_mask" else torch.float32,
+                    device)
+    return SolveData(**out)
+
+
+def prior_from_numpy(planes, mask, device=None):
+    """(prior_planes (H, W, 4) float32, prior_mask (H, W) bool) tensors of a
+    planar prior (``PlanarPrior.planes`` / ``.mask`` of either package)."""
+    return _t(planes, device=device), _t(mask, torch.bool, device)
+
+
+def sky_net_from_layers(layers, input_blob: str = "input.1",
+                        output_blob: str = "1959") -> NcnnNet:
+    """The port's NcnnNet from the JAX package's ``NcnnLayer`` list (numpy
+    weights), e.g. ``mpmvs_tpu.models.ncnn.load_npz(...)``."""
+    own = [NcnnLayer(l.type, l.name, list(l.inputs), list(l.outputs),
+                     dict(l.params),
+                     {k: np.asarray(v, np.float32)
+                      for k, v in l.weights.items()})
+           for l in layers]
+    return NcnnNet(own, input_blob, output_blob).eval()

@@ -19,43 +19,24 @@ implementation its NCC evaluations went through.
 from __future__ import annotations
 
 import ctypes
-import dataclasses
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-import time
 from typing import Sequence, Tuple
 
 import torch
 
 from mpmvs_torch import geometry as geo
+from mpmvs_torch.ops import nvcc
 from mpmvs_torch.ops.ncc import NCCRefSide, ncc_eval
 
 Tensor = torch.Tensor
 
-_HERE = os.path.dirname(os.path.abspath(__file__))
-SOURCE = os.path.join(os.path.dirname(_HERE), "csrc", "ncc_eval.cu")
-BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-shared", "-Xcompiler", "-fPIC"]
+SOURCE = "ncc_eval.cu"
+# -fmad=false: the plain version's eager ops round every multiply and add
+NVCC_FLAGS = ("-fmad=false",)
 MAX_TAPS = 64
 
 
-@dataclasses.dataclass
-class LaunchCounts:
-    """Calls that reached each implementation since the last reset."""
-
-    kernel: int = 0
-    plain: int = 0
-
-    def reset(self):
-        self.kernel = 0
-        self.plain = 0
-
-
-COUNTS = LaunchCounts()
+COUNTS = nvcc.LaunchCounts()
 
 
 class _Taps(ctypes.Structure):
@@ -63,41 +44,9 @@ class _Taps(ctypes.Structure):
                 ("dy", ctypes.c_int * MAX_TAPS)]
 
 
-def _nvcc() -> str:
-    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(path):
-        raise RuntimeError("nvcc not found: the NCC kernel cannot be built")
-    return path
-
-
-def build(verbose: bool = False) -> str:
-    """Compile ``csrc/ncc_eval.cu`` into a shared library (once per source
-    content) and return its path. ``verbose`` adds ``-Xptxas -v`` and prints
-    the compiler's report of registers and spills."""
-    with open(SOURCE, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
-    lib = os.path.join(BUILD_DIR, f"libncc_eval_{digest.hexdigest()[:16]}.so")
-    if os.path.exists(lib) and not verbose:
-        return lib
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{lib}.{os.getpid()}.tmp"
-    cmd = [_nvcc()] + NVCC_FLAGS + (["-Xptxas", "-v"] if verbose else []) + [
-        "-o", tmp, SOURCE]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, lib)
-    if verbose:
-        print(proc.stderr.strip())
-        print(f"built {os.path.basename(lib)} in "
-              f"{time.perf_counter() - t0:.2f} s")
-    return lib
-
-
 @functools.lru_cache(maxsize=None)
 def _library():
-    lib = ctypes.CDLL(build())
+    lib = ctypes.CDLL(nvcc.build(SOURCE, NVCC_FLAGS))
     fn = lib.ncc_eval_multi_launch
     fn.argtypes = ([ctypes.c_void_p] * 12 + [_Taps] + [ctypes.c_int] * 5
                    + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p,

@@ -1,4 +1,4 @@
-"""Adaptive checkerboard propagation + hypothesis refinement (photometric).
+"""Adaptive checkerboard propagation + hypothesis refinement.
 
 Counterpart of ``mpmvs_tpu.ops.propagation`` (CheckerboardPropagation /
 PlaneHypothesisRefinement, src/PatchMatch.cu:642-998). The active
@@ -19,11 +19,18 @@ neighbour with the lowest *current* cost; the 8 winners and the current
 plane are scored against all sources in one K=9 NCC call, the 5 refinement
 trials in one K=5 call (``ops.ncc_cuda.ncc_eval_multi``).
 
+Modes, as in the JAX package: ``geom`` adds 0.2 x the forward-backward
+reprojection error against the sources' depth maps (``ops/geom_cost``) to
+every candidate and trial cost and tracks its share in ``geom_cost``;
+``prior`` adopts by the planar-prior score inside the prior mask
+(``_prior_score``, PatchMatch.cu:924-978) and by min cost outside it; both
+together are the ``geom_prior`` extension.
+
 The JAX package's documented deviations are kept (mpmvs_tpu
 propagation.py:29-39): regionless candidates cost +inf, a zero Monte-Carlo
 weight sum keeps the pixel's state, candidates are scored at a clamped
-disparity. This slice ports the photometric mode; the geometric and prior
-modes raise ``NotImplementedError``.
+disparity, adopting a candidate in prior mode also updates the stored cost,
+and the refinement's geometric accumulator uses the view's own weight.
 """
 
 from __future__ import annotations
@@ -37,6 +44,7 @@ import torch.nn.functional as F
 from mpmvs_torch import geometry as geo
 from mpmvs_torch.ops import random as pmrand
 from mpmvs_torch.ops import threefry as tf
+from mpmvs_torch.ops.geom_cost import geom_consistency_cost
 from mpmvs_torch.ops.ncc import ncc_refside
 from mpmvs_torch.ops.ncc_cuda import ncc_eval_multi
 from mpmvs_torch.ops.packing import (pack_quincunx, packed_coords,
@@ -117,17 +125,6 @@ class PatchMatchState(NamedTuple):
     sel: Tensor        # (H, W) int32 view bitmask
 
 
-def _photometric_only(geom: bool, prior: bool):
-    if geom:
-        raise NotImplementedError(
-            "geometric mode is not ported yet (ROADMAP queue 1 item 7: "
-            "geom_consistency_cost and the geom branch of _band_step)")
-    if prior:
-        raise NotImplementedError(
-            "planar-prior mode is not ported yet (ROADMAP queue 1 item 9: "
-            "prior.py and the prior branches of _band_step)")
-
-
 def select_candidates(cost: Tensor, plane: Tensor):
     """Per-region min-cost neighbour hypothesis (whole-image oracle form).
     Returns (cand_planes (8, H, W, 4), cand_valid (8, H, W)). Strict-<
@@ -201,13 +198,41 @@ def _select_candidates_packed(cost_s: Tensor, plane_s: Tensor, halo: int,
     return torch.stack(cands), torch.stack(valids), src_d
 
 
-def _weighted_total(costs_v: Tensor, weights: Tensor, norm: Tensor):
-    """sum_s w_s c_s / norm, with zero norm guarded to +inf.
-    costs_v: (S, …); weights: (…, S); norm: (…,)."""
+def _weighted_total(costs_v: Tensor, weights: Tensor, norm: Tensor,
+                    geom_v: Optional[Tensor] = None, geom_weight: float = 0.0):
+    """sum_s w_s (c_s [+ geom_weight g_s]) / norm, with zero norm guarded
+    to +inf. costs_v/geom_v: (S, …); weights: (…, S); norm: (…,).
+    Returns (total (…,), geom share (…,) or None)."""
     w = torch.movedim(weights, -1, 0)
     safe_norm = torch.clamp(norm, min=1e-30)
-    total = torch.sum(w * costs_v, 0) / safe_norm
-    return torch.where(norm > 0, total, torch.full_like(total, math.inf))
+    if geom_v is None:
+        total = torch.sum(w * costs_v, 0) / safe_norm
+        geom_total = None
+    else:
+        g = geom_weight * geom_v
+        total = torch.sum(w * (costs_v + g), 0) / safe_norm
+        geom_total = torch.sum(w * g, 0) / safe_norm
+    total = torch.where(norm > 0, total, torch.full_like(total, math.inf))
+    return total, geom_total
+
+
+def _prior_score(cost: Tensor, depth: Tensor, plane_n: Tensor,
+                 prior_planes: Tensor, prior_depth: Tensor,
+                 depth_sigma: Tensor, angle_sigma: float, gamma: float,
+                 beta: float) -> Tensor:
+    """Planar-prior score to maximise, exp(-cost^2/beta) (gamma +
+    exp(-dd^2/2sd^2) exp(-da^2/2sa^2)) (PatchMatch.cu:924-955); 0 where the
+    cost is not finite."""
+    depth_diff = depth - prior_depth
+    angle_cos = torch.clamp(geo.dot3(prior_planes[..., :3], plane_n), -1.0,
+                            1.0)
+    angle_diff = torch.arccos(angle_cos)
+    two_ds2 = 2.0 * depth_sigma * depth_sigma
+    two_as2 = 2.0 * angle_sigma * angle_sigma
+    prior = gamma + torch.exp(-depth_diff * depth_diff / two_ds2) * torch.exp(
+        -angle_diff * angle_diff / two_as2)
+    score = torch.exp(-cost * cost / beta) * prior
+    return torch.where(torch.isfinite(cost), score, torch.zeros_like(score))
 
 
 def step_halo(scale: int) -> int:
@@ -243,29 +268,36 @@ def _take(arr: Tensor, idx: Tensor) -> Tensor:
 
 
 def _band_step(data: SolveData, params, scale: int, iteration: int,
-               phase: int, key: Tensor, key_step: Tensor, halo: int,
-               rows: int, y0: int, cost_s: Tensor, plane_s: Tensor,
-               sel_s: Tensor, ref_s: Tensor, geom_c: Tensor,
-               ncc_multi: NCCMulti):
-    """One band's active-colour photometric update (mpmvs_tpu
-    propagation.py:272-479, 569-573, 582-665 without the prior/geom arms).
-    Returns packed (plane (rows, W//2, 4), cost, geom_cost, sel)."""
+               phase: int, key: Tensor, key_step: Tensor, geom: bool,
+               prior: bool, halo: int, rows: int, y0: int, cost_s: Tensor,
+               plane_s: Tensor, sel_s: Tensor, ref_s: Tensor, geom_c: Tensor,
+               prior_planes_c: Optional[Tensor],
+               prior_mask_c: Optional[Tensor], ncc_multi: NCCMulti):
+    """One band's active-colour update (mpmvs_tpu propagation.py:272-665).
+    ``geom_c``, ``prior_planes_c`` and ``prior_mask_c`` are the band's
+    central rows (no halo). Returns packed (plane (rows, W//2, 4), cost,
+    geom_cost, sel)."""
     Hs, W = cost_s.shape
     Wh = W // 2
     dev = cost_s.device
     offsets = params.tap_offsets(scale)
-    k_mc, k_ref1, k_ref2, k_ref3, k_ref4, _k_prior = tf.split(key, 6)
+    k_mc, k_ref1, k_ref2, k_ref3, k_ref4, k_prior = tf.split(key, 6)
 
     x_p, y_p = packed_coords(y0, rows, Wh, phase, device=dev)
     x_int = x_p.to(torch.int64)
 
     crop = lambda a: a[..., halo:halo + rows, :]
     prep = lambda a: pack_quincunx(crop(a), phase)
+    pack_vec = lambda a: torch.movedim(
+        pack_quincunx(torch.movedim(a, -1, 0), phase), 0, -1)
 
     cost_c = prep(cost_s)
     sel_c = prep(sel_s)
     plane_c = torch.movedim(prep(torch.movedim(plane_s, -1, 0)), 0, -1)
-    geom_now = pack_quincunx(geom_c, phase)
+    geom_cost_c = pack_quincunx(geom_c, phase)
+    if prior:
+        prior_planes_p = pack_vec(prior_planes_c)
+        prior_mask_p = pack_quincunx(prior_mask_c, phase)
 
     refside = ncc_refside(ref_s, halo, rows, offsets, params.sigma_spatial,
                           params.sigma_color, pack_phase=phase)
@@ -276,6 +308,12 @@ def _band_step(data: SolveData, params, scale: int, iteration: int,
                          data.src_heights, data.A, data.b, data.K_ref,
                          planes.contiguous(), x_p, y_p, offsets,
                          params.cost_max, cap)
+
+    def gcost(plane: Tensor) -> Tensor:
+        return geom_consistency_cost(
+            data.src_depths, data.src_widths, data.src_heights, data.K_ref,
+            data.R_ref, data.C_ref, data.t_ref, data.K_src, data.R_src,
+            data.t_src, data.C_src, plane, x_p, y_p, params.geom_cost_max)
 
     # ---- 1. candidate harvest + their multi-view photometric costs (the
     # current hypothesis rides the same K=9 call; its cost is used in step 4)
@@ -322,17 +360,28 @@ def _band_step(data: SolveData, params, scale: int, iteration: int,
         k_mc, cost_array, cand_valid, neighbor_sel, cand_valid[:4],
         iteration, params.num_mc_samples)
 
-    # ---- 3. view-weighted final candidate costs
+    # ---- 3. view-weighted final candidate costs (+ geometric consistency,
+    # evaluated for the ORIGINAL candidate planes as in the JAX package)
+    geom_array = ([gcost(cand_planes[i]) for i in range(8)] if geom
+                  else [None] * 8)
+    totals = [_weighted_total(cost_array[i], weights, weight_norm,
+                              geom_array[i], params.geom_weight)
+              for i in range(8)]
     inf = torch.full_like(cost_c, math.inf)
-    final_costs = torch.stack([
-        torch.where(cand_valid[i],
-                    _weighted_total(cost_array[i], weights, weight_norm), inf)
-        for i in range(8)])
+    final_costs = torch.stack([torch.where(cand_valid[i], totals[i][0], inf)
+                               for i in range(8)])
     min_idx = torch.argmin(final_costs, 0)
 
     # ---- 4. current hypothesis cost under the new view weights
-    cost_now = _weighted_total(cost_vec_now, weights, weight_norm)
+    cost_now, geom_now = _weighted_total(
+        cost_vec_now, weights, weight_norm,
+        gcost(plane_c) if geom else None, params.geom_weight)
     cost_now = torch.where(weight_norm > 0, cost_now, cost_c)
+    if geom:
+        geom_now = torch.where(weight_norm > 0, geom_now, geom_cost_c)
+        geom_totals = torch.stack([tot[1] for tot in totals])
+    else:
+        geom_now = geom_cost_c
 
     best_cost = _take(final_costs, min_idx)
     best_valid = _take(cand_valid, min_idx) & torch.isfinite(best_cost)
@@ -340,10 +389,59 @@ def _band_step(data: SolveData, params, scale: int, iteration: int,
     best_depth = geo.depth_from_plane(data.K_ref, best_plane, x_p, y_p)
     depth_ok = (best_depth >= dmin) & (best_depth <= dmax)
 
-    adopt = best_valid & depth_ok & (best_cost < cost_now)
-    plane_now = torch.where(adopt[..., None], best_plane, plane_c)
-    cost_now = torch.where(adopt, best_cost, cost_now)
-    sel_now = torch.where(adopt, temp_selected, sel_c)
+    angle_sigma = math.pi * params.prior_angle_sigma_deg / 180.0
+    depth_sigma = (dmax - dmin) * params.prior_depth_sigma_frac
+    if prior:
+        # prior-regularised adoption (PatchMatch.cu:924-978)
+        prior_depth = geo.depth_from_plane(data.K_ref, prior_planes_p, x_p,
+                                           y_p)
+        cand_depths = geo.depth_from_plane(data.K_ref, cand_planes, x_p, y_p)
+        restricted = _prior_score(
+            final_costs, cand_depths, cand_planes[..., :3],
+            prior_planes_p[None], prior_depth[None], depth_sigma,
+            angle_sigma, params.prior_gamma, params.prior_beta)
+        restricted = torch.where(cand_valid, restricted,
+                                 torch.full_like(restricted, -math.inf))
+        max_idx = torch.argmax(restricted, 0)
+        r_best = _take(restricted, max_idx)
+        r_valid = _take(cand_valid, max_idx)
+        r_plane = _take(cand_planes, max_idx)
+        r_cost = _take(final_costs, max_idx)
+        r_depth = _take(cand_depths, max_idx)
+        depth_now_cur = geo.depth_from_plane(data.K_ref, plane_c, x_p, y_p)
+        r_now = _prior_score(cost_now, depth_now_cur, plane_c[..., :3],
+                             prior_planes_p, prior_depth, depth_sigma,
+                             angle_sigma, params.prior_gamma,
+                             params.prior_beta)
+        r_depth_ok = (r_depth >= dmin) & (r_depth <= dmax)
+        adopt_m = prior_mask_p & r_valid & r_depth_ok & (r_best > r_now)
+        # unmasked pixels use the plain min-cost rule (PatchMatch.cu:969-977);
+        # the reference does not update the selected views on this sub-path
+        adopt_u = (~prior_mask_p) & best_valid & depth_ok & (
+            best_cost < cost_now)
+        plane_now = torch.where(adopt_m[..., None], r_plane,
+                                torch.where(adopt_u[..., None], best_plane,
+                                            plane_c))
+        cost_now = torch.where(adopt_m, r_cost,
+                               torch.where(adopt_u, best_cost, cost_now))
+        sel_now = torch.where(adopt_m, temp_selected, sel_c)
+        # without an adoption the refinement baseline stays 0: the reference
+        # never seeds it with the current plane's score (PatchMatch.cu:922,
+        # :964), so refinement then takes the best of its 5 trials
+        restricted_now = torch.where(adopt_m, r_best,
+                                     torch.zeros_like(r_best))
+        if geom:
+            geom_now = torch.where(
+                adopt_m, _take(geom_totals, max_idx),
+                torch.where(adopt_u, _take(geom_totals, min_idx), geom_now))
+    else:
+        adopt = best_valid & depth_ok & (best_cost < cost_now)
+        plane_now = torch.where(adopt[..., None], best_plane, plane_c)
+        cost_now = torch.where(adopt, best_cost, cost_now)
+        sel_now = torch.where(adopt, temp_selected, sel_c)
+        if geom:
+            geom_now = torch.where(adopt, _take(geom_totals, min_idx),
+                                   geom_now)
 
     # ---- 5. refinement: 5 perturbed hypotheses (PlaneHypothesisRefinement)
     depth_now = geo.depth_from_plane(data.K_ref, plane_now, x_p, y_p)
@@ -352,12 +450,27 @@ def _band_step(data: SolveData, params, scale: int, iteration: int,
         # smooth tile-banded draw; the knot seed comes from the *step* key so
         # every band of this half-iteration draws the same global field
         k_band_seed = tf.fold_in(key_step, 101)
-        frac = params.effective_band_frac()
-        depth_rand = pmrand.smooth_banded_uniform(
-            k_band_seed, k_ref1, x_p, y_p, dmin, dmax, frac)
+        frac = (params.random_band_frac if (geom or prior)
+                else params.effective_band_frac())
+        draw_depth = lambda k: pmrand.smooth_banded_uniform(
+            k_band_seed, k, x_p, y_p, dmin, dmax, frac)
     else:
-        depth_rand = tf.uniform(k_ref1, shape_p, dmin, dmax)
-    normal_rand = pmrand.random_normal_field(k_ref2, data.K_ref, x_p, y_p)
+        draw_depth = lambda k: tf.uniform(k, shape_p, dmin, dmax)
+    if prior and not params.legacy_prior_refinement:
+        # the intended semantics: a prior-guided random draw inside the mask
+        d_rand_u = draw_depth(k_ref1)
+        d_rand_p = (tf.uniform(k_prior, shape_p) * 6.0 * depth_sigma
+                    + prior_depth - 3.0 * depth_sigma)
+        depth_rand = torch.where(prior_mask_p, d_rand_p, d_rand_u)
+        n_rand_u = pmrand.random_normal_field(k_ref2, data.K_ref, x_p, y_p)
+        n_rand_p = pmrand.perturbed_normal_field(
+            k_prior, data.K_ref, x_p, y_p, prior_planes_p[..., :3],
+            angle_sigma)
+        normal_rand = torch.where(prior_mask_p[..., None], n_rand_p, n_rand_u)
+    else:
+        # the reference: the second block always runs (PatchMatch.cu:660)
+        depth_rand = draw_depth(k_ref1)
+        normal_rand = pmrand.random_normal_field(k_ref2, data.K_ref, x_p, y_p)
 
     p = params.refine_perturbation
     depth_pert = depth_now * (1.0 + (tf.uniform(k_ref3, shape_p) * 2.0 - 1.0)
@@ -372,13 +485,27 @@ def _band_step(data: SolveData, params, scale: int, iteration: int,
                     for d, n in zip(trial_d, trial_n)]
     trial_costs = ncc_batch(torch.stack(trial_planes))  # (5, S, rows, Wh)
 
-    for plane_i, c_v in zip(trial_planes, trial_costs):
-        t_cost = _weighted_total(c_v, weights, weight_norm)
+    for d_i, n_i, plane_i, c_v in zip(trial_d, trial_n, trial_planes,
+                                      trial_costs):
+        t_cost, t_geom = _weighted_total(c_v, weights, weight_norm,
+                                         gcost(plane_i) if geom else None,
+                                         params.geom_weight)
         d_before = geo.depth_from_plane(data.K_ref, plane_i, x_p, y_p)
         in_range = (d_before >= dmin) & (d_before <= dmax)
-        adopt_i = in_range & (t_cost < cost_now)
+        if prior:
+            score_i = _prior_score(t_cost, d_i, n_i, prior_planes_p,
+                                   prior_depth, depth_sigma, angle_sigma,
+                                   params.prior_gamma, params.prior_beta)
+            adopt_m = prior_mask_p & in_range & (score_i > restricted_now)
+            adopt_u = (~prior_mask_p) & in_range & (t_cost < cost_now)
+            adopt_i = adopt_m | adopt_u
+            restricted_now = torch.where(adopt_m, score_i, restricted_now)
+        else:
+            adopt_i = in_range & (t_cost < cost_now)
         plane_now = torch.where(adopt_i[..., None], plane_i, plane_now)
         cost_now = torch.where(adopt_i, t_cost, cost_now)
+        if geom:
+            geom_now = torch.where(adopt_i, t_geom, geom_now)
 
     return plane_now, cost_now, geom_now, sel_now
 
@@ -410,42 +537,53 @@ def _pad_rows(a: Tensor, top: int, bottom: int, value=None) -> Tensor:
 
 
 def _pad_step_inputs(state: PatchMatchState, data: SolveData, halo: int,
-                     pad_b: int) -> dict:
-    """Halo/band padding of the state and the reference image: +inf cost
+                     pad_b: int, prior: bool = False) -> dict:
+    """Halo/band padding of the state and the per-step constants: +inf cost
     beyond the image (an invalid propagation source), edge-replicated
-    reference rows (CUDA clamp addressing)."""
-    return dict(
+    reference rows (CUDA clamp addressing); the geometric cost and the prior
+    need the central rows only."""
+    out = dict(
         cost_pad=_pad_rows(state.cost, halo, halo + pad_b, math.inf),
         plane_pad=_pad_rows(state.plane, halo, halo + pad_b, 0.0),
         sel_pad=_pad_rows(state.sel, halo, halo + pad_b, 0),
         ref_pad=_pad_rows(data.ref_img, halo, halo + pad_b),
         geom_pad=_pad_rows(state.geom_cost, 0, pad_b, 0.0),
     )
+    if prior:
+        out["prior_planes_pad"] = _pad_rows(data.prior_planes, 0, pad_b, 0.0)
+        out["prior_mask_pad"] = _pad_rows(data.prior_mask, 0, pad_b, False)
+    return out
 
 
 def _band_call(pads: dict, data: SolveData, params, scale: int,
                iteration: int, phase: int, key_b: Tensor, key_step: Tensor,
-               halo: int, br: int, y0: int, ncc_multi: NCCMulti):
+               geom: bool, prior: bool, halo: int, br: int, y0: int,
+               ncc_multi: NCCMulti):
     """One band's update from the padded buffers."""
     Hs = br + 2 * halo
     sl = lambda a, h: a[y0:y0 + h]
     return _band_step(data, params, scale, iteration, phase, key_b, key_step,
-                      halo, br, y0, sl(pads["cost_pad"], Hs),
+                      geom, prior, halo, br, y0, sl(pads["cost_pad"], Hs),
                       sl(pads["plane_pad"], Hs), sl(pads["sel_pad"], Hs),
                       sl(pads["ref_pad"], Hs), sl(pads["geom_pad"], br),
+                      sl(pads["prior_planes_pad"], br) if prior else None,
+                      sl(pads["prior_mask_pad"], br) if prior else None,
                       ncc_multi)
 
 
-def _merge_bands(state: PatchMatchState, phase: int, plane_p: Tensor,
-                 cost_p: Tensor, sel_p: Tensor) -> PatchMatchState:
-    """Scatter packed active-colour results back into the dense state."""
+def _merge_bands(state: PatchMatchState, phase: int, geom: bool,
+                 plane_p: Tensor, cost_p: Tensor, geom_p: Tensor,
+                 sel_p: Tensor) -> PatchMatchState:
+    """Scatter packed active-colour results back into the dense state; the
+    geometric cost changes only in geom mode."""
     plane = torch.movedim(unpack_quincunx(
         torch.movedim(plane_p, -1, 0), phase,
         torch.movedim(state.plane, -1, 0)), 0, -1)
     return PatchMatchState(
         plane=plane.contiguous(),
         cost=unpack_quincunx(cost_p, phase, state.cost),
-        geom_cost=state.geom_cost,
+        geom_cost=(unpack_quincunx(geom_p, phase, state.geom_cost) if geom
+                   else state.geom_cost),
         sel=unpack_quincunx(sel_p, phase, state.sel))
 
 
@@ -460,19 +598,24 @@ def checkerboard_step(state: PatchMatchState, data: SolveData, params,
     (the solver pads). Band b draws with ``fold_in(key, b)``, as in the JAX
     package, so parity runs give both packages the same ``band_rows``.
     ``ncc_multi`` is the NCC implementation; the default follows the
-    tensors' device (ops.ncc_cuda.ncc_eval_multi)."""
-    _photometric_only(geom, prior)
+    tensors' device (ops.ncc_cuda.ncc_eval_multi). ``geom`` needs
+    ``data.src_depths``, ``prior`` ``data.prior_planes`` and
+    ``data.prior_mask``."""
+    if geom and data.src_depths is None:
+        raise ValueError("geom mode needs data.src_depths")
+    if prior and (data.prior_planes is None or data.prior_mask is None):
+        raise ValueError("prior mode needs data.prior_planes and prior_mask")
     H, W = state.cost.shape
     if H % 2 or W % 2:
         raise ValueError(f"checkerboard_step needs even H and W, got {(H, W)}")
     S = data.src_imgs.shape[0]
     halo, br, n_bands, pad_b = _band_geometry(H, W, S, scale, geom, band_rows)
-    pads = _pad_step_inputs(state, data, halo, pad_b)
+    pads = _pad_step_inputs(state, data, halo, pad_b, prior)
 
     outs = [_band_call(pads, data, params, scale, iteration, phase,
-                       tf.fold_in(key, b), key, halo, br, b * br, ncc_multi)
+                       tf.fold_in(key, b), key, geom, prior, halo, br, b * br,
+                       ncc_multi)
             for b in range(n_bands)]
-    plane_p = torch.cat([o[0] for o in outs])[:H]
-    cost_p = torch.cat([o[1] for o in outs])[:H]
-    sel_p = torch.cat([o[3] for o in outs])[:H]
-    return _merge_bands(state, phase, plane_p, cost_p, sel_p)
+    plane_p, cost_p, geom_p, sel_p = (torch.cat(leaf)[:H]
+                                      for leaf in zip(*outs))
+    return _merge_bands(state, phase, geom, plane_p, cost_p, geom_p, sel_p)

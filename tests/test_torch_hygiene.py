@@ -1,8 +1,9 @@
 """Import hygiene and device discipline of mpmvs_torch.
 
-* A fresh interpreter imports the package and every module of the slice
-  without pulling in JAX, OpenCV or PyYAML (the H100 machine has neither
-  OpenCV nor PyYAML, and the port must not depend on JAX).
+* A fresh interpreter imports the package and every module of the port
+  (sky net, planar prior and geometric cost included) without pulling in
+  JAX, OpenCV or PyYAML (the H100 machine has neither OpenCV nor PyYAML,
+  and the port must not depend on JAX).
 * A CUDA device that is not there raises instead of running on the CPU.
 """
 
@@ -30,7 +31,10 @@ SLICE_MODULES = [
     "mpmvs_torch.io.cams", "mpmvs_torch.io.ply", "mpmvs_torch.ops.sampling",
     "mpmvs_torch.ops.packing", "mpmvs_torch.ops.threefry",
     "mpmvs_torch.ops.random", "mpmvs_torch.ops.ncc",
-    "mpmvs_torch.ops.ncc_cuda", "mpmvs_torch.ops.view_selection",
+    "mpmvs_torch.ops.ncc_cuda", "mpmvs_torch.ops.nvcc",
+    "mpmvs_torch.ops.bilateral_cuda", "mpmvs_torch.ops.geom_cost",
+    "mpmvs_torch.models", "mpmvs_torch.models.ncnn", "mpmvs_torch.models.sky",
+    "mpmvs_torch.prior", "mpmvs_torch.ops.view_selection",
     "mpmvs_torch.ops.filters", "mpmvs_torch.ops.propagation",
     "mpmvs_torch.solver", "mpmvs_torch.fusion", "mpmvs_torch.pipeline",
     "mpmvs_torch.cli", "mpmvs_torch.interop", "mpmvs_torch.utils.synthetic",

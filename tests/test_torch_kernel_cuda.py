@@ -1,5 +1,7 @@
-"""The port's CUDA NCC kernel on the card (marked ``cuda``; each test skips
-where ``torch.cuda.is_available()`` is false).
+"""The port's CUDA kernels on the card (marked ``cuda``; each test skips
+where ``torch.cuda.is_available()`` is false): the NCC kernel
+(``csrc/ncc_eval.cu``) and the sky stage's bilateral kernel
+(``csrc/bilateral_refine.cu``).
 
 This file imports only the port (no JAX), so it runs on a CUDA machine
 without JAX:
@@ -17,14 +19,27 @@ Tolerances:
   draws are identical (integer threefry), but CUDA's and the CPU's exp, log
   and sqrt may round an ulp apart, which flips float-tie adoptions; bounded
   like test_torch_solver.py (at most 5% of pixels beyond 0.1% relative
-  depth), and both reach median |d-gt|/gt < 1%.
+  depth), and both reach median |d-gt|/gt < 1%. The same bound holds for a
+  geom solve warm-started from it.
+* bilateral kernel vs its plain version on the same CUDA tensors, at sizes
+  that are not multiples of the 32x8 tile: max |diff| <= 1e-5 and at most
+  1e-4 of the thresholded pixels differ (the kernel rounds each operation
+  as the plain version's eager ops do, so they are expected to be equal);
+  on a uniform image both equal each other exactly and stay within 1e-5 of
+  the uniform value up to the borders.
+* the sky mask of a painted image on the card vs on the CPU: at most 0.2%
+  of pixels differ (CUDA's and the CPU's exp round apart).
+* the planar prior's rasterizer (integer torch ops) on the card vs on the
+  CPU: equal.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from mpmvs_torch.ops import ncc_cuda
+from mpmvs_torch import prior as tprior
+from mpmvs_torch.models import sky
+from mpmvs_torch.ops import bilateral_cuda, ncc_cuda
 from mpmvs_torch.ops import random as pmrand
 from mpmvs_torch.ops import threefry as tf
 from mpmvs_torch.ops.ncc import ncc_refside
@@ -133,3 +148,86 @@ def test_solve_on_card_goes_through_the_kernel(dev):
     for d in (dc, dh):
         assert np.isfinite(d).all()
         assert np.median(np.abs(d - gt) / gt) < 0.01
+    # a geom solve warm-started from the photometric one, both devices
+    kernel_before = ncc_cuda.COUNTS.kernel
+    src = np.asarray(scene.gt_depth[1:])
+    geom_card = solve_view(scene.images, scene.cameras, key, params, "geom",
+                           device=dev, warm=on_card, src_depths=src)
+    torch.cuda.synchronize()
+    assert ncc_cuda.COUNTS.kernel - kernel_before == 1 + params.geom_iterations \
+        * 2 * n_bands * 2
+    geom_cpu = solve_view(scene.images, scene.cameras, key, params, "geom",
+                          device="cpu", warm=on_cpu, src_depths=src)
+    gc, gh = n(geom_card.depth), n(geom_cpu.depth)
+    assert (np.abs(gc - gh) / gh > 1e-3).mean() <= SOLVE_FRAC_TOL
+    assert np.median(np.abs(gc - gt) / gt) < 0.01
+
+
+def _bilateral_inputs(H, W, seed, dev):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    blocks = torch.rand((1, 3, max(H // 8, 1), max(W // 8, 1)), generator=g)
+    bgr = (torch.nn.functional.interpolate(blocks, size=(H, W))[0]
+           .permute(1, 2, 0) * 235.0 + torch.rand((H, W, 3), generator=g)
+           * 20.0)
+    prob = torch.rand((H, W), generator=g)
+    return bgr.contiguous().to(dev), prob.to(dev)
+
+
+@pytest.mark.parametrize("shape", [(37, 130), (213, 320), (8, 32)])
+def test_bilateral_kernel_matches_plain(dev, shape):
+    bgr, prob = _bilateral_inputs(*shape, seed=shape[0], dev=dev)
+    before = bilateral_cuda.COUNTS.kernel
+    got = bilateral_cuda.bilateral_refine(bgr, prob)
+    want = bilateral_cuda.bilateral_refine_plain(bgr, prob)
+    torch.cuda.synchronize()
+    assert bilateral_cuda.COUNTS.kernel == before + 1
+    assert got.shape == shape and got.device.type == "cuda"
+    assert (got - want).abs().max().item() <= 1e-5
+    assert ((got > 0.6) != (want > 0.6)).float().mean().item() <= 1e-4
+
+
+def test_bilateral_kernel_uniform_image(dev):
+    bgr = torch.full((24, 140, 3), 128.0, device=dev)
+    prob = torch.full((24, 140), 0.7, device=dev)
+    got = bilateral_cuda.bilateral_refine(bgr, prob)
+    want = bilateral_cuda.bilateral_refine_plain(bgr, prob)
+    assert torch.equal(got, want)
+    assert (got - 0.7).abs().max().item() <= 1e-5
+
+
+def test_bilateral_kernel_rejects_bad_inputs(dev):
+    bgr, prob = _bilateral_inputs(16, 24, 0, dev)
+    with pytest.raises(ValueError, match="CUDA"):
+        bilateral_cuda.bilateral_refine_kernel(bgr.cpu(), prob.cpu())
+    with pytest.raises(ValueError, match="bgr is on"):
+        bilateral_cuda.bilateral_refine_kernel(bgr.cpu(), prob)
+    with pytest.raises(ValueError, match="radius"):
+        bilateral_cuda.bilateral_refine_kernel(bgr, prob, radius=25)
+
+
+def test_sky_mask_on_card_matches_cpu(dev):
+    rng = np.random.default_rng(2)
+    img = np.zeros((120, 160, 3), np.float32)
+    img[:48] = (235, 180, 135)
+    img[48:] = rng.uniform(30, 120, (72, 160, 3)).astype(np.uint8)
+    net_card = sky.load_sky_net(device=dev)
+    before = bilateral_cuda.COUNTS.kernel
+    _, m_card = sky.sky_mask(torch.as_tensor(img, device=dev), net_card)
+    assert bilateral_cuda.COUNTS.kernel == before + 1
+    _, m_cpu = sky.sky_mask(torch.as_tensor(img), sky.load_sky_net())
+    assert (n(m_card) != n(m_cpu)).mean() <= 0.002
+    assert n(m_card)[:40].mean() > 0.9 and n(m_card)[56:].mean() < 0.05
+
+
+def test_prior_raster_on_card_matches_cpu(dev):
+    rng = np.random.default_rng(4)
+    seeds = np.stack([rng.integers(0, 300, 4000), rng.integers(0, 200, 4000)],
+                     -1).astype(np.int32)
+    tris = tprior.delaunay_triangulate(seeds)
+    values = np.arange(1, len(tris) + 1, dtype=np.int32)
+    on_card = np.zeros((200, 300), np.int32)
+    tprior.fill_triangles(on_card, tris, values, dev)
+    on_cpu = np.zeros((200, 300), np.int32)
+    tprior.fill_triangles(on_cpu, tris, values, "cpu")
+    np.testing.assert_array_equal(on_card, on_cpu)
+    assert (on_card > 0).mean() > 0.9

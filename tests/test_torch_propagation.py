@@ -104,10 +104,12 @@ def test_band_geometry_and_halo():
 
 
 def test_geom_and_prior_modes_raise(setup):
+    """The geom and prior steps raise without their inputs (the solve data
+    of a photometric solve has no source depths and no prior)."""
     data, state, tdata, tstate, k_step = setup
     key = interop.key_from_numpy(k_step)
-    for geom, prior, item in ((True, False, "item 7"),
-                              (False, True, "item 9")):
-        with pytest.raises(NotImplementedError, match=item):
+    for geom, prior, lacks in ((True, False, "src_depths"),
+                               (False, True, "prior_planes")):
+        with pytest.raises(ValueError, match=lacks):
             tprop.checkerboard_step(tstate, tdata, PARAMS, 0, 0, 0, key,
                                     geom=geom, prior=prior)

@@ -91,11 +91,48 @@ def test_solver_class_is_reproducible():
     assert not np.array_equal(n(other.depth), n(a.depth))
 
 
+def test_solver_class_runs_the_warm_modes():
+    """``geometric``, ``planar_prior`` and ``geom_planar_prior`` warm-start
+    from a photometric result and stay on the plane; the geometric ones
+    track a geometric share."""
+    from mpmvs_torch.prior import build_planar_prior
+
+    params = interop.params_from_jax_fields(
+        dataclasses.asdict(FAST) | {"max_iterations": 1})
+    sc = make_plane_scene(num_views=3, height=32, width=48, seed=3)
+    small, c = sc.images, cams(sc.cameras)
+    solver = PatchMatchSolver(params, seed=4, device="cpu")
+    photo = solver.photometric(small, c)
+    pr = build_planar_prior(sc.gt_depth[0], np.full((32, 48), 0.05,
+                                                    np.float32),
+                            n(c.K[0]).astype(np.float64), 0.1, 100.0)
+    planes, mask = interop.prior_from_numpy(pr.planes, pr.mask)
+    src = sc.gt_depth[1:]
+    outs = {"geometric": solver.geometric(small, c, photo, src),
+            "planar_prior": solver.planar_prior(small, c, photo, planes,
+                                                mask),
+            "geom_planar_prior": solver.geom_planar_prior(
+                small, c, photo, src, planes, mask)}
+    gt = sc.gt_depth[0]
+    for name, res in outs.items():
+        d = n(res.depth)
+        assert np.isfinite(d).all(), name
+        assert np.median(np.abs(d - gt) / gt) < 0.01, name
+        assert (n(res.geom_cost) > 0).any() == name.startswith("geom"), name
+
+
 def test_modes_not_ported_raise(scene):
+    """Every mode of the JAX package is ported: an unknown mode raises, and
+    a warm mode called without its inputs names what it lacks."""
     params = interop.params_from_jax_fields(dataclasses.asdict(FAST))
     key = interop.key_from_numpy(jax.random.PRNGKey(0))
-    for mode, item in (("geom", "item 7"), ("prior", "item 9"),
-                       ("geom_prior", "item 7")):
-        with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(ValueError, match="unknown mode"):
+        solve_view(scene.images, cams(scene.cameras), key, params, "sorted",
+                   device="cpu")
+    for mode, lacks in (("geom", "warm, src_depths"),
+                        ("prior", "warm, prior_planes, prior_mask"),
+                        ("geom_prior",
+                         "warm, src_depths, prior_planes, prior_mask")):
+        with pytest.raises(ValueError, match=lacks):
             solve_view(scene.images, cams(scene.cameras), key, params, mode,
                        device="cpu")
