@@ -7,8 +7,8 @@
 Phases, in order; any failure raises and the script exits non-zero:
 
 1. Device and build: the card's name and power limit, and the ``nvcc``
-   builds of ``mpmvs_torch/csrc/ncc_eval.cu`` and ``bilateral_refine.cu``,
-   started together, with their time.
+   builds of ``mpmvs_torch/csrc/ncc_eval.cu``, ``ncc_samples.cu`` and
+   ``bilateral_refine.cu``, started together, with their time.
 2. NCC kernel vs plain: ``ncc_eval_multi`` on the card against its plain
    PyTorch version at K in {1, 5, 9}, S = 10, scales 0 and 2, on
    ground-truth and random planes at the default footprint cap; then both
@@ -36,9 +36,25 @@ Phases, in order; any failure raises and the script exits non-zero:
    pass, each view's sky fraction against the painted band, that fusing
    with the masks keeps no more points than without, and the launches of
    both kernels against the stated schedule.
+7. The sorted path (runs after phase 3, before the sky is painted), on
+   view 0's full-range random init field at 3200x2130 with 10 sources:
+   (a) the sample kernel ``csrc/ncc_samples.cu`` against its plain version
+   for every view, cap off and on, and, cap off, at scale 0 on a random
+   field over the half-width packed pixels of a refinement trial: no entry
+   may differ; (b)
+   ``ncc_eval_sorted`` against the NCC kernel at K=1; (c) CUDA-event times
+   of the NCC kernel at K=1 on the coherent default init field and on the
+   full-range field, and of the sorted path split into sort, sample
+   kernel, un-permute and ZNCC; (d) one photometric solve of view 0 with
+   the reference's search semantics, with ``sampler="sorted"`` and with
+   ``"auto"``: seconds, median |d-gt|/gt < 1%, and both kernels' launches
+   against the stated schedule, with no plain call; the two solves' depth,
+   normal and cost may differ on at most MISMATCH_TOL of the pixels.
 
-The last three lines of standard output are the card's name and power limit
-(``nvidia-smi``), a JSON object describing each kernel, and
+Before them, a line gives each kernel's bound (the least time the card
+could take at the timed shape) beside its time. The last three lines of
+standard output are the card's name and power limit (``nvidia-smi``), a
+JSON object describing each kernel, and
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 ``mpmvs_torch`` package beside this file, the script exits non-zero before
 printing any result.
@@ -75,6 +91,24 @@ SKY_FRAC_TOL = 0.02           # |sky fraction - painted fraction| per view
 #   geom_1:      1 init + 2 iterations x 2 colours x 2 calls
 NCC_PHOTOMETRIC, NCC_GEOM, NCC_PRIOR = 1 + 3 * 3 * 2 * 2, 1 + 2 * 2 * 2, \
     1 + 3 * 2 * 2
+# Launches of one photometric solve with the reference's search semantics
+# (phase 7; tools.ab_deviations.REFERENCE), one band of H_FULL rows: with
+# sampler="sorted", the sample kernel once per source view for
+# the init field and for each of the 2 random trials of every band step
+# (3 scales x 3 iterations x 2 colours), the NCC kernel twice per step (K=9
+# candidates, K=3 trials); with "auto", the NCC kernel as in phase 4.
+SAMPLES_SORTED = N_SRC + 3 * 3 * 2 * 2 * N_SRC
+NCC_SORTED, NCC_AUTO = 3 * 3 * 2 * 2, 1 + 3 * 3 * 2 * 2
+# Bounds (the least time the card could take): f32 operations over 67
+# TFLOP/s, bytes over 3.35 TB/s (H100 SXM data sheet), each input read once
+# and each output written once. Operations counted from the kernels' code:
+# the NCC kernel ~61 per (hypothesis, view, pixel) for the homography and
+# the ZNCC tail, +7 with the cap box, and 34 per tap (projection 17,
+# floors and fractions 4, bilinear lerp 9, weighted sums 6 with 2 of them
+# folded); the sample kernel 50 per pixel (+7 with the cap) and 28 per tap;
+# the bilateral kernel 15 per in-image tap (colour difference and norm 9,
+# sqrt, exp, the weight 2, the sums 3).
+PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
 
 
 def log(msg: str):
@@ -106,6 +140,20 @@ def compare(a, b):
     fin = torch.isfinite(a) & torch.isfinite(b)
     diff = torch.where(fin, (a - b).abs(), torch.zeros_like(a))
     return differs(a, b).float().mean().item(), diff.max().item()
+
+
+def bound(flops: float, nbytes: float):
+    """(bound in ms, what sets it: "bytes" or "operations")."""
+    t_ops, t_bytes = flops / PEAK_FLOPS, nbytes / PEAK_BYTES
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def ncc_bound(K: int, S: int, P: int, T: int, src_bytes: int, cap: bool):
+    """Bound of one NCC kernel call over P pixels."""
+    flops = K * S * P * (61 + (7 if cap else 0) + 34 * T)
+    nbytes = (4 * P * (2 * T + 5) + 16 * K * P + src_bytes + 4 * K * S * P)
+    return bound(flops, nbytes)
 
 
 def state_diff(a, b, mask):
@@ -525,6 +573,217 @@ def phase_full_path(scene, params):
     return ncc[0], bil[0]
 
 
+def phase_sorted(data, scene, params):
+    """Phase 7: the sorted path (csrc/ncc_samples.cu) at 3200x2130 with 10
+    sources, on view 0's full-range random init field. Returns a dict of
+    what the kernels line and the log need."""
+    import numpy as np
+    import torch
+    from mpmvs_torch import geometry as geo
+    from mpmvs_torch.ops import ncc_cuda, ncc_sorted
+    from mpmvs_torch.ops import random as pmrand
+    from mpmvs_torch.ops import threefry as tf
+    from mpmvs_torch.ops.ncc import ncc_refside
+    from mpmvs_torch.ops.packing import packed_coords
+    from mpmvs_torch.ops.propagation import _pad_rows, step_halo
+    from mpmvs_torch.params import PatchMatchParams
+    from mpmvs_torch.solver import _init_plane, solve_view
+    from mpmvs_torch.tools.ab_deviations import REFERENCE
+    from mpmvs_torch.utils.trace import cuda_time_ms
+
+    dev = data.ref_img.device
+    H, W = data.ref_img.shape
+    S, Hp, Wp = data.src_imgs.shape
+    N = H * W
+    scale = params.max_scale
+    offs = params.tap_offsets(scale)
+    T = len(offs)
+    x, y = geo.pixel_grid(H, W, device=dev)
+    xf, yf = x.reshape(N), y.reshape(N)
+    key = tf.PRNGKey(11, device=dev)
+    rand = pmrand.random_plane_field(key, data.K_ref, x, y, data.depth_min,
+                                     data.depth_max)
+    pf = rand.reshape(N, 4)
+    coherent = _init_plane(data, params, key, "photometric")
+    view = lambda s: (data.src_imgs[s], data.src_widths[s],
+                      data.src_heights[s], data.A[s], data.b[s], data.K_ref)
+    perm0 = ncc_sorted.sort_view(data.A[0], data.b[0], data.K_ref, pf, xf,
+                                 yf, Hp, Wp)
+    out = {}
+
+    # (a) sample kernel vs its plain version, every view: the init field at
+    # scale 2, cap off (the reference semantics) and at the default cap;
+    # then, cap off, scale-0 taps on a full-range field over the packed
+    # half-width pixels of one colour, the shape of a refinement trial
+    x_p, y_p = packed_coords(0, H, W // 2, 0, device=dev)
+    trial = pmrand.random_plane_field(tf.PRNGKey(12, device=dev), data.K_ref,
+                                      x_p, y_p, data.depth_min,
+                                      data.depth_max).reshape(-1, 4)
+    x_p, y_p = x_p.reshape(-1), y_p.reshape(-1)
+    cases = [(f"init scale {scale}, cap {cap:g}", pf, xf, yf, offs, cap)
+             for cap in (0.0, params.cap_radius(scale))]
+    cases.append(("trial scale 0, cap 0", trial, x_p, y_p,
+                  params.tap_offsets(0), 0.0))
+    n_diff, max_err = 0, 0.0
+    for label, pl, xs, ys, taps, cap in cases:
+        flagged, before = [], n_diff
+        for s in range(S):
+            perm = ncc_sorted.sort_view(data.A[s], data.b[s], data.K_ref, pl,
+                                        xs, ys, Hp, Wp)
+            args = view(s) + (pl, xs, ys, perm, taps, cap)
+            got = ncc_sorted.sample_view_vals_kernel(*args)
+            want = ncc_sorted.sample_view_vals_plain(*args)
+            torch.cuda.synchronize()
+            same = (got == want) | (torch.isnan(got) & torch.isnan(want))
+            n_diff += int((~same).sum().item())
+            max_err = max(max_err, compare(got, want)[1])
+            flagged.append(want[-1].mean().item())
+            del got, want
+        log(f"  (a) sample kernel vs plain, {label}, {S} views, "
+            f"{len(taps) + 1} x {pl.shape[0]} entries each: "
+            f"{n_diff - before} differ, max|diff| {max_err:.3e}; flagged "
+            f"pixels {min(flagged):.3f}-{max(flagged):.3f}")
+    out["samples_max_abs_err"] = max_err
+    del trial, x_p, y_p
+    if n_diff:
+        raise AssertionError(f"sample kernel vs plain: {n_diff} entries "
+                             f"differ")
+
+    # (b) the sorted path vs the NCC kernel at K=1 on the full-range field
+    halo = step_halo(scale)
+    refside = ncc_refside(_pad_rows(data.ref_img, halo, halo), halo, H, offs,
+                          params.sigma_spatial, params.sigma_color)
+    common = (refside, data.src_imgs, data.src_widths, data.src_heights,
+              data.A, data.b, data.K_ref)
+    got = ncc_sorted.ncc_eval_sorted(*common, rand, x, y, offs,
+                                     params.cost_max, 0.0)
+    want = ncc_cuda.ncc_eval_one(*common, rand, x, y, offs, params.cost_max,
+                                 0.0)
+    torch.cuda.synchronize()
+    frac, err = compare(got, want)
+    out["sorted_vs_k1"] = (frac, err)
+    log(f"  (b) sorted path vs NCC kernel K=1, full-range field: frac>1e-4 "
+        f"{frac:.3e}, max|diff| {err:.3e} (cost<{params.cost_max} in "
+        f"{(want < params.cost_max).float().mean().item():.3f})")
+    del got, want
+    if frac > MISMATCH_TOL:
+        raise AssertionError(f"sorted path vs NCC kernel: {frac:.3e} of "
+                             f"entries differ by > 1e-4 (limit "
+                             f"{MISMATCH_TOL})")
+
+    # (c) CUDA-event times over all 10 views, warmed up
+    cap_def = params.cap_radius(scale)
+    ms_coh = cuda_time_ms(lambda: ncc_cuda.ncc_eval_one(
+        *common, coherent, x, y, offs, params.cost_max, cap_def), reps=5)
+    ms_rand = cuda_time_ms(lambda: ncc_cuda.ncc_eval_one(
+        *common, rand, x, y, offs, params.cost_max, 0.0), reps=5)
+    ms_coh_plain = cuda_time_ms(lambda: ncc_cuda.ncc_eval_multi_plain(
+        *common, coherent[None], x, y, offs, params.cost_max, cap_def),
+        reps=1)
+    ms_path = cuda_time_ms(lambda: ncc_sorted.ncc_eval_sorted(
+        *common, rand, x, y, offs, params.cost_max, 0.0), reps=3)
+    stage = np.zeros(4)
+    reps = 3
+    for rep in range(reps + 1):
+        ev = [[torch.cuda.Event(enable_timing=True) for _ in range(5)]
+              for _ in range(S)]
+        for s in range(S):
+            e = ev[s]
+            e[0].record()
+            perm = ncc_sorted.sort_view(data.A[s], data.b[s], data.K_ref, pf,
+                                        xf, yf, Hp, Wp)
+            e[1].record()
+            vals = ncc_sorted.sample_view_vals_kernel(
+                *view(s), pf, xf, yf, perm, offs, 0.0)
+            e[2].record()
+            vals = ncc_sorted.unpermute(vals, perm)
+            e[3].record()
+            ncc_sorted.zncc_from_samples(refside, vals[:T].reshape(T, H, W),
+                                         vals[T].reshape(H, W) > 0.5,
+                                         params.cost_max)
+            e[4].record()
+            del vals
+        torch.cuda.synchronize()
+        if rep:  # the first pass warms up
+            stage += [sum(ev[s][i].elapsed_time(ev[s][i + 1])
+                          for s in range(S)) for i in range(4)]
+    stage /= reps
+    ms_plain = cuda_time_ms(lambda: ncc_sorted.sample_view_vals_plain(
+        *view(0), pf, xf, yf, perm0, offs, 0.0), reps=1)
+    taps = N * S * T
+    log(f"  (c) K=1, {W}x{H}, S={S}, scale {scale}: NCC kernel on the "
+        f"coherent default init field {ms_coh:.3f} ms "
+        f"({taps / ms_coh / 1e6:.3f} Gtaps/s; plain {ms_coh_plain:.3f} "
+        f"ms); on the full-range field "
+        f"{ms_rand:.3f} ms ({taps / ms_rand / 1e6:.3f} Gtaps/s); sorted path "
+        f"{ms_path:.3f} ms = sort {stage[0]:.3f} + sample kernel "
+        f"{stage[1]:.3f} + un-permute {stage[2]:.3f} + ZNCC {stage[3]:.3f} "
+        f"(event sums over the views); plain samples of one view "
+        f"{ms_plain:.3f} ms")
+    ms_kernel = stage[1] / S
+    out.update(ms_coh=ms_coh, ms_rand=ms_rand, ms_path=ms_path, stage=stage,
+               samples_ms=ms_kernel,
+               samples_plain_ms=ms_plain)
+    out["samples_bound"] = bound(
+        N * (50 + 28 * T), N * (8 + 4 + 4 + 16) + 4 * Hp * Wp
+        + 4 * (T + 1) * N)
+    src_bytes = 4 * S * Hp * Wp
+    out["k1_init_bound"] = ncc_bound(1, S, N, T, src_bytes, False)
+    log(f"  bounds (ms, set by): sample kernel per view "
+        f"{out['samples_bound'][0]:.3f} ({out['samples_bound'][1]}) vs "
+        f"{ms_kernel:.3f} measured; NCC kernel K=1 over the init field "
+        f"{out['k1_init_bound'][0]:.3f} ({out['k1_init_bound'][1]}) vs "
+        f"{ms_coh:.3f} coherent, {ms_rand:.3f} full-range")
+    del refside, common, perm0, rand, coherent
+    torch.cuda.empty_cache()
+
+    # (d) photometric solves of view 0 with the reference semantics
+    solves, results = {}, {}
+    gt = scene.gt_depth[0]
+    for sampler in ("sorted", "auto"):
+        p = PatchMatchParams(sampler=sampler, **REFERENCE)
+        ncc_cuda.COUNTS.reset()
+        ncc_sorted.COUNTS.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = solve_view(scene.images, scene.cameras, tf.PRNGKey(0), p,
+                         device="cuda")
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        counts = (ncc_sorted.COUNTS.kernel, ncc_sorted.COUNTS.plain,
+                  ncc_cuda.COUNTS.kernel, ncc_cuda.COUNTS.plain)
+        d = res.depth.cpu().numpy()
+        rel = float(np.median(np.abs(d - gt) / gt))
+        expected = ((SAMPLES_SORTED, 0, NCC_SORTED, 0) if sampler == "sorted"
+                    else (0, 0, NCC_AUTO, 0))
+        log(f"  (d) reference-semantics solve, sampler={sampler!r}: "
+            f"{sec:.2f} s, median |d-gt|/gt {rel:.5f}; launches (sample "
+            f"kernel, plain, NCC kernel, plain) {counts}, the schedule "
+            f"implies {expected}")
+        if not (np.isfinite(d).all() and rel < 0.01):
+            raise AssertionError(f"sampler={sampler!r}: median rel error "
+                                 f"{rel}")
+        if counts != expected:
+            raise AssertionError(f"sampler={sampler!r}: launches {counts}, "
+                                 f"expected {expected}")
+        solves[sampler] = (sec, rel, counts)
+        results[sampler] = res
+    # the sorted path computes the NCC kernel's costs (b), so from the same
+    # inputs and key the two solves should agree
+    a, b = results["sorted"], results["auto"]
+    bad = (differs(a.depth, b.depth) | differs(a.normal, b.normal).any(-1)
+           | differs(a.cost, b.cost))
+    frac = bad.float().mean().item()
+    log(f"  (d) sorted vs auto solve: depth, normal or cost differ by > 1e-4 "
+        f"on {frac:.3e} of the pixels (limit {MISMATCH_TOL})")
+    if frac > MISMATCH_TOL:
+        raise AssertionError(f"sorted and auto solves differ on {frac:.3e} "
+                             f"of the pixels")
+    del results, a, b
+    out["solves"] = solves
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
@@ -540,9 +799,10 @@ def main(argv=None) -> int:
         print("no CUDA device: chip_smoke.py needs one card", file=sys.stderr)
         return 1
     sys.path.insert(0, HERE)
-    from mpmvs_torch.ops import bilateral_cuda, ncc_cuda, nvcc
+    from mpmvs_torch.ops import bilateral_cuda
     from mpmvs_torch.params import PatchMatchParams
     from mpmvs_torch.solver import build_solve_data, solve_band_rows
+    from mpmvs_torch.tools import build_kernels
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -552,9 +812,7 @@ def main(argv=None) -> int:
     log(f"phase 1: device {name}; nvidia-smi: {smi}; torch {torch.__version__}"
         f" CUDA {torch.version.cuda}")
     t0 = time.perf_counter()
-    nvcc.build_all({ncc_cuda.SOURCE: ncc_cuda.NVCC_FLAGS,
-                    bilateral_cuda.SOURCE: bilateral_cuda.NVCC_FLAGS},
-                   verbose=True)
+    build_kernels(dev, verbose=True)
     log(f"  kernel builds (in parallel) {time.perf_counter() - t0:.2f} s")
 
     params = PatchMatchParams()
@@ -575,6 +833,10 @@ def main(argv=None) -> int:
     if not args.quick:
         log("phase 3: initial scoring and half-iterations, kernel vs plain")
         max_err = max(max_err, phase_half_iteration(data, params, band_rows))
+    if not args.quick:
+        log("phase 7: the sorted path (sample kernel) and the reference "
+            "semantics")
+        sorted_out = phase_sorted(data, scene, params)
     del data
     torch.cuda.empty_cache()
     if not args.quick:
@@ -592,18 +854,48 @@ def main(argv=None) -> int:
         "fusion) through Pipeline")
     ncc_launches, bil_launches = phase_full_path(scene, params)
 
+    # bounds at the timed shapes: the NCC kernel at phase 2's K=9 band
+    # (scale 0, default cap), the bilateral kernel over view 0's in-image
+    # taps, the sample kernel per view at phase 7's init field
+    P = band_rows * (W_FULL // 2)
+    k1_bound = ncc_bound(9, N_SRC, P, len(params.tap_offsets(0)),
+                         4 * N_SRC * H_FULL * W_FULL, True)
+    R = bilateral_cuda.RADIUS
+    in_image = lambda L: sum(min(i + R, L - 1) - max(i - R, 0) + 1
+                             for i in range(L))
+    bil_bound = bound(15 * in_image(H_FULL) * in_image(W_FULL),
+                      H_FULL * W_FULL * (12 + 4 + 4))
+    sam_bound = sorted_out["samples_bound"]
+    log(f"bounds (ms, set by) vs measured: NCC kernel K=9 band "
+        f"{k1_bound[0]:.3f} ({k1_bound[1]}) vs {ms_k:.3f}; bilateral "
+        f"{bil_bound[0]:.3f} ({bil_bound[1]}) vs {bil_ms:.3f}; sample kernel "
+        f"{sam_bound[0]:.3f} ({sam_bound[1]}) vs "
+        f"{sorted_out['samples_ms']:.3f}")
     log(smi)
+    # library_ms: no single PyTorch call computes any of these functions
+    # (PERF.md section 6)
     log(json.dumps({"kernels": [{
         "name": "ncc_eval_multi", "route": "cuda",
         "source": "mpmvs_torch/csrc/ncc_eval.cu",
         "replaces": "mpmvs_tpu/ops/pallas_ncc.py:94",
         "launches": ncc_launches, "max_abs_err": max_err,
-        "ms": ms_k, "plain_ms": ms_p}, {
+        "ms": ms_k, "plain_ms": ms_p, "bound_ms": k1_bound[0],
+        "bound_by": k1_bound[1], "library_ms": None}, {
         "name": "bilateral_refine", "route": "cuda",
         "source": "mpmvs_torch/csrc/bilateral_refine.cu",
         "replaces": "mpmvs_tpu/ops/pallas_bilateral.py:41",
         "launches": bil_launches, "max_abs_err": bil_err,
-        "ms": bil_ms, "plain_ms": bil_plain_ms}]}))
+        "ms": bil_ms, "plain_ms": bil_plain_ms, "bound_ms": bil_bound[0],
+        "bound_by": bil_bound[1], "library_ms": None}, {
+        "name": "ncc_samples", "route": "cuda",
+        "source": "mpmvs_torch/csrc/ncc_samples.cu",
+        "replaces": "mpmvs_tpu/ops/pallas_ncc.py:733",
+        "launches": sorted_out["solves"]["sorted"][2][0],
+        "max_abs_err": sorted_out["samples_max_abs_err"],
+        "ms": sorted_out["samples_ms"],
+        "plain_ms": sorted_out["samples_plain_ms"],
+        "bound_ms": sam_bound[0], "bound_by": sam_bound[1],
+        "library_ms": None}]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -23,8 +23,12 @@ from mpmvs_torch.solver import SolveResult
 
 # PatchMatchParams fields of the JAX package that select TPU execution
 # paths and have no meaning here.
-TPU_ONLY_FIELDS = ("dispatch", "sampler", "src_quant8", "debug_skip_ncc",
+TPU_ONLY_FIELDS = ("dispatch", "src_quant8", "debug_skip_ncc",
                    "debug_skip_gcost")
+# The JAX package's ``sampler`` values -> the port's. "auto", "pallas" and
+# "xla" compute the same function through different TPU/XLA paths.
+SAMPLER_FROM_JAX = {"auto": "auto", "pallas": "auto", "xla": "auto",
+                    "pallas_sorted": "sorted"}
 
 
 def _t(a, dtype=torch.float32, device=None) -> torch.Tensor:
@@ -40,9 +44,14 @@ def camera_stack_from_numpy(arrays: Mapping[str, np.ndarray],
 
 def params_from_jax_fields(fields: Mapping[str, object]) -> PatchMatchParams:
     """PatchMatchParams from the JAX package's field values, dropping the
-    TPU-only knobs. An unknown field raises."""
+    TPU-only knobs and mapping ``sampler`` (``SAMPLER_FROM_JAX``). An
+    unknown field or sampler value raises."""
     own = {f.name for f in dataclasses.fields(PatchMatchParams)}
     kept = {k: v for k, v in fields.items() if k not in TPU_ONLY_FIELDS}
+    if "sampler" in kept:
+        if kept["sampler"] not in SAMPLER_FROM_JAX:
+            raise ValueError(f"unknown sampler {kept['sampler']!r}")
+        kept["sampler"] = SAMPLER_FROM_JAX[kept["sampler"]]
     unknown = set(kept) - own
     if unknown:
         raise ValueError(f"unknown PatchMatchParams fields: {sorted(unknown)}")

@@ -148,14 +148,20 @@ def ncc_eval(refside: NCCRefSide, src_imgs: Tensor, src_widths: Tensor,
         sum_src2 = sum_src2 + ws * src_tap
         sum_rs = sum_rs + refside.wr[k][None] * src_tap
 
-    inv_w = refside.inv_w[None]
-    m_src = sum_src * inv_w
-    var_src = sum_src2 * inv_w - m_src * m_src
-    covar = sum_rs * inv_w - refside.m_ref[None] * m_src
+    return zncc_from_sums(refside, sum_src, sum_src2, sum_rs,
+                          (oob | capped) if cap else oob, cost_max)
 
-    var_ref = refside.var_ref[None]
-    degenerate = (var_ref < K_MIN_VAR) | (var_src < K_MIN_VAR)
-    denom = torch.sqrt(torch.clamp(var_ref * var_src, min=1e-30))
+
+def zncc_from_sums(refside: NCCRefSide, sum_src: Tensor, sum_src2: Tensor,
+                   sum_rs: Tensor, bad: Tensor, cost_max: float) -> Tensor:
+    """ZNCC cost from the weighted source sums sum_t w s, sum_t w s^2 and
+    sum_t wr s (any leading axes before the refside's pixel axes): cost_max
+    where ``bad`` or either variance is degenerate (PatchMatch.cu:406-408),
+    else clip(1 - cov / sqrt(var_ref var_src), 0, cost_max)."""
+    m_src = sum_src * refside.inv_w
+    var_src = sum_src2 * refside.inv_w - m_src * m_src
+    covar = sum_rs * refside.inv_w - refside.m_ref * m_src
+    degenerate = (refside.var_ref < K_MIN_VAR) | (var_src < K_MIN_VAR)
+    denom = torch.sqrt(torch.clamp(refside.var_ref * var_src, min=1e-30))
     ncc = torch.clamp(1.0 - covar / denom, 0.0, cost_max)
-    bad = (oob | capped | degenerate) if cap else (oob | degenerate)
-    return torch.where(bad, torch.full_like(ncc, cost_max), ncc)
+    return torch.where(bad | degenerate, torch.full_like(ncc, cost_max), ncc)

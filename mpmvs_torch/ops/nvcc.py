@@ -3,9 +3,9 @@
 Every kernel of the port is a ``.cu`` file under ``mpmvs_torch/csrc/`` with a
 plain C launch function, compiled for sm_90a into ``mpmvs_torch/_build/``
 (gitignored) at first use and bound with ctypes. A library is named by the
-hash of its source and flags, so an edited source builds anew. Nothing here
-runs at import time: the CPU tests import every module on a host without
-``nvcc``.
+hash of its source, the ``csrc/*.cuh`` headers it includes and its flags,
+so an edited source or header builds anew. Nothing here runs at import time:
+the CPU tests import every module on a host without ``nvcc``.
 """
 
 from __future__ import annotations
@@ -13,6 +13,7 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -24,6 +25,7 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 BASE_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 
 
 @dataclasses.dataclass
@@ -47,14 +49,20 @@ def _nvcc() -> str:
 
 
 def build(source: str, flags: Sequence[str] = (), verbose: bool = False) -> str:
-    """Compile ``csrc/<source>`` with ``BASE_FLAGS + flags`` (once per source
-    content and flags) and return the library's path. ``verbose`` adds
+    """Compile ``csrc/<source>`` with ``BASE_FLAGS + flags`` (once per
+    content of the source and of the ``csrc/`` headers it includes, and
+    flags) and return the library's path. ``verbose`` adds
     ``-Xptxas -v`` and prints the compiler's report of registers and
     spills with the build time."""
     path = os.path.join(CSRC, source)
     all_flags = BASE_FLAGS + list(flags)
+    digest = hashlib.sha256(" ".join(all_flags).encode())
     with open(path, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(all_flags).encode())
+        text = f.read()
+    digest.update(text)
+    for name in _INCLUDE.findall(text):
+        with open(os.path.join(CSRC, name.decode()), "rb") as f:
+            digest.update(f.read())
     stem = os.path.splitext(source)[0]
     lib = os.path.join(BUILD_DIR, f"lib{stem}_{digest.hexdigest()[:16]}.so")
     if os.path.exists(lib) and not verbose:
@@ -84,3 +92,4 @@ def build_all(sources: Dict[str, Sequence[str]],
         futures = {src: pool.submit(build, src, flags, verbose)
                    for src, flags in sources.items()}
         return {src: fut.result() for src, fut in futures.items()}
+

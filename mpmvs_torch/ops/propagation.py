@@ -17,7 +17,9 @@ The 8 sample regions (4 diagonal "V" wings x 12 candidates, 4 axial strips
 x 10 candidates reaching ±23 px, PatchMatch.cu:769-779) each contribute the
 neighbour with the lowest *current* cost; the 8 winners and the current
 plane are scored against all sources in one K=9 NCC call, the 5 refinement
-trials in one K=5 call (``ops.ncc_cuda.ncc_eval_multi``).
+trials in one K=5 call (``ops.ncc_cuda.ncc_eval_multi``); with
+``sampler="sorted"`` the two random-depth trials go through
+``ops.ncc_sorted.ncc_eval_sorted`` and the other three through one K=3 call.
 
 Modes, as in the JAX package: ``geom`` adds 0.2 x the forward-backward
 reprojection error against the sources' depth maps (``ops/geom_cost``) to
@@ -47,6 +49,7 @@ from mpmvs_torch.ops import threefry as tf
 from mpmvs_torch.ops.geom_cost import geom_consistency_cost
 from mpmvs_torch.ops.ncc import ncc_refside
 from mpmvs_torch.ops.ncc_cuda import ncc_eval_multi
+from mpmvs_torch.ops.ncc_sorted import ncc_eval_sorted
 from mpmvs_torch.ops.packing import (pack_quincunx, packed_coords,
                                      unpack_quincunx)
 from mpmvs_torch.ops.sampling import shift_2d
@@ -483,7 +486,20 @@ def _band_step(data: SolveData, params, scale: int, iteration: int,
     trial_n = [normal_now, normal_rand, normal_rand, normal_pert, normal_now]
     trial_planes = [geo.plane_from_depth_normal(data.K_ref, x_p, y_p, d, n)
                     for d, n in zip(trial_d, trial_n)]
-    trial_costs = ncc_batch(torch.stack(trial_planes))  # (5, S, rows, Wh)
+    if params.sampler == "sorted":
+        # the random-depth trials 0 and 2 project incoherently: through the
+        # bucket-sorted path, the others in one K=3 call (the JAX package's
+        # trial_scattered split, mpmvs_tpu propagation.py:623-637)
+        coherent = ncc_batch(torch.stack([trial_planes[i]
+                                          for i in (1, 3, 4)]))
+        scattered = [ncc_eval_sorted(
+            refside, data.src_imgs, data.src_widths, data.src_heights,
+            data.A, data.b, data.K_ref, trial_planes[i], x_p, y_p, offsets,
+            params.cost_max, cap) for i in (0, 2)]
+        trial_costs = [scattered[0], coherent[0], scattered[1], coherent[1],
+                       coherent[2]]
+    else:
+        trial_costs = ncc_batch(torch.stack(trial_planes))  # (5, S, rows, Wh)
 
     for d_i, n_i, plane_i, c_v in zip(trial_d, trial_n, trial_planes,
                                       trial_costs):

@@ -7,14 +7,18 @@ defaults and the YAML schema are those of ``mpmvs_tpu.params`` so that
 configurations carry over unchanged.
 
 Left out on purpose: the TPU execution knobs of the JAX package
-(``dispatch``, ``sampler``, ``src_quant8``, ``debug_skip_*``). Here the NCC
+(``dispatch``, ``src_quant8``, ``debug_skip_*``). Here the NCC
 implementation follows the device of the tensors it is given: the CUDA
-kernel for CUDA tensors, the plain PyTorch version for CPU tensors.
+kernels for CUDA tensors, the plain PyTorch versions for CPU tensors.
+``sampler`` keeps the JAX package's choice of path for incoherent fields
+(``interop.params_from_jax_fields`` maps its values).
 """
 
 from __future__ import annotations
 
 import dataclasses
+
+SAMPLERS = ("auto", "sorted")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,6 +60,17 @@ class PatchMatchParams:
     disp_clamp_frac: float = 1.0 / 16.0
     # init normals drawn within this cone around the anti-viewing ray
     init_normal_cone_deg: float = 60.0
+    # NCC path of the incoherent fields (the init field, the random-depth
+    # refinement trials 0 and 2): "auto" scores every field with
+    # ops.ncc_cuda's K-stacked kernel; "sorted" sends those through
+    # ops.ncc_sorted's bucket-sorted sample kernel (the JAX package's
+    # "pallas_sorted"). Both compute the same costs.
+    sampler: str = "auto"
+
+    def __post_init__(self):
+        if self.sampler not in SAMPLERS:
+            raise ValueError(f"sampler must be one of {SAMPLERS}, got "
+                             f"{self.sampler!r}")
 
     @property
     def ncc_taps(self) -> int:

@@ -41,6 +41,7 @@ from mpmvs_torch.ops import threefry as tf
 from mpmvs_torch.ops.filters import checkerboard_median_filter
 from mpmvs_torch.ops.ncc import ncc_refside
 from mpmvs_torch.ops.ncc_cuda import ncc_eval_multi
+from mpmvs_torch.ops.ncc_sorted import ncc_eval_sorted
 from mpmvs_torch.ops.propagation import (NCCMulti, PatchMatchState, SolveData,
                                          _pad_rows, auto_band_rows,
                                          checkerboard_step, step_halo)
@@ -119,7 +120,10 @@ def _initial_score(data: SolveData, params: PatchMatchParams, plane: Tensor,
                    band_rows: int, ncc_multi: NCCMulti):
     """Banded initial multi-view scoring + top-k view selection
     (ComputeMultiViewInitialCostandSelectedViews, PatchMatch.cu:497-534).
-    Scores every pixel, one K=1 NCC call per row band."""
+    Scores every pixel, one K=1 NCC call per row band, or with
+    ``sampler="sorted"`` one ``ncc_eval_sorted`` call per row band (one
+    sample-kernel launch per source view), as mpmvs_tpu solver.py:168-177
+    does in every mode."""
     H, W = data.ref_img.shape
     dev = plane.device
     offsets = params.tap_offsets(params.max_scale)
@@ -140,10 +144,15 @@ def _initial_score(data: SolveData, params: PatchMatchParams, plane: Tensor,
                               params.sigma_spatial, params.sigma_color)
         yb = (torch.arange(br, dtype=torch.float32, device=dev)[:, None]
               + float(y0)).expand(br, W).contiguous()
-        costs_v = ncc_multi(refside, data.src_imgs, data.src_widths,
-                            data.src_heights, data.A, data.b, data.K_ref,
-                            plane_pad[y0:y0 + br][None].contiguous(), xb, yb,
-                            offsets, params.cost_max, cap)[0]
+        args = (refside, data.src_imgs, data.src_widths, data.src_heights,
+                data.A, data.b, data.K_ref)
+        plane_b = plane_pad[y0:y0 + br]
+        if params.sampler == "sorted":
+            costs_v = ncc_eval_sorted(*args, plane_b, xb, yb, offsets,
+                                      params.cost_max, cap)
+        else:
+            costs_v = ncc_multi(*args, plane_b[None].contiguous(), xb, yb,
+                                offsets, params.cost_max, cap)[0]
         c, s = initial_cost_and_views(costs_v, params.top_k, params.cost_max)
         costs.append(c)
         sels.append(s)
@@ -259,8 +268,9 @@ def solve_view(images, cameras: CameraStack, key: Tensor,
     result of this view); geom modes ``src_depths`` (V-1, H, W), the
     sources' current depth maps; prior modes ``prior_planes`` (H, W, 4) and
     ``prior_mask`` (H, W). Inputs are moved to ``device``; a CUDA device
-    without CUDA raises. Every NCC call goes through ``ncc_eval_multi``: the
-    kernel on CUDA tensors."""
+    without CUDA raises. Every NCC call goes through ``ncc_eval_multi`` or,
+    for the incoherent fields under ``params.sampler == "sorted"``,
+    ``ncc_eval_sorted``: the kernels on CUDA tensors."""
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}")
     geom = mode in ("geom", "geom_prior")

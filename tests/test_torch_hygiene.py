@@ -1,7 +1,8 @@
 """Import hygiene and device discipline of mpmvs_torch.
 
 * A fresh interpreter imports the package and every module of the port
-  (sky net, planar prior and geometric cost included) without pulling in
+  (sky net, planar prior, geometric cost, the sorted NCC path, eval and
+  the measurement tools included) without pulling in
   JAX, OpenCV or PyYAML (the H100 machine has neither OpenCV nor PyYAML,
   and the port must not depend on JAX).
 * A CUDA device that is not there raises instead of running on the CPU.
@@ -39,7 +40,9 @@ SLICE_MODULES = [
     "mpmvs_torch.solver", "mpmvs_torch.fusion", "mpmvs_torch.pipeline",
     "mpmvs_torch.cli", "mpmvs_torch.interop", "mpmvs_torch.utils.synthetic",
     "mpmvs_torch.utils.workspace", "mpmvs_torch.utils.trace",
-    "mpmvs_torch.utils.visualize",
+    "mpmvs_torch.utils.visualize", "mpmvs_torch.ops.ncc_sorted",
+    "mpmvs_torch.eval", "mpmvs_torch.tools",
+    "mpmvs_torch.tools.ab_deviations", "mpmvs_torch.tools.synthetic_eval",
 ]
 
 

@@ -1,6 +1,7 @@
 """The port's CUDA kernels on the card (marked ``cuda``; each test skips
 where ``torch.cuda.is_available()`` is false): the NCC kernel
-(``csrc/ncc_eval.cu``) and the sky stage's bilateral kernel
+(``csrc/ncc_eval.cu``), the sorted path's sample kernel
+(``csrc/ncc_samples.cu``) and the sky stage's bilateral kernel
 (``csrc/bilateral_refine.cu``).
 
 This file imports only the port (no JAX), so it runs on a CUDA machine
@@ -21,6 +22,17 @@ Tolerances:
   like test_torch_solver.py (at most 5% of pixels beyond 0.1% relative
   depth), and both reach median |d-gt|/gt < 1%. The same bound holds for a
   geom solve warm-started from it.
+* sample kernel vs its plain version on the same CUDA tensors (a
+  full-range random field, cap on and off, scales 0 and 2, both output
+  orders): equal, NaN for NaN, because both share ncc_eval.cu's operations
+  one for one. The sorted path's costs vs the NCC kernel's at K=1: as the
+  kernel vs plain above (the ZNCC sums the taps in the kernel's order, so
+  they are expected to be equal).
+* a reference-semantics solve with ``sampler="sorted"`` on the card vs on
+  the CPU: as the photometric solve above; the sample kernel launches once
+  per source view for the init band and for each random trial of every
+  band step, the NCC kernel twice per band step (K=9 and K=3), and no plain
+  version runs.
 * bilateral kernel vs its plain version on the same CUDA tensors, at sizes
   that are not multiples of the 32x8 tile: max |diff| <= 1e-5 and at most
   1e-4 of the thresholded pixels differ (the kernel rounds each operation
@@ -37,9 +49,10 @@ import numpy as np
 import pytest
 import torch
 
+from mpmvs_torch import geometry as geo
 from mpmvs_torch import prior as tprior
 from mpmvs_torch.models import sky
-from mpmvs_torch.ops import bilateral_cuda, ncc_cuda
+from mpmvs_torch.ops import bilateral_cuda, ncc_cuda, ncc_sorted
 from mpmvs_torch.ops import random as pmrand
 from mpmvs_torch.ops import threefry as tf
 from mpmvs_torch.ops.ncc import ncc_refside
@@ -48,6 +61,7 @@ from mpmvs_torch.ops.propagation import _band_geometry, _pad_rows, step_halo
 from mpmvs_torch.params import PatchMatchParams
 from mpmvs_torch.solver import (build_solve_data, init_band_count,
                                 solve_band_rows, solve_view)
+from mpmvs_torch.tools.ab_deviations import REFERENCE
 from mpmvs_torch.utils.synthetic import make_plane_scene
 
 from torch_parity import frac_beyond, n
@@ -161,6 +175,107 @@ def test_solve_on_card_goes_through_the_kernel(dev):
     gc, gh = n(geom_card.depth), n(geom_cpu.depth)
     assert (np.abs(gc - gh) / gh > 1e-3).mean() <= SOLVE_FRAC_TOL
     assert np.median(np.abs(gc - gt) / gt) < 0.01
+
+
+def _sample_args(data, scale: int, cap: bool, view: int):
+    """sample_view_vals' arguments for a full-range random plane field over
+    the whole reference view, sorted for source ``view``."""
+    H, W = data.ref_img.shape
+    x, y = geo.pixel_grid(H, W, device=data.ref_img.device)
+    plane = pmrand.random_plane_field(
+        tf.PRNGKey(20 + scale, device=x.device), data.K_ref, x, y,
+        data.depth_min, data.depth_max)
+    xf, yf, pf = x.reshape(-1), y.reshape(-1), plane.reshape(-1, 4)
+    perm = ncc_sorted.sort_view(data.A[view], data.b[view], data.K_ref, pf,
+                                xf, yf, *data.src_imgs.shape[1:])
+    return (data.src_imgs[view], data.src_widths[view],
+            data.src_heights[view], data.A[view], data.b[view], data.K_ref,
+            pf, xf, yf, perm, PARAMS.tap_offsets(scale),
+            PARAMS.cap_radius(scale) if cap else 0.0)
+
+
+@pytest.mark.parametrize("cap", [True, False])
+@pytest.mark.parametrize("scale", [0, 2])
+def test_sample_kernel_matches_plain(data, scale, cap):
+    T = len(PARAMS.tap_offsets(scale))
+    flags = []
+    for view in range(data.src_imgs.shape[0]):
+        args = _sample_args(data, scale, cap, view)
+        before = ncc_sorted.COUNTS.kernel
+        got = ncc_sorted.sample_view_vals(*args)
+        want = ncc_sorted.sample_view_vals_plain(*args)
+        torch.cuda.synchronize()
+        assert ncc_sorted.COUNTS.kernel == before + 1
+        assert got.shape == (T + 1, 48 * 96)
+        same = (got == want) | (torch.isnan(got) & torch.isnan(want))
+        assert bool(same.all()), view
+        flags.append(want[T].mean().item())
+    assert 0.0 < max(flags) and min(flags) < 1.0
+
+
+@pytest.mark.parametrize("cap", [True, False])
+def test_sorted_path_matches_ncc_kernel(data, cap):
+    H, W = data.ref_img.shape
+    offs = PARAMS.tap_offsets(2)
+    halo = step_halo(2)
+    refside = ncc_refside(_pad_rows(data.ref_img, halo, halo), halo, H, offs,
+                          PARAMS.sigma_spatial, PARAMS.sigma_color)
+    args = _sample_args(data, 2, cap, 0)
+    x, y = args[7].reshape(H, W), args[8].reshape(H, W)
+    plane = args[6].reshape(H, W, 4)
+    common = (refside, data.src_imgs, data.src_widths, data.src_heights,
+              data.A, data.b, data.K_ref)
+    cap_r = args[11]
+    got = ncc_sorted.ncc_eval_sorted(*common, plane, x, y, offs,
+                                     PARAMS.cost_max, cap_r)
+    want = ncc_cuda.ncc_eval_one(*common, plane, x, y, offs, PARAMS.cost_max,
+                                 cap_r)
+    assert got.shape == want.shape == (3, H, W)
+    assert frac_beyond(got, want, 1e-4) < FRAC_TOL
+
+
+def test_sample_kernel_wrapper_rejects_bad_inputs(data):
+    args = list(_sample_args(data, 0, True, 0))
+    good = list(args)
+    for i, bad, err, match in (
+            (6, args[6].double(), TypeError, "float32"),
+            (6, args[6][:, :3], ValueError, "plane"),
+            (6, args[6].cpu(), ValueError, "CUDA"),
+            (7, args[7].cpu(), ValueError, "x is on"),
+            (9, args[9].to(torch.int32), TypeError, "int64"),
+            (9, args[9][:-1], ValueError, "perm has shape"),
+            (0, data.src_imgs, ValueError, "src_img")):
+        args = list(good)
+        args[i] = bad
+        with pytest.raises(err, match=match):
+            ncc_sorted.sample_view_vals_kernel(*args)
+
+
+def test_sorted_solve_on_card_goes_through_the_sample_kernel(dev):
+    scene = make_plane_scene(num_views=3, height=64, width=80, seed=3)
+    params = PatchMatchParams(max_iterations=2, max_scale=0,
+                              sampler="sorted", **REFERENCE)
+    key = tf.PRNGKey(0)
+    ncc_cuda.COUNTS.reset()
+    ncc_sorted.COUNTS.reset()
+    on_card = solve_view(scene.images, scene.cameras, key, params,
+                         device=dev)
+    torch.cuda.synchronize()
+    S = 2
+    br = solve_band_rows(params, 64, 80, S)
+    n_bands = _band_geometry(64, 80, S, 0, False, br)[2]
+    steps = params.max_iterations * 2 * n_bands
+    assert (ncc_sorted.COUNTS.kernel, ncc_sorted.COUNTS.plain) == (
+        S * init_band_count(br, 64) + steps * 2 * S, 0)
+    assert (ncc_cuda.COUNTS.kernel, ncc_cuda.COUNTS.plain) == (steps * 2, 0)
+    on_cpu = solve_view(scene.images, scene.cameras, key, params,
+                        device="cpu")
+    dc, dh = n(on_card.depth), n(on_cpu.depth)
+    assert (np.abs(dc - dh) / dh > 1e-3).mean() <= SOLVE_FRAC_TOL
+    gt = scene.gt_depth[0]
+    for d in (dc, dh):
+        assert np.isfinite(d).all()
+        assert np.median(np.abs(d - gt) / gt) < 0.01
 
 
 def _bilateral_inputs(H, W, seed, dev):
