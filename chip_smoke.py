@@ -11,8 +11,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``bilateral_refine.cu``, started together, with their time.
 2. NCC kernel vs plain: ``ncc_eval_multi`` on the card against its plain
    PyTorch version at K in {1, 5, 9}, S = 10, scales 0 and 2, on
-   ground-truth and random planes at the default footprint cap; then both
-   timed with CUDA events at the main path's band shape.
+   ground-truth and random planes at the default footprint cap, through
+   both of the kernel's launches (tile and view-major); then both
+   timed with CUDA events at the main path's band shape (K=9, scale 0),
+   and the kernel alone at K=5 on a full-range random field at scale 0
+   (view-major launch, as the solver takes it for such trials) and at K=1
+   on the init field over every pixel at scale 2, each beside its bound and
+   the time PERF.md holds from before the kernel's redesign.
 3. At 3200x2130 with 10 sources and the solve's band rows, from the same
    inputs and key, through the kernel and through the plain version: the
    K=1 initial scoring of every pixel, and one half-iteration at scales 2,
@@ -44,12 +49,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    may differ; (b)
    ``ncc_eval_sorted`` against the NCC kernel at K=1; (c) CUDA-event times
    of the NCC kernel at K=1 on the coherent default init field and on the
-   full-range field, and of the sorted path split into sort, sample
-   kernel, un-permute and ZNCC; (d) one photometric solve of view 0 with
-   the reference's search semantics, with ``sampler="sorted"`` and with
-   ``"auto"``: seconds, median |d-gt|/gt < 1%, and both kernels' launches
-   against the stated schedule, with no plain call; the two solves' depth,
-   normal and cost may differ on at most MISMATCH_TOL of the pixels.
+   full-range field (view-major launch), and of the sorted path split into
+   sort, sample kernel, un-permute and ZNCC; (d) one photometric solve of
+   view 0 with the reference's search semantics, with ``sampler="sorted"``
+   and with ``"auto"``: seconds, median |d-gt|/gt < 1%, and both kernels'
+   launches against the stated schedule, with no plain call; the two
+   solves' depth, normal and cost may differ on at most MISMATCH_TOL of the
+   pixels.
 
 Before them, a line gives each kernel's bound (the least time the card
 could take at the timed shape) beside its time. The last three lines of
@@ -99,16 +105,11 @@ NCC_PHOTOMETRIC, NCC_GEOM, NCC_PRIOR = 1 + 3 * 3 * 2 * 2, 1 + 2 * 2 * 2, \
 # candidates, K=3 trials); with "auto", the NCC kernel as in phase 4.
 SAMPLES_SORTED = N_SRC + 3 * 3 * 2 * 2 * N_SRC
 NCC_SORTED, NCC_AUTO = 3 * 3 * 2 * 2, 1 + 3 * 3 * 2 * 2
-# Bounds (the least time the card could take): f32 operations over 67
-# TFLOP/s, bytes over 3.35 TB/s (H100 SXM data sheet), each input read once
-# and each output written once. Operations counted from the kernels' code:
-# the NCC kernel ~61 per (hypothesis, view, pixel) for the homography and
-# the ZNCC tail, +7 with the cap box, and 34 per tap (projection 17,
-# floors and fractions 4, bilinear lerp 9, weighted sums 6 with 2 of them
-# folded); the sample kernel 50 per pixel (+7 with the cap) and 28 per tap;
-# the bilateral kernel 15 per in-image tap (colour difference and norm 9,
-# sqrt, exp, the weight 2, the sums 3).
-PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
+# The NCC kernel's times before its redesign (PERF.md section 6; NVIDIA
+# H100 80GB HBM3 at 700 W): K=9 at the band shape, K=1 on the coherent
+# init field; K=5 on a full-range field was not timed then.
+NCC_MS_BEFORE = {"K=9 gt": "61.87-62.2 ms",
+                 "K=5 full-range": "not measured", "K=1 init": "17.2 ms"}
 
 
 def log(msg: str):
@@ -140,20 +141,6 @@ def compare(a, b):
     fin = torch.isfinite(a) & torch.isfinite(b)
     diff = torch.where(fin, (a - b).abs(), torch.zeros_like(a))
     return differs(a, b).float().mean().item(), diff.max().item()
-
-
-def bound(flops: float, nbytes: float):
-    """(bound in ms, what sets it: "bytes" or "operations")."""
-    t_ops, t_bytes = flops / PEAK_FLOPS, nbytes / PEAK_BYTES
-    return (1e3 * max(t_ops, t_bytes),
-            "operations" if t_ops >= t_bytes else "bytes")
-
-
-def ncc_bound(K: int, S: int, P: int, T: int, src_bytes: int, cap: bool):
-    """Bound of one NCC kernel call over P pixels."""
-    flops = K * S * P * (61 + (7 if cap else 0) + 34 * T)
-    nbytes = (4 * P * (2 * T + 5) + 16 * K * P + src_bytes + 4 * K * S * P)
-    return bound(flops, nbytes)
 
 
 def state_diff(a, b, mask):
@@ -237,8 +224,13 @@ def phase_kernel_vs_plain(data, scene, params, band_rows: int):
     """Phase 2. Returns (worst mismatch fraction, max abs err, kernel ms,
     plain ms) with the times at the main path's band shape."""
     import torch
+    from mpmvs_torch import geometry as geo
     from mpmvs_torch.ops import threefry as tf
+    from mpmvs_torch.ops.ncc import ncc_refside
     from mpmvs_torch.ops.ncc_cuda import (ncc_eval_multi, ncc_eval_multi_plain)
+    from mpmvs_torch.ops.propagation import _pad_rows, step_halo
+    from mpmvs_torch.solver import _init_plane
+    from mpmvs_torch.utils.roofline import ncc_bound
     from mpmvs_torch.utils.trace import cuda_time_ms
 
     args = (data.src_imgs, data.src_widths, data.src_heights, data.A, data.b,
@@ -254,16 +246,23 @@ def phase_kernel_vs_plain(data, scene, params, band_rows: int):
             for K in (1, 5, 9):
                 planes = test_planes(data, scene, params, kind, K, x_p, y_p,
                                      tf.fold_in(key, 10 * scale + K))
-                got = ncc_eval_multi(refside, *args, planes, x_p, y_p, offs,
-                                     params.cost_max, cap)
                 want = ncc_eval_multi_plain(refside, *args, planes, x_p, y_p,
                                             offs, params.cost_max, cap)
-                torch.cuda.synchronize()
-                frac, err = compare(got, want)
-                log(f"  scale {scale} {kind:6s} K={K}: frac>1e-4 {frac:.3e} "
-                    f"max|diff| {err:.3e} (cost<{params.cost_max} in "
-                    f"{(want < params.cost_max).float().mean().item():.3f})")
-                worst, max_err = max(worst, frac), max(max_err, err)
+                for launch in ("tile", "view-major"):
+                    got = ncc_eval_multi(refside, *args, planes, x_p, y_p,
+                                         offs, params.cost_max, cap,
+                                         scattered=launch == "view-major")
+                    torch.cuda.synchronize()
+                    frac, err = compare(got, want)
+                    unequal = int((~((got == want) | (torch.isnan(got)
+                                                      & torch.isnan(want))))
+                                  .sum().item())
+                    valid = (want < params.cost_max).float().mean().item()
+                    log(f"  scale {scale} {kind:6s} K={K} {launch:10s}: "
+                        f"frac>1e-4 {frac:.3e} max|diff| {err:.3e}, entries "
+                        f"not bit-equal {unequal} of {got.numel()} "
+                        f"(cost<{params.cost_max} in {valid:.3f})")
+                    worst, max_err = max(worst, frac), max(max_err, err)
     if worst > MISMATCH_TOL:
         raise AssertionError(f"kernel vs plain: {worst:.3e} of entries "
                              f"differ by > 1e-4 (limit {MISMATCH_TOL})")
@@ -280,6 +279,37 @@ def phase_kernel_vs_plain(data, scene, params, band_rows: int):
     log(f"  timing K=9 S={N_SRC} {band_rows}x{W_FULL // 2}: kernel "
         f"{ms_kernel:.3f} ms ({taps / ms_kernel / 1e6:.3f} Gtaps/s), plain "
         f"{ms_plain:.3f} ms ({taps / ms_plain / 1e6:.3f} Gtaps/s)")
+
+    # the kernel alone at the band step's K=5 trial call on a full-range
+    # field, and at init scoring (K=1, every pixel, scale 2)
+    src_bytes = 4 * N_SRC * H_FULL * W_FULL
+    trials = test_planes(data, scene, params, "random", 5, x_p, y_p,
+                         tf.fold_in(key, 5))
+    ms_k5 = cuda_time_ms(lambda: ncc_eval_multi(
+        refside, *args, trials, x_p, y_p, offs, params.cost_max,
+        params.cap_radius(0), scattered=True), reps=5)
+    del refside, planes, trials
+    scale = params.max_scale
+    halo = step_halo(scale)
+    refside = ncc_refside(_pad_rows(data.ref_img, halo, halo), halo, H_FULL,
+                          params.tap_offsets(scale), params.sigma_spatial,
+                          params.sigma_color)
+    x, y = geo.pixel_grid(H_FULL, W_FULL, device=x_p.device)
+    init = _init_plane(data, params, key, "photometric")[None]
+    ms_k1 = cuda_time_ms(lambda: ncc_eval_multi(
+        refside, *args, init, x, y, params.tap_offsets(scale),
+        params.cost_max, params.cap_radius(scale)), reps=5)
+    del refside, init
+    T = len(offs)
+    for label, ms, K, P in (
+            ("K=9 gt", ms_kernel, 9, band_rows * (W_FULL // 2)),
+            ("K=5 full-range", ms_k5, 5, band_rows * (W_FULL // 2)),
+            ("K=1 init", ms_k1, 1, H_FULL * W_FULL)):
+        b_ms, b_by = ncc_bound(K, N_SRC, P, T, src_bytes, True)
+        log(f"  NCC kernel {label}: {ms:.3f} ms "
+            f"({K * N_SRC * P * T / ms / 1e6:.3f} Gtaps/s); bound "
+            f"{b_ms:.3f} ms ({b_by}), {b_ms / ms:.3f} of it reached; before "
+            f"the redesign (PERF.md): {NCC_MS_BEFORE[label]}")
     return worst, max_err, ms_kernel, ms_plain
 
 
@@ -315,7 +345,8 @@ def phase_half_iteration(data, params, band_rows: int):
                              f"{frac:.3e} of pixels (limit {MISMATCH_TOL})")
     k_step = tf.fold_in(key, 1)
 
-    def glue_only(refside, src, w, h, A, b, K, planes, x, y, offs, cmax, cap):
+    def glue_only(refside, src, w, h, A, b, K, planes, x, y, offs, cmax, cap,
+                  scattered=False):
         return torch.full((planes.shape[0], src.shape[0]) + tuple(x.shape),
                           0.5, device=x.device)
 
@@ -589,6 +620,7 @@ def phase_sorted(data, scene, params):
     from mpmvs_torch.params import PatchMatchParams
     from mpmvs_torch.solver import _init_plane, solve_view
     from mpmvs_torch.tools.ab_deviations import REFERENCE
+    from mpmvs_torch.utils.roofline import ncc_bound, samples_bound
     from mpmvs_torch.utils.trace import cuda_time_ms
 
     dev = data.ref_img.device
@@ -658,7 +690,7 @@ def phase_sorted(data, scene, params):
     got = ncc_sorted.ncc_eval_sorted(*common, rand, x, y, offs,
                                      params.cost_max, 0.0)
     want = ncc_cuda.ncc_eval_one(*common, rand, x, y, offs, params.cost_max,
-                                 0.0)
+                                 0.0, scattered=True)
     torch.cuda.synchronize()
     frac, err = compare(got, want)
     out["sorted_vs_k1"] = (frac, err)
@@ -676,7 +708,8 @@ def phase_sorted(data, scene, params):
     ms_coh = cuda_time_ms(lambda: ncc_cuda.ncc_eval_one(
         *common, coherent, x, y, offs, params.cost_max, cap_def), reps=5)
     ms_rand = cuda_time_ms(lambda: ncc_cuda.ncc_eval_one(
-        *common, rand, x, y, offs, params.cost_max, 0.0), reps=5)
+        *common, rand, x, y, offs, params.cost_max, 0.0, scattered=True),
+        reps=5)
     ms_coh_plain = cuda_time_ms(lambda: ncc_cuda.ncc_eval_multi_plain(
         *common, coherent[None], x, y, offs, params.cost_max, cap_def),
         reps=1)
@@ -714,7 +747,7 @@ def phase_sorted(data, scene, params):
     log(f"  (c) K=1, {W}x{H}, S={S}, scale {scale}: NCC kernel on the "
         f"coherent default init field {ms_coh:.3f} ms "
         f"({taps / ms_coh / 1e6:.3f} Gtaps/s; plain {ms_coh_plain:.3f} "
-        f"ms); on the full-range field "
+        f"ms); on the full-range field (view-major launch) "
         f"{ms_rand:.3f} ms ({taps / ms_rand / 1e6:.3f} Gtaps/s); sorted path "
         f"{ms_path:.3f} ms = sort {stage[0]:.3f} + sample kernel "
         f"{stage[1]:.3f} + un-permute {stage[2]:.3f} + ZNCC {stage[3]:.3f} "
@@ -724,9 +757,7 @@ def phase_sorted(data, scene, params):
     out.update(ms_coh=ms_coh, ms_rand=ms_rand, ms_path=ms_path, stage=stage,
                samples_ms=ms_kernel,
                samples_plain_ms=ms_plain)
-    out["samples_bound"] = bound(
-        N * (50 + 28 * T), N * (8 + 4 + 4 + 16) + 4 * Hp * Wp
-        + 4 * (T + 1) * N)
+    out["samples_bound"] = samples_bound(N, T, 4 * Hp * Wp, False)
     src_bytes = 4 * S * Hp * Wp
     out["k1_init_bound"] = ncc_bound(1, S, N, T, src_bytes, False)
     log(f"  bounds (ms, set by): sample kernel per view "
@@ -803,6 +834,7 @@ def main(argv=None) -> int:
     from mpmvs_torch.params import PatchMatchParams
     from mpmvs_torch.solver import build_solve_data, solve_band_rows
     from mpmvs_torch.tools import build_kernels
+    from mpmvs_torch.utils.roofline import bilateral_bound, ncc_bound
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -860,11 +892,7 @@ def main(argv=None) -> int:
     P = band_rows * (W_FULL // 2)
     k1_bound = ncc_bound(9, N_SRC, P, len(params.tap_offsets(0)),
                          4 * N_SRC * H_FULL * W_FULL, True)
-    R = bilateral_cuda.RADIUS
-    in_image = lambda L: sum(min(i + R, L - 1) - max(i - R, 0) + 1
-                             for i in range(L))
-    bil_bound = bound(15 * in_image(H_FULL) * in_image(W_FULL),
-                      H_FULL * W_FULL * (12 + 4 + 4))
+    bil_bound = bilateral_bound(H_FULL, W_FULL, bilateral_cuda.RADIUS)
     sam_bound = sorted_out["samples_bound"]
     log(f"bounds (ms, set by) vs measured: NCC kernel K=9 band "
         f"{k1_bound[0]:.3f} ({k1_bound[1]}) vs {ms_k:.3f}; bilateral "

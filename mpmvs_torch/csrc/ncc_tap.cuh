@@ -29,20 +29,29 @@ __device__ __forceinline__ float finite_or_zero(float v) {
   return isfinite(v) ? v : 0.0f;
 }
 
-// Floor index and its right neighbour, clipped to [0, lim]; the floor is
-// clamped to [-1, lim + 1] (NaN -> 0) before the conversion, exactly as
-// ops/sampling.py::_floor_index.
+// The texel rule of a bilinear tap along one axis, the one place it is
+// written: ops/sampling.py::_floor_index takes the floor f clamped to
+// [-1, lim + 1] (NaN -> 0) and its right neighbour, both clipped to
+// [0, lim]. The same texels follow from the floor clamped to [-1, lim]
+// (clamp_floor): the pair (max(c, 0), c + 1), whose right texel collapses
+// onto the left one where c reaches lim (pair_collapses).
+__device__ __forceinline__ float clamp_floor(float f, int lim) {
+  const float c = f != f ? 0.0f : (f < -1.0f ? -1.0f : f);
+  const float top = (float)lim;
+  return c > top ? top : c;
+}
+
+__device__ __forceinline__ bool pair_collapses(float c, int lim) {
+  return c >= (float)lim;
+}
+
+// Floor index and its right neighbour in [0, lim].
 __device__ __forceinline__ void floor_index(float f, int lim, int* i0,
                                             int* i1) {
-  float fc = f != f ? 0.0f : (f < -1.0f ? -1.0f : f);
-  float top = (float)(lim + 1);
-  fc = fc > top ? top : fc;
-  int i = (int)fc;
-  int a = i < 0 ? 0 : (i > lim ? lim : i);
-  int b = i + 1;
-  b = b < 0 ? 0 : (b > lim ? lim : b);
-  *i0 = a;
-  *i1 = b;
+  const float c = clamp_floor(f, lim);
+  const int i = (int)c;
+  *i0 = i < 0 ? 0 : i;
+  *i1 = pair_collapses(c, lim) ? *i0 : i + 1;
 }
 
 // One source view: its valid extent (never beyond the stored Hp x Wp) and
@@ -77,23 +86,28 @@ struct NccHomography {
   bool bad;
 };
 
-__device__ __forceinline__ void plane_homography(const NccView& v,
-                                                 const float* kt, float4 pl,
-                                                 float x, float y,
-                                                 float cap_radius,
-                                                 NccHomography* h) {
-  // m = K_ref^-T n, summed in order; scale = m / w
+// m / w of one plane, m = K_ref^-T n summed in order: the part of the
+// homography that does not depend on the source view.
+__device__ __forceinline__ void plane_scale(const float* kt, float4 pl,
+                                            float* sc) {
   const float m0 = kt[0] * pl.x + kt[1] * pl.y + kt[2] * pl.z;
   const float m1 = kt[3] * pl.x + kt[4] * pl.y + kt[5] * pl.z;
   const float m2 = kt[6] * pl.x + kt[7] * pl.y + kt[8] * pl.z;
-  const float s0 = m0 / pl.w;
-  const float s1 = m1 / pl.w;
-  const float s2 = m2 / pl.w;
+  sc[0] = m0 / pl.w;
+  sc[1] = m1 / pl.w;
+  sc[2] = m2 / pl.w;
+}
+
+// The homography of view v for a plane's m / w (plane_scale) at (x, y).
+__device__ __forceinline__ void view_homography(const NccView& v,
+                                                const float* sc, float x,
+                                                float y, float cap_radius,
+                                                NccHomography* h) {
 #pragma unroll
   for (int i = 0; i < 3; ++i) {
-    h->colx[i] = v.A[3 * i + 0] - v.bb[i] * s0;
-    h->coly[i] = v.A[3 * i + 1] - v.bb[i] * s1;
-    const float col1 = v.A[3 * i + 2] - v.bb[i] * s2;
+    h->colx[i] = v.A[3 * i + 0] - v.bb[i] * sc[0];
+    h->coly[i] = v.A[3 * i + 1] - v.bb[i] * sc[1];
+    const float col1 = v.A[3 * i + 2] - v.bb[i] * sc[2];
     h->hp[i] = h->colx[i] * x + h->coly[i] * y + col1;
   }
   const float pt0 = h->hp[0] / h->hp[2];
@@ -112,24 +126,37 @@ __device__ __forceinline__ void plane_homography(const NccView& v,
   }
 }
 
-// The clamped bilinear sample of tap (dx, dy) in ``img`` (Hp x Wp, row
-// stride Wp); with ``cap`` a tap outside the box sets h->bad.
-__device__ __forceinline__ float tap_sample(const float* __restrict__ img,
-                                            int Wp, const NccView& v,
-                                            NccHomography* h, float dx,
-                                            float dy, bool cap) {
-  const float h0 = h->hp[0] + dx * h->colx[0] + dy * h->coly[0];
-  const float h1 = h->hp[1] + dx * h->colx[1] + dy * h->coly[1];
-  const float h2 = h->hp[2] + dx * h->colx[2] + dy * h->coly[2];
+__device__ __forceinline__ void plane_homography(const NccView& v,
+                                                 const float* kt, float4 pl,
+                                                 float x, float y,
+                                                 float cap_radius,
+                                                 NccHomography* h) {
+  float sc[3];
+  plane_scale(kt, pl, sc);
+  view_homography(v, sc, x, y, cap_radius, h);
+}
+
+// Source coordinates (xs, ys) of a tap from its homogeneous image (h0, h1,
+// h2); with ``cap`` a tap outside the footprint-cap box sets h->bad.
+__device__ __forceinline__ void tap_point(float h0, float h1, float h2,
+                                          NccHomography* h, bool cap,
+                                          float* xs, float* ys) {
   const float inv_z = 1.0f / h2;
-  const float xs = h0 * inv_z;
-  const float ys = h1 * inv_z;
+  *xs = h0 * inv_z;
+  *ys = h1 * inv_z;
   if (cap) {
-    const float xf = finite_or_zero(xs);
-    const float yf = finite_or_zero(ys);
+    const float xf = finite_or_zero(*xs);
+    const float yf = finite_or_zero(*ys);
     h->bad = h->bad || xf < h->bx_lo || xf > h->bx_hi || yf < h->by_lo ||
              yf > h->by_hi;
   }
+}
+
+// The clamped bilinear sample at (xs, ys) in ``img`` (Hp x Wp, row stride
+// Wp), ops/sampling.py's lerp.
+__device__ __forceinline__ float bilinear_clamped(const float* __restrict__ img,
+                                                  int Wp, const NccView& v,
+                                                  float xs, float ys) {
   const float x0f = floorf(xs);
   const float y0f = floorf(ys);
   const float fx = xs - x0f;
@@ -144,4 +171,49 @@ __device__ __forceinline__ float tap_sample(const float* __restrict__ img,
   const float top = v00 + fx * (v01 - v00);
   const float bot = v10 + fx * (v11 - v10);
   return top + fy * (bot - top);
+}
+
+// The same sample through one tex2Dgather of the view's texture (a CUDA
+// array made for gather, point filtering, clamp addressing at the stored
+// Hp x Wp, unnormalised coordinates). The gather at (cx + 1, cy + 1)
+// returns the texels (cx, cx + 1) x (cy, cy + 1), the hardware clamping
+// -1 to 0; where the pair collapses, the second texel is the first, since
+// the view's valid extent may end before the stored one.
+__device__ __forceinline__ float bilinear_tex(cudaTextureObject_t tex,
+                                              const NccView& v, float xs,
+                                              float ys) {
+  const float x0f = floorf(xs);
+  const float y0f = floorf(ys);
+  const float fx = xs - x0f;
+  const float fy = ys - y0f;
+  const float cx = clamp_floor(x0f, v.w_lim);
+  const float cy = clamp_floor(y0f, v.h_lim);
+  // components: w (x0, y0), z (x1, y0), x (x0, y1), y (x1, y1)
+  const float4 g = tex2Dgather<float4>(tex, cx + 1.0f, cy + 1.0f, 0);
+  float v00 = g.w, v01 = g.z, v10 = g.x, v11 = g.y;
+  if (pair_collapses(cx, v.w_lim)) {
+    v01 = v00;
+    v11 = v10;
+  }
+  if (pair_collapses(cy, v.h_lim)) {
+    v10 = v00;
+    v11 = v01;
+  }
+  const float top = v00 + fx * (v01 - v00);
+  const float bot = v10 + fx * (v11 - v10);
+  return top + fy * (bot - top);
+}
+
+// The sample of tap (dx, dy): h = h_p + dx col_x + dy col_y, projected and
+// sampled.
+__device__ __forceinline__ float tap_sample(const float* __restrict__ img,
+                                            int Wp, const NccView& v,
+                                            NccHomography* h, float dx,
+                                            float dy, bool cap) {
+  const float h0 = h->hp[0] + dx * h->colx[0] + dy * h->coly[0];
+  const float h1 = h->hp[1] + dx * h->colx[1] + dy * h->coly[1];
+  const float h2 = h->hp[2] + dx * h->colx[2] + dy * h->coly[2];
+  float xs, ys;
+  tap_point(h0, h1, h2, h, cap, &xs, &ys);
+  return bilinear_clamped(img, Wp, v, xs, ys);
 }

@@ -63,8 +63,9 @@ def sky_model_available(model_dir: str = None) -> bool:
             and os.path.exists(os.path.join(model_dir, BIN_NAME)))
 
 
-def load_sky_net(model_dir: str = None, device="cpu") -> NcnnNet:
-    """The sky net with its weights on ``device``, in eval mode."""
+def load_sky_net(model_dir: str = None, device="cuda") -> NcnnNet:
+    """The sky net with its weights on ``device`` (the card unless the
+    caller names another), in eval mode."""
     model_dir = model_dir or default_model_dir()
     if model_dir.endswith(".npz"):
         path = model_dir if os.path.exists(model_dir) else VENDORED_NPZ

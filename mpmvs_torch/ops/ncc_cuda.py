@@ -12,6 +12,14 @@ against S source views over a pixel set and returns (K, S, R, C):
     ``ops.ncc.ncc_eval`` once per field.
   * Any other device raises.
 
+The kernel reads the sources through texture objects over CUDA arrays
+made for texture gather (:class:`SourceTextures`), which hold a copy of
+the stack; the copy is made at the kernel's first call on a stack and
+lives as long as the stack's tensor. ``scattered`` picks the kernel's launch:
+False (tile launch) for fields whose neighbouring pixels project close
+together, True (view-major launch) for full-range random fields. It
+changes no result.
+
 ``COUNTS`` records kernel launches and plain calls, so a run can show which
 implementation its NCC evaluations went through.
 """
@@ -33,37 +41,86 @@ Tensor = torch.Tensor
 SOURCE = "ncc_eval.cu"
 # -fmad=false: the plain version's eager ops round every multiply and add
 NVCC_FLAGS = ("-fmad=false",)
-MAX_TAPS = 64
-
+AXIS = 6  # taps per window axis (NCC_AXIS in the source)
 
 COUNTS = nvcc.LaunchCounts()
 
 
-class _Taps(ctypes.Structure):
-    _fields_ = [("n", ctypes.c_int), ("dx", ctypes.c_int * MAX_TAPS),
-                ("dy", ctypes.c_int * MAX_TAPS)]
+class _Axis(ctypes.Structure):
+    _fields_ = [("v", ctypes.c_float * AXIS)]
 
 
 @functools.lru_cache(maxsize=None)
 def _library():
     lib = ctypes.CDLL(nvcc.build(SOURCE, NVCC_FLAGS))
-    fn = lib.ncc_eval_multi_launch
-    fn.argtypes = ([ctypes.c_void_p] * 12 + [_Taps] + [ctypes.c_int] * 5
-                   + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
-                      ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
+    vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.ncc_eval_multi_launch.argtypes = (
+        [vp] * 12 + [_Axis] + [i] * 5 + [f, f, i, vp, vp])
+    lib.ncc_eval_multi_launch.restype = i
+    lib.ncc_eval_max_k.restype = i
+    lib.ncc_make_textures.argtypes = [vp, i, i, i, vp, vp, vp]
+    lib.ncc_free_textures.argtypes = [vp, vp, i]
+    lib.max_k = lib.ncc_eval_max_k()
+    return lib
 
 
-def _taps(offsets) -> _Taps:
-    if not 0 < len(offsets) <= MAX_TAPS:
-        raise ValueError(f"{len(offsets)} taps; the kernel takes 1..{MAX_TAPS}")
-    t = _Taps()
-    t.n = len(offsets)
-    for i, (dx, dy) in enumerate(offsets):
-        t.dx[i] = int(dx)
-        t.dy[i] = int(dy)
-    return t
+def _check(err: int, what: str):
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err}")
+
+
+class SourceTextures:
+    """The kernel's copy of a source stack (S, H, W): one CUDA array made
+    for texture gather per view, and a texture object over each (point
+    filtering, clamp addressing; ``handles`` is the (S,) int64 tensor of
+    the objects on the stack's device). Freed when it is collected, after a
+    device synchronise, since a launch may still read it."""
+
+    def __init__(self, lib, src: Tensor):
+        S, H, W = src.shape
+        arrays, handles = (ctypes.c_void_p * S)(), (ctypes.c_ulonglong * S)()
+        _check(lib.ncc_make_textures(
+            src.data_ptr(), S, H, W,
+            torch.cuda.current_stream(src.device).cuda_stream, arrays,
+            handles), "texture objects of the source stack")
+        self._lib, self._arrays, self._objects = lib, arrays, handles
+        self.device, self.version = src.device, src._version
+        self.handles = torch.tensor(list(handles), dtype=torch.int64,
+                                    device=src.device)
+
+    def __del__(self):
+        torch.cuda.synchronize(self.device)
+        self._lib.ncc_free_textures(self._arrays, self._objects,
+                                    len(self._objects))
+
+
+def _textures(lib, src: Tensor) -> Tensor:
+    """The texture objects of ``src``'s views. They are kept on the stack's
+    tensor, so they live as long as it, and made again if the stack was
+    written in place since (its version counter moved)."""
+    tex = getattr(src, "_ncc_textures", None)
+    if tex is None or tex.version != src._version:
+        tex = src._ncc_textures = SourceTextures(lib, src)
+    return tex.handles
+
+
+def _axis(offsets) -> _Axis:
+    """The window axis of ``offsets``, which must be the 6 x 6 grid
+    [(dx, dy) for dx in axis for dy in axis] of ``tap_offsets``, with
+    integer, evenly spaced axis offsets."""
+    offsets = [tuple(o) for o in offsets]
+    axis = [dx for dx, _ in offsets[::AXIS]]
+    step = axis[1] - axis[0] if len(axis) > 1 else 0
+    if offsets != [(dx, dy) for dx in axis for dy in axis] or \
+            len(axis) != AXIS or \
+            axis != [int(axis[0]) + i * int(step) for i in range(AXIS)]:
+        raise ValueError(f"the kernel takes the {AXIS}x{AXIS} window grid of "
+                         f"PatchMatchParams.tap_offsets, got {len(offsets)} "
+                         f"other offsets")
+    a = _Axis()
+    for i, v in enumerate(axis):
+        a.v[i] = float(v)
+    return a
 
 
 def _f32_contig(name: str, a: Tensor, shape, device) -> Tensor:
@@ -81,8 +138,8 @@ def ncc_eval_multi_kernel(refside: NCCRefSide, src_imgs: Tensor,
                           src_widths: Tensor, src_heights: Tensor, A: Tensor,
                           b: Tensor, K_ref: Tensor, planes: Tensor, x: Tensor,
                           y: Tensor, offsets: Sequence[Tuple[int, int]],
-                          cost_max: float = 2.0,
-                          cap_radius: float = 0.0) -> Tensor:
+                          cost_max: float = 2.0, cap_radius: float = 0.0,
+                          scattered: bool = False) -> Tensor:
     """Launch ``csrc/ncc_eval.cu`` on CUDA tensors: (K, S, R, C) costs."""
     dev = planes.device
     if dev.type != "cuda":
@@ -93,6 +150,11 @@ def ncc_eval_multi_kernel(refside: NCCRefSide, src_imgs: Tensor,
     S, Hp, Wp = src_imgs.shape
     T = len(offsets)
     P = R * C
+    axis = _axis(offsets)
+    lib = _library()
+    if not 1 <= Kh <= lib.max_k:
+        raise ValueError(f"{Kh} stacked fields; the kernel takes 1.."
+                         f"{lib.max_k}")
     planes = _f32_contig("planes", planes, (Kh, R, C, 4), dev)
     if planes.data_ptr() % 16:
         planes = planes.clone()
@@ -111,17 +173,16 @@ def ncc_eval_multi_kernel(refside: NCCRefSide, src_imgs: Tensor,
                     _f32_contig("b", b, (S, 3), dev)], 1).contiguous()
     kinvt = geo.K_inv_pinhole(
         _f32_contig("K_ref", K_ref, (3, 3), dev)).T.contiguous()
+    texs = _textures(lib, src)
     out = torch.empty((Kh, S, R, C), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _library()(
+    _check(lib.ncc_eval_multi_launch(
         w.data_ptr(), wr.data_ptr(), inv_w.data_ptr(), m_ref.data_ptr(),
         var_ref.data_ptr(), planes.data_ptr(), xc.data_ptr(), yc.data_ptr(),
-        src.data_ptr(), wh.data_ptr(), ab.data_ptr(), kinvt.data_ptr(),
-        _taps(offsets), Kh, S, P, Hp, Wp, float(cost_max), float(cap_radius),
-        out.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"ncc_eval_multi_kernel launch failed: CUDA error "
-                           f"{err}")
+        texs.data_ptr(), wh.data_ptr(), ab.data_ptr(), kinvt.data_ptr(),
+        axis, Kh, S, P, Hp, Wp, float(cost_max), float(cap_radius),
+        int(bool(scattered)), out.data_ptr(), stream),
+        "ncc_eval_multi_kernel launch failed")
     COUNTS.kernel += 1
     return out
 
@@ -130,9 +191,10 @@ def ncc_eval_multi_plain(refside: NCCRefSide, src_imgs: Tensor,
                          src_widths: Tensor, src_heights: Tensor, A: Tensor,
                          b: Tensor, K_ref: Tensor, planes: Tensor, x: Tensor,
                          y: Tensor, offsets: Sequence[Tuple[int, int]],
-                         cost_max: float = 2.0,
-                         cap_radius: float = 0.0) -> Tensor:
-    """The plain version of the kernel: ``ops.ncc.ncc_eval`` per field."""
+                         cost_max: float = 2.0, cap_radius: float = 0.0,
+                         scattered: bool = False) -> Tensor:
+    """The plain version of the kernel: ``ops.ncc.ncc_eval`` per field
+    (``scattered``, a launch choice of the kernel, does not apply)."""
     COUNTS.plain += 1
     return torch.stack([
         ncc_eval(refside, src_imgs, src_widths, src_heights, A, b, K_ref,
@@ -144,7 +206,8 @@ def ncc_eval_multi(refside: NCCRefSide, src_imgs: Tensor, src_widths: Tensor,
                    src_heights: Tensor, A: Tensor, b: Tensor, K_ref: Tensor,
                    planes: Tensor, x: Tensor, y: Tensor,
                    offsets: Sequence[Tuple[int, int]], cost_max: float = 2.0,
-                   cap_radius: float = 0.0) -> Tensor:
+                   cap_radius: float = 0.0,
+                   scattered: bool = False) -> Tensor:
     """Costs (K, S, R, C) of K stacked plane fields (K, R, C, 4): the CUDA
     kernel for CUDA tensors, the plain version for CPU tensors."""
     dev = planes.device.type
@@ -155,15 +218,15 @@ def ncc_eval_multi(refside: NCCRefSide, src_imgs: Tensor, src_widths: Tensor,
     else:
         raise ValueError(f"no NCC implementation for device {planes.device}")
     return fn(refside, src_imgs, src_widths, src_heights, A, b, K_ref,
-              planes, x, y, offsets, cost_max, cap_radius)
+              planes, x, y, offsets, cost_max, cap_radius, scattered)
 
 
 def ncc_eval_one(refside: NCCRefSide, src_imgs: Tensor, src_widths: Tensor,
                  src_heights: Tensor, A: Tensor, b: Tensor, K_ref: Tensor,
                  plane: Tensor, x: Tensor, y: Tensor,
                  offsets: Sequence[Tuple[int, int]], cost_max: float = 2.0,
-                 cap_radius: float = 0.0) -> Tensor:
+                 cap_radius: float = 0.0, scattered: bool = False) -> Tensor:
     """One plane field (R, C, 4) -> (S, R, C): the K = 1 case."""
     return ncc_eval_multi(refside, src_imgs, src_widths, src_heights, A, b,
                           K_ref, plane[None], x, y, offsets, cost_max,
-                          cap_radius)[0]
+                          cap_radius, scattered)[0]

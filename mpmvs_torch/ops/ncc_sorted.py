@@ -40,7 +40,7 @@ import torch
 from mpmvs_torch import geometry as geo
 from mpmvs_torch.ops import nvcc
 from mpmvs_torch.ops.ncc import NCCRefSide, _finite_or_zero, zncc_from_sums
-from mpmvs_torch.ops.ncc_cuda import _f32_contig, _Taps, _taps
+from mpmvs_torch.ops.ncc_cuda import _f32_contig
 from mpmvs_torch.ops.sampling import bilinear_sample_batched
 
 Tensor = torch.Tensor
@@ -51,7 +51,25 @@ NVCC_FLAGS = ("-fmad=false",)
 # A bucket is 8 rows of 32 texels: eight 128-byte lines of the source.
 BUCKET_ROWS, BUCKET_COLS = 8, 32
 
+MAX_TAPS = 64  # NCC_MAX_TAPS in csrc/ncc_tap.cuh
+
 COUNTS = nvcc.LaunchCounts()
+
+
+class _Taps(ctypes.Structure):
+    _fields_ = [("n", ctypes.c_int), ("dx", ctypes.c_int * MAX_TAPS),
+                ("dy", ctypes.c_int * MAX_TAPS)]
+
+
+def _taps(offsets) -> _Taps:
+    if not 0 < len(offsets) <= MAX_TAPS:
+        raise ValueError(f"{len(offsets)} taps; the kernel takes 1..{MAX_TAPS}")
+    t = _Taps()
+    t.n = len(offsets)
+    for i, (dx, dy) in enumerate(offsets):
+        t.dx[i] = int(dx)
+        t.dy[i] = int(dy)
+    return t
 
 
 @functools.lru_cache(maxsize=None)

@@ -306,11 +306,11 @@ def _band_step(data: SolveData, params, scale: int, iteration: int,
                           params.sigma_color, pack_phase=phase)
     cap = params.cap_radius(scale)
 
-    def ncc_batch(planes: Tensor) -> Tensor:
+    def ncc_batch(planes: Tensor, scattered: bool = False) -> Tensor:
         return ncc_multi(refside, data.src_imgs, data.src_widths,
                          data.src_heights, data.A, data.b, data.K_ref,
                          planes.contiguous(), x_p, y_p, offsets,
-                         params.cost_max, cap)
+                         params.cost_max, cap, scattered=scattered)
 
     def gcost(plane: Tensor) -> Tensor:
         return geom_consistency_cost(
@@ -458,6 +458,7 @@ def _band_step(data: SolveData, params, scale: int, iteration: int,
         draw_depth = lambda k: pmrand.smooth_banded_uniform(
             k_band_seed, k, x_p, y_p, dmin, dmax, frac)
     else:
+        frac = 1.0
         draw_depth = lambda k: tf.uniform(k, shape_p, dmin, dmax)
     if prior and not params.legacy_prior_refinement:
         # the intended semantics: a prior-guided random draw inside the mask
@@ -499,7 +500,10 @@ def _band_step(data: SolveData, params, scale: int, iteration: int,
         trial_costs = [scattered[0], coherent[0], scattered[1], coherent[1],
                        coherent[2]]
     else:
-        trial_costs = ncc_batch(torch.stack(trial_planes))  # (5, S, rows, Wh)
+        # (5, S, rows, Wh). With full-range random depths (trials 0 and 2)
+        # the view-major launch is the faster one, with banded ones the
+        # tile launch (both measured on this call, PERF.md section 6)
+        trial_costs = ncc_batch(torch.stack(trial_planes), frac >= 1.0)
 
     for d_i, n_i, plane_i, c_v in zip(trial_d, trial_n, trial_planes,
                                       trial_costs):

@@ -117,13 +117,15 @@ def init_band_count(band_rows: int, H: int) -> int:
 
 
 def _initial_score(data: SolveData, params: PatchMatchParams, plane: Tensor,
-                   band_rows: int, ncc_multi: NCCMulti):
+                   band_rows: int, ncc_multi: NCCMulti,
+                   scattered: bool = False):
     """Banded initial multi-view scoring + top-k view selection
     (ComputeMultiViewInitialCostandSelectedViews, PatchMatch.cu:497-534).
     Scores every pixel, one K=1 NCC call per row band, or with
     ``sampler="sorted"`` one ``ncc_eval_sorted`` call per row band (one
     sample-kernel launch per source view), as mpmvs_tpu solver.py:168-177
-    does in every mode."""
+    does in every mode. ``scattered``: the plane field has full-range
+    random depths (ops.ncc_cuda's launch choice)."""
     H, W = data.ref_img.shape
     dev = plane.device
     offsets = params.tap_offsets(params.max_scale)
@@ -152,7 +154,8 @@ def _initial_score(data: SolveData, params: PatchMatchParams, plane: Tensor,
                                       params.cost_max, cap)
         else:
             costs_v = ncc_multi(*args, plane_b[None].contiguous(), xb, yb,
-                                offsets, params.cost_max, cap)[0]
+                                offsets, params.cost_max, cap,
+                                scattered=scattered)[0]
         c, s = initial_cost_and_views(costs_v, params.top_k, params.cost_max)
         costs.append(c)
         sels.append(s)
@@ -209,7 +212,12 @@ def initial_state(data: SolveData, params: PatchMatchParams, key: Tensor,
     ``ncc_multi`` is the NCC implementation (ops.ncc_cuda.ncc_eval_multi; a
     check passes the plain version by name to compare the two)."""
     plane = _init_plane(data, params, key, mode, warm)
-    cost, sel = _initial_score(data, params, plane, band_rows, ncc_multi)
+    # the photometric init draws full-range depths, as _init_plane does,
+    # without coherent_random or with bands of the whole range
+    full_range = mode == "photometric" and (
+        not params.coherent_random or params.effective_band_frac() >= 1.0)
+    cost, sel = _initial_score(data, params, plane, band_rows, ncc_multi,
+                               scattered=full_range)
     return PatchMatchState(plane=plane, cost=cost,
                            geom_cost=torch.zeros_like(cost), sel=sel)
 

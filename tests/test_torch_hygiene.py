@@ -43,6 +43,7 @@ SLICE_MODULES = [
     "mpmvs_torch.utils.visualize", "mpmvs_torch.ops.ncc_sorted",
     "mpmvs_torch.eval", "mpmvs_torch.tools",
     "mpmvs_torch.tools.ab_deviations", "mpmvs_torch.tools.synthetic_eval",
+    "mpmvs_torch.tools.kernel_bench", "mpmvs_torch.utils.roofline",
 ]
 
 

@@ -15,7 +15,11 @@ Tolerances:
 * kernel vs plain version on the same CUDA tensors: the fraction of cost
   entries differing by more than 1e-4 stays below 1e-3, as in
   test_torch_ncc.py. The kernel repeats the plain version's operations one
-  for one (-fmad=false, IEEE division), so on the H100 it is 0.
+  for one (-fmad=false, IEEE division), so on the H100 it is 0; the tests
+  of pixel counts off the launches' blocks, K in {1, 3, 5, 9}, views
+  narrower than the stack, degenerate planes, stacks in turn and stacks of
+  any width, offset, layout or in-place write hold both launches to
+  equality, NaN for NaN.
 * a whole photometric solve on the card vs the same solve on the CPU: the
   draws are identical (integer threefry), but CUDA's and the CPU's exp, log
   and sqrt may round an ulp apart, which flips float-tie adoptions; bounded
@@ -55,7 +59,7 @@ from mpmvs_torch.models import sky
 from mpmvs_torch.ops import bilateral_cuda, ncc_cuda, ncc_sorted
 from mpmvs_torch.ops import random as pmrand
 from mpmvs_torch.ops import threefry as tf
-from mpmvs_torch.ops.ncc import ncc_refside
+from mpmvs_torch.ops.ncc import NCCRefSide, ncc_refside
 from mpmvs_torch.ops.packing import packed_coords
 from mpmvs_torch.ops.propagation import _band_geometry, _pad_rows, step_halo
 from mpmvs_torch.params import PatchMatchParams
@@ -138,6 +142,145 @@ def test_kernel_wrapper_rejects_bad_inputs(data):
     args[8] = args[8].cpu()  # x on the wrong device
     with pytest.raises(ValueError, match="x is on"):
         ncc_cuda.ncc_eval_multi_kernel(*args)
+
+
+def _same(got, want) -> bool:
+    """Equal entry for entry, NaN for NaN."""
+    return bool(((got == want) | (torch.isnan(got) & torch.isnan(want)))
+                .all())
+
+
+def _rows_args(data, planes_fn, K: int, scale: int, rows: int, r0: int,
+               cap: bool, c0: int = 20, cols: int = 45):
+    """ncc_eval_multi's arguments for the pixels of rows r0..r0+rows-1 and
+    columns c0..c0+cols-1 (rows x 45: for odd ``rows`` a multiple of
+    neither launch's block, 32 and 128 pixels), with K plane fields from
+    ``planes_fn(k, x, y)``."""
+    halo = step_halo(scale)
+    offs = PARAMS.tap_offsets(scale)
+    ref_pad = _pad_rows(data.ref_img, halo, halo)
+    crop = lambda a: a[..., c0:c0 + cols]
+    refside = NCCRefSide(*map(crop, ncc_refside(
+        ref_pad[r0:r0 + rows + 2 * halo], halo, rows, offs,
+        PARAMS.sigma_spatial, PARAMS.sigma_color)))
+    x, y = map(crop, geo.pixel_grid(rows, data.ref_img.shape[1],
+                                    device=data.ref_img.device))
+    y = y + float(r0)
+    planes = torch.stack([planes_fn(k, x, y) for k in range(K)])
+    return (refside, data.src_imgs, data.src_widths, data.src_heights, data.A,
+            data.b, data.K_ref, planes, x, y, offs, PARAMS.cost_max,
+            PARAMS.cap_radius(scale) if cap else 0.0)
+
+
+def _random_planes(data, seed: int):
+    return lambda k, x, y: pmrand.random_plane_field(
+        tf.PRNGKey(seed + k, device=x.device), data.K_ref, x, y,
+        data.depth_min, data.depth_max)
+
+
+@pytest.mark.parametrize("scattered", [False, True])
+@pytest.mark.parametrize("K", [1, 3, 5, 9])
+@pytest.mark.parametrize("rows", [3, 5])
+def test_kernel_equals_plain_off_tile(data, K, rows, scattered):
+    """P = rows x 45 (135, 225) leaves the last block of either launch part
+    empty."""
+    args = _rows_args(data, _random_planes(data, 30 + K), K, 0, rows, 20,
+                      cap=K != 3)
+    assert (rows * 45) % 32 and (rows * 45) % 128
+    got = ncc_cuda.ncc_eval_multi(*args, scattered=scattered)
+    want = ncc_cuda.ncc_eval_multi_plain(*args)
+    assert got.shape == (K, 3, rows, 45)
+    assert _same(got, want)
+    assert (want < PARAMS.cost_max).any() and (want == PARAMS.cost_max).any()
+
+
+@pytest.mark.parametrize("cap,scattered", [(True, False), (False, True)])
+def test_kernel_equals_plain_below_stack_extent(data, cap, scattered):
+    """Source views whose valid extent is below the stack's Hp x Wp: taps
+    clamp to the view's own last row and column."""
+    S, Hp, Wp = data.src_imgs.shape
+    small = data._replace(
+        src_widths=torch.tensor([70.0, Wp, 51.0], device=data.A.device),
+        src_heights=torch.tensor([Hp - 9.0, 31.0, Hp], device=data.A.device))
+    args = _rows_args(small, _random_planes(data, 40), 5, 2, 6, 18, cap)
+    got = ncc_cuda.ncc_eval_multi(*args, scattered=scattered)
+    want = ncc_cuda.ncc_eval_multi_plain(*args)
+    assert _same(got, want)
+    full = ncc_cuda.ncc_eval_multi(*_rows_args(
+        data, _random_planes(data, 40), 5, 2, 6, 18, cap),
+        scattered=scattered)
+    assert not _same(got, full)  # the extents reach the costs
+
+
+@pytest.mark.parametrize("scattered", [False, True])
+def test_kernel_equals_plain_degenerate_planes(data, scattered):
+    """Planes with w = 0, NaN or infinite entries, and planes so close to
+    the camera that the taps land far off the image."""
+    base = _random_planes(data, 50)
+
+    def planes(k, x, y):
+        pl = base(k, x, y).clone()
+        if k == 1:
+            pl[..., 3] = 0.0
+        elif k == 2:
+            pl[::2, ::3] = float("nan")
+            pl[1::2, ::5, 3] = float("inf")
+        elif k == 3:
+            pl[..., 3] = pl[..., 3] * 1e-4
+        elif k == 4:
+            pl[..., :3] = torch.tensor([1.0, 0.0, 0.0], device=pl.device)
+        return pl
+
+    args = _rows_args(data, planes, 5, 0, 4, 10, cap=True)
+    got = ncc_cuda.ncc_eval_multi(*args, scattered=scattered)
+    want = ncc_cuda.ncc_eval_multi_plain(*args)
+    assert _same(got, want)
+    nocap = args[:-1] + (0.0,)
+    assert _same(ncc_cuda.ncc_eval_multi(*nocap, scattered=scattered),
+                 ncc_cuda.ncc_eval_multi_plain(*nocap))
+
+
+@pytest.mark.parametrize("scattered", [False, True])
+def test_kernel_two_source_stacks_in_turn(data, dev, scattered):
+    """Stacks of two scenes and sizes, and others at the first's shape,
+    through the kernel in turn in one process, and the first again: the
+    texture objects kept with each stack follow the stack they were made
+    from."""
+    scene = make_plane_scene(num_views=4, height=40, width=72, seed=11)
+    other = build_solve_data(torch.as_tensor(scene.images, device=dev),
+                             scene.cameras.to(dev))
+    same_shape = data._replace(src_imgs=data.src_imgs.flip(-1).contiguous())
+    stacks = [data, other, same_shape, data]
+    stacks += [data._replace(src_imgs=data.src_imgs + float(i))
+               for i in range(3)] + [data]
+    for d in stacks:
+        args = _rows_args(d, _random_planes(d, 60), 3, 0, 5, 12, cap=True)
+        got = ncc_cuda.ncc_eval_multi(*args, scattered=scattered)
+        want = ncc_cuda.ncc_eval_multi_plain(*args)
+        assert _same(got, want)
+
+
+def test_kernel_reads_any_source_stack(data):
+    """Any float32 stack goes to the kernel: a narrow one (280-byte rows),
+    one that starts a float past an allocation's start, a non-contiguous
+    one, and a stack written in place after the kernel first read it."""
+    args = list(_rows_args(data, _random_planes(data, 70), 2, 0, 3, 12,
+                           cap=True))
+    S, Hp, Wp = data.src_imgs.shape
+    shifted = torch.zeros(S * Hp * Wp + 1, device=data.A.device)[1:]
+    shifted = shifted.reshape(S, Hp, Wp).copy_(data.src_imgs)
+    for src in (data.src_imgs[..., :70].contiguous(), shifted,
+                data.src_imgs.transpose(1, 2).contiguous().transpose(1, 2)):
+        args[1] = src
+        assert _same(ncc_cuda.ncc_eval_multi_kernel(*args),
+                     ncc_cuda.ncc_eval_multi_plain(*args))
+    src = data.src_imgs.clone()
+    args[1] = src
+    before = ncc_cuda.ncc_eval_multi_kernel(*args)
+    src.copy_(src.flip(-1).clone())
+    got = ncc_cuda.ncc_eval_multi_kernel(*args)
+    assert _same(got, ncc_cuda.ncc_eval_multi_plain(*args))
+    assert not _same(got, before)
 
 
 def test_solve_on_card_goes_through_the_kernel(dev):
@@ -329,7 +472,8 @@ def test_sky_mask_on_card_matches_cpu(dev):
     before = bilateral_cuda.COUNTS.kernel
     _, m_card = sky.sky_mask(torch.as_tensor(img, device=dev), net_card)
     assert bilateral_cuda.COUNTS.kernel == before + 1
-    _, m_cpu = sky.sky_mask(torch.as_tensor(img), sky.load_sky_net())
+    _, m_cpu = sky.sky_mask(torch.as_tensor(img),
+                            sky.load_sky_net(device="cpu"))
     assert (n(m_card) != n(m_cpu)).mean() <= 0.002
     assert n(m_card)[:40].mean() > 0.9 and n(m_card)[56:].mean() < 0.05
 

@@ -389,7 +389,8 @@ def test_save_prior_writes_prior_maps(tmp_path):
     pipe.load_arrays(scene.images, scene.colors, scene.cameras, [[1], []])
     K = n(scene.cameras.K[0]).astype(np.float64)
     pr = build_planar_prior(scene.gt_depth[0],
-                            np.full((32, 48), 0.05, np.float32), K, 0.1, 100.0)
+                            np.full((32, 48), 0.05, np.float32), K, 0.1,
+                            100.0, device="cpu")
     pipe._save_prior(0, pr, (32, 48))
     x, y = np.meshgrid(np.arange(48, dtype=np.float32),
                        np.arange(32, dtype=np.float32))

@@ -67,7 +67,8 @@ def test_seeds_triangles_planes_identical(maps, geometric):
     np.testing.assert_array_equal(tprior.fit_triangle_planes(tris, depth, K),
                                   jprior.fit_triangle_planes(tris, depth, K))
     a = jprior.build_planar_prior(depth, cost, K, 2.0, 10.0, geom_cost=g)
-    b = tprior.build_planar_prior(depth, cost, K, 2.0, 10.0, geom_cost=g)
+    b = tprior.build_planar_prior(depth, cost, K, 2.0, 10.0, geom_cost=g,
+                                   device="cpu")
     assert len(a.triangles) > 500
     np.testing.assert_array_equal(b.vertices, a.vertices)
     np.testing.assert_array_equal(b.triangles, a.triangles)
@@ -84,7 +85,7 @@ def test_rasterizer_against_cv2(maps):
     for i, tri in enumerate(tris):
         cv2.fillConvexPoly(want, tri.reshape(3, 1, 2), int(values[i]))
     got = np.zeros(cost.shape, np.int32)
-    tprior.fill_triangles(got, tris, values)
+    tprior.fill_triangles(got, tris, values, "cpu")
     differ = got != want
     assert differ.mean() <= 1e-3
     edges = np.zeros(cost.shape, np.uint8)
@@ -102,19 +103,20 @@ def test_fill_triangles_degenerate_and_chunked():
     tiny chunk) keeps the triangle order."""
     a = np.zeros((8, 10), np.int32)
     tprior.fill_triangles(a, np.array([[[1, 1], [5, 5], [3, 3]]]),
-                          np.array([7], np.int32))
+                          np.array([7], np.int32), "cpu")
     want = np.zeros((8, 10), np.int32)
     cv2.fillConvexPoly(want, np.array([[1, 1], [5, 5], [3, 3]]).reshape(
         3, 1, 2), 7)
     np.testing.assert_array_equal(a, want)
     tris = np.array([[[0, 0], [6, 0], [0, 6]], [[1, 1], [7, 1], [1, 7]]])
     full = np.zeros((9, 9), np.int32)
-    tprior.fill_triangles(full, tris, np.array([1, 2], np.int32))
+    tprior.fill_triangles(full, tris, np.array([1, 2], np.int32), "cpu")
     old = tprior._RASTER_CHUNK
     try:
         tprior._RASTER_CHUNK = 4
         small = np.zeros((9, 9), np.int32)
-        tprior.fill_triangles(small, tris, np.array([1, 2], np.int32))
+        tprior.fill_triangles(small, tris, np.array([1, 2], np.int32),
+                              "cpu")
     finally:
         tprior._RASTER_CHUNK = old
     np.testing.assert_array_equal(small, full)

@@ -39,7 +39,7 @@ torch.set_num_threads(1)
 
 @pytest.fixture(scope="module")
 def net():
-    return tsky.load_sky_net(tsky.VENDORED_NPZ)
+    return tsky.load_sky_net(tsky.VENDORED_NPZ, device="cpu")
 
 
 def _sky_image(h, w, seed):

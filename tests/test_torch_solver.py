@@ -105,7 +105,8 @@ def test_solver_class_runs_the_warm_modes():
     photo = solver.photometric(small, c)
     pr = build_planar_prior(sc.gt_depth[0], np.full((32, 48), 0.05,
                                                     np.float32),
-                            n(c.K[0]).astype(np.float64), 0.1, 100.0)
+                            n(c.K[0]).astype(np.float64), 0.1, 100.0,
+                            device="cpu")
     planes, mask = interop.prior_from_numpy(pr.planes, pr.mask)
     src = sc.gt_depth[1:]
     outs = {"geometric": solver.geometric(small, c, photo, src),
