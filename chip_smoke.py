@@ -8,7 +8,8 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 1. Device and build: the card's name and power limit, and the ``nvcc``
    builds of ``mpmvs_torch/csrc/ncc_eval.cu``, ``ncc_samples.cu`` and
-   ``bilateral_refine.cu``, started together, with their time.
+   ``bilateral_refine.cu``, started together, with their time and register
+   reports.
 2. NCC kernel vs plain: ``ncc_eval_multi`` on the card against its plain
    PyTorch version at K in {1, 5, 9}, S = 10, scales 0 and 2, on
    ground-truth and random planes at the default footprint cap, through
@@ -31,36 +32,47 @@ Phases, in order; any failure raises and the script exits non-zero:
    often as the schedule implies.
 5. Bilateral kernel vs plain at 3200x2130: ``bilateral_refine`` on the card
    against its plain version on view 0's guide image (its top fifth painted
-   sky blue from here on) with the sky net's probability, and on a
-   structured random image; max |diff| <= 1e-5 and at most 1e-4 of the
-   thresholded mask pixels differ; both timed with CUDA events.
-6. The full path: the same 1+10-view scene with the sky band, default
+   sky blue from here on) with the sky net's probability and on a
+   structured random image (both through the float form), and on the guide
+   rounded to 8-bit values (the table form); max |diff| <= 1e-5, at most
+   1e-4 of the thresholded mask pixels differ, every entry equal, and the
+   form taken as the guide implies; the table builder against the plain
+   table (no entry may differ); both forms, the builder and the plain
+   versions timed with CUDA events.
+6. The full path: the same 1+10-view scene with the sky band, its colour
+   images rounded to 8-bit values as a workspace's JPEGs give them, default
    ``ConfigParams`` with ``sky_seg=True`` through ``Pipeline.run``: the
    photometric pass, ``geom_0`` with its planar-prior sub-run, ``geom_1``,
    sky masks, fusion. Checks depth accuracy on the non-sky rows after every
    pass, each view's sky fraction against the painted band, that fusing
    with the masks keeps no more points than without, and the launches of
-   both kernels against the stated schedule.
+   both kernels against the stated schedule (the bilateral kernel through
+   its table form, one table build).
 7. The sorted path (runs after phase 3, before the sky is painted), on
    view 0's full-range random init field at 3200x2130 with 10 sources:
-   (a) the sample kernel ``csrc/ncc_samples.cu`` against its plain version
-   for every view, cap off and on, and, cap off, at scale 0 on a random
-   field over the half-width packed pixels of a refinement trial: no entry
-   may differ; (b)
+   (a) the raw-samples form of ``csrc/ncc_samples.cu`` against its plain
+   version for every view, cap off and on, and, cap off, at scale 0 on a
+   random field over the half-width packed pixels of a refinement trial,
+   and the key kernel against its plain version on the same fields: no
+   entry may differ; (a2) the fused form (the path's) against its plain
+   chain (keys, sort, raw samples, un-permute, ZNCC) on the same three
+   fields: no entry may differ; (b)
    ``ncc_eval_sorted`` against the NCC kernel at K=1; (c) CUDA-event times
    of the NCC kernel at K=1 on the coherent default init field and on the
-   full-range field (view-major launch), and of the sorted path split into
-   sort, sample kernel, un-permute and ZNCC; (d) one photometric solve of
-   view 0 with the reference's search semantics, with ``sampler="sorted"``
-   and with ``"auto"``: seconds, median |d-gt|/gt < 1%, and both kernels'
-   launches against the stated schedule, with no plain call; the two
-   solves' depth, normal and cost may differ on at most MISMATCH_TOL of the
-   pixels.
+   full-range field (view-major launch), of the sorted path split into the
+   pixel record, keys and sort, and the fused kernel, and of the same call
+   through the raw-samples form (sort, kernel, un-permute, ZNCC) and the
+   plain chain; (d) one photometric solve of view 0 with the
+   reference's search semantics, with ``sampler="sorted"`` and with
+   ``"auto"``: seconds, median |d-gt|/gt < 1%, and the kernels' launches
+   against the stated schedule, with no plain call; the two solves' depth,
+   normal and cost may differ on at most MISMATCH_TOL of the pixels.
 
 Before them, a line gives each kernel's bound (the least time the card
 could take at the timed shape) beside its time. The last three lines of
 standard output are the card's name and power limit (``nvidia-smi``), a
-JSON object describing each kernel, and
+JSON object describing each kernel (and each form of a kernel that has
+several, with its launches on the path that reads it), and
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 ``mpmvs_torch`` package beside this file, the script exits non-zero before
 printing any result.
@@ -99,11 +111,12 @@ NCC_PHOTOMETRIC, NCC_GEOM, NCC_PRIOR = 1 + 3 * 3 * 2 * 2, 1 + 2 * 2 * 2, \
     1 + 3 * 2 * 2
 # Launches of one photometric solve with the reference's search semantics
 # (phase 7; tools.ab_deviations.REFERENCE), one band of H_FULL rows: with
-# sampler="sorted", the sample kernel once per source view for
-# the init field and for each of the 2 random trials of every band step
-# (3 scales x 3 iterations x 2 colours), the NCC kernel twice per step (K=9
-# candidates, K=3 trials); with "auto", the NCC kernel as in phase 4.
-SAMPLES_SORTED = N_SRC + 3 * 3 * 2 * 2 * N_SRC
+# sampler="sorted", the key kernel and the fused sorted kernel once per
+# source view for the init field and for each of the 2 random trials of
+# every band step (3 scales x 3 iterations x 2 colours), the NCC kernel
+# twice per step (K=9 candidates, K=3 trials); with "auto", the NCC kernel
+# as in phase 4.
+FUSED_SORTED = N_SRC + 3 * 3 * 2 * 2 * N_SRC
 NCC_SORTED, NCC_AUTO = 3 * 3 * 2 * 2, 1 + 3 * 3 * 2 * 2
 # The NCC kernel's times before its redesign (PERF.md section 6; NVIDIA
 # H100 80GB HBM3 at 700 W): K=9 at the band shape, K=1 on the coherent
@@ -455,15 +468,16 @@ def phase_pipeline(scene, params):
 
 
 def phase_bilateral(scene):
-    """Phase 5. Returns (max |diff| over both inputs, kernel ms, plain ms)
-    with the times on the view-0 guide image."""
+    """Phase 5. Returns a dict of what the kernels line needs: max |diff|
+    over the inputs, and per form (float, table) and for the table builder
+    the kernel ms, plain ms and entries equal to plain."""
     import torch
     import torch.nn.functional as F
     from mpmvs_torch.models import sky
-    from mpmvs_torch.ops import bilateral_cuda
+    from mpmvs_torch.ops import bilateral_cuda as bc
     from mpmvs_torch.utils.trace import cuda_time_ms
 
-    dev = torch.device("cuda")
+    dev = torch.device("cuda", 0)
     net = sky.load_sky_net(device=dev)
     bgr = torch.as_tensor(scene.colors[0], device=dev)
     prob = sky.segment_sky(bgr, net)
@@ -477,38 +491,86 @@ def phase_bilateral(scene):
     logits = torch.randn((1, 1, 27, 40), generator=gen, device=dev) * 3.0
     rprob = torch.sigmoid(F.interpolate(logits, size=(H_FULL, W_FULL),
                                         mode="bilinear")[0, 0]).contiguous()
-    max_err = 0.0
-    for name, (g, p) in (("guide image + net probability", (bgr, prob)),
-                         ("structured random", (rbgr, rprob))):
-        got = bilateral_cuda.bilateral_refine(g, p)
-        want = bilateral_cuda.bilateral_refine_plain(g, p)
+    # the guide as a workspace's 8-bit image gives it: the table form
+    bgr8 = to_8bit(bgr)
+    out = {"max_abs_err": 0.0, "equal": {}}
+    for name, (g, p), form in (
+            ("guide image + net probability", (bgr, prob), "float"),
+            ("structured random", (rbgr, rprob), "float"),
+            ("8-bit guide + net probability", (bgr8, prob), "table")):
+        bc.COUNTS.reset()
+        got = bc.bilateral_refine(g, p)
+        forms = dict(bc.COUNTS.forms)
+        want = bc.bilateral_refine_plain(g, p)
         torch.cuda.synchronize()
         err = (got - want).abs().max().item()
         frac = ((got > sky.THRESHOLD) != (want > sky.THRESHOLD)).float(
         ).mean().item()
         bitwise = (got == want).float().mean().item()
-        log(f"  {name}: max|diff| {err:.3e}, equal entries {bitwise:.6f}, "
-            f"thresholded pixels differing {frac:.3e} (mask fraction "
-            f"{(want > sky.THRESHOLD).float().mean().item():.4f})")
+        log(f"  {name}: form {forms}, max|diff| {err:.3e}, equal entries "
+            f"{bitwise:.6f}, thresholded pixels differing {frac:.3e} (mask "
+            f"fraction {(want > sky.THRESHOLD).float().mean().item():.4f})")
         if not err <= BILATERAL_ERR_TOL or not frac <= BILATERAL_MASK_TOL:
             raise AssertionError(f"bilateral kernel vs plain on {name}: "
                                  f"max|diff| {err} (limit "
                                  f"{BILATERAL_ERR_TOL}), mask fraction "
                                  f"{frac} (limit {BILATERAL_MASK_TOL})")
-        max_err = max(max_err, err)
-    ms_kernel = cuda_time_ms(lambda: bilateral_cuda.bilateral_refine(bgr, prob),
-                             reps=10)
-    ms_plain = cuda_time_ms(
-        lambda: bilateral_cuda.bilateral_refine_plain(bgr, prob), reps=1)
-    taps = H_FULL * W_FULL * (2 * bilateral_cuda.RADIUS + 1) ** 2
-    log(f"  timing {W_FULL}x{H_FULL}, 37x37 taps: kernel {ms_kernel:.3f} ms "
-        f"({taps / ms_kernel / 1e6:.3f} Gtaps/s), plain {ms_plain:.3f} ms")
-    return max_err, ms_kernel, ms_plain
+        if bitwise != 1.0 or forms != {form: 1}:
+            raise AssertionError(f"bilateral kernel vs plain on {name}: "
+                                 f"equal entries {bitwise}, forms {forms} "
+                                 f"(expected 1.0 through the {form} form)")
+        out["max_abs_err"] = max(out["max_abs_err"], err)
+        out["equal"][form] = min(out["equal"].get(form, 1.0), bitwise)
+    table = bc.colour_table_kernel(bc.SIGMA_COLOR, dev)
+    plain_table = bc.colour_table_plain(bc.SIGMA_COLOR, dev)
+    n_table = int((table != plain_table).sum().item())
+    out["table_max_abs_err"] = (table - plain_table).abs().max().item()
+    log(f"  colour table ({bc.TABLE_SIZE} entries) vs plain: {n_table} "
+        f"differ")
+    if n_table:
+        raise AssertionError(f"colour table: {n_table} entries differ")
+
+    def run(g, form):  # one form, forced, on contiguous inputs
+        g, p = g.contiguous(), prob.contiguous()
+        return lambda: bc._launch(g, p, bc.RADIUS, bc.SIGMA_SPATIAL,
+                                  bc.SIGMA_COLOR, form)
+
+    ms = {"float": cuda_time_ms(run(bgr, "float"), reps=10),
+          "float 8-bit": cuda_time_ms(run(bgr8, "float"), reps=10),
+          "table": cuda_time_ms(run(bgr8, "table"), reps=10),
+          "table build": cuda_time_ms(
+              lambda: bc.colour_table_kernel(bc.SIGMA_COLOR, dev), reps=10),
+          "plain table": cuda_time_ms(
+              lambda: bc.colour_table_plain(bc.SIGMA_COLOR, dev), reps=10),
+          "plain": cuda_time_ms(lambda: bc.bilateral_refine_plain(bgr, prob),
+                                reps=1),
+          "plain 8-bit": cuda_time_ms(
+              lambda: bc.bilateral_refine_plain(bgr8, prob), reps=1)}
+    taps = H_FULL * W_FULL * (2 * bc.RADIUS + 1) ** 2
+    log(f"  timing {W_FULL}x{H_FULL}, 37x37 taps: float form "
+        f"{ms['float']:.3f} ms ({taps / ms['float'] / 1e6:.3f} Gtaps/s) on "
+        f"the guide, {ms['float 8-bit']:.3f} ms on the 8-bit guide; table "
+        f"form {ms['table']:.3f} ms ({taps / ms['table'] / 1e6:.3f} "
+        f"Gtaps/s); plain {ms['plain']:.3f} / "
+        f"{ms['plain 8-bit']:.3f} ms; table build {ms['table build']:.4f} "
+        f"ms (plain {ms['plain table']:.4f})")
+    out["ms"] = ms
+    return out
+
+
+def to_8bit(bgr):
+    """``bgr`` rounded and clipped to the values of an 8-bit image, as
+    ``cv2.imread`` gives a workspace's views to the pipeline."""
+    import torch
+
+    return torch.clamp(torch.round(bgr), 0.0, 255.0).contiguous()
 
 
 def phase_full_path(scene, params):
-    """Phase 6: the default schedule with sky masks through Pipeline.run.
-    Returns (NCC launches, bilateral launches) counted during the run."""
+    """Phase 6: the default schedule with sky masks through Pipeline.run,
+    on colour images rounded to 8-bit values as a workspace's JPEGs give
+    them. Returns the launches counted during the run: NCC kernel,
+    bilateral kernel by form, bilateral table builds."""
     import numpy as np
     import torch
     from mpmvs_torch.io import read_ply_binary
@@ -518,6 +580,10 @@ def phase_full_path(scene, params):
 
     ground = slice(SKY_ROWS + GROUND_MARGIN, H_FULL)
     errors = {}
+    scene.colors[:] = np.clip(np.round(scene.colors), 0.0, 255.0)
+    # the table is built once per process: this run builds it as a fresh
+    # one does
+    bilateral_cuda.colour_table.cache_clear()
 
     with tempfile.TemporaryDirectory(prefix="mpmvs_full_") as out:
         cfg = ConfigParams(input_folder=out, output_folder=out,
@@ -543,12 +609,16 @@ def phase_full_path(scene, params):
         torch.cuda.reset_peak_memory_stats()
         ncc_cuda.COUNTS.reset()
         bilateral_cuda.COUNTS.reset()
+        bilateral_cuda.TABLE_COUNTS.reset()
         t0 = time.perf_counter()
         ply = pipe.run(log=lambda m: log("  " + m))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         ncc = (ncc_cuda.COUNTS.kernel, ncc_cuda.COUNTS.plain)
         bil = (bilateral_cuda.COUNTS.kernel, bilateral_cuda.COUNTS.plain)
+        bil_forms = dict(bilateral_cuda.COUNTS.forms)
+        tables = (bilateral_cuda.TABLE_COUNTS.kernel,
+                  bilateral_cuda.TABLE_COUNTS.plain)
         peak = torch.cuda.max_memory_allocated()
 
         for (tag, v), rel in errors.items():
@@ -595,13 +665,18 @@ def phase_full_path(scene, params):
     expected = (len(ESTIMATED) * (NCC_PHOTOMETRIC + 2 * NCC_GEOM)
                 + n_prior * NCC_PRIOR)
     log(f"  launches: NCC {ncc[0]} (schedule implies {expected}), plain NCC "
-        f"{ncc[1]}; bilateral {bil[0]} (one per estimated view: "
-        f"{len(ESTIMATED)}), plain bilateral {bil[1]}")
-    if ncc != (expected, 0) or bil != (len(ESTIMATED), 0):
+        f"{ncc[1]}; bilateral {bil[0]} by form {bil_forms} (one per "
+        f"estimated view: {len(ESTIMATED)}, table form on 8-bit guides), "
+        f"plain bilateral {bil[1]}; table builds {tables[0]}, plain "
+        f"{tables[1]}")
+    if ncc != (expected, 0) or bil != (len(ESTIMATED), 0) or \
+            bil_forms != {"table": len(ESTIMATED)} or tables != (1, 0):
         raise AssertionError(f"launches (kernel, plain): NCC {ncc}, expected "
-                             f"({expected}, 0); bilateral {bil}, expected "
-                             f"({len(ESTIMATED)}, 0)")
-    return ncc[0], bil[0]
+                             f"({expected}, 0); bilateral {bil} {bil_forms}, "
+                             f"expected ({len(ESTIMATED)}, 0) through the "
+                             f"table form; table builds {tables}, expected "
+                             f"(1, 0)")
+    return ncc[0], bil_forms, tables[0]
 
 
 def phase_sorted(data, scene, params):
@@ -620,7 +695,10 @@ def phase_sorted(data, scene, params):
     from mpmvs_torch.params import PatchMatchParams
     from mpmvs_torch.solver import _init_plane, solve_view
     from mpmvs_torch.tools.ab_deviations import REFERENCE
-    from mpmvs_torch.utils.roofline import ncc_bound, samples_bound
+    from mpmvs_torch.tools.kernel_bench import (samples_chain_split,
+                                                sorted_split)
+    from mpmvs_torch.utils.roofline import (keys_bound, ncc_bound,
+                                            samples_bound, sorted_bound)
     from mpmvs_torch.utils.trace import cuda_time_ms
 
     dev = data.ref_img.device
@@ -639,29 +717,34 @@ def phase_sorted(data, scene, params):
     coherent = _init_plane(data, params, key, "photometric")
     view = lambda s: (data.src_imgs[s], data.src_widths[s],
                       data.src_heights[s], data.A[s], data.b[s], data.K_ref)
-    perm0 = ncc_sorted.sort_view(data.A[0], data.b[0], data.K_ref, pf, xf,
-                                 yf, Hp, Wp)
     out = {}
 
-    # (a) sample kernel vs its plain version, every view: the init field at
-    # scale 2, cap off (the reference semantics) and at the default cap;
-    # then, cap off, scale-0 taps on a full-range field over the packed
-    # half-width pixels of one colour, the shape of a refinement trial
+    # (a) the raw-samples form vs its plain version, every view: the init
+    # field at scale 2, cap off (the reference semantics) and at the
+    # default cap; then, cap off, scale-0 taps on a full-range field over
+    # the packed half-width pixels of one colour, the shape of a refinement
+    # trial. The keys of every view: key kernel vs its plain version
     x_p, y_p = packed_coords(0, H, W // 2, 0, device=dev)
     trial = pmrand.random_plane_field(tf.PRNGKey(12, device=dev), data.K_ref,
                                       x_p, y_p, data.depth_min,
-                                      data.depth_max).reshape(-1, 4)
-    x_p, y_p = x_p.reshape(-1), y_p.reshape(-1)
+                                      data.depth_max)
     cases = [(f"init scale {scale}, cap {cap:g}", pf, xf, yf, offs, cap)
              for cap in (0.0, params.cap_radius(scale))]
-    cases.append(("trial scale 0, cap 0", trial, x_p, y_p,
-                  params.tap_offsets(0), 0.0))
-    n_diff, max_err = 0, 0.0
+    cases.append(("trial scale 0, cap 0", trial.reshape(-1, 4),
+                  x_p.reshape(-1), y_p.reshape(-1), params.tap_offsets(0),
+                  0.0))
+    terms = ncc_sorted.view_terms(data.src_widths, data.src_heights, data.A,
+                                  data.b, data.K_ref, dev)
+    n_diff, n_keys, max_err, keys_err = 0, 0, 0.0, 0.0
     for label, pl, xs, ys, taps, cap in cases:
         flagged, before = [], n_diff
         for s in range(S):
-            perm = ncc_sorted.sort_view(data.A[s], data.b[s], data.K_ref, pl,
-                                        xs, ys, Hp, Wp)
+            keys = ncc_sorted.view_keys_kernel(terms, s, pl, xs, ys, Hp, Wp)
+            kdiff = (keys - ncc_sorted.bucket_keys_plain(
+                data.A[s], data.b[s], data.K_ref, pl, xs, ys, Hp, Wp)).abs()
+            n_keys += int((kdiff != 0).sum().item())
+            keys_err = max(keys_err, float(kdiff.max().item()))
+            perm = torch.sort(keys, stable=True).indices
             args = view(s) + (pl, xs, ys, perm, taps, cap)
             got = ncc_sorted.sample_view_vals_kernel(*args)
             want = ncc_sorted.sample_view_vals_plain(*args)
@@ -671,22 +754,55 @@ def phase_sorted(data, scene, params):
             max_err = max(max_err, compare(got, want)[1])
             flagged.append(want[-1].mean().item())
             del got, want
-        log(f"  (a) sample kernel vs plain, {label}, {S} views, "
+        log(f"  (a) raw-samples form vs plain, {label}, {S} views, "
             f"{len(taps) + 1} x {pl.shape[0]} entries each: "
             f"{n_diff - before} differ, max|diff| {max_err:.3e}; flagged "
             f"pixels {min(flagged):.3f}-{max(flagged):.3f}")
-    out["samples_max_abs_err"] = max_err
-    del trial, x_p, y_p
-    if n_diff:
-        raise AssertionError(f"sample kernel vs plain: {n_diff} entries "
-                             f"differ")
+    log(f"  (a) key kernel vs plain, {len(cases)} fields x {S} views: "
+        f"{n_keys} keys differ")
+    out["samples_max_abs_err"], out["keys_max_abs_err"] = max_err, keys_err
+    if n_diff or n_keys:
+        raise AssertionError(f"raw-samples form vs plain: {n_diff} entries "
+                             f"differ; keys: {n_keys} differ")
 
-    # (b) the sorted path vs the NCC kernel at K=1 on the full-range field
+    # (a2) the fused form (the path's) vs the plain chain (keys, sort, raw
+    # samples, un-permute, ZNCC) on the same fields, every view
     halo = step_halo(scale)
     refside = ncc_refside(_pad_rows(data.ref_img, halo, halo), halo, H, offs,
                           params.sigma_spatial, params.sigma_color)
+    refside0 = ncc_refside(_pad_rows(data.ref_img, step_halo(0),
+                                     step_halo(0)), step_halo(0), H,
+                           params.tap_offsets(0), params.sigma_spatial,
+                           params.sigma_color, pack_phase=0)
     common = (refside, data.src_imgs, data.src_widths, data.src_heights,
               data.A, data.b, data.K_ref)
+    fused_cases = [(f"init scale {scale}, cap {cap:g}", common, rand, x, y,
+                    offs, cap) for cap in (0.0, params.cap_radius(scale))]
+    fused_cases.append(("trial scale 0, cap 0", (refside0,) + common[1:],
+                        trial, x_p, y_p, params.tap_offsets(0), 0.0))
+    n_fused, fused_err = 0, 0.0
+    for label, com, pl, xs, ys, taps, cap in fused_cases:
+        want = ncc_sorted.ncc_eval_sorted_plain(*com, pl, xs, ys, taps,
+                                                params.cost_max, cap)
+        got = ncc_sorted.ncc_eval_sorted_kernel(*com, pl, xs, ys, taps,
+                                                params.cost_max, cap)
+        torch.cuda.synchronize()
+        same = (got == want) | (torch.isnan(got) & torch.isnan(want))
+        n = int((~same).sum().item())
+        n_fused += n
+        fused_err = max(fused_err, compare(got, want)[1])
+        log(f"  (a2) fused form vs plain chain, {label}, "
+            f"{tuple(got.shape)}: {n} entries differ, max|diff| "
+            f"{fused_err:.3e} (cost<{params.cost_max} in "
+            f"{(want < params.cost_max).float().mean().item():.3f})")
+        del got, want
+    out["fused_max_abs_err"] = fused_err
+    del trial, x_p, y_p, refside0
+    if n_fused:
+        raise AssertionError(f"fused sorted kernel vs plain chain: "
+                             f"{n_fused} entries differ")
+
+    # (b) the sorted path vs the NCC kernel at K=1 on the full-range field
     got = ncc_sorted.ncc_eval_sorted(*common, rand, x, y, offs,
                                      params.cost_max, 0.0)
     want = ncc_cuda.ncc_eval_one(*common, rand, x, y, offs, params.cost_max,
@@ -713,59 +829,74 @@ def phase_sorted(data, scene, params):
     ms_coh_plain = cuda_time_ms(lambda: ncc_cuda.ncc_eval_multi_plain(
         *common, coherent[None], x, y, offs, params.cost_max, cap_def),
         reps=1)
-    ms_path = cuda_time_ms(lambda: ncc_sorted.ncc_eval_sorted(
-        *common, rand, x, y, offs, params.cost_max, 0.0), reps=3)
-    stage = np.zeros(4)
-    reps = 3
-    for rep in range(reps + 1):
-        ev = [[torch.cuda.Event(enable_timing=True) for _ in range(5)]
-              for _ in range(S)]
-        for s in range(S):
-            e = ev[s]
-            e[0].record()
-            perm = ncc_sorted.sort_view(data.A[s], data.b[s], data.K_ref, pf,
-                                        xf, yf, Hp, Wp)
-            e[1].record()
-            vals = ncc_sorted.sample_view_vals_kernel(
-                *view(s), pf, xf, yf, perm, offs, 0.0)
-            e[2].record()
-            vals = ncc_sorted.unpermute(vals, perm)
-            e[3].record()
-            ncc_sorted.zncc_from_samples(refside, vals[:T].reshape(T, H, W),
-                                         vals[T].reshape(H, W) > 0.5,
-                                         params.cost_max)
-            e[4].record()
-            del vals
-        torch.cuda.synchronize()
-        if rep:  # the first pass warms up
-            stage += [sum(ev[s][i].elapsed_time(ev[s][i + 1])
-                          for s in range(S)) for i in range(4)]
-    stage /= reps
-    ms_plain = cuda_time_ms(lambda: ncc_sorted.sample_view_vals_plain(
+    sargs = common + (rand, x, y, offs, params.cost_max, 0.0)
+    ms_path = cuda_time_ms(lambda: ncc_sorted.ncc_eval_sorted_kernel(*sargs),
+                           reps=3)
+    fused = sorted_split(sargs, reps=3)
+    chain = samples_chain_split(sargs, reps=2)
+    ms_plain = cuda_time_ms(lambda: ncc_sorted.ncc_eval_sorted_plain(*sargs),
+                            reps=1)
+    perm0 = ncc_sorted.sort_view(data.A[0], data.b[0], data.K_ref, pf, xf,
+                                 yf, Hp, Wp)
+    ms_samples_plain = cuda_time_ms(lambda: ncc_sorted.sample_view_vals_plain(
         *view(0), pf, xf, yf, perm0, offs, 0.0), reps=1)
+
+    def fused_plain():  # the fused kernel's work for view 0, given its order
+        vals = ncc_sorted.unpermute(ncc_sorted.sample_view_vals_plain(
+            *view(0), pf, xf, yf, perm0, offs, 0.0), perm0)
+        return ncc_sorted.zncc_from_samples(
+            refside, vals[:T].reshape(T, H, W), vals[T].reshape(H, W) > 0.5,
+            params.cost_max)
+
+    ms_fused_plain = cuda_time_ms(fused_plain, reps=1)
     taps = N * S * T
     log(f"  (c) K=1, {W}x{H}, S={S}, scale {scale}: NCC kernel on the "
         f"coherent default init field {ms_coh:.3f} ms "
         f"({taps / ms_coh / 1e6:.3f} Gtaps/s; plain {ms_coh_plain:.3f} "
         f"ms); on the full-range field (view-major launch) "
-        f"{ms_rand:.3f} ms ({taps / ms_rand / 1e6:.3f} Gtaps/s); sorted path "
-        f"{ms_path:.3f} ms = sort {stage[0]:.3f} + sample kernel "
-        f"{stage[1]:.3f} + un-permute {stage[2]:.3f} + ZNCC {stage[3]:.3f} "
-        f"(event sums over the views); plain samples of one view "
-        f"{ms_plain:.3f} ms")
-    ms_kernel = stage[1] / S
-    out.update(ms_coh=ms_coh, ms_rand=ms_rand, ms_path=ms_path, stage=stage,
-               samples_ms=ms_kernel,
-               samples_plain_ms=ms_plain)
-    out["samples_bound"] = samples_bound(N, T, 4 * Hp * Wp, False)
+        f"{ms_rand:.3f} ms ({taps / ms_rand / 1e6:.3f} Gtaps/s)")
+    log(f"  (c) sorted path, fused form: {ms_path:.3f} ms = record "
+        f"{fused['record']:.3f} + keys and sort {fused['keys_sort']:.3f} + "
+        f"fused kernel {fused['fused_kernel']:.3f} (event sums over the "
+        f"views; {taps / ms_path / 1e6:.3f} Gtaps/s)")
+    log(f"  (c) the same call through the raw-samples form: "
+        f"{sum(chain.values()):.3f} ms = sort {chain['sort']:.3f} + "
+        f"raw-samples kernel {chain['samples_kernel']:.3f} + un-permute "
+        f"{chain['unpermute']:.3f} + ZNCC {chain['zncc']:.3f}; plain chain "
+        f"{ms_plain:.3f} ms; of one view, given its order: plain samples "
+        f"{ms_samples_plain:.3f} ms, plain samples, un-permute and ZNCC "
+        f"(the fused kernel's work) {ms_fused_plain:.3f} ms")
+    view_bytes = 4 * Hp * Wp
+    out.update(ms_coh=ms_coh, ms_rand=ms_rand, ms_path=ms_path, split=fused,
+               chain=chain, fused_ms=fused["fused_kernel"] / S,
+               fused_plain_ms=ms_fused_plain,
+               keys_ms=fused["keys_sort"] / S,
+               samples_ms=chain["samples_kernel"] / S,
+               samples_plain_ms=ms_samples_plain,
+               fused_bound=sorted_bound(N, T, view_bytes, False),
+               samples_bound=samples_bound(N, T, view_bytes, False),
+               keys_bound=keys_bound(N))
+    # the key kernel alone, per view, with the call's terms made once as
+    # ncc_eval_sorted makes them
+    out["keys_kernel_ms"] = cuda_time_ms(
+        lambda: ncc_sorted.view_keys_kernel(terms, 0, pf, xf, yf, Hp, Wp),
+        reps=10)
+    out["keys_plain_ms"] = cuda_time_ms(
+        lambda: ncc_sorted.bucket_keys_plain(data.A[0], data.b[0],
+                                             data.K_ref, pf, xf, yf, Hp, Wp),
+        reps=3)
     src_bytes = 4 * S * Hp * Wp
     out["k1_init_bound"] = ncc_bound(1, S, N, T, src_bytes, False)
-    log(f"  bounds (ms, set by): sample kernel per view "
+    log(f"  bounds (ms, set by) per view: fused kernel "
+        f"{out['fused_bound'][0]:.3f} ({out['fused_bound'][1]}) vs "
+        f"{out['fused_ms']:.3f} measured; raw-samples kernel "
         f"{out['samples_bound'][0]:.3f} ({out['samples_bound'][1]}) vs "
-        f"{ms_kernel:.3f} measured; NCC kernel K=1 over the init field "
+        f"{out['samples_ms']:.3f}; key kernel {out['keys_bound'][0]:.3f} "
+        f"({out['keys_bound'][1]}) vs {out['keys_kernel_ms']:.3f} (plain "
+        f"{out['keys_plain_ms']:.3f}); NCC kernel K=1 over the init field "
         f"{out['k1_init_bound'][0]:.3f} ({out['k1_init_bound'][1]}) vs "
         f"{ms_coh:.3f} coherent, {ms_rand:.3f} full-range")
-    del refside, common, perm0, rand, coherent
+    del refside, common, sargs, perm0, rand, coherent
     torch.cuda.empty_cache()
 
     # (d) photometric solves of view 0 with the reference semantics
@@ -775,22 +906,26 @@ def phase_sorted(data, scene, params):
         p = PatchMatchParams(sampler=sampler, **REFERENCE)
         ncc_cuda.COUNTS.reset()
         ncc_sorted.COUNTS.reset()
+        ncc_sorted.KEY_COUNTS.reset()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         res = solve_view(scene.images, scene.cameras, tf.PRNGKey(0), p,
                          device="cuda")
         torch.cuda.synchronize()
         sec = time.perf_counter() - t0
-        counts = (ncc_sorted.COUNTS.kernel, ncc_sorted.COUNTS.plain,
-                  ncc_cuda.COUNTS.kernel, ncc_cuda.COUNTS.plain)
+        counts = (ncc_sorted.COUNTS.forms.get("fused", 0),
+                  ncc_sorted.COUNTS.forms.get("samples", 0),
+                  ncc_sorted.COUNTS.plain, ncc_sorted.KEY_COUNTS.kernel,
+                  ncc_sorted.KEY_COUNTS.plain, ncc_cuda.COUNTS.kernel,
+                  ncc_cuda.COUNTS.plain)
         d = res.depth.cpu().numpy()
         rel = float(np.median(np.abs(d - gt) / gt))
-        expected = ((SAMPLES_SORTED, 0, NCC_SORTED, 0) if sampler == "sorted"
-                    else (0, 0, NCC_AUTO, 0))
+        expected = ((FUSED_SORTED, 0, 0, FUSED_SORTED, 0, NCC_SORTED, 0)
+                    if sampler == "sorted" else (0, 0, 0, 0, 0, NCC_AUTO, 0))
         log(f"  (d) reference-semantics solve, sampler={sampler!r}: "
-            f"{sec:.2f} s, median |d-gt|/gt {rel:.5f}; launches (sample "
-            f"kernel, plain, NCC kernel, plain) {counts}, the schedule "
-            f"implies {expected}")
+            f"{sec:.2f} s, median |d-gt|/gt {rel:.5f}; launches (fused, "
+            f"raw-samples, plain samples, key kernel, plain keys, NCC "
+            f"kernel, plain NCC) {counts}, the schedule implies {expected}")
         if not (np.isfinite(d).all() and rel < 0.01):
             raise AssertionError(f"sampler={sampler!r}: median rel error "
                                  f"{rel}")
@@ -834,7 +969,8 @@ def main(argv=None) -> int:
     from mpmvs_torch.params import PatchMatchParams
     from mpmvs_torch.solver import build_solve_data, solve_band_rows
     from mpmvs_torch.tools import build_kernels
-    from mpmvs_torch.utils.roofline import bilateral_bound, ncc_bound
+    from mpmvs_torch.utils.roofline import (bilateral_bound, ncc_bound,
+                                            table_bound)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -866,8 +1002,8 @@ def main(argv=None) -> int:
         log("phase 3: initial scoring and half-iterations, kernel vs plain")
         max_err = max(max_err, phase_half_iteration(data, params, band_rows))
     if not args.quick:
-        log("phase 7: the sorted path (sample kernel) and the reference "
-            "semantics")
+        log("phase 7: the sorted path (key, fused and raw-samples kernels) "
+            "and the reference semantics")
         sorted_out = phase_sorted(data, scene, params)
     del data
     torch.cuda.empty_cache()
@@ -875,55 +1011,92 @@ def main(argv=None) -> int:
         log("phase 4: photometric path through Pipeline")
         phase_pipeline(scene, params)
     paint_sky(scene)
-    log("phase 5: bilateral kernel vs plain")
-    bil_err, bil_ms, bil_plain_ms = phase_bilateral(scene)
+    log("phase 5: bilateral kernel (both forms) vs plain")
+    bil = phase_bilateral(scene)
     if args.quick:
         log(f"quick: NCC worst mismatch {worst:.3e}, max err {max_err:.3e}; "
-            f"bilateral max err {bil_err:.3e}")
+            f"bilateral max err {bil['max_abs_err']:.3e}")
         return 0
     torch.cuda.empty_cache()
     log("phase 6: full path (photometric, geom_0 + prior, geom_1, sky, "
         "fusion) through Pipeline")
-    ncc_launches, bil_launches = phase_full_path(scene, params)
+    ncc_launches, bil_forms, table_builds = phase_full_path(scene, params)
 
     # bounds at the timed shapes: the NCC kernel at phase 2's K=9 band
     # (scale 0, default cap), the bilateral kernel over view 0's in-image
-    # taps, the sample kernel per view at phase 7's init field
+    # taps, the sorted kernels per view at phase 7's init field
     P = band_rows * (W_FULL // 2)
-    k1_bound = ncc_bound(9, N_SRC, P, len(params.tap_offsets(0)),
+    k9_bound = ncc_bound(9, N_SRC, P, len(params.tap_offsets(0)),
                          4 * N_SRC * H_FULL * W_FULL, True)
     bil_bound = bilateral_bound(H_FULL, W_FULL, bilateral_cuda.RADIUS)
-    sam_bound = sorted_out["samples_bound"]
+    tab_bound = table_bound(bilateral_cuda.TABLE_SIZE)
+    so = sorted_out
     log(f"bounds (ms, set by) vs measured: NCC kernel K=9 band "
-        f"{k1_bound[0]:.3f} ({k1_bound[1]}) vs {ms_k:.3f}; bilateral "
-        f"{bil_bound[0]:.3f} ({bil_bound[1]}) vs {bil_ms:.3f}; sample kernel "
-        f"{sam_bound[0]:.3f} ({sam_bound[1]}) vs "
-        f"{sorted_out['samples_ms']:.3f}")
+        f"{k9_bound[0]:.3f} ({k9_bound[1]}) vs {ms_k:.3f}; bilateral "
+        f"{bil_bound[0]:.3f} ({bil_bound[1]}) vs {bil['ms']['table']:.3f} "
+        f"(table form), {bil['ms']['float']:.3f} (float form); fused sorted "
+        f"kernel {so['fused_bound'][0]:.3f} ({so['fused_bound'][1]}) vs "
+        f"{so['fused_ms']:.3f} per view; raw-samples form "
+        f"{so['samples_bound'][0]:.3f} vs {so['samples_ms']:.3f}; key "
+        f"kernel {so['keys_bound'][0]:.3f} vs {so['keys_kernel_ms']:.3f}")
     log(smi)
+
+    def entry(name, source, replaces, launches, err, ms, plain_ms, bnd,
+              **extra):
+        return dict({"name": name, "route": "cuda",
+                     "source": f"mpmvs_torch/csrc/{source}",
+                     "replaces": replaces, "launches": launches,
+                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bnd[0], "bound_by": bnd[1],
+                     "library_ms": None, "share_of_bound": bnd[0] / ms,
+                     "nvidia_smi": smi}, **extra)
+
+    fused_launches = so["solves"]["sorted"][2][0]
     # library_ms: no single PyTorch call computes any of these functions
-    # (PERF.md section 6)
-    log(json.dumps({"kernels": [{
-        "name": "ncc_eval_multi", "route": "cuda",
-        "source": "mpmvs_torch/csrc/ncc_eval.cu",
-        "replaces": "mpmvs_tpu/ops/pallas_ncc.py:94",
-        "launches": ncc_launches, "max_abs_err": max_err,
-        "ms": ms_k, "plain_ms": ms_p, "bound_ms": k1_bound[0],
-        "bound_by": k1_bound[1], "library_ms": None}, {
-        "name": "bilateral_refine", "route": "cuda",
-        "source": "mpmvs_torch/csrc/bilateral_refine.cu",
-        "replaces": "mpmvs_tpu/ops/pallas_bilateral.py:41",
-        "launches": bil_launches, "max_abs_err": bil_err,
-        "ms": bil_ms, "plain_ms": bil_plain_ms, "bound_ms": bil_bound[0],
-        "bound_by": bil_bound[1], "library_ms": None}, {
-        "name": "ncc_samples", "route": "cuda",
-        "source": "mpmvs_torch/csrc/ncc_samples.cu",
-        "replaces": "mpmvs_tpu/ops/pallas_ncc.py:733",
-        "launches": sorted_out["solves"]["sorted"][2][0],
-        "max_abs_err": sorted_out["samples_max_abs_err"],
-        "ms": sorted_out["samples_ms"],
-        "plain_ms": sorted_out["samples_plain_ms"],
-        "bound_ms": sam_bound[0], "bound_by": sam_bound[1],
-        "library_ms": None}]}))
+    # (PERF.md section 6). Launches: the NCC kernel, the bilateral kernel
+    # and its table builder in phase 6, the sorted kernels in phase 7(d);
+    # a form that path does not take is listed with its launches there, 0.
+    log(json.dumps({"kernels": [
+        entry("ncc_eval_multi", "ncc_eval.cu",
+              "mpmvs_tpu/ops/pallas_ncc.py:94", ncc_launches, max_err, ms_k,
+              ms_p, k9_bound),
+        entry("bilateral_refine", "bilateral_refine.cu",
+              "mpmvs_tpu/ops/pallas_bilateral.py:41",
+              sum(bil_forms.values()), bil["max_abs_err"], bil["ms"]["table"],
+              bil["ms"]["plain 8-bit"], bil_bound, form="table", forms=[
+                  {"form": form, "launches": bil_forms.get(form, 0),
+                   "ms": bil["ms"][form], "plain_ms": bil["ms"][plain],
+                   "share_of_bound": bil_bound[0] / bil["ms"][form],
+                   "equal_entries": bil["equal"][form]}
+                  for form, plain in (("table", "plain 8-bit"),
+                                      ("float", "plain"))]),
+        entry("bilateral_colour_table", "bilateral_refine.cu",
+              "mpmvs_tpu/ops/pallas_bilateral.py:41 (the colour factor of "
+              "its weights)", table_builds, bil["table_max_abs_err"],
+              bil["ms"]["table build"],
+              bil["ms"]["plain table"], tab_bound),
+        entry("ncc_sorted", "ncc_samples.cu",
+              "mpmvs_tpu/ops/pallas_ncc.py:733", fused_launches,
+              max(so["fused_max_abs_err"], so["samples_max_abs_err"]),
+              so["fused_ms"], so["fused_plain_ms"], so["fused_bound"],
+              form="fused", scope="one view, given its order and the "
+              "record: the kernel alone; plain: raw samples, un-permute and "
+              "ZNCC", forms=[
+                  {"form": "fused", "launches": fused_launches,
+                   "ms": so["fused_ms"], "plain_ms": so["fused_plain_ms"],
+                   "bound_ms": so["fused_bound"][0],
+                   "max_abs_err": so["fused_max_abs_err"]},
+                  {"form": "samples",
+                   "launches": so["solves"]["sorted"][2][1],
+                   "ms": so["samples_ms"], "plain_ms": so["samples_plain_ms"],
+                   "bound_ms": so["samples_bound"][0],
+                   "max_abs_err": so["samples_max_abs_err"]}]),
+        entry("ncc_bucket_keys", "ncc_samples.cu",
+              "mpmvs_tpu/ops/pallas_ncc.py:867 (the sort keys of "
+              "ncc_eval_pallas_sorted, XLA ops)",
+              so["solves"]["sorted"][2][3], so["keys_max_abs_err"],
+              so["keys_kernel_ms"],
+              so["keys_plain_ms"], so["keys_bound"])]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

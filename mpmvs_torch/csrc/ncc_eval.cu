@@ -47,8 +47,9 @@
 // with -fmad=false (PyTorch's eager ops round every multiply and add) and
 // without --use_fast_math: divisions are IEEE (one ulp of a coordinate can
 // move a tap to another texel). NaN propagates through clip and max as it
-// does in torch.clamp. The homography and tap arithmetic live in
-// ncc_tap.cuh, shared with ncc_samples.cu (the sorted path's kernel).
+// does in torch.clamp. The homography, the tap arithmetic and the ZNCC
+// tail live in ncc_tap.cuh, shared with ncc_samples.cu (the sorted path's
+// kernel).
 
 #include <stdint.h>
 
@@ -94,7 +95,7 @@ __device__ __forceinline__ void score_view(
     }
     NccHomography h;
     view_homography(v, sc, x, y, cap_radius, &h);
-    float sum_src = 0.0f, sum_src2 = 0.0f, sum_rs = 0.0f;
+    NccSums sums = {0.0f, 0.0f, 0.0f};
 #pragma unroll 1
     for (int a = 0; a < NCC_AXIS; ++a) {
       // h = (h_p + dx col_x) + dy col_y, as tap_sample rounds it; the
@@ -111,24 +112,13 @@ __device__ __forceinline__ void score_view(
         float xs, ys;
         tap_point(hx0 + dy * h.coly[0], hx1 + dy * h.coly[1],
                   hx2 + dy * h.coly[2], &h, CAP, &xs, &ys);
-        const float val = bilinear_tex(tex, v, xs, ys);
-        const float ws = tw[b * w_stride] * val;
-        sum_src = sum_src + ws;
-        sum_src2 = sum_src2 + ws * val;
-        sum_rs = sum_rs + twr[b * w_stride] * val;
+        zncc_add(&sums, tw[b * w_stride], twr[b * w_stride],
+                 bilinear_tex(tex, v, xs, ys));
       }
     }
 
-    const float m_src = sum_src * iw;
-    const float var_src = sum_src2 * iw - m_src * m_src;
-    const float covar = sum_rs * iw - mr * m_src;
-    const bool degenerate = vr < 1e-5f || var_src < 1e-5f;
-    float prod = vr * var_src;
-    prod = (prod != prod || prod >= 1e-30f) ? prod : 1e-30f;
-    const float denom = sqrtf(prod);
-    float ncc = 1.0f - covar / denom;
-    ncc = ncc < 0.0f ? 0.0f : (ncc > cost_max ? cost_max : ncc);
-    out[((size_t)k * S + s) * P + p] = (h.bad || degenerate) ? cost_max : ncc;
+    out[((size_t)k * S + s) * P + p] =
+        zncc_cost(sums, iw, mr, vr, h.bad, cost_max);
   }
 }
 

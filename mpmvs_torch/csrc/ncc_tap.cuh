@@ -1,6 +1,7 @@
 // Tap arithmetic of the bilateral-ZNCC window, shared by ncc_eval.cu (the
-// costs) and ncc_samples.cu (the raw samples of the sorted path), so that
-// both place every tap on the same texel.
+// costs) and ncc_samples.cu (the sorted path's costs and raw samples), so
+// that both place every tap on the same texel and turn the same sums into
+// the same cost.
 //
 // The operations follow mpmvs_torch/ops/ncc.py::ncc_eval one for one:
 // geometry.homography_apply for the centre (m = K_ref^-T n, scale = m / w,
@@ -205,7 +206,7 @@ __device__ __forceinline__ float bilinear_tex(cudaTextureObject_t tex,
 }
 
 // The sample of tap (dx, dy): h = h_p + dx col_x + dy col_y, projected and
-// sampled.
+// sampled from ``img`` through __ldg.
 __device__ __forceinline__ float tap_sample(const float* __restrict__ img,
                                             int Wp, const NccView& v,
                                             NccHomography* h, float dx,
@@ -216,4 +217,38 @@ __device__ __forceinline__ float tap_sample(const float* __restrict__ img,
   float xs, ys;
   tap_point(h0, h1, h2, h, cap, &xs, &ys);
   return bilinear_clamped(img, Wp, v, xs, ys);
+}
+
+// The weighted source sums of one window, tap by tap in the plain
+// version's order (ops/ncc.py::ncc_eval, ncc_sorted.zncc_from_samples).
+struct NccSums {
+  float src, src2, rs;
+};
+
+__device__ __forceinline__ void zncc_add(NccSums* s, float w, float wr,
+                                         float val) {
+  const float ws = w * val;
+  s->src = s->src + ws;
+  s->src2 = s->src2 + ws * val;
+  s->rs = s->rs + wr * val;
+}
+
+// The cost of a window from its sums and the reference-side moments (iw =
+// 1 / sum w, mr, vr): ops/ncc.py::zncc_from_sums, cost_max where ``bad``
+// or either variance is below 1e-5 (PatchMatch.cu:406-408), else
+// clip(1 - cov / sqrt(vr var_src), 0, cost_max). NaN passes through the
+// clamp and the clip as it does in torch.clamp.
+__device__ __forceinline__ float zncc_cost(const NccSums& s, float iw,
+                                           float mr, float vr, bool bad,
+                                           float cost_max) {
+  const float m_src = s.src * iw;
+  const float var_src = s.src2 * iw - m_src * m_src;
+  const float covar = s.rs * iw - mr * m_src;
+  const bool degenerate = vr < 1e-5f || var_src < 1e-5f;
+  float prod = vr * var_src;
+  prod = (prod != prod || prod >= 1e-30f) ? prod : 1e-30f;
+  const float denom = sqrtf(prod);
+  float ncc = 1.0f - covar / denom;
+  ncc = ncc < 0.0f ? 0.0f : (ncc > cost_max ? cost_max : ncc);
+  return (bad || degenerate) ? cost_max : ncc;
 }

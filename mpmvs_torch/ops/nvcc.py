@@ -30,15 +30,24 @@ _INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 
 @dataclasses.dataclass
 class LaunchCounts:
-    """Calls that reached a kernel's wrapper (``kernel``: launches) and its
+    """Calls that reached a kernel's wrapper (``kernel``: launches, and
+    ``forms``: launches by the kernel's form where it has several) and its
     plain version (``plain``) since the last reset."""
 
     kernel: int = 0
     plain: int = 0
+    forms: Dict[str, int] = dataclasses.field(default_factory=dict)
+
+    def launched(self, form: str = None):
+        """Count one launch, of ``form`` if named."""
+        self.kernel += 1
+        if form is not None:
+            self.forms[form] = self.forms.get(form, 0) + 1
 
     def reset(self):
         self.kernel = 0
         self.plain = 0
+        self.forms.clear()
 
 
 def _nvcc() -> str:

@@ -1,4 +1,7 @@
-"""Microbenchmark of the NCC kernel (``csrc/ncc_eval.cu``) on one CUDA card.
+"""Microbenchmark of the port's kernels on one CUDA card: the NCC kernel
+(``csrc/ncc_eval.cu``, ``--kernel ncc``, the default), the sorted path
+(``csrc/ncc_samples.cu``, ``--kernel sorted``) and the bilateral kernel
+(``csrc/bilateral_refine.cu``, ``--kernel bilateral``).
 
 Port of tools/kernel_bench.py (the JAX package's Pallas-kernel bench):
 the same operating point (``make_plane_scene`` at 3200x2130 with 11
@@ -39,6 +42,28 @@ exits non-zero::
     python -m mpmvs_torch.tools.kernel_bench --k 5 --cases step-reference \\
         --launch both
 
+``--kernel sorted`` times ``ops.ncc_sorted`` on view 0's full-range random
+field, the field the path serves: ``init`` (every pixel, scale 2, cap off:
+the reference semantics' init call), ``init-cap`` (the same at the default
+cap) and ``trial`` (one colour's packed half-width pixels, scale 0, cap
+off: a random-depth refinement trial). Per case it prints the whole call
+through the fused kernel, split into the pixel
+record, the key kernel and sort, and the fused kernel (CUDA-event sums
+over the views); the raw-samples chain of the same call (sort, raw-samples
+kernel, un-permute, ZNCC); and the plain chain once. ``--kernel
+bilateral`` times ``ops.bilateral_cuda`` at the scene's size on view 0's
+colour image (``float`` guide) and on it rounded to 8-bit values
+(``8bit``): the float form on both, the table form on the 8-bit guide, and
+the plain version once. ``--sass`` adds each
+form's instructions per tap in its unrolled interior row, counted from
+``cuobjdump -sass`` of the built library, and the issue floor they set at
+the card's maximum SM clock. ``--check`` holds every form against its
+plain version (entries not bit-equal)::
+
+    python -m mpmvs_torch.tools.kernel_bench --kernel sorted --check
+    python -m mpmvs_torch.tools.kernel_bench --kernel bilateral --check \\
+        --sass
+
 What is TPU-only in the JAX tool (``--quad``, ``WIN_BLOCKS``) has no
 counterpart here.
 """
@@ -46,8 +71,13 @@ counterpart here.
 from __future__ import annotations
 
 import argparse
+import collections
 import json
 import math
+import os
+import re
+import shutil
+import subprocess
 import sys
 import time
 from typing import NamedTuple
@@ -126,6 +156,7 @@ class Bench(NamedTuple):
     y0: int            # first row of the band
     device: dict       # tools.device_record
     gt_plane: Tensor   # (H, W, 4) view 0's true planes
+    color0: object     # (H, W, 3) view 0's BGR colours, on the host
 
 
 def setup(height: int, width: int, views: int, band_rows: int,
@@ -153,7 +184,7 @@ def setup(height: int, width: int, views: int, band_rows: int,
         geo.normal_world_to_cam(data.R_ref,
                                 n_world.expand(height, width, 3)))
     return Bench(data, params, br, (height // 2 // br) * br,
-                 device_record(dev), gt_plane)
+                 device_record(dev), gt_plane, scene.colors[0])
 
 
 def case_inputs(bench: Bench, K: int, scale: int, pixels: str, field: str,
@@ -298,6 +329,332 @@ def run_case(bench: Bench, K: int, scale: int, pixels: str, field: str,
     return res
 
 
+SORTED_CASES = ("init", "init-cap", "trial")
+
+
+def sorted_inputs(bench: Bench, case: str, key_seed: int = 11):
+    """``ncc_eval_sorted``'s arguments for one case: view 0's full-range
+    random field over every pixel at scale 2 (``init``, cap off;
+    ``init-cap``, the default cap) or over one colour's packed half-width
+    pixels at scale 0 (``trial``, cap off)."""
+    from mpmvs_torch import geometry as geo
+    from mpmvs_torch.ops import random as pmrand
+    from mpmvs_torch.ops import threefry as tf
+    from mpmvs_torch.ops.ncc import ncc_refside
+    from mpmvs_torch.ops.packing import packed_coords
+    from mpmvs_torch.ops.propagation import _pad_rows, step_halo
+
+    data, params = bench.data, bench.params
+    dev = data.ref_img.device
+    H, W = data.ref_img.shape
+    if case not in SORTED_CASES:
+        raise ValueError(f"sorted case must be one of {SORTED_CASES}, got "
+                         f"{case!r}")
+    scale = params.max_scale if case.startswith("init") else 0
+    halo = step_halo(scale)
+    offs = params.tap_offsets(scale)
+    ref_pad = _pad_rows(data.ref_img, halo, halo)
+    if case == "trial":
+        x, y = packed_coords(0, H, W // 2, 0, device=dev)
+        phase = 0
+    else:
+        x, y = geo.pixel_grid(H, W, device=dev)
+        phase = None
+    refside = ncc_refside(ref_pad, halo, H, offs, params.sigma_spatial,
+                          params.sigma_color, pack_phase=phase)
+    plane = pmrand.random_plane_field(tf.PRNGKey(key_seed, device=dev),
+                                      data.K_ref, x, y, data.depth_min,
+                                      data.depth_max)
+    cap = params.cap_radius(scale) if case == "init-cap" else 0.0
+    return (refside, data.src_imgs, data.src_widths, data.src_heights,
+            data.A, data.b, data.K_ref, plane, x, y, offs, params.cost_max,
+            cap)
+
+
+def _event_sums(setup, stages, S: int, reps: int) -> dict:
+    """Device ms of one call, averaged over ``reps`` calls after a warm-up:
+    ``setup = (name, fn())`` runs once, then for every view s the
+    ``stages`` [(name, fn(s, carry) -> carry)] in order, the carry starting
+    as setup's result; each stage's time is summed over the views."""
+    names = [setup[0]] + [n for n, _ in stages]
+    total = [0.0] * len(names)
+    for rep in range(reps + 1):
+        ev = [torch.cuda.Event(enable_timing=True)
+              for _ in range(2 + S * len(stages))]
+        ev[0].record()
+        base = setup[1]()
+        ev[1].record()
+        k = 1
+        for s in range(S):
+            carry = base
+            for _, fn in stages:
+                carry = fn(s, carry)
+                k += 1
+                ev[k].record()
+        del base, carry
+        torch.cuda.synchronize()
+        if rep:  # the first call warms up
+            total[0] += ev[0].elapsed_time(ev[1])
+            k = 1
+            for s in range(S):
+                for j in range(len(stages)):
+                    total[1 + j] += ev[k].elapsed_time(ev[k + 1])
+                    k += 1
+    return {n: t / reps for n, t in zip(names, total)}
+
+
+def sorted_split(args, reps: int = 3) -> dict:
+    """Device ms of one ``ncc_eval_sorted_kernel`` call split into the pixel
+    record (once), the key kernel and sort, and the fused kernel (sums over
+    the views), each stage as the call runs it."""
+    from mpmvs_torch.ops import ncc_sorted
+
+    refside, src, widths, heights, A, b, K_ref, plane, x, y, offs, cmax, \
+        cap = args
+    S, Hp, Wp = src.shape
+    pf, xf, yf = ncc_sorted._flat(plane, x, y)
+    terms = ncc_sorted.view_terms(widths, heights, A, b, K_ref, pf.device)
+    out = torch.empty((S, xf.shape[0]), device=xf.device)
+
+    def keys_sort(s, rec):
+        keys = ncc_sorted.view_keys_kernel(terms, s, pf, xf, yf, Hp, Wp)
+        return rec, torch.sort(keys, stable=True).indices
+
+    def fused(s, st):
+        rec, perm = st
+        ncc_sorted.view_costs_kernel(rec, src, s, terms, perm, offs, cmax,
+                                     cap, out[s])
+        return rec
+
+    return _event_sums(
+        ("record", lambda: ncc_sorted.pixel_record(refside, pf, xf, yf)),
+        [("keys_sort", keys_sort), ("fused_kernel", fused)], S, reps)
+
+
+def samples_chain(args) -> Tensor:
+    """``ncc_eval_sorted``'s costs (S, R, C) through the raw-samples form on
+    CUDA tensors, the path before the fused kernel: per view the sort, the
+    raw-samples kernel, the un-permute and the ZNCC in torch."""
+    from mpmvs_torch.ops import ncc_sorted
+
+    refside, src, widths, heights, A, b, K_ref, plane, x, y, offs, cmax, \
+        cap = args
+    S, Hp, Wp = src.shape
+    R, C = x.shape
+    T = len(offs)
+    pf, xf, yf = ncc_sorted._flat(plane, x, y)
+    costs = []
+    for s in range(S):
+        perm = ncc_sorted.sort_view(A[s], b[s], K_ref, pf, xf, yf, Hp, Wp)
+        vals = ncc_sorted.unpermute(ncc_sorted.sample_view_vals_kernel(
+            src[s], widths[s], heights[s], A[s], b[s], K_ref, pf, xf, yf,
+            perm, offs, cap), perm)
+        costs.append(ncc_sorted.zncc_from_samples(
+            refside, vals[:T].reshape(T, R, C), vals[T].reshape(R, C) > 0.5,
+            cmax))
+    return torch.stack(costs)
+
+
+def samples_chain_split(args, reps: int = 3) -> dict:
+    """Device ms of :func:`samples_chain` split into its stages (sums over
+    the views)."""
+    from mpmvs_torch.ops import ncc_sorted
+
+    refside, src, widths, heights, A, b, K_ref, plane, x, y, offs, cmax, \
+        cap = args
+    S, Hp, Wp = src.shape
+    R, C = x.shape
+    T = len(offs)
+    pf, xf, yf = ncc_sorted._flat(plane, x, y)
+
+    def sort(s, _):
+        return ncc_sorted.sort_view(A[s], b[s], K_ref, pf, xf, yf, Hp, Wp)
+
+    def samples(s, perm):
+        return perm, ncc_sorted.sample_view_vals_kernel(
+            src[s], widths[s], heights[s], A[s], b[s], K_ref, pf, xf, yf,
+            perm, offs, cap)
+
+    def unpermute(s, st):
+        perm, vals = st
+        return ncc_sorted.unpermute(vals, perm)
+
+    def zncc(s, vals):
+        return ncc_sorted.zncc_from_samples(
+            refside, vals[:T].reshape(T, R, C), vals[T].reshape(R, C) > 0.5,
+            cmax)
+
+    split = _event_sums(("none", lambda: None),
+                        [("sort", sort), ("samples_kernel", samples),
+                         ("unpermute", unpermute), ("zncc", zncc)], S, reps)
+    del split["none"]
+    return split
+
+
+def _same_count(a: Tensor, b: Tensor) -> int:
+    """Entries of ``a`` not bit-equal to ``b`` (NaN equals NaN)."""
+    return int((~((a == b) | (torch.isnan(a) & torch.isnan(b)))).sum().item())
+
+
+def run_sorted(bench: Bench, case: str, reps: int = 3,
+               check: bool = False) -> list:
+    """Time one sorted-path case: one result dict for the fused path, one
+    for the raw-samples chain and one for the plain chain."""
+    from mpmvs_torch.ops import ncc_sorted
+    from mpmvs_torch.utils.roofline import keys_bound, sorted_bound
+    from mpmvs_torch.utils.trace import cuda_time_ms
+
+    args = sorted_inputs(bench, case)
+    S, Hp, Wp = args[1].shape
+    R, C = args[8].shape
+    N, T = R * C, len(args[10])
+    cap = args[12] > 0
+    head = dict(kernel="sorted", case=case, shape=f"{C}x{R} px, {S} src "
+                f"{Wp}x{Hp}", cap_radius=args[12], taps=T)
+    res, want = [], None
+    if check:
+        want = ncc_sorted.ncc_eval_sorted_plain(*args)
+    b_ms, b_by = sorted_bound(N, T, 4 * Hp * Wp, cap)
+    k_ms = keys_bound(N)[0]
+    ms = cuda_time_ms(lambda: ncc_sorted.ncc_eval_sorted_kernel(*args),
+                      reps=reps)
+    split = sorted_split(args, reps)
+    r = dict(head, form="fused", ms=ms, split_ms=split,
+             fused_ms_per_view=split["fused_kernel"] / S,
+             bound_ms_per_view=b_ms, bound_by=b_by,
+             share_of_bound=b_ms / (split["fused_kernel"] / S),
+             keys_bound_ms_per_view=k_ms)
+    if check:
+        r["entries_differing"] = _same_count(
+            ncc_sorted.ncc_eval_sorted_kernel(*args), want)
+    res.append(r)
+    chain = samples_chain_split(args, reps)
+    res.append(dict(head, form="samples", ms=sum(chain.values()),
+                    split_ms=chain))
+    if check:
+        res[-1]["entries_differing"] = _same_count(samples_chain(args), want)
+    plain_ms = cuda_time_ms(lambda: ncc_sorted.ncc_eval_sorted_plain(*args),
+                            reps=1)
+    res.append(dict(head, form="plain", ms=plain_ms))
+    return res
+
+
+def bilateral_inputs(color0, device) -> dict:
+    """{guide name: (bgr, prob)} at the scene's size: view 0's colour image
+    ``color0`` (``float``) and it rounded to 8-bit values (``8bit``), each
+    with a smooth random probability."""
+    import torch.nn.functional as F
+
+    bgr = torch.as_tensor(color0, device=device)
+    H, W = bgr.shape[:2]
+    gen = torch.Generator(device=device).manual_seed(5)
+    logits = torch.randn((1, 1, max(H // 80, 1), max(W // 80, 1)),
+                         generator=gen, device=device) * 3.0
+    prob = torch.sigmoid(F.interpolate(logits, size=(H, W),
+                                       mode="bilinear")[0, 0]).contiguous()
+    eight = torch.clamp(torch.round(bgr), 0.0, 255.0).contiguous()
+    return {"float": (bgr.contiguous(), prob), "8bit": (eight, prob)}
+
+
+SASS_LINE = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]+\s+)?"
+                       r"([A-Z][A-Z0-9_.]*)(.*)")
+
+
+def sass_per_tap(library: str) -> dict:
+    """{kernel form: (instructions a tap, {opcode: count a tap})} of the
+    bilateral kernel in ``library``, from ``cuobjdump -sass``: in each form
+    the loop (a branch back to an earlier address) with the most texel
+    loads (``LDS.128`` in the float form, ``LDS.64`` in the table form) is
+    the unrolled interior row, one texel load a tap. Its instructions are
+    counted as written, those that a branch skips included; a called
+    routine (the slow path of the IEEE sqrt) is not."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    text = subprocess.run([tool, "-sass", library], capture_output=True,
+                          text=True, check=True).stdout
+    forms, current, items = {}, None, []
+    for line in text.splitlines() + ["Function : end"]:
+        if "Function :" in line:
+            if current is not None:
+                forms[current] = items
+            m = re.search(r"bilateral_refine_kernelI(6float4|5uint2)E", line)
+            current = None if m is None else (
+                "float" if m.group(1) == "6float4" else "table")
+            items = []
+        else:
+            m = SASS_LINE.search(line)
+            if m:
+                items.append((int(m.group(1), 16), m.group(2), m.group(3)))
+    out = {}
+    for form, items in forms.items():
+        texel = "LDS.128" if form == "float" else "LDS.64"
+        best = []
+        for addr, op, rest in items:
+            target = re.search(r"0x([0-9a-f]+)", rest) if op == "BRA" \
+                else None
+            if target and int(target.group(1), 16) < addr:
+                lo = int(target.group(1), 16)
+                body = [o for a, o, _ in items if lo <= a <= addr]
+                if body.count(texel) > best.count(texel):
+                    best = body
+        taps = best.count(texel)
+        hist = collections.Counter(op.split(".")[0] for op in best)
+        out[form] = (len(best) / taps,
+                     {op: n / taps for op, n in hist.most_common()})
+    return out
+
+
+def max_sm_clock_mhz() -> float:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True)
+    return float(out.stdout.strip().splitlines()[0])
+
+
+def run_bilateral(bench: Bench, reps: int = 10, check: bool = False,
+                  sass: bool = False) -> list:
+    """Time the bilateral kernel's forms (one result dict each) and the
+    plain version."""
+    from mpmvs_torch.ops import bilateral_cuda as bc
+    from mpmvs_torch.ops import nvcc
+    from mpmvs_torch.utils.roofline import bilateral_bound, issue_floor_ms
+    from mpmvs_torch.utils.trace import cuda_time_ms
+
+    inputs = bilateral_inputs(bench.color0, bench.data.ref_img.device)
+    H, W = inputs["float"][1].shape
+    b_ms, b_by = bilateral_bound(H, W, bc.RADIUS)
+    taps = H * W * (2 * bc.RADIUS + 1) ** 2
+    floors = {}
+    if sass:
+        clock = max_sm_clock_mhz()
+        for form, (per_tap, hist) in sass_per_tap(
+                nvcc.build(bc.SOURCE, bc.NVCC_FLAGS)).items():
+            floors[form] = dict(instructions_per_tap=per_tap,
+                                opcodes_per_tap=hist, max_sm_clock_mhz=clock,
+                                issue_floor_ms=issue_floor_ms(per_tap, taps,
+                                                              clock))
+    res = []
+    for guide, form in (("float", "float"), ("8bit", "float"),
+                        ("8bit", "table")):
+        bgr, prob = (a.contiguous() for a in inputs[guide])
+        fn = lambda: bc._launch(bgr, prob, bc.RADIUS, bc.SIGMA_SPATIAL,
+                                bc.SIGMA_COLOR, form)
+        ms = cuda_time_ms(fn, reps=reps)
+        r = dict(kernel="bilateral", guide=guide, form=form,
+                 shape=f"{W}x{H}", radius=bc.RADIUS, ms=ms,
+                 gtaps_per_s=taps / ms / 1e6, bound_ms=b_ms, bound_by=b_by,
+                 share_of_bound=b_ms / ms, **floors.get(form, {}))
+        if check:
+            r["entries_differing"] = _same_count(
+                fn(), bc.bilateral_refine_plain(bgr, prob))
+        res.append(r)
+    bgr, prob = inputs["8bit"]
+    res.append(dict(kernel="bilateral", guide="8bit", form="plain",
+                    shape=f"{W}x{H}", ms=cuda_time_ms(
+                        lambda: bc.bilateral_refine_plain(bgr, prob),
+                        reps=1)))
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--height", type=int, default=2130)
@@ -319,19 +676,38 @@ def main(argv=None) -> int:
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--check", action="store_true",
                     help="also compare with the plain version")
+    ap.add_argument("--kernel", default="ncc",
+                    choices=("ncc", "sorted", "bilateral"))
+    ap.add_argument("--sorted-cases", default=",".join(SORTED_CASES),
+                    help=f"comma-separated, of {list(SORTED_CASES)}")
+    ap.add_argument("--sass", action="store_true",
+                    help="count the bilateral forms' instructions a tap")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
         print("no CUDA device: kernel_bench times the kernel on a card",
               file=sys.stderr)
         return 1
-    from mpmvs_torch.ops import ncc_cuda, nvcc
+    from mpmvs_torch.ops import nvcc
+    from mpmvs_torch.tools import build_kernels
 
-    nvcc.build(ncc_cuda.SOURCE, ncc_cuda.NVCC_FLAGS, verbose=True)
+    build_kernels(torch.device("cuda"), verbose=True)
     t0 = time.perf_counter()
     bench = setup(args.height, args.width, args.views, args.band_rows,
                   args.cap_mult)
     print(f"scene and band in {time.perf_counter() - t0:.1f} s", flush=True)
+    if args.kernel != "ncc":
+        if args.kernel == "sorted":
+            results = [r for case in args.sorted_cases.split(",")
+                       for r in run_sorted(bench, case, min(args.reps, 3),
+                                           args.check)]
+        else:
+            results = run_bilateral(bench, args.reps, args.check, args.sass)
+        for res in results:
+            res.update(kind=bench.device["kind"],
+                       nvidia_smi=bench.device["nvidia_smi"])
+            print(json.dumps(res), flush=True)
+        return 0
     one = (args.k, args.scale, args.pixels, tuple(args.cases.split(",")))
     suite = SUITE if args.k is None else (one,)
     for K, scale, pixels, fields in suite:

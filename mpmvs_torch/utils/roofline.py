@@ -45,6 +45,40 @@ def samples_bound(N: int, T: int, view_bytes: int, cap: bool):
     return bound(flops, nbytes)
 
 
+def sorted_bound(N: int, T: int, view_bytes: int, cap: bool):
+    """One launch of the fused sorted kernel (``csrc/ncc_samples.cu``) over
+    N pixels of one view: as the NCC kernel at K = 1 for one view, 61
+    operations a pixel (+7 with the cap) and 34 a tap. Bytes: the
+    permutation, the pixel's plane, x, y and reference side (2 T + 3
+    floats), the view, the cost."""
+    flops = N * (61 + (7 if cap else 0) + 34 * T)
+    nbytes = N * (8 + 16 + 8 + 4 * (2 * T + 3) + 4) + view_bytes
+    return bound(flops, nbytes)
+
+
+def keys_bound(N: int):
+    """One launch of the key kernel over N pixels: 64 operations a pixel
+    (m / w 18, the centre's homogeneous image 30, its projection and
+    bucket 16). Bytes: plane, x and y in, the int32 key out."""
+    return bound(64 * N, N * (16 + 8 + 4))
+
+
+def table_bound(n: int):
+    """The bilateral table builder: n entries of sqrt, multiply and exp,
+    written once."""
+    return bound(3 * n, 4 * n)
+
+
+def issue_floor_ms(instructions_per_tap: float, taps: float,
+                   clock_mhz: float, sms: int = 132):
+    """The least time the card's schedulers take to issue a kernel's
+    instructions: ``taps`` threads' taps of ``instructions_per_tap`` each,
+    32 threads a warp instruction, 4 warp instructions a clock on each of
+    ``sms`` SMs at ``clock_mhz``."""
+    return 1e3 * taps * instructions_per_tap / 32 / (4 * sms) / (
+        clock_mhz * 1e6)
+
+
 def bilateral_bound(H: int, W: int, radius: int):
     """One call of the bilateral kernel (``csrc/bilateral_refine.cu``) on
     an H x W image: 15 operations per in-image tap (colour difference and

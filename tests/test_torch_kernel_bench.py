@@ -1,7 +1,9 @@
 """mpmvs_torch.tools.kernel_bench on the CPU: its field builders against
 the JAX tool's construction (tools/kernel_bench.py:86-108, through
 mpmvs_tpu.ops.random) from the same key, its capture of a real band
-step's NCC calls, and its refusal to run without a CUDA device.
+step's NCC calls, the sorted-path and bilateral cases it builds, its
+count of instructions a tap from a SASS listing, and its refusal to run
+without a CUDA device, for every kernel.
 
 Tolerance: as test_torch_random.py's derived fields (trig and
 normalisation on the draws, each op within an ulp or two): planes within
@@ -100,6 +102,97 @@ def test_exits_nonzero_without_cuda():
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-m",
                           "mpmvs_torch.tools.kernel_bench"],
+                         capture_output=True, text=True, env=env, cwd=REPO,
+                         timeout=120)
+    assert out.returncode != 0
+    assert "no CUDA device" in out.stderr
+    assert not out.stdout.strip()
+
+
+@pytest.mark.parametrize("case", kernel_bench.SORTED_CASES)
+def test_sorted_cases_build(case):
+    """Each sorted-path case is a full-range field over the pixels the
+    path sees there, and the plain chain scores it."""
+    from mpmvs_torch.ops import ncc_sorted
+
+    bench = kernel_bench.setup(48, 64, 4, 0, device="cpu")
+    args = kernel_bench.sorted_inputs(bench, case)
+    refside, plane, x, y, offs, cap = (args[0], args[7], args[8], args[9],
+                                       args[10], args[12])
+    shape = (48, 32) if case == "trial" else (48, 64)
+    assert tuple(x.shape) == shape and tuple(plane.shape) == shape + (4,)
+    assert tuple(refside.w.shape) == (len(offs),) + shape
+    assert offs == bench.params.tap_offsets(0 if case == "trial" else 2)
+    assert (cap > 0) == (case == "init-cap")
+    depth = geo.depth_from_plane(bench.data.K_ref, plane, x, y)
+    span = (depth.max() - depth.min()) / (bench.data.depth_max
+                                          - bench.data.depth_min)
+    assert float(span) > 0.8
+    costs = ncc_sorted.ncc_eval_sorted(*args)
+    assert costs.shape == (3,) + shape
+    assert 0.0 < float((costs < 2.0).float().mean()) < 1.0
+
+
+def test_bilateral_inputs_take_both_forms():
+    from mpmvs_torch.ops import bilateral_cuda
+
+    bench = kernel_bench.setup(48, 64, 4, 0, device="cpu")
+    inputs = kernel_bench.bilateral_inputs(bench.color0, torch.device("cpu"))
+    assert {g: bilateral_cuda.guide_form(bgr)
+            for g, (bgr, _) in inputs.items()} == {"float": "float",
+                                                  "8bit": "table"}
+    for bgr, prob in inputs.values():
+        assert bgr.shape == (48, 64, 3) and prob.shape == (48, 64)
+        assert 0.0 <= float(prob.min()) and float(prob.max()) <= 1.0
+    assert float((inputs["8bit"][0] - inputs["float"][0]).abs().max()) <= 0.5
+
+
+SASS = """
+	Function : _Z23bilateral_refine_kernelI5uint2EvPKfS2_S2_iiifPf
+        /*0000*/                   LDC R1, c[0x0][0x28] ;          /* 0x00 */
+        /*0010*/                   STS.64 [R3], R4 ;               /* 0x00 */
+        /*0020*/                   LDS.64 R4, [R3] ;               /* 0x00 */
+        /*0030*/                   LDS.64 R4, [R3] ;               /* 0x00 */
+        /*0040*/                   LDS.64 R4, [R2+-0x120] ;        /* 0x00 */
+        /*0050*/              @!P0 LDS R5, [R4] ;                  /* 0x00 */
+        /*0060*/                   IDP.4A.U8.U8 R9, R5, R5, RZ ;   /* 0x00 */
+        /*0070*/               @P2 BRA 0x90 ;                      /* 0x00 */
+        /*0080*/                   LDS.64 R4, [R2+-0x110] ;        /* 0x00 */
+        /*0090*/                   FADD R5, R4, -R8 ;              /* 0x00 */
+        /*00a0*/               @P1 BRA 0x40 ;                      /* 0x00 */
+        /*00b0*/                   LDS.64 R4, [R2] ;               /* 0x00 */
+        /*00c0*/                   EXIT ;                          /* 0x00 */
+	Function : _Z23bilateral_refine_kernelI6float4EvPKfS2_S2_iiifPf
+        /*0000*/                   LDS.128 R4, [R2+-0x120] ;       /* 0x00 */
+        /*0010*/                   MUFU.RSQ R5, R4 ;               /* 0x00 */
+        /*0020*/                   CALL.REL.NOINC 0x40 ;           /* 0x00 */
+        /*0030*/                   BRA 0x0 ;                       /* 0x00 */
+        /*0040*/                   MUFU.EX2 R5, R4 ;               /* 0x00 */
+	Function : _Z21bilateral_table_kernelfiPf
+        /*0000*/                   LDS.128 R4, [R2] ;              /* 0x00 */
+"""
+
+
+def test_sass_count_takes_the_unrolled_row(monkeypatch):
+    """Instructions a tap come from each form's loop (a branch back) with
+    the most texel loads, one a tap; forward branches inside it and the
+    staging before it do not cut or pad it; other kernels of the library
+    are left out."""
+    monkeypatch.setattr(kernel_bench.subprocess, "run",
+                        lambda *a, **k: type("R", (), {"stdout": SASS}))
+    got = kernel_bench.sass_per_tap("lib.so")
+    assert got == {"table": (3.5, {"LDS": 1.5, "BRA": 1.0, "IDP": 0.5,
+                                   "FADD": 0.5}),
+                   "float": (4.0, {"LDS": 1.0, "MUFU": 1.0, "CALL": 1.0,
+                                   "BRA": 1.0})}
+
+
+@pytest.mark.parametrize("kernel", ["sorted", "bilateral"])
+def test_kernel_cases_exit_nonzero_without_cuda(kernel):
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-m",
+                          "mpmvs_torch.tools.kernel_bench", "--kernel",
+                          kernel, "--check"],
                          capture_output=True, text=True, env=env, cwd=REPO,
                          timeout=120)
     assert out.returncode != 0

@@ -1,7 +1,8 @@
 """The port's CUDA kernels on the card (marked ``cuda``; each test skips
 where ``torch.cuda.is_available()`` is false): the NCC kernel
-(``csrc/ncc_eval.cu``), the sorted path's sample kernel
-(``csrc/ncc_samples.cu``) and the sky stage's bilateral kernel
+(``csrc/ncc_eval.cu``), the sorted path's kernels (``csrc/ncc_samples.cu``:
+the bucket keys, the fused costs and the raw samples) and the sky stage's
+bilateral kernel in both forms and its table builder
 (``csrc/bilateral_refine.cu``).
 
 This file imports only the port (no JAX), so it runs on a CUDA machine
@@ -27,11 +28,15 @@ Tolerances:
   depth), and both reach median |d-gt|/gt < 1%. The same bound holds for a
   geom solve warm-started from it.
 * sample kernel vs its plain version on the same CUDA tensors (a
-  full-range random field, cap on and off, scales 0 and 2, both output
-  orders): equal, NaN for NaN, because both share ncc_eval.cu's operations
-  one for one. The sorted path's costs vs the NCC kernel's at K=1: as the
-  kernel vs plain above (the ZNCC sums the taps in the kernel's order, so
-  they are expected to be equal).
+  full-range random field, cap on and off, scales 0 and 2): equal, NaN for
+  NaN, because both share ncc_eval.cu's operations one for one. The key
+  kernel vs its plain version: equal keys. The fused sorted path vs its
+  plain chain (keys, sort, samples, un-permute, ZNCC), at scales 0 and 2, cap on and off, pixel counts off the 128-pixel block,
+  views narrower than the stack and non-finite planes: equal, NaN for NaN
+  (the same tap arithmetic, sums in the same order, the same tail). The
+  sorted path's costs vs the NCC kernel's at K=1: as the kernel vs plain
+  above (the ZNCC sums the taps in the kernel's order, so they are
+  expected to be equal).
 * a reference-semantics solve with ``sampler="sorted"`` on the card vs on
   the CPU: as the photometric solve above; the sample kernel launches once
   per source view for the init band and for each random trial of every
@@ -42,7 +47,10 @@ Tolerances:
   1e-4 of the thresholded pixels differ (the kernel rounds each operation
   as the plain version's eager ops do, so they are expected to be equal);
   on a uniform image both equal each other exactly and stay within 1e-5 of
-  the uniform value up to the borders.
+  the uniform value up to the borders. The table form on 8-bit guides, at
+  radii 0, 18 and 24: equal to the plain version entry for entry (a table entry is the float
+  form's weight of the same integer distance, and the builder's table
+  equals the plain table bit for bit).
 * the sky mask of a painted image on the card vs on the CPU: at most 0.2%
   of pixels differ (CUDA's and the CPU's exp round apart).
 * the planar prior's rasterizer (integer torch ops) on the card vs on the
@@ -345,7 +353,7 @@ def test_sample_kernel_matches_plain(data, scale, cap):
     for view in range(data.src_imgs.shape[0]):
         args = _sample_args(data, scale, cap, view)
         before = ncc_sorted.COUNTS.kernel
-        got = ncc_sorted.sample_view_vals(*args)
+        got = ncc_sorted.sample_view_vals_kernel(*args)
         want = ncc_sorted.sample_view_vals_plain(*args)
         torch.cuda.synchronize()
         assert ncc_sorted.COUNTS.kernel == before + 1
@@ -377,6 +385,114 @@ def test_sorted_path_matches_ncc_kernel(data, cap):
     assert frac_beyond(got, want, 1e-4) < FRAC_TOL
 
 
+def _sorted_call(d, planes_fn, scale: int, rows: int, r0: int, cap: bool):
+    """ncc_eval_sorted's arguments for rows x 45 pixels (a multiple of
+    neither 32 nor 128 for odd ``rows``), one field from
+    ``planes_fn(0, x, y)``."""
+    args = _rows_args(d, planes_fn, 1, scale, rows, r0, cap)
+    return args[:7] + (args[7][0],) + args[8:]
+
+
+@pytest.mark.parametrize("cap", [True, False])
+@pytest.mark.parametrize("scale", [0, 2])
+def test_fused_sorted_equals_plain_chain(data, scale, cap):
+    """The whole view through the fused kernel, and 5 x 45 pixels."""
+    H, W = data.ref_img.shape
+    for rows, r0 in ((H, 0), (5, 20)):
+        args = _sorted_call(data, _random_planes(data, 80 + scale), scale,
+                            rows, r0, cap)
+        before = (ncc_sorted.COUNTS.forms.get("fused", 0),
+                  ncc_sorted.KEY_COUNTS.kernel)
+        got = ncc_sorted.ncc_eval_sorted_kernel(*args)
+        want = ncc_sorted.ncc_eval_sorted_plain(*args)
+        torch.cuda.synchronize()
+        S = data.src_imgs.shape[0]
+        assert (ncc_sorted.COUNTS.forms["fused"],
+                ncc_sorted.KEY_COUNTS.kernel) == (before[0] + S,
+                                                  before[1] + S)
+        assert got.shape == want.shape == (S, rows, 45)
+        assert _same(got, want)
+        assert (want < PARAMS.cost_max).any() and \
+            (want == PARAMS.cost_max).any()
+
+
+def test_fused_sorted_equals_plain_chain_below_stack_extent(data):
+    S, Hp, Wp = data.src_imgs.shape
+    small = data._replace(
+        src_widths=torch.tensor([70.0, Wp, 51.0], device=data.A.device),
+        src_heights=torch.tensor([Hp - 9.0, 31.0, Hp], device=data.A.device))
+    args = _sorted_call(small, _random_planes(data, 90), 2, 7, 18, True)
+    got = ncc_sorted.ncc_eval_sorted_kernel(*args)
+    assert _same(got, ncc_sorted.ncc_eval_sorted_plain(*args))
+    full = _sorted_call(data, _random_planes(data, 90), 2, 7, 18, True)
+    assert not _same(got, ncc_sorted.ncc_eval_sorted_kernel(*full))
+
+
+def test_fused_sorted_equals_plain_chain_nonfinite_planes(data):
+    base = _random_planes(data, 95)
+
+    def planes(k, x, y):
+        pl = base(k, x, y).clone()
+        pl[::2, ::3] = float("nan")
+        pl[1::2, ::5, 3] = float("inf")
+        pl[1::3, 1::4, 3] = 0.0
+        pl[2::3, 2::4, 3] = pl[2::3, 2::4, 3] * 1e-4
+        return pl
+
+    for cap in (True, False):
+        args = _sorted_call(data, planes, 0, 9, 10, cap)
+        assert _same(ncc_sorted.ncc_eval_sorted_kernel(*args),
+                     ncc_sorted.ncc_eval_sorted_plain(*args))
+
+
+def test_key_kernel_equals_plain(data):
+    args = _sample_args(data, 2, False, 1)
+    A, b, K_ref, pf, xf, yf = args[3], args[4], args[5], args[6], args[7], \
+        args[8]
+    pf = pf.clone()
+    pf[::7] = float("nan")
+    pf[1::11, 3] = 0.0
+    _, Hp, Wp = data.src_imgs.shape
+    terms = ncc_sorted.view_terms(data.src_widths, data.src_heights, data.A,
+                                  data.b, K_ref, pf.device)
+    before = ncc_sorted.KEY_COUNTS.kernel
+    got = ncc_sorted.view_keys_kernel(terms, 1, pf, xf, yf, Hp, Wp)
+    want = ncc_sorted.bucket_keys_plain(A, b, K_ref, pf, xf, yf, Hp, Wp)
+    assert ncc_sorted.KEY_COUNTS.kernel == before + 1
+    assert got.dtype == want.dtype == torch.int32
+    assert torch.equal(got, want)
+    assert len(torch.unique(got)) > 10
+
+
+def test_fused_wrapper_rejects_bad_inputs(data):
+    args = list(_sorted_call(data, _random_planes(data, 97), 0, 3, 10,
+                             True))
+    record = ncc_sorted.pixel_record(args[0], args[7].reshape(-1, 4),
+                                     args[8].reshape(-1), args[9].reshape(-1))
+    N = record.shape[0]
+    perm = torch.arange(N, device=record.device)
+    terms = ncc_sorted.view_terms(data.src_widths, data.src_heights, data.A,
+                                  data.b, data.K_ref, record.device)
+    view = (data.src_imgs, 0, terms)
+    offs = args[10]
+    with pytest.raises(ValueError, match="record"):
+        ncc_sorted.view_costs_kernel(record[:, :-4].contiguous(), *view,
+                                     perm, offs)
+    with pytest.raises(ValueError, match="perm has shape"):
+        ncc_sorted.view_costs_kernel(record[1:], *view, perm, offs)
+    with pytest.raises(ValueError, match="view"):
+        ncc_sorted.view_costs_kernel(record, data.src_imgs, 3, terms, perm,
+                                     offs)
+    with pytest.raises(ValueError, match="terms"):
+        ncc_sorted.view_costs_kernel(record, data.src_imgs, 0,
+                                     terms._replace(ab=terms.ab[:2]), perm,
+                                     offs)
+    with pytest.raises(TypeError, match="int64"):
+        ncc_sorted.view_costs_kernel(record, *view, perm.int(), offs)
+    with pytest.raises(ValueError, match="CUDA"):
+        ncc_sorted.view_costs_kernel(record.cpu(), *view, perm.cpu(), offs)
+
+
 def test_sample_kernel_wrapper_rejects_bad_inputs(data):
     args = list(_sample_args(data, 0, True, 0))
     good = list(args)
@@ -401,6 +517,7 @@ def test_sorted_solve_on_card_goes_through_the_sample_kernel(dev):
     key = tf.PRNGKey(0)
     ncc_cuda.COUNTS.reset()
     ncc_sorted.COUNTS.reset()
+    ncc_sorted.KEY_COUNTS.reset()
     on_card = solve_view(scene.images, scene.cameras, key, params,
                          device=dev)
     torch.cuda.synchronize()
@@ -408,8 +525,12 @@ def test_sorted_solve_on_card_goes_through_the_sample_kernel(dev):
     br = solve_band_rows(params, 64, 80, S)
     n_bands = _band_geometry(64, 80, S, 0, False, br)[2]
     steps = params.max_iterations * 2 * n_bands
+    per_view = S * init_band_count(br, 64) + steps * 2 * S
     assert (ncc_sorted.COUNTS.kernel, ncc_sorted.COUNTS.plain) == (
-        S * init_band_count(br, 64) + steps * 2 * S, 0)
+        per_view, 0)
+    assert ncc_sorted.COUNTS.forms == {"fused": per_view}
+    assert (ncc_sorted.KEY_COUNTS.kernel,
+            ncc_sorted.KEY_COUNTS.plain) == (per_view, 0)
     assert (ncc_cuda.COUNTS.kernel, ncc_cuda.COUNTS.plain) == (steps * 2, 0)
     on_cpu = solve_view(scene.images, scene.cameras, key, params,
                         device="cpu")
@@ -442,6 +563,57 @@ def test_bilateral_kernel_matches_plain(dev, shape):
     assert got.shape == shape and got.device.type == "cuda"
     assert (got - want).abs().max().item() <= 1e-5
     assert ((got > 0.6) != (want > 0.6)).float().mean().item() <= 1e-4
+
+
+def _guide_8bit(H, W, seed, dev):
+    bgr, prob = _bilateral_inputs(H, W, seed, dev)
+    return torch.clamp(torch.round(bgr), 0.0, 255.0), prob
+
+
+@pytest.mark.parametrize("radius", [0, 18, 24])
+@pytest.mark.parametrize("shape", [(8, 32), (37, 130), (213, 320)])
+def test_bilateral_table_form_equals_plain(dev, shape, radius):
+    bgr, prob = _guide_8bit(*shape, seed=shape[1], dev=dev)
+    before = bilateral_cuda.COUNTS.forms.get("table", 0)
+    got = bilateral_cuda.bilateral_refine_kernel(bgr, prob, radius)
+    want = bilateral_cuda.bilateral_refine_plain(bgr, prob, radius)
+    torch.cuda.synchronize()
+    assert bilateral_cuda.COUNTS.forms["table"] == before + 1
+    assert torch.equal(got, want)
+    exact = bilateral_cuda._launch(bgr, prob, radius,
+                                   bilateral_cuda.SIGMA_SPATIAL,
+                                   bilateral_cuda.SIGMA_COLOR, "float")
+    assert torch.equal(exact, want)
+
+
+def test_bilateral_table_equals_plain_table(dev):
+    bilateral_cuda.colour_table.cache_clear()
+    before = bilateral_cuda.TABLE_COUNTS.kernel
+    got = bilateral_cuda.colour_table(bilateral_cuda.SIGMA_COLOR,
+                                      torch.device("cuda", 0))
+    again = bilateral_cuda.colour_table(bilateral_cuda.SIGMA_COLOR,
+                                        torch.device("cuda", 0))
+    assert got is again and bilateral_cuda.TABLE_COUNTS.kernel == before + 1
+    assert torch.equal(got, bilateral_cuda.colour_table_plain(
+        bilateral_cuda.SIGMA_COLOR, dev))
+
+
+def test_bilateral_form_follows_the_guide(dev):
+    """One value off the integers, or out of [0, 255], and the wrapper
+    takes the float form; an 8-bit guide takes the table form."""
+    bgr, prob = _guide_8bit(40, 70, 3, dev)
+    half, over = bgr.clone(), bgr.clone()
+    half[7, 11, 1] += 0.5
+    over[30, 2, 0] = 256.0
+    for guide, form in ((bgr, "table"), (half, "float"), (over, "float")):
+        bilateral_cuda.COUNTS.reset()
+        got = bilateral_cuda.bilateral_refine(guide, prob)
+        assert bilateral_cuda.COUNTS.forms == {form: 1}
+        assert torch.equal(got, bilateral_cuda.bilateral_refine_plain(guide,
+                                                                      prob))
+    with pytest.raises(ValueError, match="form"):
+        bilateral_cuda._launch(bgr, prob, 18, bilateral_cuda.SIGMA_SPATIAL,
+                               bilateral_cuda.SIGMA_COLOR, "half")
 
 
 def test_bilateral_kernel_uniform_image(dev):

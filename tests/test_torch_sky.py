@@ -11,9 +11,11 @@ Tolerances:
 * ``segment_sky`` vs the JAX ``segment_sky``: probability max |diff| <= 1e-4
   (the two above together; measured 7e-6 at 1600x1700).
 * ``bilateral_refine_plain`` vs ``bilateral_refine_pallas(interpret=True)``
-  at 52x150: max |diff| <= 1e-5 (measured 1.8e-7: exp rounds apart in XLA
-  and torch); a uniform image stays uniform to 1e-5 at the borders
-  (out-of-image taps carry no weight).
+  at 52x150, on a float guide and on an 8-bit one: max |diff| <= 1e-5
+  (measured 1.8e-7 on the float guide: exp rounds apart in XLA and torch);
+  a uniform image stays uniform to 1e-5 at the borders (out-of-image taps
+  carry no weight). The plain colour table: equal, entry for entry, to the
+  plain filter's own expression.
 * The thresholded masks against the JAX ``bilateral_refine`` (its jnp.roll
   oracle): at most 0.2% of pixels differ, as in tests/test_pallas.py.
 """
@@ -111,6 +113,53 @@ def test_bilateral_plain_matches_pallas():
     assert (n(tsky.bilateral_refine(t(bgr), t(prob))) != mask).mean() < 0.002
 
 
+def test_bilateral_plain_matches_pallas_on_8bit_guide():
+    """An 8-bit guide, as a workspace gives it (the kernel's table form on
+    the card): the plain version against the Pallas kernel in interpret
+    mode, as on a float guide."""
+    rng = np.random.default_rng(8)
+    img = _sky_image(52, 150, seed=9)
+    img[30:40, 20:90] = rng.integers(0, 256, (10, 70, 3))
+    bgr = img.astype(np.float32)
+    prob = rng.uniform(0, 1, (52, 150)).astype(np.float32)
+    assert bilateral_cuda.guide_form(t(bgr)) == "table"
+    want = np.asarray(bilateral_refine_pallas(jnp.asarray(bgr),
+                                              jnp.asarray(prob),
+                                              interpret=True))
+    got = n(bilateral_cuda.bilateral_refine(t(bgr), t(prob)))
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
+
+
+def test_colour_table_plain_is_the_plain_weight():
+    """Entry d2 of the plain table is exp(-sqrt(d2) / sigma_color) for every
+    integer d2 up to 3 * 255^2, and the colour factor the plain filter
+    computes for any pair of 8-bit colours is the entry of their squared
+    distance."""
+    inv = np.float32(1.0 / bilateral_cuda.SIGMA_COLOR)
+    table = bilateral_cuda.colour_table_plain()
+    d2 = torch.arange(195076, dtype=torch.float32)
+    assert table.shape == (bilateral_cuda.TABLE_SIZE,) == (195076,)
+    assert torch.equal(table, torch.exp(-torch.sqrt(d2) * float(inv)))
+    rng = np.random.default_rng(6)
+    a = t(rng.integers(0, 256, (5000, 3)).astype(np.float32))
+    b = t(rng.integers(0, 256, (5000, 3)).astype(np.float32))
+    a[0], b[0] = 0.0, 255.0
+    d = b - a
+    dist2 = d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1] + d[:, 2] * d[:, 2]
+    assert float(dist2.max()) == 195075.0
+    assert torch.equal(torch.exp(-torch.sqrt(dist2) * float(inv)),
+                       table[dist2.long()])
+
+
+def test_guide_form():
+    bgr = torch.tensor([[[0.0, 17.0, 255.0]]])
+    assert bilateral_cuda.guide_form(bgr) == "table"
+    for bad in (0.5, -1.0, 256.0, float("nan")):
+        g = bgr.clone()
+        g[0, 0, 1] = bad
+        assert bilateral_cuda.guide_form(g) == "float"
+
+
 def test_bilateral_uniform_image_edges():
     bgr = torch.full((24, 140, 3), 128.0)
     out = n(bilateral_cuda.bilateral_refine_plain(bgr, torch.full((24, 140),
@@ -139,6 +188,8 @@ def test_wrappers_reject_bad_inputs():
         bilateral_cuda.bilateral_refine(bgr, prob, radius=30)
     with pytest.raises(ValueError, match="CUDA"):
         bilateral_cuda.bilateral_refine_kernel(bgr, prob)
+    with pytest.raises(ValueError, match="CUDA"):
+        bilateral_cuda.colour_table_kernel(8.0, "cpu")
     with pytest.raises(ValueError, match="no bilateral"):
         bilateral_cuda.bilateral_refine(bgr.to("meta"), prob.to("meta"))
 

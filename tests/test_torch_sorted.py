@@ -1,8 +1,10 @@
 """The port's bucket-sorted NCC path (mpmvs_torch.ops.ncc_sorted on CPU
-tensors, the plain twin of csrc/ncc_samples.cu) against the JAX package's
-``_sample_view_vals`` and ``ncc_eval_pallas_sorted`` run in interpret mode,
-as tests/test_pallas.py runs them, and against the XLA ``ncc_eval``; then a
-reference-semantics solve routed through it, and the ``sampler`` mapping.
+tensors, the plain twins of csrc/ncc_samples.cu's kernels) against the JAX
+package's ``_sample_view_vals`` and ``ncc_eval_pallas_sorted`` run in
+interpret mode, as tests/test_pallas.py runs them, and against the XLA
+``ncc_eval``; the fused kernel's pixel record and the int32 sort keys
+against the refside and the JAX sort; then a reference-semantics solve
+routed through the path, and the ``sampler`` mapping.
 
 Interpret mode compiles the Pallas kernel with its taps unrolled (about 28 s
 for 36 taps on one CPU core), so the kernel comparisons use every fourth
@@ -104,7 +106,7 @@ def test_plain_samples_match_pallas_interpret(cap):
             data.src_imgs[s], wh[s:s + 1], ab[s:s + 1], kinvt,
             plane.reshape(-1, 4)[p], x.reshape(-1)[p], y.reshape(-1)[p],
             offsets=OFFSETS, cost_max=2.0, interpret=True, cap_radius=cap))
-        got = ncc_sorted.sample_view_vals(
+        got = ncc_sorted.sample_view_vals_plain(
             t(data.src_imgs[s]), t(data.src_widths[s]),
             t(data.src_heights[s]), t(data.A[s]), t(data.b[s]),
             t(data.K_ref), pf, xf, yf, perm, OFFSETS, cap)
@@ -152,11 +154,85 @@ def test_ncc_eval_sorted_matches_plain_ncc_eval_with_cap():
     assert frac_beyond(got, want, 1e-4) <= FRAC_TOL
 
 
+@pytest.mark.parametrize("offs", [JaxParams().tap_offsets(0), OFFSETS],
+                         ids=["36_taps", "9_taps"])
+def test_pixel_record_is_the_refside_transposed(offs):
+    """Row p of the fused kernel's pixel-major record holds pixel p's
+    plane, x, y, inv_w and m_ref, then w_t and wr_t in blocks of four taps
+    (zero weights up to T rounded up to 4), then var_ref, each equal to
+    the (T, R, C) refside read at that pixel."""
+    data, x, y, plane = _four_views()
+    rt = tncc.ncc_refside(t(data.ref_img), 8, 8, offs, 5.0, 3.0)
+    N, T = 8 * 128, len(offs)
+    Tp = -(-T // 4) * 4
+    rec = ncc_sorted.pixel_record(rt, t(plane).reshape(N, 4),
+                                  t(x).reshape(N), t(y).reshape(N))
+    assert rec.shape == (N, ncc_sorted.record_stride(T))
+    assert rec.shape[1] % 4 == 0 and rec.shape[1] >= 8 + 2 * Tp + 1
+    assert ncc_sorted.record_stride(36) == 84
+    head = np.concatenate([np.asarray(plane).reshape(N, 4)] + [
+        np.asarray(a).reshape(N, 1) for a in (x, y)] + [
+        n(a).reshape(N, 1) for a in (rt.inv_w, rt.m_ref)], 1)
+    np.testing.assert_array_equal(n(rec[:, :8]), head)
+    blocks = n(rec[:, 8:8 + 2 * Tp]).reshape(N, Tp // 4, 2, 4)
+    for half, a in enumerate((rt.w, rt.wr)):
+        got = blocks[:, :, half, :].reshape(N, Tp)
+        np.testing.assert_array_equal(got[:, :T], n(a.reshape(T, N)).T)
+        assert not got[:, T:].any()
+    np.testing.assert_array_equal(n(rec[:, 8 + 2 * Tp]),
+                                  n(rt.var_ref).reshape(N))
+    assert not n(rec[:, 8 + 2 * Tp + 1:]).any()
+
+
+@pytest.mark.parametrize("view", [0, 1, 2])
+def test_int32_keys_give_sort_view_and_jax_sort_order(view):
+    """The int32 bucket keys order the pixels as sort_view does and as
+    jax.lax.sort orders the same keys (ncc_eval_pallas_sorted's sort);
+    keys from the JAX package's centre projection, bucketed as the port
+    buckets, agree on all but 1e-3 of the pixels (XLA contracts the
+    projection's multiply-adds on the CPU)."""
+    data, x, y, plane = _four_views()
+    N = 8 * 128
+    pl = np.asarray(plane).reshape(N, 4).copy()
+    pl[::37] = np.nan  # non-finite projections go to the edge buckets
+    _, Hp, Wp = data.src_imgs.shape
+    args = (t(data.A[view]), t(data.b[view]), t(data.K_ref), t(pl),
+            t(x).reshape(N), t(y).reshape(N), Hp, Wp)
+    keys = ncc_sorted.bucket_keys_plain(*args)
+    assert keys.dtype == torch.int32 and keys.shape == (N,)
+    n_rows, n_cols = -(-Hp // 8), -(-Wp // 32)
+    assert 0 <= int(keys.min()) and int(keys.max()) < n_rows * n_cols
+    assert len(np.unique(n(keys))) >= n_rows * n_cols // 3
+    perm = ncc_sorted.sort_view(*args)
+    np.testing.assert_array_equal(n(perm),
+                                  np.argsort(n(keys), kind="stable"))
+    _, order = jax.lax.sort((jnp.asarray(n(keys)),
+                             jnp.arange(N, dtype=jnp.int32)), num_keys=1)
+    np.testing.assert_array_equal(n(perm), np.asarray(order))
+    pt = jgeo.homography_apply(data.A[view], data.b[view], data.K_ref,
+                               jnp.asarray(pl), x.reshape(N), y.reshape(N))[0]
+    cx, cy = (np.nan_to_num(np.asarray(pt[..., i])) for i in (0, 1))
+    jkeys = (np.clip(np.floor(cy / 8), 0, n_rows - 1).astype(np.int32)
+             * n_cols + np.clip(np.floor(cx / 32), 0, n_cols - 1)
+             .astype(np.int32))
+    assert (jkeys != n(keys)).mean() <= FRAC_TOL
+
+
 def test_other_devices_raise():
     data, x, y, plane = _four_views()
     meta = lambda a: t(a).to("meta")
-    with pytest.raises(ValueError, match="no sample implementation"):
-        ncc_sorted.sample_view_vals(
+    with pytest.raises(ValueError, match="no sorted-path implementation"):
+        ncc_sorted.ncc_eval_sorted(
+            None, meta(data.src_imgs), meta(data.src_widths),
+            meta(data.src_heights), meta(data.A), meta(data.b),
+            meta(data.K_ref), meta(plane), meta(x), meta(y), OFFSETS)
+    # the kernel wrappers refuse any tensor not on a CUDA device
+    with pytest.raises(ValueError, match="need CUDA tensors"):
+        ncc_sorted.view_keys_kernel(None, 0, meta(plane).reshape(-1, 4),
+                                    meta(x).reshape(-1), meta(y).reshape(-1),
+                                    32, 128)
+    with pytest.raises(ValueError, match="need CUDA tensors"):
+        ncc_sorted.sample_view_vals_kernel(
             meta(data.src_imgs[0]), meta(data.src_widths[0]),
             meta(data.src_heights[0]), meta(data.A[0]), meta(data.b[0]),
             meta(data.K_ref), meta(plane).reshape(-1, 4),
