@@ -2,18 +2,25 @@
 """Smoke test of the PyTorch port (mpmvs_torch) on one CUDA card.
 
     python3 chip_smoke.py            # all phases, one card
-    python3 chip_smoke.py --quick    # phases 1, 2 and 5 (builds + kernel checks)
+    python3 chip_smoke.py --quick    # phases 1, 1b, 2 and 5 (builds, kernel checks)
 
 Phases, in order; any failure raises and the script exits non-zero:
 
 1. Device and build: the card's name and power limit, and the ``nvcc``
-   builds of ``mpmvs_torch/csrc/ncc_eval.cu``, ``ncc_samples.cu`` and
-   ``bilateral_refine.cu``, started together, with their time and register
-   reports.
+   builds of ``mpmvs_torch/csrc/ncc_eval.cu``, ``ncc_samples.cu``,
+   ``bilateral_refine.cu`` and ``jpeg_codec.cu`` (the JPEG decoder's IDCT
+   and colour kernels, nvJPEG's encoder), started together, with their time
+   and register reports.
+1b. The JPEG fixtures (``tests/data/jpeg``) decoded on the card against
+   cv2's arrays (``decoded.npz``): entries that differ and the largest
+   difference, grey and BGR; the IDCT and colour kernels against their
+   plain versions on each fixture. No entry may differ.
 2. NCC kernel vs plain: ``ncc_eval_multi`` on the card against its plain
    PyTorch version at K in {1, 5, 9}, S = 10, scales 0 and 2, on
    ground-truth and random planes at the default footprint cap, through
-   both of the kernel's launches (tile and view-major); then both
+   both of the kernel's launches (tile and view-major); at S = 20 (the 10
+   sources twice; two view groups of the tile launch), K = 9, the band
+   shape, both launches (no entry may differ); then both
    timed with CUDA events at the main path's band shape (K=9, scale 0),
    and the kernel alone at K=5 on a full-range random field at scale 0
    (view-major launch, as the solver takes it for such trials) and at K=1
@@ -68,9 +75,26 @@ Phases, in order; any failure raises and the script exits non-zero:
    against the stated schedule, with no plain call; the two solves' depth,
    normal and cost may differ on at most MISMATCH_TOL of the pixels.
 
-Before them, a line gives each kernel's bound (the least time the card
-could take at the timed shape) beside its time. The last three lines of
-standard output are the card's name and power limit (``nvidia-smi``), a
+8. The user's path from files (after phase 6): a 4-view 3200x2130 plane
+   scene with the sky band and tinted colours, written as a COLMAP text
+   model and ``.JPG`` images by the card's encoder;
+   ``mpmvs_torch.preprocess.convert.main`` (on the card), then
+   ``mpmvs_torch.cli.main(["--input", ws, "--sky-seg", "1", "--config",
+   yaml])``: the default schedule, every view estimated with the other 3
+   as sources, every preview on (the YAML's save keys add depths.jpg,
+   costs.jpg, normals.jpg). Checks the converted cameras against the
+   scene's, median |d-gt|/gt < 1% on ground rows in every view's
+   depths.dmb, a non-empty PLY, and the launches of the NCC kernel, the
+   bilateral table form and the codec's kernels against the schedule;
+   times the decode and nvJPEG's encode per image and the codec's
+   kernels.
+
+Each phase's line carries the seconds since the start. Before the last
+three lines, a line gives each kernel's bound (the least time the card
+could take at the timed shape) beside its time, and a ``codec`` JSON line
+the decode and encode times, the IDCT and colour kernels' times beside
+their bounds and the fixtures' mismatches. The script fails if ``cv2``, ``yaml``, ``jax`` or
+``mpmvs_tpu`` was imported. The last three lines of standard output are the card's name and power limit (``nvidia-smi``), a
 JSON object describing each kernel (and each form of a kernel that has
 several, with its launches on the path that reads it), and
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -118,6 +142,14 @@ NCC_PHOTOMETRIC, NCC_GEOM, NCC_PRIOR = 1 + 3 * 3 * 2 * 2, 1 + 2 * 2 * 2, \
 # as in phase 4.
 FUSED_SORTED = N_SRC + 3 * 3 * 2 * 2 * N_SRC
 NCC_SORTED, NCC_AUTO = 3 * 3 * 2 * 2, 1 + 3 * 3 * 2 * 2
+# Phase 8: 4 views, each the others' source (S = 3), one band in every
+# mode; colours tinted so the chroma is not flat
+FILES_VIEWS = 4
+FILES_TINT = (0.85, 1.0, 1.1)
+CAM_TOL = 1e-5   # converted cams vs the scene's, relative
+FILES_PREVIEWS = ["costs.jpg", "depths.jpg", "normals.jpg", "skymask.jpg",
+                  "skymask_fuse.jpg", "skymask_refine.jpg",
+                  "triangulation.png"]
 # The NCC kernel's times before its redesign (PERF.md section 6; NVIDIA
 # H100 80GB HBM3 at 700 W): K=9 at the band shape, K=1 on the coherent
 # init field; K=5 on a full-range field was not timed then.
@@ -125,7 +157,13 @@ NCC_MS_BEFORE = {"K=9 gt": "61.87-62.2 ms",
                  "K=5 full-range": "not measured", "K=1 init": "17.2 ms"}
 
 
+_START = time.perf_counter()
+
+
 def log(msg: str):
+    """Print a line; a phase's line carries the seconds since the start."""
+    if msg.startswith("phase "):
+        msg = f"{msg} [{time.perf_counter() - _START:.0f} s]"
     print(msg, flush=True)
 
 
@@ -154,6 +192,15 @@ def compare(a, b):
     fin = torch.isfinite(a) & torch.isfinite(b)
     diff = torch.where(fin, (a - b).abs(), torch.zeros_like(a))
     return differs(a, b).float().mean().item(), diff.max().item()
+
+
+def differing(a, b):
+    """(entries that differ, largest |a - b|) of two integer tensors of one
+    shape, the kernel's and its plain version's."""
+    if a.shape != b.shape:
+        raise AssertionError(f"shapes {tuple(a.shape)} and {tuple(b.shape)}")
+    d = (a.long() - b.long()).abs()
+    return int((d > 0).sum()), int(d.max())
 
 
 def state_diff(a, b, mask):
@@ -280,6 +327,34 @@ def phase_kernel_vs_plain(data, scene, params, band_rows: int):
         raise AssertionError(f"kernel vs plain: {worst:.3e} of entries "
                              f"differ by > 1e-4 (limit {MISMATCH_TOL})")
 
+    # S = 20, the default max_source_images: the tile launch runs sources
+    # in groups of NCC_VIEWS_MAX = 10 (csrc/ncc_eval.cu), so this takes two.
+    # The 10 sources twice over, K=9 at scale 0 on the band's packed pixels
+    offs = params.tap_offsets(0)
+    refside, x_p, y_p = band_inputs(data, params, 0, 0, band_rows, 0)
+    planes = test_planes(data, scene, params, "gt", 9, x_p, y_p, key)
+    args20 = tuple(torch.cat([a, a]) for a in args[:5]) + (data.K_ref,)
+    want = ncc_eval_multi_plain(refside, *args20, planes, x_p, y_p, offs,
+                                params.cost_max, params.cap_radius(0))
+    for launch in ("tile", "view-major"):
+        got = ncc_eval_multi(refside, *args20, planes, x_p, y_p, offs,
+                             params.cost_max, params.cap_radius(0),
+                             scattered=launch == "view-major")
+        torch.cuda.synchronize()
+        same = (got == want) | (torch.isnan(got) & torch.isnan(want))
+        n_diff = int((~same).sum().item())
+        frac, err = compare(got, want)
+        log(f"  S=20 K=9 scale 0 {band_rows}x{W_FULL // 2} {launch:10s}: "
+            f"entries not bit-equal {n_diff} of {got.numel()}, max|diff| "
+            f"{err:.3e}; second group equals the first "
+            f"{bool(torch.equal(got[:, 10:], got[:, :10]))}")
+        worst, max_err = max(worst, frac), max(max_err, err)
+        if n_diff:
+            raise AssertionError(f"S=20 kernel vs plain ({launch}): {n_diff}"
+                                 f" entries differ")
+        del got
+    del refside, planes, args20, want
+
     # timing at the main path's band shape: K=9 candidates at scale 0
     offs = params.tap_offsets(0)
     refside, x_p, y_p = band_inputs(data, params, 0, 0, band_rows, 0)
@@ -373,9 +448,17 @@ def phase_half_iteration(data, params, band_rows: int):
     for name, fn in (("kernel", ncc_eval_multi), ("glue", glue_only)):
         ms[name] = cuda_time_ms(lambda: step(fn), reps=3)
     peak = torch.cuda.max_memory_allocated() - base
-    ms["plain"] = cuda_time_ms(lambda: step(ncc_eval_multi_plain), reps=1)
+    # the plain step once, timed and then compared with the kernel's below
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    plain_steps = {2: step(ncc_eval_multi_plain)}
+    end.record()
+    torch.cuda.synchronize()
+    ms["plain"] = start.elapsed_time(end)
     log(f"  half-iteration {W}x{H}, S={N_SRC}, bands of {band_rows} rows: "
-        f"kernel {ms['kernel']:.1f} ms, plain {ms['plain']:.1f} ms, glue "
+        f"kernel {ms['kernel']:.1f} ms, plain {ms['plain']:.1f} ms (one "
+        f"run), glue "
         f"alone {ms['glue']:.1f} ms -> NCC share with kernel "
         f"{(ms['kernel'] - ms['glue']) / ms['kernel']:.3f}; peak extra "
         f"memory {peak / 2**30:.3f} GiB")
@@ -383,7 +466,8 @@ def phase_half_iteration(data, params, band_rows: int):
                + torch.arange(W, device=dev)[None, :]) % 2) == 0
     for scale in (2, 1, 0):
         a = step(ncc_eval_multi, scale)
-        b = step(ncc_eval_multi_plain, scale)
+        b = (plain_steps.pop(scale) if scale in plain_steps
+             else step(ncc_eval_multi_plain, scale))
         torch.cuda.synchronize()
         frac, err = state_diff(a, b, active)
         adopted = ((a.cost != state.cost) & active).float().sum().item() / (
@@ -950,6 +1034,325 @@ def phase_sorted(data, scene, params):
     return out
 
 
+def phase_fixtures():
+    """Phase 1b: the JPEG fixtures (tests/data/jpeg) decoded on the card
+    against cv2's arrays in decoded.npz, and the IDCT and colour kernels
+    against their plain versions on each fixture: no entry may differ.
+    Returns {fixture: {"gray"/"bgr": (entries differing, of, largest
+    |diff|)}}."""
+    import numpy as np
+    import torch
+    from mpmvs_torch.io import images
+
+    dev = torch.device("cuda", 0)
+    folder = os.path.join(HERE, "tests", "data", "jpeg")
+    want = np.load(os.path.join(folder, "decoded.npz"))
+    out = {}
+    for name in sorted(f[:-4] for f in os.listdir(folder)
+                       if f.endswith(".jpg")):
+        with open(os.path.join(folder, f"{name}.jpg"), "rb") as f:
+            data = f.read()
+        gray, bgr = images.decode(data, dev)
+        comps, _ = images.decode_coefficients(data, dev)
+        for c in comps:
+            got_k = images.idct_islow_kernel(*c)
+            got_p = images.idct_islow_plain(*c)
+            torch.cuda.synchronize()
+            if not torch.equal(got_k, got_p):
+                raise AssertionError(f"{name}: IDCT kernel vs plain differ "
+                                     f"on {int((got_k != got_p).sum())} "
+                                     f"entries")
+        y, cb, cr, (hs, vs) = images.decode_planes(data, dev)
+        got_k = images.ycc_to_bgr_kernel(y, cb, cr, hs, vs)
+        got_p = images.ycc_to_bgr_plain(y, cb, cr, hs, vs)
+        torch.cuda.synchronize()
+        if not torch.equal(got_k, got_p):
+            raise AssertionError(f"{name}: colour kernel vs plain differ on "
+                                 f"{int((got_k != got_p).sum())} entries")
+        row = {}
+        for kind, got in (("gray", gray), ("bgr", bgr)):
+            ref = want[f"{kind}_{name}"].astype(np.int64)
+            d = np.abs(got.cpu().numpy().astype(np.int64) - ref)
+            row[kind] = (int((d > 0).sum()), int(d.size), int(d.max()))
+        out[name] = row
+        log(f"  {name} {tuple(bgr.shape)} chroma {hs}x{vs}: grey "
+            f"{row['gray'][0]} of {row['gray'][1]} entries differ from "
+            f"cv2 ({row['gray'][0] / row['gray'][1]:.4f}), largest "
+            f"{row['gray'][2]}; BGR {row['bgr'][0]} of {row['bgr'][1]} "
+            f"({row['bgr'][0] / row['bgr'][1]:.4f}), largest "
+            f"{row['bgr'][2]}; IDCT and colour kernels equal plain")
+    bad = {name: r for name, r in out.items()
+           if r["gray"][0] or r["bgr"][0]}
+    if bad:
+        raise AssertionError(f"fixture decode differs from cv2: {bad}")
+    # the JPEGs that cv2 reads as another image than their planes (EXIF
+    # orientation, RGB components) must raise, not decode
+    for name in sorted(os.listdir(os.path.join(folder, "refused"))):
+        with open(os.path.join(folder, "refused", name), "rb") as f:
+            data = f.read()
+        try:
+            images.decode(data, dev)
+        except ValueError as e:
+            log(f"  refused/{name}: raises ({e})")
+        else:
+            raise AssertionError(f"refused/{name} was decoded")
+    return out
+
+
+def write_colmap_model(scene, dense: str, per_view: int = 400,
+                       seed: int = 0):
+    """A COLMAP text model of ``scene`` under ``dense``/sparse: one PINHOLE
+    camera and one image (IMG_000i.JPG) per view, qvec/tvec from the
+    scene's R and t, and 3-D points sampled from each view's GT depth on
+    ground rows, with the track of every view they project into."""
+    import numpy as np
+    from mpmvs_torch.preprocess.colmap import rotmat_to_qvec
+
+    rng = np.random.default_rng(seed)
+    cams = scene.cameras
+    K, R, t = (cams.K.numpy().astype(np.float64),
+               cams.R.numpy().astype(np.float64),
+               cams.t.numpy().astype(np.float64))
+    V, H, W = scene.gt_depth.shape
+    pts = []
+    for v in range(V):
+        ys = rng.integers(SKY_ROWS + GROUND_MARGIN, H, per_view)
+        xs = rng.integers(0, W, per_view)
+        d = scene.gt_depth[v][ys, xs].astype(np.float64)
+        ray = np.linalg.solve(K[v], np.stack([xs, ys, np.ones_like(xs)]))
+        pts.append((R[v].T @ (ray * d - t[v][:, None])).T)
+    pts = np.concatenate(pts)
+    obs = {v: [] for v in range(V)}
+    tracks = []
+    for pid, X in enumerate(pts, 1):
+        track = []
+        for v in range(V):
+            p = K[v] @ (R[v] @ X + t[v])
+            x, y = p[0] / p[2], p[1] / p[2]
+            if p[2] > 0 and 0 <= x < W and 0 <= y < H:
+                track.append((v + 1, len(obs[v])))
+                obs[v].append((x, y, pid))
+        tracks.append(track)
+    sparse = os.path.join(dense, "sparse")
+    os.makedirs(sparse, exist_ok=True)
+    with open(os.path.join(sparse, "cameras.txt"), "w") as f:
+        f.write("# CAMERA_ID, MODEL, WIDTH, HEIGHT, PARAMS[]\n")
+        for v in range(V):
+            fx, fy, cx, cy = (float(K[v][0, 0]), float(K[v][1, 1]),
+                              float(K[v][0, 2]), float(K[v][1, 2]))
+            f.write(f"{v + 1} PINHOLE {W} {H} {fx!r} {fy!r} {cx!r} {cy!r}\n")
+    with open(os.path.join(sparse, "images.txt"), "w") as f:
+        for v in range(V):
+            q = rotmat_to_qvec(R[v])
+            f.write(f"{v + 1} {' '.join(repr(float(c)) for c in q)} "
+                    f"{' '.join(repr(float(c)) for c in t[v])} {v + 1} "
+                    f"IMG_{v:04d}.JPG\n")
+            f.write(" ".join(f"{x:.3f} {y:.3f} {pid}"
+                             for x, y, pid in obs[v]) + "\n")
+    with open(os.path.join(sparse, "points3D.txt"), "w") as f:
+        for pid, (X, track) in enumerate(zip(pts, tracks), 1):
+            f.write(f"{pid} {' '.join(repr(float(c)) for c in X)} "
+                    f"128 128 128 0.5 "
+                    + " ".join(f"{i} {j}" for i, j in track) + "\n")
+    return len(pts)
+
+
+def phase_files(params):
+    """Phase 8: the user's path from files at full width. A 4-view
+    3200x2130 plane scene (top fifth sky, colours tinted) as a COLMAP text
+    model and .JPG images written by the card's encoder;
+    ``mpmvs_torch.preprocess.convert.main`` on the card, then
+    ``mpmvs_torch.cli.main`` with a YAML config and --sky-seg 1 on the
+    converted workspace: the default schedule, every view estimated with
+    the other 3 as sources, previews on. Returns what the summary needs."""
+    import numpy as np
+    import torch
+    from mpmvs_torch import cli, pipeline
+    from mpmvs_torch.io import images, read_cam_txt, read_dmb
+    from mpmvs_torch.io import read_pair_txt, read_ply_binary
+    from mpmvs_torch.ops import bilateral_cuda, ncc_cuda
+    from mpmvs_torch.preprocess import convert
+    from mpmvs_torch.utils.synthetic import make_plane_scene
+    from mpmvs_torch.utils.trace import cuda_time_ms
+
+    dev = torch.device("cuda", 0)
+    V = FILES_VIEWS
+    t0 = time.perf_counter()
+    scene = make_plane_scene(num_views=V, height=H_FULL, width=W_FULL,
+                             seed=1)
+    paint_sky(scene)
+    bgr = np.clip(np.round(scene.colors * np.array(FILES_TINT, np.float32)),
+                  0, 255).astype(np.uint8)
+    log(f"  scene: {V} views at {W_FULL}x{H_FULL} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="mpmvs_files_") as root:
+        dense, ws = os.path.join(root, "dense"), os.path.join(root, "ws")
+        n_pts = write_colmap_model(scene, dense)
+        os.makedirs(os.path.join(dense, "images"))
+        enc_ms = []
+        for v in range(V):
+            img = torch.as_tensor(bgr[v], device=dev)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            images.write_jpeg(os.path.join(dense, "images",
+                                           f"IMG_{v:04d}.JPG"), img, dev)
+            enc_ms.append((time.perf_counter() - t1) * 1e3)
+        config = os.path.join(root, "config.yaml")
+        with open(config, "w") as f:
+            f.write("%YAML:1.0\n---\n# the reference's defaults\n"
+                    "Geometric consistency iterations: 2\nPlaner prior: 1\n"
+                    "Geometric consistency planer prior: 1\n"
+                    "Sky segment: 1\nUse dynamic_consistency to fuse: 1\n"
+                    "Max source images num: 20\nMax image size: 3200\n"
+                    "# every preview\nSave Dmb as JPG: 1\nSave Cost Map: 1\n"
+                    "Save Normal Map: 1\n")
+
+        ncc_cuda.COUNTS.reset()
+        bilateral_cuda.COUNTS.reset()
+        bilateral_cuda.TABLE_COUNTS.reset()
+        bilateral_cuda.colour_table.cache_clear()
+        images.COUNTS.reset()
+        images.IDCT_COUNTS.reset()
+        images.CODEC_COUNTS.reset()
+        t1 = time.perf_counter()
+        if convert.main(["--dense_folder", dense, "--save_folder", ws]) != 0:
+            raise AssertionError("convert.main failed")
+        convert_s = time.perf_counter() - t1
+        pipes = []
+        run = pipeline.Pipeline.run
+
+        def keep(self, *a, **k):  # the CLI's pipeline, for its logs
+            pipes.append(self)
+            return run(self, *a, **k)
+
+        pipeline.Pipeline.run = keep
+        try:
+            t1 = time.perf_counter()
+            rc = cli.main(["--input", ws, "--sky-seg", "1", "--config",
+                           config])
+            torch.cuda.synchronize()
+            cli_s = time.perf_counter() - t1
+        finally:
+            pipeline.Pipeline.run = run
+        if rc != 0 or len(pipes) != 1:
+            raise AssertionError(f"cli.main returned {rc}")
+        pipe = pipes[0]
+        ncc = (ncc_cuda.COUNTS.kernel, ncc_cuda.COUNTS.plain)
+        bil = (bilateral_cuda.COUNTS.kernel, bilateral_cuda.COUNTS.plain,
+               dict(bilateral_cuda.COUNTS.forms))
+        tables = bilateral_cuda.TABLE_COUNTS.kernel
+        ycc = (images.COUNTS.kernel, images.COUNTS.plain)
+        idct_launches = images.IDCT_COUNTS.kernel
+        codec = dict(images.CODEC_COUNTS.forms)
+        log(f"  convert {convert_s:.2f} s ({n_pts} sparse points), cli "
+            f"{cli_s:.1f} s; {pipe.timer.summary()}")
+
+        # the converter's cameras against the scene's, to text precision
+        cam_err = 0.0
+        for v in range(V):
+            c = read_cam_txt(os.path.join(ws, "cams", f"{v:08d}_cam.txt"))
+            for f in ("K", "R", "t"):
+                a = getattr(c, f).numpy()
+                b = getattr(scene.cameras, f)[v].numpy()
+                cam_err = max(cam_err, float(np.abs(a - b).max()
+                                             / max(np.abs(b).max(), 1.0)))
+        scenes = read_pair_txt(os.path.join(ws, "pair.txt"))
+        srcs = {s.ref_id: sorted(s.src_ids[1:]) for s in scenes}
+        log(f"  converted cams: max |K, R, t - scene| (relative) "
+            f"{cam_err:.2e}; sources {srcs}")
+        if cam_err > CAM_TOL or any(
+                srcs[v] != [u for u in range(V) if u != v] for v in range(V)):
+            raise AssertionError(f"converted workspace: camera error "
+                                 f"{cam_err}, sources {srcs}")
+
+        ground = slice(SKY_ROWS + GROUND_MARGIN, H_FULL)
+        rel = {}
+        for v in range(V):
+            d = read_dmb(os.path.join(ws, "MPMVS", f"2333_{v:08d}",
+                                      "depths.dmb"))
+            gt = scene.gt_depth[v]
+            if d.shape != gt.shape or not np.isfinite(d).all():
+                raise AssertionError(f"view {v}: depth map {d.shape}")
+            rel[v] = float(np.median(np.abs(d[ground] - gt[ground])
+                                     / gt[ground]))
+        pts = read_ply_binary(os.path.join(ws, "MPMVS",
+                                           "MPMVS_model.ply"))[0]
+        previews = sorted({f for v in range(V) for f in os.listdir(
+            os.path.join(ws, "MPMVS", f"2333_{v:08d}")) if f.endswith(
+            (".jpg", ".png"))})
+        sky = {v: float(pipe.views[v].sky_mask.mean()) for v in range(V)}
+        n_prior = sum(stage == "prior" for _, stage, _ in pipe.solve_log)
+        log(f"  median |d-gt|/gt on ground rows {rel}; PLY {len(pts)} "
+            f"points; sky fractions {sky}; previews {previews}")
+
+        # decode and encode per image, host clock around synchronised calls
+        dec_ms = []
+        for v in range(V):
+            path = os.path.join(ws, "images", f"{v:08d}.jpg")
+            with open(path, "rb") as f:
+                data = f.read()
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                g, c = images.decode(data, dev)
+                torch.cuda.synchronize()
+                dec_ms.append((time.perf_counter() - t1) * 1e3)
+        # the IDCT (each of the three components) and colour kernels
+        # against their plain versions on the last view's planes at full
+        # size: no entry may differ
+        comps, _ = images.decode_coefficients(data, dev)
+        idct_err = [differing(images.idct_islow_kernel(*c),
+                              images.idct_islow_plain(*c)) for c in comps]
+        y, cb, cr, (hs, vs) = images.decode_planes(data, dev)
+        ycc_err = [differing(images.ycc_to_bgr_kernel(y, cb, cr, hs, vs),
+                             images.ycc_to_bgr_plain(y, cb, cr, hs, vs))]
+        log(f"  at {W_FULL}x{H_FULL}, chroma {hs}x{vs}: IDCT kernel vs "
+            f"plain (entries differing, largest |diff|) per component "
+            f"{idct_err}; colour kernel vs plain {ycc_err[0]}")
+        if any(e[0] for e in idct_err + ycc_err):
+            raise AssertionError(f"codec kernels vs plain at full size: IDCT "
+                                 f"{idct_err}, colour {ycc_err}")
+        kernel_ms = cuda_time_ms(lambda: images.ycc_to_bgr_kernel(
+            y, cb, cr, hs, vs), 20)
+        plain_ms = cuda_time_ms(lambda: images.ycc_to_bgr_plain(
+            y, cb, cr, hs, vs), 3)
+        n_px = H_FULL * W_FULL
+        bound_ms = (n_px + 2 * cb.numel() + 3 * n_px) / 3.35e12 * 1e3
+        # the IDCT of all three components; its bound counts the bytes
+        # (2 a coefficient, 1 a sample): int64 work has no peak in the table
+        idct = lambda fn: (lambda: [fn(*c) for c in comps])
+        idct_ms = cuda_time_ms(idct(images.idct_islow_kernel), 20)
+        idct_plain_ms = cuda_time_ms(idct(images.idct_islow_plain), 3)
+        idct_bound_ms = sum(2 * c[0].numel() + c[2] * c[3]
+                            for c in comps) / 3.35e12 * 1e3
+    expected = V * (NCC_PHOTOMETRIC + 2 * NCC_GEOM) + n_prior * NCC_PRIOR
+    bad = {v: e for v, e in rel.items() if not e < 0.01}
+    log(f"  launches: NCC {ncc[0]} (schedule implies {expected}), plain "
+        f"{ncc[1]}; bilateral {bil[0]} by form {bil[2]}, plain {bil[1]}, "
+        f"table builds {tables}; IDCT kernel {idct_launches}, colour kernel "
+        f"{ycc[0]}, plain {ycc[1]}; codec calls {codec}")
+    if bad or len(pts) == 0 or previews != FILES_PREVIEWS:
+        raise AssertionError(f"files path: median rel error >= 1% {bad}, "
+                             f"PLY {len(pts)} points, previews {previews}")
+    if ncc != (expected, 0) or bil[:2] != (V, 0) or \
+            bil[2] != {"table": V} or tables != 1 or ycc[0] != 2 * V or \
+            ycc[1] != 0 or idct_launches != 3 * ycc[0]:
+        raise AssertionError(f"files path launches: NCC {ncc} (expected "
+                             f"{expected}), bilateral {bil}, tables "
+                             f"{tables}, colour kernel {ycc} (expected "
+                             f"{2 * V}: the converter's and the pipeline's "
+                             f"reads), IDCT kernel {idct_launches}")
+    out.update(rel=rel, points=len(pts), ncc=ncc[0], bilateral=bil[0],
+               tables=tables, ycc_launches=ycc[0], codec=codec,
+               enc_ms=enc_ms, dec_ms=dec_ms, ycc_ms=kernel_ms,
+               ycc_plain_ms=plain_ms, ycc_bound_ms=bound_ms,
+               idct_launches=idct_launches, idct_ms=idct_ms,
+               idct_plain_ms=idct_plain_ms, idct_bound_ms=idct_bound_ms,
+               idct_vs_plain=idct_err, ycc_vs_plain=ycc_err)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
@@ -982,6 +1385,8 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     build_kernels(dev, verbose=True)
     log(f"  kernel builds (in parallel) {time.perf_counter() - t0:.2f} s")
+    log("phase 1b: the JPEG fixtures decoded on the card vs cv2's arrays")
+    fixtures = phase_fixtures()
 
     params = PatchMatchParams()
     scene = make_scene()
@@ -1021,6 +1426,11 @@ def main(argv=None) -> int:
     log("phase 6: full path (photometric, geom_0 + prior, geom_1, sky, "
         "fusion) through Pipeline")
     ncc_launches, bil_forms, table_builds = phase_full_path(scene, params)
+    del scene
+    torch.cuda.empty_cache()
+    log("phase 8: from files: COLMAP model -> mpmvs_torch.preprocess.convert "
+        "-> mpmvs_torch.cli.main (default schedule, sky, previews)")
+    files = phase_files(params)
 
     # bounds at the timed shapes: the NCC kernel at phase 2's K=9 band
     # (scale 0, default cap), the bilateral kernel over view 0's in-image
@@ -1039,6 +1449,27 @@ def main(argv=None) -> int:
         f"{so['fused_ms']:.3f} per view; raw-samples form "
         f"{so['samples_bound'][0]:.3f} vs {so['samples_ms']:.3f}; key "
         f"kernel {so['keys_bound'][0]:.3f} vs {so['keys_kernel_ms']:.3f}")
+    # the codec (host decode + the IDCT and colour kernels; nvJPEG encodes):
+    # no TPU kernel's counterpart, so on a line of their own
+    codec_kernel = lambda k: {
+        "source": "mpmvs_torch/csrc/jpeg_codec.cu",
+        "launches": files[f"{k}_launches"], "ms": files[f"{k}_ms"],
+        "plain_ms": files[f"{k}_plain_ms"],
+        "bound_ms": files[f"{k}_bound_ms"], "bound_by": "bytes",
+        "differing_entries": [e[0] for e in files[f"{k}_vs_plain"]],
+        "max_abs_err": max(e[1] for e in files[f"{k}_vs_plain"])}
+    log(json.dumps({"codec": {
+        "decode_ms_per_image": files["dec_ms"],
+        "encode_ms_per_image": files["enc_ms"],
+        "image": [W_FULL, H_FULL], "calls_phase8": files["codec"],
+        "idct_islow": codec_kernel("idct"),
+        "ycc_to_bgr": codec_kernel("ycc"),
+        "fixtures_vs_cv2": fixtures, "nvidia_smi": smi}}))
+    leaked = [m for m in ("cv2", "yaml", "jax", "mpmvs_tpu")
+              if m in sys.modules]
+    if leaked:
+        raise AssertionError(f"modules the card's machine need not have "
+                             f"were imported: {leaked}")
     log(smi)
 
     def entry(name, source, replaces, launches, err, ms, plain_ms, bnd,

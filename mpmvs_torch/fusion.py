@@ -52,6 +52,110 @@ class ViewFusion(NamedTuple):
     src_c: Tensor      # (S, H, W) int16
 
 
+# The consistency tolerances (within PatchMatch.cpp:403-496): reprojection
+# error in pixels, relative depth difference, normal angle in radians
+# (10 deg); and the dynamic weight's factors on the last two
+REPROJ_MAX, REL_DD_MAX, ANGLE_MAX = 2.0, 0.01, 0.174533
+DYN_DD, DYN_ANGLE = 200.0, 10.0
+
+
+class _RefView(NamedTuple):
+    """The reference view's side of the consistency checks."""
+
+    K: Tensor
+    R: Tensor
+    t: Tensor
+    depth: Tensor     # (H, W)
+    normal: Tensor    # (H, W, 3)
+    x: Tensor         # (H, W) pixel columns
+    y: Tensor         # (H, W) pixel rows
+    Xw: Tensor        # (H, W, 3) world points of the reference depths
+
+
+class _SourceGates(NamedTuple):
+    """The per-(source, pixel) quantities the gates test, (c, H, W)."""
+
+    src_r: Tensor       # int64, rounded, before clamping
+    src_c: Tensor
+    lin: Tensor         # (c, H*W) clamped linear source pixel
+    in_bounds: Tensor
+    mask_s: Tensor      # the source pixel is consumed
+    depth_s: Tensor
+    normal_s: Tensor    # (c, H, W, 3)
+    Xs: Tensor          # (c, H, W, 3) world points of the source depths
+    reproj_err: Tensor
+    rel_dd: Tensor
+    angle: Tensor
+
+    def tolerances(self):
+        """The three tolerance gates: reprojection, depth, angle."""
+        return (self.reproj_err < REPROJ_MAX, self.rel_dd < REL_DD_MAX,
+                self.angle < ANGLE_MAX)
+
+    def dynamic_weight(self, consistent: Tensor) -> Tensor:
+        """exp(-(err + 200 dd + 10 angle)) where ``consistent``, else 0."""
+        return torch.where(
+            consistent, torch.exp(-(self.reproj_err + DYN_DD * self.rel_dd
+                                    + DYN_ANGLE * self.angle)),
+            torch.zeros_like(self.reproj_err))
+
+
+def _ref_view(inp: FusionInput, ref_idx: int) -> _RefView:
+    V, H, W = inp.depths.shape
+    cams = inp.cameras
+    K_r, R_r, t_r = cams.K[ref_idx], cams.R[ref_idx], cams.t[ref_idx]
+    depth_r = inp.depths[ref_idx]
+    x, y = geo.pixel_grid(H, W, device=inp.depths.device)
+    Xw = geo.backproject_world(K_r, R_r, -(R_r.T @ t_r), x, y, depth_r)
+    return _RefView(K_r, R_r, t_r, depth_r, inp.normals[ref_idx], x, y, Xw)
+
+
+def _gather(a: Tensor, idx: Tensor, lin: Tensor) -> Tensor:
+    """Views ``idx`` of ``a`` (V, H, W[, C]) at the pixels ``lin``."""
+    c, HW = lin.shape
+    sel = a[idx]
+    if sel.ndim == 3:
+        return torch.gather(sel.reshape(c, HW), 1, lin).reshape(sel.shape)
+    C = sel.shape[-1]
+    return torch.gather(sel.reshape(c, HW, C), 1,
+                        lin[..., None].expand(c, HW, C)).reshape(sel.shape)
+
+
+def _source_gates(inp: FusionInput, masks: Tensor, ref: _RefView,
+                  idx: Tensor) -> _SourceGates:
+    """Project the reference's points into the source views ``idx`` (int64),
+    read the source pixels there and measure them against the reference."""
+    V, H, W = inp.depths.shape
+    cams = inp.cameras
+    K_s, R_s, t_s = cams.K[idx], cams.R[idx], cams.t[idx]
+    C_s = -torch.einsum("sji,sj->si", R_s, t_s)
+    pt, proj_depth = geo.project_camera(
+        K_s[:, None, None], R_s[:, None, None], t_s[:, None, None],
+        ref.Xw[None])
+    # (int)(x + 0.5) rounding of the reference (PatchMatch.cpp:413-414)
+    src_c = _floor_to_int(pt[..., 0] + 0.5)
+    src_r = _floor_to_int(pt[..., 1] + 0.5)
+    in_bounds = (src_c >= 0) & (src_c < W) & (src_r >= 0) & (src_r < H)
+    lin = (torch.clamp(src_r, 0, H - 1) * W
+           + torch.clamp(src_c, 0, W - 1)).reshape(idx.shape[0], H * W)
+    depth_s = _gather(inp.depths, idx, lin)
+    normal_s = _gather(inp.normals, idx, lin)
+    mask_s = _gather(masks.to(torch.int32), idx, lin) > 0
+    Xs = geo.backproject_world(
+        K_s[:, None, None], R_s[:, None, None], C_s[:, None, None],
+        src_c.to(torch.float32), src_r.to(torch.float32), depth_s)
+    back_pt, _ = geo.project_camera(ref.K, ref.R, ref.t, Xs)
+    reproj_err = torch.sqrt((ref.x[None] - back_pt[..., 0]) ** 2
+                            + (ref.y[None] - back_pt[..., 1]) ** 2)
+    rel_dd = (torch.abs(proj_depth - ref.depth[None])
+              / torch.clamp(ref.depth[None], min=1e-12))
+    angle = torch.arccos(torch.clamp(geo.dot3(ref.normal[None], normal_s),
+                                     -1.0, 1.0))
+    angle = torch.where(torch.isnan(angle), torch.zeros_like(angle), angle)
+    return _SourceGates(src_r, src_c, lin, in_bounds, mask_s, depth_s,
+                        normal_s, Xs, reproj_err, rel_dd, angle)
+
+
 def fuse_one_view(inp: FusionInput, masks: Tensor, ref_idx: int,
                   src_indices: Tensor, src_valid: Tensor,
                   use_dynamic: bool = True) -> ViewFusion:
@@ -63,20 +167,11 @@ def fuse_one_view(inp: FusionInput, masks: Tensor, ref_idx: int,
     if H >= 32768 or W >= 32768:
         raise ValueError(f"fusion stores int16 pixel coordinates; got {(H, W)}")
     dev = inp.depths.device
-    cams = inp.cameras
-    K_r, R_r, t_r = cams.K[ref_idx], cams.R[ref_idx], cams.t[ref_idx]
-    C_r = -(R_r.T @ t_r)
-    depth_r = inp.depths[ref_idx]
-    normal_r = inp.normals[ref_idx]
+    ref = _ref_view(inp, ref_idx)
     color_r = inp.colors[ref_idx]
-    mask_r = masks[ref_idx]
-
-    x, y = geo.pixel_grid(H, W, device=dev)
-    valid_ref = (depth_r > 0.0) & ~mask_r
+    valid_ref = (ref.depth > 0.0) & ~masks[ref_idx]
     if inp.sky_masks is not None:
         valid_ref = valid_ref & ~inp.sky_masks[ref_idx]
-
-    Xw = geo.backproject_world(K_r, R_r, C_r, x, y, depth_r)  # (H, W, 3)
 
     S = src_indices.shape[0]
     n_src = int(src_valid.sum())
@@ -95,55 +190,13 @@ def fuse_one_view(inp: FusionInput, masks: Tensor, ref_idx: int,
         idx = src_indices[start:start + SRC_CHUNK].to(torch.int64)
         valid = src_valid[start:start + SRC_CHUNK]
         pos = torch.arange(start, start + idx.shape[0], device=dev)
-        K_s, R_s, t_s = cams.K[idx], cams.R[idx], cams.t[idx]
-        C_s = -torch.einsum("sji,sj->si", R_s, t_s)
-        c = idx.shape[0]
-
-        pt, proj_depth = geo.project_camera(
-            K_s[:, None, None], R_s[:, None, None], t_s[:, None, None],
-            Xw[None])
-        # (int)(x + 0.5) rounding of the reference (PatchMatch.cpp:413-414)
-        src_c = _floor_to_int(pt[..., 0] + 0.5)
-        src_r = _floor_to_int(pt[..., 1] + 0.5)
-        in_bounds = (src_c >= 0) & (src_c < W) & (src_r >= 0) & (src_r < H)
-        cc = torch.clamp(src_c, 0, W - 1)
-        rc = torch.clamp(src_r, 0, H - 1)
-        lin = (rc * W + cc).reshape(c, H * W)
-
-        def gather_src(a: Tensor) -> Tensor:
-            sel = a[idx]
-            if sel.ndim == 3:
-                return torch.gather(sel.reshape(c, H * W), 1,
-                                    lin).reshape(c, H, W)
-            Cc = sel.shape[-1]
-            return torch.gather(sel.reshape(c, H * W, Cc), 1,
-                                lin[..., None].expand(c, H * W, Cc)
-                                ).reshape(c, H, W, Cc)
-
-        depth_s = gather_src(inp.depths)
-        normal_s = gather_src(inp.normals)
-        color_s = gather_src(inp.colors)
-        mask_s = gather_src(masks.to(torch.int32)) > 0
-
-        Xs = geo.backproject_world(
-            K_s[:, None, None], R_s[:, None, None], C_s[:, None, None],
-            src_c.to(torch.float32), src_r.to(torch.float32), depth_s)
-        back_pt, _ = geo.project_camera(K_r, R_r, t_r, Xs)
-        reproj_err = torch.sqrt((x[None] - back_pt[..., 0]) ** 2
-                                + (y[None] - back_pt[..., 1]) ** 2)
-        rel_dd = (torch.abs(proj_depth - depth_r[None])
-                  / torch.clamp(depth_r[None], min=1e-12))
-        dot = torch.clamp(geo.dot3(normal_r[None], normal_s), -1.0, 1.0)
-        angle = torch.arccos(dot)
-        angle = torch.where(torch.isnan(angle), torch.zeros_like(angle), angle)
-
-        consistent = (in_bounds & ~mask_s & (depth_s > 0.0)
-                      & (reproj_err < 2.0) & (rel_dd < 0.01)
-                      & (angle < 0.174533) & valid[:, None, None])
-        w_dyn = torch.where(
-            consistent, torch.exp(-(reproj_err + 200.0 * rel_dd
-                                    + 10.0 * angle)),
-            torch.zeros_like(reproj_err))
+        g = _source_gates(inp, masks, ref, idx)
+        color_s = _gather(inp.colors, idx, g.lin)
+        g_r, g_d, g_a = g.tolerances()
+        consistent = (g.in_bounds & ~g.mask_s & (g.depth_s > 0.0)
+                      & g_r & g_d & g_a & valid[:, None, None])
+        w_dyn = g.dynamic_weight(consistent)
+        Xs, normal_s = g.Xs, g.normal_s
 
         # the last real source is held out of the accumulators; its gated
         # contribution is added after the loop (PatchMatch.cpp:404-405)
@@ -165,8 +218,8 @@ def fuse_one_view(inp: FusionInput, masks: Tensor, ref_idx: int,
         last_col = last_col + torch.sum(torch.where(lw, color_s, 0.0), 0)
 
         cons_all.append(consistent)
-        rc_all.append(rc.to(torch.int16))
-        cc_all.append(cc.to(torch.int16))
+        rc_all.append(torch.clamp(g.src_r, 0, H - 1).to(torch.int16))
+        cc_all.append(torch.clamp(g.src_c, 0, W - 1).to(torch.int16))
 
     # gate: the last source only counts where earlier sources matched
     gate = (n_cons > 0) & last_cons
@@ -184,8 +237,8 @@ def fuse_one_view(inp: FusionInput, masks: Tensor, ref_idx: int,
     accept = accept & valid_ref
 
     cnt = (n_cons + 1.0)[..., None]
-    pts = (Xw + Xs_sum) / cnt
-    nrm = (normal_r + nrm_sum) / cnt
+    pts = (ref.Xw + Xs_sum) / cnt
+    nrm = (ref.normal + nrm_sum) / cnt
     col = (color_r + col_sum) / cnt
 
     consistent = torch.cat(cons_all)
@@ -205,6 +258,51 @@ def _floor_to_int(v: Tensor) -> Tensor:
     f = torch.nan_to_num(torch.floor(v), nan=-1.0, posinf=2.0 ** 31,
                          neginf=-(2.0 ** 31))
     return torch.clamp(f, -(2.0 ** 31), 2.0 ** 31).to(torch.int64)
+
+
+def fusion_gate_funnel(inp: FusionInput, masks: Tensor, ref_idx: int,
+                       src_indices: Tensor, src_valid: Tensor) -> dict:
+    """Per-gate candidate counts for one reference view: which gate kills
+    fusion candidates (counterpart of ``mpmvs_tpu.fusion.fusion_gate_funnel``,
+    fusion.py:289-394).
+
+    Replays :func:`fuse_one_view`'s per-(source, pixel) consistency chain
+    (PatchMatch.cpp:403-496), through the same gates, over all S sources at
+    once (diagnostic resolutions fit) and counts the survivors after each
+    successive gate. Counts are cumulative, each gate ANDed with the ones
+    before it, so the drop between adjacent rows is that gate's kill count.
+    Then per-pixel statistics without the last-source hold-out (a diagnostic
+    of the gates, not of the reference's quirk) and the candidates that fail
+    only one of the three tolerance gates. Returns {name: int}."""
+    ref = _ref_view(inp, ref_idx)
+    valid_ref = (ref.depth > 0.0) & ~masks[ref_idx]
+    g = _source_gates(inp, masks, ref, src_indices.to(torch.int64))
+    g_r, g_d, g_a = g.tolerances()
+    chain = []
+    m = src_valid.to(ref.depth.device)[:, None, None] & valid_ref[None]
+    for name, gate in (("candidates", None), ("in_bounds", g.in_bounds),
+                       ("src_not_consumed", ~g.mask_s),
+                       ("src_depth_pos", g.depth_s > 0.0),
+                       ("reproj_lt2", g_r), ("rel_dd_lt_0.01", g_d),
+                       ("angle_lt_10deg", g_a)):
+        m = m if gate is None else m & gate
+        chain.append((name, m))
+    count = lambda t: int(t.sum())
+    out = {name: count(t) for name, t in chain}
+    consistent = chain[-1][1]
+    n_cons = consistent.sum(0)
+    dyn = g.dynamic_weight(consistent).sum(0)
+    out["px_valid_ref"] = count(valid_ref)
+    out["px_ncons_ge1"] = count(valid_ref & (n_cons >= 1))
+    out["px_ncons_ge2"] = count(valid_ref & (n_cons >= 2))
+    out["px_dynamic_accept"] = count(valid_ref & (n_cons >= 1)
+                                     & (dyn > 0.3 * n_cons))
+    out["px_static_accept"] = out["px_ncons_ge2"]
+    live = chain[3][1]  # in bounds, not consumed, positive source depth
+    out["only_reproj_fails"] = count(live & ~g_r & g_d & g_a)
+    out["only_rel_dd_fails"] = count(live & g_r & ~g_d & g_a)
+    out["only_angle_fails"] = count(live & g_r & g_d & ~g_a)
+    return out
 
 
 def _mark_used(masks: Tensor, out: ViewFusion, ref_idx: int,

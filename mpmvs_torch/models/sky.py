@@ -13,10 +13,11 @@ The JAX package pre-processes with OpenCV (``pyrDown``, ``resize`` on uint8,
 written here in torch on the pipeline's device with OpenCV's integer
 arithmetic: ``pyrDown`` is the 5-tap [1 4 6 4 1]/16 filter per axis with
 BORDER_REFLECT_101, rounded (sum + 128) >> 8; the uint8 bilinear resize
-uses 11-bit fixed-point weights and OpenCV's vectorised rounding. Both are
+(``ops.resize.resize_u8``, shared with the pipeline's image reads) uses
+11-bit fixed-point weights and OpenCV's vectorised rounding. Both are
 bit-exact against cv2 (tests/test_torch_sky.py). The float upsample of the
-probability uses OpenCV's sample positions in float32; cv2 differs from it
-by at most a few 1e-5 there.
+probability (``ops.resize.resize_f32``) uses OpenCV's sample positions in
+float32; cv2 differs from it by at most a few 1e-5 there.
 
 The weights are read by path from the JAX package's vendored file
 (``mpmvs_tpu/models/weights/skyseg_fp16.npz``) without importing it;
@@ -32,8 +33,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from mpmvs_torch.io import images
 from mpmvs_torch.models.ncnn import NcnnNet, load_ncnn, load_npz
 from mpmvs_torch.ops.bilateral_cuda import bilateral_refine as _refine
+from mpmvs_torch.ops.resize import resize_f32, resize_u8
 
 Tensor = torch.Tensor
 
@@ -90,58 +93,6 @@ def pyr_down(img: Tensor) -> Tensor:
     return torch.floor((x[0] + 128.0) / 256.0).permute(1, 2, 0)
 
 
-def _sample_positions(n_in: int, n_out: int, clamp: bool):
-    """OpenCV's linear-resize taps along one axis: source indices (i0, i1)
-    and float32 weights (1 - f, f), from f = (float)((d + 0.5) * scale -
-    0.5). Columns clamp the fraction at the borders; rows keep it and clip
-    the indices (resizeGeneric_)."""
-    scale = 1.0 / (n_out / n_in)
-    f = ((np.arange(n_out, dtype=np.float64) + 0.5) * scale - 0.5).astype(
-        np.float32)
-    i0 = np.floor(f).astype(np.int64)
-    f = (f - i0.astype(np.float32)).astype(np.float32)
-    if clamp:
-        lo = i0 < 0
-        f[lo], i0[lo] = 0.0, 0
-        hi = i0 >= n_in - 1
-        f[hi], i0[hi] = 0.0, n_in - 1
-    i1 = np.clip(i0 + 1, 0, n_in - 1)
-    return np.clip(i0, 0, n_in - 1), i1, (np.float32(1.0) - f), f
-
-
-def _taps(n_in: int, n_out: int, clamp: bool, device, fixed: bool):
-    i0, i1, w0, w1 = _sample_positions(n_in, n_out, clamp)
-    if fixed:  # saturate_cast<short>(w * 2048): round half to even
-        w0 = np.rint(w0 * np.float32(2048.0)).astype(np.int64)
-        w1 = np.rint(w1 * np.float32(2048.0)).astype(np.int64)
-    t = lambda a: torch.as_tensor(a, device=device)
-    return t(i0), t(i1), t(w0), t(w1)
-
-
-def resize_u8(img: Tensor, out_h: int, out_w: int) -> Tensor:
-    """``cv2.resize(..., INTER_LINEAR)`` of a uint8-valued (H, W, C) tensor:
-    11-bit weights per axis, the row pass in integers, the column pass
-    rounded as OpenCV's vector path (VResizeLinearVec_32s8u)."""
-    h, w = img.shape[:2]
-    x0, x1, a0, a1 = _taps(w, out_w, True, img.device, True)
-    y0, y1, b0, b1 = _taps(h, out_h, False, img.device, True)
-    s = img.to(torch.int64)
-    rows = s[:, x0] * a0[None, :, None] + s[:, x1] * a1[None, :, None]
-    top = ((rows[y0] >> 4) * b0[:, None, None]) >> 16
-    bot = ((rows[y1] >> 4) * b1[:, None, None]) >> 16
-    return ((top + bot + 2) >> 2).clamp(0, 255).to(torch.float32)
-
-
-def resize_f32(img: Tensor, out_h: int, out_w: int) -> Tensor:
-    """Bilinear resize of an (H, W) float32 map at OpenCV's sample
-    positions, in float32."""
-    h, w = img.shape
-    x0, x1, a0, a1 = _taps(w, out_w, True, img.device, False)
-    y0, y1, b0, b1 = _taps(h, out_h, False, img.device, False)
-    rows = img[:, x0] * a0 + img[:, x1] * a1
-    return rows[y0] * b0[:, None] + rows[y1] * b1[:, None]
-
-
 def net_input(bgr: Tensor) -> Tensor:
     """SkySegment::maskExtractor's pre-processing (SkyRegionDetect.cpp:
     626-640): uint8 cast, pyrDown while both sides exceed 768, resize to
@@ -195,19 +146,18 @@ def generate_sky_masks(pipeline, log=print, model_dir: str = None):
         rec.sky_mask = mask.cpu().numpy()
         if pipeline.write_jpg:
             _write_jpgs(pipeline.result_dir(s.ref_id), rec.color,
-                        prob.cpu().numpy(), rec.sky_mask)
+                        prob.cpu().numpy(), rec.sky_mask, pipeline.device)
         log(f"sky mask {s.ref_id:08d}: {rec.sky_mask.mean() * 100:.1f}% sky")
 
 
 def _write_jpgs(folder: str, color: np.ndarray, prob: np.ndarray,
-                mask: np.ndarray):
-    import cv2
-
-    cv2.imwrite(os.path.join(folder, "skymask.jpg"),
-                (prob * 255.0).astype(np.uint8))
-    cv2.imwrite(os.path.join(folder, "skymask_refine.jpg"),
-                mask.astype(np.uint8) * 255)
+                mask: np.ndarray, device):
+    """The three previews, encoded on ``device`` (``io.images``)."""
+    write = lambda name, img: images.write_jpeg(os.path.join(folder, name),
+                                                img, device)
+    write("skymask.jpg", (prob * 255.0).astype(np.uint8))
+    write("skymask_refine.jpg", mask.astype(np.uint8) * 255)
     # green overlay (image_mask_fuse, SkyRegionDetect.cpp:462-476)
     fuse = np.asarray(color, np.uint8).copy()
     fuse[mask] = (0, 255, 0)
-    cv2.imwrite(os.path.join(folder, "skymask_fuse.jpg"), fuse)
+    write("skymask_fuse.jpg", fuse)

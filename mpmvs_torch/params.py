@@ -17,6 +17,7 @@ kernels for CUDA tensors, the plain PyTorch versions for CPU tensors.
 from __future__ import annotations
 
 import dataclasses
+import re
 
 SAMPLERS = ("auto", "sorted")
 
@@ -151,14 +152,11 @@ class ConfigParams:
 
     @classmethod
     def from_yaml(cls, path: str) -> "ConfigParams":
-        import yaml
-
+        """Read the reference's config file: flat ``Key: value`` lines
+        (:func:`parse_flat_yaml`, no PyYAML), keys by ``_YAML_KEYS`` or by
+        field name; unknown keys are ignored."""
         with open(path) as f:
-            text = f.read()
-        # The reference config starts with an OpenCV FileStorage directive
-        # ("%YAML:1.0") that PyYAML rejects; strip it for compatibility.
-        lines = [l for l in text.splitlines() if not l.startswith("%YAML")]
-        raw = yaml.safe_load("\n".join(lines)) or {}
+            raw = parse_flat_yaml(f.read())
         cfg = cls()
         for key, value in raw.items():
             attr = cls._YAML_KEYS.get(key, key if hasattr(cls, key) else None)
@@ -173,3 +171,64 @@ class ConfigParams:
         cfg.input_folder = cfg.input_folder.rstrip("/")
         cfg.output_folder = cfg.output_folder.rstrip("/")
         return cfg
+
+
+_YAML_BOOL = {w: v for v, words in ((True, "yes true on"),
+                                    (False, "no false off"))
+              for word in words.split()
+              for w in (word, word.capitalize(), word.upper())}
+_YAML_NULL = ("", "~", "null", "Null", "NULL")
+_YAML_INT = re.compile(r"[-+]?(0|[1-9][0-9_]*)$")
+_YAML_FLOAT = re.compile(r"[-+]?([0-9][0-9_]*)?\.[0-9_]*([eE][-+][0-9]+)?$")
+
+
+def _yaml_scalar(text: str):
+    """One plain or quoted scalar as ``yaml.safe_load`` (YAML 1.1) reads
+    it: a quoted string, null, a bool word, a decimal int, a float with a
+    point, or else the plain string."""
+    if len(text) >= 2 and text[0] == text[-1] and text[0] in "\"'":
+        body = text[1:-1]
+        return body.replace("''", "'") if text[0] == "'" else \
+            body.encode().decode("unicode_escape")
+    if text in _YAML_NULL:
+        return None
+    if text in _YAML_BOOL:
+        return _YAML_BOOL[text]
+    if _YAML_INT.match(text):
+        return int(text.replace("_", ""))
+    if _YAML_FLOAT.match(text) and text not in (".", "+.", "-."):
+        return float(text.replace("_", ""))
+    return text
+
+
+def parse_flat_yaml(text: str) -> dict:
+    """The mapping of a flat YAML document of ``Key: value`` lines, the
+    reference's config schema (config/config.yaml): directives (the
+    ``%YAML:1.0`` of OpenCV's FileStorage), document markers, comments and
+    blank lines are skipped; a value runs to the end of its line or to a
+    `` #`` comment outside quotes. Nested blocks, flow collections and
+    multi-line scalars are refused."""
+    out = {}
+    for n, line in enumerate(text.splitlines(), 1):
+        stripped = line.strip()
+        if (not stripped or stripped.startswith(("#", "%"))
+                or stripped in ("---", "...")):
+            continue
+        if line[0].isspace() or stripped.startswith(("- ", "{", "[")):
+            raise ValueError(f"line {n}: only flat 'Key: value' lines are "
+                             f"read, got {line!r}")
+        m = re.match(r"(\"[^\"]*\"|'[^']*'|[^:#]*?)\s*:(\s+(.*)|$)", stripped)
+        if m is None:
+            raise ValueError(f"line {n}: no 'Key: value' in {line!r}")
+        key = _yaml_scalar(m.group(1).strip())
+        value = (m.group(3) or "").strip()
+        if value and value[0] not in "\"'":
+            value = re.split(r"\s#", value, maxsplit=1)[0].rstrip()
+        elif value:
+            q = re.match(r"'(?:[^']|'')*'|\"(?:[^\"\\]|\\.)*\"", value)
+            value = q.group(0) if q else value
+        if value[:1] in ("{", "[", "|", ">", "&", "*", "!"):
+            raise ValueError(f"line {n}: only plain and quoted scalars are "
+                             f"read, got {value!r}")
+        out[str(key)] = _yaml_scalar(value)
+    return out

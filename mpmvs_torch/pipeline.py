@@ -33,10 +33,12 @@ from mpmvs_torch import geometry as geo
 from mpmvs_torch.camera import Camera, CameraStack
 from mpmvs_torch.fusion import run_fusion
 from mpmvs_torch.io import read_cam_txt, read_dmb, read_pair_txt, write_dmb
+from mpmvs_torch.io import images as image_io
 from mpmvs_torch.io import write_ply_binary
 from mpmvs_torch.io.cams import Scene
 from mpmvs_torch.models.sky import generate_sky_masks
 from mpmvs_torch.ops import threefry as tf
+from mpmvs_torch.ops.resize import resize_u8
 from mpmvs_torch.params import ConfigParams, PatchMatchParams
 from mpmvs_torch.prior import build_planar_prior, draw_triangulation
 from mpmvs_torch.solver import SolveResult, resolve_device, solve_view
@@ -56,30 +58,30 @@ class ViewRecord:
     sky_mask: Optional[np.ndarray] = None  # (h, w) bool, True = sky
 
 
-def _load_view(input_folder: str, view_id: int,
-               max_image_size: int) -> ViewRecord:
-    """imread grayscale float32 + rescale >max_image_size with K adjustment
-    (PatchMatchInit, PatchMatch.cpp:873-925)."""
-    import cv2
-
+def _load_view(input_folder: str, view_id: int, max_image_size: int,
+               device) -> ViewRecord:
+    """Read a view's grey and BGR image (``io.images``: on a CUDA device the
+    port's decoder, host entropy decoding with the IDCT and colour kernels
+    of ``csrc/jpeg_codec.cu``; OpenCV on the CPU) and its camera, and
+    rescale an image above ``max_image_size`` with the K adjustment
+    (PatchMatchInit, PatchMatch.cpp:873-925) by ``ops.resize.resize_u8``,
+    cv2.resize's INTER_LINEAR bit for bit, on ``device``."""
     img_path = os.path.join(input_folder, "images", f"{view_id:08d}.jpg")
-    gray = cv2.imread(img_path, cv2.IMREAD_GRAYSCALE)
-    if gray is None:
-        raise FileNotFoundError(img_path)
-    color = cv2.imread(img_path, cv2.IMREAD_COLOR)
+    gray, color = image_io.read_image(img_path, device)
     cam = read_cam_txt(os.path.join(input_folder, "cams",
                                     f"{view_id:08d}_cam.txt"))
     h, w = gray.shape
+    gray, color = gray.to(torch.float32), color.to(torch.float32)
     if max(h, w) > max_image_size:
         factor = min(max_image_size / w, max_image_size / h)
         nw, nh = round(w * factor), round(h * factor)
-        gray = cv2.resize(gray, (nw, nh), interpolation=cv2.INTER_LINEAR)
-        color = cv2.resize(color, (nw, nh), interpolation=cv2.INTER_LINEAR)
+        gray = resize_u8(gray[..., None], nh, nw)[..., 0]
+        color = resize_u8(color, nh, nw)
         cam = cam.rescale(nw / w, nh / h, nw, nh)
     else:
         cam = cam.rescale(1.0, 1.0, w, h)
-    return ViewRecord(index=view_id, image=gray.astype(np.float32),
-                      color=color.astype(np.float32), camera=cam)
+    return ViewRecord(index=view_id, image=_np(gray), color=_np(color),
+                      camera=cam)
 
 
 def _pad_stack(arrays: List[np.ndarray], shape, fill=0.0) -> np.ndarray:
@@ -99,9 +101,10 @@ class Pipeline:
     """End-to-end MP-MVS pipeline over a dense workspace, on ``device``.
 
     ``write_jpg`` writes the reference's previews beside each view's
-    ``.dmb`` files (``costs.jpg``, ``triangulation.png``, the sky masks); it
-    needs OpenCV. ``solve_log`` records (view, stage, seconds) of every
-    solve, prior build and prior sub-run."""
+    ``.dmb`` files (``costs.jpg``, ``triangulation.png``, the sky masks),
+    encoded on the pipeline's device (``io.images``). ``solve_log``
+    records (view, stage, seconds) of every solve, prior build and prior
+    sub-run."""
 
     def __init__(self, config: ConfigParams,
                  params: Optional[PatchMatchParams] = None, device="cuda",
@@ -129,7 +132,8 @@ class Pipeline:
             for vid in s.src_ids:
                 if vid not in self.views:
                     self.views[vid] = _load_view(cfg.input_folder, vid,
-                                                 cfg.max_image_size)
+                                                 cfg.max_image_size,
+                                                 self.device)
         return self
 
     def load_arrays(self, images, colors, cameras: CameraStack,
@@ -232,11 +236,10 @@ class Pipeline:
                     f"no prior sub-run")
             else:
                 if self.write_jpg:
-                    import cv2
-
-                    cv2.imwrite(os.path.join(self.result_dir(scene.ref_id),
-                                             "triangulation.png"),
-                                draw_triangulation(rec.image, pr))
+                    image_io.write_png(
+                        os.path.join(self.result_dir(scene.ref_id),
+                                     "triangulation.png"),
+                        draw_triangulation(rec.image, pr, dev))
                 if self.config.save_prior_dmb:
                     self._save_prior(scene.ref_id, pr, (h, w))
                 geom_prior = geom and self.config.geom_prior_consistency
@@ -293,10 +296,9 @@ class Pipeline:
         write_dmb(os.path.join(d, "normals.dmb"), _np(res.normal))
         write_dmb(os.path.join(d, "costs.dmb"), _np(res.cost))
         if self.write_jpg:
-            import cv2
-
-            cv2.imwrite(os.path.join(d, "costs.jpg"),
-                        visualize.cost_to_img(_np(res.cost)))
+            image_io.write_jpeg(os.path.join(d, "costs.jpg"),
+                                visualize.cost_to_img(_np(res.cost)),
+                                self.device)
 
     def load_view_result(self, view_id: int) -> bool:
         d = self.result_dir(view_id)
@@ -444,24 +446,22 @@ class Pipeline:
         return ply_path
 
     def save_visualizations(self):
-        """saveDmbAsJpg equivalent (utility.cpp:479-520); needs OpenCV."""
-        import cv2
-
+        """saveDmbAsJpg equivalent (utility.cpp:479-520), encoded on the
+        pipeline's device."""
         cfg = self.config
         for s in self.scenes:
             if not s.estimate or self.views[s.ref_id].result is None:
                 continue
             d = self.result_dir(s.ref_id)
             res = self.views[s.ref_id].result
+            write = lambda name, img: image_io.write_jpeg(
+                os.path.join(d, name), img, self.device)
             if cfg.save_dmb:
-                cv2.imwrite(os.path.join(d, "depths.jpg"),
-                            visualize.depth_to_jet(_np(res.depth)))
+                write("depths.jpg", visualize.depth_to_jet(_np(res.depth)))
             if cfg.save_cost_dmb:
-                cv2.imwrite(os.path.join(d, "costs.jpg"),
-                            visualize.cost_to_img(_np(res.cost)))
+                write("costs.jpg", visualize.cost_to_img(_np(res.cost)))
             if cfg.save_normal_dmb:
-                cv2.imwrite(os.path.join(d, "normals.jpg"),
-                            visualize.normal_to_img(_np(res.normal)))
+                write("normals.jpg", visualize.normal_to_img(_np(res.normal)))
 
 
 def _pad_result(res: SolveResult, H: int, W: int) -> SolveResult:

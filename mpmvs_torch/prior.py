@@ -290,15 +290,23 @@ def build_planar_prior(depth: np.ndarray, cost: np.ndarray, K: np.ndarray,
     return prior
 
 
-def draw_triangulation(image: np.ndarray, prior: PlanarPrior) -> np.ndarray:
+def draw_triangulation(image: np.ndarray, prior: PlanarPrior,
+                       device="cuda") -> np.ndarray:
     """Reference-parity triangulation overlay (red wireframe on the gray
-    reference image — PatchMatch.cpp:576-598)."""
-    import cv2
-    img = np.asarray(image)
-    vis = np.stack([img, img, img], axis=-1).astype(np.uint8)
-    for tri in prior.triangles:
-        pts = [tuple(int(v) for v in p) for p in tri]
-        cv2.line(vis, pts[0], pts[1], (0, 0, 255))
-        cv2.line(vis, pts[0], pts[2], (0, 0, 255))
-        cv2.line(vis, pts[1], pts[2], (0, 0, 255))
-    return vis
+    reference image, PatchMatch.cpp:576-598), (H, W, 3) uint8 BGR. The JAX
+    package draws with ``cv2.line``; here every edge is walked as OpenCV's
+    8-connected LineIterator walks it (:func:`_edge_lines`), as torch ops
+    on ``device`` (tests/test_torch_images.py states the share of pixels
+    that differ from cv2)."""
+    img = torch.as_tensor(np.asarray(image, np.float32), device=device)
+    H, W = img.shape
+    vis = img.to(torch.uint8)[..., None].repeat(1, 1, 3)
+    tri = torch.as_tensor(np.asarray(prior.triangles, np.int64),
+                          device=device).reshape(-1, 3, 2)
+    red = torch.tensor([0, 0, 255], dtype=torch.uint8, device=device)
+    for a, b in ((0, 1), (0, 2), (1, 2)):
+        _, px, py = _edge_lines(tri[:, a, 0], tri[:, a, 1], tri[:, b, 0],
+                                tri[:, b, 1])
+        ok = (px >= 0) & (px < W) & (py >= 0) & (py < H)
+        vis[py[ok], px[ok]] = red
+    return vis.cpu().numpy()

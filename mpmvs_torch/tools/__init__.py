@@ -1,7 +1,10 @@
 """Measurement tools of the port: ``ab_deviations`` (the search-semantics
-A/B) and ``synthetic_eval`` (the shapes-scene accuracy run). Each runs the
-port's pipeline on a device the caller names and writes one JSON file;
-:func:`run_shapes_pipeline` is the run and evaluation both share."""
+A/B), ``synthetic_eval`` (the shapes-scene accuracy run),
+``fusion_diagnose`` (the fusion gate funnel over a finished workspace),
+``solve_trace`` (a half-iteration's device time, split) and
+``kernel_bench``. The first two run the port's pipeline on a device the
+caller names and write one JSON file; :func:`run_shapes_pipeline` is the
+run and evaluation both share."""
 
 from __future__ import annotations
 
@@ -18,11 +21,12 @@ def build_kernels(device: torch.device, verbose: bool = False) -> None:
     otherwise the first arm or pass to reach a kernel pays its build.
     ``verbose`` prints each build's register report and time."""
     if device.type == "cuda":
+        from mpmvs_torch.io import images
         from mpmvs_torch.ops import bilateral_cuda, ncc_cuda, ncc_sorted, nvcc
 
         nvcc.build_all({m.SOURCE: m.NVCC_FLAGS
-                        for m in (ncc_cuda, ncc_sorted, bilateral_cuda)},
-                       verbose)
+                        for m in (ncc_cuda, ncc_sorted, bilateral_cuda,
+                                  images)}, verbose)
 
 
 def device_record(device: torch.device) -> dict:
@@ -62,7 +66,7 @@ def run_shapes_pipeline(scene, workdir: str, params, device,
     t0 = time.perf_counter()
     views = len(scene.images)
     ws = os.path.join(workdir, "ws")
-    write_workspace(scene, ws)
+    write_workspace(scene, ws, device)
     gt_dir = os.path.join(workdir, "gt")
     os.makedirs(gt_dir, exist_ok=True)
     for v in range(views):

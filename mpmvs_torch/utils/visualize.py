@@ -3,17 +3,25 @@
 Capability port of the reference's JPEG dump helpers (utility.cpp:310-520):
 JET-colormapped depth with optional 3%-tail histogram contrast stretch,
 normal maps scaled to 255 with flipped Y, cost maps scaled 255/2.
+The JAX package colours depth with ``cv2.applyColorMap(COLORMAP_JET)``;
+:data:`JET` is the piecewise-linear jet map, within 1 of OpenCV's table in
+every entry (tests/test_torch_images.py).
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+_X = np.arange(256) / 255.0
+# (256, 3) BGR uint8: jet's B, G, R ramps centred at 1/4, 1/2 and 3/4
+JET = np.round(255.0 * np.clip(
+    1.5 - np.abs(4.0 * _X[:, None] - np.array([1.0, 2.0, 3.0])), 0.0, 1.0)
+).astype(np.uint8)
+
 
 def depth_to_jet(depth: np.ndarray, hist_enhance: bool = True) -> np.ndarray:
     """(H, W) depth -> (H, W, 3) BGR uint8. Invalid (<= 0) pixels are black
     (SaveDmb, utility.cpp:389-463)."""
-    import cv2
     depth = np.asarray(depth, np.float32).copy()
     mask = depth > 0.0
     depth[~mask] = 0.0
@@ -36,7 +44,7 @@ def depth_to_jet(depth: np.ndarray, hist_enhance: bool = True) -> np.ndarray:
         dmin, dmax = new_min, new_max
     norm = (depth - dmin) / (dmax - dmin + 1e-8)
     u = np.clip(norm * 255.0, 0, 255).astype(np.uint8)
-    color = cv2.applyColorMap(u, cv2.COLORMAP_JET)
+    color = JET[u]
     color[~mask] = 0
     return color
 

@@ -11,21 +11,26 @@ import os
 
 import numpy as np
 
+from mpmvs_torch.io import images
 from mpmvs_torch.io.cams import write_cam_txt, write_pair_txt
 from mpmvs_torch.utils.synthetic import SyntheticScene
 
 
-def write_workspace(scene: SyntheticScene, folder: str) -> str:
-    import cv2
+def write_workspace(scene: SyntheticScene, folder: str,
+                    device="cuda") -> str:
+    """Write ``scene`` under ``folder``: its grey images as quality-100
+    JPEGs encoded on ``device`` (``io.images``: nvJPEG on a CUDA device,
+    OpenCV on the CPU), its cameras, and a pair.txt in which every view
+    takes all others as sources."""
     os.makedirs(os.path.join(folder, "images"), exist_ok=True)
     os.makedirs(os.path.join(folder, "cams"), exist_ok=True)
     V = scene.images.shape[0]
     for v in range(V):
         # PNG under a .jpg name would also load, but keep honest JPEGs at
         # max quality so NCC still matches across views.
-        cv2.imwrite(os.path.join(folder, "images", f"{v:08d}.jpg"),
-                    scene.images[v].astype(np.uint8),
-                    [cv2.IMWRITE_JPEG_QUALITY, 100])
+        images.write_jpeg(os.path.join(folder, "images", f"{v:08d}.jpg"),
+                          scene.images[v].astype(np.uint8), device,
+                          quality=100)
         write_cam_txt(os.path.join(folder, "cams", f"{v:08d}_cam.txt"),
                       scene.cameras.view(v))
     view_sel = [[(j, 10.0) for j in range(V) if j != i] for i in range(V)]

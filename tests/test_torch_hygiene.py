@@ -1,8 +1,9 @@
 """Import hygiene and device discipline of mpmvs_torch.
 
 * A fresh interpreter imports the package and every module of the port
-  (sky net, planar prior, geometric cost, the sorted NCC path, eval and
-  the measurement tools included) without pulling in
+  (sky net, planar prior, geometric cost, the sorted NCC path, eval, the
+  image codec, the COLMAP converter and the measurement tools included)
+  without pulling in
   JAX, OpenCV or PyYAML (the H100 machine has neither OpenCV nor PyYAML,
   and the port must not depend on JAX).
 * A CUDA device that is not there raises instead of running on the CPU.
@@ -44,6 +45,10 @@ SLICE_MODULES = [
     "mpmvs_torch.eval", "mpmvs_torch.tools",
     "mpmvs_torch.tools.ab_deviations", "mpmvs_torch.tools.synthetic_eval",
     "mpmvs_torch.tools.kernel_bench", "mpmvs_torch.utils.roofline",
+    "mpmvs_torch.io.images", "mpmvs_torch.ops.resize",
+    "mpmvs_torch.preprocess", "mpmvs_torch.preprocess.colmap",
+    "mpmvs_torch.preprocess.convert", "mpmvs_torch.tools.fusion_diagnose",
+    "mpmvs_torch.tools.solve_trace",
 ]
 
 

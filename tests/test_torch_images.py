@@ -1,0 +1,511 @@
+"""Workspace image files and the config file of mpmvs_torch without OpenCV
+or PyYAML on the card, held against mpmvs_tpu on the CPU.
+
+* ``pipeline._load_view`` on the CPU against the JAX package's: the same
+  grey and BGR arrays and camera, bit for bit, with and without the resize
+  of an image above ``max_image_size`` (``ops.resize.resize_u8`` is
+  cv2.resize's INTER_LINEAR bit for bit).
+* ``utils.workspace.write_workspace`` on the CPU writes the JAX package's
+  files byte for byte.
+* The PNG writer (standard-library zlib) read back by cv2: equal.
+* The flat YAML parser against ``yaml.safe_load``, and
+  ``ConfigParams.from_yaml`` against the JAX package's.
+* The colour kernel's plain version (libjpeg-turbo's fancy upsampling and
+  fixed-point YCbCr -> BGR) against a loop written from libjpeg's own; the
+  IDCT kernel's plain version against jidctint.c's loops transcribed, on
+  random blocks, extreme ones included (the range limit's wrap).
+* Previews: the triangulation overlay against the JAX package's
+  ``cv2.line`` drawing on a Delaunay triangulation of random seeds: at most
+  0.1% of pixels differ; the JET map within 1 of OpenCV's in every entry.
+* The JPEGs under ``tests/data/jpeg/refused``: cv2 reads them as another
+  image than their planes (rotated by EXIF orientation 6, or RGB), which is
+  why the card refuses them; the host decoder, built with g++ (skipped
+  without it), refuses each with its code and still decodes the YCbCr
+  layouts beside them (EXIF orientation 1, Adobe transform 1, ids 'R',
+  'G', 'B' under a JFIF marker) to cv2's arrays.
+* On the card (``cuda``, skipped without one): the fixtures under
+  ``tests/data/jpeg`` decode to cv2's arrays, 0 entries differ, grey and
+  BGR; the refused ones raise, naming the cause; the IDCT and colour
+  kernels equal their plain versions; an nvJPEG encode decodes back close
+  to its input (mean |diff| below 2 levels, 4 at 4:2:0).
+
+OpenCV, PyYAML and the JAX package are imported inside the CPU tests, so
+the ``cuda`` tests run where none of them is installed:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_images.py
+"""
+
+import importlib.util
+import os
+import shutil
+
+import numpy as np
+import pytest
+import torch
+import torch.nn.functional as F
+
+from mpmvs_torch import pipeline as tpipeline
+from mpmvs_torch import prior as tprior
+from mpmvs_torch.io import images
+from mpmvs_torch.io.cams import write_cam_txt
+from mpmvs_torch.params import ConfigParams, parse_flat_yaml
+from mpmvs_torch.utils import visualize
+from mpmvs_torch.utils.synthetic import make_plane_scene
+from mpmvs_torch.utils.workspace import write_workspace
+
+from torch_parity import CAMERA_FIELDS, n
+
+torch.set_num_threads(1)
+
+FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
+                        "jpeg")
+FIXTURE_NAMES = sorted(f[:-4] for f in os.listdir(FIXTURES)
+                       if f.endswith(".jpg"))
+LINE_DIFF_TOL = 1e-3
+# the refused fixtures: the fixture each was made from, the host decoder's
+# code and the cause its error names
+REFUSED = {"exif_orientation6": ("420_q95", 2004, "EXIF orientation"),
+           "adobe_rgb": ("444_q100", 2005, "RGB components"),
+           "rgb_ids": ("444_q100", 2005, "RGB components")}
+
+
+def _fixture_module(name):
+    """tests/data/jpeg/<name>.py, imported."""
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(FIXTURES, f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _fixture_bytes(name):
+    with open(os.path.join(FIXTURES, f"{name}.jpg"), "rb") as f:
+        return f.read()
+
+
+def _colour_picture(h, w, seed):
+    """Smooth random colours, (h, w, 3) uint8."""
+    rng = np.random.default_rng(seed)
+    small = torch.as_tensor(rng.uniform(0, 255, (1, 3, h // 8 + 2,
+                                                 w // 8 + 2)))
+    big = F.interpolate(small, size=(h, w), mode="bilinear",
+                        align_corners=True)[0].permute(1, 2, 0)
+    return big.round().clamp(0, 255).to(torch.uint8).numpy()
+
+
+@pytest.fixture(scope="module")
+def colour_workspace(tmp_path_factory):
+    """One 4:2:0 q95 colour view of 90x136 and its camera."""
+    import cv2
+
+    folder = str(tmp_path_factory.mktemp("ws_colour"))
+    os.makedirs(os.path.join(folder, "images"))
+    os.makedirs(os.path.join(folder, "cams"))
+    scene = make_plane_scene(num_views=1, height=90, width=136, seed=4)
+    cv2.imwrite(os.path.join(folder, "images", "00000000.jpg"),
+                _colour_picture(90, 136, 1), [cv2.IMWRITE_JPEG_QUALITY, 95])
+    write_cam_txt(os.path.join(folder, "cams", "00000000_cam.txt"),
+                  scene.cameras.view(0))
+    return folder
+
+
+@pytest.mark.parametrize("max_size", [3200, 100, 77])
+def test_load_view_matches_jax(colour_workspace, max_size):
+    from mpmvs_tpu import pipeline as jpipeline
+
+    got = tpipeline._load_view(colour_workspace, 0, max_size, "cpu")
+    want = jpipeline._load_view(colour_workspace, 0, max_size)
+    assert got.image.dtype == np.float32 and got.color.dtype == np.float32
+    np.testing.assert_array_equal(got.image, np.asarray(want.image))
+    np.testing.assert_array_equal(got.color, np.asarray(want.color))
+    for f in CAMERA_FIELDS:
+        np.testing.assert_array_equal(n(getattr(got.camera, f)),
+                                      np.asarray(getattr(want.camera, f)))
+    if max_size < 136:
+        assert max(got.image.shape) == max_size
+
+
+def test_write_workspace_matches_jax(tmp_path):
+    from mpmvs_tpu.utils.synthetic import make_plane_scene as jax_plane_scene
+    from mpmvs_tpu.utils.workspace import write_workspace as jax_workspace
+
+    scene = make_plane_scene(num_views=3, height=40, width=56, seed=2)
+    jscene = jax_plane_scene(num_views=3, height=40, width=56, seed=2)
+    write_workspace(scene, str(tmp_path / "t"), device="cpu")
+    jax_workspace(jscene, str(tmp_path / "j"))
+    for sub in ("images", "cams"):
+        names = sorted(os.listdir(tmp_path / "j" / sub))
+        assert sorted(os.listdir(tmp_path / "t" / sub)) == names
+        for name in names:
+            assert ((tmp_path / "t" / sub / name).read_bytes()
+                    == (tmp_path / "j" / sub / name).read_bytes()), name
+    assert ((tmp_path / "t" / "pair.txt").read_bytes()
+            == (tmp_path / "j" / "pair.txt").read_bytes())
+
+
+@pytest.mark.parametrize("channels", [1, 3])
+def test_png_writer_reads_back(tmp_path, channels):
+    import cv2
+
+    rng = np.random.default_rng(channels)
+    shape = (37, 53) if channels == 1 else (37, 53, 3)
+    img = rng.integers(0, 256, shape).astype(np.uint8)
+    path = str(tmp_path / "x.png")
+    images.write_png(path, img)
+    back = cv2.imread(path, cv2.IMREAD_UNCHANGED)
+    np.testing.assert_array_equal(back, img)
+
+
+JAX_TEST_CONFIG = ('%YAML:1.0\n---\nInput-folder: "/data/in"\n'
+                   'Output-folder: "/data/out/"\n'
+                   "Geometric consistency iterations: 2\nPlaner prior: 1\n"
+                   "Geometric consistency planer prior: 0\nSky segment: 0\n"
+                   "Use dynamic_consistency to fuse: 1\n"
+                   "Max source images num: 20\nMax image size: 3200\n")
+
+
+def _every_key_config():
+    values = ["/in/dir", "'/out dir/'", 3, 0, 1, 1, 0, 1, 0, 1, 0, 12, 2400,
+              1]
+    lines = [f"{key}: {v}  # comment" if i % 3 == 0 else f"{key}: {v}"
+             for i, (key, v) in enumerate(zip(ConfigParams._YAML_KEYS,
+                                              values))]
+    return "%YAML:1.0\n---\n# the reference's keys\n" + "\n".join(
+        lines + ["seed: 9", "save_dmb: 1", "Unknown key: true"]) + "\n"
+
+
+@pytest.mark.parametrize("text", [JAX_TEST_CONFIG, _every_key_config(),
+                                  "a: 1.5\nb: yes\nc: Off\nd: ~\ne:\n"
+                                  "f: 'it''s'\ng: x # c\nh: 1_000\n"
+                                  "i: 0.5e+3\nj: 1e5\nk: -3\n"
+                                  'm: "q # not a comment"  # c\n'],
+                         ids=["jax-test", "every-key", "scalars"])
+def test_yaml_parser_matches_pyyaml(text):
+    import yaml
+
+    lines = [ln for ln in text.splitlines() if not ln.startswith("%YAML")]
+    want = yaml.safe_load("\n".join(lines))
+    got = parse_flat_yaml(text)
+    assert got == want
+    assert [type(v) for v in got.values()] == [type(v)
+                                               for v in want.values()]
+
+
+@pytest.mark.parametrize("text", [JAX_TEST_CONFIG, _every_key_config()],
+                         ids=["jax-test", "every-key"])
+def test_from_yaml_matches_jax(tmp_path, text):
+    from mpmvs_tpu.params import ConfigParams as JaxConfig
+
+    p = tmp_path / "config.yaml"
+    p.write_text(text)
+    got, want = ConfigParams.from_yaml(str(p)), JaxConfig.from_yaml(str(p))
+    for f in ConfigParams.__dataclass_fields__:
+        assert getattr(got, f) == getattr(want, f), f
+
+
+def test_yaml_parser_refuses_nested_blocks():
+    with pytest.raises(ValueError):
+        parse_flat_yaml("a:\n  b: 1\n")
+    with pytest.raises(ValueError):
+        parse_flat_yaml("a: [1, 2]\n")
+
+
+def _libjpeg_fancy(p, hs, vs, H, W):
+    """jdsample.c's h2v2 / h2v1 / h1v2 fancy upsampling, loop by loop."""
+    p = p.astype(np.int64)
+    Hc, Wc = p.shape
+    if hs == 1 and vs == 1:
+        return p
+    out = np.zeros((Hc * vs, Wc * hs), np.int64)
+    for i in range(Hc):
+        for v in range(vs):
+            if vs == 2:
+                i1 = max(i - 1, 0) if v == 0 else min(i + 1, Hc - 1)
+                col = 3 * p[i] + p[i1]
+            else:
+                col = p[i]
+            o = out[i * vs + v]
+            if hs == 1:
+                o[:] = (col + (1 if v == 0 else 2)) >> 2
+                continue
+            if vs == 2:
+                o[0] = (col[0] * 4 + 8) >> 4
+                o[1] = (col[0] * 3 + col[1] + 7) >> 4
+                for j in range(1, Wc - 1):
+                    o[2 * j] = (col[j] * 3 + col[j - 1] + 8) >> 4
+                    o[2 * j + 1] = (col[j] * 3 + col[j + 1] + 7) >> 4
+                j = Wc - 1
+                o[2 * j] = (col[j] * 3 + col[j - 1] + 8) >> 4
+                o[2 * j + 1] = (col[j] * 4 + 7) >> 4
+            else:
+                o[0], o[1] = col[0], (col[0] * 3 + col[1] + 2) >> 2
+                for j in range(1, Wc - 1):
+                    o[2 * j] = (col[j] * 3 + col[j - 1] + 1) >> 2
+                    o[2 * j + 1] = (col[j] * 3 + col[j + 1] + 2) >> 2
+                j = Wc - 1
+                o[2 * j], o[2 * j + 1] = (col[j] * 3 + col[j - 1] + 1) >> 2, \
+                    col[j]
+    return out[:H, :W]
+
+
+def _libjpeg_colour(y, ub, ur):
+    """jdcolor.c's tables: Cr_r, Cb_b, Cr_g + Cb_g with 16 fraction bits."""
+    fix = lambda x: int(x * 65536 + 0.5)
+    xb, xr = ub - 128, ur - 128
+    red = (fix(1.402) * xr + 32768) >> 16
+    blue = (fix(1.772) * xb + 32768) >> 16
+    green = (-fix(0.34414) * xb + 32768 - fix(0.71414) * xr) >> 16
+    return np.clip(np.stack([y + blue, y + green, y + red], -1), 0, 255)
+
+
+@pytest.mark.parametrize("hs,vs", [(2, 2), (2, 1), (1, 2), (1, 1)])
+@pytest.mark.parametrize("H,W", [(8, 10), (7, 9)])
+def test_ycc_plain_matches_libjpeg_loops(hs, vs, H, W):
+    rng = np.random.default_rng(H * 10 + hs + vs)
+    Hc, Wc = -(-H // vs), -(-W // hs)
+    y = rng.integers(0, 256, (H, W)).astype(np.uint8)
+    cb = rng.integers(0, 256, (Hc, Wc)).astype(np.uint8)
+    cr = rng.integers(0, 256, (Hc, Wc)).astype(np.uint8)
+    got = images.ycc_to_bgr_plain(torch.as_tensor(y), torch.as_tensor(cb),
+                                  torch.as_tensor(cr), hs, vs)
+    want = _libjpeg_colour(y.astype(np.int64),
+                           _libjpeg_fancy(cb, hs, vs, H, W),
+                           _libjpeg_fancy(cr, hs, vs, H, W))
+    np.testing.assert_array_equal(n(got), want)
+    grey = images.ycc_to_bgr_plain(torch.as_tensor(y))
+    np.testing.assert_array_equal(n(grey), np.repeat(y[..., None], 3, -1))
+
+
+def _jidctint_loops(coef, qt):
+    """jidctint.c's jpeg_idct_islow (libjpeg 6b, as libjpeg-turbo keeps
+    it), loop by loop: 64 natural-order coefficients and quantization
+    values -> 8x8 samples."""
+    def descale(x, n):
+        return (x + (1 << (n - 1))) >> n
+
+    def one_d(g):  # g(k) -> the k-th input of this pass
+        z2, z3 = g(2), g(6)
+        z1 = (z2 + z3) * 4433
+        tmp2, tmp3 = z1 + z3 * -15137, z1 + z2 * 6270
+        tmp0, tmp1 = (g(0) + g(4)) << 13, (g(0) - g(4)) << 13
+        tmp10, tmp13, tmp11, tmp12 = (tmp0 + tmp3, tmp0 - tmp3, tmp1 + tmp2,
+                                      tmp1 - tmp2)
+        tmp0, tmp1, tmp2, tmp3 = g(7), g(5), g(3), g(1)
+        z1, z2, z3, z4 = tmp0 + tmp3, tmp1 + tmp2, tmp0 + tmp2, tmp1 + tmp3
+        z5 = (z3 + z4) * 9633
+        tmp0, tmp1, tmp2, tmp3 = (tmp0 * 2446, tmp1 * 16819, tmp2 * 25172,
+                                  tmp3 * 12299)
+        z1, z2, z3, z4 = z1 * -7373, z2 * -20995, z3 * -16069, z4 * -3196
+        z3 += z5
+        z4 += z5
+        tmp0 += z1 + z3
+        tmp1 += z2 + z4
+        tmp2 += z2 + z3
+        tmp3 += z1 + z4
+        return [tmp10 + tmp3, tmp11 + tmp2, tmp12 + tmp1, tmp13 + tmp0,
+                tmp13 - tmp0, tmp12 - tmp1, tmp11 - tmp2, tmp10 - tmp3]
+
+    ws = [[0] * 8 for _ in range(8)]
+    for c in range(8):
+        col = one_d(lambda k: int(coef[8 * k + c]) * int(qt[8 * k + c]))
+        for r in range(8):
+            ws[r][c] = descale(col[r], 11)
+    out = np.zeros((8, 8), np.uint8)
+    for r in range(8):
+        row = one_d(lambda k: ws[r][k])
+        for c in range(8):
+            i = descale(row[c], 18) & 1023
+            out[r, c] = i + 128 if i < 128 else (
+                255 if i < 512 else (0 if i < 896 else i - 896))
+    return out
+
+
+def test_idct_plain_matches_jidctint_loops():
+    rng = np.random.default_rng(5)
+    bh, bw = 3, 4
+    coef = np.zeros((bh, bw, 64), np.int16)
+    coef[..., :10] = rng.integers(-60, 61, (bh, bw, 10))
+    coef[0, 0] = rng.integers(-1024, 1024, 64)           # dense
+    coef[0, 1, 0] = 1023                                  # flat, saturating
+    coef[0, 2, :3] = (-2048, 2047, -2048)                 # wraps the limit
+    coef[1, 3] = rng.integers(-32768, 32768, 64)          # int16 extremes
+    qt = rng.integers(1, 256, 64).astype(np.uint16)
+    qt[7] = 65535                                         # a 16-bit table
+    got = images.idct_islow_plain(torch.as_tensor(coef),
+                                  torch.as_tensor(qt.view(np.int16)), 21, 29)
+    assert got.dtype == torch.uint8 and tuple(got.shape) == (21, 29)
+    want = np.zeros((8 * bh, 8 * bw), np.uint8)
+    for by in range(bh):
+        for bx in range(bw):
+            want[8 * by:8 * by + 8, 8 * bx:8 * bx + 8] = _jidctint_loops(
+                coef[by, bx], qt)
+    np.testing.assert_array_equal(n(got), want[:21, :29])
+
+
+@pytest.mark.parametrize("name", FIXTURE_NAMES)
+def test_cpu_decode_is_cv2(name):
+    want = np.load(os.path.join(FIXTURES, "decoded.npz"))
+    gray, bgr = images.read_image(os.path.join(FIXTURES, f"{name}.jpg"),
+                                  "cpu")
+    np.testing.assert_array_equal(n(gray), want[f"gray_{name}"])
+    np.testing.assert_array_equal(n(bgr), want[f"bgr_{name}"])
+
+
+@pytest.mark.parametrize("name", sorted(REFUSED))
+def test_cv2_reads_refused_fixtures_as_another_image(name):
+    import cv2
+
+    base = cv2.imread(os.path.join(FIXTURES, f"{REFUSED[name][0]}.jpg"))
+    got = cv2.imread(os.path.join(FIXTURES, "refused", f"{name}.jpg"))
+    if name.startswith("exif"):
+        np.testing.assert_array_equal(got, np.rot90(base, -1))
+    else:  # the YCbCr samples taken as R, G, B
+        assert got.shape == base.shape and (got != base).mean() > 0.5
+    # on the CPU the port reads through OpenCV, as the JAX package does
+    gray, bgr = images.read_image(os.path.join(FIXTURES, "refused",
+                                               f"{name}.jpg"), "cpu")
+    np.testing.assert_array_equal(n(bgr), got)
+
+
+@pytest.fixture(scope="module")
+def host_decoder(tmp_path_factory):
+    if shutil.which("g++") is None:
+        pytest.skip("needs g++ to build the host decoder")
+    tool = _fixture_module("check_host_decoder")
+    return tool, tool.build(str(tmp_path_factory.mktemp("host_decoder")))
+
+
+@pytest.mark.parametrize("name", sorted(REFUSED))
+def test_host_decoder_refuses(host_decoder, name):
+    tool, lib = host_decoder
+    data = _fixture_bytes(os.path.join("refused", name))
+    assert tool.status(lib, data) == REFUSED[name][1]
+
+
+@pytest.mark.parametrize("case", ["exif_orientation1", "adobe_ycc",
+                                  "jfif_rgb_ids"])
+def test_host_decoder_keeps_ycc_layouts(host_decoder, case):
+    import cv2
+
+    tool, lib = host_decoder
+    make = _fixture_module("make_fixtures")
+    data = {"exif_orientation1": lambda: make.after_soi(
+                _fixture_bytes("420_q95"), make.exif_app1(1)),
+            "adobe_ycc": lambda: make.after_soi(make.without_jfif(
+                _fixture_bytes("444_q100")), make.adobe_app14(1)),
+            "jfif_rgb_ids": lambda: make.with_ids(
+                _fixture_bytes("444_q100"), b"RGB")}[case]()
+    buf = np.frombuffer(data, np.uint8)
+    gray, bgr = tool.decode(lib, data)
+    np.testing.assert_array_equal(gray, cv2.imdecode(buf,
+                                                     cv2.IMREAD_GRAYSCALE))
+    np.testing.assert_array_equal(bgr, cv2.imdecode(buf, cv2.IMREAD_COLOR))
+
+
+def test_card_codec_refuses_other_formats(tmp_path):
+    png = images.encode_png(np.zeros((4, 4), np.uint8))
+    assert images.image_format(png) == "PNG"
+    with pytest.raises(ValueError, match="PNG"):
+        images.decode_planes(png, "cuda")
+    with pytest.raises(FileNotFoundError):
+        images.read_image(str(tmp_path / "missing.jpg"), "cpu")
+
+
+def test_triangulation_overlay_against_cv2_lines():
+    from mpmvs_tpu import prior as jprior
+
+    rng = np.random.default_rng(3)
+    H, W = 120, 160
+    seeds = np.unique(rng.integers(0, [W, H], (300, 2)), axis=0)
+    tris = tprior.delaunay_triangulate(seeds)
+    pr = tprior.PlanarPrior(planes=None, mask=None, triangles=tris,
+                            vertices=seeds)
+    gray = rng.uniform(0, 255, (H, W)).astype(np.float32)
+    got = tprior.draw_triangulation(gray, pr, device="cpu")
+    want = jprior.draw_triangulation(gray, pr)
+    differ = (got != want).any(-1).mean()
+    assert got.shape == want.shape == (H, W, 3) and got.dtype == np.uint8
+    assert differ <= LINE_DIFF_TOL, differ
+
+
+def test_jet_within_one_of_opencv():
+    import cv2
+
+    want = cv2.applyColorMap(np.arange(256, dtype=np.uint8)[None],
+                             cv2.COLORMAP_JET)[0]
+    diff = np.abs(visualize.JET.astype(int) - want.astype(int))
+    assert diff.max() <= 1
+
+
+# ----------------------------- on the card -----------------------------
+
+@pytest.fixture(scope="module")
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", FIXTURE_NAMES)
+def test_card_decode_equals_cv2(dev, name):
+    want = np.load(os.path.join(FIXTURES, "decoded.npz"))
+    gray, bgr = images.read_image(os.path.join(FIXTURES, f"{name}.jpg"), dev)
+    assert gray.device.type == "cuda" and bgr.device.type == "cuda"
+    got = {"gray": n(gray).astype(int), "bgr": n(bgr).astype(int)}
+    bad = {k: (int((got[k] != want[f"{k}_{name}"]).sum()),
+               int(np.abs(got[k] - want[f"{k}_{name}"]).max()))
+           for k in got}
+    assert bad == {"gray": (0, 0), "bgr": (0, 0)}, bad
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(REFUSED))
+def test_card_decode_refuses(dev, name):
+    with pytest.raises(ValueError, match=REFUSED[name][2]):
+        images.read_image(os.path.join(FIXTURES, "refused", f"{name}.jpg"),
+                          dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", FIXTURE_NAMES)
+def test_colour_kernel_equals_plain(dev, name):
+    with open(os.path.join(FIXTURES, f"{name}.jpg"), "rb") as f:
+        y, cb, cr, (hs, vs) = images.decode_planes(f.read(), dev)
+    before = images.COUNTS.kernel
+    got = images.ycc_to_bgr_kernel(y, cb, cr, hs, vs)
+    want = images.ycc_to_bgr_plain(y, cb, cr, hs, vs)
+    torch.cuda.synchronize()
+    assert images.COUNTS.kernel == before + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", FIXTURE_NAMES)
+def test_idct_kernel_equals_plain(dev, name):
+    with open(os.path.join(FIXTURES, f"{name}.jpg"), "rb") as f:
+        comps, _ = images.decode_coefficients(f.read(), dev)
+    for coef, qt, ph, pw in comps:
+        before = images.IDCT_COUNTS.kernel
+        got = images.idct_islow_kernel(coef, qt, ph, pw)
+        want = images.idct_islow_plain(coef, qt, ph, pw)
+        torch.cuda.synchronize()
+        assert images.IDCT_COUNTS.kernel == before + 1
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("colour", [True, False])
+def test_card_encode_decodes_back(dev, colour):
+    img = torch.as_tensor(_colour_picture(120, 176, 7), device=dev)
+    if not colour:
+        img = img[..., 1].contiguous()
+    data = images.encode_jpeg(img, dev, quality=95 if colour else 100)
+    assert images.image_format(data) == "JPEG"
+    gray, bgr = images.decode(data, dev)
+    back = bgr if colour else gray
+    diff = (back.float() - img.float()).abs()
+    assert back.shape == img.shape
+    # 4:2:0 halves the chroma's resolution both ways
+    assert diff.mean().item() < (4.0 if colour else 2.0)
+    assert diff.max().item() < 48

@@ -13,6 +13,9 @@ without JAX:
 (``--noconftest`` skips tests/conftest.py, which configures JAX.)
 
 Tolerances:
+* the NCC kernel past 10 sources (S = 11 and 20, two groups of the tile
+  launch; K in {1, 5, 9}; both launches): equal to the plain version,
+  NaN for NaN.
 * kernel vs plain version on the same CUDA tensors: the fraction of cost
   entries differing by more than 1e-4 stays below 1e-3, as in
   test_torch_ncc.py. The kernel repeats the plain version's operations one
@@ -136,6 +139,31 @@ def test_kernel_matches_plain(data, K, scale, cap):
     assert frac_beyond(got, want, 1e-4) < FRAC_TOL
     valid = (want < PARAMS.cost_max).float().mean().item()
     assert 0.1 < valid < 1.0  # both real costs and cost_max entries
+
+
+@pytest.fixture(scope="module")
+def data20(dev):
+    """A 1+20-view scene: the tile launch runs sources in groups of
+    NCC_VIEWS_MAX = 10 (csrc/ncc_eval.cu), so S = 11 and 20 take two."""
+    scene = make_plane_scene(num_views=21, height=48, width=96, seed=8)
+    return build_solve_data(torch.as_tensor(scene.images, device=dev),
+                            scene.cameras.to(dev))
+
+
+@pytest.mark.parametrize("scattered", [False, True])
+@pytest.mark.parametrize("K", [1, 5, 9])
+@pytest.mark.parametrize("S", [11, 20])
+def test_kernel_equals_plain_past_ten_sources(data20, S, K, scattered):
+    args = list(_band_args(data20, K, 0, True))
+    args[1:6] = [a[:S].contiguous() for a in args[1:6]]
+    got = ncc_cuda.ncc_eval_multi(*args, scattered=scattered)
+    want = ncc_cuda.ncc_eval_multi_plain(*args)
+    torch.cuda.synchronize()
+    assert got.shape == (K, S, 16, 48)
+    same = (got == want) | (torch.isnan(got) & torch.isnan(want))
+    assert bool(same.all()), int((~same).sum())
+    # every group has real costs
+    assert bool((want[:, 10:] < PARAMS.cost_max).any())
 
 
 def test_kernel_wrapper_rejects_bad_inputs(data):

@@ -56,7 +56,7 @@ V = 5  # views of the CLI workspace: enough sources for fusion to keep points
 def workspace(tmp_path_factory):
     scene = make_plane_scene(num_views=V, height=64, width=96, seed=9)
     folder = str(tmp_path_factory.mktemp("ws"))
-    write_workspace(scene, folder)
+    write_workspace(scene, folder, device="cpu")
     return folder, scene
 
 
