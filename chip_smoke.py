@@ -88,12 +88,25 @@ Phases, in order; any failure raises and the script exits non-zero:
    bilateral table form and the codec's kernels against the schedule;
    times the decode and nvJPEG's encode per image and the codec's
    kernels.
+9. Multi-GPU (after phase 8, on its converted workspace): (a) the NCC
+   kernel (tile and view-major launches, K=9) and the fused sorted path
+   with one zero-extent source (the sharded pipeline's padding: all-zero
+   image, identity camera, width = height = 0) against their plain
+   versions at 3200x2130 on a band of 64 rows: no entry may differ, and
+   the dummy scores cost_max everywhere; (b) ``mpmvs_torch.cli.main([...,
+   "--devices", "all"])``: one process per card (``torch.cuda.
+   device_count()`` ranks, NCCL), the default schedule with sky and
+   fusion, views sharded with the JAX package's semantics. Checks median
+   |d-gt|/gt < 1% on ground rows of every view, the PLY, and each rank's
+   launches (its ``rank_<r>.json``) against the schedule; prints each
+   depth map's digest and each rank's passes and collectives.
 
 Each phase's line carries the seconds since the start. Before the last
 three lines, a line gives each kernel's bound (the least time the card
 could take at the timed shape) beside its time, and a ``codec`` JSON line
 the decode and encode times, the IDCT and colour kernels' times beside
-their bounds and the fixtures' mismatches. The script fails if ``cv2``, ``yaml``, ``jax`` or
+their bounds and the fixtures' mismatches, and a ``multi_gpu`` JSON line
+phase 9's facts. The script fails if ``cv2``, ``yaml``, ``jax`` or
 ``mpmvs_tpu`` was imported. The last three lines of standard output are the card's name and power limit (``nvidia-smi``), a
 JSON object describing each kernel (and each form of a kernel that has
 several, with its launches on the path that reads it), and
@@ -1157,14 +1170,15 @@ def write_colmap_model(scene, dense: str, per_view: int = 400,
     return len(pts)
 
 
-def phase_files(params):
+def phase_files(params, root: str):
     """Phase 8: the user's path from files at full width. A 4-view
     3200x2130 plane scene (top fifth sky, colours tinted) as a COLMAP text
-    model and .JPG images written by the card's encoder;
+    model and .JPG images written by the card's encoder under ``root``;
     ``mpmvs_torch.preprocess.convert.main`` on the card, then
     ``mpmvs_torch.cli.main`` with a YAML config and --sky-seg 1 on the
     converted workspace: the default schedule, every view estimated with
-    the other 3 as sources, previews on. Returns what the summary needs."""
+    the other 3 as sources, previews on. Returns what the summary and
+    phase 9 need (the workspace and config stay under ``root``)."""
     import numpy as np
     import torch
     from mpmvs_torch import cli, pipeline
@@ -1186,146 +1200,145 @@ def phase_files(params):
     log(f"  scene: {V} views at {W_FULL}x{H_FULL} in "
         f"{time.perf_counter() - t0:.1f} s")
     out = {}
-    with tempfile.TemporaryDirectory(prefix="mpmvs_files_") as root:
-        dense, ws = os.path.join(root, "dense"), os.path.join(root, "ws")
-        n_pts = write_colmap_model(scene, dense)
-        os.makedirs(os.path.join(dense, "images"))
-        enc_ms = []
-        for v in range(V):
-            img = torch.as_tensor(bgr[v], device=dev)
-            torch.cuda.synchronize()
-            t1 = time.perf_counter()
-            images.write_jpeg(os.path.join(dense, "images",
-                                           f"IMG_{v:04d}.JPG"), img, dev)
-            enc_ms.append((time.perf_counter() - t1) * 1e3)
-        config = os.path.join(root, "config.yaml")
-        with open(config, "w") as f:
-            f.write("%YAML:1.0\n---\n# the reference's defaults\n"
-                    "Geometric consistency iterations: 2\nPlaner prior: 1\n"
-                    "Geometric consistency planer prior: 1\n"
-                    "Sky segment: 1\nUse dynamic_consistency to fuse: 1\n"
-                    "Max source images num: 20\nMax image size: 3200\n"
-                    "# every preview\nSave Dmb as JPG: 1\nSave Cost Map: 1\n"
-                    "Save Normal Map: 1\n")
-
-        ncc_cuda.COUNTS.reset()
-        bilateral_cuda.COUNTS.reset()
-        bilateral_cuda.TABLE_COUNTS.reset()
-        bilateral_cuda.colour_table.cache_clear()
-        images.COUNTS.reset()
-        images.IDCT_COUNTS.reset()
-        images.CODEC_COUNTS.reset()
+    dense, ws = os.path.join(root, "dense"), os.path.join(root, "ws")
+    n_pts = write_colmap_model(scene, dense)
+    os.makedirs(os.path.join(dense, "images"))
+    enc_ms = []
+    for v in range(V):
+        img = torch.as_tensor(bgr[v], device=dev)
+        torch.cuda.synchronize()
         t1 = time.perf_counter()
-        if convert.main(["--dense_folder", dense, "--save_folder", ws]) != 0:
-            raise AssertionError("convert.main failed")
-        convert_s = time.perf_counter() - t1
-        pipes = []
-        run = pipeline.Pipeline.run
+        images.write_jpeg(os.path.join(dense, "images",
+                                       f"IMG_{v:04d}.JPG"), img, dev)
+        enc_ms.append((time.perf_counter() - t1) * 1e3)
+    config = os.path.join(root, "config.yaml")
+    with open(config, "w") as f:
+        f.write("%YAML:1.0\n---\n# the reference's defaults\n"
+                "Geometric consistency iterations: 2\nPlaner prior: 1\n"
+                "Geometric consistency planer prior: 1\n"
+                "Sky segment: 1\nUse dynamic_consistency to fuse: 1\n"
+                "Max source images num: 20\nMax image size: 3200\n"
+                "# every preview\nSave Dmb as JPG: 1\nSave Cost Map: 1\n"
+                "Save Normal Map: 1\n")
 
-        def keep(self, *a, **k):  # the CLI's pipeline, for its logs
-            pipes.append(self)
-            return run(self, *a, **k)
+    ncc_cuda.COUNTS.reset()
+    bilateral_cuda.COUNTS.reset()
+    bilateral_cuda.TABLE_COUNTS.reset()
+    bilateral_cuda.colour_table.cache_clear()
+    images.COUNTS.reset()
+    images.IDCT_COUNTS.reset()
+    images.CODEC_COUNTS.reset()
+    t1 = time.perf_counter()
+    if convert.main(["--dense_folder", dense, "--save_folder", ws]) != 0:
+        raise AssertionError("convert.main failed")
+    convert_s = time.perf_counter() - t1
+    pipes = []
+    run = pipeline.Pipeline.run
 
-        pipeline.Pipeline.run = keep
-        try:
-            t1 = time.perf_counter()
-            rc = cli.main(["--input", ws, "--sky-seg", "1", "--config",
-                           config])
+    def keep(self, *a, **k):  # the CLI's pipeline, for its logs
+        pipes.append(self)
+        return run(self, *a, **k)
+
+    pipeline.Pipeline.run = keep
+    try:
+        t1 = time.perf_counter()
+        rc = cli.main(["--input", ws, "--sky-seg", "1", "--config",
+                       config])
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t1
+    finally:
+        pipeline.Pipeline.run = run
+    if rc != 0 or len(pipes) != 1:
+        raise AssertionError(f"cli.main returned {rc}")
+    pipe = pipes[0]
+    ncc = (ncc_cuda.COUNTS.kernel, ncc_cuda.COUNTS.plain)
+    bil = (bilateral_cuda.COUNTS.kernel, bilateral_cuda.COUNTS.plain,
+           dict(bilateral_cuda.COUNTS.forms))
+    tables = bilateral_cuda.TABLE_COUNTS.kernel
+    ycc = (images.COUNTS.kernel, images.COUNTS.plain)
+    idct_launches = images.IDCT_COUNTS.kernel
+    codec = dict(images.CODEC_COUNTS.forms)
+    log(f"  convert {convert_s:.2f} s ({n_pts} sparse points), cli "
+        f"{cli_s:.1f} s; {pipe.timer.summary()}")
+
+    # the converter's cameras against the scene's, to text precision
+    cam_err = 0.0
+    for v in range(V):
+        c = read_cam_txt(os.path.join(ws, "cams", f"{v:08d}_cam.txt"))
+        for f in ("K", "R", "t"):
+            a = getattr(c, f).numpy()
+            b = getattr(scene.cameras, f)[v].numpy()
+            cam_err = max(cam_err, float(np.abs(a - b).max()
+                                         / max(np.abs(b).max(), 1.0)))
+    scenes = read_pair_txt(os.path.join(ws, "pair.txt"))
+    srcs = {s.ref_id: sorted(s.src_ids[1:]) for s in scenes}
+    log(f"  converted cams: max |K, R, t - scene| (relative) "
+        f"{cam_err:.2e}; sources {srcs}")
+    if cam_err > CAM_TOL or any(
+            srcs[v] != [u for u in range(V) if u != v] for v in range(V)):
+        raise AssertionError(f"converted workspace: camera error "
+                             f"{cam_err}, sources {srcs}")
+
+    ground = slice(SKY_ROWS + GROUND_MARGIN, H_FULL)
+    rel = {}
+    for v in range(V):
+        d = read_dmb(os.path.join(ws, "MPMVS", f"2333_{v:08d}",
+                                  "depths.dmb"))
+        gt = scene.gt_depth[v]
+        if d.shape != gt.shape or not np.isfinite(d).all():
+            raise AssertionError(f"view {v}: depth map {d.shape}")
+        rel[v] = float(np.median(np.abs(d[ground] - gt[ground])
+                                 / gt[ground]))
+    pts = read_ply_binary(os.path.join(ws, "MPMVS",
+                                       "MPMVS_model.ply"))[0]
+    previews = sorted({f for v in range(V) for f in os.listdir(
+        os.path.join(ws, "MPMVS", f"2333_{v:08d}")) if f.endswith(
+        (".jpg", ".png"))})
+    sky = {v: float(pipe.views[v].sky_mask.mean()) for v in range(V)}
+    n_prior = sum(stage == "prior" for _, stage, _ in pipe.solve_log)
+    log(f"  median |d-gt|/gt on ground rows {rel}; PLY {len(pts)} "
+        f"points; sky fractions {sky}; previews {previews}")
+
+    # decode and encode per image, host clock around synchronised calls
+    dec_ms = []
+    for v in range(V):
+        path = os.path.join(ws, "images", f"{v:08d}.jpg")
+        with open(path, "rb") as f:
+            data = f.read()
+        for _ in range(3):
             torch.cuda.synchronize()
-            cli_s = time.perf_counter() - t1
-        finally:
-            pipeline.Pipeline.run = run
-        if rc != 0 or len(pipes) != 1:
-            raise AssertionError(f"cli.main returned {rc}")
-        pipe = pipes[0]
-        ncc = (ncc_cuda.COUNTS.kernel, ncc_cuda.COUNTS.plain)
-        bil = (bilateral_cuda.COUNTS.kernel, bilateral_cuda.COUNTS.plain,
-               dict(bilateral_cuda.COUNTS.forms))
-        tables = bilateral_cuda.TABLE_COUNTS.kernel
-        ycc = (images.COUNTS.kernel, images.COUNTS.plain)
-        idct_launches = images.IDCT_COUNTS.kernel
-        codec = dict(images.CODEC_COUNTS.forms)
-        log(f"  convert {convert_s:.2f} s ({n_pts} sparse points), cli "
-            f"{cli_s:.1f} s; {pipe.timer.summary()}")
-
-        # the converter's cameras against the scene's, to text precision
-        cam_err = 0.0
-        for v in range(V):
-            c = read_cam_txt(os.path.join(ws, "cams", f"{v:08d}_cam.txt"))
-            for f in ("K", "R", "t"):
-                a = getattr(c, f).numpy()
-                b = getattr(scene.cameras, f)[v].numpy()
-                cam_err = max(cam_err, float(np.abs(a - b).max()
-                                             / max(np.abs(b).max(), 1.0)))
-        scenes = read_pair_txt(os.path.join(ws, "pair.txt"))
-        srcs = {s.ref_id: sorted(s.src_ids[1:]) for s in scenes}
-        log(f"  converted cams: max |K, R, t - scene| (relative) "
-            f"{cam_err:.2e}; sources {srcs}")
-        if cam_err > CAM_TOL or any(
-                srcs[v] != [u for u in range(V) if u != v] for v in range(V)):
-            raise AssertionError(f"converted workspace: camera error "
-                                 f"{cam_err}, sources {srcs}")
-
-        ground = slice(SKY_ROWS + GROUND_MARGIN, H_FULL)
-        rel = {}
-        for v in range(V):
-            d = read_dmb(os.path.join(ws, "MPMVS", f"2333_{v:08d}",
-                                      "depths.dmb"))
-            gt = scene.gt_depth[v]
-            if d.shape != gt.shape or not np.isfinite(d).all():
-                raise AssertionError(f"view {v}: depth map {d.shape}")
-            rel[v] = float(np.median(np.abs(d[ground] - gt[ground])
-                                     / gt[ground]))
-        pts = read_ply_binary(os.path.join(ws, "MPMVS",
-                                           "MPMVS_model.ply"))[0]
-        previews = sorted({f for v in range(V) for f in os.listdir(
-            os.path.join(ws, "MPMVS", f"2333_{v:08d}")) if f.endswith(
-            (".jpg", ".png"))})
-        sky = {v: float(pipe.views[v].sky_mask.mean()) for v in range(V)}
-        n_prior = sum(stage == "prior" for _, stage, _ in pipe.solve_log)
-        log(f"  median |d-gt|/gt on ground rows {rel}; PLY {len(pts)} "
-            f"points; sky fractions {sky}; previews {previews}")
-
-        # decode and encode per image, host clock around synchronised calls
-        dec_ms = []
-        for v in range(V):
-            path = os.path.join(ws, "images", f"{v:08d}.jpg")
-            with open(path, "rb") as f:
-                data = f.read()
-            for _ in range(3):
-                torch.cuda.synchronize()
-                t1 = time.perf_counter()
-                g, c = images.decode(data, dev)
-                torch.cuda.synchronize()
-                dec_ms.append((time.perf_counter() - t1) * 1e3)
-        # the IDCT (each of the three components) and colour kernels
-        # against their plain versions on the last view's planes at full
-        # size: no entry may differ
-        comps, _ = images.decode_coefficients(data, dev)
-        idct_err = [differing(images.idct_islow_kernel(*c),
-                              images.idct_islow_plain(*c)) for c in comps]
-        y, cb, cr, (hs, vs) = images.decode_planes(data, dev)
-        ycc_err = [differing(images.ycc_to_bgr_kernel(y, cb, cr, hs, vs),
-                             images.ycc_to_bgr_plain(y, cb, cr, hs, vs))]
-        log(f"  at {W_FULL}x{H_FULL}, chroma {hs}x{vs}: IDCT kernel vs "
-            f"plain (entries differing, largest |diff|) per component "
-            f"{idct_err}; colour kernel vs plain {ycc_err[0]}")
-        if any(e[0] for e in idct_err + ycc_err):
-            raise AssertionError(f"codec kernels vs plain at full size: IDCT "
-                                 f"{idct_err}, colour {ycc_err}")
-        kernel_ms = cuda_time_ms(lambda: images.ycc_to_bgr_kernel(
-            y, cb, cr, hs, vs), 20)
-        plain_ms = cuda_time_ms(lambda: images.ycc_to_bgr_plain(
-            y, cb, cr, hs, vs), 3)
-        n_px = H_FULL * W_FULL
-        bound_ms = (n_px + 2 * cb.numel() + 3 * n_px) / 3.35e12 * 1e3
-        # the IDCT of all three components; its bound counts the bytes
-        # (2 a coefficient, 1 a sample): int64 work has no peak in the table
-        idct = lambda fn: (lambda: [fn(*c) for c in comps])
-        idct_ms = cuda_time_ms(idct(images.idct_islow_kernel), 20)
-        idct_plain_ms = cuda_time_ms(idct(images.idct_islow_plain), 3)
-        idct_bound_ms = sum(2 * c[0].numel() + c[2] * c[3]
-                            for c in comps) / 3.35e12 * 1e3
+            t1 = time.perf_counter()
+            g, c = images.decode(data, dev)
+            torch.cuda.synchronize()
+            dec_ms.append((time.perf_counter() - t1) * 1e3)
+    # the IDCT (each of the three components) and colour kernels
+    # against their plain versions on the last view's planes at full
+    # size: no entry may differ
+    comps, _ = images.decode_coefficients(data, dev)
+    idct_err = [differing(images.idct_islow_kernel(*c),
+                          images.idct_islow_plain(*c)) for c in comps]
+    y, cb, cr, (hs, vs) = images.decode_planes(data, dev)
+    ycc_err = [differing(images.ycc_to_bgr_kernel(y, cb, cr, hs, vs),
+                         images.ycc_to_bgr_plain(y, cb, cr, hs, vs))]
+    log(f"  at {W_FULL}x{H_FULL}, chroma {hs}x{vs}: IDCT kernel vs "
+        f"plain (entries differing, largest |diff|) per component "
+        f"{idct_err}; colour kernel vs plain {ycc_err[0]}")
+    if any(e[0] for e in idct_err + ycc_err):
+        raise AssertionError(f"codec kernels vs plain at full size: IDCT "
+                             f"{idct_err}, colour {ycc_err}")
+    kernel_ms = cuda_time_ms(lambda: images.ycc_to_bgr_kernel(
+        y, cb, cr, hs, vs), 20)
+    plain_ms = cuda_time_ms(lambda: images.ycc_to_bgr_plain(
+        y, cb, cr, hs, vs), 3)
+    n_px = H_FULL * W_FULL
+    bound_ms = (n_px + 2 * cb.numel() + 3 * n_px) / 3.35e12 * 1e3
+    # the IDCT of all three components; its bound counts the bytes
+    # (2 a coefficient, 1 a sample): int64 work has no peak in the table
+    idct = lambda fn: (lambda: [fn(*c) for c in comps])
+    idct_ms = cuda_time_ms(idct(images.idct_islow_kernel), 20)
+    idct_plain_ms = cuda_time_ms(idct(images.idct_islow_plain), 3)
+    idct_bound_ms = sum(2 * c[0].numel() + c[2] * c[3]
+                        for c in comps) / 3.35e12 * 1e3
     expected = V * (NCC_PHOTOMETRIC + 2 * NCC_GEOM) + n_prior * NCC_PRIOR
     bad = {v: e for v, e in rel.items() if not e < 0.01}
     log(f"  launches: NCC {ncc[0]} (schedule implies {expected}), plain "
@@ -1343,7 +1356,9 @@ def phase_files(params):
                              f"{tables}, colour kernel {ycc} (expected "
                              f"{2 * V}: the converter's and the pipeline's "
                              f"reads), IDCT kernel {idct_launches}")
-    out.update(rel=rel, points=len(pts), ncc=ncc[0], bilateral=bil[0],
+    out.update(ws=ws, config=config, gt_depth=scene.gt_depth,
+               images=scene.images, cameras=scene.cameras,
+               rel=rel, points=len(pts), ncc=ncc[0], bilateral=bil[0],
                tables=tables, ycc_launches=ycc[0], codec=codec,
                enc_ms=enc_ms, dec_ms=dec_ms, ycc_ms=kernel_ms,
                ycc_plain_ms=plain_ms, ycc_bound_ms=bound_ms,
@@ -1351,6 +1366,136 @@ def phase_files(params):
                idct_plain_ms=idct_plain_ms, idct_bound_ms=idct_bound_ms,
                idct_vs_plain=idct_err, ycc_vs_plain=ycc_err)
     return out
+
+
+def phase_dummy_source(files, params):
+    """Phase 9 (a): the NCC kernel (both launches) and the fused sorted
+    path at 3200x2130 with one zero-extent source, phase 8's view 0 with
+    sources 1, 2 and the sharded pipeline's dummy (all-zero image, identity
+    camera, width = height = 0), against their plain versions on a band of
+    PHASE2_ROWS rows of random planes at scale 0: no entry may differ, and
+    the dummy scores cost_max everywhere. Returns the entries compared."""
+    import numpy as np
+    import torch
+    from mpmvs_torch.camera import Camera, CameraStack
+    from mpmvs_torch.ops import ncc_cuda, ncc_sorted
+    from mpmvs_torch.ops import threefry as tf
+    from mpmvs_torch.solver import build_solve_data
+
+    dev = torch.device("cuda", 0)
+    images = torch.as_tensor(files["images"][:4], device=dev).clone()
+    images[-1] = 0.0
+    cams = files["cameras"]
+    stack = CameraStack.stack([cams.view(v) for v in range(3)] + [
+        Camera.create(K=np.eye(3), R=np.eye(3), t=np.zeros(3), width=0,
+                      height=0)]).to(dev)
+    data = build_solve_data(images, stack)
+    refside, x_p, y_p = band_inputs(data, params, 0, 1024,
+                                    PHASE2_ROWS, 1)
+    planes = test_planes(data, None, params, "random", 9, x_p, y_p,
+                         tf.PRNGKey(91, device=dev))
+    args = (refside, data.src_imgs, data.src_widths, data.src_heights,
+            data.A, data.b, data.K_ref)
+    tail = (params.tap_offsets(0), params.cost_max, params.cap_radius(0))
+    checks = {}
+    want = ncc_cuda.ncc_eval_multi_plain(*args, planes, x_p, y_p, *tail)
+    for launch, scattered in (("tile", False), ("view-major", True)):
+        got = ncc_cuda.ncc_eval_multi(*args, planes, x_p, y_p, *tail,
+                                      scattered=scattered)
+        checks[f"ncc {launch}"] = (int(differs(got, want).sum()),
+                                   got.numel())
+    got = ncc_sorted.ncc_eval_sorted_kernel(*args, planes[0], x_p, y_p,
+                                            *tail)
+    want_s = ncc_sorted.ncc_eval_sorted_plain(*args, planes[0], x_p, y_p,
+                                              *tail)
+    torch.cuda.synchronize()
+    checks["fused sorted"] = (int(differs(got, want_s).sum()), got.numel())
+    dummy = bool((want[:, -1] == params.cost_max).all()) and bool(
+        (want_s[-1] == params.cost_max).all())
+    log(f"  one zero-extent source at {W_FULL}x{H_FULL}, K=9, "
+        f"{PHASE2_ROWS} rows, scale 0: entries differing from plain "
+        f"{checks}; the dummy scores cost_max everywhere: {dummy}")
+    if any(d for d, _ in checks.values()) or not dummy:
+        raise AssertionError(f"zero-extent source: {checks}, dummy {dummy}")
+    return checks
+
+
+def phase_multi_gpu(files, root: str):
+    """Phase 9 (b): phase 8's converted workspace through
+    ``cli.main([..., "--devices", "all"])``: one process per card over
+    NCCL (R = torch.cuda.device_count()), the default schedule with sky
+    and fusion. Checks median |d-gt|/gt < 1% on ground rows of every view,
+    the PLY, and each rank's launches (from its ``rank_<r>.json``, counted
+    in its own process over the run) against the schedule: the NCC kernel
+    per view and prior sub-run of the rank, the sky stage's bilateral
+    kernel and table on rank 0, the colour kernel once per view a rank
+    loads, no plain call. Prints each depth map's digest."""
+    import hashlib
+
+    import numpy as np
+    import torch
+    from mpmvs_torch import cli
+    from mpmvs_torch.io import read_dmb, read_ply_binary
+
+    R = torch.cuda.device_count()
+    V = FILES_VIEWS
+    out = os.path.join(root, "out_devices")
+    torch.cuda.empty_cache()   # the ranks' own processes share the card
+    t0 = time.perf_counter()
+    rc = cli.main(["--input", files["ws"], "--output", out, "--sky-seg", "1",
+                   "--config", files["config"], "--devices", "all"])
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"cli.main --devices all returned {rc}")
+    ground = slice(SKY_ROWS + GROUND_MARGIN, H_FULL)
+    rel, digests = {}, {}
+    for v in range(V):
+        path = os.path.join(out, "MPMVS", f"2333_{v:08d}", "depths.dmb")
+        with open(path, "rb") as f:
+            digests[v] = hashlib.sha256(f.read()).hexdigest()[:16]
+        d, gt = read_dmb(path), files["gt_depth"][v]
+        if d.shape != gt.shape or not np.isfinite(d).all():
+            raise AssertionError(f"view {v}: depth map {d.shape}")
+        rel[v] = float(np.median(np.abs(d[ground] - gt[ground])
+                                 / gt[ground]))
+    pts = read_ply_binary(os.path.join(out, "MPMVS", "MPMVS_model.ply"))[0]
+    ranks, bad_counts = [], []
+    for r in range(R):
+        with open(os.path.join(out, "MPMVS", f"rank_{r}.json")) as f:
+            rec = json.load(f)
+        n_views = len(rec["views"])
+        n_prior = sum(st == "prior" for _, st, _ in rec["solve_log"])
+        want = {"ncc_eval": n_views * (NCC_PHOTOMETRIC + 2 * NCC_GEOM)
+                + n_prior * NCC_PRIOR,
+                "bilateral": V if r == 0 else 0,
+                "bilateral_table": 1 if r == 0 else 0,
+                "ycc_to_bgr": V, "idct": 3 * V, "ncc_sorted": 0,
+                "ncc_keys": 0}
+        got = rec["launches"]
+        plain = {k: n for k, n in got.items() if k.endswith("_plain") and n}
+        if any(got[k] != n for k, n in want.items()) or plain:
+            bad_counts.append((r, got, want))
+        ranks.append({"rank": r, "device": rec["device"],
+                      "views": rec["views"], "prior_sub_runs": n_prior,
+                      "launches": {k: got[k] for k in want},
+                      "passes": {p["pass"]: p["wall_s"]
+                                 for p in rec["passes"]},
+                      "collectives": [(c["op"], c["bytes"], c["ms"])
+                                      for c in rec["collectives"]]})
+    log(f"  --devices all over {R} rank(s) (nccl): {wall:.1f} s; median "
+        f"|d-gt|/gt on ground rows {rel}; PLY {len(pts)} points; depth "
+        f"digests {digests}")
+    for rk in ranks:
+        log(f"  rank {rk['rank']}: {json.dumps(rk)}")
+    bad = {v: e for v, e in rel.items() if not e < 0.01}
+    if bad or len(pts) == 0:
+        raise AssertionError(f"--devices all: median rel error >= 1% {bad}, "
+                             f"PLY {len(pts)} points")
+    if bad_counts:
+        raise AssertionError(f"--devices all launches (rank, got, "
+                             f"schedule): {bad_counts}")
+    return {"ranks": R, "wall_s": wall, "rel": rel, "digests": digests,
+            "points": len(pts), "per_rank": ranks}
 
 
 def main(argv=None) -> int:
@@ -1430,7 +1575,14 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     log("phase 8: from files: COLMAP model -> mpmvs_torch.preprocess.convert "
         "-> mpmvs_torch.cli.main (default schedule, sky, previews)")
-    files = phase_files(params)
+    with tempfile.TemporaryDirectory(prefix="mpmvs_files_") as root:
+        files = phase_files(params, root)
+        log("phase 9: multi-GPU: phase 8's workspace through cli.main "
+            "--devices all (one process per card, NCCL)")
+        dummy = phase_dummy_source(files, params)
+        multi = phase_multi_gpu(files, root)
+    for k in ("images", "cameras", "gt_depth"):
+        del files[k]
 
     # bounds at the timed shapes: the NCC kernel at phase 2's K=9 band
     # (scale 0, default cap), the bilateral kernel over view 0's in-image
@@ -1465,6 +1617,13 @@ def main(argv=None) -> int:
         "idct_islow": codec_kernel("idct"),
         "ycc_to_bgr": codec_kernel("ycc"),
         "fixtures_vs_cv2": fixtures, "nvidia_smi": smi}}))
+    log(json.dumps({"multi_gpu": {
+        "ranks": multi["ranks"], "backend": "nccl", "wall_s": multi["wall_s"],
+        "median_rel_err": multi["rel"], "depth_digests": multi["digests"],
+        "points": multi["points"], "per_rank": multi["per_rank"],
+        "zero_extent_source_vs_plain": {
+            k: {"differing": d, "entries": n}
+            for k, (d, n) in dummy.items()}, "nvidia_smi": smi}}))
     leaked = [m for m in ("cv2", "yaml", "jax", "mpmvs_tpu")
               if m in sys.modules]
     if leaked:

@@ -5,8 +5,9 @@
 override YAML keys. The defaults run the reference's schedule: the
 photometric pass, two geometric passes with a planar-prior sub-run in the
 first, then fusion; ``--sky-seg 1`` adds sky masks before fusion.
-``--devices`` (views sharded over several GPUs) is not ported yet and
-raises ``NotImplementedError``.
+``--devices all`` (or ``0,2,3``) shards the views over those cards of this
+host, one process per card over NCCL (``parallel.view_sharding``); a list
+naming a card that is not there raises.
 """
 
 from __future__ import annotations
@@ -42,7 +43,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--save-jpg", action="store_true",
                    help="write depth/cost/normal visualizations")
     p.add_argument("--devices", type=str, default=None,
-                   help="multi-GPU view sharding (not ported yet)")
+                   help="shard the views over these CUDA cards of this host, "
+                        "one process each: 'all' or a list such as 0,2,3")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device to run on, e.g. cuda, cuda:1, cpu")
     p.add_argument("--preset", choices=["full", "fast"], default="full",
@@ -80,20 +82,41 @@ def config_from_args(args) -> ConfigParams:
     return cfg
 
 
+def device_list(spec: str) -> list:
+    """The card indices of ``--devices``: 'all' or a comma list; raises
+    where a card is not there or is named twice."""
+    import torch
+
+    count = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    ids = list(range(count)) if spec == "all" else [
+        int(x) for x in spec.split(",")]
+    if not ids:
+        raise RuntimeError("--devices all: this host has no CUDA device")
+    bad = [i for i in ids if not 0 <= i < count]
+    if bad or len(set(ids)) != len(ids):
+        raise ValueError(f"--devices {spec}: this host has {count} CUDA "
+                         f"device(s), and each may be named once")
+    return ids
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     cfg = config_from_args(args)
-    if args.devices:
-        raise NotImplementedError(
-            "--devices (views sharded over GPUs) is not ported yet "
-            "(ROADMAP queue 1 item 13); use --device")
     params = None
     if args.preset == "fast":
         params = PatchMatchParams(max_iterations=1, geom_iterations=1,
                                   max_scale=0,
                                   max_image_size=cfg.max_image_size)
-    pipe = Pipeline(cfg, params=params, device=args.device)
-    ply = pipe.run(resume=args.resume)
+    if args.devices:
+        from mpmvs_torch.parallel.view_sharding import launch
+
+        if args.device != "cuda":
+            raise ValueError("--devices names CUDA cards; drop --device")
+        ply = launch(cfg, params, device_ids=device_list(args.devices),
+                     resume=args.resume)
+    else:
+        pipe = Pipeline(cfg, params=params, device=args.device)
+        ply = pipe.run(resume=args.resume)
     print(f"point cloud: {ply}")
     return 0
 

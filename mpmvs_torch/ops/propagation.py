@@ -54,6 +54,7 @@ from mpmvs_torch.ops.packing import (pack_quincunx, packed_coords,
                                      unpack_quincunx)
 from mpmvs_torch.ops.sampling import shift_2d
 from mpmvs_torch.ops.view_selection import monte_carlo_view_weights
+from mpmvs_torch.parallel.mesh import map_items
 
 Tensor = torch.Tensor
 
@@ -611,7 +612,8 @@ def checkerboard_step(state: PatchMatchState, data: SolveData, params,
                       scale: int, iteration: int, phase: int, key: Tensor,
                       geom: bool = False, prior: bool = False,
                       band_rows: int = 0,
-                      ncc_multi: NCCMulti = ncc_eval_multi) -> PatchMatchState:
+                      ncc_multi: NCCMulti = ncc_eval_multi,
+                      group=None) -> PatchMatchState:
     """One half-iteration (one checkerboard colour), banded over rows.
 
     ``band_rows`` is the band height (0 = automatic). H and W must be even
@@ -620,7 +622,11 @@ def checkerboard_step(state: PatchMatchState, data: SolveData, params,
     ``ncc_multi`` is the NCC implementation; the default follows the
     tensors' device (ops.ncc_cuda.ncc_eval_multi). ``geom`` needs
     ``data.src_depths``, ``prior`` ``data.prior_planes`` and
-    ``data.prior_mask``."""
+    ``data.prior_mask``. With a ``group`` (parallel.mesh.RankGroup) each
+    rank computes its slot of the bands, which within one colour read only
+    the other colour's state, and the band outputs are all-gathered before
+    the merge: every rank returns the state a solve without a group
+    returns, bit for bit (parallel.tile_sharding)."""
     if geom and data.src_depths is None:
         raise ValueError("geom mode needs data.src_depths")
     if prior and (data.prior_planes is None or data.prior_mask is None):
@@ -632,10 +638,12 @@ def checkerboard_step(state: PatchMatchState, data: SolveData, params,
     halo, br, n_bands, pad_b = _band_geometry(H, W, S, scale, geom, band_rows)
     pads = _pad_step_inputs(state, data, halo, pad_b, prior)
 
-    outs = [_band_call(pads, data, params, scale, iteration, phase,
-                       tf.fold_in(key, b), key, geom, prior, halo, br, b * br,
-                       ncc_multi)
-            for b in range(n_bands)]
+    Wh = W // 2
+    spec = [((br, Wh, 4), state.plane.dtype), ((br, Wh), state.cost.dtype),
+            ((br, Wh), state.geom_cost.dtype), ((br, Wh), state.sel.dtype)]
+    outs = map_items(group, n_bands, lambda b: _band_call(
+        pads, data, params, scale, iteration, phase, tf.fold_in(key, b), key,
+        geom, prior, halo, br, b * br, ncc_multi), spec)
     plane_p, cost_p, geom_p, sel_p = (torch.cat(leaf)[:H]
                                       for leaf in zip(*outs))
     return _merge_bands(state, phase, geom, plane_p, cost_p, geom_p, sel_p)

@@ -258,14 +258,16 @@ class Pipeline:
             f"{time.perf_counter() - t0:.1f}s")
         return res
 
-    def _solve(self, view_id: int, mode: str, images, cams,
+    def _solve(self, view_id: int, mode: str, images, cams, key=None,
                **inputs) -> SolveResult:
-        """One solve_view with the next key, timed on the device."""
+        """One solve_view with ``key`` (default: the next key), timed on
+        the device."""
         stage = {"photometric": "photometric", "geom": "geom"}.get(mode,
                                                                    "prior")
+        key = self._next_key() if key is None else key
         t0 = time.perf_counter()
         with self.timer.span(f"solve_{stage}"):
-            res = solve_view(images, cams, self._next_key(), self.params,
+            res = solve_view(images, cams, key, self.params,
                              mode, device=self.device, **inputs)
             device_sync(self.device)
         self.solve_log.append((view_id, stage, time.perf_counter() - t0))

@@ -47,6 +47,7 @@ from mpmvs_torch.ops.propagation import (NCCMulti, PatchMatchState, SolveData,
                                          checkerboard_step, step_halo)
 from mpmvs_torch.ops.view_selection import initial_cost_and_views
 from mpmvs_torch.params import PatchMatchParams
+from mpmvs_torch.parallel.mesh import map_items
 
 Tensor = torch.Tensor
 
@@ -118,14 +119,16 @@ def init_band_count(band_rows: int, H: int) -> int:
 
 def _initial_score(data: SolveData, params: PatchMatchParams, plane: Tensor,
                    band_rows: int, ncc_multi: NCCMulti,
-                   scattered: bool = False):
+                   scattered: bool = False, group=None):
     """Banded initial multi-view scoring + top-k view selection
     (ComputeMultiViewInitialCostandSelectedViews, PatchMatch.cu:497-534).
     Scores every pixel, one K=1 NCC call per row band, or with
     ``sampler="sorted"`` one ``ncc_eval_sorted`` call per row band (one
     sample-kernel launch per source view), as mpmvs_tpu solver.py:168-177
     does in every mode. ``scattered``: the plane field has full-range
-    random depths (ops.ncc_cuda's launch choice)."""
+    random depths (ops.ncc_cuda's launch choice). With a ``group`` each
+    rank scores its slot of the bands and the results are all-gathered
+    (``checkerboard_step``'s row split)."""
     H, W = data.ref_img.shape
     dev = plane.device
     offsets = params.tap_offsets(params.max_scale)
@@ -139,8 +142,8 @@ def _initial_score(data: SolveData, params: PatchMatchParams, plane: Tensor,
     cap = params.cap_radius(params.max_scale)
     xb = torch.arange(W, dtype=torch.float32, device=dev)[None, :].expand(
         br, W).contiguous()
-    costs, sels = [], []
-    for bi in range(n_bands):
+
+    def band(bi: int):
         y0 = bi * br
         refside = ncc_refside(ref_pad[y0:y0 + Hs], halo, br, offsets,
                               params.sigma_spatial, params.sigma_color)
@@ -156,9 +159,10 @@ def _initial_score(data: SolveData, params: PatchMatchParams, plane: Tensor,
             costs_v = ncc_multi(*args, plane_b[None].contiguous(), xb, yb,
                                 offsets, params.cost_max, cap,
                                 scattered=scattered)[0]
-        c, s = initial_cost_and_views(costs_v, params.top_k, params.cost_max)
-        costs.append(c)
-        sels.append(s)
+        return initial_cost_and_views(costs_v, params.top_k, params.cost_max)
+
+    spec = [((br, W), data.ref_img.dtype), ((br, W), torch.int32)]
+    costs, sels = zip(*map_items(group, n_bands, band, spec))
     return torch.cat(costs)[:H], torch.cat(sels)[:H]
 
 
@@ -206,18 +210,20 @@ def _init_plane(data: SolveData, params: PatchMatchParams, key: Tensor,
 def initial_state(data: SolveData, params: PatchMatchParams, key: Tensor,
                   band_rows: int, ncc_multi: NCCMulti = ncc_eval_multi,
                   mode: str = "photometric",
-                  warm: Optional[SolveResult] = None) -> PatchMatchState:
+                  warm: Optional[SolveResult] = None,
+                  group=None) -> PatchMatchState:
     """InitializeScore equivalent (PatchMatch.cu:536-573): random, warm or
     perturbed-prior planes (``_init_plane``), then banded initial scoring.
     ``ncc_multi`` is the NCC implementation (ops.ncc_cuda.ncc_eval_multi; a
-    check passes the plain version by name to compare the two)."""
+    check passes the plain version by name to compare the two); ``group``
+    splits the scoring's bands over ranks (``_initial_score``)."""
     plane = _init_plane(data, params, key, mode, warm)
     # the photometric init draws full-range depths, as _init_plane does,
     # without coherent_random or with bands of the whole range
     full_range = mode == "photometric" and (
         not params.coherent_random or params.effective_band_frac() >= 1.0)
     cost, sel = _initial_score(data, params, plane, band_rows, ncc_multi,
-                               scattered=full_range)
+                               scattered=full_range, group=group)
     return PatchMatchState(plane=plane, cost=cost,
                            geom_cost=torch.zeros_like(cost), sel=sel)
 
@@ -267,7 +273,7 @@ def solve_view(images, cameras: CameraStack, key: Tensor,
                params: PatchMatchParams, mode: str = "photometric",
                device="cuda", warm: Optional[SolveResult] = None,
                src_depths=None, prior_planes=None,
-               prior_mask=None) -> SolveResult:
+               prior_mask=None, group=None) -> SolveResult:
     """Compute one reference view's depth/normal/cost maps.
 
     ``images`` (V, H, W) float32 with index 0 the reference, ``cameras`` the
@@ -278,7 +284,12 @@ def solve_view(images, cameras: CameraStack, key: Tensor,
     ``prior_mask`` (H, W). Inputs are moved to ``device``; a CUDA device
     without CUDA raises. Every NCC call goes through ``ncc_eval_multi`` or,
     for the incoherent fields under ``params.sampler == "sorted"``,
-    ``ncc_eval_sorted``: the kernels on CUDA tensors."""
+    ``ncc_eval_sorted``: the kernels on CUDA tensors. ``group`` (a
+    ``parallel.mesh.RankGroup``) splits the row bands of the initial
+    scoring and of every half-iteration over its ranks
+    (``parallel.tile_sharding``); the images, the finalize and its median
+    filter stay whole on every rank, and the result equals the solve
+    without a group bit for bit."""
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}")
     geom = mode in ("geom", "geom_prior")
@@ -324,7 +335,7 @@ def solve_view(images, cameras: CameraStack, key: Tensor,
 
     k_init, k_iter = tf.split(key)
     state = initial_state(data, params, k_init, band_rows, mode=mode,
-                          warm=warm)
+                          warm=warm, group=group)
 
     n_iter = params.geom_iterations if geom else params.max_iterations
     scales = (list(range(params.max_scale, -1, -1)) if mode == "photometric"
@@ -336,7 +347,7 @@ def solve_view(images, cameras: CameraStack, key: Tensor,
                 k = tf.fold_in(tf.fold_in(k_si, phase), it)
                 state = checkerboard_step(state, data, params, scale, it,
                                           phase, k, geom, prior,
-                                          band_rows=band_rows)
+                                          band_rows=band_rows, group=group)
     return _finalize(data, state, H0, W0)
 
 

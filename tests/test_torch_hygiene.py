@@ -2,7 +2,8 @@
 
 * A fresh interpreter imports the package and every module of the port
   (sky net, planar prior, geometric cost, the sorted NCC path, eval, the
-  image codec, the COLMAP converter and the measurement tools included)
+  image codec, the COLMAP converter, the multi-GPU modules, the native
+  bindings and the measurement tools included)
   without pulling in
   JAX, OpenCV or PyYAML (the H100 machine has neither OpenCV nor PyYAML,
   and the port must not depend on JAX).
@@ -48,7 +49,11 @@ SLICE_MODULES = [
     "mpmvs_torch.io.images", "mpmvs_torch.ops.resize",
     "mpmvs_torch.preprocess", "mpmvs_torch.preprocess.colmap",
     "mpmvs_torch.preprocess.convert", "mpmvs_torch.tools.fusion_diagnose",
-    "mpmvs_torch.tools.solve_trace",
+    "mpmvs_torch.tools.solve_trace", "mpmvs_torch.parallel",
+    "mpmvs_torch.parallel.mesh", "mpmvs_torch.parallel.view_sharding",
+    "mpmvs_torch.parallel.tile_sharding", "mpmvs_torch.parallel.multihost",
+    "mpmvs_torch.parallel.dryrun", "mpmvs_torch.native",
+    "mpmvs_torch.tools.scaling_bench",
 ]
 
 

@@ -45,6 +45,11 @@ Tolerances:
   per source view for the init band and for each random trial of every
   band step, the NCC kernel twice per band step (K=9 and K=3), and no plain
   version runs.
+* one zero-extent source (the sharded pipeline's padding of a view with
+  fewer sources: an all-zero image, identity camera, width = height = 0):
+  the NCC kernel (both launches, K = 9, cap on) and the fused sorted path
+  equal their plain versions, NaN for NaN, and score that source cost_max
+  everywhere, as the JAX package does.
 * bilateral kernel vs its plain version on the same CUDA tensors, at sizes
   that are not multiples of the 32x8 tile: max |diff| <= 1e-5 and at most
   1e-4 of the thresholded pixels differ (the kernel rounds each operation
@@ -442,6 +447,39 @@ def test_fused_sorted_equals_plain_chain(data, scale, cap):
         assert _same(got, want)
         assert (want < PARAMS.cost_max).any() and \
             (want == PARAMS.cost_max).any()
+
+
+def zero_extent_data(device):
+    """A 1+3-view scene whose last source is the sharded pipeline's dummy:
+    all-zero image, identity camera, width = height = 0
+    (parallel.view_sharding.SceneBatch.scene_inputs)."""
+    from mpmvs_torch.camera import Camera, CameraStack
+
+    scene = make_plane_scene(num_views=4, height=48, width=96, seed=7)
+    images = torch.as_tensor(scene.images).clone()
+    images[-1] = 0.0
+    cams = [scene.cameras.view(v) for v in range(3)] + [Camera.create(
+        K=np.eye(3), R=np.eye(3), t=np.zeros(3), width=0, height=0)]
+    return build_solve_data(images.to(device),
+                            CameraStack.stack(cams).to(device))
+
+
+@pytest.mark.parametrize("scattered", [False, True])
+def test_zero_extent_source_equals_plain(dev, scattered):
+    d = zero_extent_data(dev)
+    args = _rows_args(d, _random_planes(d, 60), 9, 0, 7, 18, True)
+    got = ncc_cuda.ncc_eval_multi(*args, scattered=scattered)
+    want = ncc_cuda.ncc_eval_multi_plain(*args)
+    torch.cuda.synchronize()
+    assert _same(got, want)
+    assert bool((want[:, -1] == PARAMS.cost_max).all())
+    assert bool((want[:, :-1] < PARAMS.cost_max).any())
+    args = _sorted_call(d, _random_planes(d, 61), 0, 7, 18, True)
+    got = ncc_sorted.ncc_eval_sorted_kernel(*args)
+    want = ncc_sorted.ncc_eval_sorted_plain(*args)
+    torch.cuda.synchronize()
+    assert _same(got, want)
+    assert bool((want[-1] == PARAMS.cost_max).all())
 
 
 def test_fused_sorted_equals_plain_chain_below_stack_extent(data):

@@ -407,8 +407,9 @@ def test_save_prior_writes_prior_maps(tmp_path):
 
 
 def test_resume_and_unported_passes(workspace, tmp_path):
-    """A finished run resumes with nothing to do; ``--devices`` (multi-GPU
-    view sharding) is the one part of the CLI still unported."""
+    """A finished run resumes with nothing to do; ``--devices`` (views
+    sharded over CUDA cards, parallel.view_sharding) refuses to run on the
+    CPU instead of falling back to it (test_torch_parallel.py runs it)."""
     folder, _ = workspace
     fast = PatchMatchParams(max_iterations=1, max_scale=0)
     cfg = ConfigParams(input_folder=folder, output_folder=str(tmp_path),
@@ -419,6 +420,6 @@ def test_resume_and_unported_passes(workspace, tmp_path):
     pipe.process_view = lambda *a, **k: calls.append(1)
     pipe.run(log=lambda *a: None, resume=True)
     assert calls == []
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(ValueError, match="names CUDA cards"):
         torch_cli.main(["--input", folder, "--devices", "all", "--device",
                         "cpu"] + FLAGS)
