@@ -8,9 +8,9 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 1. Device and build: the card's name and power limit, and the ``nvcc``
    builds of ``mpmvs_torch/csrc/ncc_eval.cu``, ``ncc_samples.cu``,
-   ``bilateral_refine.cu`` and ``jpeg_codec.cu`` (the JPEG decoder's IDCT
-   and colour kernels, nvJPEG's encoder), started together, with their time
-   and register reports.
+   ``bilateral_refine.cu``, ``geom_cost.cu`` and ``jpeg_codec.cu`` (the
+   JPEG decoder's IDCT and colour kernels, nvJPEG's encoder), started
+   together, with their time and register reports.
 1b. The JPEG fixtures (``tests/data/jpeg``) decoded on the card against
    cv2's arrays (``decoded.npz``): entries that differ and the largest
    difference, grey and BGR; the IDCT and colour kernels against their
@@ -30,7 +30,16 @@ Phases, in order; any failure raises and the script exits non-zero:
    inputs and key, through the kernel and through the plain version: the
    K=1 initial scoring of every pixel, and one half-iteration at scales 2,
    1 and 0; plus the scale-2 step with a constant-cost stand-in for the
-   NCC, which times the eager glue around the kernel.
+   NCC, which times the eager glue around the kernel; then one geom-mode
+   half-iteration (scale 0, the sources' true depths) through the
+   geometric-cost kernel and through its plain twin, the NCC kernel in
+   both arms: the two states must be equal.
+3b. The geometric-cost kernel (``csrc/geom_cost.cu``) against its plain
+   twin at the geom band shape: one band of 2130 rows, its 2130 x 1600
+   packed pixels, S = 10 sources' true depths, K = 1 (phase 3's init
+   field, warm from its inputs) and K = 9 (8 scaled true planes and that
+   field): no entry may differ; both timed with CUDA events beside the
+   kernel's bound.
 4. The photometric path at 3200x2130 with 1+10 views per estimated view
    (3 of 11 views estimated): ``Pipeline.load_arrays`` + ``Pipeline.run``
    (3 scales x 3 iterations, no geometric pass, no prior, no sky), writing
@@ -53,8 +62,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    sky masks, fusion. Checks depth accuracy on the non-sky rows after every
    pass, each view's sky fraction against the painted band, that fusing
    with the masks keeps no more points than without, and the launches of
-   both kernels against the stated schedule (the bilateral kernel through
-   its table form, one table build).
+   the NCC, geometric-cost and bilateral kernels against the stated
+   schedule (the bilateral kernel through its table form, one table
+   build), with no plain call.
 7. The sorted path (runs after phase 3, before the sky is painted), on
    view 0's full-range random init field at 3200x2130 with 10 sources:
    (a) the raw-samples form of ``csrc/ncc_samples.cu`` against its plain
@@ -146,6 +156,10 @@ SKY_FRAC_TOL = 0.02           # |sky fraction - painted fraction| per view
 #   geom_1:      1 init + 2 iterations x 2 colours x 2 calls
 NCC_PHOTOMETRIC, NCC_GEOM, NCC_PRIOR = 1 + 3 * 3 * 2 * 2, 1 + 2 * 2 * 2, \
     1 + 3 * 2 * 2
+# Geometric-cost launches per geom pass of an estimated view (the prior
+# sub-run has no geometric term): 2 iterations x 2 colours x 1 band x 14
+# calls (8 candidates, the current plane, 5 refinement trials)
+GEOM_PER_PASS = 2 * 2 * 14
 # Launches of one photometric solve with the reference's search semantics
 # (phase 7; tools.ab_deviations.REFERENCE), one band of H_FULL rows: with
 # sampler="sorted", the key kernel and the fused sorted kernel once per
@@ -414,13 +428,16 @@ def phase_kernel_vs_plain(data, scene, params, band_rows: int):
     return worst, max_err, ms_kernel, ms_plain
 
 
-def phase_half_iteration(data, params, band_rows: int):
+def phase_half_iteration(data, params, band_rows: int, src_depths):
     """Phase 3, at full size and the solve's band rows, kernel vs plain from
     the same inputs and key: the K=1 initial scoring of every pixel, then
     one checkerboard_step at scales 2, 1 and 0. The scale-2 step is also
     timed with a constant-cost stand-in for the NCC (the eager glue alone).
-    Returns the max |cost diff| over these comparisons."""
+    Then one geom step against ``src_depths``, geometric-cost kernel vs
+    plain twin. Returns the max |cost diff| over the NCC comparisons and
+    the initial state."""
     import torch
+    from mpmvs_torch.ops import geom_cost, geom_cost_cuda, propagation
     from mpmvs_torch.ops import threefry as tf
     from mpmvs_torch.ops.ncc_cuda import (COUNTS, ncc_eval_multi,
                                           ncc_eval_multi_plain)
@@ -493,8 +510,96 @@ def phase_half_iteration(data, params, band_rows: int):
             raise AssertionError(f"half-iteration at scale {scale}: kernel "
                                  f"vs plain differ on {frac:.3e} of pixels "
                                  f"(limit {MISMATCH_TOL})")
+    # one geom half-iteration against the sources' true depths, through
+    # the geometric-cost kernel and through its plain twin (the NCC kernel
+    # in both arms); the twin stands in where the solver looks the
+    # function up, as the bench's controls do
+    gdata = data._replace(src_depths=src_depths)
+    gstep = lambda: checkerboard_step(state, gdata, params, 0, 0, 0, k_step,
+                                      geom=True, band_rows=band_rows)
+    geom_cost_cuda.COUNTS.reset()
+    a = gstep()  # also the warm-up of the geom path
+    torch.cuda.synchronize()
+    launches = geom_cost_cuda.COUNTS.kernel
+    start.record()
+    gstep()
+    end.record()
+    torch.cuda.synchronize()
+    ms["geom kernel"] = start.elapsed_time(end)
+    saved = propagation.geom_consistency_cost
+    propagation.geom_consistency_cost = geom_cost.geom_consistency_cost_plain
+    try:
+        start.record()
+        b = gstep()
+        end.record()
+        torch.cuda.synchronize()
+    finally:
+        propagation.geom_consistency_cost = saved
+    ms["geom plain"] = start.elapsed_time(end)
+    frac, err = state_diff(a, b, active)
+    n_geom = int((a.geom_cost != b.geom_cost).sum().item())
+    log(f"  geom step at scale 0: pixels whose adopted plane, cost or views "
+        f"differ, geometric-cost kernel vs plain twin {frac:.3e}, geometric "
+        f"costs differing {n_geom}; {launches} geometric-cost launches; "
+        f"step {ms['geom kernel']:.1f} ms with the kernel, "
+        f"{ms['geom plain']:.1f} ms with the twin (one run each)")
+    if frac or n_geom or launches != 14:
+        raise AssertionError(f"geom step: kernel vs plain twin differ on "
+                             f"{frac:.3e} of pixels, {n_geom} geometric "
+                             f"costs; {launches} launches (expected 14)")
     COUNTS.reset()
-    return max_err
+    return max_err, state
+
+
+def phase_geom_cost(data, scene, params, band_rows: int, src_depths, state):
+    """Phase 3b: the geometric-cost kernel against its plain twin at the
+    geom band shape, K = 1 (phase 3's init field) and K = 9. Returns a dict
+    of what the kernels line needs."""
+    import torch
+    from mpmvs_torch.ops import geom_cost
+    from mpmvs_torch.ops.packing import pack_quincunx, packed_coords
+    from mpmvs_torch.ops import threefry as tf
+    from mpmvs_torch.utils.roofline import geom_bound
+    from mpmvs_torch.utils.trace import cuda_time_ms
+
+    dev = data.ref_img.device
+    x_p, y_p = packed_coords(0, band_rows, W_FULL // 2, 0, device=dev)
+    init = torch.movedim(pack_quincunx(torch.movedim(state.plane, -1, 0), 0),
+                         0, -1)
+    gt = test_planes(data, scene, params, "gt", 8, x_p, y_p,
+                     tf.PRNGKey(5, device=dev))
+    cams = (src_depths, data.src_widths, data.src_heights, data.K_ref,
+            data.R_ref, data.C_ref, data.t_ref, data.K_src, data.R_src,
+            data.t_src, data.C_src)
+    out = {"max_abs_err": 0.0, "ms": {}, "plain_ms": {}, "bound": {}}
+    N = band_rows * (W_FULL // 2)
+    depth_bytes = src_depths.numel() * 4
+    for K, planes in ((1, init), (9, torch.cat([gt, init[None]]))):
+        call = lambda fn: fn(*cams, planes, x_p, y_p, params.geom_cost_max)
+        got = call(geom_cost.geom_consistency_cost)
+        want = call(geom_cost.geom_consistency_cost_plain)
+        torch.cuda.synchronize()
+        n_diff = int((got != want).sum().item())
+        err = (got - want).abs().max().item()
+        capped = (want == params.geom_cost_max).float().mean().item()
+        del got, want
+        ms = cuda_time_ms(lambda: call(geom_cost.geom_consistency_cost),
+                          reps=20)
+        plain_ms = cuda_time_ms(
+            lambda: call(geom_cost.geom_consistency_cost_plain), reps=2)
+        b_ms, b_by = geom_bound(K, N_SRC, N, depth_bytes)
+        log(f"  K={K} S={N_SRC} {band_rows}x{W_FULL // 2}: entries "
+            f"differing {n_diff} of {N_SRC * K * N}, max|diff| {err:.3e} "
+            f"(capped entries {capped:.3f}); kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.2f} ms; bound {b_ms:.4f} ms ({b_by}), "
+            f"{b_ms / ms:.3f} of it reached")
+        if n_diff:
+            raise AssertionError(f"geometric-cost kernel vs plain at K={K}:"
+                                 f" {n_diff} entries differ")
+        out["max_abs_err"] = max(out["max_abs_err"], err)
+        out["ms"][K], out["plain_ms"][K] = ms, plain_ms
+        out["bound"][K] = (b_ms, b_by)
+    return out
 
 
 def phase_pipeline(scene, params):
@@ -671,7 +776,7 @@ def phase_full_path(scene, params):
     import numpy as np
     import torch
     from mpmvs_torch.io import read_ply_binary
-    from mpmvs_torch.ops import bilateral_cuda, ncc_cuda
+    from mpmvs_torch.ops import bilateral_cuda, geom_cost_cuda, ncc_cuda
     from mpmvs_torch.params import ConfigParams
     from mpmvs_torch.pipeline import Pipeline
 
@@ -705,6 +810,7 @@ def phase_full_path(scene, params):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         ncc_cuda.COUNTS.reset()
+        geom_cost_cuda.COUNTS.reset()
         bilateral_cuda.COUNTS.reset()
         bilateral_cuda.TABLE_COUNTS.reset()
         t0 = time.perf_counter()
@@ -712,6 +818,7 @@ def phase_full_path(scene, params):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         ncc = (ncc_cuda.COUNTS.kernel, ncc_cuda.COUNTS.plain)
+        geom = (geom_cost_cuda.COUNTS.kernel, geom_cost_cuda.COUNTS.plain)
         bil = (bilateral_cuda.COUNTS.kernel, bilateral_cuda.COUNTS.plain)
         bil_forms = dict(bilateral_cuda.COUNTS.forms)
         tables = (bilateral_cuda.TABLE_COUNTS.kernel,
@@ -761,19 +868,23 @@ def phase_full_path(scene, params):
             f"view(s): their {NCC_PRIOR} NCC launches drop out")
     expected = (len(ESTIMATED) * (NCC_PHOTOMETRIC + 2 * NCC_GEOM)
                 + n_prior * NCC_PRIOR)
+    geom_expected = len(ESTIMATED) * 2 * GEOM_PER_PASS
     log(f"  launches: NCC {ncc[0]} (schedule implies {expected}), plain NCC "
-        f"{ncc[1]}; bilateral {bil[0]} by form {bil_forms} (one per "
-        f"estimated view: {len(ESTIMATED)}, table form on 8-bit guides), "
-        f"plain bilateral {bil[1]}; table builds {tables[0]}, plain "
-        f"{tables[1]}")
-    if ncc != (expected, 0) or bil != (len(ESTIMATED), 0) or \
+        f"{ncc[1]}; geometric cost {geom[0]} (schedule implies "
+        f"{geom_expected}), plain {geom[1]}; bilateral {bil[0]} by form "
+        f"{bil_forms} (one per estimated view: {len(ESTIMATED)}, table form "
+        f"on 8-bit guides), plain bilateral {bil[1]}; table builds "
+        f"{tables[0]}, plain {tables[1]}")
+    if ncc != (expected, 0) or geom != (geom_expected, 0) or \
+            bil != (len(ESTIMATED), 0) or \
             bil_forms != {"table": len(ESTIMATED)} or tables != (1, 0):
         raise AssertionError(f"launches (kernel, plain): NCC {ncc}, expected "
-                             f"({expected}, 0); bilateral {bil} {bil_forms}, "
-                             f"expected ({len(ESTIMATED)}, 0) through the "
-                             f"table form; table builds {tables}, expected "
-                             f"(1, 0)")
-    return ncc[0], bil_forms, tables[0]
+                             f"({expected}, 0); geometric cost {geom}, "
+                             f"expected ({geom_expected}, 0); bilateral "
+                             f"{bil} {bil_forms}, expected "
+                             f"({len(ESTIMATED)}, 0) through the table form; "
+                             f"table builds {tables}, expected (1, 0)")
+    return ncc[0], geom[0], bil_forms, tables[0]
 
 
 def phase_sorted(data, scene, params):
@@ -1550,7 +1661,15 @@ def main(argv=None) -> int:
                                                        band_rows)
     if not args.quick:
         log("phase 3: initial scoring and half-iterations, kernel vs plain")
-        max_err = max(max_err, phase_half_iteration(data, params, band_rows))
+        src_depths = torch.as_tensor(scene.gt_depth[1:], device=dev)
+        err3, state = phase_half_iteration(data, params, band_rows,
+                                           src_depths)
+        max_err = max(max_err, err3)
+        log("phase 3b: geometric-cost kernel vs plain twin at the geom band "
+            "shape")
+        geom_out = phase_geom_cost(data, scene, params, band_rows,
+                                   src_depths, state)
+        del state, src_depths
     if not args.quick:
         log("phase 7: the sorted path (key, fused and raw-samples kernels) "
             "and the reference semantics")
@@ -1570,7 +1689,8 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     log("phase 6: full path (photometric, geom_0 + prior, geom_1, sky, "
         "fusion) through Pipeline")
-    ncc_launches, bil_forms, table_builds = phase_full_path(scene, params)
+    ncc_launches, geom_launches, bil_forms, table_builds = phase_full_path(
+        scene, params)
     del scene
     torch.cuda.empty_cache()
     log("phase 8: from files: COLMAP model -> mpmvs_torch.preprocess.convert "
@@ -1592,7 +1712,7 @@ def main(argv=None) -> int:
                          4 * N_SRC * H_FULL * W_FULL, True)
     bil_bound = bilateral_bound(H_FULL, W_FULL, bilateral_cuda.RADIUS)
     tab_bound = table_bound(bilateral_cuda.TABLE_SIZE)
-    so = sorted_out
+    so, go = sorted_out, geom_out
     log(f"bounds (ms, set by) vs measured: NCC kernel K=9 band "
         f"{k9_bound[0]:.3f} ({k9_bound[1]}) vs {ms_k:.3f}; bilateral "
         f"{bil_bound[0]:.3f} ({bil_bound[1]}) vs {bil['ms']['table']:.3f} "
@@ -1600,7 +1720,10 @@ def main(argv=None) -> int:
         f"kernel {so['fused_bound'][0]:.3f} ({so['fused_bound'][1]}) vs "
         f"{so['fused_ms']:.3f} per view; raw-samples form "
         f"{so['samples_bound'][0]:.3f} vs {so['samples_ms']:.3f}; key "
-        f"kernel {so['keys_bound'][0]:.3f} vs {so['keys_kernel_ms']:.3f}")
+        f"kernel {so['keys_bound'][0]:.3f} vs {so['keys_kernel_ms']:.3f}; "
+        f"geometric cost K=1 {go['bound'][1][0]:.4f} "
+        f"({go['bound'][1][1]}) vs {go['ms'][1]:.4f}, K=9 "
+        f"{go['bound'][9][0]:.4f} vs {go['ms'][9]:.4f}")
     # the codec (host decode + the IDCT and colour kernels; nvJPEG encodes):
     # no TPU kernel's counterpart, so on a line of their own
     codec_kernel = lambda k: {
@@ -1643,8 +1766,9 @@ def main(argv=None) -> int:
 
     fused_launches = so["solves"]["sorted"][2][0]
     # library_ms: no single PyTorch call computes any of these functions
-    # (PERF.md section 6). Launches: the NCC kernel, the bilateral kernel
-    # and its table builder in phase 6, the sorted kernels in phase 7(d);
+    # (PERF.md section 6). Launches: the NCC kernel, the geometric cost, the
+    # bilateral kernel and its table builder in phase 6, the sorted kernels
+    # in phase 7(d);
     # a form that path does not take is listed with its launches there, 0.
     log(json.dumps({"kernels": [
         entry("ncc_eval_multi", "ncc_eval.cu",
@@ -1686,7 +1810,14 @@ def main(argv=None) -> int:
               "ncc_eval_pallas_sorted, XLA ops)",
               so["solves"]["sorted"][2][3], so["keys_max_abs_err"],
               so["keys_kernel_ms"],
-              so["keys_plain_ms"], so["keys_bound"])]}))
+              so["keys_plain_ms"], so["keys_bound"]),
+        entry("geom_consistency_cost", "geom_cost.cu",
+              "mpmvs_tpu/ops/geom_cost.py:22 (XLA gathers: no Pallas "
+              "kernel)", geom_launches, go["max_abs_err"], go["ms"][1],
+              go["plain_ms"][1], go["bound"][1], scope="K=1 at the geom "
+              "band shape, the current-plane call; K=9 beside it",
+              k9={"ms": go["ms"][9], "plain_ms": go["plain_ms"][9],
+                  "bound_ms": go["bound"][9][0]})]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

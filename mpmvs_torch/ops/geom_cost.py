@@ -8,8 +8,14 @@ texture fetch), back-projected, re-projected into the reference, and the
 pixel error is clamped at ``max_cost``. A zero source depth, or an error
 that is not finite, scores the full ``max_cost``.
 
-Plain PyTorch: the JAX package computes it with XLA gathers, not with a
-Pallas kernel. Its Hopper kernel is ROADMAP queue 2 item 5.
+The JAX package computes it with XLA gathers, not with a Pallas kernel.
+:func:`geom_consistency_cost` sends CUDA tensors to the hand-written
+kernel (``ops.geom_cost_cuda``, ``csrc/geom_cost.cu``), which raises on a
+build or launch failure, and CPU tensors to the plain twin
+:func:`geom_consistency_cost_plain`; any other device raises. The solver
+looks the dispatcher up as ``propagation.geom_consistency_cost`` at every
+call, so a caller that replaces that name (the bench's ``geom_cost_zero``
+control, ``tools.solve_trace``'s profiler range) reaches every call.
 """
 
 from __future__ import annotations
@@ -17,12 +23,13 @@ from __future__ import annotations
 import torch
 
 from mpmvs_torch import geometry as geo
+from mpmvs_torch.ops import geom_cost_cuda
 from mpmvs_torch.ops.sampling import nearest_sample_batched
 
 Tensor = torch.Tensor
 
 
-def geom_consistency_cost(
+def geom_consistency_cost_plain(
     src_depths: Tensor,   # (S, Hs, Ws) source-view depth maps
     src_widths: Tensor,   # (S,)
     src_heights: Tensor,  # (S,)
@@ -35,7 +42,8 @@ def geom_consistency_cost(
     x: Tensor, y: Tensor,  # (...) pixel coordinates
     max_cost: float = 3.0,
 ) -> Tensor:
-    """Returns (S, ...) clamped reprojection errors."""
+    """Returns (S, ...) clamped reprojection errors: eager PyTorch, the
+    kernel's plain twin."""
     S = src_depths.shape[0]
     nd = plane.ndim - 1
     per_view = lambda a: a.reshape((S,) + (1,) * nd + a.shape[1:])
@@ -56,3 +64,24 @@ def geom_consistency_cost(
     cap = torch.full_like(err, max_cost)
     err = torch.where(torch.isfinite(err), err, cap)
     return torch.where(src_depth == 0.0, cap, torch.minimum(err, cap))
+
+
+def geom_consistency_cost(
+    src_depths: Tensor, src_widths: Tensor, src_heights: Tensor,
+    K_ref: Tensor, R_ref: Tensor, C_ref: Tensor, t_ref: Tensor,
+    K_src: Tensor, R_src: Tensor, t_src: Tensor, C_src: Tensor,
+    plane: Tensor, x: Tensor, y: Tensor, max_cost: float = 3.0,
+) -> Tensor:
+    """(S, ...) clamped reprojection errors of the plane field (..., 4):
+    the CUDA kernel for CUDA tensors, the plain twin for CPU tensors."""
+    dev = plane.device.type
+    if dev == "cuda":
+        fn = geom_cost_cuda.geom_consistency_cost_kernel
+    elif dev == "cpu":
+        geom_cost_cuda.COUNTS.plain += 1
+        fn = geom_consistency_cost_plain
+    else:
+        raise ValueError(f"no geometric-cost implementation for device "
+                         f"{plane.device}")
+    return fn(src_depths, src_widths, src_heights, K_ref, R_ref, C_ref, t_ref,
+              K_src, R_src, t_src, C_src, plane, x, y, max_cost)

@@ -124,11 +124,13 @@ def _axis(offsets) -> _Axis:
 
 
 def _f32_contig(name: str, a: Tensor, shape, device) -> Tensor:
+    """A wrapper's check of a float32 argument on ``device`` of ``shape``
+    (None: any shape), returned contiguous."""
     if a.device != device:
         raise ValueError(f"{name} is on {a.device}, expected {device}")
     if a.dtype != torch.float32:
         raise TypeError(f"{name} must be float32, got {a.dtype}")
-    if tuple(a.shape) != tuple(shape):
+    if shape is not None and tuple(a.shape) != tuple(shape):
         raise ValueError(f"{name} has shape {tuple(a.shape)}, expected "
                          f"{tuple(shape)}")
     return a.contiguous()

@@ -22,11 +22,12 @@ def build_kernels(device: torch.device, verbose: bool = False) -> None:
     ``verbose`` prints each build's register report and time."""
     if device.type == "cuda":
         from mpmvs_torch.io import images
-        from mpmvs_torch.ops import bilateral_cuda, ncc_cuda, ncc_sorted, nvcc
+        from mpmvs_torch.ops import (bilateral_cuda, geom_cost_cuda,
+                                     ncc_cuda, ncc_sorted, nvcc)
 
         nvcc.build_all({m.SOURCE: m.NVCC_FLAGS
                         for m in (ncc_cuda, ncc_sorted, bilateral_cuda,
-                                  images)}, verbose)
+                                  geom_cost_cuda, images)}, verbose)
 
 
 def device_record(device: torch.device) -> dict:

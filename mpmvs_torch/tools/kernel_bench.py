@@ -1,7 +1,8 @@
 """Microbenchmark of the port's kernels on one CUDA card: the NCC kernel
 (``csrc/ncc_eval.cu``, ``--kernel ncc``, the default), the sorted path
-(``csrc/ncc_samples.cu``, ``--kernel sorted``) and the bilateral kernel
-(``csrc/bilateral_refine.cu``, ``--kernel bilateral``).
+(``csrc/ncc_samples.cu``, ``--kernel sorted``), the bilateral kernel
+(``csrc/bilateral_refine.cu``, ``--kernel bilateral``) and the geometric
+cost (``csrc/geom_cost.cu``, ``--kernel geom``).
 
 Port of tools/kernel_bench.py (the JAX package's Pallas-kernel bench):
 the same operating point (``make_plane_scene`` at 3200x2130 with 11
@@ -63,6 +64,17 @@ plain version (entries not bit-equal)::
     python -m mpmvs_torch.tools.kernel_bench --kernel sorted --check
     python -m mpmvs_torch.tools.kernel_bench --kernel bilateral --check \\
         --sass
+
+``--kernel geom`` times ``ops.geom_cost_cuda`` at the geom band shape
+(the solve's geom band, one colour's packed half-width pixels, the
+sources' true depth maps): ``gt`` (K=1, view 0's true planes, the current
+plane's call), ``stack`` (K=9, the true planes at 9 depth scales, the
+candidates' shape) and ``trial`` (K=1, a full-range random field, whose
+projections leave the sources). Per case: CUDA-event ms, the bound
+(``utils.roofline.geom_bound``) and the share of it reached, the plain
+twin once; ``--check`` counts the entries that differ from the twin::
+
+    python -m mpmvs_torch.tools.kernel_bench --kernel geom --check
 
 What is TPU-only in the JAX tool (``--quad``, ``WIN_BLOCKS``) has no
 counterpart here.
@@ -157,6 +169,7 @@ class Bench(NamedTuple):
     device: dict       # tools.device_record
     gt_plane: Tensor   # (H, W, 4) view 0's true planes
     color0: object     # (H, W, 3) view 0's BGR colours, on the host
+    src_depths: Tensor  # (V-1, H, W) the sources' true depth maps
 
 
 def setup(height: int, width: int, views: int, band_rows: int,
@@ -184,7 +197,8 @@ def setup(height: int, width: int, views: int, band_rows: int,
         geo.normal_world_to_cam(data.R_ref,
                                 n_world.expand(height, width, 3)))
     return Bench(data, params, br, (height // 2 // br) * br,
-                 device_record(dev), gt_plane, scene.colors[0])
+                 device_record(dev), gt_plane, scene.colors[0],
+                 torch.as_tensor(scene.gt_depth[1:], device=dev))
 
 
 def case_inputs(bench: Bench, K: int, scale: int, pixels: str, field: str,
@@ -655,6 +669,73 @@ def run_bilateral(bench: Bench, reps: int = 10, check: bool = False,
     return res
 
 
+GEOM_CASES = ("gt", "stack", "trial")
+
+
+def geom_inputs(bench: Bench, case: str, key_seed: int = 13):
+    """``geom_consistency_cost``'s arguments for one case at the geom band
+    shape (the solve's geom band from row 0, its colour-0 packed pixels)."""
+    from mpmvs_torch.ops import random as pmrand
+    from mpmvs_torch.ops import threefry as tf
+    from mpmvs_torch.ops.packing import pack_quincunx, packed_coords
+    from mpmvs_torch.solver import solve_band_rows
+
+    data, params = bench.data, bench.params
+    dev = data.ref_img.device
+    H, W = data.ref_img.shape
+    S = data.src_imgs.shape[0]
+    if case not in GEOM_CASES:
+        raise ValueError(f"geom case must be one of {GEOM_CASES}, got "
+                         f"{case!r}")
+    br = solve_band_rows(params, H, W, S, True)
+    x, y = packed_coords(0, br, W // 2, 0, device=dev)
+    gt = torch.movedim(pack_quincunx(torch.movedim(
+        bench.gt_plane[:br], -1, 0), 0), 0, -1)
+    if case == "gt":
+        plane = gt.contiguous()
+    elif case == "stack":
+        scale = 1.0 + 0.002 * torch.arange(9, device=dev)
+        plane = torch.cat([gt[None, ..., :3].expand(9, -1, -1, -1),
+                           gt[None, ..., 3:] * scale[:, None, None, None]],
+                          -1)
+    else:
+        plane = pmrand.random_plane_field(tf.PRNGKey(key_seed, device=dev),
+                                          data.K_ref, x, y, data.depth_min,
+                                          data.depth_max)
+    return (bench.src_depths, data.src_widths, data.src_heights, data.K_ref,
+            data.R_ref, data.C_ref, data.t_ref, data.K_src, data.R_src,
+            data.t_src, data.C_src, plane, x, y, params.geom_cost_max)
+
+
+def run_geom(bench: Bench, case: str, reps: int = 20,
+             check: bool = False) -> dict:
+    """Time the geometric-cost kernel on one case beside its bound and the
+    plain twin (one result dict)."""
+    from mpmvs_torch.ops import geom_cost, geom_cost_cuda
+    from mpmvs_torch.utils.roofline import geom_bound
+    from mpmvs_torch.utils.trace import cuda_time_ms
+
+    args = geom_inputs(bench, case)
+    src, plane, x = args[0], args[11], args[12]
+    S, Hs, Ws = src.shape
+    K = plane.numel() // (4 * x.numel())
+    R, C = x.shape
+    b_ms, b_by = geom_bound(K, S, R * C, src.numel() * 4)
+    ms = cuda_time_ms(
+        lambda: geom_cost_cuda.geom_consistency_cost_kernel(*args), reps)
+    plain_ms = cuda_time_ms(
+        lambda: geom_cost.geom_consistency_cost_plain(*args), reps=1)
+    r = dict(kernel="geom", case=case, k=K,
+             shape=f"{C}x{R} px, {S} src {Ws}x{Hs}", ms=ms,
+             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+             share_of_bound=b_ms / ms)
+    if check:
+        r["entries_differing"] = _same_count(
+            geom_cost_cuda.geom_consistency_cost_kernel(*args),
+            geom_cost.geom_consistency_cost_plain(*args))
+    return r
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--height", type=int, default=2130)
@@ -677,7 +758,7 @@ def main(argv=None) -> int:
     ap.add_argument("--check", action="store_true",
                     help="also compare with the plain version")
     ap.add_argument("--kernel", default="ncc",
-                    choices=("ncc", "sorted", "bilateral"))
+                    choices=("ncc", "sorted", "bilateral", "geom"))
     ap.add_argument("--sorted-cases", default=",".join(SORTED_CASES),
                     help=f"comma-separated, of {list(SORTED_CASES)}")
     ap.add_argument("--sass", action="store_true",
@@ -701,6 +782,9 @@ def main(argv=None) -> int:
             results = [r for case in args.sorted_cases.split(",")
                        for r in run_sorted(bench, case, min(args.reps, 3),
                                            args.check)]
+        elif args.kernel == "geom":
+            results = [run_geom(bench, case, 4 * args.reps, args.check)
+                       for case in GEOM_CASES]
         else:
             results = run_bilateral(bench, args.reps, args.check, args.sass)
         for res in results:

@@ -63,6 +63,18 @@ def keys_bound(N: int):
     return bound(64 * N, N * (16 + 8 + 4))
 
 
+def geom_bound(K: int, S: int, N: int, depth_bytes: int):
+    """One call of the geometric-cost kernel (``csrc/geom_cost.cu``): K
+    fields at N pixels against S sources. Operations: 36 a (field, pixel)
+    for the plane's depth and world point, 130 a (field, source, pixel)
+    (projection 35, the two truncating indices and the extent 22, the flat
+    index 5, back-projection 24, re-projection 35, error and tail 9).
+    Bytes: the planes, x and y, the source depth maps, the costs."""
+    flops = K * N * (36 + 130 * S)
+    nbytes = 16 * K * N + 8 * N + depth_bytes + 4 * K * S * N
+    return bound(flops, nbytes)
+
+
 def table_bound(n: int):
     """The bilateral table builder: n entries of sqrt, multiply and exp,
     written once."""

@@ -1,10 +1,10 @@
 """Import hygiene and device discipline of mpmvs_torch.
 
 * A fresh interpreter imports the package and every module of the port
-  (sky net, planar prior, geometric cost, the sorted NCC path, eval, the
-  image codec, the COLMAP converter, the multi-GPU modules, the native
-  bindings and the measurement tools included)
-  without pulling in
+  (sky net, planar prior, geometric cost and its kernel's wrapper, the
+  sorted NCC path, eval, the image codec, the COLMAP converter, the
+  multi-GPU modules, the native bindings and the measurement tools
+  included) without pulling in
   JAX, OpenCV or PyYAML (the H100 machine has neither OpenCV nor PyYAML,
   and the port must not depend on JAX).
 * A CUDA device that is not there raises instead of running on the CPU.
@@ -54,7 +54,7 @@ SLICE_MODULES = [
     "mpmvs_torch.parallel.tile_sharding", "mpmvs_torch.parallel.multihost",
     "mpmvs_torch.parallel.dryrun", "mpmvs_torch.native",
     "mpmvs_torch.tools.scaling_bench", "mpmvs_torch.bench",
-    "mpmvs_torch.tools.prior_stages",
+    "mpmvs_torch.tools.prior_stages", "mpmvs_torch.ops.geom_cost_cuda",
 ]
 
 

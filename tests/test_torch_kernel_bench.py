@@ -2,8 +2,9 @@
 the JAX tool's construction (tools/kernel_bench.py:86-108, through
 mpmvs_tpu.ops.random) from the same key, its capture of a real band
 step's NCC calls, the sorted-path and bilateral cases it builds, its
-count of instructions a tap from a SASS listing, and its refusal to run
-without a CUDA device, for every kernel.
+count of instructions a tap from a SASS listing, the geometric-cost
+cases it builds, and its refusal to run without a CUDA device, for every
+kernel.
 
 Tolerance: as test_torch_random.py's derived fields (trig and
 normalisation on the draws, each op within an ulp or two): planes within
@@ -187,7 +188,29 @@ def test_sass_count_takes_the_unrolled_row(monkeypatch):
                                    "BRA": 1.0})}
 
 
-@pytest.mark.parametrize("kernel", ["sorted", "bilateral"])
+@pytest.mark.parametrize("case", kernel_bench.GEOM_CASES)
+def test_geom_cases_build(case):
+    """Each geometric-cost case holds K fields at the packed pixels of the
+    geom band, and the plain twin scores them against every source."""
+    from mpmvs_torch.ops import geom_cost
+
+    bench = kernel_bench.setup(48, 64, 4, 0, device="cpu")
+    args = kernel_bench.geom_inputs(bench, case)
+    plane, x = args[11], args[12]
+    K = {"gt": 1, "stack": 9, "trial": 1}[case]
+    assert tuple(x.shape) == (48, 32)
+    assert tuple(plane.shape) == ((K,) if K > 1 else ()) + (48, 32, 4)
+    depth = geo.depth_from_plane(bench.data.K_ref, plane, x, args[13])
+    if case == "stack":
+        assert torch.allclose(depth[8] / depth[0], torch.tensor(1.016),
+                              rtol=1e-5)
+    costs = geom_cost.geom_consistency_cost(*args)
+    assert costs.shape == (3,) + tuple(plane.shape[:-1])
+    real = float((costs < bench.params.geom_cost_max).float().mean())
+    assert (real > 0.5) if case != "trial" else (real < 0.5)
+
+
+@pytest.mark.parametrize("kernel", ["sorted", "bilateral", "geom"])
 def test_kernel_cases_exit_nonzero_without_cuda(kernel):
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-m",

@@ -1,9 +1,9 @@
 """The port's CUDA kernels on the card (marked ``cuda``; each test skips
 where ``torch.cuda.is_available()`` is false): the NCC kernel
 (``csrc/ncc_eval.cu``), the sorted path's kernels (``csrc/ncc_samples.cu``:
-the bucket keys, the fused costs and the raw samples) and the sky stage's
-bilateral kernel in both forms and its table builder
-(``csrc/bilateral_refine.cu``).
+the bucket keys, the fused costs and the raw samples), the geometric cost
+(``csrc/geom_cost.cu``) and the sky stage's bilateral kernel in both forms
+and its table builder (``csrc/bilateral_refine.cu``).
 
 This file imports only the port (no JAX), so it runs on a CUDA machine
 without JAX:
@@ -59,6 +59,15 @@ Tolerances:
   radii 0, 18 and 24: equal to the plain version entry for entry (a table entry is the float
   form's weight of the same integer distance, and the builder's table
   equals the plain table bit for bit).
+* the geometric-cost kernel vs its plain twin on the same CUDA tensors
+  (``geom_cases``: K in {1, 5, 9} and S in {1, 10, 20} at a pixel count
+  off the 256-thread block, one field and non-contiguous planes, degenerate
+  planes, zero, negative and non-finite source depths, projections off
+  every edge, sources narrower, shorter, wider and taller than the stack
+  and of zero extent): equal, ``torch.equal``, each call one launch. The
+  kernel repeats the twin's operations one for one (-fmad=false, IEEE
+  division and square root). A geom solve on the card launches it 14
+  times a band step and never runs the twin.
 * the sky mask of a painted image on the card vs on the CPU: at most 0.2%
   of pixels differ (CUDA's and the CPU's exp round apart).
 * the planar prior's rasterizer (integer torch ops) on the card vs on the
@@ -72,7 +81,8 @@ import torch
 from mpmvs_torch import geometry as geo
 from mpmvs_torch import prior as tprior
 from mpmvs_torch.models import sky
-from mpmvs_torch.ops import bilateral_cuda, ncc_cuda, ncc_sorted
+from mpmvs_torch.ops import (bilateral_cuda, geom_cost, geom_cost_cuda,
+                             ncc_cuda, ncc_sorted)
 from mpmvs_torch.ops import random as pmrand
 from mpmvs_torch.ops import threefry as tf
 from mpmvs_torch.ops.ncc import NCCRefSide, ncc_refside
@@ -84,6 +94,7 @@ from mpmvs_torch.solver import (build_solve_data, init_band_count,
 from mpmvs_torch.tools.ab_deviations import REFERENCE
 from mpmvs_torch.utils.synthetic import make_plane_scene
 
+import geom_cases
 from torch_parity import frac_beyond, n
 
 torch.set_num_threads(1)
@@ -728,3 +739,74 @@ def test_prior_raster_on_card_matches_cpu(dev):
     tprior.fill_triangles(on_cpu, tris, values, "cpu")
     np.testing.assert_array_equal(on_card, on_cpu)
     assert (on_card > 0).mean() > 0.9
+
+
+@pytest.fixture(scope="module")
+def geom_scene(dev):
+    return geom_cases.scene_data(dev)
+
+
+def _geom_equal(cases):
+    """Each case through the dispatcher (one launch) equals the plain twin
+    on the same CUDA tensors."""
+    for c, plane, x, y, cap in cases:
+        before = geom_cost_cuda.COUNTS.kernel
+        got = geom_cases.call(geom_cost.geom_consistency_cost, c, plane, x,
+                              y, cap)
+        torch.cuda.synchronize()
+        assert geom_cost_cuda.COUNTS.kernel == before + 1
+        assert got.device.type == "cuda"
+        want = geom_cases.call(geom_cost.geom_consistency_cost_plain, c,
+                               plane, x, y, cap)
+        assert torch.equal(got, want), int((got != want).sum())
+        assert bool((want < cap).any()) and bool((want == cap).any())
+
+
+@pytest.mark.parametrize("S", [1, 10, 20])
+@pytest.mark.parametrize("K", [1, 5, 9])
+def test_geom_kernel_equals_plain(geom_scene, K, S):
+    _geom_equal(geom_cases.stacked_case(*geom_scene, K, S))
+
+
+@pytest.mark.parametrize("case", ["layout", "degenerate", "edge"])
+def test_geom_kernel_equals_plain_on_hard_inputs(geom_scene, case):
+    cases = {"layout": geom_cases.layout_cases,
+             "degenerate": geom_cases.degenerate_case,
+             "edge": geom_cases.edge_cases}[case](*geom_scene)
+    _geom_equal(cases)
+
+
+def test_geom_kernel_wrapper_rejects_bad_inputs(geom_scene):
+    scene, data = geom_scene
+    c = geom_cases.cams(data)
+    x, y = geom_cases.packed(data, 4, 8)
+    plane = geom_cases.planes(scene, data, 1, 1, x, y)[0]
+    kernel = geom_cost_cuda.geom_consistency_cost_kernel
+    for bad, err in ((plane.double(), TypeError),
+                     (plane[..., :3], ValueError),
+                     (plane.cpu(), ValueError)):
+        with pytest.raises(err):
+            geom_cases.call(kernel, c, bad, x, y)
+    with pytest.raises(ValueError, match="x is on"):
+        geom_cases.call(kernel, c, plane, x.cpu(), y)
+    c["K_src"] = c["K_src"][:2]
+    with pytest.raises(ValueError, match="K_src has shape"):
+        geom_cases.call(kernel, c, plane, x, y)
+
+
+def test_geom_solve_on_card_goes_through_the_kernel(dev):
+    scene = make_plane_scene(num_views=3, height=64, width=80, seed=3)
+    params = PatchMatchParams(max_iterations=1, max_scale=0)
+    key = tf.PRNGKey(0)
+    warm = solve_view(scene.images, scene.cameras, key, params, device=dev)
+    geom_cost_cuda.COUNTS.reset()
+    geom = solve_view(scene.images, scene.cameras, key, params, "geom",
+                      device=dev, warm=warm,
+                      src_depths=np.asarray(scene.gt_depth[1:]))
+    torch.cuda.synchronize()
+    br = solve_band_rows(params, 64, 80, 2, True)
+    n_bands = _band_geometry(64, 80, 2, 0, True, br)[2]
+    assert (geom_cost_cuda.COUNTS.kernel, geom_cost_cuda.COUNTS.plain) == (
+        14 * params.geom_iterations * 2 * n_bands, 0)
+    gt = scene.gt_depth[0]
+    assert np.median(np.abs(n(geom.depth) - gt) / gt) < 0.01
