@@ -9,12 +9,21 @@ Phases, in order; any failure raises and the script exits non-zero:
 1. Device and build: the card's name and power limit, and the ``nvcc``
    builds of ``mpmvs_torch/csrc/ncc_eval.cu``, ``ncc_samples.cu``,
    ``bilateral_refine.cu``, ``geom_cost.cu`` and ``jpeg_codec.cu`` (the
-   JPEG decoder's IDCT and colour kernels, nvJPEG's encoder), started
-   together, with their time and register reports.
-1b. The JPEG fixtures (``tests/data/jpeg``) decoded on the card against
-   cv2's arrays (``decoded.npz``): entries that differ and the largest
-   difference, grey and BGR; the IDCT and colour kernels against their
-   plain versions on each fixture. No entry may differ.
+   JPEG decoder's IDCT and colour kernels, the encoder's colour and
+   forward-DCT kernels, the host's entropy coding and PNG unfilter),
+   started together, with their time and register reports.
+1b. The image fixtures on the card against what cv2 gives: the JPEGs of
+   ``tests/data/jpeg`` decoded against ``decoded.npz`` (entries that differ
+   and the largest difference, grey and BGR) with the IDCT and colour
+   kernels against their plain versions on each; the EXIF-oriented and
+   RGB-coded files (``layouts/``, and ``refused/`` where
+   ``cv2_arrays.npz`` holds them) against cv2's arrays, the RGB form of the
+   colour kernel against its plain version; the rest of ``refused/``
+   (12-bit, arithmetic, lossless, CMYK) must raise; the encoder's fixtures
+   (``encode/``, colour and grey, 1x1 to 120x176, q75-100) must encode to
+   cv2.imencode's stored bytes; the PNGs of ``tests/data/png`` read in
+   colour against cv2's arrays, those under ``png/refused`` raising. No
+   entry or byte may differ.
 2. NCC kernel vs plain: ``ncc_eval_multi`` on the card against its plain
    PyTorch version at K in {1, 5, 9}, S = 10, scales 0 and 2, on
    ground-truth and random planes at the default footprint cap, through
@@ -87,7 +96,7 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 8. The user's path from files (after phase 6): a 4-view 3200x2130 plane
    scene with the sky band and tinted colours, written as a COLMAP text
-   model and ``.JPG`` images by the card's encoder;
+   model, three ``.JPG`` images by the card's encoder and one ``.png``;
    ``mpmvs_torch.preprocess.convert.main`` (on the card), then
    ``mpmvs_torch.cli.main(["--input", ws, "--sky-seg", "1", "--config",
    yaml])``: the default schedule, every view estimated with the other 3
@@ -95,9 +104,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    costs.jpg, normals.jpg). Checks the converted cameras against the
    scene's, median |d-gt|/gt < 1% on ground rows in every view's
    depths.dmb, a non-empty PLY, and the launches of the NCC kernel, the
-   bilateral table form and the codec's kernels against the schedule;
-   times the decode and nvJPEG's encode per image and the codec's
-   kernels.
+   bilateral table form and the codec's kernels against the schedule, and
+   that the ``.png`` became the encoding of its pixels; times the decode
+   and encode per image; holds the encoder's colour and DCT kernels to
+   their plain versions at 3200x2130 (no entry may differ, and the bytes
+   equal) and times them beside their bounds, with the copy to the host,
+   the entropy coding and the whole encode; times the PNG read and the
+   host unfilter at that size.
 9. Multi-GPU (after phase 8, on its converted workspace): (a) the NCC
    kernel (tile and view-major launches, K=9) and the fused sorted path
    with one zero-extent source (the sharded pipeline's padding: all-zero
@@ -172,6 +185,7 @@ NCC_SORTED, NCC_AUTO = 3 * 3 * 2 * 2, 1 + 3 * 3 * 2 * 2
 # Phase 8: 4 views, each the others' source (S = 3), one band in every
 # mode; colours tinted so the chroma is not flat
 FILES_VIEWS = 4
+FILES_PNG_VIEW = 3   # its source is a .png; the others' are .JPG
 FILES_TINT = (0.85, 1.0, 1.1)
 CAM_TOL = 1e-5   # converted cams vs the scene's, relative
 FILES_PREVIEWS = ["costs.jpg", "depths.jpg", "normals.jpg", "skymask.jpg",
@@ -1159,25 +1173,45 @@ def phase_sorted(data, scene, params):
 
 
 def phase_fixtures():
-    """Phase 1b: the JPEG fixtures (tests/data/jpeg) decoded on the card
-    against cv2's arrays in decoded.npz, and the IDCT and colour kernels
-    against their plain versions on each fixture: no entry may differ.
-    Returns {fixture: {"gray"/"bgr": (entries differing, of, largest
-    |diff|)}}."""
+    """Phase 1b: the image fixtures on the card, against what cv2 gives
+    (stored beside them): the JPEGs under tests/data/jpeg decoded against
+    decoded.npz, and the IDCT and colour kernels against their plain
+    versions on each; the files under layouts/ (EXIF orientations 2..8,
+    RGB components) and those under refused/ that cv2_arrays.npz holds,
+    decoded against it, the rest of refused/ raising; the encoder's
+    fixtures (encode/) encoded to cv2.imencode's stored bytes; the PNGs
+    (tests/data/png) read in colour against their cv2 arrays, those under
+    png/refused raising. No entry or byte may differ. Returns
+    {fixture: {"gray"/"bgr": (entries differing, of, largest |diff|)}}
+    and the encoder's and PNG reads' counts."""
     import numpy as np
     import torch
     from mpmvs_torch.io import images
 
     dev = torch.device("cuda", 0)
     folder = os.path.join(HERE, "tests", "data", "jpeg")
+    png_dir = os.path.join(HERE, "tests", "data", "png")
     want = np.load(os.path.join(folder, "decoded.npz"))
+    extra = np.load(os.path.join(folder, "cv2_arrays.npz"))
+
+    def read(path):
+        with open(path, "rb") as f:
+            return f.read()
+
+    def against(got, ref):
+        ref = ref.astype(np.int64)
+        got = got.cpu().numpy().astype(np.int64)
+        if got.shape != ref.shape:
+            return (int(ref.size), int(ref.size), 255)
+        d = np.abs(got - ref)
+        return (int((d > 0).sum()), int(d.size), int(d.max()))
+
     out = {}
     for name in sorted(f[:-4] for f in os.listdir(folder)
                        if f.endswith(".jpg")):
-        with open(os.path.join(folder, f"{name}.jpg"), "rb") as f:
-            data = f.read()
+        data = read(os.path.join(folder, f"{name}.jpg"))
         gray, bgr = images.decode(data, dev)
-        comps, _ = images.decode_coefficients(data, dev)
+        comps, _, _ = images.decode_coefficients(data, dev)
         for c in comps:
             got_k = images.idct_islow_kernel(*c)
             got_p = images.idct_islow_plain(*c)
@@ -1193,11 +1227,8 @@ def phase_fixtures():
         if not torch.equal(got_k, got_p):
             raise AssertionError(f"{name}: colour kernel vs plain differ on "
                                  f"{int((got_k != got_p).sum())} entries")
-        row = {}
-        for kind, got in (("gray", gray), ("bgr", bgr)):
-            ref = want[f"{kind}_{name}"].astype(np.int64)
-            d = np.abs(got.cpu().numpy().astype(np.int64) - ref)
-            row[kind] = (int((d > 0).sum()), int(d.size), int(d.max()))
+        row = {"gray": against(gray, want[f"gray_{name}"]),
+               "bgr": against(bgr, want[f"bgr_{name}"])}
         out[name] = row
         log(f"  {name} {tuple(bgr.shape)} chroma {hs}x{vs}: grey "
             f"{row['gray'][0]} of {row['gray'][1]} entries differ from "
@@ -1205,28 +1236,80 @@ def phase_fixtures():
             f"{row['gray'][2]}; BGR {row['bgr'][0]} of {row['bgr'][1]} "
             f"({row['bgr'][0] / row['bgr'][1]:.4f}), largest "
             f"{row['bgr'][2]}; IDCT and colour kernels equal plain")
-    bad = {name: r for name, r in out.items()
-           if r["gray"][0] or r["bgr"][0]}
-    if bad:
-        raise AssertionError(f"fixture decode differs from cv2: {bad}")
-    # the JPEGs that cv2 reads as another image than their planes (EXIF
-    # orientation, RGB components) must raise, not decode
-    for name in sorted(os.listdir(os.path.join(folder, "refused"))):
-        with open(os.path.join(folder, "refused", name), "rb") as f:
-            data = f.read()
+    # EXIF orientations, RGB components, and what stays refused
+    refused = []
+    for sub in ("layouts", "refused"):
+        for fname in sorted(os.listdir(os.path.join(folder, sub))):
+            name = f"{sub}/{fname[:-4]}"
+            data = read(os.path.join(folder, sub, fname))
+            if f"bgr_{name}" not in extra:
+                try:
+                    images.decode(data, dev)
+                except ValueError as e:
+                    refused.append(name)
+                    log(f"  {name}: raises ({e})")
+                    continue
+                raise AssertionError(f"{name} was decoded")
+            gray, bgr = images.decode(data, dev)
+            comps, size, layout = images.decode_coefficients(data, dev)
+            if layout.rgb:  # the colour kernel's RGB form vs its plain twin
+                y, g, b, (hs, vs) = images.decode_planes(data, dev)
+                for k, p in zip(images.rgb_to_bgr_kernel(y, g, b, hs, vs),
+                                images.rgb_to_bgr_plain(y, g, b, hs, vs)):
+                    if not torch.equal(k, p):
+                        raise AssertionError(f"{name}: RGB colour kernel vs "
+                                             f"plain differ")
+            out[name] = {"gray": against(gray, extra[f"gray_{name}"]),
+                         "bgr": against(bgr, extra[f"bgr_{name}"])}
+            log(f"  {name} {tuple(bgr.shape)} (orientation "
+                f"{layout.orientation}, RGB {layout.rgb}): grey, BGR "
+                f"(entries differing, of, largest) {out[name]['gray']}, "
+                f"{out[name]['bgr']}")
+    # the encoder: cv2.imencode's stored bytes
+    enc_dir = os.path.join(folder, "encode")
+    sources = np.load(os.path.join(enc_dir, "sources.npz"))
+    enc_bad = {}
+    names = sorted(f[:-4] for f in os.listdir(enc_dir) if f.endswith(".jpg"))
+    for name in names:
+        key, q = name.rsplit("_q", 1)
+        ref = read(os.path.join(enc_dir, f"{name}.jpg"))
+        got = images.encode_jpeg(torch.as_tensor(sources[key], device=dev),
+                                 dev, int(q))
+        if got != ref:
+            enc_bad[name] = (sum(a != b for a, b in zip(got, ref))
+                             + abs(len(got) - len(ref)), len(got), len(ref))
+    log(f"  encoder: {len(names) - len(enc_bad)} of {len(names)} fixtures "
+        f"(colour and grey, 1x1 to 120x176, q75-100) encode to cv2's bytes; "
+        f"differing {enc_bad}")
+    # PNG sources in colour (the converter's read)
+    png_want = np.load(os.path.join(png_dir, "cv2_arrays.npz"))
+    for fname in sorted(f for f in os.listdir(png_dir) if f.endswith(".png")):
+        name = f"png/{fname[:-4]}"
+        bgr = images.decode_colour(read(os.path.join(png_dir, fname)), dev)
+        out[name] = {"bgr": against(bgr, png_want[f"bgr_{fname[:-4]}"])}
+        log(f"  {name} {tuple(bgr.shape)}: BGR (entries differing, of, "
+            f"largest) {out[name]['bgr']}")
+    for fname in sorted(os.listdir(os.path.join(png_dir, "refused"))):
         try:
-            images.decode(data, dev)
+            images.decode_colour(read(os.path.join(png_dir, "refused",
+                                                   fname)), dev)
         except ValueError as e:
-            log(f"  refused/{name}: raises ({e})")
-        else:
-            raise AssertionError(f"refused/{name} was decoded")
-    return out
+            refused.append(f"png/refused/{fname}")
+            log(f"  png/refused/{fname}: raises ({e})")
+            continue
+        raise AssertionError(f"png/refused/{fname} was read")
+    bad = {name: r for name, r in out.items()
+           if any(v[0] for v in r.values())}
+    if bad or enc_bad:
+        raise AssertionError(f"fixtures differ from cv2: decode {bad}, "
+                             f"encode {enc_bad}")
+    return out, {"encoded_equal": len(names), "refused": refused}
 
 
-def write_colmap_model(scene, dense: str, per_view: int = 400,
+def write_colmap_model(scene, dense: str, names, per_view: int = 400,
                        seed: int = 0):
     """A COLMAP text model of ``scene`` under ``dense``/sparse: one PINHOLE
-    camera and one image (IMG_000i.JPG) per view, qvec/tvec from the
+    camera and one image (``names[v]``) per view, qvec/tvec from the
     scene's R and t, and 3-D points sampled from each view's GT depth on
     ground rows, with the track of every view they project into."""
     import numpy as np
@@ -1270,7 +1353,7 @@ def write_colmap_model(scene, dense: str, per_view: int = 400,
             q = rotmat_to_qvec(R[v])
             f.write(f"{v + 1} {' '.join(repr(float(c)) for c in q)} "
                     f"{' '.join(repr(float(c)) for c in t[v])} {v + 1} "
-                    f"IMG_{v:04d}.JPG\n")
+                    f"{names[v]}\n")
             f.write(" ".join(f"{x:.3f} {y:.3f} {pid}"
                              for x, y, pid in obs[v]) + "\n")
     with open(os.path.join(sparse, "points3D.txt"), "w") as f:
@@ -1284,7 +1367,8 @@ def write_colmap_model(scene, dense: str, per_view: int = 400,
 def phase_files(params, root: str):
     """Phase 8: the user's path from files at full width. A 4-view
     3200x2130 plane scene (top fifth sky, colours tinted) as a COLMAP text
-    model and .JPG images written by the card's encoder under ``root``;
+    model, three .JPG images written by the card's encoder and one .png
+    (the host's PNG writer) under ``root``;
     ``mpmvs_torch.preprocess.convert.main`` on the card, then
     ``mpmvs_torch.cli.main`` with a YAML config and --sky-seg 1 on the
     converted workspace: the default schedule, every view estimated with
@@ -1312,15 +1396,20 @@ def phase_files(params, root: str):
         f"{time.perf_counter() - t0:.1f} s")
     out = {}
     dense, ws = os.path.join(root, "dense"), os.path.join(root, "ws")
-    n_pts = write_colmap_model(scene, dense)
+    names = [f"IMG_{v:04d}.{'png' if v == FILES_PNG_VIEW else 'JPG'}"
+             for v in range(V)]
+    n_pts = write_colmap_model(scene, dense, names)
     os.makedirs(os.path.join(dense, "images"))
     enc_ms = []
     for v in range(V):
+        path = os.path.join(dense, "images", names[v])
+        if v == FILES_PNG_VIEW:
+            images.write_png(path, bgr[v])
+            continue
         img = torch.as_tensor(bgr[v], device=dev)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        images.write_jpeg(os.path.join(dense, "images",
-                                       f"IMG_{v:04d}.JPG"), img, dev)
+        images.write_jpeg(path, img, dev)
         enc_ms.append((time.perf_counter() - t1) * 1e3)
     config = os.path.join(root, "config.yaml")
     with open(config, "w") as f:
@@ -1336,9 +1425,9 @@ def phase_files(params, root: str):
     bilateral_cuda.COUNTS.reset()
     bilateral_cuda.TABLE_COUNTS.reset()
     bilateral_cuda.colour_table.cache_clear()
-    images.COUNTS.reset()
-    images.IDCT_COUNTS.reset()
-    images.CODEC_COUNTS.reset()
+    for c in (images.COUNTS, images.IDCT_COUNTS, images.YCC_COUNTS,
+              images.FDCT_COUNTS, images.CODEC_COUNTS):
+        c.reset()
     t1 = time.perf_counter()
     if convert.main(["--dense_folder", dense, "--save_folder", ws]) != 0:
         raise AssertionError("convert.main failed")
@@ -1368,6 +1457,8 @@ def phase_files(params, root: str):
     tables = bilateral_cuda.TABLE_COUNTS.kernel
     ycc = (images.COUNTS.kernel, images.COUNTS.plain)
     idct_launches = images.IDCT_COUNTS.kernel
+    enc_launches = (images.YCC_COUNTS.kernel, images.FDCT_COUNTS.kernel,
+                    images.YCC_COUNTS.plain + images.FDCT_COUNTS.plain)
     codec = dict(images.CODEC_COUNTS.forms)
     log(f"  convert {convert_s:.2f} s ({n_pts} sparse points), cli "
         f"{cli_s:.1f} s; {pipe.timer.summary()}")
@@ -1410,6 +1501,18 @@ def phase_files(params, root: str):
     log(f"  median |d-gt|/gt on ground rows {rel}; PLY {len(pts)} "
         f"points; sky fractions {sky}; previews {previews}")
 
+    # the PNG source converted on the card: its pixels are the scene's
+    # colours (PNG is lossless), so the workspace holds their encoding
+    with open(os.path.join(ws, "images", f"{FILES_PNG_VIEW:08d}.jpg"),
+              "rb") as f:
+        png_converted = f.read() == images.encode_jpeg(
+            torch.as_tensor(bgr[FILES_PNG_VIEW], device=dev), dev, 95)
+    log(f"  {names[FILES_PNG_VIEW]} converted on the card to the encoding "
+        f"of its pixels: {png_converted}")
+    if not png_converted:
+        raise AssertionError("the PNG source's workspace image is not the "
+                             "encoding of its pixels")
+
     # decode and encode per image, host clock around synchronised calls
     dec_ms = []
     for v in range(V):
@@ -1425,7 +1528,7 @@ def phase_files(params, root: str):
     # the IDCT (each of the three components) and colour kernels
     # against their plain versions on the last view's planes at full
     # size: no entry may differ
-    comps, _ = images.decode_coefficients(data, dev)
+    comps, _, _ = images.decode_coefficients(data, dev)
     idct_err = [differing(images.idct_islow_kernel(*c),
                           images.idct_islow_plain(*c)) for c in comps]
     y, cb, cr, (hs, vs) = images.decode_planes(data, dev)
@@ -1450,23 +1553,36 @@ def phase_files(params, root: str):
     idct_plain_ms = cuda_time_ms(idct(images.idct_islow_plain), 3)
     idct_bound_ms = sum(2 * c[0].numel() + c[2] * c[3]
                         for c in comps) / 3.35e12 * 1e3
+    enc = phase_encode_parts(bgr[0], dev)
+    png = phase_png_parts(os.path.join(dense, "images",
+                                       names[FILES_PNG_VIEW]), dev)
     expected = V * (NCC_PHOTOMETRIC + 2 * NCC_GEOM) + n_prior * NCC_PRIOR
     bad = {v: e for v, e in rel.items() if not e < 0.01}
     log(f"  launches: NCC {ncc[0]} (schedule implies {expected}), plain "
         f"{ncc[1]}; bilateral {bil[0]} by form {bil[2]}, plain {bil[1]}, "
         f"table builds {tables}; IDCT kernel {idct_launches}, colour kernel "
-        f"{ycc[0]}, plain {ycc[1]}; codec calls {codec}")
+        f"{ycc[0]}, plain {ycc[1]}; encoder colour and DCT kernels "
+        f"{enc_launches[:2]}, plain {enc_launches[2]}; codec calls {codec}")
     if bad or len(pts) == 0 or previews != FILES_PREVIEWS:
         raise AssertionError(f"files path: median rel error >= 1% {bad}, "
                              f"PLY {len(pts)} points, previews {previews}")
+    # the converter reads the 3 .JPGs and the .png (the PNG path, no
+    # colour kernel) and encodes all 4; the pipeline reads the 4 .jpgs;
+    # every encode (the previews' too) is one colour and three DCT launches
+    # but a grey preview's one
     if ncc != (expected, 0) or bil[:2] != (V, 0) or \
-            bil[2] != {"table": V} or tables != 1 or ycc[0] != 2 * V or \
-            ycc[1] != 0 or idct_launches != 3 * ycc[0]:
+            bil[2] != {"table": V} or tables != 1 or ycc[0] != 2 * V - 1 \
+            or ycc[1] != 0 or idct_launches != 3 * ycc[0] or \
+            codec.get("png") != 1 or codec.get("decode") != 2 * V - 1 or \
+            enc_launches[0] != codec.get("encode") or enc_launches[2] or \
+            not V <= enc_launches[0] <= enc_launches[1] <= 3 * enc_launches[0]:
         raise AssertionError(f"files path launches: NCC {ncc} (expected "
                              f"{expected}), bilateral {bil}, tables "
                              f"{tables}, colour kernel {ycc} (expected "
-                             f"{2 * V}: the converter's and the pipeline's "
-                             f"reads), IDCT kernel {idct_launches}")
+                             f"{2 * V - 1}: the converter's and the "
+                             f"pipeline's JPEG reads), IDCT kernel "
+                             f"{idct_launches}, encoder kernels "
+                             f"{enc_launches}, codec calls {codec}")
     out.update(ws=ws, config=config, gt_depth=scene.gt_depth,
                images=scene.images, cameras=scene.cameras,
                rel=rel, points=len(pts), ncc=ncc[0], bilateral=bil[0],
@@ -1475,8 +1591,126 @@ def phase_files(params, root: str):
                ycc_plain_ms=plain_ms, ycc_bound_ms=bound_ms,
                idct_launches=idct_launches, idct_ms=idct_ms,
                idct_plain_ms=idct_plain_ms, idct_bound_ms=idct_bound_ms,
-               idct_vs_plain=idct_err, ycc_vs_plain=ycc_err)
+               idct_vs_plain=idct_err, ycc_vs_plain=ycc_err,
+               enc_launches=enc_launches, enc=enc, png=png)
     return out
+
+
+def phase_encode_parts(bgr, dev):
+    """The encoder at 3200x2130 (phase 8's view 0), part by part: the
+    colour kernel (bgr_to_ycc_kernel) and the forward DCT kernel (three
+    launches, one a plane) against their plain versions (no entry may
+    differ) and timed with CUDA events beside their bounds; the
+    coefficients' copy to the host and the host's entropy coding, host
+    clock; the whole encode_jpeg, host clock around a synchronised call.
+    The bytes of the kernels' path and of the plain versions' (coded on
+    the host the same way) must be equal."""
+    import numpy as np
+    import torch
+    from mpmvs_torch.io import images
+    from mpmvs_torch.utils.roofline import bgr_to_ycc_bound, fdct_bound
+    from mpmvs_torch.utils.trace import cuda_time_ms
+
+    img = torch.as_tensor(bgr, device=dev)
+    H, W = img.shape[:2]
+    lib = images._library()
+    qt = images.quality_tables(images.PREVIEW_QUALITY, lib).to(dev)
+    planes = images.bgr_to_ycc_kernel(img)
+    planes_p = images.bgr_to_ycc_plain(img)
+    tables = (qt[0], qt[1], qt[1])
+    coefs = [images.fdct_islow_kernel(p, q) for p, q in zip(planes, tables)]
+    coefs_p = [images.fdct_islow_plain(p, q)
+               for p, q in zip(planes_p, tables)]
+    ycc_err = [differing(a, b) for a, b in zip(planes, planes_p)]
+    fdct_err = [differing(a, b) for a, b in zip(coefs, coefs_p)]
+    log(f"  encoder at {W}x{H}: colour kernel vs plain (entries differing, "
+        f"largest |diff|) per plane {ycc_err}; forward DCT kernel vs plain "
+        f"{fdct_err}")
+    if any(e[0] for e in ycc_err + fdct_err):
+        raise AssertionError(f"encoder kernels vs plain at full size: "
+                             f"colour {ycc_err}, DCT {fdct_err}")
+    out = {"ycc_vs_plain": ycc_err, "fdct_vs_plain": fdct_err}
+    out["ycc_ms"] = cuda_time_ms(lambda: images.bgr_to_ycc_kernel(img), 20)
+    out["ycc_plain_ms"] = cuda_time_ms(lambda: images.bgr_to_ycc_plain(img),
+                                       3)
+    dct = lambda fn: (lambda: [fn(p, q) for p, q in zip(planes, tables)])
+    out["fdct_ms"] = cuda_time_ms(dct(images.fdct_islow_kernel), 20)
+    out["fdct_plain_ms"] = cuda_time_ms(dct(images.fdct_islow_plain), 3)
+    out["ycc_bound"] = bgr_to_ycc_bound(H, W, 3)
+    out["fdct_bound"] = fdct_bound(sum(c.shape[0] * c.shape[1]
+                                       for c in coefs))
+    copy_ms, huff_ms, whole_ms = [], [], []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        host = [c.cpu() for c in coefs]
+        t2 = time.perf_counter()
+        data = images.encode_coefficients(host, W, H,
+                                          images.PREVIEW_QUALITY, lib)
+        t3 = time.perf_counter()
+        copy_ms.append((t2 - t1) * 1e3)
+        huff_ms.append((t3 - t2) * 1e3)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        whole = images.encode_jpeg(img, dev)
+        whole_ms.append((time.perf_counter() - t1) * 1e3)
+    plain_bytes = images.encode_coefficients([c.cpu() for c in coefs_p], W,
+                                             H, images.PREVIEW_QUALITY, lib)
+    if not data == whole == plain_bytes:
+        raise AssertionError("the encoder's bytes differ between its kernels "
+                             "and their plain versions")
+    out.update(copy_ms=copy_ms, huffman_ms=huff_ms, encode_ms=whole_ms,
+               bytes=len(whole))
+    log(f"  encoder at {W}x{H}, q{images.PREVIEW_QUALITY} ({len(whole)} "
+        f"bytes, equal to the plain versions'): colour kernel "
+        f"{out['ycc_ms']:.4f} ms (bound {out['ycc_bound'][0]:.4f}, plain "
+        f"{out['ycc_plain_ms']:.2f}); DCT kernel, 3 planes "
+        f"{out['fdct_ms']:.4f} ms (bound {out['fdct_bound'][0]:.4f}, plain "
+        f"{out['fdct_plain_ms']:.2f}); copy to host {np.round(copy_ms, 2)} "
+        f"ms; entropy coding {np.round(huff_ms, 2)} ms; encode_jpeg "
+        f"{np.round(whole_ms, 2)} ms")
+    del planes_p, coefs_p
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_png_parts(path: str, dev):
+    """The PNG read at 3200x2130: decode_colour of phase 8's .png source
+    (host clock, synchronised; the host's zlib writes filter type 0 only),
+    and the host unfilter alone on scanlines of that size whose filter
+    types cycle through all five (random bytes are valid filtered data)."""
+    import numpy as np
+    import torch
+    from mpmvs_torch.io import images
+
+    with open(path, "rb") as f:
+        data = f.read()
+    read_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        images.decode_colour(data, dev)
+        torch.cuda.synchronize()
+        read_ms.append((time.perf_counter() - t1) * 1e3)
+    lib = images._library()
+    rowbytes = 3 * W_FULL
+    raw = np.random.default_rng(0).integers(
+        0, 256, (H_FULL, rowbytes + 1)).astype(np.uint8)
+    raw[:, 0] = np.arange(H_FULL) % 5
+    raw = raw.tobytes()
+    rows = np.empty((H_FULL, rowbytes), np.uint8)
+    unfilter_ms = []
+    for _ in range(5):
+        t1 = time.perf_counter()
+        err = lib.png_unfilter_rows(raw, len(raw), rows.ctypes.data, H_FULL,
+                                    rowbytes, 3)
+        unfilter_ms.append((time.perf_counter() - t1) * 1e3)
+        if err:
+            raise AssertionError(f"png_unfilter_rows returned {err}")
+    log(f"  PNG at {W_FULL}x{H_FULL}: decode_colour {np.round(read_ms, 2)} "
+        f"ms; host unfilter (all five filters) {np.round(unfilter_ms, 2)} "
+        f"ms")
+    return {"read_ms": read_ms, "unfilter_ms": unfilter_ms}
 
 
 def phase_dummy_source(files, params):
@@ -1641,8 +1875,8 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     build_kernels(dev, verbose=True)
     log(f"  kernel builds (in parallel) {time.perf_counter() - t0:.2f} s")
-    log("phase 1b: the JPEG fixtures decoded on the card vs cv2's arrays")
-    fixtures = phase_fixtures()
+    log("phase 1b: the image fixtures on the card vs cv2's arrays and bytes")
+    fixtures, fixture_facts = phase_fixtures()
 
     params = PatchMatchParams()
     scene = make_scene()
@@ -1724,8 +1958,10 @@ def main(argv=None) -> int:
         f"geometric cost K=1 {go['bound'][1][0]:.4f} "
         f"({go['bound'][1][1]}) vs {go['ms'][1]:.4f}, K=9 "
         f"{go['bound'][9][0]:.4f} vs {go['ms'][9]:.4f}")
-    # the codec (host decode + the IDCT and colour kernels; nvJPEG encodes):
-    # no TPU kernel's counterpart, so on a line of their own
+    # the codec (host decode and encode, the IDCT and colour kernels, the
+    # encoder's colour and DCT kernels, PNG reads): no TPU kernel's
+    # counterpart; the details on a line of their own
+    enc, png = files["enc"], files["png"]
     codec_kernel = lambda k: {
         "source": "mpmvs_torch/csrc/jpeg_codec.cu",
         "launches": files[f"{k}_launches"], "ms": files[f"{k}_ms"],
@@ -1733,13 +1969,26 @@ def main(argv=None) -> int:
         "bound_ms": files[f"{k}_bound_ms"], "bound_by": "bytes",
         "differing_entries": [e[0] for e in files[f"{k}_vs_plain"]],
         "max_abs_err": max(e[1] for e in files[f"{k}_vs_plain"])}
+    enc_kernel = lambda k, n: {
+        "source": "mpmvs_torch/csrc/jpeg_codec.cu", "launches": n,
+        "ms": enc[f"{k}_ms"], "plain_ms": enc[f"{k}_plain_ms"],
+        "bound_ms": enc[f"{k}_bound"][0], "bound_by": enc[f"{k}_bound"][1],
+        "differing_entries": [e[0] for e in enc[f"{k}_vs_plain"]],
+        "max_abs_err": max(e[1] for e in enc[f"{k}_vs_plain"])}
     log(json.dumps({"codec": {
         "decode_ms_per_image": files["dec_ms"],
         "encode_ms_per_image": files["enc_ms"],
+        "encode_parts_ms": {k: enc[k] for k in ("copy_ms", "huffman_ms",
+                                                "encode_ms")},
+        "png_read_ms": png["read_ms"], "png_unfilter_ms": png["unfilter_ms"],
         "image": [W_FULL, H_FULL], "calls_phase8": files["codec"],
         "idct_islow": codec_kernel("idct"),
         "ycc_to_bgr": codec_kernel("ycc"),
-        "fixtures_vs_cv2": fixtures, "nvidia_smi": smi}}))
+        "bgr_to_ycc": enc_kernel("ycc", files["enc_launches"][0]),
+        "fdct_islow_quant": enc_kernel("fdct", files["enc_launches"][1]),
+        "fixtures_vs_cv2": fixtures, "encoder_fixtures_equal_bytes":
+            fixture_facts["encoded_equal"],
+        "refused": fixture_facts["refused"], "nvidia_smi": smi}}))
     log(json.dumps({"multi_gpu": {
         "ranks": multi["ranks"], "backend": "nccl", "wall_s": multi["wall_s"],
         "median_rel_err": multi["rel"], "depth_digests": multi["digests"],
@@ -1765,10 +2014,14 @@ def main(argv=None) -> int:
                      "nvidia_smi": smi}, **extra)
 
     fused_launches = so["solves"]["sorted"][2][0]
+    no_tpu = ("none: the JAX package codes images with OpenCV "
+              "(mpmvs_tpu/pipeline.py:60 cv2.imread, "
+              "mpmvs_tpu/preprocess/convert.py:161 cv2.imwrite)")
     # library_ms: no single PyTorch call computes any of these functions
     # (PERF.md section 6). Launches: the NCC kernel, the geometric cost, the
     # bilateral kernel and its table builder in phase 6, the sorted kernels
-    # in phase 7(d);
+    # in phase 7(d), the codec's four kernels in phase 8 (the converter, the
+    # pipeline's reads, the previews);
     # a form that path does not take is listed with its launches there, 0.
     log(json.dumps({"kernels": [
         entry("ncc_eval_multi", "ncc_eval.cu",
@@ -1817,7 +2070,26 @@ def main(argv=None) -> int:
               go["plain_ms"][1], go["bound"][1], scope="K=1 at the geom "
               "band shape, the current-plane call; K=9 beside it",
               k9={"ms": go["ms"][9], "plain_ms": go["plain_ms"][9],
-                  "bound_ms": go["bound"][9][0]})]}))
+                  "bound_ms": go["bound"][9][0]}),
+        entry("idct_islow", "jpeg_codec.cu", no_tpu, files["idct_launches"],
+              max(e[1] for e in files["idct_vs_plain"]), files["idct_ms"],
+              files["idct_plain_ms"], (files["idct_bound_ms"], "bytes"),
+              scope="the three components of a 3200x2130 4:2:0 JPEG"),
+        entry("ycc_to_bgr", "jpeg_codec.cu", no_tpu, files["ycc_launches"],
+              max(e[1] for e in files["ycc_vs_plain"]), files["ycc_ms"],
+              files["ycc_plain_ms"], (files["ycc_bound_ms"], "bytes"),
+              scope="a 3200x2130 4:2:0 JPEG, the YCbCr form"),
+        entry("bgr_to_ycc", "jpeg_codec.cu", no_tpu,
+              files["enc_launches"][0],
+              max(e[1] for e in enc["ycc_vs_plain"]), enc["ycc_ms"],
+              enc["ycc_plain_ms"], enc["ycc_bound"],
+              scope="a 3200x2130 BGR image to 4:2:0 planes"),
+        entry("fdct_islow_quant", "jpeg_codec.cu", no_tpu,
+              files["enc_launches"][1],
+              max(e[1] for e in enc["fdct_vs_plain"]), enc["fdct_ms"],
+              enc["fdct_plain_ms"], enc["fdct_bound"],
+              scope="the three planes of a 3200x2130 4:2:0 encode (three "
+              "launches)")]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

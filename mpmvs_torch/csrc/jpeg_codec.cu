@@ -1,10 +1,12 @@
-// JPEG decode and encode on the card for the port's workspace I/O (sm_90a).
+// JPEG decode and encode on the card for the port's workspace I/O (sm_90a),
+// and the host half of its PNG reads.
 //
 // No TPU kernel has this work: the JAX package reads and writes images with
-// OpenCV (cv2.imread / cv2.imwrite, which decode with libjpeg-turbo). The
-// machine with the card has no OpenCV, so the port decodes here, and gives
-// what cv2.imread gives, bit for bit:
+// OpenCV (cv2.imread / cv2.imwrite, which code JPEGs with libjpeg-turbo).
+// The machine with the card has no OpenCV, so the port codes here, and gives
+// what OpenCV gives, bit for bit.
 //
+// Decoding:
 //   * the host parses the file and entropy-decodes it to quantized DCT
 //     coefficients as libjpeg does (jpeg_entropy.h: baseline, extended and
 //     progressive Huffman, restart intervals); they are copied to the card;
@@ -13,67 +15,66 @@
 //     one thread per 8x8 block, into each component's plane. nvJPEG's own
 //     decode was tried first and differs: its inverse DCT is not jidctint
 //     (1.3-2.1% of grey values off by 1 on the H100);
-//   * ycc_to_bgr_kernel upsamples the chroma planes and converts to
-//     interleaved BGR with libjpeg-turbo's integer arithmetic:
+//   * ycc_to_bgr_kernel upsamples the planes and makes interleaved BGR with
+//     libjpeg-turbo's integer arithmetic:
 //       - "fancy" (triangle) upsampling of jdsample.c for h2v2 (4:2:0),
 //         h2v1 (4:2:2) and h1v2 (4:4:0), edge rows and columns replicated;
-//       - the fixed-point YCbCr -> RGB of jdcolor.c (16 fractional bits,
-//         FIX(1.402), FIX(1.772), FIX(0.71414), FIX(0.34414), rounding as
-//         its tables do);
-//     a one-component JPEG gives B = G = R = Y, as cv2 gives it.
-//   * the grey image is the Y plane itself: cv2.imread(IMREAD_GRAYSCALE)
-//     of a YCbCr JPEG is libjpeg's Y component, not a conversion of BGR.
+//       - YCbCr: the fixed-point YCbCr -> RGB of jdcolor.c (16 fractional
+//         bits, FIX(1.402), FIX(1.772), FIX(0.71414), FIX(0.34414),
+//         rounding as its tables do); the grey image is the Y plane itself
+//         (cv2.imread(IMREAD_GRAYSCALE) of a YCbCr JPEG is libjpeg's Y
+//         component, not a conversion of BGR);
+//       - RGB components (libjpeg's guess, jpeg_entropy.h): the samples in
+//         B, G, R order, and the grey image rgb_gray_convert's
+//         (19595 R + 38470 G + 7471 B + 32768) >> 16, written by the same
+//         launch;
+//     a one-component JPEG gives B = G = R = Y, as cv2 gives it. An EXIF
+//     orientation is applied to both images on the card afterwards
+//     (io/images.py).
+//
+// Encoding gives cv2.imencode's bytes (quality q, 4:2:0 or grey):
+//   * bgr_to_ycc_kernel: libjpeg-turbo's BGR -> YCbCr, edge expansion and
+//     2x2 chroma downsampling (jpeg_fdct.h), one thread per 2x2 group;
+//   * fdct_islow_quant_kernel: level shift, jfdctint's forward DCT and
+//     libjpeg-turbo's reciprocal quantization, one thread per block;
+//   * the host Huffman-codes the coefficients with the standard tables and
+//     writes libjpeg's markers (jpeg_encode.h). That pass is bit-serial.
+//     nvJPEG's encoder writes other bytes than cv2: its colour conversion,
+//     DCT and rounding are its own.
 //
 // What bounds the kernels: bytes. The IDCT reads 2 bytes a coefficient and
 // writes 1 a sample, the colour kernel reads 1.5 bytes a pixel (4:2:0) and
-// writes 3; the host's entropy decoding takes far longer than either.
+// writes 3; bgr_to_ycc reads 3 and writes 1.5, the forward DCT reads 1 a
+// sample and writes 2 a coefficient. The host's entropy coding takes far
+// longer than any of them.
 //
-// Encoding (previews, workspaces) is nvJPEG's encoder (the CUDA toolkit's
-// libnvjpeg): interleaved BGR at the caller's quality and 4:2:0
-// (cv2.imwrite's default), or one grey component.
+// PNG reads: png_unfilter.h undoes the row filters on the host (the C
+// function png_unfilter_rows); exif_orientation_tiff reads a PNG's eXIf.
 //
 // The C interface below is bound with ctypes by mpmvs_torch/io/images.py.
-// Every function returns 0 or an error code: an nvJPEG status (1-9), a
-// decode error of jpeg_entropy.h (2001-2003) or a CUDA error offset by 1000.
+// Every function returns 0 or an error code: a decode error of
+// jpeg_entropy.h (2001-2009), an encode or PNG error (2010, 3001-3002) or a
+// CUDA error offset by 1000.
 
 #include <cuda_runtime.h>
-#include <nvjpeg.h>
 
 #include <stdint.h>
 #include <stdlib.h>
 
+#include "jpeg_encode.h"
 #include "jpeg_entropy.h"
+#include "jpeg_fdct.h"
 #include "jpeg_idct.h"
+#include "png_unfilter.h"
 
 #define CODEC_CUDA_ERR 1000
-
-struct Codec {
-  nvjpegHandle_t handle;
-  nvjpegEncoderState_t enc_state;
-  nvjpegEncoderParams_t enc_params;
-};
-
-#define NV_TRY(x)                                  \
-  do {                                             \
-    nvjpegStatus_t s_ = (x);                       \
-    if (s_ != NVJPEG_STATUS_SUCCESS) return (int)s_; \
-  } while (0)
-
-extern "C" int jpeg_codec_create(void** out) {
-  Codec* c = (Codec*)calloc(1, sizeof(Codec));
-  if (c == NULL) return CODEC_CUDA_ERR + (int)cudaErrorMemoryAllocation;
-  NV_TRY(nvjpegCreateSimple(&c->handle));
-  NV_TRY(nvjpegEncoderStateCreate(c->handle, &c->enc_state, 0));
-  NV_TRY(nvjpegEncoderParamsCreate(c->handle, &c->enc_params, 0));
-  *out = c;
-  return 0;
-}
 
 // Parse and entropy-decode a JPEG on the host. info receives the number of
 // components, the width and height, then per component six values: its
 // plane's width and height (the sampled size, ceil(W * h / hmax)), the
 // coefficient array's blocks across and down (padded to whole MCUs), and the
-// blocks that cover the plane across and down. *out holds the coefficients
+// blocks that cover the plane across and down; info[21] the EXIF
+// orientation, info[22] 1 for RGB components. *out holds the coefficients
 // until jpeg_host_free.
 extern "C" int jpeg_host_decode(const unsigned char* data, size_t length,
                                 void** out, int* info) {
@@ -96,6 +97,8 @@ extern "C" int jpeg_host_decode(const unsigned char* data, size_t length,
     ci[4] = c.width_in_blocks;
     ci[5] = c.height_in_blocks;
   }
+  info[21] = d->orientation;
+  info[22] = d->rgb;
   *out = d;
   return 0;
 }
@@ -191,11 +194,14 @@ __device__ __forceinline__ unsigned char clamp_u8(int v) {
 }
 
 // Interleaved BGR (H, W, 3) from the planes; cb == NULL: one component.
+// rgb: the planes are R, G, B (G and B sampled as Cb and Cr would be), and
+// gray receives rgb_gray_convert's grey.
 __global__ void ycc_to_bgr_kernel(const unsigned char* __restrict__ y,
                                   const unsigned char* __restrict__ cb,
                                   const unsigned char* __restrict__ cr,
                                   int H, int W, int Hc, int Wc, int hs, int vs,
-                                  unsigned char* __restrict__ bgr) {
+                                  int rgb, unsigned char* __restrict__ bgr,
+                                  unsigned char* __restrict__ gray) {
   int col = blockIdx.x * blockDim.x + threadIdx.x;
   int r = blockIdx.y;
   if (col >= W) return;
@@ -205,8 +211,16 @@ __global__ void ycc_to_bgr_kernel(const unsigned char* __restrict__ y,
     o[0] = o[1] = o[2] = (unsigned char)Y;
     return;
   }
-  int xb = chroma_at(cb, Wc, Hc, Wc, r, col, hs, vs) - 128;
-  int xr = chroma_at(cr, Wc, Hc, Wc, r, col, hs, vs) - 128;
+  int ub = chroma_at(cb, Wc, Hc, Wc, r, col, hs, vs);
+  int ur = chroma_at(cr, Wc, Hc, Wc, r, col, hs, vs);
+  if (rgb) {  // Y, ub, ur are R, G, B
+    o[0] = (unsigned char)ur;
+    o[1] = (unsigned char)ub;
+    o[2] = (unsigned char)Y;
+    gray[r * W + col] = (unsigned char)jpeg_fdct::y_of(Y, ub, ur);
+    return;
+  }
+  int xb = ub - 128, xr = ur - 128;
   // jdcolor.c build_ycc_rgb_table: SCALEBITS 16, ONE_HALF 1 << 15
   int red = (91881 * xr + 32768) >> 16;
   int green = (-22554 * xb + 32768 - 46802 * xr) >> 16;
@@ -219,52 +233,72 @@ __global__ void ycc_to_bgr_kernel(const unsigned char* __restrict__ y,
 extern "C" int ycc_to_bgr_launch(const unsigned char* y,
                                  const unsigned char* cb,
                                  const unsigned char* cr, int H, int W, int Hc,
-                                 int Wc, int hs, int vs, unsigned char* bgr,
+                                 int Wc, int hs, int vs, int rgb,
+                                 unsigned char* bgr, unsigned char* gray,
                                  cudaStream_t stream) {
   dim3 block(256);
   dim3 grid((W + 255) / 256, H);
   ycc_to_bgr_kernel<<<grid, block, 0, stream>>>(y, cb, cr, H, W, Hc, Wc, hs,
-                                                vs, bgr);
+                                                vs, rgb, bgr, gray);
   cudaError_t e = cudaGetLastError();
   return e == cudaSuccess ? 0 : CODEC_CUDA_ERR + (int)e;
 }
 
-// Encode an (H, W, 3) interleaved BGR image (channels 3) at 4:2:0, or an
-// (H, W) grey image (channels 1), on the stream; the stream is synchronised
-// and the bitstream's length written to *length. jpeg_codec_retrieve copies
-// it out.
-extern "C" int jpeg_codec_encode(void* codec, const unsigned char* img, int H,
-                                 int W, int channels, int quality,
-                                 cudaStream_t stream, size_t* length) {
-  Codec* c = (Codec*)codec;
-  nvjpegImage_t src = {};
-  src.channel[0] = (unsigned char*)img;
-  NV_TRY(nvjpegEncoderParamsSetQuality(c->enc_params, quality, stream));
-  NV_TRY(nvjpegEncoderParamsSetOptimizedHuffman(c->enc_params, 0, stream));
-  if (channels == 3) {
-    src.pitch[0] = 3 * W;
-    NV_TRY(nvjpegEncoderParamsSetSamplingFactors(c->enc_params,
-                                                 NVJPEG_CSS_420, stream));
-    NV_TRY(nvjpegEncodeImage(c->handle, c->enc_state, c->enc_params, &src,
-                             NVJPEG_INPUT_BGRI, W, H, stream));
-  } else {
-    src.pitch[0] = W;
-    NV_TRY(nvjpegEncoderParamsSetSamplingFactors(c->enc_params,
-                                                 NVJPEG_CSS_GRAY, stream));
-    NV_TRY(nvjpegEncodeYUV(c->handle, c->enc_state, c->enc_params, &src,
-                           NVJPEG_CSS_GRAY, W, H, stream));
-  }
-  NV_TRY(nvjpegEncodeRetrieveBitstream(c->handle, c->enc_state, NULL, length,
-                                       stream));
-  cudaError_t e = cudaStreamSynchronize(stream);
+// The encoder's planes from an (H, W) image, BGR (channels 3) or grey
+// (channels 1): one thread per 2x2 group of Y (y_h x y_w) and, for colour,
+// per sample of Cb and Cr (g_h x g_w, the chroma planes' size; for grey the
+// groups of Y). jpeg_fdct.h ycc_group says what each plane holds.
+__global__ void bgr_to_ycc_kernel(const unsigned char* __restrict__ img,
+                                  int H, int W, int channels,
+                                  unsigned char* __restrict__ y, int y_h,
+                                  int y_w, unsigned char* __restrict__ cb,
+                                  unsigned char* __restrict__ cr, int g_h,
+                                  int g_w) {
+  int j = blockIdx.x * blockDim.x + threadIdx.x;
+  int i = blockIdx.y;
+  if (j >= g_w || i >= g_h) return;
+  jpeg_fdct::ycc_group(img, H, W, channels, i, j, y, y_h, y_w, cb, cr, g_w);
+}
+
+extern "C" int bgr_to_ycc_launch(const unsigned char* img, int H, int W,
+                                 int channels, unsigned char* y, int y_h,
+                                 int y_w, unsigned char* cb, unsigned char* cr,
+                                 int g_h, int g_w, cudaStream_t stream) {
+  dim3 block(128);
+  dim3 grid((g_w + 127) / 128, g_h);
+  bgr_to_ycc_kernel<<<grid, block, 0, stream>>>(img, H, W, channels, y, y_h,
+                                                y_w, cb, cr, g_h, g_w);
+  cudaError_t e = cudaGetLastError();
   return e == cudaSuccess ? 0 : CODEC_CUDA_ERR + (int)e;
 }
 
-extern "C" int jpeg_codec_retrieve(void* codec, unsigned char* out,
-                                   size_t* length, cudaStream_t stream) {
-  Codec* c = (Codec*)codec;
-  NV_TRY(nvjpegEncodeRetrieveBitstream(c->handle, c->enc_state, out, length,
-                                       stream));
-  cudaError_t e = cudaStreamSynchronize(stream);
+// One thread per 8x8 block of a (8 bh, 8 bw) plane: the quantized
+// coefficients (bh, bw, 64) in natural order, the layout idct_islow_kernel
+// reads. The 64 divisors of the table qt (natural order) are derived once
+// per thread block into shared memory.
+__global__ void fdct_islow_quant_kernel(const unsigned char* __restrict__ plane,
+                                        int bw, int bh,
+                                        const unsigned short* __restrict__ qt,
+                                        short* __restrict__ coef) {
+  __shared__ jpeg_fdct::Divisor div[64];
+  if (threadIdx.x < 64) div[threadIdx.x] = jpeg_fdct::divisor_of(
+      8u * qt[threadIdx.x]);
+  __syncthreads();
+  size_t b = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= (size_t)bw * bh) return;
+  int by = (int)(b / bw), bx = (int)(b % bw);
+  jpeg_fdct::fdct_islow_block(plane + (size_t)(8 * by) * (8 * bw) + 8 * bx,
+                              8 * bw, div, (int16_t*)coef + 64 * b);
+}
+
+extern "C" int fdct_islow_launch(const unsigned char* plane, int bw, int bh,
+                                 const unsigned short* qt, short* coef,
+                                 cudaStream_t stream) {
+  size_t n = (size_t)bw * bh;
+  dim3 block(128);
+  dim3 grid((unsigned)((n + 127) / 128));
+  fdct_islow_quant_kernel<<<grid, block, 0, stream>>>(plane, bw, bh, qt,
+                                                      coef);
+  cudaError_t e = cudaGetLastError();
   return e == cudaSuccess ? 0 : CODEC_CUDA_ERR + (int)e;
 }

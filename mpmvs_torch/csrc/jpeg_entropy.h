@@ -9,12 +9,15 @@
 //
 // Supported: baseline and extended sequential Huffman (SOF0, SOF1) and
 // progressive Huffman (SOF2) JPEGs of 8-bit samples with one or three
-// components, interleaved or not, with restart intervals. Arithmetic coding,
-// lossless and 12-bit JPEGs are refused, and so are two that cv2.imread would
-// give another image than these planes: an EXIF orientation other than 1
-// (OpenCV rotates or mirrors by it) and three components stored as RGB, not
-// YCbCr (libjpeg's colour-space guess from the JFIF and Adobe markers and the
-// component ids). Every coefficient is stored in
+// components, interleaved or not, with restart intervals. Refused, each with
+// its own code: 12-bit samples, arithmetic coding, lossless and
+// hierarchical processes, and four components (CMYK or YCCK, which OpenCV
+// reads through a colour conversion the card does not have). Two things
+// that make cv2.imread give another image than the planes are reported
+// with the coefficients, for the caller to apply: the EXIF orientation
+// (OpenCV rotates or mirrors by 2..8) and three components that libjpeg
+// takes for RGB, not YCbCr (its colour-space guess from the JFIF and Adobe
+// markers and the component ids). Every coefficient is stored in
 // natural (row-major) order, as libjpeg's coefficient buffer holds it, with
 // each component's blocks padded to whole MCUs.
 
@@ -32,8 +35,10 @@ enum Error {
   kTruncated = 2001,     // the stream ended inside a marker segment
   kUnsupported = 2002,   // a coding process or layout this decoder refuses
   kBadStream = 2003,     // a malformed segment or an undefined table
-  kOriented = 2004,      // an EXIF orientation other than 1
-  kRgb = 2005,           // three components that libjpeg reads as RGB
+  kPrecision = 2006,     // samples of another precision than 8 bits
+  kArithmetic = 2007,    // arithmetic coding (SOF9-11, SOF13-15)
+  kLossless = 2008,      // lossless or hierarchical Huffman (SOF3, SOF5-7)
+  kFourComponents = 2009,  // CMYK or YCCK
 };
 
 static const int kNatural[64 + 16] = {
@@ -85,6 +90,7 @@ struct Decoder {
   // what the markers before the first scan say of the image's layout
   bool saw_jfif = false, saw_adobe = false, saw_app1 = false;
   int adobe_transform = 1, orientation = 1;
+  bool rgb = false;  // libjpeg's guess: three components coded as RGB
   int scans = 0;
 };
 
@@ -190,10 +196,11 @@ static inline int decode_symbol(Decoder* d, const Huffman* t) {
 
 static int parse_sof(Decoder* d, const uint8_t* p, int len, bool progressive) {
   if (len < 6) return kBadStream;
-  if (p[0] != 8) return kUnsupported;  // sample precision
+  if (p[0] != 8) return kPrecision;
   d->height = read16(p + 1);
   d->width = read16(p + 3);
   d->ncomp = p[5];
+  if (d->ncomp == 4) return kFourComponents;
   if ((d->ncomp != 1 && d->ncomp != 3) || len < 6 + 3 * d->ncomp ||
       d->width <= 0 || d->height <= 0 ||
       (int64_t)d->width * d->height > ((int64_t)1 << 28))
@@ -450,13 +457,11 @@ static int decode_scan(Decoder* d, const uint8_t* p, int len,
   return kOk;
 }
 
-// The orientation tag (0x0112) of an EXIF APP1 segment's first IFD, as
-// OpenCV's ExifReader reads it (the TIFF header 6 bytes in); 1 when the
-// segment holds no readable tag.
-static int exif_orientation(const uint8_t* p, int n) {
-  if (n < 6 + 8) return 1;
-  const uint8_t* t = p + 6;
-  int tn = n - 6;
+// The orientation tag (0x0112) of EXIF data's first IFD, as OpenCV's
+// ExifReader reads it, from the TIFF header at t (tn bytes); 1 when it holds
+// no readable tag.
+static int exif_orientation(const uint8_t* t, int tn) {
+  if (tn < 8) return 1;
   bool le;
   if (t[0] == 'I' && t[1] == 'I') le = true;
   else if (t[0] == 'M' && t[1] == 'M') le = false;
@@ -480,20 +485,17 @@ static int exif_orientation(const uint8_t* p, int n) {
   return 1;
 }
 
-// The refusals above, from the markers seen before the first scan (all that
-// libjpeg's jpeg_read_header and OpenCV's EXIF reader look at).
-static int check_layout(const Decoder* d) {
-  // OpenCV's ApplyExifOrientation transforms for 2..8 and ignores the rest
-  if (d->orientation >= 2 && d->orientation <= 8) return kOriented;
-  if (d->ncomp != 3) return kOk;
-  // jdapimin.c default_decompress_parms: JFIF means YCbCr, else the Adobe
-  // transform, else the ids 'R', 'G', 'B'. A transform of 0 is refused even
-  // beside a JFIF marker, where libjpeg would take YCbCr.
-  if (d->saw_adobe && d->adobe_transform == 0) return kRgb;
-  if (!d->saw_jfif && !d->saw_adobe && d->comp[0].id == 'R' &&
-      d->comp[1].id == 'G' && d->comp[2].id == 'B')
-    return kRgb;
-  return kOk;
+// libjpeg's colour-space guess for three components (jdapimin.c
+// default_decompress_parms), from the markers seen before the first scan:
+// JFIF means YCbCr; else the Adobe marker's transform (0 RGB, else YCbCr);
+// else the ids 'R', 'G', 'B' mean RGB.
+static void guess_rgb(Decoder* d) {
+  if (d->ncomp != 3 || d->saw_jfif) return;
+  if (d->saw_adobe)
+    d->rgb = d->adobe_transform == 0;
+  else
+    d->rgb = d->comp[0].id == 'R' && d->comp[1].id == 'G' &&
+             d->comp[2].id == 'B';
 }
 
 // Parse a whole JPEG and entropy-decode every scan into d->comp[*].coef.
@@ -533,9 +535,10 @@ static int decode(Decoder* d, const uint8_t* data, size_t length,
       case 0xC2:
         err = parse_sof(d, p, n, true);
         break;
-      case 0xC3: case 0xC5: case 0xC6: case 0xC7: case 0xC9: case 0xCA:
-      case 0xCB: case 0xCD: case 0xCE: case 0xCF:
-        return kUnsupported;  // lossless, hierarchical, arithmetic
+      case 0xC3: case 0xC5: case 0xC6: case 0xC7:
+        return kLossless;
+      case 0xC9: case 0xCA: case 0xCB: case 0xCD: case 0xCE: case 0xCF:
+        return kArithmetic;
       case 0xC4:
         err = parse_dht(d, p, n);
         break;
@@ -552,7 +555,8 @@ static int decode(Decoder* d, const uint8_t* data, size_t length,
         break;
       case 0xE1:  // OpenCV reads the EXIF of the first APP1 segment only
         if (d->scans == 0 && !d->saw_app1) {
-          d->orientation = exif_orientation(p, n);
+          // the TIFF header follows "Exif\0\0"
+          d->orientation = n < 6 ? 1 : exif_orientation(p + 6, n - 6);
           d->saw_app1 = true;
         }
         break;
@@ -563,10 +567,7 @@ static int decode(Decoder* d, const uint8_t* data, size_t length,
         }
         break;
       case 0xDA:
-        if (d->frame && d->scans++ == 0) {
-          err = check_layout(d);
-          if (err != kOk) return err;
-        }
+        if (d->frame && d->scans++ == 0) guess_rgb(d);
         if (headers_only) return d->frame ? kOk : kBadStream;
         err = decode_scan(d, p, n, data, length, pos + 2 + len);
         if (err == kOk) {
@@ -587,3 +588,9 @@ static int decode(Decoder* d, const uint8_t* data, size_t length,
 }
 
 }  // namespace jpeg_entropy
+
+// The orientation of EXIF data that starts with its TIFF header (a PNG's
+// eXIf chunk), as for a JPEG's APP1 segment.
+extern "C" int exif_orientation_tiff(const unsigned char* p, int n) {
+  return jpeg_entropy::exif_orientation(p, n);
+}

@@ -1,30 +1,49 @@
-"""Image files of a workspace: JPEG reads and writes, PNG writes.
+"""Image files of a workspace: JPEG and PNG reads, JPEG and PNG writes.
 
 The JAX package reads and writes images with OpenCV. Here the device picks
 the codec:
 
-  * on a CUDA device, JPEGs go through ``csrc/jpeg_codec.cu``: the host
-    entropy-decodes the file to DCT coefficients (``csrc/jpeg_entropy.h``),
-    and the card runs libjpeg's integer inverse DCT (``idct_islow_kernel``)
-    and libjpeg-turbo's chroma upsampling and YCbCr -> BGR
-    (``ycc_to_bgr_kernel``): what ``cv2.imread`` returns, bit for bit. The
-    grey image is the Y plane, as ``cv2.imread(IMREAD_GRAYSCALE)`` gives
-    it. Encoding is nvJPEG's (the CUDA toolkit's library). A codec that
-    fails to build, load, decode or encode raises; nothing falls back to
-    OpenCV or to the CPU. A file that is not a JPEG raises there, naming its
-    format, and so does a JPEG that OpenCV would read as another image than
-    its planes: one with an EXIF orientation other than 1, or with RGB
-    components.
+  * on a CUDA device, through ``csrc/jpeg_codec.cu``, with what ``cv2``
+    gives, bit for bit, and no OpenCV:
+      - JPEG reads: the host entropy-decodes the file to DCT coefficients
+        (``csrc/jpeg_entropy.h``), the card runs libjpeg's integer inverse DCT
+        (``idct_islow_kernel``) and libjpeg-turbo's upsampling and colour
+        conversion (``ycc_to_bgr_kernel``: YCbCr, or RGB components, which
+        libjpeg guesses from the markers and ids), and applies the EXIF
+        orientation as OpenCV's ``ApplyExifOrientation`` does (:func:`orient`).
+        The grey image is the Y plane of a YCbCr JPEG, as
+        ``cv2.imread(IMREAD_GRAYSCALE)`` gives it, and libjpeg-turbo's
+        ``rgb_gray_convert`` of an RGB one;
+      - PNG reads of 8-bit colour types 0, 2, 3, 4 and 6 (:func:`decode_colour`,
+        the colour image only, which is all the converter reads): the chunks
+        are parsed and inflated here with ``zlib``, the rows unfiltered on the
+        host (``csrc/png_unfilter.h``) and converted to BGR on the card as
+        OpenCV's PNG decoder does (grey replicated, palette expanded, alpha
+        dropped, eXIf orientation applied);
+      - JPEG writes: cv2.imencode's bytes (4:2:0 colour or grey, standard
+        Huffman tables) from the card's colour conversion and downsampling
+        (``bgr_to_ycc_kernel``) and forward DCT and quantization
+        (``fdct_islow_quant_kernel``), Huffman-coded on the host
+        (``csrc/jpeg_encode.h``).
+    A kernel that fails to build or launch raises, and so does a file the card
+    cannot read, naming why (12-bit, arithmetic-coded, lossless and CMYK
+    JPEGs; 16-bit, sub-8-bit and interlaced PNGs; other formats). Nothing
+    falls back to OpenCV or to the CPU.
   * on the CPU, through OpenCV, imported only there: the CPU tests hold the
-    port's reads against the JAX package's OpenCV reads.
+    port's reads and writes against the JAX package's OpenCV calls.
 
 PNG files (``triangulation.png``) are written on the host with the
 standard library's ``zlib``, on every device.
 
-``COUNTS`` counts launches of the colour kernel and ``IDCT_COUNTS`` of the
-IDCT kernel (and calls of their plain versions, :func:`ycc_to_bgr_plain`,
-:func:`idct_islow_plain`); ``CODEC_COUNTS`` counts host decodes
-(``forms["decode"]``) and nvJPEG encodes (``forms["encode"]``).
+Each kernel has a plain PyTorch version beside it, for the tests
+(:func:`ycc_to_bgr_plain`, :func:`rgb_to_bgr_plain`,
+:func:`idct_islow_plain`, :func:`bgr_to_ycc_plain`,
+:func:`fdct_islow_plain`). ``COUNTS`` counts launches of the colour kernel
+(form ``"rgb"`` for RGB components) and its plain calls, ``IDCT_COUNTS``,
+``YCC_COUNTS`` and ``FDCT_COUNTS`` those of the IDCT, encoder colour and
+forward DCT kernels; ``CODEC_COUNTS`` counts host decodes
+(``forms["decode"]``), PNG reads (``forms["png"]``) and encodes
+(``forms["encode"]``).
 """
 
 from __future__ import annotations
@@ -33,7 +52,7 @@ import ctypes
 import functools
 import struct
 import zlib
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -43,19 +62,28 @@ from mpmvs_torch.ops import nvcc
 Tensor = torch.Tensor
 
 SOURCE = "jpeg_codec.cu"
-NVCC_FLAGS = ("-lnvjpeg",)
+NVCC_FLAGS = ()
 PREVIEW_QUALITY = 95  # cv2.imwrite's default JPEG quality (and 4:2:0)
 
 COUNTS = nvcc.LaunchCounts()
 IDCT_COUNTS = nvcc.LaunchCounts()
+YCC_COUNTS = nvcc.LaunchCounts()
+FDCT_COUNTS = nvcc.LaunchCounts()
 CODEC_COUNTS = nvcc.LaunchCounts()
-_DECODE_ERRORS = {2001: "truncated", 2002: "unsupported (arithmetic coding, "
-                  "lossless, 12-bit, or more than 3 components)",
-                  2003: "malformed",
-                  2004: "unsupported (an EXIF orientation other than 1, "
-                  "which OpenCV would apply)",
-                  2005: "unsupported (RGB components, by the Adobe marker's "
-                  "transform 0 or the ids 'R', 'G', 'B')"}
+# what the host codes of csrc/ name (a JPEG's or PNG's cause of refusal)
+_CODE_ERRORS = {
+    2001: "a truncated JPEG",
+    2002: "a JPEG of an unsupported layout (2 or more than 4 components, "
+          "sampling factors above 2, or more than 2^28 pixels)",
+    2003: "a malformed JPEG",
+    2006: "a JPEG of 12-bit (not 8-bit) samples",
+    2007: "an arithmetic-coded JPEG",
+    2008: "a lossless or hierarchical JPEG",
+    2009: "a JPEG of four components (CMYK or YCCK), which OpenCV reads "
+          "through a colour conversion the card does not have",
+    2010: "coefficients that do not fit the image's size",
+    3001: "a PNG whose image data is shorter than its header implies",
+    3002: "a PNG with a row filter type above 4"}
 
 _MAGIC = ((b"\xff\xd8\xff", "JPEG"), (b"\x89PNG\r\n\x1a\n", "PNG"),
           (b"II*\x00", "TIFF"), (b"MM\x00*", "TIFF"), (b"BM", "BMP"),
@@ -72,46 +100,55 @@ def image_format(data: bytes) -> str:
     return "unknown"
 
 
+def bind_host(lib):
+    """Set the ctypes signatures of the codec's host functions (no CUDA:
+    the encoder's entropy coding, the PNG unfilter, the EXIF reader) on a
+    library that has them, the card's or a host build of the headers."""
+    vp, i, sz = ctypes.c_void_p, ctypes.c_int, ctypes.c_size_t
+    lib.jpeg_quality_tables.argtypes = [i, vp]
+    lib.jpeg_quality_tables.restype = None
+    lib.jpeg_host_encode.argtypes = [vp, i, i, vp, vp, i, i, i, i, i, i,
+                                     ctypes.POINTER(vp), ctypes.POINTER(vp),
+                                     ctypes.POINTER(sz)]
+    lib.jpeg_host_encode.restype = i
+    lib.jpeg_host_encode_free.argtypes = [vp]
+    lib.jpeg_host_encode_free.restype = None
+    lib.png_unfilter_rows.argtypes = [vp, sz, vp, i, sz, i]
+    lib.png_unfilter_rows.restype = i
+    lib.exif_orientation_tiff.argtypes = [ctypes.c_char_p, i]
+    lib.exif_orientation_tiff.restype = i
+    return lib
+
+
 @functools.lru_cache(maxsize=None)
 def _library():
-    lib = ctypes.CDLL(nvcc.build(SOURCE, NVCC_FLAGS))
+    lib = bind_host(ctypes.CDLL(nvcc.build(SOURCE, NVCC_FLAGS)))
     vp, i, sz = ctypes.c_void_p, ctypes.c_int, ctypes.c_size_t
     ip = ctypes.POINTER(ctypes.c_int)
-    szp = ctypes.POINTER(ctypes.c_size_t)
-    lib.jpeg_codec_create.argtypes = [ctypes.POINTER(vp)]
     lib.jpeg_host_decode.argtypes = [ctypes.c_char_p, sz,
                                      ctypes.POINTER(vp), ip]
     lib.jpeg_host_upload.argtypes = [vp, i, vp, vp, vp]
     lib.jpeg_host_free.argtypes = [vp]
     lib.jpeg_host_free.restype = None
     lib.idct_islow_launch.argtypes = [vp, vp, i, i, i, vp, i, i, vp]
-    lib.ycc_to_bgr_launch.argtypes = [vp, vp, vp, i, i, i, i, i, i, vp, vp]
-    lib.jpeg_codec_encode.argtypes = [vp, vp, i, i, i, i, vp, szp]
-    lib.jpeg_codec_retrieve.argtypes = [vp, ctypes.c_char_p, szp, vp]
-    for fn in ("jpeg_codec_create", "jpeg_host_decode", "jpeg_host_upload",
-               "idct_islow_launch", "ycc_to_bgr_launch", "jpeg_codec_encode",
-               "jpeg_codec_retrieve"):
+    lib.ycc_to_bgr_launch.argtypes = [vp, vp, vp, i, i, i, i, i, i, i, vp,
+                                      vp, vp]
+    lib.bgr_to_ycc_launch.argtypes = [vp, i, i, i, vp, i, i, vp, vp, i, i,
+                                      vp]
+    lib.fdct_islow_launch.argtypes = [vp, i, i, vp, vp, vp]
+    for fn in ("jpeg_host_decode", "jpeg_host_upload", "idct_islow_launch",
+               "ycc_to_bgr_launch", "bgr_to_ycc_launch", "fdct_islow_launch"):
         getattr(lib, fn).restype = i
     return lib
 
 
 def _check(err: int, what: str):
-    if err in _DECODE_ERRORS:
-        raise ValueError(f"{what}: {_DECODE_ERRORS[err]} JPEG")
+    if err in _CODE_ERRORS:
+        raise ValueError(f"{what}: {_CODE_ERRORS[err]}")
     if err != 0:
-        kind = (f"CUDA error {err - 1000}" if err >= 1000
-                else f"nvJPEG status {err}")
+        kind = (f"CUDA error {err - 1000}" if 1000 <= err < 2000
+                else f"error {err}")
         raise RuntimeError(f"{what} failed: {kind}")
-
-
-@functools.lru_cache(maxsize=None)
-def _codec(device: torch.device) -> int:
-    """The nvJPEG encoder's handle and states of ``device`` (made once)."""
-    handle = ctypes.c_void_p()
-    with torch.cuda.device(device):
-        _check(_library().jpeg_codec_create(ctypes.byref(handle)),
-               "nvJPEG codec creation")
-    return handle.value
 
 
 def _cuda_device(device) -> torch.device:
@@ -119,6 +156,10 @@ def _cuda_device(device) -> torch.device:
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
     return device
+
+
+def _stream(t: Tensor):
+    return torch.cuda.current_stream(t.device).cuda_stream
 
 
 # ----------------------------- decoding -----------------------------
@@ -132,6 +173,32 @@ def _factor(full: int, sampled: int, what: str) -> int:
                      f"2x chroma sampling per axis are supported")
 
 
+def _upsample(p: Tensor, H: int, W: int, hs: int, vs: int) -> Tensor:
+    """libjpeg-turbo's fancy upsampling (jdsample.c) of a sampled plane to
+    (H, W), int64, factors ``hs``, ``vs`` in {1, 2}."""
+    Hc, Wc = p.shape
+    dev = p.device
+    r = torch.arange(H, device=dev)[:, None]
+    c = torch.arange(W, device=dev)[None, :]
+    odd_r, odd_c = (r & 1) == 1, (c & 1) == 1
+    i = r >> 1 if vs == 2 else r
+    j = c >> 1 if hs == 2 else c
+    i2 = torch.where(odd_r, torch.clamp(i + 1, max=Hc - 1),
+                     torch.clamp(i - 1, min=0))
+    jn = torch.where(odd_c, torch.clamp(j + 1, max=Wc - 1),
+                     torch.clamp(j - 1, min=0))
+    p = p.to(torch.int64)
+    if hs == 1 and vs == 1:
+        return p[i, j]
+    if hs == 2 and vs == 2:
+        cs = 3 * p[i, j] + p[i2, j]
+        cn = 3 * p[i, jn] + p[i2, jn]
+        return (3 * cs + cn + torch.where(odd_c, 7, 8)) >> 4
+    if hs == 2:
+        return (3 * p[i, j] + p[i, jn] + torch.where(odd_c, 2, 1)) >> 2
+    return (3 * p[i, j] + p[i2, j] + torch.where(odd_r, 2, 1)) >> 2
+
+
 def ycc_to_bgr_plain(y: Tensor, cb: Tensor = None, cr: Tensor = None,
                      hs: int = 1, vs: int = 1) -> Tensor:
     """The plain version of ``ycc_to_bgr_kernel``: (H, W, 3) uint8 BGR from
@@ -143,37 +210,28 @@ def ycc_to_bgr_plain(y: Tensor, cb: Tensor = None, cr: Tensor = None,
     if cb is None:
         return torch.stack([Y, Y, Y], -1).to(torch.uint8)
     H, W = Y.shape
-    Hc, Wc = cb.shape
-    dev = y.device
-    r = torch.arange(H, device=dev)[:, None]
-    c = torch.arange(W, device=dev)[None, :]
-
-    odd_r, odd_c = (r & 1) == 1, (c & 1) == 1
-    i = r >> 1 if vs == 2 else r
-    j = c >> 1 if hs == 2 else c
-    i2 = torch.where(odd_r, torch.clamp(i + 1, max=Hc - 1),
-                     torch.clamp(i - 1, min=0))
-    jn = torch.where(odd_c, torch.clamp(j + 1, max=Wc - 1),
-                     torch.clamp(j - 1, min=0))
-
-    def up(p: Tensor) -> Tensor:
-        p = p.to(torch.int64)
-        if hs == 1 and vs == 1:
-            return p[i, j]
-        if hs == 2 and vs == 2:
-            cs = 3 * p[i, j] + p[i2, j]
-            cn = 3 * p[i, jn] + p[i2, jn]
-            return (3 * cs + cn + torch.where(odd_c, 7, 8)) >> 4
-        if hs == 2:
-            return (3 * p[i, j] + p[i, jn] + torch.where(odd_c, 2, 1)) >> 2
-        return (3 * p[i, j] + p[i2, j] + torch.where(odd_r, 2, 1)) >> 2
-
-    xb, xr = up(cb) - 128, up(cr) - 128
+    xb = _upsample(cb, H, W, hs, vs) - 128
+    xr = _upsample(cr, H, W, hs, vs) - 128
     red = (91881 * xr + 32768) >> 16
     green = (-22554 * xb + 32768 - 46802 * xr) >> 16
     blue = (116130 * xb + 32768) >> 16
     return torch.clamp(torch.stack([Y + blue, Y + green, Y + red], -1),
                        0, 255).to(torch.uint8)
+
+
+def rgb_to_bgr_plain(r: Tensor, g: Tensor, b: Tensor, hs: int = 1,
+                     vs: int = 1) -> Tuple[Tensor, Tensor]:
+    """The plain version of the colour kernel's RGB form: (grey (H, W),
+    BGR (H, W, 3)) uint8 from the planes of a JPEG of RGB components (R at
+    full size, G and B sampled by ``hs``, ``vs`` and upsampled as chroma
+    would be); the grey is libjpeg-turbo's rgb_gray_convert, what
+    ``cv2.imread(IMREAD_GRAYSCALE)`` gives for such a file."""
+    COUNTS.plain += 1
+    H, W = r.shape
+    R = r.to(torch.int64)
+    G, B = _upsample(g, H, W, hs, vs), _upsample(b, H, W, hs, vs)
+    gray = (19595 * R + 38470 * G + 7471 * B + 32768) >> 16
+    return gray.to(torch.uint8), torch.stack([B, G, R], -1).to(torch.uint8)
 
 
 def _idct_1d(v):
@@ -251,18 +309,25 @@ def idct_islow_kernel(coef: Tensor, qt: Tensor, plane_h: int,
     return plane
 
 
+class Layout(NamedTuple):
+    """What a JPEG's markers say of the image cv2.imread makes of its
+    planes: the EXIF orientation (1..8) and whether libjpeg takes its three
+    components for RGB."""
+    orientation: int
+    rgb: bool
+
+
 def decode_coefficients(data: bytes, device):
     """Entropy-decode a JPEG on the host and copy its coefficients to a
     CUDA ``device``: per component (coefficients (bh, bw, 64) int16,
-    quantization table (64,), plane height, plane width), and the image's
-    (height, width)."""
+    quantization table (64,), plane height, plane width), the image's
+    (height, width) and its :class:`Layout`."""
     if image_format(data) != "JPEG":
-        raise ValueError(f"not a JPEG ({image_format(data)}): the card's "
-                         f"codec decodes only JPEG")
+        raise ValueError(f"not a JPEG ({image_format(data)})")
     dev = _cuda_device(device)
     lib = _library()
     handle = ctypes.c_void_p()
-    info = (ctypes.c_int * 21)()
+    info = (ctypes.c_int * 23)()
     _check(lib.jpeg_host_decode(data, len(data), ctypes.byref(handle),
                                 info), "JPEG decode")
     try:
@@ -280,15 +345,14 @@ def decode_coefficients(data: bytes, device):
     finally:
         lib.jpeg_host_free(handle)
     CODEC_COUNTS.launched("decode")
-    return comps, (info[2], info[1])
+    return comps, (info[2], info[1]), Layout(info[21], bool(info[22]))
 
 
-def decode_planes(data: bytes, device):
-    """A JPEG's component planes on a CUDA ``device``: the Y plane (H, W)
-    and, for a colour JPEG, the Cb and Cr planes at their sampled size
-    (None for a grey one), uint8, from the IDCT kernel, and the chroma
-    factors (hs, vs)."""
-    comps, (H, W) = decode_coefficients(data, device)
+def _planes(comps, size):
+    """The IDCT kernel's planes of decoded coefficients: Y (or R) and, for
+    three components, the other two at their sampled size (None, None for
+    one), and the factors (hs, vs)."""
+    H, W = size
     planes = [idct_islow_kernel(*c) for c in comps]
     if len(planes) == 1:
         return planes[0], None, None, (1, 1)
@@ -299,9 +363,16 @@ def decode_planes(data: bytes, device):
                        _factor(H, cb.shape[0], "height"))
 
 
-def ycc_to_bgr_kernel(y: Tensor, cb: Tensor = None, cr: Tensor = None,
-                      hs: int = 1, vs: int = 1) -> Tensor:
-    """Launch ``ycc_to_bgr_kernel`` on CUDA planes: (H, W, 3) uint8 BGR."""
+def decode_planes(data: bytes, device):
+    """A JPEG's component planes on a CUDA ``device``: the Y plane (H, W)
+    and, for a colour JPEG, the Cb and Cr planes at their sampled size
+    (None for a grey one), uint8, from the IDCT kernel, and the chroma
+    factors (hs, vs). For RGB components the planes are R, G, B."""
+    comps, size, _ = decode_coefficients(data, device)
+    return _planes(comps, size)
+
+
+def _colour_launch(y, cb, cr, hs, vs, rgb):
     if y.device.type != "cuda" or y.dtype != torch.uint8:
         raise ValueError(f"the colour kernel takes uint8 CUDA planes, got "
                          f"{y.dtype} on {y.device}")
@@ -317,19 +388,61 @@ def ycc_to_bgr_kernel(y: Tensor, cb: Tensor = None, cr: Tensor = None,
                              f"{tuple(cr.shape)} do not fit Y {(H, W)} at "
                              f"factors {(hs, vs)}")
     out = torch.empty((H, W, 3), dtype=torch.uint8, device=y.device)
+    gray = torch.empty((H, W), dtype=torch.uint8, device=y.device) \
+        if rgb else None
     err = _library().ycc_to_bgr_launch(
         y.data_ptr(), None if cb is None else cb.data_ptr(),
         None if cr is None else cr.data_ptr(), H, W, Hc, Wc, hs, vs,
-        out.data_ptr(), torch.cuda.current_stream(y.device).cuda_stream)
+        int(rgb), out.data_ptr(), None if gray is None else gray.data_ptr(),
+        _stream(y))
     _check(err, "ycc_to_bgr_kernel launch")
-    COUNTS.launched()
-    return out
+    COUNTS.launched("rgb" if rgb else None)
+    return gray, out
+
+
+def ycc_to_bgr_kernel(y: Tensor, cb: Tensor = None, cr: Tensor = None,
+                      hs: int = 1, vs: int = 1) -> Tensor:
+    """Launch ``ycc_to_bgr_kernel`` on CUDA planes: (H, W, 3) uint8 BGR, as
+    :func:`ycc_to_bgr_plain`."""
+    return _colour_launch(y, cb, cr, hs, vs, False)[1]
+
+
+def rgb_to_bgr_kernel(r: Tensor, g: Tensor, b: Tensor, hs: int = 1,
+                      vs: int = 1) -> Tuple[Tensor, Tensor]:
+    """Launch ``ycc_to_bgr_kernel``'s RGB form on CUDA planes: (grey, BGR),
+    as :func:`rgb_to_bgr_plain`."""
+    return _colour_launch(r, g, b, hs, vs, True)
+
+
+def orient(img: Tensor, orientation: int) -> Tensor:
+    """OpenCV's ``ApplyExifOrientation`` of an (H, W) or (H, W, 3) image:
+    2 mirrors it left-right, 3 turns it 180 degrees, 4 mirrors it top-down,
+    5 transposes it, 6 turns it 90 degrees clockwise, 7 transposes it
+    across the other diagonal, 8 turns it 90 degrees anticlockwise; 1 and
+    any other value leave it."""
+    if not 2 <= orientation <= 8:
+        return img
+    if orientation >= 5:
+        img = img.transpose(0, 1)
+    flip = {2: (1,), 3: (0, 1), 4: (0,), 5: (), 6: (1,), 7: (0, 1),
+            8: (0,)}[orientation]
+    return (torch.flip(img, flip) if flip else img).contiguous()
+
+
+def _decode_jpeg(data: bytes, dev) -> Tuple[Tensor, Tensor]:
+    comps, size, layout = decode_coefficients(data, dev)
+    y, cb, cr, (hs, vs) = _planes(comps, size)
+    if layout.rgb:
+        gray, bgr = rgb_to_bgr_kernel(y, cb, cr, hs, vs)
+    else:
+        gray, bgr = y, ycc_to_bgr_kernel(y, cb, cr, hs, vs)
+    return orient(gray, layout.orientation), orient(bgr, layout.orientation)
 
 
 def decode(data: bytes, device) -> Tuple[Tensor, Tensor]:
     """(grey (H, W), BGR (H, W, 3)) uint8 tensors on ``device`` from a
     file's bytes: what ``cv2.imread`` gives with ``IMREAD_GRAYSCALE`` and
-    ``IMREAD_COLOR``."""
+    ``IMREAD_COLOR``. On a CUDA device, JPEG only."""
     dev = torch.device(device)
     if dev.type == "cpu":
         import cv2
@@ -343,21 +456,148 @@ def decode(data: bytes, device) -> Tuple[Tensor, Tensor]:
         return torch.from_numpy(gray), torch.from_numpy(bgr)
     if dev.type != "cuda":
         raise ValueError(f"no image codec for device {dev}")
-    y, cb, cr, (hs, vs) = decode_planes(data, dev)
-    return y, ycc_to_bgr_kernel(y, cb, cr, hs, vs)
+    kind = image_format(data)
+    if kind == "PNG":
+        raise ValueError("a PNG: the card reads a PNG's colour image only "
+                         "(decode_colour); its grey conversion is not ported")
+    if kind != "JPEG":
+        raise ValueError(f"not a JPEG or PNG ({kind}): the card's codec "
+                         f"reads JPEG and PNG only")
+    return _decode_jpeg(data, dev)
 
 
-def read_image(path: str, device) -> Tuple[Tensor, Tensor]:
-    """:func:`decode` of the file at ``path``."""
+class PngRows(NamedTuple):
+    """A non-interlaced 8-bit PNG's unfiltered samples, on the host."""
+    rows: np.ndarray          # (height, width * channels) uint8
+    colour_type: int          # 0 grey, 2 RGB, 3 palette, 4 grey+alpha, 6 RGBA
+    palette: np.ndarray       # (256, 3) uint8 RGB, zero past PLTE's entries
+    orientation: int          # of the eXIf chunk before the image data
+
+
+_PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+
+
+def png_rows(data: bytes, lib) -> PngRows:
+    """Parse a PNG's chunks (IHDR, PLTE, eXIf, IDAT; tRNS and the rest are
+    read past: OpenCV drops alpha), check the critical ones' CRCs, inflate
+    the image data with ``zlib`` and unfilter its rows with ``lib``'s
+    ``png_unfilter_rows`` (the card's library, or a host build of
+    ``csrc/png_unfilter.h``). Raises ValueError, naming the cause, for what
+    the card does not read."""
+    if image_format(data) != "PNG":
+        raise ValueError(f"not a PNG ({image_format(data)})")
+    pos, header, palette, exif, idat = 8, None, None, None, []
+    while pos + 12 <= len(data):
+        n, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        if len(body) < n or pos + 12 + n > len(data):
+            raise ValueError("a truncated PNG")
+        crc = struct.unpack(">I", data[pos + 8 + n:pos + 12 + n])[0]
+        if kind[0] < 0x61 and zlib.crc32(kind + body) != crc:
+            raise ValueError(f"a PNG whose {kind.decode('latin-1')} chunk "
+                             f"fails its CRC")
+        pos += 12 + n
+        if kind == b"IHDR":
+            header = struct.unpack(">IIBBBBB", body[:13])
+        elif kind == b"PLTE":
+            palette = np.frombuffer(body, np.uint8)[:len(body) // 3 * 3]
+        elif kind == b"eXIf" and exif is None and not idat:
+            exif = body
+        elif kind == b"IDAT":
+            idat.append(body)
+        elif kind == b"IEND":
+            break
+    if header is None or not idat:
+        raise ValueError("a malformed PNG (no IHDR or no IDAT chunk)")
+    width, height, depth, colour_type, _, _, interlace = header
+    if colour_type not in _PNG_CHANNELS or width < 1 or height < 1:
+        raise ValueError(f"a malformed PNG (colour type {colour_type}, "
+                         f"{width}x{height})")
+    if depth != 8:
+        raise ValueError(f"a {depth}-bit PNG: the card reads 8-bit PNGs "
+                         f"only")
+    if interlace:
+        raise ValueError("an Adam7-interlaced PNG: the card reads "
+                         "non-interlaced PNGs only")
+    if colour_type == 3 and palette is None:
+        raise ValueError("a malformed PNG (a palette image without PLTE)")
+    try:
+        raw = zlib.decompress(b"".join(idat))
+    except zlib.error as e:
+        raise ValueError(f"a malformed PNG (its image data: {e})") from None
+    channels = _PNG_CHANNELS[colour_type]
+    rows = np.empty((height, width * channels), np.uint8)
+    _check(lib.png_unfilter_rows(raw, len(raw), rows.ctypes.data, height,
+                                 width * channels, channels), "PNG unfilter")
+    pal = np.zeros((256, 3), np.uint8)
+    if palette is not None:
+        pal.reshape(-1)[:min(len(palette), 768)] = palette[:768]
+    orientation = 1 if exif is None else lib.exif_orientation_tiff(
+        exif, len(exif))
+    return PngRows(rows, colour_type, pal, orientation)
+
+
+def png_to_bgr(rows: Tensor, colour_type: int, palette: Tensor) -> Tensor:
+    """What OpenCV's PNG decoder gives for IMREAD_COLOR from unfiltered
+    8-bit samples (H, W * channels) uint8, on their device: grey
+    replicated, RGB as BGR, the palette (256, 3) RGB expanded, alpha
+    dropped."""
+    H = rows.shape[0]
+    px = rows.reshape(H, -1, _PNG_CHANNELS[colour_type])
+    if colour_type in (0, 4):
+        return px[..., :1].expand(-1, -1, 3).contiguous()
+    if colour_type == 3:
+        px = palette[px[..., 0].long()]
+    return px[..., [2, 1, 0]].contiguous()
+
+
+def _decode_png_colour(data: bytes, dev) -> Tensor:
+    png = png_rows(data, _library())
+    rows = torch.from_numpy(png.rows).to(dev)
+    bgr = png_to_bgr(rows, png.colour_type,
+                     torch.from_numpy(png.palette).to(dev))
+    CODEC_COUNTS.launched("png")
+    return orient(bgr, png.orientation)
+
+
+def decode_colour(data: bytes, device) -> Tensor:
+    """BGR (H, W, 3) uint8 on ``device`` from a file's bytes: what
+    ``cv2.imread`` gives with ``IMREAD_COLOR``. On a CUDA device, JPEG and
+    8-bit PNG."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and image_format(data) == "PNG":
+        return _decode_png_colour(data, dev)
+    if dev.type == "cpu":
+        import cv2
+
+        bgr = cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR)
+        if bgr is None:
+            raise ValueError(f"OpenCV cannot decode this {image_format(data)}"
+                             f" file")
+        return torch.from_numpy(bgr)
+    return decode(data, dev)[1]
+
+
+def _read(path: str, fn, device):
     try:
         with open(path, "rb") as f:
             data = f.read()
     except FileNotFoundError:
         raise FileNotFoundError(path) from None
     try:
-        return decode(data, device)
+        return fn(data, device)
     except ValueError as e:
         raise ValueError(f"{path}: {e}") from None
+
+
+def read_image(path: str, device) -> Tuple[Tensor, Tensor]:
+    """:func:`decode` of the file at ``path``."""
+    return _read(path, decode, device)
+
+
+def read_colour(path: str, device) -> Tensor:
+    """:func:`decode_colour` of the file at ``path``."""
+    return _read(path, decode_colour, device)
 
 
 # ----------------------------- encoding -----------------------------
@@ -373,10 +613,202 @@ def _u8(img, device) -> Tensor:
     return t.to(device).contiguous()
 
 
+def _ycc_of(r, g, b):
+    """jccolor.c's fixed-point Y, Cb, Cr of int64 samples."""
+    y = (19595 * r + 38470 * g + 7471 * b + 32768) >> 16
+    cb = (-11059 * r - 21709 * g + 32768 * b + (128 << 16) + 32767) >> 16
+    cr = (32768 * r - 27439 * g - 5329 * b + (128 << 16) + 32767) >> 16
+    return y, cb, cr
+
+
+def _encoder_shapes(H: int, W: int):
+    """The encoder's Y plane (the blocks that hold samples) and chroma
+    plane sizes of an (H, W) image."""
+    return (8 * -(-H // 8), 8 * -(-W // 8)), (8 * -(-H // 16), 8 * -(-W // 16))
+
+
+def bgr_to_ycc_plain(img: Tensor):
+    """The plain version of ``bgr_to_ycc_kernel``: the encoder's planes of
+    a uint8 (H, W, 3) BGR or (H, W) grey image, as libjpeg-turbo makes them
+    for cv2.imencode: Y at 8 * ceil(H / 8) x 8 * ceil(W / 8) with the last
+    row and column replicated, and for colour Cb and Cr at 8 * ceil(H / 16)
+    x 8 * ceil(W / 16), 2x2 means with bias 1, 2, 1, 2, ... along a row
+    (rows past ceil(H / 2) repeat the last). Returns (y, cb, cr), cb and cr
+    None for grey."""
+    YCC_COUNTS.plain += 1
+    H, W = img.shape[:2]
+    (yh, yw), (ch, cw) = _encoder_shapes(H, W)
+    dev = img.device
+    rows = torch.clamp(torch.arange(yh, device=dev), max=H - 1)
+    cols = torch.clamp(torch.arange(yw, device=dev), max=W - 1)
+    x = img.to(torch.int64)
+    if img.ndim == 2:
+        return x[rows][:, cols].to(torch.uint8), None, None
+    b, g, r = x.unbind(-1)
+    y, cb, cr = _ycc_of(r, g, b)
+    i = torch.clamp(torch.arange(ch, device=dev), max=(H + 1) // 2 - 1)
+    j = torch.arange(cw, device=dev)
+    r0, r1 = torch.clamp(2 * i, max=H - 1), torch.clamp(2 * i + 1, max=H - 1)
+    c0, c1 = torch.clamp(2 * j, max=W - 1), torch.clamp(2 * j + 1, max=W - 1)
+
+    def down(p):
+        s = (p[r0][:, c0] + p[r0][:, c1] + p[r1][:, c0] + p[r1][:, c1]
+             + 1 + (j & 1))
+        return (s >> 2).to(torch.uint8)
+
+    return y[rows][:, cols].to(torch.uint8), down(cb), down(cr)
+
+
+def bgr_to_ycc_kernel(img: Tensor):
+    """Launch ``bgr_to_ycc_kernel`` on a CUDA image: as
+    :func:`bgr_to_ycc_plain`."""
+    if img.device.type != "cuda" or img.dtype != torch.uint8 or not (
+            img.ndim == 2 or (img.ndim == 3 and img.shape[2] == 3)):
+        raise ValueError(f"the encoder's colour kernel takes a uint8 CUDA "
+                         f"(H, W) or (H, W, 3) image, got {img.dtype} "
+                         f"{tuple(img.shape)} on {img.device}")
+    img = img.contiguous()
+    H, W = img.shape[:2]
+    (yh, yw), (ch, cw) = _encoder_shapes(H, W)
+    new = lambda h, w: torch.empty((h, w), dtype=torch.uint8,
+                                   device=img.device)
+    y = new(yh, yw)
+    cb = cr = None
+    if img.ndim == 3:
+        cb, cr = new(ch, cw), new(ch, cw)
+        gh, gw = ch, cw
+    else:
+        gh, gw = yh // 2, yw // 2
+    err = _library().bgr_to_ycc_launch(
+        img.data_ptr(), H, W, 1 if img.ndim == 2 else 3, y.data_ptr(), yh,
+        yw, None if cb is None else cb.data_ptr(),
+        None if cr is None else cr.data_ptr(), gh, gw, _stream(img))
+    _check(err, "bgr_to_ycc_kernel launch")
+    YCC_COUNTS.launched()
+    return y, cb, cr
+
+
+def _divisors(qt: Tensor):
+    """jcdctmgr.c compute_reciprocal of each divisor 8 * q of a table:
+    (recip, corr, shift) int64 tensors."""
+    out = []
+    for q in (qt.to(torch.int64) & 0xFFFF).tolist():
+        d = 8 * q
+        b = d.bit_length() - 1
+        r = 16 + b
+        fq, fr, c = (1 << r) // d, (1 << r) % d, d // 2
+        if fr == 0:
+            fq, r = fq >> 1, r - 1
+        elif fr <= d // 2:
+            c += 1
+        else:
+            fq += 1
+        out.append((fq, c, r))
+    return [torch.tensor(v, dtype=torch.int64, device=qt.device)
+            for v in zip(*out)]
+
+
+def _fdct_1d(v, even_up, even_down, odd_down):
+    """jfdctint's 1-D pass over eight int64 tensors, outputs in order."""
+    d = lambda x, n: (x + (1 << (n - 1))) >> n
+    tmp0, tmp7 = v[0] + v[7], v[0] - v[7]
+    tmp1, tmp6 = v[1] + v[6], v[1] - v[6]
+    tmp2, tmp5 = v[2] + v[5], v[2] - v[5]
+    tmp3, tmp4 = v[3] + v[4], v[3] - v[4]
+    tmp10, tmp13 = tmp0 + tmp3, tmp0 - tmp3
+    tmp11, tmp12 = tmp1 + tmp2, tmp1 - tmp2
+    if even_up:
+        o0, o4 = (tmp10 + tmp11) << even_up, (tmp10 - tmp11) << even_up
+    else:
+        o0, o4 = d(tmp10 + tmp11, even_down), d(tmp10 - tmp11, even_down)
+    z1 = (tmp12 + tmp13) * 4433
+    o2, o6 = d(z1 + tmp13 * 6270, odd_down), d(z1 - tmp12 * 15137, odd_down)
+    z1, z2, z3, z4 = tmp4 + tmp7, tmp5 + tmp6, tmp4 + tmp6, tmp5 + tmp7
+    z5 = (z3 + z4) * 9633
+    tmp4, tmp5, tmp6, tmp7 = tmp4 * 2446, tmp5 * 16819, tmp6 * 25172, \
+        tmp7 * 12299
+    z1, z2 = z1 * -7373, z2 * -20995
+    z3, z4 = z3 * -16069 + z5, z4 * -3196 + z5
+    return [o0, d(tmp7 + z1 + z4, odd_down), o2, d(tmp6 + z2 + z3, odd_down),
+            o4, d(tmp5 + z2 + z4, odd_down), o6, d(tmp4 + z1 + z3, odd_down)]
+
+
+def fdct_islow_plain(plane: Tensor, qt: Tensor) -> Tensor:
+    """The plain version of ``fdct_islow_quant_kernel``: the quantized
+    coefficients (bh, bw, 64) int16, natural order, of a uint8 (8 bh, 8 bw)
+    plane by table ``qt`` (64,) (natural order, int16 holding uint16 bits):
+    level shift, jfdctint (CONST_BITS 13, PASS1_BITS 2), libjpeg-turbo's
+    reciprocal quantization (|x| / 8q rounded half up, sign kept)."""
+    FDCT_COUNTS.plain += 1
+    H, W = plane.shape
+    bh, bw = H // 8, W // 8
+    x = plane.to(torch.int64).reshape(bh, 8, bw, 8).permute(0, 2, 1, 3) - 128
+    rows = _fdct_1d([x[..., c] for c in range(8)], 2, 0, 11)
+    x = torch.stack(rows, -1)                    # (bh, bw, 8 rows, 8 cols)
+    cols = _fdct_1d([x[..., k, :] for k in range(8)], 0, 2, 15)
+    x = torch.stack(cols, -2).reshape(bh, bw, 64)
+    recip, corr, shift = _divisors(qt)
+    q = ((x.abs() + corr) * recip) >> shift
+    return torch.where(x < 0, -q, q).to(torch.int16)
+
+
+def fdct_islow_kernel(plane: Tensor, qt: Tensor) -> Tensor:
+    """Launch ``fdct_islow_quant_kernel`` on a CUDA plane: as
+    :func:`fdct_islow_plain`."""
+    H, W = plane.shape
+    if plane.device.type != "cuda" or plane.dtype != torch.uint8 or \
+            H % 8 or W % 8 or qt.numel() != 64:
+        raise ValueError(f"the forward DCT kernel takes a uint8 CUDA plane "
+                         f"of whole blocks and a 64-entry table, got "
+                         f"{plane.dtype} {(H, W)} on {plane.device}")
+    plane = plane.contiguous()
+    qt = qt.to(device=plane.device, dtype=torch.int16).contiguous()
+    coef = torch.empty((H // 8, W // 8, 64), dtype=torch.int16,
+                       device=plane.device)
+    err = _library().fdct_islow_launch(plane.data_ptr(), W // 8, H // 8,
+                                       qt.data_ptr(), coef.data_ptr(),
+                                       _stream(plane))
+    _check(err, "fdct_islow_quant_kernel launch")
+    FDCT_COUNTS.launched()
+    return coef
+
+
+def quality_tables(quality: int, lib) -> Tensor:
+    """The luminance and chrominance quantization tables (2, 64) of a
+    quality, natural order, as int16 holding uint16 bits: jcparam.c's, from
+    ``lib`` (the card's library or a host build of csrc/jpeg_encode.h)."""
+    out = np.zeros(128, np.uint16)
+    lib.jpeg_quality_tables(int(quality), out.ctypes.data)
+    return torch.from_numpy(out.view(np.int16).reshape(2, 64).copy())
+
+
+def encode_coefficients(coefs, width: int, height: int, quality: int,
+                        lib) -> bytes:
+    """The JPEG file of quantized coefficients, Huffman-coded on the host by
+    ``lib``'s ``jpeg_host_encode``: ``coefs`` are Y's (and Cb's and Cr's)
+    (bh, bw, 64) int16 blocks that hold samples, on the CPU."""
+    arrs = [np.ascontiguousarray(c.numpy() if isinstance(c, Tensor) else c,
+                                 np.int16) for c in coefs]
+    ptr = lambda k: arrs[k].ctypes.data if len(arrs) > k else None
+    cb_shape = arrs[1].shape if len(arrs) == 3 else (0, 0)
+    handle, data = ctypes.c_void_p(), ctypes.c_void_p()
+    length = ctypes.c_size_t()
+    _check(lib.jpeg_host_encode(
+        ptr(0), arrs[0].shape[1], arrs[0].shape[0], ptr(1), ptr(2),
+        cb_shape[1], cb_shape[0], len(arrs), width, height, int(quality),
+        ctypes.byref(handle), ctypes.byref(data), ctypes.byref(length)),
+        "JPEG entropy coding")
+    try:
+        return ctypes.string_at(data.value, length.value)
+    finally:
+        lib.jpeg_host_encode_free(handle)
+
+
 def encode_jpeg(img, device, quality: int = PREVIEW_QUALITY) -> bytes:
     """JPEG bytes of a uint8 (H, W) grey or (H, W, 3) BGR image (colour at
-    4:2:0, cv2's default), encoded on ``device``: nvJPEG on a CUDA device,
-    OpenCV on the CPU."""
+    4:2:0, cv2's default), encoded on ``device``: ``cv2.imencode``'s bytes
+    at ``quality``, by the card's kernels and the host's entropy coding on a
+    CUDA device, by OpenCV on the CPU."""
     dev = torch.device(device)
     t = _u8(img, "cpu" if dev.type == "cpu" else _cuda_device(dev))
     if dev.type == "cpu":
@@ -389,20 +821,16 @@ def encode_jpeg(img, device, quality: int = PREVIEW_QUALITY) -> bytes:
         return buf.tobytes()
     if dev.type != "cuda":
         raise ValueError(f"no image codec for device {dev}")
-    lib, codec = _library(), _codec(t.device)
+    lib = _library()
+    qt = quality_tables(quality, lib).to(t.device)
+    y, cb, cr = bgr_to_ycc_kernel(t)
+    coefs = [fdct_islow_kernel(y, qt[0])]
+    if cb is not None:
+        coefs += [fdct_islow_kernel(cb, qt[1]), fdct_islow_kernel(cr, qt[1])]
     H, W = t.shape[:2]
-    channels = 1 if t.ndim == 2 else 3
-    stream = torch.cuda.current_stream(t.device).cuda_stream
-    length = ctypes.c_size_t()
-    with torch.cuda.device(t.device):
-        _check(lib.jpeg_codec_encode(codec, t.data_ptr(), H, W, channels,
-                                     quality, stream, ctypes.byref(length)),
-               "nvJPEG encode")
-        out = ctypes.create_string_buffer(length.value)
-        _check(lib.jpeg_codec_retrieve(codec, out, ctypes.byref(length),
-                                       stream), "nvJPEG bitstream retrieval")
+    out = encode_coefficients([c.cpu() for c in coefs], W, H, quality, lib)
     CODEC_COUNTS.launched("encode")
-    return out.raw[:length.value]
+    return out
 
 
 def write_jpeg(path: str, img, device, quality: int = PREVIEW_QUALITY) -> None:

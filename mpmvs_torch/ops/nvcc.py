@@ -57,17 +57,6 @@ def _nvcc() -> str:
     return path
 
 
-def _link_flags(flags: Sequence[str]) -> list:
-    """A source that links a toolkit library (``-l<name>`` among its flags,
-    e.g. ``-lnvjpeg``) is linked against the toolkit's library directory
-    beside ``nvcc`` and finds it there at run time (rpath)."""
-    if not any(f.startswith("-l") for f in flags):
-        return []
-    lib = os.path.join(os.path.dirname(os.path.dirname(
-        os.path.realpath(_nvcc()))), "lib64")
-    return [f"-L{lib}", "-Xlinker", f"-rpath={lib}"]
-
-
 def build(source: str, flags: Sequence[str] = (), verbose: bool = False) -> str:
     """Compile ``csrc/<source>`` with ``BASE_FLAGS + flags`` (once per
     content of the source and of the ``csrc/`` headers it includes, and
@@ -75,10 +64,8 @@ def build(source: str, flags: Sequence[str] = (), verbose: bool = False) -> str:
     ``-Xptxas -v`` and prints the compiler's report of registers and
     spills with the build time."""
     path = os.path.join(CSRC, source)
-    libs = [f for f in flags if f.startswith("-l")]
-    all_flags = BASE_FLAGS + [f for f in flags if f not in libs]
-    link = libs + _link_flags(flags)  # after the source: --as-needed
-    digest = hashlib.sha256(" ".join(all_flags + link).encode())
+    all_flags = BASE_FLAGS + list(flags)
+    digest = hashlib.sha256(" ".join(all_flags).encode())
     with open(path, "rb") as f:
         text = f.read()
     digest.update(text)
@@ -92,7 +79,7 @@ def build(source: str, flags: Sequence[str] = (), verbose: bool = False) -> str:
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{lib}.{os.getpid()}.{time.monotonic_ns()}.tmp"
     cmd = [_nvcc()] + all_flags + (["-Xptxas", "-v"] if verbose else []) + [
-        "-o", tmp, path] + link
+        "-o", tmp, path]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:

@@ -152,7 +152,8 @@ def _launch_counts() -> Dict[str, int]:
                 "ncc_keys": ncc_sorted.KEY_COUNTS,
                 "bilateral": bilateral_cuda.COUNTS,
                 "bilateral_table": bilateral_cuda.TABLE_COUNTS,
-                "ycc_to_bgr": images.COUNTS, "idct": images.IDCT_COUNTS}
+                "ycc_to_bgr": images.COUNTS, "idct": images.IDCT_COUNTS,
+                "bgr_to_ycc": images.YCC_COUNTS, "fdct": images.FDCT_COUNTS}
     out = {}
     for name, c in counters.items():
         out[name] = c.kernel

@@ -6,11 +6,12 @@ and output bytes (``cams/*.txt``, ``pair.txt``); images go through
 
   * a source named ``*.jpg`` is copied byte for byte, as the JAX converter
     does;
-  * any other name (ETH3D's ``.JPG`` included) is decoded and re-encoded
-    at quality 95, as the JAX converter's ``cv2.imwrite`` does: on a CUDA
-    device through the port's JPEG codec, so a source that is not a JPEG
-    raises there, naming its format; on the CPU through OpenCV, which reads
-    PNG, TIFF and the rest.
+  * any other name (ETH3D's ``.JPG``, DTU's ``.png`` included) is read in
+    colour and re-encoded at quality 95, as the JAX converter's
+    ``cv2.imwrite(dst, cv2.imread(src))`` does, with the same bytes: on a
+    CUDA device through the port's codec, which reads JPEG and 8-bit PNG and
+    raises on anything else, naming why; on the CPU through OpenCV, which
+    reads TIFF and the rest too.
 
     mpmvs-torch-convert --dense_folder <colmap dense> --save_folder <ws>
 
@@ -175,8 +176,8 @@ def convert_colmap(dense_folder: str, save_folder: str, max_d: int = 192,
         if src.endswith(".jpg"):
             shutil.copyfile(src, dst)
         else:  # cv2.imwrite(dst, cv2.imread(src)) of the JAX converter
-            _, bgr = image_io.read_image(src, device)
-            image_io.write_jpeg(dst, bgr, device, quality=95)
+            image_io.write_jpeg(dst, image_io.read_colour(src, device),
+                                device, quality=95)
     log(f"converted {n} images -> {save_folder}")
     return save_folder
 

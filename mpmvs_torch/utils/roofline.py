@@ -101,3 +101,20 @@ def bilateral_bound(H: int, W: int, radius: int):
                    for i in range(L))
 
     return bound(15 * in_image(H) * in_image(W), H * W * (12 + 4 + 4))
+
+
+def bgr_to_ycc_bound(H: int, W: int, channels: int):
+    """One launch of the encoder's colour kernel (``csrc/jpeg_codec.cu``)
+    on an (H, W) image: the image read once, the Y plane (whole blocks)
+    and, for colour, the two chroma planes written. Integer work has no
+    peak in the data sheet's table, so the bytes alone set the bound."""
+    yb = 64 * -(-H // 8) * -(-W // 8)
+    cb = 2 * 64 * -(-H // 16) * -(-W // 16) if channels == 3 else 0
+    return bound(0, H * W * channels + yb + cb)
+
+
+def fdct_bound(blocks: int):
+    """One launch of the forward DCT kernel over ``blocks`` 8x8 blocks: 64
+    samples read and 64 int16 coefficients written a block (and the
+    table). Bytes alone, as for the colour kernel."""
+    return bound(0, blocks * (64 + 128) + 128)

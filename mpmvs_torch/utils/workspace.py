@@ -19,9 +19,9 @@ from mpmvs_torch.utils.synthetic import SyntheticScene
 def write_workspace(scene: SyntheticScene, folder: str,
                     device="cuda") -> str:
     """Write ``scene`` under ``folder``: its grey images as quality-100
-    JPEGs encoded on ``device`` (``io.images``: nvJPEG on a CUDA device,
-    OpenCV on the CPU), its cameras, and a pair.txt in which every view
-    takes all others as sources."""
+    JPEGs encoded on ``device`` (``io.images``: the card's encoder on a
+    CUDA device, OpenCV on the CPU; the same bytes), its cameras, and a
+    pair.txt in which every view takes all others as sources."""
     os.makedirs(os.path.join(folder, "images"), exist_ok=True)
     os.makedirs(os.path.join(folder, "cams"), exist_ok=True)
     V = scene.images.shape[0]

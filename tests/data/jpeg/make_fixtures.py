@@ -13,15 +13,56 @@ by OpenCV with the settings its name gives; ``decoded.npz`` holds what
 rotates), ``adobe_rgb`` (444_q100 with its JFIF marker replaced by an Adobe
 APP14 marker of transform 0, which libjpeg reads as RGB) and ``rgb_ids``
 (444_q100 without its JFIF marker and with the component ids 'R', 'G', 'B').
+These three were refused until the card's decoder learnt EXIF orientation and
+RGB components; they now decode, and ``refused/`` also holds what the card
+still refuses, each for a cause it names: ``twelve_bit`` (420_q95 with its
+SOF0 sample precision set to 12), ``arithmetic`` (its SOF0 marker made SOF9),
+``lossless`` (made SOF3) and ``cmyk`` (a four-component Adobe CMYK JPEG
+written by PIL).
+
+``layouts/`` holds 420_q95 with EXIF orientations 2..8 (odd_101x203_q95 for
+6, so that the rotation is not square) and ``rgb_ids_420`` (420_q95 without
+its JFIF marker and with the ids 'R', 'G', 'B': subsampled RGB components).
+
+``cv2_arrays.npz`` holds ``cv2.imread``'s grey and BGR arrays
+(``gray_<dir>/<name>``, ``bgr_<dir>/<name>``) of every file under
+``layouts/`` and ``refused/`` that the card must decode; a file under
+``refused/`` without an entry must be refused.
+
+``encode/`` holds the encoder's targets: ``sources.npz`` (``bgr_<h>x<w>``
+and ``gray_<h>x<w>``, made from a seed) and ``cv2.imencode``'s bytes of each
+at qualities 75, 90, 95 and 100 (``<kind>_<h>x<w>_q<q>.jpg``; colour at
+4:2:0, OpenCV's default).
+
+``../png/`` holds PNG sources of colour types 0, 2, 3, 4 and 6 at bit depth
+8 and 101x203, written here row by row with the five filter types in turn
+(``type<t>.png``, a palette with a tRNS chunk for type 3), three written by
+``cv2.imwrite`` (``cv2_gray``, ``cv2_bgr``, ``cv2_bgra``), one with an eXIf
+chunk of orientation 6 (``exif6``), and ``cv2_arrays.npz`` with
+``cv2.imread``'s BGR array of each; ``../png/conversion/`` the workspace
+images the JAX converter writes (``cv2.imwrite(dst, cv2.imread(src))``) for
+the sources of ``CONVERSION`` but the first, which it copies; and
+``../png/refused/`` what the card refuses: ``interlaced.png`` (Adam7), ``grey16.png`` (16-bit, by cv2),
+``grey1.png`` (1-bit grey), ``palette4.png`` (4-bit palette), ``image.tif``
+and ``image.bmp``.
+
+    python tests/data/jpeg/make_fixtures.py --part new
+
+writes only what is listed after the first paragraph (the files from before
+keep their bytes; ``--part all``, the default, rewrites them too).
 """
 
+import argparse
+import io
 import os
 import struct
+import zlib
 
 import cv2
 import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+PNG_DIR = os.path.join(os.path.dirname(HERE), "png")
 
 
 def picture(h: int, w: int, seed: int) -> np.ndarray:
@@ -100,7 +141,249 @@ def refused(data_420: bytes, data_444: bytes) -> dict:
             "rgb_ids": with_ids(bare, b"RGB")}
 
 
-def main() -> None:
+def with_sof(data: bytes, marker: int = None, precision: int = None) -> bytes:
+    """A JPEG's bytes with its first SOF segment's marker or sample
+    precision replaced."""
+    out, pos = bytearray(data), 2
+    while pos < len(out):
+        m, n = out[pos + 1], struct.unpack(">H", out[pos + 2:pos + 4])[0]
+        if 0xC0 <= m <= 0xCF and m not in (0xC4, 0xC8, 0xCC):
+            if marker is not None:
+                out[pos + 1] = marker
+            if precision is not None:
+                out[pos + 4] = precision
+            return bytes(out)
+        pos += 2 + n
+    raise ValueError("no SOF segment")
+
+
+def cmyk_jpeg(h: int, w: int, seed: int) -> bytes:
+    """A four-component (Adobe CMYK) JPEG, as PIL writes one."""
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    img = Image.fromarray(rng.integers(0, 256, (h, w, 4)).astype(np.uint8),
+                          "CMYK")
+    buf = io.BytesIO()
+    img.save(buf, "JPEG", quality=90)
+    return buf.getvalue()
+
+
+def stays_refused(data_420: bytes) -> dict:
+    return {"twelve_bit": with_sof(data_420, precision=12),
+            "arithmetic": with_sof(data_420, marker=0xC9),
+            "lossless": with_sof(data_420, marker=0xC3),
+            "cmyk": cmyk_jpeg(24, 40, 7)}
+
+
+def layouts(data_420: bytes, data_odd: bytes) -> dict:
+    made = {f"exif_orientation{o}": after_soi(
+        data_odd if o == 6 else data_420, exif_app1(o)) for o in range(2, 9)}
+    made["rgb_ids_420"] = with_ids(without_jfif(data_420), b"RGB")
+    return made
+
+
+def encode_source(h: int, w: int, seed: int) -> np.ndarray:
+    """Smooth random colours with noise and a sharp block, (h, w, 3)
+    uint8, for any size down to 1x1."""
+    rng = np.random.default_rng(seed)
+    small = rng.integers(0, 256, (h // 12 + 2, w // 12 + 2, 3))
+    img = cv2.resize(small.astype(np.uint8), (w, h),
+                     interpolation=cv2.INTER_CUBIC).astype(np.int64)
+    img[h // 3:h // 2 + 1, w // 4:w // 2 + 1] = rng.integers(0, 256, 3)
+    img += rng.integers(-6, 7, img.shape)
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+ENCODE_SIZES = ((1, 1), (7, 9), (101, 203), (120, 176))
+ENCODE_QUALITIES = (75, 90, 95, 100)
+
+
+def write_encode_fixtures() -> None:
+    folder = os.path.join(HERE, "encode")
+    os.makedirs(folder, exist_ok=True)
+    sources = {}
+    for i, (h, w) in enumerate(ENCODE_SIZES):
+        bgr = encode_source(h, w, seed=100 + i)
+        sources[f"bgr_{h}x{w}"] = bgr
+        sources[f"gray_{h}x{w}"] = cv2.cvtColor(bgr, cv2.COLOR_BGR2GRAY)
+    np.savez_compressed(os.path.join(folder, "sources.npz"), **sources)
+    for key, img in sources.items():
+        for q in ENCODE_QUALITIES:
+            ok, buf = cv2.imencode(".jpg", img, [Q, q])
+            assert ok
+            with open(os.path.join(folder, f"{key}_q{q}.jpg"), "wb") as f:
+                f.write(buf.tobytes())
+
+
+def png_chunk(kind: bytes, body: bytes) -> bytes:
+    return (struct.pack(">I", len(body)) + kind + body
+            + struct.pack(">I", zlib.crc32(kind + body)))
+
+
+def png_filter_rows(rows: np.ndarray, bpp: int) -> bytes:
+    """Filtered scanlines of (H, rowbytes) uint8 rows, row r with filter
+    r % 5 (None, Sub, Up, Average, Paeth)."""
+    out = []
+    prev = np.zeros(rows.shape[1], np.int64)
+    for r, raw in enumerate(rows.astype(np.int64)):
+        a = np.concatenate([np.zeros(bpp, np.int64), raw[:-bpp]])
+        c = np.concatenate([np.zeros(bpp, np.int64), prev[:-bpp]])
+        b = prev
+        kind = r % 5
+        if kind == 0:
+            pred = np.zeros_like(raw)
+        elif kind == 1:
+            pred = a
+        elif kind == 2:
+            pred = b
+        elif kind == 3:
+            pred = (a + b) // 2
+        else:
+            p = a + b - c
+            pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+            pred = np.where((pa <= pb) & (pa <= pc), a,
+                            np.where(pb <= pc, b, c))
+        out.append(bytes([kind]) + ((raw - pred) & 255).astype(
+            np.uint8).tobytes())
+        prev = raw
+    return b"".join(out)
+
+
+def png_bytes(w: int, h: int, depth: int, colour_type: int, scanlines: bytes,
+              extra: bytes = b"", interlace: int = 0,
+              after: bytes = b"") -> bytes:
+    return (b"\x89PNG\r\n\x1a\n"
+            + png_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth,
+                                             colour_type, 0, 0, interlace))
+            + extra + png_chunk(b"IDAT", zlib.compress(scanlines, 6))
+            + after + png_chunk(b"IEND", b""))
+
+
+ADAM7 = ((0, 0, 8, 8), (0, 4, 8, 8), (4, 0, 8, 4), (0, 2, 4, 4),
+         (2, 0, 4, 2), (0, 1, 2, 2), (1, 0, 2, 1))  # row0, col0, dy, dx
+
+
+def adam7_scanlines(img: np.ndarray) -> bytes:
+    """Unfiltered scanlines of an 8-bit image's seven Adam7 passes."""
+    out = []
+    for r0, c0, dy, dx in ADAM7:
+        sub = img[r0::dy, c0::dx]
+        if sub.size:
+            out += [b"\0" + row.tobytes() for row in sub]
+    return b"".join(out)
+
+
+def write_png_fixtures() -> None:
+    refused_dir = os.path.join(PNG_DIR, "refused")
+    os.makedirs(refused_dir, exist_ok=True)
+    h, w = 101, 203
+    rng = np.random.default_rng(11)
+    bgr = encode_source(h, w, seed=21)
+    rgb = bgr[..., ::-1]
+    grey = cv2.cvtColor(bgr, cv2.COLOR_BGR2GRAY)
+    alpha = rng.integers(0, 256, (h, w)).astype(np.uint8)
+    palette = rng.integers(0, 256, (200, 3)).astype(np.uint8)
+    index = rng.integers(0, 210, (h, w)).astype(np.uint8)  # some past it
+    trns = png_chunk(b"tRNS", bytes(rng.integers(0, 256, 200).astype(
+        np.uint8)))
+    files = {
+        "type0": png_bytes(w, h, 8, 0, png_filter_rows(grey, 1)),
+        "type2": png_bytes(w, h, 8, 2, png_filter_rows(
+            rgb.reshape(h, 3 * w), 3)),
+        "type3": png_bytes(w, h, 8, 3, png_filter_rows(index, 1),
+                           png_chunk(b"PLTE", palette.tobytes()) + trns),
+        "type4": png_bytes(w, h, 8, 4, png_filter_rows(
+            np.stack([grey, alpha], -1).reshape(h, 2 * w), 2)),
+        "type6": png_bytes(w, h, 8, 6, png_filter_rows(
+            np.concatenate([rgb, alpha[..., None]], -1).reshape(h, 4 * w),
+            4)),
+        "exif6": png_bytes(w, h, 8, 2, png_filter_rows(
+            rgb.reshape(h, 3 * w), 3), png_chunk(
+            b"eXIf", b"MM\x00\x2a" + struct.pack(
+                ">IHHHIHHI", 8, 1, 0x0112, 3, 1, 6, 0, 0))),
+        "cv2_gray": cv2.imencode(".png", grey)[1].tobytes(),
+        "cv2_bgr": cv2.imencode(".png", bgr)[1].tobytes(),
+        "cv2_bgra": cv2.imencode(".png", np.concatenate(
+            [bgr, alpha[..., None]], -1))[1].tobytes(),
+    }
+    arrays = {}
+    for name, data in files.items():
+        with open(os.path.join(PNG_DIR, f"{name}.png"), "wb") as f:
+            f.write(data)
+        arrays[f"bgr_{name}"] = cv2.imdecode(np.frombuffer(data, np.uint8),
+                                             cv2.IMREAD_COLOR)
+    np.savez_compressed(os.path.join(PNG_DIR, "cv2_arrays.npz"), **arrays)
+    ih, iw = 37, 45
+    small = bgr[:ih, :iw]
+    bits = np.packbits(grey[:ih, :iw] > 127, axis=1)
+    nibbles = index[:ih, :iw - 1:2] % 16 * 16 + index[:ih, 1:iw:2] % 16
+    refused = {
+        "interlaced.png": png_bytes(iw, ih, 8, 2, adam7_scanlines(
+            small[..., ::-1].copy()), interlace=1),
+        "grey16.png": cv2.imencode(".png", grey[:ih, :iw].astype(
+            np.uint16) * 257)[1].tobytes(),
+        "grey1.png": png_bytes(iw, ih, 1, 0, b"".join(
+            b"\0" + r.tobytes() for r in bits)),
+        "palette4.png": png_bytes(iw - 1, ih, 4, 3, b"".join(
+            b"\0" + r.tobytes() for r in nibbles.astype(np.uint8)),
+            png_chunk(b"PLTE", palette[:16].tobytes())),
+        "image.tif": cv2.imencode(".tif", small)[1].tobytes(),
+        "image.bmp": cv2.imencode(".bmp", small)[1].tobytes(),
+    }
+    for name, data in refused.items():
+        with open(os.path.join(refused_dir, name), "wb") as f:
+            f.write(data)
+    # the interlaced file is a real one: cv2 reads back what was written
+    back = cv2.imdecode(np.frombuffer(refused["interlaced.png"], np.uint8),
+                        cv2.IMREAD_COLOR)
+    assert np.array_equal(back, small)
+
+
+# a COLMAP model's image names -> the fixtures they are copied from
+CONVERSION = {"img0.jpg": "jpeg/odd_101x203_q95.jpg",
+              "img1.JPG": "jpeg/420_q95.jpg",
+              "img2.png": "png/type3.png", "img3.png": "png/exif6.png"}
+
+
+def write_conversion_fixtures() -> None:
+    folder = os.path.join(PNG_DIR, "conversion")
+    os.makedirs(folder, exist_ok=True)
+    data_dir = os.path.dirname(HERE)
+    for i, src in enumerate(list(CONVERSION.values())[1:], 1):
+        img = cv2.imread(os.path.join(data_dir, src))
+        ok, buf = cv2.imencode(".jpg", img, [Q, 95])
+        assert ok
+        with open(os.path.join(folder, f"{i:08d}.jpg"), "wb") as f:
+            f.write(buf.tobytes())
+
+
+def write_decode_fixtures() -> None:
+    """layouts/, the new files of refused/ and cv2_arrays.npz."""
+    def read(name):
+        with open(os.path.join(HERE, f"{name}.jpg"), "rb") as f:
+            return f.read()
+
+    made = {"layouts": layouts(read("420_q95"), read("odd_101x203_q95")),
+            "refused": stays_refused(read("420_q95"))}
+    arrays = {}
+    for sub, files in made.items():
+        os.makedirs(os.path.join(HERE, sub), exist_ok=True)
+        for name, data in files.items():
+            with open(os.path.join(HERE, sub, f"{name}.jpg"), "wb") as f:
+                f.write(data)
+    for sub in ("layouts", "refused"):
+        for name in sorted(os.listdir(os.path.join(HERE, sub))):
+            stem = f"{sub}/{name[:-4]}"
+            if stem[8:] in made["refused"]:
+                continue
+            path = os.path.join(HERE, sub, name)
+            arrays[f"gray_{stem}"] = cv2.imread(path, cv2.IMREAD_GRAYSCALE)
+            arrays[f"bgr_{stem}"] = cv2.imread(path, cv2.IMREAD_COLOR)
+    np.savez_compressed(os.path.join(HERE, "cv2_arrays.npz"), **arrays)
+
+
+def write_first_fixtures() -> None:
     arrays = {}
     for i, (name, ((h, w), flags)) in enumerate(FIXTURES.items()):
         img = picture(h, w, seed=i)
@@ -118,6 +401,17 @@ def main() -> None:
     for name, data in made.items():
         with open(os.path.join(HERE, "refused", f"{name}.jpg"), "wb") as f:
             f.write(data)
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--part", choices=("all", "new"), default="all")
+    if ap.parse_args().part == "all":
+        write_first_fixtures()
+    write_decode_fixtures()
+    write_encode_fixtures()
+    write_png_fixtures()
+    write_conversion_fixtures()
 
 
 if __name__ == "__main__":

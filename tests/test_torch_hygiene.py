@@ -74,6 +74,22 @@ def test_import_pulls_in_no_jax_cv2_or_yaml():
     assert out.stdout.strip() == "clean"
 
 
+def test_csrc_links_no_library_kernels():
+    """The port's CUDA sources call no package of finished kernels: no
+    nvJPEG header or call is left (the encoder's first form), and no source
+    asks to link a library."""
+    import re
+
+    from mpmvs_torch.io import images
+    from mpmvs_torch.ops import nvcc
+
+    for name in os.listdir(nvcc.CSRC):
+        with open(os.path.join(nvcc.CSRC, name)) as f:
+            assert not re.search(r"<nvjpeg|\bnvjpeg[A-Z_]|NVJPEG_", f.read()), \
+                name
+    assert not any(f.startswith("-l") for f in images.NVCC_FLAGS)
+
+
 def test_missing_cuda_raises_instead_of_falling_back():
     if torch.cuda.is_available():
         pytest.skip("this host has a CUDA device")

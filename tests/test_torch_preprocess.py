@@ -8,11 +8,18 @@ the CPU tests, so the ``cuda`` test runs without it.
   byte for byte, and the images byte for byte (``.jpg`` sources copied;
   ``.JPG`` and ``.png`` sources re-encoded at quality 95 by OpenCV in both
   packages).
-* On the card (``cuda``): a ``.JPG`` source is re-encoded through nvJPEG
-  and a PNG source raises, naming its format.
+* A model of fixture sources (``.jpg``, ``.JPG``, two ``.png``, one with
+  an eXIf orientation; ``tests/data/jpeg/make_fixtures.py``'s
+  ``CONVERSION``): the JAX converter writes the stored workspace images
+  under ``tests/data/png/conversion``, and so does the port on the CPU.
+* On the card (``cuda``): the same model converts to those stored bytes
+  (the ``.jpg`` copied, the rest read and re-encoded by the card's codec);
+  JPEG sources written by the card's encoder convert, a PNG source
+  converts, and an interlaced PNG raises, naming the cause.
 """
 
 import os
+import shutil
 import struct
 
 import numpy as np
@@ -23,6 +30,12 @@ from mpmvs_torch.preprocess import colmap as tcolmap
 from mpmvs_torch.preprocess.convert import convert_colmap, main
 
 torch.set_num_threads(1)
+
+DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
+# make_fixtures.CONVERSION: the model's image names and their sources
+CONVERSION = {"img0.jpg": "jpeg/odd_101x203_q95.jpg",
+              "img1.JPG": "jpeg/420_q95.jpg",
+              "img2.png": "png/type3.png", "img3.png": "png/exif6.png"}
 
 
 # tests/test_preprocess.py's text model (this file runs on the card without
@@ -181,6 +194,48 @@ def test_conversion_matches_jax_byte_for_byte(tmp_path, names):
         assert got[k] == want[k], k
 
 
+def _fixture_model(root):
+    """A dense folder of the text model whose images are CONVERSION's
+    fixture files, and the workspace images a conversion must write."""
+    dense = os.path.join(root, "dense")
+    _write_text_model(os.path.join(dense, "sparse"))
+    os.makedirs(os.path.join(dense, "images"))
+    names = list(CONVERSION)
+    for name, src in CONVERSION.items():
+        shutil.copyfile(os.path.join(DATA, src),
+                        os.path.join(dense, "images", name))
+    path = os.path.join(dense, "sparse", "images.txt")
+    with open(path) as f:
+        text = f.read()
+    for i, name in enumerate(names):
+        text = text.replace(f" img{i}.jpg\n", f" {name}\n")
+    with open(path, "w") as f:
+        f.write(text)
+    want = {}
+    for i, name in enumerate(names):
+        src = (os.path.join(DATA, CONVERSION[name]) if i == 0 else
+               os.path.join(DATA, "png", "conversion", f"{i:08d}.jpg"))
+        with open(src, "rb") as f:
+            want[f"images/{i:08d}.jpg"] = f.read()
+    return dense, want
+
+
+def _converted_images(folder):
+    return {k: v for k, v in _tree(folder).items() if k.startswith("images")}
+
+
+def test_fixture_model_converts_as_jax(tmp_path):
+    from mpmvs_tpu.preprocess.convert import convert_colmap as jax_convert
+
+    dense, want = _fixture_model(str(tmp_path))
+    out_t, out_j = str(tmp_path / "ws_t"), str(tmp_path / "ws_j")
+    os.makedirs(out_j)
+    jax_convert(dense, out_j, log=lambda *a: None)
+    assert _converted_images(out_j) == want
+    convert_colmap(dense, out_t, log=lambda *a: None, device="cpu")
+    assert _converted_images(out_t) == want
+
+
 @pytest.fixture(scope="module")
 def dev():
     if not torch.cuda.is_available():
@@ -207,12 +262,32 @@ def test_card_converts_jpegs_and_refuses_other_formats(dev, tmp_path):
             os.path.join(out, "images", f"{i:08d}.jpg"), dev)
         assert tuple(bgr.shape) == (120, 160, 3)
     png = os.path.join(dense, "images", "img1.png")
-    images.write_png(png, np.zeros((120, 160, 3), np.uint8))
+    rgb = np.random.default_rng(1).integers(0, 255, (120, 160, 3))
+    images.write_png(png, rgb.astype(np.uint8))
     path = os.path.join(dense, "sparse", "images.txt")
     with open(path) as f:
         text = f.read().replace(" img1.jpg\n", " img1.png\n")
     with open(path, "w") as f:
         f.write(text)
-    with pytest.raises(ValueError, match="PNG"):
-        convert_colmap(dense, str(tmp_path / "ws2"), log=lambda *a: None,
+    convert_colmap(dense, str(tmp_path / "ws2"), log=lambda *a: None,
+                   device=dev)
+    with open(os.path.join(str(tmp_path / "ws2"), "images", "00000001.jpg"),
+              "rb") as f:
+        assert f.read() == images.encode_jpeg(rgb.astype(np.uint8), dev, 95)
+    shutil.copyfile(os.path.join(DATA, "png", "refused", "interlaced.png"),
+                    png)
+    with pytest.raises(ValueError, match="interlaced"):
+        convert_colmap(dense, str(tmp_path / "ws3"), log=lambda *a: None,
                        device=dev)
+
+
+@pytest.mark.cuda
+def test_card_converts_fixture_model_as_jax(dev, tmp_path):
+    from mpmvs_torch.io import images
+
+    dense, want = _fixture_model(str(tmp_path))
+    images.CODEC_COUNTS.reset()
+    convert_colmap(dense, str(tmp_path / "ws"), log=lambda *a: None,
+                   device=dev)
+    assert _converted_images(str(tmp_path / "ws")) == want
+    assert images.CODEC_COUNTS.forms == {"decode": 1, "png": 2, "encode": 3}
