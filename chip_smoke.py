@@ -42,13 +42,17 @@ Phases, in order; any failure raises and the script exits non-zero:
    NCC, which times the eager glue around the kernel; then one geom-mode
    half-iteration (scale 0, the sources' true depths) through the
    geometric-cost kernel and through its plain twin, the NCC kernel in
-   both arms: the two states must be equal.
+   both arms: the two states must be equal, and the kernel launched twice
+   (K=9, K=5).
 3b. The geometric-cost kernel (``csrc/geom_cost.cu``) against its plain
    twin at the geom band shape: one band of 2130 rows, its 2130 x 1600
    packed pixels, S = 10 sources' true depths, K = 1 (phase 3's init
-   field, warm from its inputs) and K = 9 (8 scaled true planes and that
-   field): no entry may differ; both timed with CUDA events beside the
-   kernel's bound.
+   field, warm from its inputs), K = 5 (the trials' call: two random
+   fields and three scaled true planes) and K = 9 (the candidates' call:
+   8 scaled true planes and the init field), with the solve's camera
+   table: no entry may differ; each timed with CUDA events beside the
+   kernel's bound and the share of it reached, with the registers a
+   thread of the instantiation it takes.
 4. The photometric path at 3200x2130 with 1+10 views per estimated view
    (3 of 11 views estimated): ``Pipeline.load_arrays`` + ``Pipeline.run``
    (3 scales x 3 iterations, no geometric pass, no prior, no sky), writing
@@ -169,10 +173,12 @@ SKY_FRAC_TOL = 0.02           # |sky fraction - painted fraction| per view
 #   geom_1:      1 init + 2 iterations x 2 colours x 2 calls
 NCC_PHOTOMETRIC, NCC_GEOM, NCC_PRIOR = 1 + 3 * 3 * 2 * 2, 1 + 2 * 2 * 2, \
     1 + 3 * 2 * 2
-# Geometric-cost launches per geom pass of an estimated view (the prior
-# sub-run has no geometric term): 2 iterations x 2 colours x 1 band x 14
-# calls (8 candidates, the current plane, 5 refinement trials)
-GEOM_PER_PASS = 2 * 2 * 14
+# Geometric-cost launches per geom band step: one K=9 (8 candidates, the
+# current plane), one K=5 (the 5 refinement trials); per geom pass of an
+# estimated view (the prior sub-run has no geometric term): 2 iterations x
+# 2 colours x 1 band x those
+GEOM_PER_STEP = 2
+GEOM_PER_PASS = 2 * 2 * GEOM_PER_STEP
 # Launches of one photometric solve with the reference's search semantics
 # (phase 7; tools.ab_deviations.REFERENCE), one band of H_FULL rows: with
 # sampler="sorted", the key kernel and the fused sorted kernel once per
@@ -557,20 +563,23 @@ def phase_half_iteration(data, params, band_rows: int, src_depths):
         f"costs differing {n_geom}; {launches} geometric-cost launches; "
         f"step {ms['geom kernel']:.1f} ms with the kernel, "
         f"{ms['geom plain']:.1f} ms with the twin (one run each)")
-    if frac or n_geom or launches != 14:
+    if frac or n_geom or launches != GEOM_PER_STEP:
         raise AssertionError(f"geom step: kernel vs plain twin differ on "
                              f"{frac:.3e} of pixels, {n_geom} geometric "
-                             f"costs; {launches} launches (expected 14)")
+                             f"costs; {launches} launches (expected "
+                             f"{GEOM_PER_STEP})")
     COUNTS.reset()
     return max_err, state
 
 
 def phase_geom_cost(data, scene, params, band_rows: int, src_depths, state):
     """Phase 3b: the geometric-cost kernel against its plain twin at the
-    geom band shape, K = 1 (phase 3's init field) and K = 9. Returns a dict
-    of what the kernels line needs."""
+    geom band shape, K = 1 (phase 3's init field), K = 5 (the trials'
+    call: two random fields, three scaled true planes) and K = 9 (the
+    candidates' call: 8 scaled true planes and the init field), with the
+    solve's camera table. Returns a dict of what the kernels line needs."""
     import torch
-    from mpmvs_torch.ops import geom_cost
+    from mpmvs_torch.ops import geom_cost, geom_cost_cuda
     from mpmvs_torch.ops.packing import pack_quincunx, packed_coords
     from mpmvs_torch.ops import threefry as tf
     from mpmvs_torch.utils.roofline import geom_bound
@@ -582,14 +591,22 @@ def phase_geom_cost(data, scene, params, band_rows: int, src_depths, state):
                          0, -1)
     gt = test_planes(data, scene, params, "gt", 8, x_p, y_p,
                      tf.PRNGKey(5, device=dev))
+    rnd = test_planes(data, scene, params, "random", 2, x_p, y_p,
+                      tf.PRNGKey(6, device=dev))
     cams = (src_depths, data.src_widths, data.src_heights, data.K_ref,
             data.R_ref, data.C_ref, data.t_ref, data.K_src, data.R_src,
             data.t_src, data.C_src)
-    out = {"max_abs_err": 0.0, "ms": {}, "plain_ms": {}, "bound": {}}
+    out = {"max_abs_err": 0.0, "ms": {}, "plain_ms": {}, "bound": {},
+           "registers": {}}
     N = band_rows * (W_FULL // 2)
     depth_bytes = src_depths.numel() * 4
-    for K, planes in ((1, init), (9, torch.cat([gt, init[None]]))):
-        call = lambda fn: fn(*cams, planes, x_p, y_p, params.geom_cost_max)
+    wide = geom_cost_cuda.wide_index(*src_depths.shape)
+    fields = ((1, init), (5, torch.stack([rnd[0], gt[0], rnd[1], gt[1],
+                                          gt[2]])),
+              (9, torch.cat([gt, init[None]])))
+    for K, planes in fields:
+        call = lambda fn: fn(*cams, planes, x_p, y_p, params.geom_cost_max,
+                             cams=data.geom_cams)
         got = call(geom_cost.geom_consistency_cost)
         want = call(geom_cost.geom_consistency_cost_plain)
         torch.cuda.synchronize()
@@ -602,17 +619,22 @@ def phase_geom_cost(data, scene, params, band_rows: int, src_depths, state):
         plain_ms = cuda_time_ms(
             lambda: call(geom_cost.geom_consistency_cost_plain), reps=2)
         b_ms, b_by = geom_bound(K, N_SRC, N, depth_bytes)
+        attrs = geom_cost_cuda.kernel_attributes(K, wide)
         log(f"  K={K} S={N_SRC} {band_rows}x{W_FULL // 2}: entries "
             f"differing {n_diff} of {N_SRC * K * N}, max|diff| {err:.3e} "
             f"(capped entries {capped:.3f}); kernel {ms:.4f} ms, plain "
             f"{plain_ms:.2f} ms; bound {b_ms:.4f} ms ({b_by}), "
-            f"{b_ms / ms:.3f} of it reached")
+            f"{b_ms / ms:.3f} of it reached; {attrs['fields_held']} fields "
+            f"a thread, {attrs['registers']} registers, "
+            f"{attrs['local_bytes']} B spilled, {64 if wide else 32}-bit "
+            f"indices")
         if n_diff:
             raise AssertionError(f"geometric-cost kernel vs plain at K={K}:"
                                  f" {n_diff} entries differ")
         out["max_abs_err"] = max(out["max_abs_err"], err)
         out["ms"][K], out["plain_ms"][K] = ms, plain_ms
         out["bound"][K] = (b_ms, b_by)
+        out["registers"][K] = attrs["registers"]
     return out
 
 
@@ -1955,9 +1977,10 @@ def main(argv=None) -> int:
         f"{so['fused_ms']:.3f} per view; raw-samples form "
         f"{so['samples_bound'][0]:.3f} vs {so['samples_ms']:.3f}; key "
         f"kernel {so['keys_bound'][0]:.3f} vs {so['keys_kernel_ms']:.3f}; "
-        f"geometric cost K=1 {go['bound'][1][0]:.4f} "
-        f"({go['bound'][1][1]}) vs {go['ms'][1]:.4f}, K=9 "
-        f"{go['bound'][9][0]:.4f} vs {go['ms'][9]:.4f}")
+        f"geometric cost K=9 {go['bound'][9][0]:.4f} "
+        f"({go['bound'][9][1]}) vs {go['ms'][9]:.4f}, K=5 "
+        f"{go['bound'][5][0]:.4f} vs {go['ms'][5]:.4f}, K=1 "
+        f"{go['bound'][1][0]:.4f} vs {go['ms'][1]:.4f}")
     # the codec (host decode and encode, the IDCT and colour kernels, the
     # encoder's colour and DCT kernels, PNG reads): no TPU kernel's
     # counterpart; the details on a line of their own
@@ -2066,11 +2089,14 @@ def main(argv=None) -> int:
               so["keys_plain_ms"], so["keys_bound"]),
         entry("geom_consistency_cost", "geom_cost.cu",
               "mpmvs_tpu/ops/geom_cost.py:22 (XLA gathers: no Pallas "
-              "kernel)", geom_launches, go["max_abs_err"], go["ms"][1],
-              go["plain_ms"][1], go["bound"][1], scope="K=1 at the geom "
-              "band shape, the current-plane call; K=9 beside it",
-              k9={"ms": go["ms"][9], "plain_ms": go["plain_ms"][9],
-                  "bound_ms": go["bound"][9][0]}),
+              "kernel)", geom_launches, go["max_abs_err"], go["ms"][9],
+              go["plain_ms"][9], go["bound"][9], scope="K=9 at the geom "
+              "band shape, the candidates' call; K=5 (the trials') and K=1 "
+              "beside it", registers=go["registers"][9],
+              **{f"k{K}": {"ms": go["ms"][K], "plain_ms": go["plain_ms"][K],
+                           "bound_ms": go["bound"][K][0],
+                           "registers": go["registers"][K]}
+                 for K in (5, 1)}),
         entry("idct_islow", "jpeg_codec.cu", no_tpu, files["idct_launches"],
               max(e[1] for e in files["idct_vs_plain"]), files["idct_ms"],
               files["idct_plain_ms"], (files["idct_bound_ms"], "bytes"),

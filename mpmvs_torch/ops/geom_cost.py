@@ -15,10 +15,14 @@ build or launch failure, and CPU tensors to the plain twin
 :func:`geom_consistency_cost_plain`; any other device raises. The solver
 looks the dispatcher up as ``propagation.geom_consistency_cost`` at every
 call, so a caller that replaces that name (the bench's ``geom_cost_zero``
-control, ``tools.solve_trace``'s profiler range) reaches every call.
+control, ``tools.solve_trace``'s profiler range) reaches every call. The
+solver passes the kernel's camera table, built once a solve, as ``cams``;
+the twin takes the same keyword and reads the cameras themselves.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -41,6 +45,7 @@ def geom_consistency_cost_plain(
     plane: Tensor,        # (..., 4) hypotheses at the pixels (x, y)
     x: Tensor, y: Tensor,  # (...) pixel coordinates
     max_cost: float = 3.0,
+    cams: Optional[Tensor] = None,  # the kernel's camera table: not read
 ) -> Tensor:
     """Returns (S, ...) clamped reprojection errors: eager PyTorch, the
     kernel's plain twin."""
@@ -71,9 +76,12 @@ def geom_consistency_cost(
     K_ref: Tensor, R_ref: Tensor, C_ref: Tensor, t_ref: Tensor,
     K_src: Tensor, R_src: Tensor, t_src: Tensor, C_src: Tensor,
     plane: Tensor, x: Tensor, y: Tensor, max_cost: float = 3.0,
+    cams: Optional[Tensor] = None,
 ) -> Tensor:
     """(S, ...) clamped reprojection errors of the plane field (..., 4):
-    the CUDA kernel for CUDA tensors, the plain twin for CPU tensors."""
+    the CUDA kernel for CUDA tensors, the plain twin for CPU tensors.
+    ``cams``: the kernel's camera table of these cameras
+    (``geom_cost_cuda.camera_table``), or None."""
     dev = plane.device.type
     if dev == "cuda":
         fn = geom_cost_cuda.geom_consistency_cost_kernel
@@ -84,4 +92,4 @@ def geom_consistency_cost(
         raise ValueError(f"no geometric-cost implementation for device "
                          f"{plane.device}")
     return fn(src_depths, src_widths, src_heights, K_ref, R_ref, C_ref, t_ref,
-              K_src, R_src, t_src, C_src, plane, x, y, max_cost)
+              K_src, R_src, t_src, C_src, plane, x, y, max_cost, cams)

@@ -23,7 +23,10 @@ trials in one K=5 call (``ops.ncc_cuda.ncc_eval_multi``); with
 
 Modes, as in the JAX package: ``geom`` adds 0.2 x the forward-backward
 reprojection error against the sources' depth maps (``ops/geom_cost``) to
-every candidate and trial cost and tracks its share in ``geom_cost``;
+every candidate and trial cost and tracks its share in ``geom_cost``; a
+band step scores the 8 candidates and the current plane in one K=9 call
+and the 5 trials in one K=5 call, with the camera table of the solve
+(``SolveData.geom_cams``);
 ``prior`` adopts by the planar-prior score inside the prior mask
 (``_prior_score``, PatchMatch.cu:924-978) and by min cost outside it; both
 together are the ``geom_prior`` extension.
@@ -120,6 +123,10 @@ class SolveData(NamedTuple):
     src_depths: Optional[Tensor] = None    # (S, Hs, Ws), geom mode
     prior_planes: Optional[Tensor] = None  # (H, W, 4), prior mode
     prior_mask: Optional[Tensor] = None    # (H, W) bool
+    # the geometric-cost kernel's camera table (24 + 26 S floats,
+    # ops.geom_cost_cuda.camera_table), built once a solve; None: each
+    # call builds its own
+    geom_cams: Optional[Tensor] = None
 
 
 class PatchMatchState(NamedTuple):
@@ -313,11 +320,13 @@ def _band_step(data: SolveData, params, scale: int, iteration: int,
                          planes.contiguous(), x_p, y_p, offsets,
                          params.cost_max, cap, scattered=scattered)
 
-    def gcost(plane: Tensor) -> Tensor:
+    def gcost(planes: Tensor) -> Tensor:
+        """(S, K, rows, Wh) geometric costs of K stacked fields, one call."""
         return geom_consistency_cost(
             data.src_depths, data.src_widths, data.src_heights, data.K_ref,
             data.R_ref, data.C_ref, data.t_ref, data.K_src, data.R_src,
-            data.t_src, data.C_src, plane, x_p, y_p, params.geom_cost_max)
+            data.t_src, data.C_src, planes, x_p, y_p, params.geom_cost_max,
+            cams=data.geom_cams)
 
     # ---- 1. candidate harvest + their multi-view photometric costs (the
     # current hypothesis rides the same K=9 call; its cost is used in step 4)
@@ -349,11 +358,22 @@ def _band_step(data: SolveData, params, scale: int, iteration: int,
                                                1.0 / disp_ev,
                                                cand_planes[..., :3])
         eval_planes = torch.where(clamped[..., None], plane_ev, cand_planes)
+        # dead from here on: freed before the band's peak (steps 1-3)
+        del depth_s, cand_src_d, cand_d, disp, disp_nb, disp_ev, clamped
+        del plane_ev
     else:
         cand_planes, cand_valid, _ = _select_candidates_packed(
             cost_s, plane_s, halo, rows, phase, x_int)
-        eval_planes = cand_planes
-    batch9 = ncc_batch(torch.cat([eval_planes, plane_c[None]], 0))
+    # the ORIGINAL candidates, then the current plane: the geometric cost's
+    # K=9 fields (step 3) and, unclamped, the NCC call's; the candidates
+    # live on as a view of it
+    fields9 = torch.cat([cand_planes, plane_c[None]], 0)
+    cand_planes = fields9[:8]
+    if clamp > 0.0:
+        batch9 = ncc_batch(torch.cat([eval_planes, plane_c[None]], 0))
+        del eval_planes
+    else:
+        batch9 = ncc_batch(fields9)
     cost_array = batch9[:8]  # (8, S, rows, Wh)
     cost_vec_now = batch9[8]
 
@@ -365,11 +385,12 @@ def _band_step(data: SolveData, params, scale: int, iteration: int,
         iteration, params.num_mc_samples)
 
     # ---- 3. view-weighted final candidate costs (+ geometric consistency,
-    # evaluated for the ORIGINAL candidate planes as in the JAX package)
-    geom_array = ([gcost(cand_planes[i]) for i in range(8)] if geom
-                  else [None] * 8)
+    # evaluated for the ORIGINAL candidate planes as in the JAX package, and
+    # for the current plane, in one K=9 call)
+    geom9 = gcost(fields9) if geom else None  # (S, 9, rows, Wh)
+    geom_of = lambda g, i: None if g is None else g[:, i]
     totals = [_weighted_total(cost_array[i], weights, weight_norm,
-                              geom_array[i], params.geom_weight)
+                              geom_of(geom9, i), params.geom_weight)
               for i in range(8)]
     inf = torch.full_like(cost_c, math.inf)
     final_costs = torch.stack([torch.where(cand_valid[i], totals[i][0], inf)
@@ -378,14 +399,17 @@ def _band_step(data: SolveData, params, scale: int, iteration: int,
 
     # ---- 4. current hypothesis cost under the new view weights
     cost_now, geom_now = _weighted_total(
-        cost_vec_now, weights, weight_norm,
-        gcost(plane_c) if geom else None, params.geom_weight)
+        cost_vec_now, weights, weight_norm, geom_of(geom9, 8),
+        params.geom_weight)
     cost_now = torch.where(weight_norm > 0, cost_now, cost_c)
     if geom:
         geom_now = torch.where(weight_norm > 0, geom_now, geom_cost_c)
         geom_totals = torch.stack([tot[1] for tot in totals])
     else:
         geom_now = geom_cost_c
+    # the per-view costs of steps 1-4 are dead: step 5's live set holds the
+    # trials' instead
+    del batch9, cost_array, cost_vec_now, geom9, totals
 
     best_cost = _take(final_costs, min_idx)
     best_valid = _take(cand_valid, min_idx) & torch.isfinite(best_cost)
@@ -488,6 +512,7 @@ def _band_step(data: SolveData, params, scale: int, iteration: int,
     trial_n = [normal_now, normal_rand, normal_rand, normal_pert, normal_now]
     trial_planes = [geo.plane_from_depth_normal(data.K_ref, x_p, y_p, d, n)
                     for d, n in zip(trial_d, trial_n)]
+    trials = torch.stack(trial_planes)  # (5, rows, Wh, 4)
     if params.sampler == "sorted":
         # the random-depth trials 0 and 2 project incoherently: through the
         # bucket-sorted path, the others in one K=3 call (the JAX package's
@@ -504,12 +529,14 @@ def _band_step(data: SolveData, params, scale: int, iteration: int,
         # (5, S, rows, Wh). With full-range random depths (trials 0 and 2)
         # the view-major launch is the faster one, with banded ones the
         # tile launch (both measured on this call, PERF.md section 6)
-        trial_costs = ncc_batch(torch.stack(trial_planes), frac >= 1.0)
+        trial_costs = ncc_batch(trials, frac >= 1.0)
+    trial_geom = gcost(trials) if geom else None  # (S, 5, rows, Wh)
+    del trials
 
-    for d_i, n_i, plane_i, c_v in zip(trial_d, trial_n, trial_planes,
-                                      trial_costs):
+    for i, (d_i, n_i, plane_i, c_v) in enumerate(zip(
+            trial_d, trial_n, trial_planes, trial_costs)):
         t_cost, t_geom = _weighted_total(c_v, weights, weight_norm,
-                                         gcost(plane_i) if geom else None,
+                                         geom_of(trial_geom, i),
                                          params.geom_weight)
         d_before = geo.depth_from_plane(data.K_ref, plane_i, x_p, y_p)
         in_range = (d_before >= dmin) & (d_before <= dmax)

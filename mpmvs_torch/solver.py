@@ -39,6 +39,7 @@ from mpmvs_torch.camera import CameraStack
 from mpmvs_torch.ops import random as pmrand
 from mpmvs_torch.ops import threefry as tf
 from mpmvs_torch.ops.filters import checkerboard_median_filter
+from mpmvs_torch.ops.geom_cost_cuda import camera_table
 from mpmvs_torch.ops.ncc import ncc_refside
 from mpmvs_torch.ops.ncc_cuda import ncc_eval_multi
 from mpmvs_torch.ops.ncc_sorted import ncc_eval_sorted
@@ -81,11 +82,15 @@ def build_solve_data(images: Tensor, cameras: CameraStack,
     like the reference (PatchMatch.cpp:929-930). Sources need no padding:
     the kernel clamps to each view's valid extent. ``src_depths`` (S, H, W)
     feed geom mode, ``prior_planes`` (H, W, 4) and ``prior_mask`` (H, W)
-    bool the prior modes."""
+    bool the prior modes; the geometric-cost kernel's camera table is
+    built here, once a solve."""
     ref = cameras.view(0)
     C_src = cameras.C[1:]
     A, b = geo.homography_terms(ref.K, ref.R, ref.C,
                                 cameras.K[1:], cameras.R[1:], C_src)
+    geom_cams = camera_table(
+        len(C_src), ref.K, ref.R, ref.C, ref.t, cameras.K[1:], cameras.R[1:],
+        cameras.t[1:], C_src, cameras.width[1:], cameras.height[1:])
     return SolveData(
         ref_img=images[0].contiguous(),
         src_imgs=images[1:].contiguous(),
@@ -100,6 +105,7 @@ def build_solve_data(images: Tensor, cameras: CameraStack,
         src_depths=src_depths,
         prior_planes=prior_planes,
         prior_mask=prior_mask,
+        geom_cams=geom_cams,
     )
 
 

@@ -67,14 +67,20 @@ plain version (entries not bit-equal)::
 
 ``--kernel geom`` times ``ops.geom_cost_cuda`` at the geom band shape
 (the solve's geom band, one colour's packed half-width pixels, the
-sources' true depth maps): ``gt`` (K=1, view 0's true planes, the current
-plane's call), ``stack`` (K=9, the true planes at 9 depth scales, the
-candidates' shape) and ``trial`` (K=1, a full-range random field, whose
-projections leave the sources). Per case: CUDA-event ms, the bound
-(``utils.roofline.geom_bound``) and the share of it reached, the plain
-twin once; ``--check`` counts the entries that differ from the twin::
+sources' true depth maps), with the solve's camera table: ``gt`` (K=1,
+view 0's true planes), ``stack`` (K=9, the true planes at 9 depth scales,
+the candidates' call), ``trials`` (K=5, the refinement trials' call: two
+full-range random depths, three at the true depth, one of those scaled)
+and ``trial`` (K=1, a full-range random field, whose projections leave
+the sources). Per case: CUDA-event ms, the bound
+(``utils.roofline.geom_bound``) and the share of it reached, the
+instantiation's registers a thread and spilled bytes, the plain twin
+once; ``--check`` counts the entries that differ from the twin;
+``--sass`` adds the instructions a (field, source, pixel) in the
+instantiation's source loop and the issue floor they set at the card's
+maximum SM clock (``utils.roofline.geom_issue_floor_ms``)::
 
-    python -m mpmvs_torch.tools.kernel_bench --kernel geom --check
+    python -m mpmvs_torch.tools.kernel_bench --kernel geom --check --sass
 
 What is TPU-only in the JAX tool (``--quad``, ``WIN_BLOCKS``) has no
 counterpart here.
@@ -574,46 +580,84 @@ SASS_LINE = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]+\s+)?"
                        r"([A-Z][A-Z0-9_.]*)(.*)")
 
 
-def sass_per_tap(library: str) -> dict:
-    """{kernel form: (instructions a tap, {opcode: count a tap})} of the
-    bilateral kernel in ``library``, from ``cuobjdump -sass``: in each form
-    the loop (a branch back to an earlier address) with the most texel
-    loads (``LDS.128`` in the float form, ``LDS.64`` in the table form) is
-    the unrolled interior row, one texel load a tap. Its instructions are
-    counted as written, those that a branch skips included; a called
-    routine (the slow path of the IEEE sqrt) is not."""
+def _sass_functions(library: str) -> dict:
+    """{mangled kernel name: [(address, opcode, operands), ...]} from
+    ``cuobjdump -sass`` of ``library``."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     text = subprocess.run([tool, "-sass", library], capture_output=True,
                           text=True, check=True).stdout
-    forms, current, items = {}, None, []
-    for line in text.splitlines() + ["Function : end"]:
+    functions, current = {}, None
+    for line in text.splitlines():
         if "Function :" in line:
-            if current is not None:
-                forms[current] = items
-            m = re.search(r"bilateral_refine_kernelI(6float4|5uint2)E", line)
-            current = None if m is None else (
-                "float" if m.group(1) == "6float4" else "table")
-            items = []
-        else:
+            current = line.split("Function :")[1].strip()
+            functions[current] = []
+        elif current is not None:
             m = SASS_LINE.search(line)
             if m:
-                items.append((int(m.group(1), 16), m.group(2), m.group(3)))
+                functions[current].append(
+                    (int(m.group(1), 16), m.group(2), m.group(3)))
+    return functions
+
+
+def _densest_loop(items: list, marker: str) -> list:
+    """The opcodes of the loop (a branch back to an earlier address) with
+    the most ``marker`` instructions (the opcode, with or without further
+    modifiers), as written: those that a branch skips included, a called
+    routine (an IEEE division's or square root's slow path) not. Of loops
+    with as many markers, the innermost."""
+    count = lambda body: sum(_is(o, marker) for o in body)
+    best = []
+    for addr, op, rest in items:
+        target = re.search(r"0x([0-9a-f]+)", rest) if op == "BRA" else None
+        if target and int(target.group(1), 16) < addr:
+            lo = int(target.group(1), 16)
+            body = [o for a, o, _ in items if lo <= a <= addr]
+            if count(body) > count(best):
+                best = body
+    return best
+
+
+def _is(op: str, marker: str) -> bool:
+    return op == marker or op.startswith(marker + ".")
+
+
+def _per(body: list, n: float):
+    """(instructions, {opcode: count}) of ``body`` over n units."""
+    hist = collections.Counter(op.split(".")[0] for op in body)
+    return len(body) / n, {op: c / n for op, c in hist.most_common()}
+
+
+def sass_per_tap(library: str) -> dict:
+    """{kernel form: (instructions a tap, {opcode: count a tap})} of the
+    bilateral kernel in ``library``: in each form the loop with the most
+    texel loads (``LDS.128`` in the float form, ``LDS.64`` in the table
+    form) is the unrolled interior row, one texel load a tap."""
     out = {}
-    for form, items in forms.items():
-        texel = "LDS.128" if form == "float" else "LDS.64"
-        best = []
-        for addr, op, rest in items:
-            target = re.search(r"0x([0-9a-f]+)", rest) if op == "BRA" \
-                else None
-            if target and int(target.group(1), 16) < addr:
-                lo = int(target.group(1), 16)
-                body = [o for a, o, _ in items if lo <= a <= addr]
-                if body.count(texel) > best.count(texel):
-                    best = body
-        taps = best.count(texel)
-        hist = collections.Counter(op.split(".")[0] for op in best)
-        out[form] = (len(best) / taps,
-                     {op: n / taps for op, n in hist.most_common()})
+    for name, items in _sass_functions(library).items():
+        m = re.search(r"bilateral_refine_kernelI(6float4|5uint2)E", name)
+        if m:
+            texel = "LDS.128" if m.group(1) == "6float4" else "LDS.64"
+            body = _densest_loop(items, texel)
+            out["float" if texel == "LDS.128" else "table"] = _per(
+                body, sum(_is(o, texel) for o in body))
+    return out
+
+
+def sass_per_entry(library: str) -> dict:
+    """{(fields held, 64-bit indices): (instructions a (field, source,
+    pixel), {opcode: count an entry})} of the geometric-cost kernel's
+    instantiations in ``library``. The loop with the most stores is the
+    source loop: its main path ends at the chunk's last cost store, and
+    the IEEE recomputation of the entries the fast path does not keep
+    (as many stores again, rarely taken) follows it."""
+    out = {}
+    for name, items in _sass_functions(library).items():
+        m = re.search(r"geom_cost_kernelILi(\d+)ELb([01])E", name)
+        if m:
+            kc = int(m.group(1))
+            body = _densest_loop(items, "STG")
+            stores = [i for i, o in enumerate(body) if _is(o, "STG")]
+            out[kc, m.group(2) == "1"] = _per(body[:stores[kc - 1] + 1], kc)
     return out
 
 
@@ -669,12 +713,13 @@ def run_bilateral(bench: Bench, reps: int = 10, check: bool = False,
     return res
 
 
-GEOM_CASES = ("gt", "stack", "trial")
+GEOM_CASES = ("gt", "stack", "trials", "trial")
 
 
 def geom_inputs(bench: Bench, case: str, key_seed: int = 13):
     """``geom_consistency_cost``'s arguments for one case at the geom band
     shape (the solve's geom band from row 0, its colour-0 packed pixels)."""
+    from mpmvs_torch import geometry as geo
     from mpmvs_torch.ops import random as pmrand
     from mpmvs_torch.ops import threefry as tf
     from mpmvs_torch.ops.packing import pack_quincunx, packed_coords
@@ -691,6 +736,9 @@ def geom_inputs(bench: Bench, case: str, key_seed: int = 13):
     x, y = packed_coords(0, br, W // 2, 0, device=dev)
     gt = torch.movedim(pack_quincunx(torch.movedim(
         bench.gt_plane[:br], -1, 0), 0), 0, -1)
+    rand = lambda: pmrand.random_plane_field(
+        tf.PRNGKey(key_seed, device=dev), data.K_ref, x, y, data.depth_min,
+        data.depth_max)
     if case == "gt":
         plane = gt.contiguous()
     elif case == "stack":
@@ -698,21 +746,31 @@ def geom_inputs(bench: Bench, case: str, key_seed: int = 13):
         plane = torch.cat([gt[None, ..., :3].expand(9, -1, -1, -1),
                            gt[None, ..., 3:] * scale[:, None, None, None]],
                           -1)
+    elif case == "trials":
+        # the band step's trial depths and normals: random, current,
+        # random, current, the current depth scaled
+        r = rand()
+        d_gt, d_r = (geo.depth_from_plane(data.K_ref, p, x, y)
+                     for p in (gt, r))
+        n_gt, n_r = gt[..., :3], r[..., :3]
+        plane = torch.stack([geo.plane_from_depth_normal(
+            data.K_ref, x, y, d, nrm) for d, nrm in (
+                (d_r, n_gt), (d_gt, n_r), (d_r, n_r), (d_gt, n_gt),
+                (d_gt * 1.002, n_gt))])
     else:
-        plane = pmrand.random_plane_field(tf.PRNGKey(key_seed, device=dev),
-                                          data.K_ref, x, y, data.depth_min,
-                                          data.depth_max)
+        plane = rand()
     return (bench.src_depths, data.src_widths, data.src_heights, data.K_ref,
             data.R_ref, data.C_ref, data.t_ref, data.K_src, data.R_src,
             data.t_src, data.C_src, plane, x, y, params.geom_cost_max)
 
 
-def run_geom(bench: Bench, case: str, reps: int = 20,
-             check: bool = False) -> dict:
+def run_geom(bench: Bench, case: str, reps: int = 20, check: bool = False,
+             floors: dict = None) -> dict:
     """Time the geometric-cost kernel on one case beside its bound and the
-    plain twin (one result dict)."""
+    plain twin (one result dict); ``floors`` (from ``geom_floors``) adds
+    the instantiation's instructions an entry and issue floor."""
     from mpmvs_torch.ops import geom_cost, geom_cost_cuda
-    from mpmvs_torch.utils.roofline import geom_bound
+    from mpmvs_torch.utils.roofline import geom_bound, geom_issue_floor_ms
     from mpmvs_torch.utils.trace import cuda_time_ms
 
     args = geom_inputs(bench, case)
@@ -720,20 +778,40 @@ def run_geom(bench: Bench, case: str, reps: int = 20,
     S, Hs, Ws = src.shape
     K = plane.numel() // (4 * x.numel())
     R, C = x.shape
+    kernel = lambda: geom_cost_cuda.geom_consistency_cost_kernel(
+        *args, cams=bench.data.geom_cams)
     b_ms, b_by = geom_bound(K, S, R * C, src.numel() * 4)
-    ms = cuda_time_ms(
-        lambda: geom_cost_cuda.geom_consistency_cost_kernel(*args), reps)
+    ms = cuda_time_ms(kernel, reps)
     plain_ms = cuda_time_ms(
         lambda: geom_cost.geom_consistency_cost_plain(*args), reps=1)
+    wide = geom_cost_cuda.wide_index(S, Hs, Ws)
     r = dict(kernel="geom", case=case, k=K,
              shape=f"{C}x{R} px, {S} src {Ws}x{Hs}", ms=ms,
              plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-             share_of_bound=b_ms / ms)
+             share_of_bound=b_ms / ms, index_bits=64 if wide else 32,
+             **geom_cost_cuda.kernel_attributes(K, wide))
+    if floors is not None:
+        per_entry, hist = floors["per_entry"][r["fields_held"], wide]
+        floor = geom_issue_floor_ms(K, S, R * C, per_entry,
+                                    floors["max_sm_clock_mhz"])
+        r.update(instructions_per_entry=per_entry, opcodes_per_entry=hist,
+                 max_sm_clock_mhz=floors["max_sm_clock_mhz"],
+                 issue_floor_ms=floor, share_of_issue_floor=floor / ms)
     if check:
         r["entries_differing"] = _same_count(
-            geom_cost_cuda.geom_consistency_cost_kernel(*args),
-            geom_cost.geom_consistency_cost_plain(*args))
+            kernel(), geom_cost.geom_consistency_cost_plain(*args))
     return r
+
+
+def geom_floors() -> dict:
+    """The geometric-cost kernel's instructions an entry by instantiation
+    (``sass_per_entry`` of the built library) and the card's maximum SM
+    clock, for ``run_geom``."""
+    from mpmvs_torch.ops import geom_cost_cuda, nvcc
+
+    return {"per_entry": sass_per_entry(nvcc.build(
+                geom_cost_cuda.SOURCE, geom_cost_cuda.NVCC_FLAGS)),
+            "max_sm_clock_mhz": max_sm_clock_mhz()}
 
 
 def main(argv=None) -> int:
@@ -762,7 +840,8 @@ def main(argv=None) -> int:
     ap.add_argument("--sorted-cases", default=",".join(SORTED_CASES),
                     help=f"comma-separated, of {list(SORTED_CASES)}")
     ap.add_argument("--sass", action="store_true",
-                    help="count the bilateral forms' instructions a tap")
+                    help="count the bilateral forms' instructions a tap, "
+                    "the geometric-cost kernel's an entry")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -783,8 +862,9 @@ def main(argv=None) -> int:
                        for r in run_sorted(bench, case, min(args.reps, 3),
                                            args.check)]
         elif args.kernel == "geom":
-            results = [run_geom(bench, case, 4 * args.reps, args.check)
-                       for case in GEOM_CASES]
+            floors = geom_floors() if args.sass else None
+            results = [run_geom(bench, case, 4 * args.reps, args.check,
+                                floors) for case in GEOM_CASES]
         else:
             results = run_bilateral(bench, args.reps, args.check, args.sass)
         for res in results:

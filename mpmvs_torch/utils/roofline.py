@@ -75,6 +75,18 @@ def geom_bound(K: int, S: int, N: int, depth_bytes: int):
     return bound(flops, nbytes)
 
 
+def geom_issue_floor_ms(K: int, S: int, N: int,
+                        instructions_per_entry: float, clock_mhz: float,
+                        sms: int = 132):
+    """The least time the card's schedulers take to issue the
+    geometric-cost kernel's source loop over K fields, S sources and N
+    pixels, ``instructions_per_entry`` an entry (field, source, pixel), as
+    counted in its SASS (``tools.kernel_bench --kernel geom --sass``).
+    With -fmad=false and IEEE division and square root, these exceed the
+    operations that ``geom_bound`` counts: the kernel is issue-bound."""
+    return issue_floor_ms(instructions_per_entry, K * S * N, clock_mhz, sms)
+
+
 def table_bound(n: int):
     """The bilateral table builder: n entries of sqrt, multiply and exp,
     written once."""

@@ -166,6 +166,32 @@ def edge_cases(scene, data):
     return [(c, p, x, y, cap) for cap in (3.0, 1e6)]
 
 
+def axis_case(scene, data):
+    """Cameras at the origin looking down z with principal points at 0, a
+    fronto-parallel plane, pixels from (0, 0): on the image axes the
+    projections' and back-projections' dividends are exactly 0 and at the
+    origin the squared error too, so the kernel's fast paths are out of
+    their range there and the IEEE operators give the entry (finite costs
+    below the cap; every fifth column of the third source's depths 0)."""
+    dev = data.K_ref.device
+    f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    K = lambda f: [[f, 0.0, 0.0], [0.0, f, 0.0], [0.0, 0.0, 1.0]]
+    rng = np.random.default_rng(8)
+    depths = rng.uniform(1.9, 2.1, (3, 20, 24))
+    depths[2, :, ::5] = 0.0  # capped entries
+    c = {"src_depths": f32(depths),
+         "src_widths": f32([24, 24, 20]), "src_heights": f32([20, 18, 20]),
+         "K_ref": f32(K(100.0)), "R_ref": f32(np.eye(3)),
+         "C_ref": f32(np.zeros(3)), "t_ref": f32(np.zeros(3)),
+         "K_src": f32([K(100.0), K(80.0), K(120.0)]),
+         "R_src": f32(np.stack([np.eye(3)] * 3)),
+         "t_src": f32(np.zeros((3, 3))), "C_src": f32(np.zeros((3, 3)))}
+    y, x = np.mgrid[0:12, 0:16].astype(np.float32)
+    planes = f32([[[[0.0, 0.0, 1.0, -d]] * 16] * 12 for d in (2.0, 1.9,
+                                                              2.05)])
+    return [(c, planes, f32(x), f32(y), 3.0)]
+
+
 def same(got, want) -> bool:
     """Equal shapes, equal entry for entry, NaN for NaN."""
     return got.shape == want.shape and bool(

@@ -134,7 +134,7 @@ def test_geom_checkerboard_step_matches(setup, phase):
     jout = jprop.checkerboard_step(state, data, PARAMS, 0, jnp.int32(1),
                                    phase, k_step, True, False, BAND_ROWS)
     tdata = interop.solve_data_from_numpy(
-        {f: getattr(data, f) for f in tprop.SolveData._fields})
+        {f: getattr(data, f, None) for f in tprop.SolveData._fields})
     tstate = interop.state_from_numpy(*(np.asarray(a) for a in state))
     tout = tprop.checkerboard_step(tstate, tdata, TPARAMS, 0, 1, phase,
                                    interop.key_from_numpy(k_step), geom=True,

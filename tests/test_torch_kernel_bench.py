@@ -2,8 +2,9 @@
 the JAX tool's construction (tools/kernel_bench.py:86-108, through
 mpmvs_tpu.ops.random) from the same key, its capture of a real band
 step's NCC calls, the sorted-path and bilateral cases it builds, its
-count of instructions a tap from a SASS listing, the geometric-cost
-cases it builds, and its refusal to run without a CUDA device, for every
+count of instructions a tap (the bilateral kernel) and an entry (the
+geometric-cost kernel) from a SASS listing, the geometric-cost cases it
+builds, and its refusal to run without a CUDA device, for every
 kernel.
 
 Tolerance: as test_torch_random.py's derived fields (trig and
@@ -188,6 +189,45 @@ def test_sass_count_takes_the_unrolled_row(monkeypatch):
                                    "BRA": 1.0})}
 
 
+GEOM_SASS = """
+	Function : _Z16geom_cost_kernelILi2ELb0EEvPK6float4PKfS4_S4_S4_iiiiifPf
+        /*0000*/                   LDG.E.128.CONSTANT R4, [R2.64] ;  /* 0x00 */
+        /*0010*/                   LDS.64 R8, [R3] ;                /* 0x00 */
+        /*0020*/                   FMUL R10, R8, R4 ;               /* 0x00 */
+        /*0030*/                   LDG.E.CONSTANT R11, [R6.64] ;    /* 0x00 */
+        /*0040*/                   STG.E [R12.64], R11 ;            /* 0x00 */
+        /*0050*/                   FADD R13, R10, R11 ;             /* 0x00 */
+        /*0060*/                   STG.E [R14.64], R13 ;            /* 0x00 */
+        /*0070*/               @P1 BRA 0xb0 ;                       /* 0x00 */
+        /*0080*/                   CALL.REL.NOINC 0x100 ;           /* 0x00 */
+        /*0090*/                   STG.E [R12.64], R11 ;            /* 0x00 */
+        /*00a0*/                   STG.E [R14.64], R13 ;            /* 0x00 */
+        /*00b0*/               @P0 BRA 0x10 ;                       /* 0x00 */
+        /*00c0*/               @P2 BRA 0x0 ;                        /* 0x00 */
+        /*00d0*/                   EXIT ;                           /* 0x00 */
+        /*0100*/                   MUFU.RCP R5, R4 ;                /* 0x00 */
+	Function : _Z16geom_cost_kernelILi1ELb1EEvPK6float4PKfS4_S4_S4_iiiiifPf
+        /*0000*/                   FADD R5, R4, R4 ;                /* 0x00 */
+        /*0010*/                   STG.E [R12.64], R5 ;             /* 0x00 */
+        /*0020*/               @P1 BRA 0x40 ;                       /* 0x00 */
+        /*0030*/                   STG.E [R12.64], R6 ;             /* 0x00 */
+        /*0040*/               @P0 BRA 0x0 ;                        /* 0x00 */
+"""
+
+
+def test_sass_count_takes_the_source_loop(monkeypatch):
+    """Instructions an entry come from each geometric-cost instantiation's
+    innermost loop with the most stores (the source loop, not the chunk
+    loop around it), up to its chunk's last cost store: the recomputation
+    after it and the called slow path are left out."""
+    monkeypatch.setattr(kernel_bench.subprocess, "run",
+                        lambda *a, **k: type("R", (), {"stdout": GEOM_SASS}))
+    got = kernel_bench.sass_per_entry("lib.so")
+    assert got == {(2, False): (3.0, {"STG": 1.0, "LDS": 0.5, "FMUL": 0.5,
+                                      "LDG": 0.5, "FADD": 0.5}),
+                   (1, True): (2.0, {"FADD": 1.0, "STG": 1.0})}
+
+
 @pytest.mark.parametrize("case", kernel_bench.GEOM_CASES)
 def test_geom_cases_build(case):
     """Each geometric-cost case holds K fields at the packed pixels of the
@@ -197,7 +237,7 @@ def test_geom_cases_build(case):
     bench = kernel_bench.setup(48, 64, 4, 0, device="cpu")
     args = kernel_bench.geom_inputs(bench, case)
     plane, x = args[11], args[12]
-    K = {"gt": 1, "stack": 9, "trial": 1}[case]
+    K = {"gt": 1, "stack": 9, "trials": 5, "trial": 1}[case]
     assert tuple(x.shape) == (48, 32)
     assert tuple(plane.shape) == ((K,) if K > 1 else ()) + (48, 32, 4)
     depth = geo.depth_from_plane(bench.data.K_ref, plane, x, args[13])
@@ -206,8 +246,17 @@ def test_geom_cases_build(case):
                               rtol=1e-5)
     costs = geom_cost.geom_consistency_cost(*args)
     assert costs.shape == (3,) + tuple(plane.shape[:-1])
-    real = float((costs < bench.params.geom_cost_max).float().mean())
-    assert (real > 0.5) if case != "trial" else (real < 0.5)
+    real = (costs < bench.params.geom_cost_max).float()
+    if case == "trials":
+        # the random depths (trials 0 and 2) mostly miss, the rest hold
+        assert torch.allclose(depth[4] / depth[1], torch.tensor(1.002),
+                              rtol=1e-4)
+        per_field = real.mean((0, 2, 3))
+        assert bool((per_field[[0, 2]] < 0.5).all())
+        assert bool((per_field[[1, 3, 4]] > 0.5).all())
+    else:
+        assert (float(real.mean()) > 0.5) if case != "trial" else (
+            float(real.mean()) < 0.5)
 
 
 @pytest.mark.parametrize("kernel", ["sorted", "bilateral", "geom"])

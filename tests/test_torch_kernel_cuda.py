@@ -763,16 +763,26 @@ def _geom_equal(cases):
 
 
 @pytest.mark.parametrize("S", [1, 10, 20])
-@pytest.mark.parametrize("K", [1, 5, 9])
+@pytest.mark.parametrize("K", [1, 4, 5, 9, 13])
 def test_geom_kernel_equals_plain(geom_scene, K, S):
     _geom_equal(geom_cases.stacked_case(*geom_scene, K, S))
 
 
-@pytest.mark.parametrize("case", ["layout", "degenerate", "edge"])
+@pytest.mark.parametrize("K", [1, 3, 5])
+def test_geom_kernel_does_not_spill(dev, K):
+    """Each instantiation (1, 3 and 5 fields held, both index widths)
+    keeps its fields and cameras in registers: no local memory."""
+    for wide in (False, True):
+        attrs = geom_cost_cuda.kernel_attributes(K, wide)
+        assert attrs["local_bytes"] == 0 and 0 < attrs["registers"] <= 255
+
+
+@pytest.mark.parametrize("case", ["layout", "degenerate", "edge", "axis"])
 def test_geom_kernel_equals_plain_on_hard_inputs(geom_scene, case):
     cases = {"layout": geom_cases.layout_cases,
              "degenerate": geom_cases.degenerate_case,
-             "edge": geom_cases.edge_cases}[case](*geom_scene)
+             "edge": geom_cases.edge_cases,
+             "axis": geom_cases.axis_case}[case](*geom_scene)
     _geom_equal(cases)
 
 
@@ -807,6 +817,6 @@ def test_geom_solve_on_card_goes_through_the_kernel(dev):
     br = solve_band_rows(params, 64, 80, 2, True)
     n_bands = _band_geometry(64, 80, 2, 0, True, br)[2]
     assert (geom_cost_cuda.COUNTS.kernel, geom_cost_cuda.COUNTS.plain) == (
-        14 * params.geom_iterations * 2 * n_bands, 0)
+        2 * params.geom_iterations * 2 * n_bands, 0)
     gt = scene.gt_depth[0]
     assert np.median(np.abs(n(geom.depth) - gt) / gt) < 0.01

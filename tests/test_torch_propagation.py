@@ -44,7 +44,7 @@ def setup():
                            BAND_ROWS)
     tdata = tprop.SolveData(**{
         f: t(getattr(data, f)) for f in tprop.SolveData._fields
-        if getattr(data, f) is not None})
+        if getattr(data, f, None) is not None})
     tstate = interop.state_from_numpy(*(np.asarray(a) for a in state))
     return data, state, tdata, tstate, k_step
 
