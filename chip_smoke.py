@@ -10,8 +10,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    builds of ``mpmvs_torch/csrc/ncc_eval.cu``, ``ncc_samples.cu``,
    ``bilateral_refine.cu``, ``geom_cost.cu`` and ``jpeg_codec.cu`` (the
    JPEG decoder's IDCT and colour kernels, the encoder's colour and
-   forward-DCT kernels, the host's entropy coding and PNG unfilter),
-   started together, with their time and register reports.
+   forward-DCT kernels, the raster kernel of PNG and TIFF reads, the
+   host's entropy coding, PNG unfilter and TIFF decoder), started together,
+   with their time and register reports.
 1b. The image fixtures on the card against what cv2 gives: the JPEGs of
    ``tests/data/jpeg`` decoded against ``decoded.npz`` (entries that differ
    and the largest difference, grey and BGR) with the IDCT and colour
@@ -21,9 +22,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    colour kernel against its plain version; the rest of ``refused/``
    (12-bit, arithmetic, lossless, CMYK) must raise; the encoder's fixtures
    (``encode/``, colour and grey, 1x1 to 120x176, q75-100) must encode to
-   cv2.imencode's stored bytes; the PNGs of ``tests/data/png`` read in
-   colour against cv2's arrays, those under ``png/refused`` raising. No
-   entry or byte may differ.
+   cv2.imencode's stored bytes; the PNGs of ``tests/data/png`` (every
+   colour type and bit depth, Adam7, tRNS, gAMA) and the TIFFs of
+   ``tests/data/tiff`` read in grey and colour against cv2's arrays, with
+   the raster kernel against its plain twin on each; those under
+   ``png/refused`` and ``tiff/refused`` raising. No entry or byte may
+   differ.
 2. NCC kernel vs plain: ``ncc_eval_multi`` on the card against its plain
    PyTorch version at K in {1, 5, 9}, S = 10, scales 0 and 2, on
    ground-truth and random planes at the default footprint cap, through
@@ -100,7 +104,8 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 8. The user's path from files (after phase 6): a 4-view 3200x2130 plane
    scene with the sky band and tinted colours, written as a COLMAP text
-   model, three ``.JPG`` images by the card's encoder and one ``.png``;
+   model, a ``.JPG`` image by the card's encoder, an 8-bit RGB ``.tif``
+   (LZW, predictor 2), a 16-bit RGB ``.png`` and an 8-bit ``.png``;
    ``mpmvs_torch.preprocess.convert.main`` (on the card), then
    ``mpmvs_torch.cli.main(["--input", ws, "--sky-seg", "1", "--config",
    yaml])``: the default schedule, every view estimated with the other 3
@@ -109,12 +114,15 @@ Phases, in order; any failure raises and the script exits non-zero:
    scene's, median |d-gt|/gt < 1% on ground rows in every view's
    depths.dmb, a non-empty PLY, and the launches of the NCC kernel, the
    bilateral table form and the codec's kernels against the schedule, and
-   that the ``.png`` became the encoding of its pixels; times the decode
-   and encode per image; holds the encoder's colour and DCT kernels to
-   their plain versions at 3200x2130 (no entry may differ, and the bytes
-   equal) and times them beside their bounds, with the copy to the host,
-   the entropy coding and the whole encode; times the PNG read and the
-   host unfilter at that size.
+   that the TIFF and PNG sources became the encoding of their pixels
+   (16-bit samples narrowed); times the decode and encode per image; holds
+   the encoder's colour and DCT kernels to their plain versions at
+   3200x2130 (no entry may differ, and the bytes equal) and times them
+   beside their bounds, with the copy to the host, the entropy coding and
+   the whole encode; times the PNG read and the host unfilter at that
+   size; splits the TIFF's and the 16-bit PNG's reads into host parse and
+   decompression, copy to the card and the raster kernel (beside its bound
+   and its plain twin, which it must equal).
 9. Multi-GPU (after phase 8, on its converted workspace): (a) the NCC
    kernel (tile and view-major launches, K=9) and the fused sorted path
    with one zero-extent source (the sharded pipeline's padding: all-zero
@@ -191,7 +199,10 @@ NCC_SORTED, NCC_AUTO = 3 * 3 * 2 * 2, 1 + 3 * 3 * 2 * 2
 # Phase 8: 4 views, each the others' source (S = 3), one band in every
 # mode; colours tinted so the chroma is not flat
 FILES_VIEWS = 4
-FILES_PNG_VIEW = 3   # its source is a .png; the others' are .JPG
+# each view's source: a .JPG (the card's encoder), an 8-bit RGB TIFF (LZW,
+# predictor 2, strips of 16 rows), a 16-bit RGB PNG and an 8-bit RGB PNG
+FILES_SOURCES = ("JPG", "tif", "png16", "png")
+TIFF_ROWS_PER_STRIP = 16
 FILES_TINT = (0.85, 1.0, 1.1)
 CAM_TOL = 1e-5   # converted cams vs the scene's, relative
 FILES_PREVIEWS = ["costs.jpg", "depths.jpg", "normals.jpg", "skymask.jpg",
@@ -1202,17 +1213,18 @@ def phase_fixtures():
     RGB components) and those under refused/ that cv2_arrays.npz holds,
     decoded against it, the rest of refused/ raising; the encoder's
     fixtures (encode/) encoded to cv2.imencode's stored bytes; the PNGs
-    (tests/data/png) read in colour against their cv2 arrays, those under
-    png/refused raising. No entry or byte may differ. Returns
-    {fixture: {"gray"/"bgr": (entries differing, of, largest |diff|)}}
-    and the encoder's and PNG reads' counts."""
+    (tests/data/png) and TIFFs (tests/data/tiff) read in grey and colour
+    against their cv2 arrays, the raster kernel against its plain twin on
+    each, those under png/refused and tiff/refused raising. No entry or
+    byte may differ. Returns {fixture: {"gray"/"bgr": (entries differing,
+    of, largest |diff|)}} and the encoder's, refusals' and raster kernel's
+    counts."""
     import numpy as np
     import torch
     from mpmvs_torch.io import images
 
     dev = torch.device("cuda", 0)
     folder = os.path.join(HERE, "tests", "data", "jpeg")
-    png_dir = os.path.join(HERE, "tests", "data", "png")
     want = np.load(os.path.join(folder, "decoded.npz"))
     extra = np.load(os.path.join(folder, "cv2_arrays.npz"))
 
@@ -1303,29 +1315,57 @@ def phase_fixtures():
     log(f"  encoder: {len(names) - len(enc_bad)} of {len(names)} fixtures "
         f"(colour and grey, 1x1 to 120x176, q75-100) encode to cv2's bytes; "
         f"differing {enc_bad}")
-    # PNG sources in colour (the converter's read)
-    png_want = np.load(os.path.join(png_dir, "cv2_arrays.npz"))
-    for fname in sorted(f for f in os.listdir(png_dir) if f.endswith(".png")):
-        name = f"png/{fname[:-4]}"
-        bgr = images.decode_colour(read(os.path.join(png_dir, fname)), dev)
-        out[name] = {"bgr": against(bgr, png_want[f"bgr_{fname[:-4]}"])}
-        log(f"  {name} {tuple(bgr.shape)}: BGR (entries differing, of, "
-            f"largest) {out[name]['bgr']}")
-    for fname in sorted(os.listdir(os.path.join(png_dir, "refused"))):
-        try:
-            images.decode_colour(read(os.path.join(png_dir, "refused",
-                                                   fname)), dev)
-        except ValueError as e:
-            refused.append(f"png/refused/{fname}")
-            log(f"  png/refused/{fname}: raises ({e})")
-            continue
-        raise AssertionError(f"png/refused/{fname} was read")
+    # PNG and TIFF sources, grey and colour, the raster kernel against its
+    # plain twin on each
+    data_dir = os.path.dirname(folder)
+    raster_equal = 0
+    for sub, ext in (("png", ".png"), ("tiff", ".tif")):
+        sub_dir = os.path.join(data_dir, sub)
+        arrays = np.load(os.path.join(sub_dir, "cv2_arrays.npz"))
+        for fname in sorted(f for f in os.listdir(sub_dir)
+                            if f.endswith(ext)):
+            name, stem = f"{sub}/{fname[:-4]}", fname[:-4]
+            data = read(os.path.join(sub_dir, fname))
+            bgr = images.decode_colour(data, dev)
+            out[name] = {"bgr": against(bgr, arrays[f"bgr_{stem}"])}
+            gray, bgr2 = images.decode(data, dev)
+            out[name]["gray"] = against(gray, arrays[f"gray_{stem}"])
+            out[name]["bgr_of_decode"] = against(bgr2, arrays[f"bgr_{stem}"])
+            r = images.raster_rows(data, images._library())
+            samples = torch.from_numpy(r.samples).to(dev)
+            tables = torch.from_numpy(r.tables).to(dev)
+            for k, p in zip(images.raster_to_bgr_kernel(samples, r.form,
+                                                        tables),
+                            images.raster_to_bgr_plain(samples, r.form,
+                                                       tables)):
+                if not torch.equal(k, p):
+                    raise AssertionError(f"{name}: raster kernel vs plain "
+                                         f"differ on {int((k != p).sum())} "
+                                         f"entries")
+            raster_equal += 1
+            log(f"  {name} {tuple(bgr.shape)}: (entries differing, of, "
+                f"largest) {out[name]}; raster kernel equals plain")
+    for sub in ("png", "tiff"):
+        for fname in sorted(os.listdir(os.path.join(data_dir, sub,
+                                                    "refused"))):
+            path = os.path.join(data_dir, sub, "refused", fname)
+            causes = []
+            for fn in (images.decode_colour, images.decode):
+                try:
+                    fn(read(path), dev)
+                except ValueError as e:
+                    causes.append(str(e))
+                    continue
+                raise AssertionError(f"{sub}/refused/{fname} was read")
+            refused.append(f"{sub}/refused/{fname}")
+            log(f"  {sub}/refused/{fname}: raises ({causes[0]})")
     bad = {name: r for name, r in out.items()
            if any(v[0] for v in r.values())}
     if bad or enc_bad:
         raise AssertionError(f"fixtures differ from cv2: decode {bad}, "
                              f"encode {enc_bad}")
-    return out, {"encoded_equal": len(names), "refused": refused}
+    return out, {"encoded_equal": len(names), "refused": refused,
+                 "raster_kernel_equal_plain": raster_equal}
 
 
 def write_colmap_model(scene, dense: str, names, per_view: int = 400,
@@ -1418,21 +1458,37 @@ def phase_files(params, root: str):
         f"{time.perf_counter() - t0:.1f} s")
     out = {}
     dense, ws = os.path.join(root, "dense"), os.path.join(root, "ws")
-    names = [f"IMG_{v:04d}.{'png' if v == FILES_PNG_VIEW else 'JPG'}"
-             for v in range(V)]
+    ext = {"JPG": "JPG", "tif": "tif", "png16": "png", "png": "png"}
+    names = [f"IMG_{v:04d}.{ext[FILES_SOURCES[v]]}" for v in range(V)]
     n_pts = write_colmap_model(scene, dense, names)
     os.makedirs(os.path.join(dense, "images"))
     enc_ms = []
+    t1 = time.perf_counter()
+    tiff_file = _tiff_file()
     for v in range(V):
         path = os.path.join(dense, "images", names[v])
-        if v == FILES_PNG_VIEW:
-            images.write_png(path, bgr[v])
+        kind = FILES_SOURCES[v]
+        if kind == "JPG":
+            img = torch.as_tensor(bgr[v], device=dev)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            images.write_jpeg(path, img, dev)
+            enc_ms.append((time.perf_counter() - t2) * 1e3)
             continue
-        img = torch.as_tensor(bgr[v], device=dev)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        images.write_jpeg(path, img, dev)
-        enc_ms.append((time.perf_counter() - t1) * 1e3)
+        with open(path, "wb") as f:
+            if kind == "png":
+                f.write(images.encode_png(bgr[v]))
+            elif kind == "png16":  # the low byte is noise v >> 8 drops
+                low = np.random.default_rng(v).integers(
+                    0, 256, bgr[v].shape, dtype=np.uint16)
+                f.write(png16_bytes(bgr[v][..., ::-1].astype(np.uint16)
+                                    * 256 + low))
+            else:
+                f.write(tiff_file.tiff_bytes(
+                    np.ascontiguousarray(bgr[v][..., ::-1]), compression=5,
+                    predictor=2, rows_per_strip=TIFF_ROWS_PER_STRIP))
+    log(f"  sources written ({', '.join(names)}) in "
+        f"{time.perf_counter() - t1:.1f} s")
     config = os.path.join(root, "config.yaml")
     with open(config, "w") as f:
         f.write("%YAML:1.0\n---\n# the reference's defaults\n"
@@ -1448,7 +1504,7 @@ def phase_files(params, root: str):
     bilateral_cuda.TABLE_COUNTS.reset()
     bilateral_cuda.colour_table.cache_clear()
     for c in (images.COUNTS, images.IDCT_COUNTS, images.YCC_COUNTS,
-              images.FDCT_COUNTS, images.CODEC_COUNTS):
+              images.FDCT_COUNTS, images.CODEC_COUNTS, images.RASTER_COUNTS):
         c.reset()
     t1 = time.perf_counter()
     if convert.main(["--dense_folder", dense, "--save_folder", ws]) != 0:
@@ -1482,6 +1538,7 @@ def phase_files(params, root: str):
     enc_launches = (images.YCC_COUNTS.kernel, images.FDCT_COUNTS.kernel,
                     images.YCC_COUNTS.plain + images.FDCT_COUNTS.plain)
     codec = dict(images.CODEC_COUNTS.forms)
+    raster = (images.RASTER_COUNTS.kernel, images.RASTER_COUNTS.plain)
     log(f"  convert {convert_s:.2f} s ({n_pts} sparse points), cli "
         f"{cli_s:.1f} s; {pipe.timer.summary()}")
 
@@ -1523,17 +1580,21 @@ def phase_files(params, root: str):
     log(f"  median |d-gt|/gt on ground rows {rel}; PLY {len(pts)} "
         f"points; sky fractions {sky}; previews {previews}")
 
-    # the PNG source converted on the card: its pixels are the scene's
-    # colours (PNG is lossless), so the workspace holds their encoding
-    with open(os.path.join(ws, "images", f"{FILES_PNG_VIEW:08d}.jpg"),
-              "rb") as f:
-        png_converted = f.read() == images.encode_jpeg(
-            torch.as_tensor(bgr[FILES_PNG_VIEW], device=dev), dev, 95)
-    log(f"  {names[FILES_PNG_VIEW]} converted on the card to the encoding "
-        f"of its pixels: {png_converted}")
-    if not png_converted:
-        raise AssertionError("the PNG source's workspace image is not the "
-                             "encoding of its pixels")
+    # the TIFF and PNG sources converted on the card: their pixels are the
+    # scene's colours (lossless; the 16-bit PNG's high bytes), so the
+    # workspace holds their encoding
+    converted = {}
+    for v in range(V):
+        if FILES_SOURCES[v] == "JPG":
+            continue
+        with open(os.path.join(ws, "images", f"{v:08d}.jpg"), "rb") as f:
+            converted[names[v]] = f.read() == images.encode_jpeg(
+                torch.as_tensor(bgr[v], device=dev), dev, 95)
+    log(f"  TIFF and PNG sources converted on the card to the encoding of "
+        f"their pixels: {converted}")
+    if not all(converted.values()):
+        raise AssertionError(f"a TIFF or PNG source's workspace image is "
+                             f"not the encoding of its pixels: {converted}")
 
     # decode and encode per image, host clock around synchronised calls
     dec_ms = []
@@ -1576,35 +1637,46 @@ def phase_files(params, root: str):
     idct_bound_ms = sum(2 * c[0].numel() + c[2] * c[3]
                         for c in comps) / 3.35e12 * 1e3
     enc = phase_encode_parts(bgr[0], dev)
-    png = phase_png_parts(os.path.join(dense, "images",
-                                       names[FILES_PNG_VIEW]), dev)
+    png = phase_png_parts(os.path.join(
+        dense, "images", names[FILES_SOURCES.index("png")]), dev)
+    raster_parts = phase_raster_parts({
+        k: os.path.join(dense, "images", names[FILES_SOURCES.index(k)])
+        for k in ("tif", "png16")}, dev)
     expected = V * (NCC_PHOTOMETRIC + 2 * NCC_GEOM) + n_prior * NCC_PRIOR
     bad = {v: e for v, e in rel.items() if not e < 0.01}
     log(f"  launches: NCC {ncc[0]} (schedule implies {expected}), plain "
         f"{ncc[1]}; bilateral {bil[0]} by form {bil[2]}, plain {bil[1]}, "
         f"table builds {tables}; IDCT kernel {idct_launches}, colour kernel "
         f"{ycc[0]}, plain {ycc[1]}; encoder colour and DCT kernels "
-        f"{enc_launches[:2]}, plain {enc_launches[2]}; codec calls {codec}")
+        f"{enc_launches[:2]}, plain {enc_launches[2]}; raster kernel "
+        f"{raster[0]}, plain {raster[1]}; codec calls {codec}")
     if bad or len(pts) == 0 or previews != FILES_PREVIEWS:
         raise AssertionError(f"files path: median rel error >= 1% {bad}, "
                              f"PLY {len(pts)} points, previews {previews}")
-    # the converter reads the 3 .JPGs and the .png (the PNG path, no
-    # colour kernel) and encodes all 4; the pipeline reads the 4 .jpgs;
-    # every encode (the previews' too) is one colour and three DCT launches
-    # but a grey preview's one
+    # the converter reads the .JPG (the JPEG path), the .tif and the two
+    # .pngs (the raster kernel, no colour kernel) and encodes all 4; the
+    # pipeline reads the 4 .jpgs; every encode (the previews' too) is one
+    # colour and three DCT launches but a grey preview's one
+    n_jpg = FILES_SOURCES.count("JPG")
+    n_raster = {k: sum(FILES_SOURCES[v].startswith(k) for v in range(V))
+                for k in ("png", "tif")}
     if ncc != (expected, 0) or bil[:2] != (V, 0) or \
-            bil[2] != {"table": V} or tables != 1 or ycc[0] != 2 * V - 1 \
+            bil[2] != {"table": V} or tables != 1 or ycc[0] != n_jpg + V \
             or ycc[1] != 0 or idct_launches != 3 * ycc[0] or \
-            codec.get("png") != 1 or codec.get("decode") != 2 * V - 1 or \
+            codec.get("png") != n_raster["png"] or \
+            codec.get("tiff") != n_raster["tif"] or \
+            raster != (V - n_jpg, 0) or codec.get("decode") != n_jpg + V or \
             enc_launches[0] != codec.get("encode") or enc_launches[2] or \
             not V <= enc_launches[0] <= enc_launches[1] <= 3 * enc_launches[0]:
         raise AssertionError(f"files path launches: NCC {ncc} (expected "
                              f"{expected}), bilateral {bil}, tables "
                              f"{tables}, colour kernel {ycc} (expected "
-                             f"{2 * V - 1}: the converter's and the "
+                             f"{n_jpg + V}: the converter's and the "
                              f"pipeline's JPEG reads), IDCT kernel "
                              f"{idct_launches}, encoder kernels "
-                             f"{enc_launches}, codec calls {codec}")
+                             f"{enc_launches}, raster kernel {raster} "
+                             f"(expected {V - n_jpg}: the converter's TIFF "
+                             f"and PNG reads), codec calls {codec}")
     out.update(ws=ws, config=config, gt_depth=scene.gt_depth,
                images=scene.images, cameras=scene.cameras,
                rel=rel, points=len(pts), ncc=ncc[0], bilateral=bil[0],
@@ -1614,7 +1686,8 @@ def phase_files(params, root: str):
                idct_launches=idct_launches, idct_ms=idct_ms,
                idct_plain_ms=idct_plain_ms, idct_bound_ms=idct_bound_ms,
                idct_vs_plain=idct_err, ycc_vs_plain=ycc_err,
-               enc_launches=enc_launches, enc=enc, png=png)
+               enc_launches=enc_launches, enc=enc, png=png,
+               raster_launches=raster[0], raster=raster_parts)
     return out
 
 
@@ -1733,6 +1806,130 @@ def phase_png_parts(path: str, dev):
         f"ms; host unfilter (all five filters) {np.round(unfilter_ms, 2)} "
         f"ms")
     return {"read_ms": read_ms, "unfilter_ms": unfilter_ms}
+
+
+def _tiff_file():
+    """tests/data/tiff/tiff_file.py (the TIFF writer of the tests'
+    fixtures; its LZW coder is built with the C compiler), imported."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "tiff_file", os.path.join(HERE, "tests", "data", "tiff",
+                                  "tiff_file.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def png16_bytes(rgb16) -> bytes:
+    """A 16-bit RGB PNG of (H, W, 3) uint16 samples: the rows' filter
+    types cycle through all five (each computed from the unfiltered bytes,
+    so vectorised), zlib level 1."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    H = rgb16.shape[0]
+    raw = rgb16.astype(">u2").view(np.uint8).reshape(H, -1).astype(np.int16)
+    bpp = 6
+    a = np.zeros_like(raw)
+    a[:, bpp:] = raw[:, :-bpp]
+    b = np.zeros_like(raw)
+    b[1:] = raw[:-1]
+    c = np.zeros_like(raw)
+    c[1:, bpp:] = raw[:-1, :-bpp]
+    p = a + b - c
+    pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+    preds = (np.zeros_like(raw), a, b, (a + b) >> 1,
+             np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c)))
+    kinds = np.arange(H) % 5
+    rows = np.empty((H, raw.shape[1] + 1), np.uint8)
+    rows[:, 0] = kinds
+    for k in range(5):
+        sel = kinds == k
+        rows[sel, 1:] = (raw[sel] - preds[k][sel]) & 255
+
+    def chunk(kind: bytes, body: bytes) -> bytes:
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body)))
+
+    return (b"\x89PNG\r\n\x1a\n"
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", rgb16.shape[1], H, 16,
+                                         2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(rows.tobytes(), 1))
+            + chunk(b"IEND", b""))
+
+
+def phase_raster_parts(paths, dev):
+    """The TIFF and 16-bit PNG reads at 3200x2130 (phase 8's sources), part
+    by part: the host's parse and decompression (``images.raster_rows``:
+    LZW and predictor, or zlib and unfilter), the copy of the samples to
+    the card, and the raster kernel, each on the host clock around
+    synchronised calls; the kernel also with CUDA events beside its bound
+    and its plain twin (which it must equal); and the whole
+    ``decode_colour``."""
+    import numpy as np
+    import torch
+    from mpmvs_torch.io import images
+    from mpmvs_torch.utils.roofline import raster_bound
+    from mpmvs_torch.utils.trace import cuda_time_ms
+
+    lib = images._library()
+    out = {}
+    for kind, path in paths.items():
+        with open(path, "rb") as f:
+            data = f.read()
+        host_ms, copy_ms, kernel_host_ms, read_ms = [], [], [], []
+        for _ in range(3):
+            t1 = time.perf_counter()
+            r = images.raster_rows(data, lib)
+            t2 = time.perf_counter()
+            samples = torch.from_numpy(r.samples).to(dev)
+            tables = torch.from_numpy(r.tables).to(dev)
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            images.raster_to_bgr_kernel(samples, r.form, tables)
+            torch.cuda.synchronize()
+            t4 = time.perf_counter()
+            images.decode_colour(data, dev)
+            torch.cuda.synchronize()
+            t5 = time.perf_counter()
+            host_ms.append((t2 - t1) * 1e3)
+            copy_ms.append((t3 - t2) * 1e3)
+            kernel_host_ms.append((t4 - t3) * 1e3)
+            read_ms.append((t5 - t4) * 1e3)
+        got = images.raster_to_bgr_kernel(samples, r.form, tables)
+        want = images.raster_to_bgr_plain(samples, r.form, tables)
+        err = [differing(a, b) for a, b in zip(got, want)]
+        if any(e[0] for e in err):
+            raise AssertionError(f"raster kernel vs plain at full size "
+                                 f"({kind}): {err}")
+        ms = cuda_time_ms(lambda: images.raster_to_bgr_kernel(
+            samples, r.form, tables), 20)
+        plain_ms = cuda_time_ms(lambda: images.raster_to_bgr_plain(
+            samples, r.form, tables), 3)
+        bnd = raster_bound(r.form, images.TABLES_LEN)
+        out[kind] = {"file_bytes": len(data),
+                     "sample_bytes": int(r.samples.nbytes),
+                     "host_parse_decompress_ms": host_ms,
+                     "copy_to_card_ms": copy_ms,
+                     "kernel_host_clock_ms": kernel_host_ms,
+                     "decode_colour_ms": read_ms, "kernel_ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": bnd[0],
+                     "bound_by": bnd[1], "vs_plain": err,
+                     "form": r.form._asdict()}
+        log(f"  {kind} read at {r.form.width}x{r.form.height} "
+            f"({len(data)} file bytes, {r.samples.nbytes} sample bytes): "
+            f"host parse and decompression {np.round(host_ms, 2)} ms; copy "
+            f"to the card {np.round(copy_ms, 2)} ms; raster kernel "
+            f"{ms:.4f} ms (CUDA events; bound {bnd[0]:.4f}, share "
+            f"{bnd[0] / ms:.2f}; plain {plain_ms:.2f}; host clock "
+            f"{np.round(kernel_host_ms, 3)}); decode_colour "
+            f"{np.round(read_ms, 2)} ms; kernel equals plain {err}")
+        del samples, got, want
+    torch.cuda.empty_cache()
+    return out
 
 
 def phase_dummy_source(files, params):
@@ -1984,7 +2181,7 @@ def main(argv=None) -> int:
     # the codec (host decode and encode, the IDCT and colour kernels, the
     # encoder's colour and DCT kernels, PNG reads): no TPU kernel's
     # counterpart; the details on a line of their own
-    enc, png = files["enc"], files["png"]
+    enc, png, rast = files["enc"], files["png"], files["raster"]
     codec_kernel = lambda k: {
         "source": "mpmvs_torch/csrc/jpeg_codec.cu",
         "launches": files[f"{k}_launches"], "ms": files[f"{k}_ms"],
@@ -2004,6 +2201,8 @@ def main(argv=None) -> int:
         "encode_parts_ms": {k: enc[k] for k in ("copy_ms", "huffman_ms",
                                                 "encode_ms")},
         "png_read_ms": png["read_ms"], "png_unfilter_ms": png["unfilter_ms"],
+        "raster_reads": {k: {f: v for f, v in r.items() if f != "form"}
+                         for k, r in files["raster"].items()},
         "image": [W_FULL, H_FULL], "calls_phase8": files["codec"],
         "idct_islow": codec_kernel("idct"),
         "ycc_to_bgr": codec_kernel("ycc"),
@@ -2011,7 +2210,9 @@ def main(argv=None) -> int:
         "fdct_islow_quant": enc_kernel("fdct", files["enc_launches"][1]),
         "fixtures_vs_cv2": fixtures, "encoder_fixtures_equal_bytes":
             fixture_facts["encoded_equal"],
-        "refused": fixture_facts["refused"], "nvidia_smi": smi}}))
+        "refused": fixture_facts["refused"],
+        "raster_fixtures_kernel_equal_plain":
+            fixture_facts["raster_kernel_equal_plain"], "nvidia_smi": smi}}))
     log(json.dumps({"multi_gpu": {
         "ranks": multi["ranks"], "backend": "nccl", "wall_s": multi["wall_s"],
         "median_rel_err": multi["rel"], "depth_digests": multi["digests"],
@@ -2043,7 +2244,7 @@ def main(argv=None) -> int:
     # library_ms: no single PyTorch call computes any of these functions
     # (PERF.md section 6). Launches: the NCC kernel, the geometric cost, the
     # bilateral kernel and its table builder in phase 6, the sorted kernels
-    # in phase 7(d), the codec's four kernels in phase 8 (the converter, the
+    # in phase 7(d), the codec's five kernels in phase 8 (the converter, the
     # pipeline's reads, the previews);
     # a form that path does not take is listed with its launches there, 0.
     log(json.dumps({"kernels": [
@@ -2115,7 +2316,18 @@ def main(argv=None) -> int:
               max(e[1] for e in enc["fdct_vs_plain"]), enc["fdct_ms"],
               enc["fdct_plain_ms"], enc["fdct_bound"],
               scope="the three planes of a 3200x2130 4:2:0 encode (three "
-              "launches)")]}))
+              "launches)"),
+        entry("raster_to_bgr", "jpeg_codec.cu", no_tpu,
+              files["raster_launches"],
+              max(e[1] for e in rast["tif"]["vs_plain"]),
+              rast["tif"]["kernel_ms"], rast["tif"]["plain_ms"],
+              (rast["tif"]["bound_ms"], rast["tif"]["bound_by"]),
+              scope="the samples of a 3200x2130 8-bit RGB TIFF (LZW, "
+              "predictor 2); the 16-bit RGB PNG's beside it",
+              png16={k: rast["png16"][k] for k in (
+                  "kernel_ms", "plain_ms", "bound_ms")} | {
+                  "max_abs_err": max(e[1] for e in
+                                     rast["png16"]["vs_plain"])})]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -48,13 +48,21 @@
 // sample and writes 2 a coefficient. The host's entropy coding takes far
 // longer than any of them.
 //
-// PNG reads: png_unfilter.h undoes the row filters on the host (the C
-// function png_unfilter_rows); exif_orientation_tiff reads a PNG's eXIf.
+// PNG and TIFF reads: png_unfilter.h undoes a PNG's row filters and
+// Adam7 interlacing on the host (png_unfilter_rows, png_adam7_rows),
+// exif_orientation_tiff reads its eXIf; tiff_decode.h parses a TIFF and
+// decompresses its strips or tiles on the host (tiff_host_info,
+// tiff_host_layout, tiff_host_decode). The samples are copied to the card,
+// where raster_to_bgr_kernel makes cv2.imread's BGR and grey images of them
+// (raster_bgr.h: sub-8-bit grey expanded, palette looked up, 16 bits
+// narrowed, alpha dropped or premultiplied, RGB to BGR, and the grey of a
+// colour image by libpng's or OpenCV's arithmetic), one thread a pixel.
+// It reads at most 8 bytes a pixel and writes 4.
 //
 // The C interface below is bound with ctypes by mpmvs_torch/io/images.py.
 // Every function returns 0 or an error code: a decode error of
-// jpeg_entropy.h (2001-2009), an encode or PNG error (2010, 3001-3002) or a
-// CUDA error offset by 1000.
+// jpeg_entropy.h (2001-2009), an encode or PNG error (2010, 3001-3002), a
+// TIFF error (4001-4017) or a CUDA error offset by 1000.
 
 #include <cuda_runtime.h>
 
@@ -66,6 +74,8 @@
 #include "jpeg_fdct.h"
 #include "jpeg_idct.h"
 #include "png_unfilter.h"
+#include "raster_bgr.h"
+#include "tiff_decode.h"
 
 #define CODEC_CUDA_ERR 1000
 
@@ -299,6 +309,38 @@ extern "C" int fdct_islow_launch(const unsigned char* plane, int bw, int bh,
   dim3 grid((unsigned)((n + 127) / 128));
   fdct_islow_quant_kernel<<<grid, block, 0, stream>>>(plane, bw, bh, qt,
                                                       coef);
+  cudaError_t e = cudaGetLastError();
+  return e == cudaSuccess ? 0 : CODEC_CUDA_ERR + (int)e;
+}
+
+// One thread a pixel of an (H, W) raster, row-major over a 1-D grid (any
+// height): cv2.imread's BGR (H, W, 3) and grey (H, W) of its samples
+// (raster_bgr.h says what each form computes). tables:
+// raster_bgr::kTablesLen bytes (palette, libpng's gamma tables).
+__global__ void raster_to_bgr_kernel(const unsigned char* __restrict__ raster,
+                                     raster_bgr::Form form,
+                                     const unsigned char* __restrict__ tables,
+                                     unsigned char* __restrict__ bgr,
+                                     unsigned char* __restrict__ gray) {
+  size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= (size_t)form.width * form.height) return;
+  int y = (int)(i / form.width), x = (int)(i % form.width);
+  raster_bgr::pixel(raster, form, tables, y, x, bgr + 3 * i, gray + i);
+}
+
+// form: the fields of raster_bgr::Form in order (11 ints, 2 long longs).
+extern "C" int raster_to_bgr_launch(const unsigned char* raster,
+                                    const int* form_ints,
+                                    const long long* form_sizes,
+                                    const unsigned char* tables,
+                                    unsigned char* bgr, unsigned char* gray,
+                                    cudaStream_t stream) {
+  raster_bgr::Form f = raster_bgr::form_of(form_ints, form_sizes);
+  size_t n = (size_t)f.width * f.height;
+  dim3 block(256);
+  dim3 grid((unsigned)((n + 255) / 256));
+  raster_to_bgr_kernel<<<grid, block, 0, stream>>>(raster, f, tables, bgr,
+                                                   gray);
   cudaError_t e = cudaGetLastError();
   return e == cudaSuccess ? 0 : CODEC_CUDA_ERR + (int)e;
 }

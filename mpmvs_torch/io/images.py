@@ -1,4 +1,5 @@
-"""Image files of a workspace: JPEG and PNG reads, JPEG and PNG writes.
+"""Image files of a workspace: JPEG, PNG and TIFF reads, JPEG and PNG
+writes.
 
 The JAX package reads and writes images with OpenCV. Here the device picks
 the codec:
@@ -14,12 +15,18 @@ the codec:
         The grey image is the Y plane of a YCbCr JPEG, as
         ``cv2.imread(IMREAD_GRAYSCALE)`` gives it, and libjpeg-turbo's
         ``rgb_gray_convert`` of an RGB one;
-      - PNG reads of 8-bit colour types 0, 2, 3, 4 and 6 (:func:`decode_colour`,
-        the colour image only, which is all the converter reads): the chunks
-        are parsed and inflated here with ``zlib``, the rows unfiltered on the
-        host (``csrc/png_unfilter.h``) and converted to BGR on the card as
-        OpenCV's PNG decoder does (grey replicated, palette expanded, alpha
-        dropped, eXIf orientation applied);
+      - PNG reads of every colour type at every bit depth, Adam7 included
+        (:func:`png_rows`: the chunks are parsed and inflated here with
+        ``zlib``, the rows unfiltered and de-interlaced on the host,
+        ``csrc/png_unfilter.h``), and TIFF reads (:func:`tiff_rows`: classic
+        and BigTIFF, strips and tiles, chunky and planar, uncompressed, LZW,
+        Deflate and PackBits, predictor 2, grey, RGB and palette, 1 to 16
+        bits; parsed and decompressed on the host, ``csrc/tiff_decode.h``):
+        the samples are copied to the card, where ``raster_to_bgr_kernel``
+        makes cv2's BGR and grey images of them (sub-8-bit grey expanded,
+        palette looked up, 16 bits narrowed as libpng or libtiff narrows,
+        alpha dropped or premultiplied, the grey of colour by libpng's or
+        OpenCV's arithmetic), and the eXIf or Orientation tag is applied;
       - JPEG writes: cv2.imencode's bytes (4:2:0 colour or grey, standard
         Huffman tables) from the card's colour conversion and downsampling
         (``bgr_to_ycc_kernel``) and forward DCT and quantization
@@ -27,8 +34,8 @@ the codec:
         (``csrc/jpeg_encode.h``).
     A kernel that fails to build or launch raises, and so does a file the card
     cannot read, naming why (12-bit, arithmetic-coded, lossless and CMYK
-    JPEGs; 16-bit, sub-8-bit and interlaced PNGs; other formats). Nothing
-    falls back to OpenCV or to the CPU.
+    JPEGs; JPEG-compressed, CMYK, YCbCr, CIELab, signed, float and old-style
+    LZW TIFFs; other formats). Nothing falls back to OpenCV or to the CPU.
   * on the CPU, through OpenCV, imported only there: the CPU tests hold the
     port's reads and writes against the JAX package's OpenCV calls.
 
@@ -38,11 +45,12 @@ standard library's ``zlib``, on every device.
 Each kernel has a plain PyTorch version beside it, for the tests
 (:func:`ycc_to_bgr_plain`, :func:`rgb_to_bgr_plain`,
 :func:`idct_islow_plain`, :func:`bgr_to_ycc_plain`,
-:func:`fdct_islow_plain`). ``COUNTS`` counts launches of the colour kernel
-(form ``"rgb"`` for RGB components) and its plain calls, ``IDCT_COUNTS``,
-``YCC_COUNTS`` and ``FDCT_COUNTS`` those of the IDCT, encoder colour and
-forward DCT kernels; ``CODEC_COUNTS`` counts host decodes
-(``forms["decode"]``), PNG reads (``forms["png"]``) and encodes
+:func:`fdct_islow_plain`, :func:`raster_to_bgr_plain`). ``COUNTS`` counts
+launches of the colour kernel (form ``"rgb"`` for RGB components) and its
+plain calls, ``IDCT_COUNTS``, ``YCC_COUNTS``, ``FDCT_COUNTS`` and
+``RASTER_COUNTS`` those of the IDCT, encoder colour, forward DCT and raster
+kernels; ``CODEC_COUNTS`` counts host decodes (``forms["decode"]``), PNG
+and TIFF reads (``forms["png"]``, ``forms["tiff"]``) and encodes
 (``forms["encode"]``).
 """
 
@@ -50,6 +58,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 import struct
 import zlib
 from typing import NamedTuple, Tuple
@@ -70,6 +79,7 @@ IDCT_COUNTS = nvcc.LaunchCounts()
 YCC_COUNTS = nvcc.LaunchCounts()
 FDCT_COUNTS = nvcc.LaunchCounts()
 CODEC_COUNTS = nvcc.LaunchCounts()
+RASTER_COUNTS = nvcc.LaunchCounts()
 # what the host codes of csrc/ name (a JPEG's or PNG's cause of refusal)
 _CODE_ERRORS = {
     2001: "a truncated JPEG",
@@ -83,10 +93,35 @@ _CODE_ERRORS = {
           "through a colour conversion the card does not have",
     2010: "coefficients that do not fit the image's size",
     3001: "a PNG whose image data is shorter than its header implies",
-    3002: "a PNG with a row filter type above 4"}
+    3002: "a PNG with a row filter type above 4",
+    4001: "a truncated TIFF",
+    4002: "a malformed TIFF (a required tag missing or out of range)",
+    4003: "a TIFF of JPEG-compressed data (Compression 6 or 7), which "
+          "OpenCV reads through libtiff's JPEG codec; the card does not",
+    4004: "a TIFF of a compression the card does not read (it reads none, "
+          "LZW, Deflate and PackBits)",
+    4005: "a TIFF of old-style LZW (the pre-1991 bit-reversed form)",
+    4006: "a TIFF whose LZW data is corrupt",
+    4007: "a TIFF whose strip or tile holds fewer bytes than its rows",
+    4008: "a TIFF of signed or float samples (SampleFormat 2 or 3)",
+    4009: "a TIFF of the floating-point predictor (Predictor 3)",
+    4010: "a TIFF of horizontal differencing on samples other than 8- or "
+          "16-bit, which libtiff refuses too",
+    4011: "a TIFF of CMYK (separated) samples, which OpenCV converts through "
+          "libtiff's RGBA reader; the card does not",
+    4012: "a TIFF of YCbCr samples, which OpenCV converts through libtiff's "
+          "RGBA reader; the card does not",
+    4013: "a TIFF of CIELab samples, which the card does not convert",
+    4014: "a TIFF of a photometric the card does not read (it reads "
+          "min-is-white, min-is-black, RGB and palette)",
+    4015: "a TIFF of more than 16 bits a sample",
+    4016: "a TIFF of a bit depth OpenCV does not read into an 8-bit image "
+          "either (grey takes 1, 8, 16; RGB 8, 16; a palette 1, 4, 8)",
+    4017: "a TIFF of a sample count its photometric does not take"}
 
 _MAGIC = ((b"\xff\xd8\xff", "JPEG"), (b"\x89PNG\r\n\x1a\n", "PNG"),
-          (b"II*\x00", "TIFF"), (b"MM\x00*", "TIFF"), (b"BM", "BMP"),
+          (b"II*\x00", "TIFF"), (b"MM\x00*", "TIFF"), (b"II+\x00", "TIFF"),
+          (b"MM\x00+", "TIFF"), (b"BM", "BMP"),
           (b"GIF8", "GIF"), (b"RIFF", "RIFF (WebP)"), (b"P5", "PGM"),
           (b"P6", "PPM"))
 
@@ -102,8 +137,9 @@ def image_format(data: bytes) -> str:
 
 def bind_host(lib):
     """Set the ctypes signatures of the codec's host functions (no CUDA:
-    the encoder's entropy coding, the PNG unfilter, the EXIF reader) on a
-    library that has them, the card's or a host build of the headers."""
+    the encoder's entropy coding, the PNG unfilter and de-interlace, the
+    TIFF reader, the EXIF reader) on a library that has them, the card's or
+    a host build of the headers."""
     vp, i, sz = ctypes.c_void_p, ctypes.c_int, ctypes.c_size_t
     lib.jpeg_quality_tables.argtypes = [i, vp]
     lib.jpeg_quality_tables.restype = None
@@ -115,6 +151,13 @@ def bind_host(lib):
     lib.jpeg_host_encode_free.restype = None
     lib.png_unfilter_rows.argtypes = [vp, sz, vp, i, sz, i]
     lib.png_unfilter_rows.restype = i
+    lib.png_adam7_rows.argtypes = [vp, sz, vp, i, i, i]
+    lib.png_adam7_rows.restype = i
+    lib.tiff_host_info.argtypes = [ctypes.c_char_p, sz, vp]
+    lib.tiff_host_layout.argtypes = [ctypes.c_char_p, sz, vp, vp, vp]
+    lib.tiff_host_decode.argtypes = [ctypes.c_char_p, sz, vp, vp, vp]
+    for fn in ("tiff_host_info", "tiff_host_layout", "tiff_host_decode"):
+        getattr(lib, fn).restype = i
     lib.exif_orientation_tiff.argtypes = [ctypes.c_char_p, i]
     lib.exif_orientation_tiff.restype = i
     return lib
@@ -136,8 +179,10 @@ def _library():
     lib.bgr_to_ycc_launch.argtypes = [vp, i, i, i, vp, i, i, vp, vp, i, i,
                                       vp]
     lib.fdct_islow_launch.argtypes = [vp, i, i, vp, vp, vp]
+    lib.raster_to_bgr_launch.argtypes = [vp, vp, vp, vp, vp, vp, vp]
     for fn in ("jpeg_host_decode", "jpeg_host_upload", "idct_islow_launch",
-               "ycc_to_bgr_launch", "bgr_to_ycc_launch", "fdct_islow_launch"):
+               "ycc_to_bgr_launch", "bgr_to_ycc_launch", "fdct_islow_launch",
+               "raster_to_bgr_launch"):
         getattr(lib, fn).restype = i
     return lib
 
@@ -466,27 +511,117 @@ def decode(data: bytes, device) -> Tuple[Tensor, Tensor]:
     return _decode_jpeg(data, dev)
 
 
-class PngRows(NamedTuple):
-    """A non-interlaced 8-bit PNG's unfiltered samples, on the host."""
-    rows: np.ndarray          # (height, width * channels) uint8
-    colour_type: int          # 0 grey, 2 RGB, 3 palette, 4 grey+alpha, 6 RGBA
-    palette: np.ndarray       # (256, 3) uint8 RGB, zero past PLTE's entries
-    orientation: int          # of the eXIf chunk before the image data
+class RasterForm(NamedTuple):
+    """What a PNG's or a TIFF's samples are and which of OpenCV's
+    conversions applies to them: the fields of ``raster_bgr::Form``
+    (csrc/raster_bgr.h), in its order."""
+    kind: int          # RASTER_GREY, RASTER_RGB or RASTER_PALETTE
+    bits: int          # 1, 2, 4, 8 or 16
+    channels: int      # samples a pixel, alpha included
+    planar: int        # 1: a plane a channel
+    little: int        # 16-bit samples little-endian
+    min_is_white: int  # grey inverted
+    narrow: int        # 16-bit colour: NARROW_SHIFT or NARROW_ROUND257
+    premultiply: int   # channel 3 is unassociated alpha
+    grey_rule: int     # GREY_LIBPNG, GREY_LIBPNG_GAMMA or GREY_OPENCV
+    width: int
+    height: int
+    rowbytes: int      # bytes a row of a plane
+    plane_bytes: int   # bytes a plane
+
+
+RASTER_GREY, RASTER_RGB, RASTER_PALETTE = 0, 1, 2
+GREY_LIBPNG, GREY_LIBPNG_GAMMA, GREY_OPENCV = 0, 1, 2
+NARROW_SHIFT, NARROW_ROUND257 = 0, 1
+# raster_bgr.h: the palette (256 x RGB), libpng's 8-bit gamma tables, then
+# its 16-bit ones (2048 big-endian entries each)
+TO_ONE_AT, FROM_ONE_AT = 768, 1024
+TO_ONE16_AT, FROM_ONE16_AT, GREY16_AT = 1280, 1280 + 4096, 1280 + 8192
+TABLES_LEN = 1280 + 12288
+# libpng's png_set_rgb_to_gray coefficients for OpenCV's 0.299, 0.587
+LIBPNG_RC, LIBPNG_GC = 9797, 19234
+LIBPNG_BC = 32768 - LIBPNG_RC - LIBPNG_GC
+
+
+class Raster(NamedTuple):
+    """A PNG's or a TIFF's samples as the host leaves them (unfiltered,
+    decompressed, de-interlaced) and what the card makes of them."""
+    samples: np.ndarray      # (planes * height, rowbytes) uint8
+    form: RasterForm
+    tables: np.ndarray       # (TABLES_LEN,) uint8: palette, gamma tables
+    orientation: int         # applied after the conversion (orient)
 
 
 _PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+_PNG_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8),
+               4: (8, 16), 6: (8, 16)}
+_GAMMA_SRGB = 45455  # libpng's gamma of an sRGB chunk (1 / 2.2, x 100000)
 
 
-def png_rows(data: bytes, lib) -> PngRows:
-    """Parse a PNG's chunks (IHDR, PLTE, eXIf, IDAT; tRNS and the rest are
-    read past: OpenCV drops alpha), check the critical ones' CRCs, inflate
-    the image data with ``zlib`` and unfilter its rows with ``lib``'s
-    ``png_unfilter_rows`` (the card's library, or a host build of
-    ``csrc/png_unfilter.h``). Raises ValueError, naming the cause, for what
-    the card does not read."""
+def _significant(gamma: int) -> bool:
+    """libpng's png_gamma_significant (PNG_GAMMA_THRESHOLD_FIXED 5000)."""
+    return not 95000 <= gamma <= 105000
+
+
+def _reciprocal(gamma: int) -> int:
+    """libpng's png_reciprocal of a 100000-scaled value."""
+    return int(math.floor(1e10 / gamma + .5))
+
+
+def _gamma_table8(gamma: int) -> np.ndarray:
+    """libpng's png_build_8bit_table: floor(255 (v / 255) ^ (gamma / 1e5)
+    + .5), the identity where the exponent is not significant."""
+    if not _significant(gamma):
+        return np.arange(256, dtype=np.uint8)
+    return np.array([math.floor(255 * math.pow(v / 255., gamma * .00001)
+                                + .5) if 0 < v < 255 else v
+                     for v in range(256)], np.uint8)
+
+
+def _gamma_correct16(v: int, gamma: int) -> int:
+    """libpng's png_gamma_16bit_correct."""
+    if 0 < v < 65535:
+        return int(math.floor(65535 * math.pow(v / 65535., gamma * .00001)
+                              + .5))
+    return v
+
+
+def _gamma_table16(gamma: int) -> np.ndarray:
+    """libpng's png_build_16bit_table at gamma_shift 5 (png_set_strip_16),
+    flat: entry ig for the samples whose top 11 bits are ig."""
+    if not _significant(gamma):
+        return (np.arange(2048) * 65535 + 1024) // 2047
+    return np.array([math.floor(65535. * math.pow(ig / 2047, gamma * .00001)
+                                + .5) for ig in range(2048)], np.int64)
+
+
+def _grey_table16(gamma: int) -> np.ndarray:
+    """libpng's png_build_16to8_table at gamma_shift 5, flat: the 16-bit
+    value (an 8-bit one times 257) of a grey pixel by its top 11 bits."""
+    table = np.full(2048, 65535, np.int64)
+    last = 0
+    for i in range(255):
+        bound = (_gamma_correct16(i * 257 + 128, gamma) * 2047 + 32768) \
+            // 65535 + 1
+        table[last:bound] = i * 257
+        last = max(last, bound)
+    return table
+
+
+def png_rows(data: bytes, lib) -> Raster:
+    """Parse a PNG's chunks (IHDR, PLTE, gAMA, sRGB, eXIf, IDAT; tRNS and
+    the rest are read past: OpenCV drops alpha), check the critical ones'
+    CRCs, inflate the image data with ``zlib`` and unfilter (and
+    de-interlace) its rows with ``lib``'s ``png_unfilter_rows`` /
+    ``png_adam7_rows`` (the card's library, or a host build of
+    ``csrc/png_unfilter.h``). Every colour type at every bit depth the
+    format allows is read; a gAMA or sRGB chunk takes the grey image of a
+    colour PNG through libpng's gamma tables, as ``cv2.imread`` does.
+    Raises ValueError, naming the cause, for a malformed file."""
     if image_format(data) != "PNG":
         raise ValueError(f"not a PNG ({image_format(data)})")
     pos, header, palette, exif, idat = 8, None, None, None, []
+    gamma = srgb = None
     while pos + 12 <= len(data):
         n, kind = struct.unpack(">I4s", data[pos:pos + 8])
         body = data[pos + 8:pos + 8 + n]
@@ -501,6 +636,10 @@ def png_rows(data: bytes, lib) -> PngRows:
             header = struct.unpack(">IIBBBBB", body[:13])
         elif kind == b"PLTE":
             palette = np.frombuffer(body, np.uint8)[:len(body) // 3 * 3]
+        elif kind == b"gAMA" and not idat and n == 4:
+            gamma = struct.unpack(">I", body)[0]
+        elif kind == b"sRGB" and not idat:
+            srgb = True
         elif kind == b"eXIf" and exif is None and not idat:
             exif = body
         elif kind == b"IDAT":
@@ -510,63 +649,269 @@ def png_rows(data: bytes, lib) -> PngRows:
     if header is None or not idat:
         raise ValueError("a malformed PNG (no IHDR or no IDAT chunk)")
     width, height, depth, colour_type, _, _, interlace = header
-    if colour_type not in _PNG_CHANNELS or width < 1 or height < 1:
+    if colour_type not in _PNG_CHANNELS or width < 1 or height < 1 or \
+            depth not in _PNG_DEPTHS[colour_type] or interlace > 1:
         raise ValueError(f"a malformed PNG (colour type {colour_type}, "
+                         f"{depth}-bit, interlace {interlace}, "
                          f"{width}x{height})")
-    if depth != 8:
-        raise ValueError(f"a {depth}-bit PNG: the card reads 8-bit PNGs "
-                         f"only")
-    if interlace:
-        raise ValueError("an Adam7-interlaced PNG: the card reads "
-                         "non-interlaced PNGs only")
     if colour_type == 3 and palette is None:
         raise ValueError("a malformed PNG (a palette image without PLTE)")
+    if width * height > 1 << 30:
+        raise ValueError(f"a PNG of {width}x{height}: more than 2^30 pixels")
     try:
         raw = zlib.decompress(b"".join(idat))
     except zlib.error as e:
         raise ValueError(f"a malformed PNG (its image data: {e})") from None
     channels = _PNG_CHANNELS[colour_type]
-    rows = np.empty((height, width * channels), np.uint8)
-    _check(lib.png_unfilter_rows(raw, len(raw), rows.ctypes.data, height,
-                                 width * channels, channels), "PNG unfilter")
-    pal = np.zeros((256, 3), np.uint8)
+    pixel_bits = channels * depth
+    rowbytes = (width * pixel_bits + 7) // 8
+    rows = np.empty((height, rowbytes), np.uint8)
+    if interlace:
+        err = lib.png_adam7_rows(raw, len(raw), rows.ctypes.data, width,
+                                 height, pixel_bits)
+    else:
+        err = lib.png_unfilter_rows(raw, len(raw), rows.ctypes.data, height,
+                                    rowbytes, max(1, pixel_bits // 8))
+    _check(err, "PNG unfilter")
+    tables = np.zeros(TABLES_LEN, np.uint8)
     if palette is not None:
-        pal.reshape(-1)[:min(len(palette), 768)] = palette[:768]
+        tables[:min(len(palette), 768)] = palette[:768]
+    # libpng's rgb_to_gray goes through gamma tables where the file's gamma
+    # (sRGB: 45455) or its reciprocal, the screen's, is significant
+    file_gamma = _GAMMA_SRGB if srgb else gamma if gamma else None
+    grey_rule = GREY_LIBPNG
+    if colour_type in (2, 3, 6) and file_gamma and (
+            _significant(file_gamma)
+            or _significant(_reciprocal(file_gamma))):
+        grey_rule = GREY_LIBPNG_GAMMA
+        screen = _reciprocal(file_gamma)
+        if depth == 16:
+            for at, t in ((TO_ONE16_AT, _gamma_table16(screen)),
+                          (FROM_ONE16_AT, _gamma_table16(
+                              _reciprocal(screen))),
+                          (GREY16_AT, _grey_table16(int(math.floor(
+                              1e15 / file_gamma / screen + .5))))):
+                tables[at:at + 4096] = t.astype(">u2").view(np.uint8)
+        else:
+            tables[TO_ONE_AT:TO_ONE_AT + 256] = _gamma_table8(screen)
+            tables[FROM_ONE_AT:FROM_ONE_AT + 256] = _gamma_table8(
+                _reciprocal(screen))
+    kind = {0: RASTER_GREY, 4: RASTER_GREY, 3: RASTER_PALETTE}.get(
+        colour_type, RASTER_RGB)
+    form = RasterForm(kind, depth, channels, 0, 0, 0, NARROW_SHIFT, 0,
+                      grey_rule, width, height, rowbytes, rowbytes * height)
     orientation = 1 if exif is None else lib.exif_orientation_tiff(
         exif, len(exif))
-    return PngRows(rows, colour_type, pal, orientation)
+    return Raster(rows, form, tables, orientation)
 
 
-def png_to_bgr(rows: Tensor, colour_type: int, palette: Tensor) -> Tensor:
-    """What OpenCV's PNG decoder gives for IMREAD_COLOR from unfiltered
-    8-bit samples (H, W * channels) uint8, on their device: grey
-    replicated, RGB as BGR, the palette (256, 3) RGB expanded, alpha
-    dropped."""
-    H = rows.shape[0]
-    px = rows.reshape(H, -1, _PNG_CHANNELS[colour_type])
-    if colour_type in (0, 4):
-        return px[..., :1].expand(-1, -1, 3).contiguous()
-    if colour_type == 3:
-        px = palette[px[..., 0].long()]
-    return px[..., [2, 1, 0]].contiguous()
+def tiff_rows(data: bytes, lib) -> Raster:
+    """Parse a TIFF's first IFD and decode its strips or tiles on the host
+    with ``lib``'s ``tiff_host_*`` functions (the card's library, or a host
+    build of ``csrc/tiff_decode.h``), Deflate chunks inflated here with
+    ``zlib``: the samples ``cv2.imread`` converts, and how it converts them
+    (libtiff's 16-bit narrowing and colour-map rule, OpenCV's grey).
+    Raises ValueError, naming the cause, for what the card does not read."""
+    if image_format(data) != "TIFF":
+        raise ValueError(f"not a TIFF ({image_format(data)})")
+    info = (ctypes.c_longlong * 18)()
+    _check(lib.tiff_host_info(data, len(data), info), "TIFF read")
+    (W, H, bits, spp, pm, planar, comp, _, orientation, _, _, _, chunks,
+     alpha, little, n_map, _, _) = list(info)
+    offsets = np.zeros(chunks, np.uint64)
+    counts = np.zeros(chunks, np.uint64)
+    cmap = np.zeros(3 * max(n_map, 1), np.uint16)
+    _check(lib.tiff_host_layout(data, len(data), offsets.ctypes.data,
+                                counts.ctypes.data, cmap.ctypes.data),
+           "TIFF read")
+    inflated = None
+    if comp in (8, 32946):
+        keep = []
+        for off, cnt in zip(offsets.tolist(), counts.tolist()):
+            try:
+                keep.append(zlib.decompressobj().decompress(
+                    data[off:off + cnt]))
+            except zlib.error as e:
+                raise ValueError(f"a malformed TIFF (a Deflate chunk: {e})"
+                                 ) from None
+        inflated = ((ctypes.c_char_p * chunks)(*keep),
+                    (ctypes.c_size_t * chunks)(*map(len, keep)))
+    planes = spp if planar == 2 else 1
+    rowbytes = (W * (1 if planar == 2 else spp) * bits + 7) // 8
+    rows = np.empty((planes * H, rowbytes), np.uint8)
+    _check(lib.tiff_host_decode(data, len(data),
+                                inflated[0] if inflated else None,
+                                inflated[1] if inflated else None,
+                                rows.ctypes.data), "TIFF read")
+    tables = np.zeros(TABLES_LEN, np.uint8)
+    if n_map:  # libtiff's checkcmap: a map with an entry >= 256 is 16-bit
+        m = cmap.reshape(3, n_map)
+        m = m >> 8 if (m >= 256).any() else m
+        tables[:3 * n_map] = m.T.reshape(-1).astype(np.uint8)
+    kind = (RASTER_GREY, RASTER_GREY, RASTER_RGB, RASTER_PALETTE)[pm]
+    form = RasterForm(kind, bits, spp, int(planar == 2), little,
+                      int(pm == 0), NARROW_ROUND257,
+                      int(kind == RASTER_RGB and spp == 4 and alpha == 2),
+                      GREY_OPENCV, W, H, rowbytes, rowbytes * H)
+    return Raster(rows, form, tables, orientation)
 
 
-def _decode_png_colour(data: bytes, dev) -> Tensor:
-    png = png_rows(data, _library())
-    rows = torch.from_numpy(png.rows).to(dev)
-    bgr = png_to_bgr(rows, png.colour_type,
-                     torch.from_numpy(png.palette).to(dev))
-    CODEC_COUNTS.launched("png")
-    return orient(bgr, png.orientation)
+def _raster_samples(raster: Tensor, f: RasterForm) -> Tensor:
+    """(H, W, channels) int64 samples of a raster's bytes."""
+    H, W, C = f.height, f.width, f.channels
+    planes, per = (C, 1) if f.planar else (1, C)
+    rows = raster.reshape(planes, H, f.rowbytes).to(torch.int64)
+    n = W * per
+    if f.bits == 16:
+        b = rows[..., :2 * n].reshape(planes, H, n, 2)
+        hi, lo = (b[..., 1], b[..., 0]) if f.little else (b[..., 0],
+                                                           b[..., 1])
+        v = hi * 256 + lo
+    elif f.bits == 8:
+        v = rows[..., :n]
+    else:
+        shifts = torch.arange(8 - f.bits, -1, -f.bits, device=raster.device)
+        v = ((rows[..., None] >> shifts) & ((1 << f.bits) - 1)).reshape(
+            planes, H, -1)[..., :n]
+    return v.reshape(planes, H, W, per).permute(1, 2, 0, 3).reshape(H, W, C)
+
+
+def raster_to_bgr_plain(raster: Tensor, form: RasterForm,
+                        tables: Tensor) -> Tuple[Tensor, Tensor]:
+    """The plain version of ``raster_to_bgr_kernel``: (grey (H, W), BGR
+    (H, W, 3)) uint8, cv2.imread's, from a raster's bytes (uint8, the
+    layout :func:`png_rows` and :func:`tiff_rows` leave) and its tables
+    (csrc/raster_bgr.h says what each form computes)."""
+    RASTER_COUNTS.plain += 1
+    f = form
+    s = _raster_samples(raster, f)
+    t = tables.to(torch.int64)
+    if f.kind == RASTER_GREY:
+        v = s[..., 0]
+        g = v >> 8 if f.bits == 16 else (
+            v * 255 // ((1 << f.bits) - 1) if f.bits < 8 else v)
+        if f.min_is_white:
+            g = 255 - g
+        return g.to(torch.uint8), torch.stack([g, g, g], -1).to(torch.uint8)
+    g16 = None
+    if f.kind == RASTER_PALETTE:
+        rgb = t[:768].reshape(256, 3)[s[..., 0]]
+        r, g, b = rgb.unbind(-1)
+    else:
+        r, g, b = s[..., 0], s[..., 1], s[..., 2]
+        a = s[..., 3] if f.premultiply else None
+        if f.bits == 16:  # libpng converts before it narrows
+            same = (r == g) & (r == b)
+            if f.grey_rule == GREY_LIBPNG:
+                g16 = torch.where(same, r, (
+                    LIBPNG_RC * r + LIBPNG_GC * g + LIBPNG_BC * b + 16384)
+                    >> 15)
+            elif f.grey_rule == GREY_LIBPNG_GAMMA:
+                tab = lambda at: t[at:at + 4096].reshape(2048, 2)
+                big = lambda at: tab(at)[:, 0] * 256 + tab(at)[:, 1]
+                to1, from1 = big(TO_ONE16_AT), big(FROM_ONE16_AT)
+                mix = (LIBPNG_RC * to1[r >> 5] + LIBPNG_GC * to1[g >> 5]
+                       + LIBPNG_BC * to1[b >> 5] + 16384) >> 15
+                g16 = torch.where(same, big(GREY16_AT)[r >> 5],
+                                  from1[mix >> 5])
+            nar = (lambda x: (x + 128) // 257) if \
+                f.narrow == NARROW_ROUND257 else (lambda x: x >> 8)
+            r, g, b = nar(r), nar(g), nar(b)
+            a = None if a is None else nar(a)
+        if a is not None:
+            r, g, b = [(x * a + 127) // 255 for x in (r, g, b)]
+    if f.grey_rule == GREY_OPENCV:
+        grey = (r * 4899 + g * 9617 + b * 1868 + 8192) >> 14
+    elif g16 is not None:
+        grey = g16 >> 8
+    else:
+        if f.grey_rule == GREY_LIBPNG_GAMMA:
+            to1 = t[TO_ONE_AT:TO_ONE_AT + 256]
+            mix = t[FROM_ONE_AT:FROM_ONE_AT + 256][(
+                LIBPNG_RC * to1[r] + LIBPNG_GC * to1[g] + LIBPNG_BC * to1[b]
+                + 16384) >> 15]
+        else:
+            mix = (LIBPNG_RC * r + LIBPNG_GC * g + LIBPNG_BC * b) >> 15
+        grey = torch.where((r == g) & (r == b), r, mix)
+    return grey.to(torch.uint8), torch.stack([b, g, r], -1).to(torch.uint8)
+
+
+def raster_to_bgr_kernel(raster: Tensor, form: RasterForm,
+                         tables: Tensor) -> Tuple[Tensor, Tensor]:
+    """Launch ``raster_to_bgr_kernel`` on a CUDA raster: (grey, BGR), as
+    :func:`raster_to_bgr_plain`."""
+    planes = form.channels if form.planar else 1
+    if raster.device.type != "cuda" or raster.dtype != torch.uint8 or \
+            raster.numel() != planes * form.plane_bytes or \
+            tables.numel() != TABLES_LEN:
+        raise ValueError(f"the raster kernel takes the uint8 CUDA bytes of "
+                         f"its form ({planes} x {form.plane_bytes}) and "
+                         f"{TABLES_LEN} table bytes, got {raster.dtype} "
+                         f"{tuple(raster.shape)} on {raster.device}")
+    raster = raster.contiguous()
+    tables = tables.to(device=raster.device, dtype=torch.uint8).contiguous()
+    H, W = form.height, form.width
+    bgr = torch.empty((H, W, 3), dtype=torch.uint8, device=raster.device)
+    gray = torch.empty((H, W), dtype=torch.uint8, device=raster.device)
+    ints = (ctypes.c_int * 11)(*form[:11])
+    sizes = (ctypes.c_longlong * 2)(form.rowbytes, form.plane_bytes)
+    err = _library().raster_to_bgr_launch(
+        raster.data_ptr(), ints, sizes, tables.data_ptr(), bgr.data_ptr(),
+        gray.data_ptr(), _stream(raster))
+    _check(err, "raster_to_bgr_kernel launch")
+    RASTER_COUNTS.launched()
+    return gray, bgr
+
+
+def raster_rows(data: bytes, lib) -> Raster:
+    """:func:`png_rows` or :func:`tiff_rows` by the file's first bytes."""
+    return (png_rows if image_format(data) == "PNG" else tiff_rows)(data,
+                                                                    lib)
+
+
+def _decode_raster(data: bytes, dev) -> Tuple[Tensor, Tensor]:
+    kind = image_format(data)
+    r = raster_rows(data, _library())
+    samples = torch.from_numpy(r.samples).to(dev)
+    tables = torch.from_numpy(r.tables).to(dev)
+    gray, bgr = raster_to_bgr_kernel(samples, r.form, tables)
+    CODEC_COUNTS.launched(kind.lower())
+    return orient(gray, r.orientation), orient(bgr, r.orientation)
+
+
+def decode(data: bytes, device) -> Tuple[Tensor, Tensor]:
+    """(grey (H, W), BGR (H, W, 3)) uint8 tensors on ``device`` from a
+    file's bytes: what ``cv2.imread`` gives with ``IMREAD_GRAYSCALE`` and
+    ``IMREAD_COLOR``. On a CUDA device, JPEG, PNG and TIFF."""
+    dev = torch.device(device)
+    if dev.type == "cpu":
+        import cv2
+
+        buf = np.frombuffer(data, np.uint8)
+        gray = cv2.imdecode(buf, cv2.IMREAD_GRAYSCALE)
+        bgr = cv2.imdecode(buf, cv2.IMREAD_COLOR)
+        if gray is None or bgr is None:
+            raise ValueError(f"OpenCV cannot decode this {image_format(data)}"
+                             f" file")
+        return torch.from_numpy(gray), torch.from_numpy(bgr)
+    if dev.type != "cuda":
+        raise ValueError(f"no image codec for device {dev}")
+    kind = image_format(data)
+    if kind in ("PNG", "TIFF"):
+        return _decode_raster(data, _cuda_device(dev))
+    if kind != "JPEG":
+        raise ValueError(f"not a JPEG, PNG or TIFF ({kind}): the card's "
+                         f"codec reads those only")
+    return _decode_jpeg(data, dev)
 
 
 def decode_colour(data: bytes, device) -> Tensor:
     """BGR (H, W, 3) uint8 on ``device`` from a file's bytes: what
-    ``cv2.imread`` gives with ``IMREAD_COLOR``. On a CUDA device, JPEG and
-    8-bit PNG."""
+    ``cv2.imread`` gives with ``IMREAD_COLOR``. On a CUDA device, JPEG, PNG
+    and TIFF."""
     dev = torch.device(device)
-    if dev.type == "cuda" and image_format(data) == "PNG":
-        return _decode_png_colour(data, dev)
+    if dev.type == "cuda" and image_format(data) in ("PNG", "TIFF"):
+        return _decode_raster(data, _cuda_device(dev))[1]
     if dev.type == "cpu":
         import cv2
 

@@ -19,8 +19,8 @@ bit-exact against cv2 (tests/test_torch_sky.py). The float upsample of the
 probability (``ops.resize.resize_f32``) uses OpenCV's sample positions in
 float32; cv2 differs from it by at most a few 1e-5 there.
 
-The weights are read by path from the JAX package's vendored file
-(``mpmvs_tpu/models/weights/skyseg_fp16.npz``) without importing it;
+The weights are the port's own copy (``models/weights/skyseg_fp16.npz``,
+the same bytes as the JAX package's vendored file);
 ``MPMVS_SKY_MODEL_DIR`` names another .npz or an ncnn model directory.
 """
 
@@ -40,9 +40,8 @@ from mpmvs_torch.ops.resize import resize_f32, resize_u8
 
 Tensor = torch.Tensor
 
-VENDORED_NPZ = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
-        __file__)))), "mpmvs_tpu", "models", "weights", "skyseg_fp16.npz")
+VENDORED_NPZ = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "weights", "skyseg_fp16.npz")
 PARAM_NAME = "skysegsmall_sim-opt-fp16.param"
 BIN_NAME = "skysegsmall_sim-opt-fp16.bin"
 NET_SIZE = 384

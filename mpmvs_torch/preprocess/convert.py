@@ -6,12 +6,14 @@ and output bytes (``cams/*.txt``, ``pair.txt``); images go through
 
   * a source named ``*.jpg`` is copied byte for byte, as the JAX converter
     does;
-  * any other name (ETH3D's ``.JPG``, DTU's ``.png`` included) is read in
-    colour and re-encoded at quality 95, as the JAX converter's
-    ``cv2.imwrite(dst, cv2.imread(src))`` does, with the same bytes: on a
-    CUDA device through the port's codec, which reads JPEG and 8-bit PNG and
-    raises on anything else, naming why; on the CPU through OpenCV, which
-    reads TIFF and the rest too.
+  * any other name (ETH3D's ``.JPG``, DTU's ``.png``, survey and drone
+    ``.tif`` included) is read in colour and re-encoded at quality 95, as
+    the JAX converter's ``cv2.imwrite(dst, cv2.imread(src))`` does, with
+    the same bytes: on a CUDA device through the port's codec, which reads
+    JPEG, PNG (every colour type and bit depth, Adam7) and TIFF (strips or
+    tiles; uncompressed, LZW, Deflate or PackBits; grey, RGB or palette)
+    and raises on anything else, naming why; on the CPU through OpenCV,
+    which reads the rest too.
 
     mpmvs-torch-convert --dense_folder <colmap dense> --save_folder <ws>
 

@@ -130,3 +130,14 @@ def fdct_bound(blocks: int):
     samples read and 64 int16 coefficients written a block (and the
     table). Bytes alone, as for the colour kernel."""
     return bound(0, blocks * (64 + 128) + 128)
+
+
+def raster_bound(form, table_bytes: int):
+    """One launch of the raster kernel (``csrc/jpeg_codec.cu``) on a PNG's
+    or a TIFF's samples (an ``io.images.RasterForm``): the samples read
+    once (every plane), the tables, the BGR image and the grey image
+    written (4 bytes a pixel). Bytes alone, as for the codec's other
+    kernels."""
+    planes = form.channels if form.planar else 1
+    return bound(0, planes * form.plane_bytes + table_bytes
+                 + 4 * form.width * form.height)

@@ -1,21 +1,20 @@
-"""Hold the card's JPEG encoder and PNG reader to OpenCV without the card.
+"""Hold the card's JPEG encoder to OpenCV without the card.
 
     python tests/data/jpeg/check_host_encoder.py
 
-Builds the encoder's and the PNG reader's host sources
-(``mpmvs_torch/csrc/jpeg_encode.h``, ``png_unfilter.h``) and the arithmetic
-of the encoder's kernels (``jpeg_fdct.h``, compiled for the host) with
-``g++`` into a temporary directory, then:
+Builds the encoder's host sources (``mpmvs_torch/csrc/jpeg_encode.h``, with
+the codec's other host headers, which ``io.images.bind_host`` binds) and
+the arithmetic of the encoder's kernels (``jpeg_fdct.h``, compiled for the
+host) with ``g++`` into a temporary directory, then:
 
 * encodes the fixtures under ``encode/`` and images made from a seed (17x9
   to 2130x3200, qualities 30 to 100) with the kernels' plain versions
   (``io.images.bgr_to_ycc_plain``, ``fdct_islow_plain``) and the host's
   entropy coding, and counts the bytes that differ from ``cv2.imencode``'s;
 * runs the kernels' host-compiled arithmetic on the same images and counts
-  the plane and coefficient entries that differ from the plain versions;
-* reads the PNGs under ``../png`` through ``io.images.png_rows`` and
-  ``png_to_bgr`` and counts the entries that differ from ``cv2.imread``'s,
-  and checks that those under ``../png/refused`` raise.
+  the plane and coefficient entries that differ from the plain versions.
+
+The PNG and TIFF reads have their own check, ``../tiff/check_host_raster.py``.
 
 It needs g++ and OpenCV. Exit code 0 when nothing differs.
 """
@@ -33,7 +32,6 @@ import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(HERE)))
-PNG_DIR = os.path.join(os.path.dirname(HERE), "png")
 sys.path.insert(0, REPO)
 from mpmvs_torch.io import images  # noqa: E402
 
@@ -41,6 +39,7 @@ SHIM = r'''
 #include "jpeg_encode.h"
 #include "jpeg_fdct.h"
 #include "png_unfilter.h"
+#include "tiff_decode.h"
 // bgr_to_ycc_kernel's and fdct_islow_quant_kernel's work, thread by thread
 extern "C" void ycc_planes(const uint8_t* img, int H, int W, int channels,
                            uint8_t* y, int y_h, int y_w, uint8_t* cb,
@@ -126,14 +125,6 @@ def kernel_mismatches(lib, img: np.ndarray, quality: int) -> int:
     return n
 
 
-def decode_png(lib, data: bytes) -> np.ndarray:
-    """The card's PNG colour read, its conversion run on the CPU."""
-    png = images.png_rows(data, lib)
-    bgr = images.png_to_bgr(torch.from_numpy(png.rows), png.colour_type,
-                            torch.from_numpy(png.palette))
-    return images.orient(bgr, png.orientation).numpy()
-
-
 def encode_cases():
     sources = np.load(os.path.join(HERE, "encode", "sources.npz"))
     for path in sorted(glob.glob(os.path.join(HERE, "encode", "*.jpg"))):
@@ -166,25 +157,6 @@ def main() -> int:
             total += n + k
             print(f"{name:28s} {len(want):8d} bytes: {n} differ; kernels vs "
                   f"plain: {k} entries differ")
-        want = np.load(os.path.join(PNG_DIR, "cv2_arrays.npz"))
-        for path in sorted(glob.glob(os.path.join(PNG_DIR, "*.png"))):
-            name = os.path.basename(path)[:-4]
-            with open(path, "rb") as f:
-                got = decode_png(lib, f.read())
-            ref = want[f"bgr_{name}"]
-            n = int((got != ref).sum()) if got.shape == ref.shape else ref.size
-            total += n
-            print(f"png {name:24s} {ref.shape}: {n} entries differ")
-        for path in sorted(glob.glob(os.path.join(PNG_DIR, "refused", "*"))):
-            with open(path, "rb") as f:
-                data = f.read()
-            try:
-                decode_png(lib, data)
-            except ValueError as e:
-                print(f"refused/{os.path.basename(path)}: {e}")
-            else:
-                total += 1
-                print(f"refused/{os.path.basename(path)} was read")
     print(f"in all: {total} mismatches")
     return 0 if total == 0 else 1
 

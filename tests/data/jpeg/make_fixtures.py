@@ -38,13 +38,21 @@ at qualities 75, 90, 95 and 100 (``<kind>_<h>x<w>_q<q>.jpg``; colour at
 8 and 101x203, written here row by row with the five filter types in turn
 (``type<t>.png``, a palette with a tRNS chunk for type 3), three written by
 ``cv2.imwrite`` (``cv2_gray``, ``cv2_bgr``, ``cv2_bgra``), one with an eXIf
-chunk of orientation 6 (``exif6``), and ``cv2_arrays.npz`` with
-``cv2.imread``'s BGR array of each; ``../png/conversion/`` the workspace
-images the JAX converter writes (``cv2.imwrite(dst, cv2.imread(src))``) for
-the sources of ``CONVERSION`` but the first, which it copies; and
-``../png/refused/`` what the card refuses: ``interlaced.png`` (Adam7), ``grey16.png`` (16-bit, by cv2),
-``grey1.png`` (1-bit grey), ``palette4.png`` (4-bit palette), ``image.tif``
-and ``image.bmp``.
+chunk of orientation 6 (``exif6``); the layouts the card once refused
+(``interlaced``: Adam7, ``grey16``: 16-bit, by cv2, ``grey1``: 1-bit grey,
+``palette4``: 4-bit palette); and at 37x45 or smaller every other colour
+type and bit depth (``grey2``, ``grey4``, ``palette1``, ``palette2``,
+``greyalpha16``, ``rgba16``; ``grey16_all`` and ``rgb16_all``, 256x256,
+hold every 16-bit value in each channel), Adam7 at 1x1, 3x5, 7x9, 13x17 and
+37x45 over several colour types and depths (``adam7_*``), tRNS chunks on
+grey, RGB and palette images (``trns_*``), and gAMA or sRGB chunks
+(``gama_*``, ``srgb_palette8``), which take cv2's grey of colour through
+libpng's gamma tables. ``cv2_arrays.npz`` holds ``cv2.imread``'s BGR
+(``bgr_<name>``) and grey (``gray_<name>``) arrays of each.
+``../png/conversion/`` holds the workspace images the JAX converter writes
+(``cv2.imwrite(dst, cv2.imread(src))``) for the sources of ``CONVERSION``
+but the first, which it copies; and ``../png/refused/`` what the card
+refuses: ``image.bmp`` and ``image.webp``.
 
     python tests/data/jpeg/make_fixtures.py --part new
 
@@ -264,6 +272,37 @@ ADAM7 = ((0, 0, 8, 8), (0, 4, 8, 8), (4, 0, 8, 4), (0, 2, 4, 4),
          (2, 0, 4, 2), (0, 1, 2, 2), (1, 0, 2, 1))  # row0, col0, dy, dx
 
 
+def png_pack(px: np.ndarray, depth: int) -> np.ndarray:
+    """(H, W, C) samples -> (H, rowbytes) uint8 rows: 16-bit big-endian,
+    below 8 bits packed most significant bit first, rows padded to a
+    byte."""
+    h = px.shape[0]
+    s = px.reshape(h, -1)
+    if depth == 16:
+        return s.astype(">u2").view(np.uint8).reshape(h, -1)
+    if depth == 8:
+        return s.astype(np.uint8)
+    per = 8 // depth
+    s = np.concatenate([s, np.zeros((h, -s.shape[1] % per), s.dtype)], 1)
+    shifts = np.arange(per - 1, -1, -1) * depth
+    return (s.astype(np.uint16).reshape(h, -1, per) << shifts).sum(
+        -1).astype(np.uint8)
+
+
+def png_scanlines(px: np.ndarray, depth: int, interlace: int = 0) -> bytes:
+    """Filtered scanlines of (H, W, C) samples, the filter types cycling
+    row by row (within each Adam7 pass when ``interlace``)."""
+    bpp = max(1, px.shape[2] * depth // 8)
+    if not interlace:
+        return png_filter_rows(png_pack(px, depth), bpp)
+    out = []
+    for r0, c0, dy, dx in ADAM7:
+        sub = px[r0::dy, c0::dx]
+        if sub.size:
+            out.append(png_filter_rows(png_pack(sub, depth), bpp))
+    return b"".join(out)
+
+
 def adam7_scanlines(img: np.ndarray) -> bytes:
     """Unfiltered scanlines of an 8-bit image's seven Adam7 passes."""
     out = []
@@ -272,6 +311,72 @@ def adam7_scanlines(img: np.ndarray) -> bytes:
         if sub.size:
             out += [b"\0" + row.tobytes() for row in sub]
     return b"".join(out)
+
+
+def all16() -> np.ndarray:
+    """(256, 256, 3) uint16: every 16-bit value once in each channel."""
+    v = np.arange(65536, dtype=np.uint16).reshape(256, 256)
+    return np.stack([v, v[::-1, ::-1], v.T], -1)
+
+
+def gama(g: int) -> bytes:
+    return png_chunk(b"gAMA", struct.pack(">I", g))
+
+
+def more_png_fixtures(bgr: np.ndarray, alpha: np.ndarray,
+                      palette: np.ndarray, index: np.ndarray):
+    """The PNGs of every colour type at every bit depth, Adam7, tRNS and
+    gamma: {name: bytes}."""
+    rng = np.random.default_rng(12)
+    ih, iw = 37, 45
+    rgb = bgr[:ih, :iw, ::-1]
+    grey = cv2.cvtColor(bgr[:ih, :iw], cv2.COLOR_BGR2GRAY)[..., None]
+    a = alpha[:ih, :iw, None]
+    rgb16 = rgb.astype(np.uint16) * 257 + rng.integers(
+        0, 257, rgb.shape).astype(np.uint16)
+    a16 = all16()
+    pal = png_chunk(b"PLTE", palette.tobytes())
+    idx = index[:ih, :iw, None]
+
+    def png(px, depth, colour_type, extra=b"", interlace=0):
+        h, w = px.shape[:2]
+        return png_bytes(w, h, depth, colour_type,
+                         png_scanlines(px, depth, interlace), extra,
+                         interlace)
+
+    f = {
+        "grey2": png(grey >> 6, 2, 0),
+        "grey4": png(grey >> 4, 4, 0),
+        "grey16_all": png(a16[..., :1], 16, 0),
+        "palette1": png(idx % 2, 1, 3, pal),
+        "palette2": png(idx % 4, 2, 3, pal),
+        "rgb16_all": png(a16, 16, 2),
+        "greyalpha16": png(rgb16[..., :2], 16, 4),
+        "rgba16": png(np.concatenate([rgb16, a.astype(np.uint16) * 257], -1),
+                      16, 6),
+        "adam7_1x1_rgb8": png(rgb[:1, :1], 8, 2, interlace=1),
+        "adam7_3x5_palette2": png(idx[:3, :5] % 4, 2, 3, pal, 1),
+        "adam7_7x9_greyalpha16": png(rgb16[:7, :9, :2], 16, 4, interlace=1),
+        "adam7_13x17_grey4": png(grey[:13, :17] >> 4, 4, 0, interlace=1),
+        "adam7_grey1": png(grey > 127, 1, 0, interlace=1),
+        "adam7_rgba16": png(np.concatenate(
+            [rgb16, a.astype(np.uint16) * 257], -1), 16, 6, interlace=1),
+        "adam7_palette8": png(idx, 8, 3, pal, 1),
+        "trns_grey8": png(grey, 8, 0, png_chunk(b"tRNS", b"\0\x80")),
+        "trns_grey2": png(grey >> 6, 2, 0, png_chunk(b"tRNS", b"\0\x01")),
+        "trns_rgb16": png(rgb16, 16, 2, png_chunk(
+            b"tRNS", struct.pack(">HHH", *rgb16[0, 0].tolist()))),
+        "trns_palette4": png(idx % 16, 4, 3, pal + png_chunk(
+            b"tRNS", bytes(range(0, 160, 10)))),
+        "gama_rgb8": png(rgb, 8, 2, gama(45455)),
+        "gama_rgb8_200000": png(rgb, 8, 2, gama(200000)),
+        "gama_rgb8_100000": png(rgb, 8, 2, gama(100000)),
+        "srgb_palette8": png(idx, 8, 3, png_chunk(b"sRGB", b"\0") + pal),
+        "gama_grey16": png(rgb16[..., :1], 16, 0, gama(45455)),
+        "gama_rgba16": png(np.concatenate(
+            [rgb16, a.astype(np.uint16) * 257], -1), 16, 6, gama(45455)),
+    }
+    return f
 
 
 def write_png_fixtures() -> None:
@@ -307,37 +412,41 @@ def write_png_fixtures() -> None:
         "cv2_bgra": cv2.imencode(".png", np.concatenate(
             [bgr, alpha[..., None]], -1))[1].tobytes(),
     }
-    arrays = {}
-    for name, data in files.items():
-        with open(os.path.join(PNG_DIR, f"{name}.png"), "wb") as f:
-            f.write(data)
-        arrays[f"bgr_{name}"] = cv2.imdecode(np.frombuffer(data, np.uint8),
-                                             cv2.IMREAD_COLOR)
-    np.savez_compressed(os.path.join(PNG_DIR, "cv2_arrays.npz"), **arrays)
+    # the files the card refused until it read every layout
     ih, iw = 37, 45
     small = bgr[:ih, :iw]
     bits = np.packbits(grey[:ih, :iw] > 127, axis=1)
     nibbles = index[:ih, :iw - 1:2] % 16 * 16 + index[:ih, 1:iw:2] % 16
-    refused = {
-        "interlaced.png": png_bytes(iw, ih, 8, 2, adam7_scanlines(
+    files.update({
+        "interlaced": png_bytes(iw, ih, 8, 2, adam7_scanlines(
             small[..., ::-1].copy()), interlace=1),
-        "grey16.png": cv2.imencode(".png", grey[:ih, :iw].astype(
+        "grey16": cv2.imencode(".png", grey[:ih, :iw].astype(
             np.uint16) * 257)[1].tobytes(),
-        "grey1.png": png_bytes(iw, ih, 1, 0, b"".join(
+        "grey1": png_bytes(iw, ih, 1, 0, b"".join(
             b"\0" + r.tobytes() for r in bits)),
-        "palette4.png": png_bytes(iw - 1, ih, 4, 3, b"".join(
+        "palette4": png_bytes(iw - 1, ih, 4, 3, b"".join(
             b"\0" + r.tobytes() for r in nibbles.astype(np.uint8)),
             png_chunk(b"PLTE", palette[:16].tobytes())),
-        "image.tif": cv2.imencode(".tif", small)[1].tobytes(),
-        "image.bmp": cv2.imencode(".bmp", small)[1].tobytes(),
-    }
+    })
+    files.update(more_png_fixtures(bgr, alpha, palette, index))
+    arrays = {}
+    for name, data in files.items():
+        with open(os.path.join(PNG_DIR, f"{name}.png"), "wb") as f:
+            f.write(data)
+        buf = np.frombuffer(data, np.uint8)
+        arrays[f"bgr_{name}"] = cv2.imdecode(buf, cv2.IMREAD_COLOR)
+        arrays[f"gray_{name}"] = cv2.imdecode(buf, cv2.IMREAD_GRAYSCALE)
+        assert all(arrays[k] is not None for k in arrays), name
+    np.savez_compressed(os.path.join(PNG_DIR, "cv2_arrays.npz"), **arrays)
+    # the interlaced file is a real one: cv2 reads back what was written
+    assert np.array_equal(arrays["bgr_interlaced"], small)
+    for name in os.listdir(refused_dir):
+        os.remove(os.path.join(refused_dir, name))
+    refused = {"image.bmp": cv2.imencode(".bmp", small)[1].tobytes(),
+               "image.webp": cv2.imencode(".webp", small)[1].tobytes()}
     for name, data in refused.items():
         with open(os.path.join(refused_dir, name), "wb") as f:
             f.write(data)
-    # the interlaced file is a real one: cv2 reads back what was written
-    back = cv2.imdecode(np.frombuffer(refused["interlaced.png"], np.uint8),
-                        cv2.IMREAD_COLOR)
-    assert np.array_equal(back, small)
 
 
 # a COLMAP model's image names -> the fixtures they are copied from

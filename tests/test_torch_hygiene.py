@@ -8,9 +8,13 @@
   JAX, OpenCV or PyYAML (the H100 machine has neither OpenCV nor PyYAML,
   and the port must not depend on JAX).
 * A CUDA device that is not there raises instead of running on the CPU.
+* An install carries what the port reads at run time: every header the
+  CUDA sources include and the sky net's weights are package data, and
+  no path in the port names a file of the JAX package.
 """
 
 import os
+import re
 import subprocess
 import sys
 
@@ -131,3 +135,103 @@ def test_interop_round_trip():
     assert key.tolist() == [1, 2]
     with pytest.raises(ValueError):
         interop.key_from_numpy(np.array([1, 2], np.int32))
+
+
+def _package_data_globs():
+    """The package-data globs of ``mpmvs_torch`` and its subpackages in
+    pyproject.toml, as paths under the repository."""
+    with open(os.path.join(REPO, "pyproject.toml")) as f:
+        text = f.read()
+    block = text.split("[tool.setuptools.package-data]", 1)[1].split(
+        "\n[", 1)[0]
+    out = []
+    for pkg, globs in re.findall(r'^"?([\w.]+)"?\s*=\s*\[(.*?)\]', block,
+                                 re.M):
+        if pkg.split(".")[0] == "mpmvs_torch":
+            out += [os.path.join(*pkg.split("."), g)
+                    for g in re.findall(r'"([^"]+)"', globs)]
+    return out
+
+
+def test_package_data_ships_every_included_header():
+    """Each ``#include "..."`` of a CUDA or C source under
+    mpmvs_torch/csrc, and the sky net's weights, is matched by a
+    package-data glob: a non-editable install can build every kernel and
+    load the weights."""
+    import fnmatch
+
+    from mpmvs_torch.models import sky
+    from mpmvs_torch.ops import nvcc
+
+    globs = _package_data_globs()
+    need = set()
+    for name in os.listdir(nvcc.CSRC):
+        need.add(name)
+        with open(os.path.join(nvcc.CSRC, name)) as f:
+            need.update(re.findall(r'^\s*#\s*include\s+"([^"]+)"', f.read(),
+                                   re.M))
+    rel = [os.path.join("mpmvs_torch", "csrc", n) for n in sorted(need)]
+    rel.append(os.path.relpath(sky.VENDORED_NPZ, REPO))
+    missing = [p for p in rel if not any(fnmatch.fnmatch(p, g)
+                                         for g in globs)]
+    assert not missing, (missing, globs)
+    assert all(os.path.exists(os.path.join(REPO, p)) for p in rel)
+
+
+def test_sky_weights_are_the_ports_own_copy():
+    """The port's sky weights are a copy of the JAX package's file, byte
+    for byte, read from the port's own tree."""
+    import hashlib
+
+    from mpmvs_torch.models import sky
+
+    theirs = os.path.join(REPO, "mpmvs_tpu", "models", "weights",
+                          "skyseg_fp16.npz")
+    digest = lambda p: hashlib.sha256(open(p, "rb").read()).hexdigest()
+    assert os.path.dirname(sky.VENDORED_NPZ).startswith(
+        os.path.join(REPO, "mpmvs_torch"))
+    assert digest(sky.VENDORED_NPZ) == digest(theirs)
+
+
+PATH_CALLS = {"join", "Path", "open", "exists", "isfile", "isdir", "listdir",
+              "load", "abspath", "realpath", "dirname"}
+
+
+def test_port_names_no_path_in_the_jax_package():
+    """No string outside comments and docstrings of mpmvs_torch/ names a
+    path in mpmvs_tpu: neither a literal with a separator after the name
+    nor the name as an argument of a path-building or file call (the name
+    alone is allowed as a module name, as the bench's foreign-module check
+    uses it)."""
+    import ast
+
+    bad = []
+    root = os.path.join(REPO, "mpmvs_torch")
+    for folder, _, files in os.walk(root):
+        for name in files:
+            if not name.endswith(".py"):
+                continue
+            path = os.path.join(folder, name)
+            with open(path) as f:
+                tree = ast.parse(f.read())
+            docs = {id(n.body[0].value) for n in ast.walk(tree)
+                    if isinstance(n, (ast.Module, ast.FunctionDef,
+                                      ast.AsyncFunctionDef, ast.ClassDef))
+                    and n.body and isinstance(n.body[0], ast.Expr)
+                    and isinstance(n.body[0].value, ast.Constant)}
+            for node in ast.walk(tree):
+                if isinstance(node, ast.Constant) and isinstance(
+                        node.value, str) and id(node) not in docs and \
+                        re.search(r"mpmvs_tpu[/\\]", node.value):
+                    bad.append((path, node.lineno, node.value))
+                if not isinstance(node, ast.Call):
+                    continue
+                fn = node.func
+                fname = fn.attr if isinstance(fn, ast.Attribute) else \
+                    getattr(fn, "id", "")
+                if fname in PATH_CALLS and any(
+                        isinstance(a, ast.Constant) and isinstance(
+                            a.value, str) and "mpmvs_tpu" in a.value
+                        for a in node.args):
+                    bad.append((path, node.lineno, fname))
+    assert not bad, bad

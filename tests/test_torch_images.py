@@ -32,15 +32,18 @@ or PyYAML on the card, held against mpmvs_tpu on the CPU.
   (colour and grey, 1x1 to 120x176, qualities 75 to 100); the kernels'
   arithmetic (``csrc/jpeg_fdct.h``, built for the host) equals the plain
   versions entry for entry.
-* PNG reads without the card: ``images.png_rows`` (the host unfilter of
-  ``csrc/png_unfilter.h``, built with g++) and ``images.png_to_bgr`` give
-  ``cv2.imread``'s BGR for 8-bit colour types 0, 2, 3, 4, 6, with an eXIf
-  orientation; 16-bit, sub-8-bit and interlaced PNGs, TIFF and BMP are
-  refused, naming the cause.
+* PNG reads without the card: ``images.png_rows`` (the host unfilter and
+  de-interlace of ``csrc/png_unfilter.h``, built with g++) and
+  ``images.raster_to_bgr_plain`` give ``cv2.imread``'s BGR and grey for
+  every colour type at every bit depth, Adam7, tRNS, gAMA and sRGB, with
+  an eXIf orientation; BMP, WebP and the TIFFs the card does not read
+  (JPEG-compressed, float, old-style LZW, CMYK) are refused, naming the
+  cause (the TIFF reads: tests/test_torch_raster.py).
 * On the card (``cuda``, skipped without one): the fixtures under
   ``tests/data/jpeg`` (and ``layouts/``, and ``refused/`` where they have
   cv2 arrays) decode to cv2's arrays, 0 entries differ, grey and BGR; the
-  rest of ``refused/`` raises, naming the cause; the PNGs read to cv2's BGR;
+  rest of ``refused/`` raises, naming the cause; the PNGs read to cv2's BGR
+  and what stays refused raises;
   the IDCT and colour kernels (YCbCr and RGB forms) and the encoder's two
   kernels equal their plain versions (also at 3200x2130); the encoder
   writes cv2.imencode's stored bytes for every encoder fixture.
@@ -80,9 +83,16 @@ FIXTURE_NAMES = sorted(f[:-4] for f in os.listdir(FIXTURES)
 LINE_DIFF_TOL = 1e-3
 PNG_DIR = os.path.join(os.path.dirname(FIXTURES), "png")
 PNG_NAMES = sorted(f[:-4] for f in os.listdir(PNG_DIR) if f.endswith(".png"))
-PNG_REFUSED = {"interlaced.png": "interlaced", "grey16.png": "16-bit",
-               "grey1.png": "1-bit", "palette4.png": "4-bit",
-               "image.tif": "TIFF", "image.bmp": "BMP"}
+# what the card refuses of the sources a converter meets (files under
+# tests/data): the cause its error names. The interlaced, 16-bit, 1-bit grey
+# and 4-bit palette PNGs and the TIFF once here now read (PNG_NAMES,
+# tests/test_torch_raster.py)
+PNG_REFUSED = {"png/refused/image.bmp": "BMP",
+               "png/refused/image.webp": "WebP",
+               "tiff/refused/jpeg.tif": "JPEG-compressed",
+               "tiff/refused/float.tif": "float",
+               "tiff/refused/old_lzw.tif": "old-style LZW",
+               "tiff/refused/cmyk.tif": "CMYK"}
 LAYOUT_NAMES = sorted(f[:-4] for f in os.listdir(os.path.join(
     FIXTURES, "layouts")) if f.endswith(".jpg"))
 # the JPEGs cv2 reads as another image than their planes, which the card
@@ -137,6 +147,11 @@ def _cv2_arrays(name):
 
 def _png_bytes(name):
     with open(os.path.join(PNG_DIR, name), "rb") as f:
+        return f.read()
+
+
+def _data_bytes(rel):
+    with open(os.path.join(os.path.dirname(FIXTURES), rel), "rb") as f:
         return f.read()
 
 
@@ -515,19 +530,35 @@ def test_encoder_kernel_arithmetic_equals_plain(host_encoder, name):
     assert tool.kernel_mismatches(lib, src, quality) == 0
 
 
+@pytest.fixture(scope="module")
+def host_raster(tmp_path_factory):
+    if shutil.which("g++") is None:
+        pytest.skip("needs g++ to build the host PNG and TIFF readers")
+    spec = importlib.util.spec_from_file_location(
+        "check_host_raster", os.path.join(os.path.dirname(FIXTURES), "tiff",
+                                          "check_host_raster.py"))
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    return tool, tool.build(str(tmp_path_factory.mktemp("host_raster")))
+
+
 @pytest.mark.parametrize("name", PNG_NAMES)
-def test_host_png_read_is_cv2(host_encoder, name):
-    tool, lib = host_encoder
-    want = np.load(os.path.join(PNG_DIR, "cv2_arrays.npz"))[f"bgr_{name}"]
-    np.testing.assert_array_equal(
-        tool.decode_png(lib, _png_bytes(f"{name}.png")), want)
+def test_host_png_read_is_cv2(host_raster, name):
+    """images.png_rows (the host unfilter and de-interlace) and
+    raster_to_bgr_plain give cv2.imread's BGR and grey arrays, for every
+    colour type at every bit depth."""
+    tool, lib = host_raster
+    want = np.load(os.path.join(PNG_DIR, "cv2_arrays.npz"))
+    g, bgr = tool.read(lib, _png_bytes(f"{name}.png"))
+    np.testing.assert_array_equal(bgr, want[f"bgr_{name}"])
+    np.testing.assert_array_equal(g, want[f"gray_{name}"])
 
 
 @pytest.mark.parametrize("name", sorted(PNG_REFUSED))
-def test_host_png_read_refuses(host_encoder, name):
-    tool, lib = host_encoder
+def test_host_png_read_refuses(host_raster, name):
+    tool, lib = host_raster
     with pytest.raises(ValueError, match=PNG_REFUSED[name]):
-        tool.decode_png(lib, _png_bytes(f"refused/{name}"))
+        tool.read(lib, _data_bytes(name))
 
 
 @pytest.mark.parametrize("orientation", range(1, 10))
@@ -667,10 +698,11 @@ def test_card_png_read_is_cv2(dev, name):
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", sorted(PNG_REFUSED))
 def test_card_png_read_refuses(dev, name):
+    path = os.path.join(os.path.dirname(FIXTURES), name)
     with pytest.raises(ValueError, match=PNG_REFUSED[name]):
-        images.read_colour(os.path.join(PNG_DIR, "refused", name), dev)
+        images.read_colour(path, dev)
     with pytest.raises(ValueError):
-        images.read_image(os.path.join(PNG_DIR, "refused", name), dev)
+        images.read_image(path, dev)
 
 
 @pytest.mark.cuda

@@ -15,7 +15,7 @@ the CPU tests, so the ``cuda`` test runs without it.
 * On the card (``cuda``): the same model converts to those stored bytes
   (the ``.jpg`` copied, the rest read and re-encoded by the card's codec);
   JPEG sources written by the card's encoder convert, a PNG source
-  converts, and an interlaced PNG raises, naming the cause.
+  converts, and a BMP source raises, naming the cause.
 """
 
 import os
@@ -274,9 +274,8 @@ def test_card_converts_jpegs_and_refuses_other_formats(dev, tmp_path):
     with open(os.path.join(str(tmp_path / "ws2"), "images", "00000001.jpg"),
               "rb") as f:
         assert f.read() == images.encode_jpeg(rgb.astype(np.uint8), dev, 95)
-    shutil.copyfile(os.path.join(DATA, "png", "refused", "interlaced.png"),
-                    png)
-    with pytest.raises(ValueError, match="interlaced"):
+    shutil.copyfile(os.path.join(DATA, "png", "refused", "image.bmp"), png)
+    with pytest.raises(ValueError, match="BMP"):
         convert_colmap(dense, str(tmp_path / "ws3"), log=lambda *a: None,
                        device=dev)
 
