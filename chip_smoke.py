@@ -9,7 +9,8 @@ Phases, in order; any failure raises and the script exits non-zero:
 1. Device and build: the card's name and power limit, and the ``nvcc``
    builds of ``mpmvs_torch/csrc/ncc_eval.cu``, ``ncc_samples.cu``,
    ``bilateral_refine.cu``, ``geom_cost.cu`` and ``jpeg_codec.cu`` (the
-   JPEG decoder's IDCT and colour kernels, the encoder's colour and
+   JPEG decoder's IDCT kernel and its colour kernels of one or three
+   components and of four, the encoder's colour and
    forward-DCT kernels, the raster kernel of PNG and TIFF reads, the
    host's entropy coding, PNG unfilter and TIFF decoder), started together,
    with their time and register reports.
@@ -20,7 +21,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    RGB-coded files (``layouts/``, and ``refused/`` where
    ``cv2_arrays.npz`` holds them) against cv2's arrays, the RGB form of the
    colour kernel against its plain version; the rest of ``refused/``
-   (12-bit, arithmetic, lossless, CMYK) must raise; the encoder's fixtures
+   (12-bit, arithmetic, lossless, sampling layouts libjpeg refuses) must
+   raise; the four-component JPEGs (CMYK, YCCK) and every sampling layout
+   in ``layouts/`` against cv2's arrays with the colour kernel of each
+   (``ycc_to_bgr_kernel``, ``cmyk_to_bgr_kernel``) equal to its plain
+   version; the encoder's fixtures
    (``encode/``, colour and grey, 1x1 to 120x176, q75-100) must encode to
    cv2.imencode's stored bytes; the PNGs of ``tests/data/png`` (every
    colour type and bit depth, Adam7, tRNS, gAMA) and the TIFFs of
@@ -105,7 +110,9 @@ Phases, in order; any failure raises and the script exits non-zero:
 8. The user's path from files (after phase 6): a 4-view 3200x2130 plane
    scene with the sky band and tinted colours, written as a COLMAP text
    model, a ``.JPG`` image by the card's encoder, an 8-bit RGB ``.tif``
-   (LZW, predictor 2), a 16-bit RGB ``.png`` and an 8-bit ``.png``;
+   (LZW, predictor 2), a 16-bit RGB ``.png`` and a YCCK ``.jpeg`` (the
+   committed ``tests/data/jpeg/conversion/ycck_3200x2130.jpg``, made of
+   view 3 on a card, with the sha-256 of what cv2 makes of it);
    ``mpmvs_torch.preprocess.convert.main`` (on the card), then
    ``mpmvs_torch.cli.main(["--input", ws, "--sky-seg", "1", "--config",
    yaml])``: the default schedule, every view estimated with the other 3
@@ -115,14 +122,19 @@ Phases, in order; any failure raises and the script exits non-zero:
    depths.dmb, a non-empty PLY, and the launches of the NCC kernel, the
    bilateral table form and the codec's kernels against the schedule, and
    that the TIFF and PNG sources became the encoding of their pixels
-   (16-bit samples narrowed); times the decode and encode per image; holds
+   (16-bit samples narrowed), and that the card reads the YCCK source as
+   cv2.imread does (grey and BGR) and converts it to the JAX converter's
+   bytes; times the decode and encode per image; holds
    the encoder's colour and DCT kernels to their plain versions at
    3200x2130 (no entry may differ, and the bytes equal) and times them
    beside their bounds, with the copy to the host, the entropy coding and
-   the whole encode; times the PNG read and the host unfilter at that
-   size; splits the TIFF's and the 16-bit PNG's reads into host parse and
-   decompression, copy to the card and the raster kernel (beside its bound
-   and its plain twin, which it must equal).
+   the whole encode; times the read of an 8-bit PNG of view 0 (the
+   host's PNG writer) and the host unfilter at that size; splits the
+   TIFF's and the 16-bit PNG's reads into host parse and decompression, copy to the card and the raster kernel (beside its bound
+   and its plain twin, which it must equal), and the YCCK source's read
+   into host entropy decode, copy, IDCT and the four-component colour
+   kernel (beside its bound and plain twin, which it must equal, on the
+   file's planes and on the same planes at 1x1, in both forms).
 9. Multi-GPU (after phase 8, on its converted workspace): (a) the NCC
    kernel (tile and view-major launches, K=9) and the fused sorted path
    with one zero-extent source (the sharded pipeline's padding: all-zero
@@ -153,6 +165,7 @@ printing any result.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import os
 import subprocess
@@ -200,10 +213,15 @@ NCC_SORTED, NCC_AUTO = 3 * 3 * 2 * 2, 1 + 3 * 3 * 2 * 2
 # mode; colours tinted so the chroma is not flat
 FILES_VIEWS = 4
 # each view's source: a .JPG (the card's encoder), an 8-bit RGB TIFF (LZW,
-# predictor 2, strips of 16 rows), a 16-bit RGB PNG and an 8-bit RGB PNG
-FILES_SOURCES = ("JPG", "tif", "png16", "png")
+# predictor 2, strips of 16 rows), a 16-bit RGB PNG and a YCCK JPEG
+# (YCCK_SOURCE, named .jpeg: the converter copies only *.jpg)
+FILES_SOURCES = ("JPG", "tif", "png16", "ycck")
 TIFF_ROWS_PER_STRIP = 16
 FILES_TINT = (0.85, 1.0, 1.1)
+# phase 8's YCCK source (tests/data/jpeg/make_ycck_source.py); what cv2
+# makes of it is recorded beside it (cv2.json, by make_fixtures.py)
+YCCK_SOURCE = os.path.join(HERE, "tests", "data", "jpeg", "conversion",
+                           "ycck_3200x2130.jpg")
 CAM_TOL = 1e-5   # converted cams vs the scene's, relative
 FILES_PREVIEWS = ["costs.jpg", "depths.jpg", "normals.jpg", "skymask.jpg",
                   "skymask_fuse.jpg", "skymask_refine.jpg",
@@ -1240,7 +1258,21 @@ def phase_fixtures():
         d = np.abs(got - ref)
         return (int((d > 0).sum()), int(d.size), int(d.max()))
 
-    out = {}
+    def colour_equals_plain(data, name):
+        """The file's colour kernel (its form) against the plain version;
+        returns its Layout."""
+        planes, size, layout = images.decode_planes(data, dev)
+        for k, p in zip(images.colour_kernel(planes, layout.factors, size,
+                                             layout.space),
+                        images.colour_plain(planes, layout.factors, size,
+                                            layout.space)):
+            torch.cuda.synchronize()
+            if not torch.equal(k, p):
+                raise AssertionError(f"{name}: colour kernel vs plain differ "
+                                     f"on {int((k != p).sum())} entries")
+        return layout
+
+    out, four = {}, []
     for name in sorted(f[:-4] for f in os.listdir(folder)
                        if f.endswith(".jpg")):
         data = read(os.path.join(folder, f"{name}.jpg"))
@@ -1254,17 +1286,11 @@ def phase_fixtures():
                 raise AssertionError(f"{name}: IDCT kernel vs plain differ "
                                      f"on {int((got_k != got_p).sum())} "
                                      f"entries")
-        y, cb, cr, (hs, vs) = images.decode_planes(data, dev)
-        got_k = images.ycc_to_bgr_kernel(y, cb, cr, hs, vs)
-        got_p = images.ycc_to_bgr_plain(y, cb, cr, hs, vs)
-        torch.cuda.synchronize()
-        if not torch.equal(got_k, got_p):
-            raise AssertionError(f"{name}: colour kernel vs plain differ on "
-                                 f"{int((got_k != got_p).sum())} entries")
+        layout = colour_equals_plain(data, name)
         row = {"gray": against(gray, want[f"gray_{name}"]),
                "bgr": against(bgr, want[f"bgr_{name}"])}
         out[name] = row
-        log(f"  {name} {tuple(bgr.shape)} chroma {hs}x{vs}: grey "
+        log(f"  {name} {tuple(bgr.shape)} ratios {layout.factors}: grey "
             f"{row['gray'][0]} of {row['gray'][1]} entries differ from "
             f"cv2 ({row['gray'][0] / row['gray'][1]:.4f}), largest "
             f"{row['gray'][2]}; BGR {row['bgr'][0]} of {row['bgr'][1]} "
@@ -1285,20 +1311,18 @@ def phase_fixtures():
                     continue
                 raise AssertionError(f"{name} was decoded")
             gray, bgr = images.decode(data, dev)
-            comps, size, layout = images.decode_coefficients(data, dev)
-            if layout.rgb:  # the colour kernel's RGB form vs its plain twin
-                y, g, b, (hs, vs) = images.decode_planes(data, dev)
-                for k, p in zip(images.rgb_to_bgr_kernel(y, g, b, hs, vs),
-                                images.rgb_to_bgr_plain(y, g, b, hs, vs)):
-                    if not torch.equal(k, p):
-                        raise AssertionError(f"{name}: RGB colour kernel vs "
-                                             f"plain differ")
+            # the colour kernel of the file's form (YCbCr, RGB, CMYK, YCCK)
+            # against the plain version
+            layout = colour_equals_plain(data, name)
+            if layout.space in (images.SPACE_CMYK, images.SPACE_YCCK):
+                four.append(name)
             out[name] = {"gray": against(gray, extra[f"gray_{name}"]),
                          "bgr": against(bgr, extra[f"bgr_{name}"])}
             log(f"  {name} {tuple(bgr.shape)} (orientation "
-                f"{layout.orientation}, RGB {layout.rgb}): grey, BGR "
-                f"(entries differing, of, largest) {out[name]['gray']}, "
-                f"{out[name]['bgr']}")
+                f"{layout.orientation}, space {layout.space}, ratios "
+                f"{layout.factors}): grey, BGR (entries differing, of, "
+                f"largest) {out[name]['gray']}, {out[name]['bgr']}; colour "
+                f"kernel equals plain")
     # the encoder: cv2.imencode's stored bytes
     enc_dir = os.path.join(folder, "encode")
     sources = np.load(os.path.join(enc_dir, "sources.npz"))
@@ -1365,7 +1389,8 @@ def phase_fixtures():
         raise AssertionError(f"fixtures differ from cv2: decode {bad}, "
                              f"encode {enc_bad}")
     return out, {"encoded_equal": len(names), "refused": refused,
-                 "raster_kernel_equal_plain": raster_equal}
+                 "raster_kernel_equal_plain": raster_equal,
+                 "four_component_equal_cv2": four}
 
 
 def write_colmap_model(scene, dense: str, names, per_view: int = 400,
@@ -1426,11 +1451,37 @@ def write_colmap_model(scene, dense: str, names, per_view: int = 400,
     return len(pts)
 
 
+def files_scene():
+    """Phase 8's scene: FILES_VIEWS views at 3200x2130 (seed 1), the top
+    fifth sky, and its colours tinted, as uint8 BGR (V, H, W, 3)."""
+    import numpy as np
+    from mpmvs_torch.utils.synthetic import make_plane_scene
+
+    scene = make_plane_scene(num_views=FILES_VIEWS, height=H_FULL,
+                             width=W_FULL, seed=1)
+    paint_sky(scene)
+    bgr = np.clip(np.round(scene.colors * np.array(FILES_TINT, np.float32)),
+                  0, 255).astype(np.uint8)
+    return scene, bgr
+
+
+def sha256_of(t) -> str:
+    """The sha-256 of a uint8 tensor's bytes, row-major, as numpy's
+    ``tobytes`` lays them out."""
+    return hashlib.sha256(t.contiguous().cpu().numpy().tobytes()).hexdigest()
+
+
+def _ycck_cv2() -> dict:
+    """The sha-256 of YCCK_SOURCE, of cv2.imread's grey and BGR arrays of
+    it and of the JAX converter's workspace image of it."""
+    with open(os.path.join(os.path.dirname(YCCK_SOURCE), "cv2.json")) as f:
+        return json.load(f)
+
+
 def phase_files(params, root: str):
     """Phase 8: the user's path from files at full width. A 4-view
     3200x2130 plane scene (top fifth sky, colours tinted) as a COLMAP text
-    model, three .JPG images written by the card's encoder and one .png
-    (the host's PNG writer) under ``root``;
+    model and its sources (FILES_SOURCES) under ``root``;
     ``mpmvs_torch.preprocess.convert.main`` on the card, then
     ``mpmvs_torch.cli.main`` with a YAML config and --sky-seg 1 on the
     converted workspace: the default schedule, every view estimated with
@@ -1448,17 +1499,14 @@ def phase_files(params, root: str):
 
     dev = torch.device("cuda", 0)
     V = FILES_VIEWS
+    ycck_cv2 = _ycck_cv2()
     t0 = time.perf_counter()
-    scene = make_plane_scene(num_views=V, height=H_FULL, width=W_FULL,
-                             seed=1)
-    paint_sky(scene)
-    bgr = np.clip(np.round(scene.colors * np.array(FILES_TINT, np.float32)),
-                  0, 255).astype(np.uint8)
+    scene, bgr = files_scene()
     log(f"  scene: {V} views at {W_FULL}x{H_FULL} in "
         f"{time.perf_counter() - t0:.1f} s")
     out = {}
     dense, ws = os.path.join(root, "dense"), os.path.join(root, "ws")
-    ext = {"JPG": "JPG", "tif": "tif", "png16": "png", "png": "png"}
+    ext = {"JPG": "JPG", "tif": "tif", "png16": "png", "ycck": "jpeg"}
     names = [f"IMG_{v:04d}.{ext[FILES_SOURCES[v]]}" for v in range(V)]
     n_pts = write_colmap_model(scene, dense, names)
     os.makedirs(os.path.join(dense, "images"))
@@ -1476,8 +1524,14 @@ def phase_files(params, root: str):
             enc_ms.append((time.perf_counter() - t2) * 1e3)
             continue
         with open(path, "wb") as f:
-            if kind == "png":
-                f.write(images.encode_png(bgr[v]))
+            if kind == "ycck":  # the committed file of this view
+                with open(YCCK_SOURCE, "rb") as src:
+                    ycck = src.read()
+                if hashlib.sha256(ycck).hexdigest() != \
+                        ycck_cv2["source_sha256"]:
+                    raise AssertionError(f"{YCCK_SOURCE} is not the file "
+                                         f"whose cv2 reads were recorded")
+                f.write(ycck)
             elif kind == "png16":  # the low byte is noise v >> 8 drops
                 low = np.random.default_rng(v).integers(
                     0, 256, bgr[v].shape, dtype=np.uint16)
@@ -1534,6 +1588,7 @@ def phase_files(params, root: str):
            dict(bilateral_cuda.COUNTS.forms))
     tables = bilateral_cuda.TABLE_COUNTS.kernel
     ycc = (images.COUNTS.kernel, images.COUNTS.plain)
+    four = {k: images.COUNTS.forms.get(k, 0) for k in ("cmyk", "ycck")}
     idct_launches = images.IDCT_COUNTS.kernel
     enc_launches = (images.YCC_COUNTS.kernel, images.FDCT_COUNTS.kernel,
                     images.YCC_COUNTS.plain + images.FDCT_COUNTS.plain)
@@ -1585,7 +1640,7 @@ def phase_files(params, root: str):
     # workspace holds their encoding
     converted = {}
     for v in range(V):
-        if FILES_SOURCES[v] == "JPG":
+        if FILES_SOURCES[v] in ("JPG", "ycck"):
             continue
         with open(os.path.join(ws, "images", f"{v:08d}.jpg"), "rb") as f:
             converted[names[v]] = f.read() == images.encode_jpeg(
@@ -1595,6 +1650,23 @@ def phase_files(params, root: str):
     if not all(converted.values()):
         raise AssertionError(f"a TIFF or PNG source's workspace image is "
                              f"not the encoding of its pixels: {converted}")
+    # the YCCK source: the card reads it as cv2.imread does and the
+    # converter writes what the JAX converter's cv2.imwrite(dst,
+    # cv2.imread(src)) writes (sha-256 of cv2's arrays and bytes, recorded
+    # where cv2 is: tests/data/jpeg/conversion/cv2.json)
+    v = FILES_SOURCES.index("ycck")
+    g, c = images.read_image(os.path.join(dense, "images", names[v]), dev)
+    with open(os.path.join(ws, "images", f"{v:08d}.jpg"), "rb") as f:
+        ycck_ws = hashlib.sha256(f.read()).hexdigest()
+    ycck_read = {
+        "gray": sha256_of(g) == ycck_cv2["gray_sha256"],
+        "bgr": sha256_of(c) == ycck_cv2["bgr_sha256"],
+        "workspace_image": ycck_ws == ycck_cv2["workspace_sha256"]}
+    log(f"  YCCK source {names[v]} equal to cv2's (grey, BGR, the "
+        f"converter's workspace image): {ycck_read}")
+    if not all(ycck_read.values()):
+        raise AssertionError(f"the YCCK source differs from cv2: "
+                             f"{ycck_read}")
 
     # decode and encode per image, host clock around synchronised calls
     dec_ms = []
@@ -1614,7 +1686,9 @@ def phase_files(params, root: str):
     comps, _, _ = images.decode_coefficients(data, dev)
     idct_err = [differing(images.idct_islow_kernel(*c),
                           images.idct_islow_plain(*c)) for c in comps]
-    y, cb, cr, (hs, vs) = images.decode_planes(data, dev)
+    planes, size, layout = images.decode_planes(data, dev)
+    y, cb, cr = planes
+    hs, vs = layout.factors[1]
     ycc_err = [differing(images.ycc_to_bgr_kernel(y, cb, cr, hs, vs),
                          images.ycc_to_bgr_plain(y, cb, cr, hs, vs))]
     log(f"  at {W_FULL}x{H_FULL}, chroma {hs}x{vs}: IDCT kernel vs "
@@ -1637,57 +1711,69 @@ def phase_files(params, root: str):
     idct_bound_ms = sum(2 * c[0].numel() + c[2] * c[3]
                         for c in comps) / 3.35e12 * 1e3
     enc = phase_encode_parts(bgr[0], dev)
-    png = phase_png_parts(os.path.join(
-        dense, "images", names[FILES_SOURCES.index("png")]), dev)
+    png = phase_png_parts(bgr[0], dev)
     raster_parts = phase_raster_parts({
         k: os.path.join(dense, "images", names[FILES_SOURCES.index(k)])
         for k in ("tif", "png16")}, dev)
+    ycck_parts = phase_ycck_parts(*[os.path.join(
+        dense, "images", names[FILES_SOURCES.index(k)])
+        for k in ("ycck", "JPG")], dev)
     expected = V * (NCC_PHOTOMETRIC + 2 * NCC_GEOM) + n_prior * NCC_PRIOR
     bad = {v: e for v, e in rel.items() if not e < 0.01}
     log(f"  launches: NCC {ncc[0]} (schedule implies {expected}), plain "
         f"{ncc[1]}; bilateral {bil[0]} by form {bil[2]}, plain {bil[1]}, "
-        f"table builds {tables}; IDCT kernel {idct_launches}, colour kernel "
-        f"{ycc[0]}, plain {ycc[1]}; encoder colour and DCT kernels "
+        f"table builds {tables}; IDCT kernel {idct_launches}, colour "
+        f"kernels {ycc[0]} (four-component {four}), plain {ycc[1]}; encoder "
+        f"colour and DCT kernels "
         f"{enc_launches[:2]}, plain {enc_launches[2]}; raster kernel "
         f"{raster[0]}, plain {raster[1]}; codec calls {codec}")
     if bad or len(pts) == 0 or previews != FILES_PREVIEWS:
         raise AssertionError(f"files path: median rel error >= 1% {bad}, "
                              f"PLY {len(pts)} points, previews {previews}")
-    # the converter reads the .JPG (the JPEG path), the .tif and the two
-    # .pngs (the raster kernel, no colour kernel) and encodes all 4; the
-    # pipeline reads the 4 .jpgs; every encode (the previews' too) is one
-    # colour and three DCT launches but a grey preview's one
-    n_jpg = FILES_SOURCES.count("JPG")
+    # the converter reads the .JPG (the JPEG path), the YCCK .jpeg (the
+    # four-component colour kernel), the .tif and the .png (the raster
+    # kernel, no colour kernel) and encodes all 4; the pipeline reads the
+    # 4 .jpgs; every encode (the previews' too) is one colour and three DCT
+    # launches but a grey preview's one
+    n_jpg, n_ycck = FILES_SOURCES.count("JPG"), FILES_SOURCES.count("ycck")
     n_raster = {k: sum(FILES_SOURCES[v].startswith(k) for v in range(V))
                 for k in ("png", "tif")}
     if ncc != (expected, 0) or bil[:2] != (V, 0) or \
-            bil[2] != {"table": V} or tables != 1 or ycc[0] != n_jpg + V \
-            or ycc[1] != 0 or idct_launches != 3 * ycc[0] or \
+            bil[2] != {"table": V} or tables != 1 or \
+            ycc[0] != n_jpg + n_ycck + V or ycc[1] != 0 or \
+            four != {"cmyk": 0, "ycck": n_ycck} or \
+            idct_launches != 3 * (n_jpg + V) + 4 * n_ycck or \
             codec.get("png") != n_raster["png"] or \
             codec.get("tiff") != n_raster["tif"] or \
-            raster != (V - n_jpg, 0) or codec.get("decode") != n_jpg + V or \
+            raster != (V - n_jpg - n_ycck, 0) or \
+            codec.get("decode") != n_jpg + n_ycck + V or \
             enc_launches[0] != codec.get("encode") or enc_launches[2] or \
             not V <= enc_launches[0] <= enc_launches[1] <= 3 * enc_launches[0]:
         raise AssertionError(f"files path launches: NCC {ncc} (expected "
                              f"{expected}), bilateral {bil}, tables "
-                             f"{tables}, colour kernel {ycc} (expected "
-                             f"{n_jpg + V}: the converter's and the "
-                             f"pipeline's JPEG reads), IDCT kernel "
+                             f"{tables}, colour kernels {ycc} (expected "
+                             f"{n_jpg + n_ycck + V}: the converter's and "
+                             f"the pipeline's JPEG reads; four-component "
+                             f"{four}), IDCT kernel "
                              f"{idct_launches}, encoder kernels "
                              f"{enc_launches}, raster kernel {raster} "
-                             f"(expected {V - n_jpg}: the converter's TIFF "
-                             f"and PNG reads), codec calls {codec}")
+                             f"(expected {V - n_jpg - n_ycck}: the "
+                             f"converter's TIFF and PNG reads), codec calls "
+                             f"{codec}")
     out.update(ws=ws, config=config, gt_depth=scene.gt_depth,
                images=scene.images, cameras=scene.cameras,
                rel=rel, points=len(pts), ncc=ncc[0], bilateral=bil[0],
-               tables=tables, ycc_launches=ycc[0], codec=codec,
+               tables=tables, ycc_launches=ycc[0] - sum(four.values()),
+               codec=codec,
                enc_ms=enc_ms, dec_ms=dec_ms, ycc_ms=kernel_ms,
                ycc_plain_ms=plain_ms, ycc_bound_ms=bound_ms,
                idct_launches=idct_launches, idct_ms=idct_ms,
                idct_plain_ms=idct_plain_ms, idct_bound_ms=idct_bound_ms,
                idct_vs_plain=idct_err, ycc_vs_plain=ycc_err,
                enc_launches=enc_launches, enc=enc, png=png,
-               raster_launches=raster[0], raster=raster_parts)
+               raster_launches=raster[0], raster=raster_parts,
+               cmyk_launches=sum(four.values()), ycck=ycck_parts,
+               ycck_read=ycck_read)
     return out
 
 
@@ -1769,17 +1855,17 @@ def phase_encode_parts(bgr, dev):
     return out
 
 
-def phase_png_parts(path: str, dev):
-    """The PNG read at 3200x2130: decode_colour of phase 8's .png source
-    (host clock, synchronised; the host's zlib writes filter type 0 only),
-    and the host unfilter alone on scanlines of that size whose filter
-    types cycle through all five (random bytes are valid filtered data)."""
+def phase_png_parts(bgr, dev):
+    """The PNG read at 3200x2130: decode_colour of an 8-bit PNG of ``bgr``
+    (phase 8's view 0, written by the host's PNG writer, whose zlib stream
+    holds filter type 0 only; host clock, synchronised), and the host
+    unfilter alone on scanlines of that size whose filter types cycle
+    through all five (random bytes are valid filtered data)."""
     import numpy as np
     import torch
     from mpmvs_torch.io import images
 
-    with open(path, "rb") as f:
-        data = f.read()
+    data = images.encode_png(bgr)
     read_ms = []
     for _ in range(3):
         torch.cuda.synchronize()
@@ -1929,6 +2015,96 @@ def phase_raster_parts(paths, dev):
             f"{np.round(read_ms, 2)} ms; kernel equals plain {err}")
         del samples, got, want
     torch.cuda.empty_cache()
+    return out
+
+
+def phase_ycck_parts(path: str, reference: str, dev):
+    """Phase 8's YCCK source (3200x2130; Y and K at 2x2, Cb and Cr at 1x1)
+    read part by part, host clock around synchronised calls: the host's
+    parse and entropy decode (``images.host_decode``), the copy of the
+    coefficients to the card (``upload_coefficients``), the IDCT kernel
+    (four launches), the four-component colour kernel and the whole
+    ``decode``. The colour kernel also with CUDA events beside its bound
+    and its plain twin (which it must equal), on the file's planes and on
+    its four planes upsampled to 1x1 (a CMYK file's layout at that size),
+    in both forms. ``reference``: a three-component JPEG of the same size
+    (phase 8's .JPG, 4:2:0), whose host decode is timed beside."""
+    import numpy as np
+    import torch
+    from mpmvs_torch.io import images
+    from mpmvs_torch.utils.roofline import colour_bound
+    from mpmvs_torch.utils.trace import cuda_time_ms
+
+    with open(path, "rb") as f:
+        data = f.read()
+    parts = {k: [] for k in ("host_decode_ms", "copy_to_card_ms", "idct_ms",
+                             "colour_kernel_ms", "decode_ms")}
+    for _ in range(3):
+        t1 = time.perf_counter()
+        handle, info = images.host_decode(data)
+        t2 = time.perf_counter()
+        comps, size, layout = images.upload_coefficients(handle, info, dev)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        planes = images._planes(comps)
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        images.colour_kernel(planes, layout.factors, size, layout.space)
+        torch.cuda.synchronize()
+        t5 = time.perf_counter()
+        images.decode(data, dev)
+        torch.cuda.synchronize()
+        t6 = time.perf_counter()
+        for k, (a, b) in zip(parts, ((t1, t2), (t2, t3), (t3, t4), (t4, t5),
+                                     (t5, t6))):
+            parts[k].append((b - a) * 1e3)
+    if layout.space != images.SPACE_YCCK:
+        raise AssertionError(f"{path}: colour space {layout.space}, not YCCK")
+    H, W = size
+    full = [images._upsample(p, H, W, *f).to(torch.uint8)
+            for p, f in zip(planes, layout.factors)]
+    with open(reference, "rb") as f:
+        ref = f.read()
+    ref_ms = []
+    for _ in range(3):
+        t1 = time.perf_counter()
+        handle, info = images.host_decode(ref)
+        ref_ms.append((time.perf_counter() - t1) * 1e3)
+        images.upload_coefficients(handle, info, dev)
+    out = {"file_bytes": len(data), "factors": layout.factors, **parts,
+           "reference_host_decode_ms": ref_ms, "reference_bytes": len(ref)}
+    for label, pl, factors in (("file", planes, layout.factors),
+                               ("1x1", full, [(1, 1)] * 4)):
+        for ycck in (True, False):
+            got = images.cmyk_to_bgr_kernel(pl, factors, ycck, size)
+            want = images.cmyk_to_bgr_plain(pl, factors, ycck, size)
+            err = [differing(a, b) for a, b in zip(got, want)]
+            if any(e[0] for e in err):
+                raise AssertionError(f"cmyk_to_bgr_kernel vs plain at full "
+                                     f"size ({label}, YCCK {ycck}): {err}")
+            ms = cuda_time_ms(lambda: images.cmyk_to_bgr_kernel(
+                pl, factors, ycck, size), 20)
+            plain_ms = cuda_time_ms(lambda: images.cmyk_to_bgr_plain(
+                pl, factors, ycck, size), 3)
+            bnd = colour_bound(pl, H, W)
+            out[f"{label}_{'ycck' if ycck else 'cmyk'}"] = {
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd[0],
+                "bound_by": bnd[1], "vs_plain": err,
+                "plane_bytes": sum(p.numel() for p in pl)}
+    f, o = out["file_ycck"], out["1x1_cmyk"]
+    log(f"  YCCK read at {W}x{H} ({len(data)} file bytes, ratios "
+        f"{layout.factors}): host parse and entropy decode "
+        f"{np.round(parts['host_decode_ms'], 2)} ms (the 4:2:0 .JPG's, "
+        f"{len(ref)} bytes: {np.round(ref_ms, 2)}); copy to the card "
+        f"{np.round(parts['copy_to_card_ms'], 2)} ms; IDCT (4 launches) "
+        f"{np.round(parts['idct_ms'], 2)} ms; colour kernel (host clock) "
+        f"{np.round(parts['colour_kernel_ms'], 3)} ms; decode "
+        f"{np.round(parts['decode_ms'], 2)} ms. cmyk_to_bgr_kernel (CUDA "
+        f"events): the file's YCCK {f['ms']:.4f} ms (bound {f['bound_ms']:.4f}"
+        f", share {f['bound_ms'] / f['ms']:.2f}; plain {f['plain_ms']:.2f}); "
+        f"1x1 CMYK {o['ms']:.4f} ms (bound {o['bound_ms']:.4f}, share "
+        f"{o['bound_ms'] / o['ms']:.2f}; plain {o['plain_ms']:.2f}); every "
+        f"form equals plain")
     return out
 
 
@@ -2203,6 +2379,9 @@ def main(argv=None) -> int:
         "png_read_ms": png["read_ms"], "png_unfilter_ms": png["unfilter_ms"],
         "raster_reads": {k: {f: v for f, v in r.items() if f != "form"}
                          for k, r in files["raster"].items()},
+        "ycck_read": files["ycck"], "ycck_vs_cv2": files["ycck_read"],
+        "four_component_fixtures_equal_cv2":
+            fixture_facts["four_component_equal_cv2"],
         "image": [W_FULL, H_FULL], "calls_phase8": files["codec"],
         "idct_islow": codec_kernel("idct"),
         "ycc_to_bgr": codec_kernel("ycc"),
@@ -2317,6 +2496,20 @@ def main(argv=None) -> int:
               enc["fdct_plain_ms"], enc["fdct_bound"],
               scope="the three planes of a 3200x2130 4:2:0 encode (three "
               "launches)"),
+        entry("cmyk_to_bgr", "jpeg_codec.cu", no_tpu, files["cmyk_launches"],
+              max(e[1] for k in ("file_ycck", "file_cmyk", "1x1_ycck",
+                                 "1x1_cmyk")
+                  for e in files["ycck"][k]["vs_plain"]),
+              files["ycck"]["file_ycck"]["ms"],
+              files["ycck"]["file_ycck"]["plain_ms"],
+              (files["ycck"]["file_ycck"]["bound_ms"],
+               files["ycck"]["file_ycck"]["bound_by"]), form="ycck",
+              scope="a 3200x2130 YCCK JPEG (Y, K at 2x2, Cb, Cr at 1x1: "
+              "phase 8's source), grey and BGR in one launch; the same "
+              "planes at 1x1 and the CMYK form beside it",
+              forms={k: {f: files["ycck"][k][f] for f in (
+                  "ms", "plain_ms", "bound_ms")}
+                  for k in ("file_cmyk", "1x1_ycck", "1x1_cmyk")}),
         entry("raster_to_bgr", "jpeg_codec.cu", no_tpu,
               files["raster_launches"],
               max(e[1] for e in rast["tif"]["vs_plain"]),

@@ -69,6 +69,7 @@ from __future__ import annotations
 import argparse
 import bisect
 import contextlib
+import ctypes
 import dataclasses
 import gc
 import hashlib
@@ -778,7 +779,22 @@ def traced_run(setup: Setup, inputs: Inputs, dev: torch.device,
     split = trace_split(prof.profiler.kineto_results.events(), steps,
                         dev.type)
     split["analysis_s"] = time.perf_counter() - t0
+    del prof
+    release_host_memory()
     return run, split
+
+
+def release_host_memory():
+    """Free what reference cycles hold and give the C heap's free pages
+    back to the system. A traced schedule's profiler events (gigabytes on
+    the CPU rehearsal, 3.2 GiB a cell at 64x80) sit in cycles until a
+    collection, and glibc keeps what is freed: without this, a
+    two-cell rehearsal process held 6.4 GiB at its end."""
+    gc.collect()
+    try:
+        ctypes.CDLL(None).malloc_trim(0)
+    except (AttributeError, OSError):  # not glibc
+        pass
 
 
 # ---------------------------------------------------------------------------

@@ -15,18 +15,22 @@
 //     one thread per 8x8 block, into each component's plane. nvJPEG's own
 //     decode was tried first and differs: its inverse DCT is not jidctint
 //     (1.3-2.1% of grey values off by 1 on the H100);
-//   * ycc_to_bgr_kernel upsamples the planes and makes interleaved BGR with
-//     libjpeg-turbo's integer arithmetic:
-//       - "fancy" (triangle) upsampling of jdsample.c for h2v2 (4:2:0),
-//         h2v1 (4:2:2) and h1v2 (4:4:0), edge rows and columns replicated;
-//       - YCbCr: the fixed-point YCbCr -> RGB of jdcolor.c (16 fractional
-//         bits, FIX(1.402), FIX(1.772), FIX(0.71414), FIX(0.34414),
-//         rounding as its tables do); the grey image is the Y plane itself
-//         (cv2.imread(IMREAD_GRAYSCALE) of a YCbCr JPEG is libjpeg's Y
-//         component, not a conversion of BGR);
+//   * ycc_to_bgr_kernel (one or three components) and cmyk_to_bgr_kernel
+//     (four: CMYK or YCCK) upsample each component by its own rule and make
+//     interleaved BGR and grey with libjpeg-turbo's integer arithmetic and
+//     OpenCV's conversions (jpeg_colour.h says which):
+//       - fancy (triangle) upsampling of jdsample.c for a component at half
+//         the largest factor in one or both axes, replication for every
+//         other integer ratio and for components 1 or 2 samples wide;
+//       - YCbCr: jdcolor.c's fixed-point YCbCr -> RGB; the grey image is the
+//         Y plane itself, upsampled (written by the launch) when Y is not
+//         the largest component (cv2.imread(IMREAD_GRAYSCALE) of a YCbCr
+//         JPEG is libjpeg's Y component, not a conversion of BGR);
 //       - RGB components (libjpeg's guess, jpeg_entropy.h): the samples in
-//         B, G, R order, and the grey image rgb_gray_convert's
-//         (19595 R + 38470 G + 7471 B + 32768) >> 16, written by the same
+//         B, G, R order, and the grey image rgb_gray_convert's, written by
+//         the same launch;
+//       - CMYK and YCCK: libjpeg's CMYK (ycck_cmyk_convert for YCCK), then
+//         OpenCV's CMYK -> BGR and CMYK -> grey, both written by the one
 //         launch;
 //     a one-component JPEG gives B = G = R = Y, as cv2 gives it. An EXIF
 //     orientation is applied to both images on the card afterwards
@@ -43,8 +47,9 @@
 //     DCT and rounding are its own.
 //
 // What bounds the kernels: bytes. The IDCT reads 2 bytes a coefficient and
-// writes 1 a sample, the colour kernel reads 1.5 bytes a pixel (4:2:0) and
-// writes 3; bgr_to_ycc reads 3 and writes 1.5, the forward DCT reads 1 a
+// writes 1 a sample, the YCbCr colour kernel reads 1.5 bytes a pixel
+// (4:2:0) and writes 3, the four-component one reads up to 4 and writes 4
+// (BGR and grey); bgr_to_ycc reads 3 and writes 1.5, the forward DCT reads 1 a
 // sample and writes 2 a coefficient. The host's entropy coding takes far
 // longer than any of them.
 //
@@ -61,7 +66,7 @@
 //
 // The C interface below is bound with ctypes by mpmvs_torch/io/images.py.
 // Every function returns 0 or an error code: a decode error of
-// jpeg_entropy.h (2001-2009), an encode or PNG error (2010, 3001-3002), a
+// jpeg_entropy.h (2001-2011), an encode or PNG error (2010, 3001-3002), a
 // TIFF error (4001-4017) or a CUDA error offset by 1000.
 
 #include <cuda_runtime.h>
@@ -69,6 +74,7 @@
 #include <stdint.h>
 #include <stdlib.h>
 
+#include "jpeg_colour.h"
 #include "jpeg_encode.h"
 #include "jpeg_entropy.h"
 #include "jpeg_fdct.h"
@@ -79,13 +85,14 @@
 
 #define CODEC_CUDA_ERR 1000
 
-// Parse and entropy-decode a JPEG on the host. info receives the number of
-// components, the width and height, then per component six values: its
-// plane's width and height (the sampled size, ceil(W * h / hmax)), the
-// coefficient array's blocks across and down (padded to whole MCUs), and the
-// blocks that cover the plane across and down; info[21] the EXIF
-// orientation, info[22] 1 for RGB components. *out holds the coefficients
-// until jpeg_host_free.
+// Parse and entropy-decode a JPEG on the host. info (39 ints) receives the
+// number of components, the width and height, the EXIF orientation, the
+// colour space (jpeg_entropy::Space), the largest sampling factors hmax and
+// vmax, then from info[7] per component eight values: its plane's width and
+// height (the sampled size, ceil(W * h / hmax)), the coefficient array's
+// blocks across and down (padded to whole MCUs), the blocks that cover the
+// plane across and down, and its factors h and v. *out holds the
+// coefficients until jpeg_host_free.
 extern "C" int jpeg_host_decode(const unsigned char* data, size_t length,
                                 void** out, int* info) {
   jpeg_entropy::Decoder* d = new jpeg_entropy::Decoder();
@@ -97,18 +104,22 @@ extern "C" int jpeg_host_decode(const unsigned char* data, size_t length,
   info[0] = d->ncomp;
   info[1] = d->width;
   info[2] = d->height;
+  info[3] = d->orientation;
+  info[4] = d->space;
+  info[5] = d->hmax;
+  info[6] = d->vmax;
   for (int i = 0; i < d->ncomp; i++) {
     const jpeg_entropy::Component& c = d->comp[i];
-    int* ci = info + 3 + 6 * i;
+    int* ci = info + 7 + 8 * i;
     ci[0] = (d->width * c.h + d->hmax - 1) / d->hmax;
     ci[1] = (d->height * c.v + d->vmax - 1) / d->vmax;
     ci[2] = c.blocks_w;
     ci[3] = c.blocks_h;
     ci[4] = c.width_in_blocks;
     ci[5] = c.height_in_blocks;
+    ci[6] = c.h;
+    ci[7] = c.v;
   }
-  info[21] = d->orientation;
-  info[22] = d->rgb;
   *out = d;
   return 0;
 }
@@ -172,84 +183,67 @@ extern "C" int idct_islow_launch(const short* coef, const unsigned short* qt,
   return e == cudaSuccess ? 0 : CODEC_CUDA_ERR + (int)e;
 }
 
-// One chroma sample at output pixel (r, col): jdsample.c's fancy
-// upsampling for factors (hs, vs) in {1, 2}, with the plane's edge rows and
-// columns replicated as libjpeg's context rows and edge code do.
-__device__ __forceinline__ int chroma_at(const unsigned char* p, int pitch,
-                                         int Hc, int Wc, int r, int col,
-                                         int hs, int vs) {
-  if (hs == 1 && vs == 1) return p[r * pitch + col];
-  if (hs == 2 && vs == 2) {
-    int i = r >> 1, j = col >> 1;
-    int i2 = (r & 1) ? min(i + 1, Hc - 1) : max(i - 1, 0);
-    int jn = (col & 1) ? min(j + 1, Wc - 1) : max(j - 1, 0);
-    int cs = 3 * p[i * pitch + j] + p[i2 * pitch + j];
-    int cn = 3 * p[i * pitch + jn] + p[i2 * pitch + jn];
-    return (3 * cs + cn + ((col & 1) ? 7 : 8)) >> 4;
+// The planes of n components (pointers and n x 5 ints: h, w, rh, rv, fancy,
+// the fields of jpeg_colour::Plane) as the kernels take them.
+static jpeg_colour::Planes planes_of(const unsigned char* const* ptrs,
+                                     const int* geo, int n) {
+  jpeg_colour::Planes pl = {};
+  for (int i = 0; i < n; i++) {
+    const int* g = geo + 5 * i;
+    pl.c[i] = {ptrs[i], g[0], g[1], g[2], g[3], g[4]};
   }
-  if (hs == 2) {  // h2v1
-    int j = col >> 1;
-    int jn = (col & 1) ? min(j + 1, Wc - 1) : max(j - 1, 0);
-    return (3 * p[r * pitch + j] + p[r * pitch + jn] + ((col & 1) ? 2 : 1)) >>
-           2;
-  }
-  int i = r >> 1;  // h1v2
-  int i2 = (r & 1) ? min(i + 1, Hc - 1) : max(i - 1, 0);
-  return (3 * p[i * pitch + col] + p[i2 * pitch + col] + ((r & 1) ? 2 : 1)) >>
-         2;
+  return pl;
 }
 
-__device__ __forceinline__ unsigned char clamp_u8(int v) {
-  return (unsigned char)min(max(v, 0), 255);
-}
-
-// Interleaved BGR (H, W, 3) from the planes; cb == NULL: one component.
-// rgb: the planes are R, G, B (G and B sampled as Cb and Cr would be), and
-// gray receives rgb_gray_convert's grey.
-__global__ void ycc_to_bgr_kernel(const unsigned char* __restrict__ y,
-                                  const unsigned char* __restrict__ cb,
-                                  const unsigned char* __restrict__ cr,
-                                  int H, int W, int Hc, int Wc, int hs, int vs,
-                                  int rgb, unsigned char* __restrict__ bgr,
+// One thread a pixel of the (H, W) image of one or three components: BGR
+// (H, W, 3) and, where gray is not NULL, grey (jpeg_colour.h ycc_pixel;
+// form 0 YCbCr, 1 RGB).
+__global__ void ycc_to_bgr_kernel(jpeg_colour::Planes pl, int n, int form,
+                                  int H, int W,
+                                  unsigned char* __restrict__ bgr,
                                   unsigned char* __restrict__ gray) {
   int col = blockIdx.x * blockDim.x + threadIdx.x;
   int r = blockIdx.y;
   if (col >= W) return;
-  int Y = y[r * W + col];
-  unsigned char* o = bgr + 3 * ((size_t)r * W + col);
-  if (cb == NULL) {
-    o[0] = o[1] = o[2] = (unsigned char)Y;
-    return;
-  }
-  int ub = chroma_at(cb, Wc, Hc, Wc, r, col, hs, vs);
-  int ur = chroma_at(cr, Wc, Hc, Wc, r, col, hs, vs);
-  if (rgb) {  // Y, ub, ur are R, G, B
-    o[0] = (unsigned char)ur;
-    o[1] = (unsigned char)ub;
-    o[2] = (unsigned char)Y;
-    gray[r * W + col] = (unsigned char)jpeg_fdct::y_of(Y, ub, ur);
-    return;
-  }
-  int xb = ub - 128, xr = ur - 128;
-  // jdcolor.c build_ycc_rgb_table: SCALEBITS 16, ONE_HALF 1 << 15
-  int red = (91881 * xr + 32768) >> 16;
-  int green = (-22554 * xb + 32768 - 46802 * xr) >> 16;
-  int blue = (116130 * xb + 32768) >> 16;
-  o[0] = clamp_u8(Y + blue);
-  o[1] = clamp_u8(Y + green);
-  o[2] = clamp_u8(Y + red);
+  size_t i = (size_t)r * W + col;
+  jpeg_colour::ycc_pixel(pl, n, form, r, col, bgr + 3 * i,
+                         gray ? gray + i : nullptr);
 }
 
-extern "C" int ycc_to_bgr_launch(const unsigned char* y,
-                                 const unsigned char* cb,
-                                 const unsigned char* cr, int H, int W, int Hc,
-                                 int Wc, int hs, int vs, int rgb,
-                                 unsigned char* bgr, unsigned char* gray,
-                                 cudaStream_t stream) {
+extern "C" int ycc_to_bgr_launch(const unsigned char* const* ptrs,
+                                 const int* geo, int n, int form, int H,
+                                 int W, unsigned char* bgr,
+                                 unsigned char* gray, cudaStream_t stream) {
   dim3 block(256);
   dim3 grid((W + 255) / 256, H);
-  ycc_to_bgr_kernel<<<grid, block, 0, stream>>>(y, cb, cr, H, W, Hc, Wc, hs,
-                                                vs, rgb, bgr, gray);
+  ycc_to_bgr_kernel<<<grid, block, 0, stream>>>(planes_of(ptrs, geo, n), n,
+                                                form, H, W, bgr, gray);
+  cudaError_t e = cudaGetLastError();
+  return e == cudaSuccess ? 0 : CODEC_CUDA_ERR + (int)e;
+}
+
+// One thread a pixel of the (H, W) image of four components, CMYK or
+// (ycck) YCCK, each upsampled by its own rule: cv2.imread's BGR (H, W, 3)
+// and grey (H, W), both written by the one launch (jpeg_colour.h
+// cmyk_pixel). Row-major over a 1-D grid.
+__global__ void cmyk_to_bgr_kernel(jpeg_colour::Planes pl, int ycck, int H,
+                                   int W, unsigned char* __restrict__ bgr,
+                                   unsigned char* __restrict__ gray) {
+  size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= (size_t)H * W) return;
+  int r = (int)(i / W), col = (int)(i % W);
+  jpeg_colour::cmyk_pixel(pl, ycck, r, col, bgr + 3 * i, gray + i);
+}
+
+extern "C" int cmyk_to_bgr_launch(const unsigned char* const* ptrs,
+                                  const int* geo, int ycck, int H, int W,
+                                  unsigned char* bgr, unsigned char* gray,
+                                  cudaStream_t stream) {
+  size_t n = (size_t)H * W;
+  dim3 block(256);
+  dim3 grid((unsigned)((n + 255) / 256));
+  cmyk_to_bgr_kernel<<<grid, block, 0, stream>>>(planes_of(ptrs, geo, 4),
+                                                 ycck, H, W, bgr, gray);
   cudaError_t e = cudaGetLastError();
   return e == cudaSuccess ? 0 : CODEC_CUDA_ERR + (int)e;
 }

@@ -8,18 +8,20 @@
 // jidctint's arithmetic (idct_islow_kernel in jpeg_codec.cu).
 //
 // Supported: baseline and extended sequential Huffman (SOF0, SOF1) and
-// progressive Huffman (SOF2) JPEGs of 8-bit samples with one or three
-// components, interleaved or not, with restart intervals. Refused, each with
-// its own code: 12-bit samples, arithmetic coding, lossless and
-// hierarchical processes, and four components (CMYK or YCCK, which OpenCV
-// reads through a colour conversion the card does not have). Two things
-// that make cv2.imread give another image than the planes are reported
-// with the coefficients, for the caller to apply: the EXIF orientation
-// (OpenCV rotates or mirrors by 2..8) and three components that libjpeg
-// takes for RGB, not YCbCr (its colour-space guess from the JFIF and Adobe
-// markers and the component ids). Every coefficient is stored in
-// natural (row-major) order, as libjpeg's coefficient buffer holds it, with
-// each component's blocks padded to whole MCUs.
+// progressive Huffman (SOF2) JPEGs of 8-bit samples with one, three or four
+// components, interleaved or not, with restart intervals, at every sampling
+// layout libjpeg takes: factors 1 to 4 that divide the largest of their
+// axis, at most 10 blocks in an interleaved MCU. Refused, each with its own
+// code: 12-bit samples, arithmetic coding, lossless and hierarchical
+// processes, 2 or more than 4 components, and the sampling layouts libjpeg
+// refuses too. Two things that make cv2.imread give another image than the
+// planes are reported with the coefficients, for the caller to apply: the
+// EXIF orientation (OpenCV rotates or mirrors by 2..8) and the colour space
+// libjpeg takes the components for (jdapimin.c default_decompress_parms,
+// from the JFIF and Adobe markers and the component ids): YCbCr or RGB for
+// three, CMYK or YCCK for four. Every coefficient is stored in natural
+// (row-major) order, as libjpeg's coefficient buffer holds it, with each
+// component's blocks padded to whole MCUs.
 
 #pragma once
 
@@ -38,8 +40,12 @@ enum Error {
   kPrecision = 2006,     // samples of another precision than 8 bits
   kArithmetic = 2007,    // arithmetic coding (SOF9-11, SOF13-15)
   kLossless = 2008,      // lossless or hierarchical Huffman (SOF3, SOF5-7)
-  kFourComponents = 2009,  // CMYK or YCCK
+  kSampling = 2011,      // sampling factors libjpeg refuses too
 };
+
+// The colour space of the components (libjpeg's jpeg_color_space); one
+// component is grey and reported as kYcc.
+enum Space { kYcc = 0, kRgb = 1, kCmyk = 2, kYcck = 3 };
 
 static const int kNatural[64 + 16] = {
     0,  1,  8,  16, 9,  2,  3,  10, 17, 24, 32, 25, 18, 11, 4,  5,
@@ -78,7 +84,7 @@ struct Decoder {
   uint16_t qt[4][64];  // natural order
   bool qt_defined[4] = {false, false, false, false};
   Huffman dc[4], ac[4];
-  Component comp[3];
+  Component comp[4];
   bool frame = false;
   // the entropy-coded segment's bit reader
   const uint8_t* data = nullptr;
@@ -90,7 +96,7 @@ struct Decoder {
   // what the markers before the first scan say of the image's layout
   bool saw_jfif = false, saw_adobe = false, saw_app1 = false;
   int adobe_transform = 1, orientation = 1;
-  bool rgb = false;  // libjpeg's guess: three components coded as RGB
+  int space = kYcc;  // libjpeg's guess from the markers and ids (Space)
   int scans = 0;
 };
 
@@ -200,8 +206,8 @@ static int parse_sof(Decoder* d, const uint8_t* p, int len, bool progressive) {
   d->height = read16(p + 1);
   d->width = read16(p + 3);
   d->ncomp = p[5];
-  if (d->ncomp == 4) return kFourComponents;
-  if ((d->ncomp != 1 && d->ncomp != 3) || len < 6 + 3 * d->ncomp ||
+  if ((d->ncomp != 1 && d->ncomp != 3 && d->ncomp != 4) ||
+      len < 6 + 3 * d->ncomp ||
       d->width <= 0 || d->height <= 0 ||
       (int64_t)d->width * d->height > ((int64_t)1 << 28))
     return kUnsupported;
@@ -213,10 +219,15 @@ static int parse_sof(Decoder* d, const uint8_t* p, int len, bool progressive) {
     c.h = p[7 + 3 * i] >> 4;
     c.v = p[7 + 3 * i] & 15;
     c.tq = p[8 + 3 * i] & 3;
-    if (c.h < 1 || c.h > 2 || c.v < 1 || c.v > 2) return kUnsupported;
+    // jdinput.c initial_setup: JERR_BAD_SAMPLING
+    if (c.h < 1 || c.h > 4 || c.v < 1 || c.v > 4) return kSampling;
     d->hmax = c.h > d->hmax ? c.h : d->hmax;
     d->vmax = c.v > d->vmax ? c.v : d->vmax;
   }
+  // jdsample.c jinit_upsampler: a factor that does not divide the largest
+  // is JERR_FRACT_SAMPLE_NOTIMPL
+  for (int i = 0; i < d->ncomp; i++)
+    if (d->hmax % d->comp[i].h || d->vmax % d->comp[i].v) return kSampling;
   d->mcus_x = (d->width + 8 * d->hmax - 1) / (8 * d->hmax);
   d->mcus_y = (d->height + 8 * d->vmax - 1) / (8 * d->vmax);
   for (int i = 0; i < d->ncomp; i++) {
@@ -383,7 +394,7 @@ static int decode_scan(Decoder* d, const uint8_t* p, int len,
   if (!d->frame || len < 1) return kBadStream;
   int ns = p[0];
   if (ns < 1 || ns > d->ncomp || len < 1 + 2 * ns + 3) return kBadStream;
-  Component* sc[3];
+  Component* sc[4];
   for (int i = 0; i < ns; i++) {
     int id = p[1 + 2 * i];
     sc[i] = nullptr;
@@ -404,6 +415,10 @@ static int decode_scan(Decoder* d, const uint8_t* p, int len,
              (ss > 0 && ns != 1)) {
     return kBadStream;
   }
+  // jdinput.c per_scan_setup: JERR_BAD_MCU_SIZE (D_MAX_BLOCKS_IN_MCU 10)
+  int mcu_blocks = 0;
+  for (int i = 0; i < ns; i++) mcu_blocks += sc[i]->h * sc[i]->v;
+  if (ns > 1 && mcu_blocks > 10) return kSampling;
   for (int i = 0; i < ns; i++) {
     bool need_dc = ss == 0 && ah == 0;
     bool need_ac = !d->progressive || ss > 0;
@@ -485,17 +500,22 @@ static int exif_orientation(const uint8_t* t, int tn) {
   return 1;
 }
 
-// libjpeg's colour-space guess for three components (jdapimin.c
-// default_decompress_parms), from the markers seen before the first scan:
-// JFIF means YCbCr; else the Adobe marker's transform (0 RGB, else YCbCr);
-// else the ids 'R', 'G', 'B' mean RGB.
-static void guess_rgb(Decoder* d) {
+// libjpeg's colour-space guess (jdapimin.c default_decompress_parms), from
+// the markers seen before the first scan. Three components: JFIF means
+// YCbCr; else the Adobe marker's transform (0 RGB, else YCbCr); else the ids
+// 'R', 'G', 'B' mean RGB. Four: the Adobe marker's transform 0 means CMYK,
+// any other YCCK (libjpeg warns of a transform other than 2 and takes
+// YCCK); no Adobe marker means CMYK, whatever else the file holds.
+static void guess_space(Decoder* d) {
+  if (d->ncomp == 4) {
+    d->space = d->saw_adobe && d->adobe_transform != 0 ? kYcck : kCmyk;
+    return;
+  }
   if (d->ncomp != 3 || d->saw_jfif) return;
-  if (d->saw_adobe)
-    d->rgb = d->adobe_transform == 0;
-  else
-    d->rgb = d->comp[0].id == 'R' && d->comp[1].id == 'G' &&
-             d->comp[2].id == 'B';
+  bool rgb = d->saw_adobe ? d->adobe_transform == 0
+                          : d->comp[0].id == 'R' && d->comp[1].id == 'G' &&
+                                d->comp[2].id == 'B';
+  d->space = rgb ? kRgb : kYcc;
 }
 
 // Parse a whole JPEG and entropy-decode every scan into d->comp[*].coef.
@@ -567,7 +587,7 @@ static int decode(Decoder* d, const uint8_t* data, size_t length,
         }
         break;
       case 0xDA:
-        if (d->frame && d->scans++ == 0) guess_rgb(d);
+        if (d->frame && d->scans++ == 0) guess_space(d);
         if (headers_only) return d->frame ? kOk : kBadStream;
         err = decode_scan(d, p, n, data, length, pos + 2 + len);
         if (err == kOk) {

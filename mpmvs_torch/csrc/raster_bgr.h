@@ -13,6 +13,9 @@
 //     scaled by 255 / (2^bits - 1) (libpng's expand_gray_1_2_4_to_8,
 //     libtiff's Map), min-is-white inverted after; B = G = R = grey;
 //   * palette: the index (1 to 8 bits, unscaled) looks up the RGB table;
+//   * CMYK (a TIFF's 8-bit separated samples): libtiff's RGBA reader
+//     (putRGBcontig8bitCMYKtile, putCMYKseparate8bittile), R = (255 - K)
+//     (255 - C) / 255 in integers, and likewise G of M and B of Y;
 //   * RGB: 16-bit samples narrowed v >> 8 (libpng) or (v + 128) / 257
 //     (libtiff's Bitdepth16To8); with unassociated alpha (a TIFF's
 //     ExtraSamples 2) the colours are premultiplied, (v * a + 127) / 255,
@@ -44,7 +47,7 @@
 
 namespace raster_bgr {
 
-enum Kind { kGrey = 0, kRgb = 1, kPalette = 2 };
+enum Kind { kGrey = 0, kRgb = 1, kPalette = 2, kCmyk = 3 };
 enum GreyRule { kLibpng = 0, kLibpngGamma = 1, kOpenCv = 2 };
 enum Narrow { kShift = 0, kRound257 = 1 };
 
@@ -145,6 +148,11 @@ RASTER_HD void pixel(const uint8_t* raster, const Form& f,
     r = p[0];
     g = p[1];
     b = p[2];
+  } else if (f.kind == kCmyk) {
+    int k = 255 - sample(raster, f, y, x, 3);
+    r = k * (255 - sample(raster, f, y, x, 0)) / 255;
+    g = k * (255 - sample(raster, f, y, x, 1)) / 255;
+    b = k * (255 - sample(raster, f, y, x, 2)) / 255;
   } else {
     r = sample(raster, f, y, x, 0);
     g = sample(raster, f, y, x, 1);

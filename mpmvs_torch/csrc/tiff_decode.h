@@ -14,8 +14,10 @@
 //   * Predictor 2 (horizontal differencing) on 8- and 16-bit samples, in the
 //     file's byte order;
 //   * Photometric 0 and 1 (min-is-white, min-is-black) at 1, 8 and 16 bits,
-//     2 (RGB) at 8 and 16 bits, 3 (palette) at 1, 4 and 8 bits; one extra
-//     sample (alpha) is kept for the card to drop or premultiply by;
+//     2 (RGB) at 8 and 16 bits, 3 (palette) at 1, 4 and 8 bits, 5
+//     (separated) with InkSet 1 (CMYK) at 8 bits and four samples, which
+//     libtiff's RGBA reader converts for OpenCV; one extra sample (alpha) of
+//     grey or RGB is kept for the card to drop or premultiply by;
 //   * the Orientation tag, which the card applies after the conversion as
 //     cv2 does. libtiff's tile reader mirrors each tile on its own where the
 //     orientation flips left-right (2, 3, 6, 7) and OpenCV mirrors no more,
@@ -58,13 +60,14 @@ enum Error {
   kFloat = 4008,       // SampleFormat 2 or 3: signed or float samples
   kPredictor3 = 4009,  // Predictor 3: the floating-point predictor
   kPredictor = 4010,   // Predictor 2 on other than 8- or 16-bit samples
-  kCmyk = 4011,        // Photometric 5 (separated, CMYK)
+  kInkSet = 4011,      // Photometric 5 of another InkSet than CMYK
   kYcbcr = 4012,       // Photometric 6
   kLab = 4013,         // Photometric 8, 9 or 10 (CIELab, ICCLab, ITULab)
   kPhotometric = 4014, // another photometric (mask, LogL, LogLuv, raw)
   kDeep = 4015,        // more than 16 bits a sample
   kBits = 4016,        // a bit depth OpenCV does not read into 8 bits
   kSampleCount = 4017, // a sample count the photometric does not take
+  kChannels = 4018,    // CMYK with an extra sample: five samples a pixel
 };
 
 enum Info {
@@ -138,7 +141,7 @@ struct Tiff {
 static inline bool wanted(int tag) {
   static const int kTags[] = {256, 257, 258, 259, 262, 266, 273, 274, 277,
                               278, 279, 284, 317, 320, 322, 323, 324, 325,
-                              338, 339};
+                              332, 338, 339};
   for (int k : kTags)
     if (k == tag) return true;
   return false;
@@ -225,18 +228,23 @@ static int describe(const uint8_t* data, size_t len, Tiff* t) {
   if (sample_format != 1 && sample_format != 4) return kMalformed;
   if (in[kPredictorTag] == 3) return kPredictor3;
   if (in[kPredictorTag] != 1 && in[kPredictorTag] != 2) return kMalformed;
-  if (pm == 5) return kCmyk;
   if (pm == 6) return kYcbcr;
   if (pm == 8 || pm == 9 || pm == 10) return kLab;
-  if (pm < 0 || pm > 3) return kPhotometric;
+  if (pm < 0 || (pm > 3 && pm != 5)) return kPhotometric;
+  // libtiff's TIFFRGBAImageOK: a separated image of InkSet 1 (CMYK) only
+  if (pm == 5 && t->scalar(332, 1, &ok) != 1) return kInkSet;
   if (bits > 16) return kDeep;
   // what OpenCV reads into an 8-bit image: grey at 1, 8, 16 bits, RGB at
-  // 8, 16, a palette at 1, 4, 8
+  // 8, 16, a palette at 1, 4, 8, CMYK at 8 (libtiff's RGBA reader has no
+  // 16-bit CMYK)
   bool bits_ok = pm <= 1 ? (bits == 1 || bits == 8 || bits == 16)
                  : pm == 2 ? (bits == 8 || bits == 16)
+                 : pm == 5 ? bits == 8
                            : (bits == 1 || bits == 4 || bits == 8);
   if (!bits_ok) return kBits;
-  int colour = pm == 2 ? 3 : 1;
+  int colour = pm == 2 ? 3 : pm == 5 ? 4 : 1;
+  // OpenCV takes at most four channels (normalizeChannelsNumber)
+  if (pm == 5 && spp > 4) return kChannels;
   if (spp < colour || spp > colour + 1 || (pm == 3 && spp != 1))
     return kSampleCount;
   if (in[kPredictorTag] == 2 && bits != 8 && bits != 16) return kPredictor;

@@ -6,36 +6,41 @@ the codec:
 
   * on a CUDA device, through ``csrc/jpeg_codec.cu``, with what ``cv2``
     gives, bit for bit, and no OpenCV:
-      - JPEG reads: the host entropy-decodes the file to DCT coefficients
-        (``csrc/jpeg_entropy.h``), the card runs libjpeg's integer inverse DCT
-        (``idct_islow_kernel``) and libjpeg-turbo's upsampling and colour
-        conversion (``ycc_to_bgr_kernel``: YCbCr, or RGB components, which
-        libjpeg guesses from the markers and ids), and applies the EXIF
-        orientation as OpenCV's ``ApplyExifOrientation`` does (:func:`orient`).
-        The grey image is the Y plane of a YCbCr JPEG, as
-        ``cv2.imread(IMREAD_GRAYSCALE)`` gives it, and libjpeg-turbo's
-        ``rgb_gray_convert`` of an RGB one;
+      - JPEG reads of one, three or four components at every sampling
+        layout libjpeg takes: the host entropy-decodes the file to DCT
+        coefficients (``csrc/jpeg_entropy.h``), the card runs libjpeg's
+        integer inverse DCT (``idct_islow_kernel``) and libjpeg-turbo's
+        upsampling of each component and colour conversion with OpenCV's
+        after it (``ycc_to_bgr_kernel``: YCbCr, or RGB components;
+        ``cmyk_to_bgr_kernel``: CMYK or YCCK; libjpeg guesses the space from
+        the markers and ids), and applies the EXIF orientation as OpenCV's
+        ``ApplyExifOrientation`` does (:func:`orient`). The grey image is the
+        Y plane of a YCbCr JPEG, as ``cv2.imread(IMREAD_GRAYSCALE)`` gives
+        it, libjpeg-turbo's ``rgb_gray_convert`` of an RGB one and OpenCV's
+        ``icvCvt_CMYK2Gray_8u_C4C1R`` of a CMYK or YCCK one;
       - PNG reads of every colour type at every bit depth, Adam7 included
         (:func:`png_rows`: the chunks are parsed and inflated here with
         ``zlib``, the rows unfiltered and de-interlaced on the host,
         ``csrc/png_unfilter.h``), and TIFF reads (:func:`tiff_rows`: classic
         and BigTIFF, strips and tiles, chunky and planar, uncompressed, LZW,
-        Deflate and PackBits, predictor 2, grey, RGB and palette, 1 to 16
-        bits; parsed and decompressed on the host, ``csrc/tiff_decode.h``):
-        the samples are copied to the card, where ``raster_to_bgr_kernel``
-        makes cv2's BGR and grey images of them (sub-8-bit grey expanded,
-        palette looked up, 16 bits narrowed as libpng or libtiff narrows,
-        alpha dropped or premultiplied, the grey of colour by libpng's or
-        OpenCV's arithmetic), and the eXIf or Orientation tag is applied;
+        Deflate and PackBits, predictor 2, grey, RGB, palette and 8-bit
+        CMYK, 1 to 16 bits; parsed and decompressed on the host,
+        ``csrc/tiff_decode.h``): the samples are copied to the card, where
+        ``raster_to_bgr_kernel`` makes cv2's BGR and grey images of them
+        (sub-8-bit grey expanded, palette looked up, 16 bits narrowed as
+        libpng or libtiff narrows, alpha dropped or premultiplied, CMYK by
+        libtiff's RGBA rule, the grey of colour by libpng's or OpenCV's
+        arithmetic), and the eXIf or Orientation tag is applied;
       - JPEG writes: cv2.imencode's bytes (4:2:0 colour or grey, standard
         Huffman tables) from the card's colour conversion and downsampling
         (``bgr_to_ycc_kernel``) and forward DCT and quantization
         (``fdct_islow_quant_kernel``), Huffman-coded on the host
         (``csrc/jpeg_encode.h``).
     A kernel that fails to build or launch raises, and so does a file the card
-    cannot read, naming why (12-bit, arithmetic-coded, lossless and CMYK
-    JPEGs; JPEG-compressed, CMYK, YCbCr, CIELab, signed, float and old-style
-    LZW TIFFs; other formats). Nothing falls back to OpenCV or to the CPU.
+    cannot read, naming why (12-bit, arithmetic-coded and lossless JPEGs;
+    JPEG-compressed, YCbCr, CIELab, signed, float and old-style LZW TIFFs;
+    other formats; and what cv2 does not read either). Nothing falls back to
+    OpenCV or to the CPU.
   * on the CPU, through OpenCV, imported only there: the CPU tests hold the
     port's reads and writes against the JAX package's OpenCV calls.
 
@@ -43,15 +48,17 @@ PNG files (``triangulation.png``) are written on the host with the
 standard library's ``zlib``, on every device.
 
 Each kernel has a plain PyTorch version beside it, for the tests
-(:func:`ycc_to_bgr_plain`, :func:`rgb_to_bgr_plain`,
+(:func:`colour_plain`, with :func:`ycc_to_bgr_plain` and
+:func:`cmyk_to_bgr_plain`;
 :func:`idct_islow_plain`, :func:`bgr_to_ycc_plain`,
 :func:`fdct_islow_plain`, :func:`raster_to_bgr_plain`). ``COUNTS`` counts
-launches of the colour kernel (form ``"rgb"`` for RGB components) and its
-plain calls, ``IDCT_COUNTS``, ``YCC_COUNTS``, ``FDCT_COUNTS`` and
-``RASTER_COUNTS`` those of the IDCT, encoder colour, forward DCT and raster
-kernels; ``CODEC_COUNTS`` counts host decodes (``forms["decode"]``), PNG
-and TIFF reads (``forms["png"]``, ``forms["tiff"]``) and encodes
-(``forms["encode"]``).
+launches of the colour kernels (form ``"rgb"`` for RGB components,
+``"cmyk"`` and ``"ycck"`` for ``cmyk_to_bgr_kernel``) and their plain calls
+(the four-component ones by form in ``plain_forms``), ``IDCT_COUNTS``,
+``YCC_COUNTS``, ``FDCT_COUNTS`` and ``RASTER_COUNTS`` those of the IDCT,
+encoder colour, forward DCT and raster kernels; ``CODEC_COUNTS`` counts
+host decodes (``forms["decode"]``), PNG and TIFF reads (``forms["png"]``,
+``forms["tiff"]``) and encodes (``forms["encode"]``).
 """
 
 from __future__ import annotations
@@ -84,14 +91,15 @@ RASTER_COUNTS = nvcc.LaunchCounts()
 _CODE_ERRORS = {
     2001: "a truncated JPEG",
     2002: "a JPEG of an unsupported layout (2 or more than 4 components, "
-          "sampling factors above 2, or more than 2^28 pixels)",
+          "or more than 2^28 pixels)",
     2003: "a malformed JPEG",
     2006: "a JPEG of 12-bit (not 8-bit) samples",
     2007: "an arithmetic-coded JPEG",
     2008: "a lossless or hierarchical JPEG",
-    2009: "a JPEG of four components (CMYK or YCCK), which OpenCV reads "
-          "through a colour conversion the card does not have",
     2010: "coefficients that do not fit the image's size",
+    2011: "a JPEG of a sampling layout libjpeg refuses too (a factor "
+          "outside 1-4, a factor that does not divide the largest of its "
+          "axis, or more than 10 blocks in an interleaved MCU)",
     3001: "a PNG whose image data is shorter than its header implies",
     3002: "a PNG with a row filter type above 4",
     4001: "a truncated TIFF",
@@ -107,17 +115,20 @@ _CODE_ERRORS = {
     4009: "a TIFF of the floating-point predictor (Predictor 3)",
     4010: "a TIFF of horizontal differencing on samples other than 8- or "
           "16-bit, which libtiff refuses too",
-    4011: "a TIFF of CMYK (separated) samples, which OpenCV converts through "
-          "libtiff's RGBA reader; the card does not",
+    4011: "a TIFF of separated samples of another InkSet than CMYK, which "
+          "cv2 (libtiff's RGBA reader) does not read either",
     4012: "a TIFF of YCbCr samples, which OpenCV converts through libtiff's "
           "RGBA reader; the card does not",
     4013: "a TIFF of CIELab samples, which the card does not convert",
     4014: "a TIFF of a photometric the card does not read (it reads "
-          "min-is-white, min-is-black, RGB and palette)",
+          "min-is-white, min-is-black, RGB, palette and CMYK)",
     4015: "a TIFF of more than 16 bits a sample",
     4016: "a TIFF of a bit depth OpenCV does not read into an 8-bit image "
-          "either (grey takes 1, 8, 16; RGB 8, 16; a palette 1, 4, 8)",
-    4017: "a TIFF of a sample count its photometric does not take"}
+          "either (grey takes 1, 8, 16; RGB 8, 16; a palette 1, 4, 8; "
+          "CMYK 8)",
+    4017: "a TIFF of a sample count its photometric does not take",
+    4018: "a CMYK TIFF with an extra sample: five channels, which cv2 "
+          "does not read either"}
 
 _MAGIC = ((b"\xff\xd8\xff", "JPEG"), (b"\x89PNG\r\n\x1a\n", "PNG"),
           (b"II*\x00", "TIFF"), (b"MM\x00*", "TIFF"), (b"II+\x00", "TIFF"),
@@ -174,15 +185,15 @@ def _library():
     lib.jpeg_host_free.argtypes = [vp]
     lib.jpeg_host_free.restype = None
     lib.idct_islow_launch.argtypes = [vp, vp, i, i, i, vp, i, i, vp]
-    lib.ycc_to_bgr_launch.argtypes = [vp, vp, vp, i, i, i, i, i, i, i, vp,
-                                      vp, vp]
+    lib.ycc_to_bgr_launch.argtypes = [vp, vp, i, i, i, i, vp, vp, vp]
+    lib.cmyk_to_bgr_launch.argtypes = [vp, vp, i, i, i, vp, vp, vp]
     lib.bgr_to_ycc_launch.argtypes = [vp, i, i, i, vp, i, i, vp, vp, i, i,
                                       vp]
     lib.fdct_islow_launch.argtypes = [vp, i, i, vp, vp, vp]
     lib.raster_to_bgr_launch.argtypes = [vp, vp, vp, vp, vp, vp, vp]
     for fn in ("jpeg_host_decode", "jpeg_host_upload", "idct_islow_launch",
-               "ycc_to_bgr_launch", "bgr_to_ycc_launch", "fdct_islow_launch",
-               "raster_to_bgr_launch"):
+               "ycc_to_bgr_launch", "cmyk_to_bgr_launch", "bgr_to_ycc_launch",
+               "fdct_islow_launch", "raster_to_bgr_launch"):
         getattr(lib, fn).restype = i
     return lib
 
@@ -209,74 +220,146 @@ def _stream(t: Tensor):
 
 # ----------------------------- decoding -----------------------------
 
-def _factor(full: int, sampled: int, what: str) -> int:
-    if sampled == full:
-        return 1
-    if sampled == (full + 1) // 2:
-        return 2
-    raise ValueError(f"JPEG chroma {what} {sampled} of {full}: only 1x and "
-                     f"2x chroma sampling per axis are supported")
+# jpeg_entropy::Space: the colour space libjpeg takes the components for
+SPACE_YCC, SPACE_RGB, SPACE_CMYK, SPACE_YCCK = 0, 1, 2, 3
 
 
-def _upsample(p: Tensor, H: int, W: int, hs: int, vs: int) -> Tensor:
-    """libjpeg-turbo's fancy upsampling (jdsample.c) of a sampled plane to
-    (H, W), int64, factors ``hs``, ``vs`` in {1, 2}."""
+def _fancy(w: int, rh: int, rv: int) -> bool:
+    """Whether libjpeg-turbo's jinit_upsampler (jdsample.c) gives a
+    component of ``w`` samples across at ratios ``rh``, ``rv`` (largest
+    factor / its factor) fancy upsampling: h2v1 and h2v2 where it is more
+    than 2 samples wide, h1v2 at any width; else it replicates."""
+    return (rh, rv) == (1, 2) or ((rh, rv) in ((2, 1), (2, 2)) and w > 2)
+
+
+def _upsample(p: Tensor, H: int, W: int, rh: int, rv: int) -> Tensor:
+    """libjpeg-turbo's upsampling (jdsample.c) of a component's plane to
+    (H, W), int64, at ratios ``rh``, ``rv``: as it is at 1 x 1, fancy
+    (:func:`_fancy`) or each sample replicated ``rh`` x ``rv`` times."""
     Hc, Wc = p.shape
     dev = p.device
     r = torch.arange(H, device=dev)[:, None]
     c = torch.arange(W, device=dev)[None, :]
+    p = p.to(torch.int64)
+    if rh == 1 and rv == 1:
+        return p[:H, :W]
+    if not _fancy(Wc, rh, rv):
+        return p[r // rv, c // rh]
     odd_r, odd_c = (r & 1) == 1, (c & 1) == 1
-    i = r >> 1 if vs == 2 else r
-    j = c >> 1 if hs == 2 else c
+    i, j = r // rv, c // rh
     i2 = torch.where(odd_r, torch.clamp(i + 1, max=Hc - 1),
                      torch.clamp(i - 1, min=0))
     jn = torch.where(odd_c, torch.clamp(j + 1, max=Wc - 1),
                      torch.clamp(j - 1, min=0))
-    p = p.to(torch.int64)
-    if hs == 1 and vs == 1:
-        return p[i, j]
-    if hs == 2 and vs == 2:
+    if rh == 2 and rv == 2:
         cs = 3 * p[i, j] + p[i2, j]
         cn = 3 * p[i, jn] + p[i2, jn]
         return (3 * cs + cn + torch.where(odd_c, 7, 8)) >> 4
-    if hs == 2:
+    if rh == 2:
         return (3 * p[i, j] + p[i, jn] + torch.where(odd_c, 2, 1)) >> 2
     return (3 * p[i, j] + p[i2, j] + torch.where(odd_r, 2, 1)) >> 2
 
 
-def ycc_to_bgr_plain(y: Tensor, cb: Tensor = None, cr: Tensor = None,
-                     hs: int = 1, vs: int = 1) -> Tensor:
-    """The plain version of ``ycc_to_bgr_kernel``: (H, W, 3) uint8 BGR from
-    uint8 planes Y (H, W) and Cb, Cr at their sampled size, by
-    libjpeg-turbo's fancy upsampling (factors ``hs``, ``vs``) and
-    fixed-point YCbCr -> RGB; without chroma, B = G = R = Y."""
-    COUNTS.plain += 1
-    Y = y.to(torch.int64)
-    if cb is None:
-        return torch.stack([Y, Y, Y], -1).to(torch.uint8)
-    H, W = Y.shape
-    xb = _upsample(cb, H, W, hs, vs) - 128
-    xr = _upsample(cr, H, W, hs, vs) - 128
+def _ycc_rgb(y: Tensor, cb: Tensor, cr: Tensor):
+    """jdcolor.c's fixed-point YCbCr -> (R, G, B) of int64 samples,
+    clamped."""
+    xb, xr = cb - 128, cr - 128
     red = (91881 * xr + 32768) >> 16
     green = (-22554 * xb + 32768 - 46802 * xr) >> 16
     blue = (116130 * xb + 32768) >> 16
-    return torch.clamp(torch.stack([Y + blue, Y + green, Y + red], -1),
-                       0, 255).to(torch.uint8)
+    return [torch.clamp(y + d, 0, 255) for d in (red, green, blue)]
 
 
-def rgb_to_bgr_plain(r: Tensor, g: Tensor, b: Tensor, hs: int = 1,
-                     vs: int = 1) -> Tuple[Tensor, Tensor]:
-    """The plain version of the colour kernel's RGB form: (grey (H, W),
-    BGR (H, W, 3)) uint8 from the planes of a JPEG of RGB components (R at
-    full size, G and B sampled by ``hs``, ``vs`` and upsampled as chroma
-    would be); the grey is libjpeg-turbo's rgb_gray_convert, what
-    ``cv2.imread(IMREAD_GRAYSCALE)`` gives for such a file."""
+def ycck_to_cmy_plain(y: Tensor, cb: Tensor, cr: Tensor):
+    """jdcolor.c's ycck_cmyk_convert of int64 samples: (C, M, Y) = 255 -
+    the clamped (R, G, B) of Y, Cb, Cr."""
+    return [255 - v for v in _ycc_rgb(y, cb, cr)]
+
+
+def cmyk_bgr_plain(c: Tensor, m: Tensor, y: Tensor, k: Tensor):
+    """OpenCV's icvCvt_CMYK2Gray_8u_C4C1R and icvCvt_CMYK2BGR_8u_C4C3R of
+    int64 C, M, Y, K samples: (grey, B, G, R), int64."""
+    red, green, blue = [k - ((255 - x) * k >> 8) for x in (c, m, y)]
+    return (blue * 1868 + green * 9617 + red * 4899 + 8192) >> 14, \
+        blue, green, red
+
+
+def _check_planes(planes, factors, size):
+    H, W = size
+    if len(planes) != len(factors) or len(planes) not in (1, 3, 4):
+        raise ValueError(f"{len(planes)} planes with {len(factors)} factors")
+    for p, (rh, rv) in zip(planes, factors):
+        if p.dtype != torch.uint8 or tuple(p.shape) != (-(-H // rv),
+                                                        -(-W // rh)):
+            raise ValueError(f"a plane {p.dtype} {tuple(p.shape)} does not "
+                             f"fit {size} at ratios {(rh, rv)}")
+
+
+def colour_plain(planes, factors, size, space: int) -> Tuple[Tensor, Tensor]:
+    """The plain version of the colour kernels: (grey (H, W), BGR (H, W, 3))
+    uint8, cv2.imread's, from a JPEG's component planes (uint8, each at its
+    sampled size), their ratios ``factors`` ((hmax / h, vmax / v) each) and
+    the image's ``size`` (H, W), in colour ``space`` (``SPACE_*``;
+    csrc/jpeg_colour.h says what each computes). Four components go through
+    :func:`cmyk_to_bgr_plain`."""
+    if space in (SPACE_CMYK, SPACE_YCCK):
+        return cmyk_to_bgr_plain(planes, factors, space == SPACE_YCCK, size)
+    _check_planes(planes, factors, size)
     COUNTS.plain += 1
-    H, W = r.shape
-    R = r.to(torch.int64)
-    G, B = _upsample(g, H, W, hs, vs), _upsample(b, H, W, hs, vs)
-    gray = (19595 * R + 38470 * G + 7471 * B + 32768) >> 16
-    return gray.to(torch.uint8), torch.stack([B, G, R], -1).to(torch.uint8)
+    H, W = size
+    up = [_upsample(p, H, W, *f) for p, f in zip(planes, factors)]
+    Y = up[0]
+    if len(up) == 1:
+        grey, bgr = Y, torch.stack([Y, Y, Y], -1)
+    elif space == SPACE_RGB:
+        R, G, B = up
+        grey = (19595 * R + 38470 * G + 7471 * B + 32768) >> 16
+        bgr = torch.stack([B, G, R], -1)
+    else:
+        red, green, blue = _ycc_rgb(*up)
+        grey, bgr = Y, torch.stack([blue, green, red], -1)
+    return grey.to(torch.uint8), bgr.to(torch.uint8)
+
+
+def cmyk_to_bgr_plain(planes, factors, ycck: bool,
+                      size=None) -> Tuple[Tensor, Tensor]:
+    """The plain version of ``cmyk_to_bgr_kernel``: (grey (H, W), BGR
+    (H, W, 3)) uint8, cv2.imread's, from the four planes of a CMYK or (with
+    ``ycck``) YCCK JPEG at their sampled sizes and ratios ``factors``, each
+    upsampled by its own rule; ``size`` (H, W) defaults to the size of a
+    plane at 1 x 1."""
+    if size is None:
+        size = next(tuple(p.shape) for p, f in zip(planes, factors)
+                    if f == (1, 1))
+    _check_planes(planes, factors, size)
+    if len(planes) != 4:
+        raise ValueError(f"a CMYK or YCCK image has 4 planes, not "
+                         f"{len(planes)}")
+    COUNTS.plain += 1
+    COUNTS.plain_forms["ycck" if ycck else "cmyk"] = \
+        COUNTS.plain_forms.get("ycck" if ycck else "cmyk", 0) + 1
+    H, W = size
+    c, m, y, k = [_upsample(p, H, W, *f) for p, f in zip(planes, factors)]
+    if ycck:
+        c, m, y = ycck_to_cmy_plain(c, m, y)
+    grey, b, g, r = cmyk_bgr_plain(c, m, y, k)
+    return grey.to(torch.uint8), torch.stack([b, g, r], -1).to(torch.uint8)
+
+
+def _chroma(hs: int, vs: int, y: Tensor, cb: Tensor):
+    """The planes' ratios of a Y plane at full size with chroma sampled
+    by ``hs``, ``vs``."""
+    return [(1, 1)] + [(hs, vs)] * (0 if cb is None else 2), tuple(y.shape)
+
+
+def ycc_to_bgr_plain(y: Tensor, cb: Tensor = None, cr: Tensor = None,
+                     hs: int = 1, vs: int = 1) -> Tensor:
+    """:func:`colour_plain`'s BGR (H, W, 3) of a YCbCr JPEG whose Y plane is
+    at full size and Cb, Cr are sampled by ``hs``, ``vs`` (without chroma,
+    B = G = R = Y)."""
+    factors, size = _chroma(hs, vs, y, cb)
+    planes = [y] if cb is None else [y, cb, cr]
+    return colour_plain(planes, factors, size, SPACE_YCC)[1]
 
 
 def _idct_1d(v):
@@ -356,30 +439,44 @@ def idct_islow_kernel(coef: Tensor, qt: Tensor, plane_h: int,
 
 class Layout(NamedTuple):
     """What a JPEG's markers say of the image cv2.imread makes of its
-    planes: the EXIF orientation (1..8) and whether libjpeg takes its three
-    components for RGB."""
+    planes: the EXIF orientation (1..8), the colour space libjpeg takes its
+    components for (``SPACE_*``) and each component's ratios (hmax / h,
+    vmax / v), by which it is upsampled."""
     orientation: int
-    rgb: bool
+    space: int
+    factors: Tuple[Tuple[int, int], ...]
+
+    @property
+    def rgb(self) -> bool:
+        return self.space == SPACE_RGB
 
 
-def decode_coefficients(data: bytes, device):
-    """Entropy-decode a JPEG on the host and copy its coefficients to a
-    CUDA ``device``: per component (coefficients (bh, bw, 64) int16,
-    quantization table (64,), plane height, plane width), the image's
-    (height, width) and its :class:`Layout`."""
+def host_decode(data: bytes):
+    """Parse and entropy-decode a JPEG on the host (``jpeg_host_decode``):
+    the decoder's handle, which holds the coefficients until
+    :func:`upload_coefficients` frees it, and its ``info`` (39 ints,
+    csrc/jpeg_codec.cu says which)."""
     if image_format(data) != "JPEG":
         raise ValueError(f"not a JPEG ({image_format(data)})")
+    handle = ctypes.c_void_p()
+    info = (ctypes.c_int * 39)()
+    _check(_library().jpeg_host_decode(data, len(data), ctypes.byref(handle),
+                                       info), "JPEG decode")
+    return handle, info
+
+
+def upload_coefficients(handle, info, device):
+    """Copy a :func:`host_decode`'s coefficients to a CUDA ``device`` and
+    free its handle: per component (coefficients (bh, bw, 64) int16,
+    quantization table (64,), plane height, plane width), the image's
+    (height, width) and its :class:`Layout`."""
     dev = _cuda_device(device)
     lib = _library()
-    handle = ctypes.c_void_p()
-    info = (ctypes.c_int * 23)()
-    _check(lib.jpeg_host_decode(data, len(data), ctypes.byref(handle),
-                                info), "JPEG decode")
     try:
-        comps = []
+        comps, factors = [], []
         stream = torch.cuda.current_stream(dev).cuda_stream
         for c in range(info[0]):
-            pw, ph, bw, bh = info[3 + 6 * c:7 + 6 * c]
+            pw, ph, bw, bh, _, _, h, v = info[7 + 8 * c:15 + 8 * c]
             coef = torch.empty((bh, bw, 64), dtype=torch.int16, device=dev)
             qt = torch.empty(64, dtype=torch.int16, device=dev)
             with torch.cuda.device(dev):
@@ -387,76 +484,107 @@ def decode_coefficients(data: bytes, device):
                                             qt.data_ptr(), stream),
                        "JPEG coefficient upload")
             comps.append((coef, qt, ph, pw))
+            factors.append((info[5] // h, info[6] // v))
     finally:
         lib.jpeg_host_free(handle)
+    return comps, (info[2], info[1]), Layout(info[3], info[4],
+                                             tuple(factors))
+
+
+def decode_coefficients(data: bytes, device):
+    """Entropy-decode a JPEG on the host and copy its coefficients to a
+    CUDA ``device``: :func:`upload_coefficients` of :func:`host_decode`."""
+    out = upload_coefficients(*host_decode(data), device)
     CODEC_COUNTS.launched("decode")
-    return comps, (info[2], info[1]), Layout(info[21], bool(info[22]))
+    return out
 
 
-def _planes(comps, size):
-    """The IDCT kernel's planes of decoded coefficients: Y (or R) and, for
-    three components, the other two at their sampled size (None, None for
-    one), and the factors (hs, vs)."""
-    H, W = size
-    planes = [idct_islow_kernel(*c) for c in comps]
-    if len(planes) == 1:
-        return planes[0], None, None, (1, 1)
-    y, cb, cr = planes
-    if cb.shape != cr.shape or y.shape != (H, W):
-        raise ValueError("JPEG whose planes do not fit its size")
-    return y, cb, cr, (_factor(W, cb.shape[1], "width"),
-                       _factor(H, cb.shape[0], "height"))
+def _planes(comps):
+    """The IDCT kernel's plane of each component's decoded coefficients, at
+    its sampled size."""
+    return [idct_islow_kernel(*c) for c in comps]
 
 
 def decode_planes(data: bytes, device):
-    """A JPEG's component planes on a CUDA ``device``: the Y plane (H, W)
-    and, for a colour JPEG, the Cb and Cr planes at their sampled size
-    (None for a grey one), uint8, from the IDCT kernel, and the chroma
-    factors (hs, vs). For RGB components the planes are R, G, B."""
-    comps, size, _ = decode_coefficients(data, device)
-    return _planes(comps, size)
+    """A JPEG's component planes on a CUDA ``device`` (uint8, each at its
+    sampled size, from the IDCT kernel), the image's (height, width) and its
+    :class:`Layout`: what :func:`colour_kernel` takes."""
+    comps, size, layout = decode_coefficients(data, device)
+    return _planes(comps), size, layout
 
 
-def _colour_launch(y, cb, cr, hs, vs, rgb):
-    if y.device.type != "cuda" or y.dtype != torch.uint8:
-        raise ValueError(f"the colour kernel takes uint8 CUDA planes, got "
-                         f"{y.dtype} on {y.device}")
-    H, W = y.shape
-    y = y.contiguous()
-    Hc = Wc = 0
-    if cb is not None:
-        cb, cr = cb.contiguous(), cr.contiguous()
-        Hc, Wc = cb.shape
-        if cb.dtype != torch.uint8 or cr.shape != cb.shape or \
-                Hc != -(-H // vs) or Wc != -(-W // hs):
-            raise ValueError(f"chroma planes {tuple(cb.shape)}, "
-                             f"{tuple(cr.shape)} do not fit Y {(H, W)} at "
-                             f"factors {(hs, vs)}")
-    out = torch.empty((H, W, 3), dtype=torch.uint8, device=y.device)
-    gray = torch.empty((H, W), dtype=torch.uint8, device=y.device) \
-        if rgb else None
+def _plane_args(planes, factors):
+    """The launches' plane pointers and n x 5 ints (h, w, rh, rv, fancy:
+    jpeg_colour::Plane)."""
+    ptrs = (ctypes.c_void_p * 4)(*[p.data_ptr() for p in planes])
+    geo = (ctypes.c_int * 20)(*[v for p, (rh, rv) in zip(planes, factors)
+                                for v in (p.shape[0], p.shape[1], rh, rv,
+                                          int(_fancy(p.shape[1], rh, rv)))])
+    return ptrs, geo
+
+
+def colour_kernel(planes, factors, size, space: int) -> Tuple[Tensor, Tensor]:
+    """Launch the colour kernel of ``space`` on a JPEG's CUDA planes:
+    (grey, BGR), as :func:`colour_plain`. One or three components launch
+    ``ycc_to_bgr_kernel`` (form ``"rgb"`` for RGB components), four
+    ``cmyk_to_bgr_kernel`` (:func:`cmyk_to_bgr_kernel`). The grey of a
+    YCbCr or grey JPEG whose first plane is at full size is that plane."""
+    if space in (SPACE_CMYK, SPACE_YCCK):
+        return cmyk_to_bgr_kernel(planes, factors, space == SPACE_YCCK, size)
+    if any(p.device.type != "cuda" for p in planes):
+        raise ValueError("the colour kernel takes CUDA planes")
+    _check_planes(planes, factors, size)
+    planes = [p.contiguous() for p in planes]
+    H, W = size
+    dev = planes[0].device
+    bgr = torch.empty((H, W, 3), dtype=torch.uint8, device=dev)
+    rgb = space == SPACE_RGB and len(planes) == 3
+    gray = None if factors[0] == (1, 1) and not rgb else torch.empty(
+        (H, W), dtype=torch.uint8, device=dev)
+    ptrs, geo = _plane_args(planes, factors)
     err = _library().ycc_to_bgr_launch(
-        y.data_ptr(), None if cb is None else cb.data_ptr(),
-        None if cr is None else cr.data_ptr(), H, W, Hc, Wc, hs, vs,
-        int(rgb), out.data_ptr(), None if gray is None else gray.data_ptr(),
-        _stream(y))
+        ptrs, geo, len(planes), int(rgb), H, W, bgr.data_ptr(),
+        None if gray is None else gray.data_ptr(), _stream(planes[0]))
     _check(err, "ycc_to_bgr_kernel launch")
     COUNTS.launched("rgb" if rgb else None)
-    return gray, out
+    return (planes[0] if gray is None else gray), bgr
+
+
+def cmyk_to_bgr_kernel(planes, factors, ycck: bool,
+                       size=None) -> Tuple[Tensor, Tensor]:
+    """Launch ``cmyk_to_bgr_kernel`` on the four CUDA planes of a CMYK or
+    (with ``ycck``) YCCK JPEG: (grey, BGR), both from the one launch, as
+    :func:`cmyk_to_bgr_plain` (form ``"cmyk"`` or ``"ycck"``)."""
+    if size is None:
+        size = next(tuple(p.shape) for p, f in zip(planes, factors)
+                    if f == (1, 1))
+    if any(p.device.type != "cuda" for p in planes):
+        raise ValueError("the CMYK colour kernel takes CUDA planes")
+    _check_planes(planes, factors, size)
+    if len(planes) != 4:
+        raise ValueError(f"a CMYK or YCCK image has 4 planes, not "
+                         f"{len(planes)}")
+    planes = [p.contiguous() for p in planes]
+    H, W = size
+    dev = planes[0].device
+    bgr = torch.empty((H, W, 3), dtype=torch.uint8, device=dev)
+    gray = torch.empty((H, W), dtype=torch.uint8, device=dev)
+    ptrs, geo = _plane_args(planes, factors)
+    err = _library().cmyk_to_bgr_launch(ptrs, geo, int(ycck), H, W,
+                                        bgr.data_ptr(), gray.data_ptr(),
+                                        _stream(planes[0]))
+    _check(err, "cmyk_to_bgr_kernel launch")
+    COUNTS.launched("ycck" if ycck else "cmyk")
+    return gray, bgr
 
 
 def ycc_to_bgr_kernel(y: Tensor, cb: Tensor = None, cr: Tensor = None,
                       hs: int = 1, vs: int = 1) -> Tensor:
     """Launch ``ycc_to_bgr_kernel`` on CUDA planes: (H, W, 3) uint8 BGR, as
     :func:`ycc_to_bgr_plain`."""
-    return _colour_launch(y, cb, cr, hs, vs, False)[1]
-
-
-def rgb_to_bgr_kernel(r: Tensor, g: Tensor, b: Tensor, hs: int = 1,
-                      vs: int = 1) -> Tuple[Tensor, Tensor]:
-    """Launch ``ycc_to_bgr_kernel``'s RGB form on CUDA planes: (grey, BGR),
-    as :func:`rgb_to_bgr_plain`."""
-    return _colour_launch(r, g, b, hs, vs, True)
+    factors, size = _chroma(hs, vs, y, cb)
+    planes = [y] if cb is None else [y, cb, cr]
+    return colour_kernel(planes, factors, size, SPACE_YCC)[1]
 
 
 def orient(img: Tensor, orientation: int) -> Tensor:
@@ -475,47 +603,17 @@ def orient(img: Tensor, orientation: int) -> Tensor:
 
 
 def _decode_jpeg(data: bytes, dev) -> Tuple[Tensor, Tensor]:
-    comps, size, layout = decode_coefficients(data, dev)
-    y, cb, cr, (hs, vs) = _planes(comps, size)
-    if layout.rgb:
-        gray, bgr = rgb_to_bgr_kernel(y, cb, cr, hs, vs)
-    else:
-        gray, bgr = y, ycc_to_bgr_kernel(y, cb, cr, hs, vs)
+    planes, size, layout = decode_planes(data, dev)
+    gray, bgr = colour_kernel(planes, layout.factors, size, layout.space)
     return orient(gray, layout.orientation), orient(bgr, layout.orientation)
-
-
-def decode(data: bytes, device) -> Tuple[Tensor, Tensor]:
-    """(grey (H, W), BGR (H, W, 3)) uint8 tensors on ``device`` from a
-    file's bytes: what ``cv2.imread`` gives with ``IMREAD_GRAYSCALE`` and
-    ``IMREAD_COLOR``. On a CUDA device, JPEG only."""
-    dev = torch.device(device)
-    if dev.type == "cpu":
-        import cv2
-
-        buf = np.frombuffer(data, np.uint8)
-        gray = cv2.imdecode(buf, cv2.IMREAD_GRAYSCALE)
-        bgr = cv2.imdecode(buf, cv2.IMREAD_COLOR)
-        if gray is None or bgr is None:
-            raise ValueError(f"OpenCV cannot decode this {image_format(data)}"
-                             f" file")
-        return torch.from_numpy(gray), torch.from_numpy(bgr)
-    if dev.type != "cuda":
-        raise ValueError(f"no image codec for device {dev}")
-    kind = image_format(data)
-    if kind == "PNG":
-        raise ValueError("a PNG: the card reads a PNG's colour image only "
-                         "(decode_colour); its grey conversion is not ported")
-    if kind != "JPEG":
-        raise ValueError(f"not a JPEG or PNG ({kind}): the card's codec "
-                         f"reads JPEG and PNG only")
-    return _decode_jpeg(data, dev)
 
 
 class RasterForm(NamedTuple):
     """What a PNG's or a TIFF's samples are and which of OpenCV's
     conversions applies to them: the fields of ``raster_bgr::Form``
     (csrc/raster_bgr.h), in its order."""
-    kind: int          # RASTER_GREY, RASTER_RGB or RASTER_PALETTE
+    kind: int          # RASTER_GREY, RASTER_RGB, RASTER_PALETTE or
+                       # RASTER_CMYK
     bits: int          # 1, 2, 4, 8 or 16
     channels: int      # samples a pixel, alpha included
     planar: int        # 1: a plane a channel
@@ -530,7 +628,7 @@ class RasterForm(NamedTuple):
     plane_bytes: int   # bytes a plane
 
 
-RASTER_GREY, RASTER_RGB, RASTER_PALETTE = 0, 1, 2
+RASTER_GREY, RASTER_RGB, RASTER_PALETTE, RASTER_CMYK = 0, 1, 2, 3
 GREY_LIBPNG, GREY_LIBPNG_GAMMA, GREY_OPENCV = 0, 1, 2
 NARROW_SHIFT, NARROW_ROUND257 = 0, 1
 # raster_bgr.h: the palette (256 x RGB), libpng's 8-bit gamma tables, then
@@ -748,7 +846,8 @@ def tiff_rows(data: bytes, lib) -> Raster:
         m = cmap.reshape(3, n_map)
         m = m >> 8 if (m >= 256).any() else m
         tables[:3 * n_map] = m.T.reshape(-1).astype(np.uint8)
-    kind = (RASTER_GREY, RASTER_GREY, RASTER_RGB, RASTER_PALETTE)[pm]
+    kind = {0: RASTER_GREY, 1: RASTER_GREY, 2: RASTER_RGB,
+            3: RASTER_PALETTE, 5: RASTER_CMYK}[pm]
     form = RasterForm(kind, bits, spp, int(planar == 2), little,
                       int(pm == 0), NARROW_ROUND257,
                       int(kind == RASTER_RGB and spp == 4 and alpha == 2),
@@ -797,6 +896,9 @@ def raster_to_bgr_plain(raster: Tensor, form: RasterForm,
     if f.kind == RASTER_PALETTE:
         rgb = t[:768].reshape(256, 3)[s[..., 0]]
         r, g, b = rgb.unbind(-1)
+    elif f.kind == RASTER_CMYK:  # libtiff's RGBA reader
+        k = 255 - s[..., 3]
+        r, g, b = [k * (255 - s[..., i]) // 255 for i in range(3)]
     else:
         r, g, b = s[..., 0], s[..., 1], s[..., 2]
         a = s[..., 3] if f.premultiply else None

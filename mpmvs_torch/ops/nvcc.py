@@ -32,11 +32,13 @@ _INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 class LaunchCounts:
     """Calls that reached a kernel's wrapper (``kernel``: launches, and
     ``forms``: launches by the kernel's form where it has several) and its
-    plain version (``plain``) since the last reset."""
+    plain version (``plain``, and ``plain_forms`` by form where the plain
+    version counts them) since the last reset."""
 
     kernel: int = 0
     plain: int = 0
     forms: Dict[str, int] = dataclasses.field(default_factory=dict)
+    plain_forms: Dict[str, int] = dataclasses.field(default_factory=dict)
 
     def launched(self, form: str = None):
         """Count one launch, of ``form`` if named."""
@@ -48,6 +50,7 @@ class LaunchCounts:
         self.kernel = 0
         self.plain = 0
         self.forms.clear()
+        self.plain_forms.clear()
 
 
 def _nvcc() -> str:

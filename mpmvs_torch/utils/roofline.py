@@ -141,3 +141,14 @@ def raster_bound(form, table_bytes: int):
     planes = form.channels if form.planar else 1
     return bound(0, planes * form.plane_bytes + table_bytes
                  + 4 * form.width * form.height)
+
+
+def colour_bound(planes, H: int, W: int, grey: bool = True):
+    """One launch of a JPEG colour kernel (``ycc_to_bgr_kernel``,
+    ``cmyk_to_bgr_kernel``) on component planes (tensors, each at its
+    sampled size) of an (H, W) image: every plane's samples read once, the
+    BGR image written and, with ``grey``, the grey image (the
+    four-component kernel always writes it). Bytes alone, as for the
+    codec's other kernels."""
+    return bound(0, sum(p.numel() for p in planes)
+                 + (4 if grey else 3) * H * W)

@@ -7,18 +7,22 @@ Builds the decoder's host sources (``mpmvs_torch/csrc/jpeg_entropy.h`` and
 temporary directory, decodes the fixtures beside this file and JPEGs that
 OpenCV encodes from a seed (4:2:0, 4:2:2, 4:4:0, progressive, restart
 intervals, optimised Huffman tables, grey, 17x9 to 3200x2130) and the
-files under ``layouts/`` (EXIF orientations 2..8, RGB components),
-upsamples and converts them with the colour kernel's plain versions
-(``io.images.ycc_to_bgr_plain``, ``rgb_to_bgr_plain``), applies the EXIF
+files under ``layouts/`` (EXIF orientations 2..8, RGB components, CMYK and
+YCCK, every sampling layout), upsamples and converts them with the colour
+kernels' plain version (``io.images.colour_plain``), applies the EXIF
 orientation (``io.images.orient``), and prints, per file and in all, the
-entries that differ from ``cv2.imread``'s grey and BGR arrays. A JPEG under
-``refused/`` with arrays in ``cv2_arrays.npz`` must decode to them; the
-others must be refused (a non-zero code, printed). It needs g++ and OpenCV.
+entries that differ from ``cv2.imread``'s grey and BGR arrays, and those
+where the colour kernels' arithmetic (``csrc/jpeg_colour.h``, built for the
+host) differs from the plain version, on each file below 10^6 pixels and on
+the sweeps of :func:`sweep_mismatches`. A JPEG under ``refused/`` with
+arrays in ``cv2_arrays.npz`` must decode to them; the others must be
+refused (a non-zero code, printed). It needs g++ and OpenCV.
 """
 
 import ctypes
 import glob
 import os
+import struct
 import subprocess
 import sys
 import tempfile
@@ -33,23 +37,31 @@ sys.path.insert(0, REPO)
 from mpmvs_torch.io import images  # noqa: E402
 
 SHIM = r'''
+#include "jpeg_colour.h"
 #include "jpeg_entropy.h"
 #include "jpeg_idct.h"
 using namespace jpeg_entropy;
+// info: ncomp, orientation, colour space, hmax, vmax, then per component
+// its plane's height and width and its factors h, v
 extern "C" int planes(const uint8_t* data, size_t len, int* info,
                       uint8_t** out) {
   Decoder* d = new Decoder();
   int err = decode(d, data, len, false);
   if (err) { delete d; return err; }
   info[0] = d->ncomp;
-  info[7] = d->orientation;
-  info[8] = d->rgb;
+  info[1] = d->orientation;
+  info[2] = d->space;
+  info[3] = d->hmax;
+  info[4] = d->vmax;
   for (int i = 0; i < d->ncomp; i++) {
     Component& c = d->comp[i];
     int pw = (d->width * c.h + d->hmax - 1) / d->hmax;
     int ph = (d->height * c.v + d->vmax - 1) / d->vmax;
-    info[1 + 2 * i] = ph;
-    info[2 + 2 * i] = pw;
+    int* ci = info + 5 + 4 * i;
+    ci[0] = ph;
+    ci[1] = pw;
+    ci[2] = c.h;
+    ci[3] = c.v;
     if (!out[i]) continue;
     for (int by = 0; by < c.height_in_blocks; by++)
       for (int bx = 0; bx < c.width_in_blocks; bx++) {
@@ -63,6 +75,43 @@ extern "C" int planes(const uint8_t* data, size_t len, int* info,
   delete d;
   return 0;
 }
+// The colour kernels' per-pixel arithmetic (jpeg_colour.h) over a whole
+// (H, W) image, as the kernels run it: n planes, n x 5 ints (h, w, rh, rv,
+// fancy), form 0 YCbCr / 1 RGB (n 1 or 3), 2 CMYK / 3 YCCK (n 4).
+extern "C" void colour_pixels(const uint8_t* const* ptrs, const int* geo,
+                              int n, int form, int H, int W, uint8_t* bgr,
+                              uint8_t* grey) {
+  jpeg_colour::Planes pl = {};
+  for (int i = 0; i < n; i++) {
+    const int* g = geo + 5 * i;
+    pl.c[i] = {ptrs[i], g[0], g[1], g[2], g[3], g[4]};
+  }
+  for (int r = 0; r < H; r++)
+    for (int col = 0; col < W; col++) {
+      size_t i = (size_t)r * W + col;
+      if (n == 4)
+        jpeg_colour::cmyk_pixel(pl, form == 3, r, col, bgr + 3 * i, grey + i);
+      else
+        jpeg_colour::ycc_pixel(pl, n, form, r, col, bgr + 3 * i, grey + i);
+    }
+}
+// Element-wise steps: OpenCV's CMYK -> BGR channel of (x, k) pairs, and
+// libjpeg's YCCK -> C, M, Y of (Y, Cb, Cr) triples.
+extern "C" void cmyk_channels(const uint8_t* x, const uint8_t* k, int n,
+                              uint8_t* out) {
+  for (int i = 0; i < n; i++)
+    out[i] = (uint8_t)jpeg_colour::cmyk_channel(x[i], k[i]);
+}
+extern "C" void ycck_cmys(const uint8_t* y, const uint8_t* cb,
+                          const uint8_t* cr, int n, uint8_t* out) {
+  for (int i = 0; i < n; i++) {
+    int c, m, yy;
+    jpeg_colour::ycck_cmy(y[i], cb[i], cr[i], &c, &m, &yy);
+    out[3 * i] = (uint8_t)c;
+    out[3 * i + 1] = (uint8_t)m;
+    out[3 * i + 2] = (uint8_t)yy;
+  }
+}
 '''
 
 
@@ -73,40 +122,149 @@ def build(tmp):
     subprocess.run(["g++", "-O2", "-shared", "-fPIC", "-I",
                     os.path.join(REPO, "mpmvs_torch", "csrc"), "-o", lib,
                     src], check=True)
-    return ctypes.CDLL(lib)
+    lib = ctypes.CDLL(lib)
+    vp, i = ctypes.c_void_p, ctypes.c_int
+    lib.colour_pixels.argtypes = [vp, vp, i, i, i, i, vp, vp]
+    lib.cmyk_channels.argtypes = [vp, vp, i, vp]
+    lib.ycck_cmys.argtypes = [vp, vp, vp, i, vp]
+    for fn in ("colour_pixels", "cmyk_channels", "ycck_cmys"):
+        getattr(lib, fn).restype = None
+    return lib
 
 
 def status(lib, data) -> int:
     """The host decoder's code for a JPEG: 0, or the error it refuses it
-    with (``io.images._DECODE_ERRORS``)."""
-    info = (ctypes.c_int * 9)()
-    return lib.planes(data, len(data), info, (ctypes.c_void_p * 3)())
+    with (``io.images._CODE_ERRORS``)."""
+    info = (ctypes.c_int * 21)()
+    return lib.planes(data, len(data), info, (ctypes.c_void_p * 4)())
+
+
+def planes(lib, data):
+    """A JPEG's component planes (numpy uint8, at their sampled sizes),
+    their ratios (hmax / h, vmax / v), the image's size (H, W), its colour
+    space (``images.SPACE_*``) and EXIF orientation, from the host
+    decoder."""
+    info = (ctypes.c_int * 21)()
+    none = (ctypes.c_void_p * 4)()
+    assert lib.planes(data, len(data), info, none) == 0
+    n = info[0]
+    dims = [info[5 + 4 * i:9 + 4 * i] for i in range(n)]
+    out = [np.zeros((ph, pw), np.uint8) for ph, pw, _, _ in dims]
+    ptrs = (ctypes.c_void_p * 4)(*[p.ctypes.data for p in out])
+    assert lib.planes(data, len(data), info, ptrs) == 0
+    factors = [(info[3] // h, info[4] // v) for _, _, h, v in dims]
+    W, H = struct.unpack(">HH", sof_size(data))
+    return out, factors, (H, W), info[2], info[1]
+
+
+def sof_size(data: bytes) -> bytes:
+    """The height and width bytes of a JPEG's first SOF segment."""
+    pos = 2
+    while pos < len(data):
+        m, n = data[pos + 1], struct.unpack(">H", data[pos + 2:pos + 4])[0]
+        if 0xC0 <= m <= 0xCF and m not in (0xC4, 0xC8, 0xCC):
+            h, w = data[pos + 5:pos + 7], data[pos + 7:pos + 9]
+            return w + h
+        pos += 2 + n
+    raise ValueError("no SOF segment")
 
 
 def decode(lib, data):
     """(grey, BGR) numpy arrays of a JPEG: the host decoder, the colour
-    kernel's plain versions and the EXIF orientation."""
-    info = (ctypes.c_int * 9)()
-    none = (ctypes.c_void_p * 3)()
-    assert lib.planes(data, len(data), info, none) == 0
-    n = info[0]
-    out = [np.zeros((info[1 + 2 * i], info[2 + 2 * i]), np.uint8)
-           for i in range(n)]
-    ptrs = (ctypes.c_void_p * 3)(*[p.ctypes.data for p in out])
-    assert lib.planes(data, len(data), info, ptrs) == 0
-    y = torch.as_tensor(out[0])
-    if n == 1:
-        gray, bgr = y, images.ycc_to_bgr_plain(y)
-    else:
-        cb, cr = torch.as_tensor(out[1]), torch.as_tensor(out[2])
-        hs = 1 if cb.shape[1] == y.shape[1] else 2
-        vs = 1 if cb.shape[0] == y.shape[0] else 2
-        if info[8]:
-            gray, bgr = images.rgb_to_bgr_plain(y, cb, cr, hs, vs)
-        else:
-            gray, bgr = y, images.ycc_to_bgr_plain(y, cb, cr, hs, vs)
-    return (images.orient(gray, info[7]).numpy(),
-            images.orient(bgr, info[7]).numpy())
+    kernels' plain version (``io.images.colour_plain``) and the EXIF
+    orientation."""
+    out, factors, size, space, orientation = planes(lib, data)
+    gray, bgr = images.colour_plain([torch.as_tensor(p) for p in out],
+                                    factors, size, space)
+    return (images.orient(gray, orientation).numpy(),
+            images.orient(bgr, orientation).numpy())
+
+
+def kernel_host(lib, data):
+    """(grey, BGR) numpy arrays of a JPEG's planes through the colour
+    kernels' arithmetic built for the host (``csrc/jpeg_colour.h``), before
+    the orientation."""
+    out, factors, (H, W), space, _ = planes(lib, data)
+    ptrs = (ctypes.c_void_p * 4)(*[p.ctypes.data for p in out])
+    geo = (ctypes.c_int * 20)(*[v for p, (rh, rv) in zip(out, factors)
+                                for v in (p.shape[0], p.shape[1], rh, rv,
+                                          int(images._fancy(p.shape[1], rh,
+                                                            rv)))])
+    bgr = np.zeros((H, W, 3), np.uint8)
+    grey = np.zeros((H, W), np.uint8)
+    lib.colour_pixels(ptrs, geo, len(out), space, H, W, bgr.ctypes.data,
+                      grey.ctypes.data)
+    return grey, bgr
+
+
+def kernel_mismatches(lib, data) -> int:
+    """Entries of a JPEG's grey and BGR where the kernels' host-built
+    arithmetic differs from the plain version (a YCbCr JPEG's grey is its Y
+    plane, which the kernel writes only where it is upsampled: compared
+    here all the same)."""
+    out, factors, size, space, _ = planes(lib, data)
+    want = images.colour_plain([torch.as_tensor(p) for p in out], factors,
+                               size, space)
+    got = kernel_host(lib, data)
+    return sum(int((g != w.numpy()).sum()) for g, w in zip(got, want))
+
+
+def sweep_mismatches(lib, quads: int = 10 ** 7, seed: int = 0,
+                     parts=("pairs", "triples", "quads")) -> dict:
+    """The four-component kernel's arithmetic built for the host against
+    the plain version, entries that differ: OpenCV's CMYK -> BGR rule on
+    every (x, k) pair (``"pairs"``, 2^16), libjpeg's YCCK step on every
+    (Y, Cb, Cr) triple (``"triples"``, 2^24, in chunks), and whole CMYK
+    pixels, grey and BGR, on ``quads`` seeded quadruples (``"quads"``; all
+    2^32 are too many); ``parts`` names which."""
+    out = {}
+    if "pairs" in parts:
+        out["pairs"] = _pairs(lib)
+    if "triples" in parts:
+        out["triples"] = _triples(lib)
+    if "quads" in parts:
+        out["quads"] = _quads(lib, quads, seed)
+    return out
+
+
+def _pairs(lib) -> int:
+    v = np.arange(1 << 16)
+    x, k = (v & 255).astype(np.uint8), (v >> 8).astype(np.uint8)
+    got = np.zeros(1 << 16, np.uint8)
+    lib.cmyk_channels(x.ctypes.data, k.ctypes.data, len(x), got.ctypes.data)
+    want = images.cmyk_bgr_plain(*[torch.as_tensor(a).long()
+                                   for a in (x, x, x, k)])[3]
+    return int((got != want.numpy()).sum())
+
+
+def _triples(lib) -> int:
+    bad, step = 0, 1 << 22
+    for start in range(0, 1 << 24, step):
+        t = np.arange(start, start + step)
+        yc = [((t >> s) & 255).astype(np.uint8) for s in (16, 8, 0)]
+        got = np.zeros((step, 3), np.uint8)
+        lib.ycck_cmys(*[a.ctypes.data for a in yc], step, got.ctypes.data)
+        want = torch.stack(images.ycck_to_cmy_plain(
+            *[torch.as_tensor(a).long() for a in yc]), -1)
+        bad += int((got != want.numpy()).sum())
+    return bad
+
+
+def _quads(lib, quads: int, seed: int) -> int:
+    rng, bad, step = np.random.default_rng(seed), 0, 10 ** 6
+    for start in range(0, quads, step):
+        n = min(step, quads - start)
+        cmyk = rng.integers(0, 256, (4, 1, n)).astype(np.uint8)
+        ptrs = (ctypes.c_void_p * 4)(*[c.ctypes.data for c in cmyk])
+        geo = (ctypes.c_int * 20)(*[1, n, 1, 1, 0] * 4)
+        bgr, grey = np.zeros((1, n, 3), np.uint8), np.zeros((1, n), np.uint8)
+        lib.colour_pixels(ptrs, geo, 4, images.SPACE_CMYK, 1, n,
+                          bgr.ctypes.data, grey.ctypes.data)
+        want = images.cmyk_to_bgr_plain([torch.as_tensor(c) for c in cmyk],
+                                        [(1, 1)] * 4, False)
+        bad += int((grey != want[0].numpy()).sum()
+                   + (bgr != want[1].numpy()).sum())
+    return bad
 
 
 def cases():
@@ -144,8 +302,10 @@ def main() -> int:
             grey, bgr = decode(lib, data)
             n = (int((grey != cv2.imdecode(buf, cv2.IMREAD_GRAYSCALE)).sum())
                  + int((bgr != cv2.imdecode(buf, cv2.IMREAD_COLOR)).sum()))
-            total += n
-            print(f"{name:28s} {grey.shape}: {n} entries differ")
+            k = kernel_mismatches(lib, data) if grey.size < 1e6 else 0
+            total += n + k
+            print(f"{name:28s} {grey.shape}: {n} entries differ, kernel "
+                  f"arithmetic vs plain {k}")
         accepted = []
         want = np.load(os.path.join(HERE, "cv2_arrays.npz"))
         for path in sorted(glob.glob(os.path.join(HERE, "refused", "*.jpg"))):
@@ -163,6 +323,9 @@ def main() -> int:
             print(f"{name:28s} code {code}")
             if code == 0:
                 accepted.append(path)
+    sweep = sweep_mismatches(lib)
+    total += sum(sweep.values())
+    print(f"kernel arithmetic vs plain, entries differing: {sweep}")
     print(f"in all: {total} entries differ, {len(accepted)} files that "
           f"must be refused were decoded")
     return 0 if total == 0 and not accepted else 1

@@ -7,7 +7,7 @@ by OpenCV with the settings its name gives; ``decoded.npz`` holds what
 ``cv2.imread`` returns for each (``gray_<name>`` with IMREAD_GRAYSCALE,
 ``bgr_<name>`` with IMREAD_COLOR), the target of the card's decoder.
 
-``refused/`` holds JPEGs that the card's decoder must refuse, because
+``refused/`` held JPEGs that the card's decoder had to refuse, because
 ``cv2.imread`` gives another image than their planes: ``exif_orientation6``
 (420_q95 with an EXIF APP1 segment whose orientation is 6, which OpenCV
 rotates), ``adobe_rgb`` (444_q100 with its JFIF marker replaced by an Adobe
@@ -17,12 +17,26 @@ These three were refused until the card's decoder learnt EXIF orientation and
 RGB components; they now decode, and ``refused/`` also holds what the card
 still refuses, each for a cause it names: ``twelve_bit`` (420_q95 with its
 SOF0 sample precision set to 12), ``arithmetic`` (its SOF0 marker made SOF9),
-``lossless`` (made SOF3) and ``cmyk`` (a four-component Adobe CMYK JPEG
-written by PIL).
+``lossless`` (made SOF3), and two sampling layouts libjpeg refuses too
+(``fractional``: Y at 2x1 under a Cb at 3x1; ``mcu_blocks``: Y at 3x3, 11
+blocks in an interleaved MCU; written by ``jpeg_file.py``).
 
 ``layouts/`` holds 420_q95 with EXIF orientations 2..8 (odd_101x203_q95 for
-6, so that the rotation is not square) and ``rgb_ids_420`` (420_q95 without
-its JFIF marker and with the ids 'R', 'G', 'B': subsampled RGB components).
+6, so that the rotation is not square), ``rgb_ids_420`` (420_q95 without
+its JFIF marker and with the ids 'R', 'G', 'B': subsampled RGB components),
+and (:func:`components`) four-component JPEGs and the sampling layouts the
+card once refused: ``cmyk_pil`` (a four-component Adobe CMYK JPEG written
+by PIL, once ``refused/cmyk``), PIL's progressive CMYK and the same re-marked
+YCCK (Adobe transform 2), CMYK without an Adobe marker (under a JFIF one),
+YCCK of transform 2 and of transform 1 (which libjpeg takes for YCCK),
+YCCK with Y and K at 2x2 and Cb, Cr at 1x1 (also with restart intervals and
+3 pixels wide), CMYK with a factor per axis on each component and with
+factors of 3, CMYK with an EXIF orientation; three components at 4:1:1
+(cv2's, also progressive and with restarts), Y at 1x4, 3x1, 1x3, 4x2 and
+4x4 (in a scan a component), Y below the largest factor (Y 1x1 under a Cb
+at 2x2; Y 1x2 under a Cb at 2x1), and 4:2:0 and 4:2:2 images 1 to 5
+pixels wide, whose chroma libjpeg-turbo replicates up to 2 samples wide.
+All but PIL's and cv2's are written by ``jpeg_file.py``.
 
 ``cv2_arrays.npz`` holds ``cv2.imread``'s grey and BGR arrays
 (``gray_<dir>/<name>``, ``bgr_<dir>/<name>``) of every file under
@@ -56,8 +70,11 @@ refuses: ``image.bmp`` and ``image.webp``.
 
     python tests/data/jpeg/make_fixtures.py --part new
 
-writes only what is listed after the first paragraph (the files from before
-keep their bytes; ``--part all``, the default, rewrites them too).
+writes only what is listed after the first paragraph (the files from
+before keep their bytes; ``--part all``, the default, rewrites them too),
+and ``conversion/cv2.json``: what cv2 makes of chip_smoke.py phase 8's
+YCCK source ``conversion/ycck_3200x2130.jpg``, which
+``make_ycck_source.py`` writes on a card.
 """
 
 import argparse
@@ -66,11 +83,15 @@ import os
 import struct
 import zlib
 
+import sys
+
 import cv2
 import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 PNG_DIR = os.path.join(os.path.dirname(HERE), "png")
+sys.path.insert(0, HERE)
+from jpeg_file import adobe_app14, baseline_jpeg, jfif_app0  # noqa: E402
 
 
 def picture(h: int, w: int, seed: int) -> np.ndarray:
@@ -133,11 +154,6 @@ def exif_app1(orientation: int) -> bytes:
         ">IHHHIHHI", 8, 1, 0x0112, 3, 1, orientation, 0, 0))
 
 
-def adobe_app14(transform: int) -> bytes:
-    return segment(0xEE, b"Adobe" + struct.pack(">HHHB", 100, 0, 0,
-                                                transform))
-
-
 def after_soi(data: bytes, seg: bytes) -> bytes:
     return data[:2] + seg + data[2:]
 
@@ -165,7 +181,7 @@ def with_sof(data: bytes, marker: int = None, precision: int = None) -> bytes:
     raise ValueError("no SOF segment")
 
 
-def cmyk_jpeg(h: int, w: int, seed: int) -> bytes:
+def cmyk_jpeg(h: int, w: int, seed: int, progressive: bool = False) -> bytes:
     """A four-component (Adobe CMYK) JPEG, as PIL writes one."""
     from PIL import Image
 
@@ -173,15 +189,94 @@ def cmyk_jpeg(h: int, w: int, seed: int) -> bytes:
     img = Image.fromarray(rng.integers(0, 256, (h, w, 4)).astype(np.uint8),
                           "CMYK")
     buf = io.BytesIO()
-    img.save(buf, "JPEG", quality=90)
+    img.save(buf, "JPEG", quality=90, progressive=progressive)
     return buf.getvalue()
+
+
+def with_transform(data: bytes, transform: int) -> bytes:
+    """A JPEG's bytes with its Adobe APP14 marker's transform replaced."""
+    out = bytearray(data)
+    at = out.index(b"Adobe")
+    out[at + 11] = transform
+    return bytes(out)
+
+
+def plane(h: int, w: int, seed: int) -> np.ndarray:
+    """A smooth random (h, w) uint8 plane with faint noise."""
+    rng = np.random.default_rng(seed)
+    small = rng.integers(0, 256, (h // 6 + 2, w // 6 + 2)).astype(np.uint8)
+    img = cv2.resize(small, (w, h), interpolation=cv2.INTER_CUBIC)
+    return np.clip(img.astype(np.int64) + rng.integers(-4, 5, img.shape), 0,
+                   255).astype(np.uint8)
+
+
+def sampled(factors, h: int, w: int, seed: int, **kw) -> bytes:
+    """A baseline JPEG (jpeg_file.baseline_jpeg) of smooth planes at
+    ``factors`` ((h, v) a component), h x w; in a scan a component where an
+    interleaved MCU would hold more than 10 blocks, unless ``kw`` says."""
+    hmax, vmax = max(f[0] for f in factors), max(f[1] for f in factors)
+    planes = [plane(-(-h * v // vmax), -(-w * f // hmax), seed + i)
+              for i, (f, v) in enumerate(factors)]
+    kw.setdefault("interleave", sum(f * v for f, v in factors) <= 10)
+    return baseline_jpeg(planes, factors, (h, w), **kw)
 
 
 def stays_refused(data_420: bytes) -> dict:
     return {"twelve_bit": with_sof(data_420, precision=12),
             "arithmetic": with_sof(data_420, marker=0xC9),
             "lossless": with_sof(data_420, marker=0xC3),
-            "cmyk": cmyk_jpeg(24, 40, 7)}
+            "fractional": sampled([(2, 1), (3, 1), (1, 1)], 21, 27, 60),
+            "mcu_blocks": sampled([(3, 3), (1, 1), (1, 1)], 21, 27, 63,
+                                  interleave=True)}
+
+
+def components() -> dict:
+    """The four-component JPEGs and the sampling layouts of layouts/."""
+    S = cv2.IMWRITE_JPEG_SAMPLING_FACTOR
+    s411 = [S, cv2.IMWRITE_JPEG_SAMPLING_FACTOR_411]
+    yk22 = [(2, 2), (1, 1), (1, 1), (2, 2)]
+    progressive = cmyk_jpeg(19, 23, 3, progressive=True)
+    made = {
+        "cmyk_pil": cmyk_jpeg(24, 40, 7),
+        "cmyk_pil_progressive": progressive,
+        "ycck_pil_progressive": with_transform(progressive, 2),
+        "cmyk_no_adobe_jfif": sampled([(1, 1)] * 4, 21, 27, 10,
+                                      pre=jfif_app0()),
+        "ycck_adobe2": sampled([(1, 1)] * 4, 37, 45, 14,
+                               pre=adobe_app14(2)),
+        "ycck_adobe1": sampled([(1, 1)] * 4, 21, 27, 18,
+                               pre=adobe_app14(1)),
+        "ycck_yk22_cc11": sampled(yk22, 37, 45, 22, pre=adobe_app14(2)),
+        "ycck_yk22_cc11_restart3": sampled(yk22, 29, 51, 26,
+                                           pre=adobe_app14(2), restart=3),
+        "ycck_yk22_cc11_w3": sampled(yk22, 7, 3, 30, pre=adobe_app14(2)),
+        "cmyk_each_axis": sampled([(2, 2), (1, 2), (2, 1), (1, 1)], 37, 45,
+                                  34, pre=adobe_app14(0)),
+        "cmyk_3x1": sampled([(3, 1), (1, 1), (3, 1), (1, 1)], 13, 29, 38,
+                            pre=adobe_app14(0)),
+        "cmyk_exif6": sampled([(1, 1)] * 4, 37, 45, 42,
+                              pre=exif_app1(6) + adobe_app14(0)),
+        "ycc_1x4": sampled([(1, 4), (1, 1), (1, 1)], 21, 27, 46),
+        "ycc_3x1": sampled([(3, 1), (1, 1), (1, 1)], 21, 27, 49),
+        "ycc_1x3": sampled([(1, 3), (1, 1), (1, 1)], 21, 27, 52),
+        "ycc_4x2": sampled([(4, 2), (1, 1), (1, 1)], 37, 45, 55),
+        "ycc_4x4_scans": sampled([(4, 4), (1, 1), (1, 1)], 37, 45, 58),
+        "ycc_y1x1_cb2x2": sampled([(1, 1), (2, 2), (1, 1)], 21, 27, 64),
+        "ycc_y1x1_cb2x2_w3": sampled([(1, 1), (2, 2), (1, 1)], 7, 3, 67),
+        "ycc_y1x2_cb2x1": sampled([(1, 2), (2, 1), (1, 1)], 21, 27, 70),
+    }
+    img = picture(21, 27, seed=8)
+    for name, flags in (("411", s411), ("411_restart2", s411 + [
+            cv2.IMWRITE_JPEG_RST_INTERVAL, 2]), ("411_progressive", s411 + [
+            cv2.IMWRITE_JPEG_PROGRESSIVE, 1])):
+        made[f"ycc_{name}_cv2"] = cv2.imencode(".jpg", img, flags)[1].tobytes()
+    for w in range(1, 6):
+        narrow = picture(22, 22, seed=80 + w)[:6, :w]
+        for kind in ("420", "422"):
+            made[f"ycc_{kind}_w{w}_cv2"] = cv2.imencode(
+                ".jpg", narrow, [S, getattr(
+                    cv2, f"IMWRITE_JPEG_SAMPLING_FACTOR_{kind}")])[1].tobytes()
+    return made
 
 
 def layouts(data_420: bytes, data_odd: bytes) -> dict:
@@ -467,13 +562,39 @@ def write_conversion_fixtures() -> None:
             f.write(buf.tobytes())
 
 
+def write_ycck_hashes() -> None:
+    """conversion/cv2.json: the sha-256 of conversion/ycck_3200x2130.jpg
+    (written on the card by make_ycck_source.py), of cv2.imread's grey and
+    BGR arrays of it (their bytes, row-major) and of the workspace image
+    the JAX converter writes of it, cv2.imwrite(dst, cv2.imread(src))."""
+    import hashlib
+    import json
+
+    path = os.path.join(HERE, "conversion", "ycck_3200x2130.jpg")
+    with open(path, "rb") as f:
+        data = f.read()
+    sha = lambda b: hashlib.sha256(b).hexdigest()
+    bgr = cv2.imread(path, cv2.IMREAD_COLOR)
+    ok, ws = cv2.imencode(".jpg", bgr)
+    assert ok
+    record = {"source_sha256": sha(data),
+              "gray_sha256": sha(cv2.imread(path,
+                                            cv2.IMREAD_GRAYSCALE).tobytes()),
+              "bgr_sha256": sha(bgr.tobytes()),
+              "workspace_sha256": sha(ws.tobytes())}
+    with open(os.path.join(HERE, "conversion", "cv2.json"), "w") as f:
+        json.dump(record, f, indent=1)
+        f.write("\n")
+
+
 def write_decode_fixtures() -> None:
     """layouts/, the new files of refused/ and cv2_arrays.npz."""
     def read(name):
         with open(os.path.join(HERE, f"{name}.jpg"), "rb") as f:
             return f.read()
 
-    made = {"layouts": layouts(read("420_q95"), read("odd_101x203_q95")),
+    made = {"layouts": {**layouts(read("420_q95"), read("odd_101x203_q95")),
+                        **components()},
             "refused": stays_refused(read("420_q95"))}
     arrays = {}
     for sub, files in made.items():
@@ -518,6 +639,7 @@ def main() -> None:
     if ap.parse_args().part == "all":
         write_first_fixtures()
     write_decode_fixtures()
+    write_ycck_hashes()
     write_encode_fixtures()
     write_png_fixtures()
     write_conversion_fixtures()

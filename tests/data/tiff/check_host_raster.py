@@ -47,13 +47,17 @@ REFUSED = {
     "tiff/refused/float.tif": "float", "tiff/refused/int32.tif": "signed or float",
     "tiff/refused/signed16.tif": "signed",
     "tiff/refused/predictor3.tif": "floating-point predictor",
-    "tiff/refused/cmyk.tif": "CMYK", "tiff/refused/ycbcr.tif": "YCbCr",
+    "tiff/refused/ycbcr.tif": "YCbCr",
     "tiff/refused/lab.tif": "CIELab",
     "tiff/refused/old_lzw.tif": "old-style LZW",
     "tiff/refused/grey2.tif": "bit depth", "tiff/refused/grey4.tif":
         "bit depth", "tiff/refused/grey12.tif": "bit depth",
     "tiff/refused/palette16.tif": "bit depth",
-    "tiff/refused/rgb1.tif": "bit depth"}
+    "tiff/refused/rgb1.tif": "bit depth",
+    "tiff/refused/cmyk16.tif": "bit depth",
+    "tiff/refused/inkset2.tif": "InkSet",
+    "tiff/refused/cmyk_alpha.tif": "five channels",
+    "tiff/refused/cmyk3.tif": "sample count"}
 
 SHIM = r'''
 #include "jpeg_encode.h"

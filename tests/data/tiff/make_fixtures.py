@@ -14,7 +14,8 @@ The cases: strips (RowsPerStrip dividing the height or not) and tiles
 (overhanging the edges), planar configurations 1 and 2, compressions 1, 5,
 8, 32946 and 32773, predictor 2 on 8 and 16 bits, both byte orders and
 BigTIFF; min-is-black and min-is-white at 1, 8 and 16 bits; RGB at 8 and 16
-bits; palettes of 1, 4 and 8 bits with 8- and 16-bit colour maps (libtiff
+bits; 8-bit CMYK (libtiff's RGBA rule); palettes of 1, 4 and 8 bits with
+8- and 16-bit colour maps (libtiff
 takes a map whose entries are all below 256 for 8-bit); alpha, associated,
 unassociated (which libtiff premultiplies) and unspecified; FillOrder 2;
 40 private tags besides the image's own;
@@ -23,9 +24,13 @@ and RGB ``*_all`` images.
 
 ``refused/`` holds TIFFs the card refuses, each for a cause it names:
 JPEG-compressed (PIL), float and 32-bit integer (PIL), signed 16-bit,
-predictor 3, CMYK, YCbCr and CIELab (PIL), old-style LZW, 2-bit grey, 4-bit
-grey, 12-bit grey, 16-bit palette and 1-bit RGB (of which cv2 reads none of
-the last five into an 8-bit image either).
+predictor 3, YCbCr and CIELab (PIL), old-style LZW, 2-bit grey, 4-bit grey,
+12-bit grey, 16-bit palette and 1-bit RGB (of which cv2 reads none of the
+last five into an 8-bit image either), and separated samples cv2 does not
+read either: 16-bit CMYK, InkSet 2, CMYK with an alpha sample and three
+samples. CMYK itself (8-bit, InkSet 1, four samples) reads: ``pil_cmyk``
+(once ``refused/cmyk``) and ``cmyk8_*``, contiguous and planar, over every
+compression, with an explicit InkSet and an orientation.
 """
 
 import io
@@ -61,6 +66,14 @@ def all16() -> np.ndarray:
     return np.stack([v, v[::-1, ::-1], v.T], -1)
 
 
+def cmyk_of(rgb: np.ndarray, rng) -> np.ndarray:
+    """(H, W, 4) uint8 CMYK of RGB: C, M, Y the inverted colours, less a
+    random black, and the black."""
+    k = rng.integers(0, 160, rgb.shape[:2] + (1,))
+    return np.concatenate([np.clip(255 - rgb.astype(np.int64) - k, 0, 255),
+                           k], -1).astype(np.uint8)
+
+
 def pil_bytes(img: Image.Image, **kw) -> bytes:
     buf = io.BytesIO()
     img.save(buf, "TIFF", **kw)
@@ -80,6 +93,7 @@ def fixtures():
     map16 = rng.integers(0, 65536, (3, 256)).astype(np.uint16)
     map8 = rng.integers(0, 256, (3, 256)).astype(np.uint16)
     a16 = all16()
+    cmyk = cmyk_of(rgb, np.random.default_rng(9))
     f = {
         "rgb8_none": tiff_bytes(rgb),
         "rgb8_lzw_pred2_strips5_mm": tiff_bytes(
@@ -157,6 +171,22 @@ def fixtures():
                                  compression="tiff_adobe_deflate"),
         "pil_grey16": pil_bytes(Image.fromarray(rgb16[..., 1])),
         "image": cv2.imencode(".tif", rgb[..., ::-1])[1].tobytes(),
+        # 8-bit CMYK, which libtiff's RGBA reader converts for cv2
+        "pil_cmyk": pil_bytes(Image.fromarray(picture(21, 27, 2)).convert(
+            "CMYK")),
+        "cmyk8_none": tiff_bytes(cmyk, photometric=5),
+        "cmyk8_lzw_pred2_strips7": tiff_bytes(
+            cmyk, photometric=5, compression=5, predictor=2,
+            rows_per_strip=7),
+        "cmyk8_planar2_lzw": tiff_bytes(cmyk, photometric=5, compression=5,
+                                        planar=2),
+        "cmyk8_planar2_none_mm": tiff_bytes(cmyk, photometric=5, planar=2,
+                                            big=True, rows_per_strip=9),
+        "cmyk8_tiles_deflate": tiff_bytes(cmyk, photometric=5,
+                                          compression=8, tile=(16, 16)),
+        "cmyk8_inkset1_packbits_orient6": tiff_bytes(
+            cmyk, photometric=5, compression=32773, orientation=6,
+            extra_tags={332: (3, [1])}),
     }
     for o in range(2, 9):
         f[f"orient{o}_lzw"] = tiff_bytes(rgb, compression=5, orientation=o,
@@ -175,6 +205,7 @@ def refused():
     rgb = picture(21, 27, 2)
     grey = rgb[..., 1]
     rng = np.random.default_rng(8)
+    cmyk = cmyk_of(rgb, np.random.default_rng(9))
     return {
         "jpeg": pil_bytes(Image.fromarray(rgb), compression="jpeg"),
         "float": pil_bytes(Image.fromarray(grey.astype(np.float32))),
@@ -183,7 +214,14 @@ def refused():
                                sample_format=2),
         "predictor3": tiff_bytes(grey.astype(np.uint16), photometric=1,
                                  compression=8, extra_tags={317: (3, [3])}),
-        "cmyk": pil_bytes(Image.fromarray(rgb).convert("CMYK")),
+        # separated samples cv2 does not read: 16-bit, another InkSet, an
+        # extra (alpha) sample, three samples
+        "cmyk16": tiff_bytes(cmyk.astype(np.uint16) * 257, photometric=5),
+        "inkset2": tiff_bytes(cmyk, photometric=5,
+                              extra_tags={332: (3, [2])}),
+        "cmyk_alpha": tiff_bytes(np.concatenate(
+            [cmyk, cmyk[..., :1]], -1), photometric=5, extra_samples=(2,)),
+        "cmyk3": tiff_bytes(cmyk[..., :3], photometric=5),
         "ycbcr": pil_bytes(Image.fromarray(rgb).convert("YCbCr")),
         "lab": pil_bytes(Image.fromarray(rgb).convert("LAB")),
         "old_lzw": tiff_bytes(rgb, compression=5, old_lzw=True),

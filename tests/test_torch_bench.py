@@ -15,7 +15,11 @@
 * A ``--device cpu`` rehearsal of the command, a fresh process, emits
   every metric that ``BENCHMARK.json`` declares for each cell, with its
   unit, labelled ``cpu``, ``correct`` true, and the summary as its last
-  line; so does the pending 4-card cell's, named, on 2 gloo ranks.
+  line; so does the pending 4-card cell's, named, on 2 gloo ranks. A
+  rehearsal or control process that leaves no record fails the fixture
+  with its name, exit code and the end of its stderr (kept in a file).
+  ``tools.tree_memory``, which read those processes' memory, sees a
+  child's.
 * The correctness gate trips on a depth map scaled by 1.05, on a NaN, on
   one plain NCC call, on a missing launch, on a skipped step, on a pass
   over its kind's limit and on differing digests; the sharded gate on
@@ -49,7 +53,7 @@ from mpmvs_tpu.params import PatchMatchParams as JaxParams
 from mpmvs_torch import bench, interop
 from mpmvs_torch.params import ConfigParams, PatchMatchParams
 from mpmvs_torch.solver import SolveResult
-from mpmvs_torch.tools import bench_spread
+from mpmvs_torch.tools import bench_spread, tree_memory
 from mpmvs_torch.tools.solve_trace import NAMED_KERNELS, RANGES, named_kind
 
 torch.set_num_threads(1)
@@ -226,17 +230,47 @@ BENCH_RUNS = {
 def bench_runs(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("bench")
     env = dict(os.environ, PYTHONPATH=REPO)
-    procs = {name: subprocess.Popen(
-        [sys.executable, "-m", "mpmvs_torch.bench", "--device", "cpu",
-         "--out", str(tmp / f"{name}.json")] + argv, cwd=REPO, env=env,
-        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
-        for name, argv in BENCH_RUNS.items()}
-    out = {}
+    procs = {}
+    for name, argv in BENCH_RUNS.items():
+        with open(tmp / f"{name}.err", "w") as err:
+            procs[name] = subprocess.Popen(
+                [sys.executable, "-m", "mpmvs_torch.bench", "--device", "cpu",
+                 "--out", str(tmp / f"{name}.json")] + argv, cwd=REPO,
+                env=env, stdout=subprocess.PIPE, stderr=err, text=True)
+    out, missing = {}, []
     for name, proc in procs.items():
-        stdout, _ = proc.communicate(timeout=600)
-        record = json.loads((tmp / f"{name}.json").read_text())
-        out[name] = proc.returncode, record, stdout.splitlines()
+        try:
+            stdout, _ = proc.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            stdout, _ = proc.communicate()
+        path = tmp / f"{name}.json"
+        if not path.exists():
+            tail = (tmp / f"{name}.err").read_text()[-4000:]
+            missing.append(f"{name}: exit {proc.returncode}, no record; "
+                           f"stderr ends:\n{tail}")
+            continue
+        out[name] = proc.returncode, json.loads(path.read_text()), \
+            stdout.splitlines()
+    if missing:
+        pytest.fail("bench rehearsal processes left no record:\n"
+                    + "\n".join(missing), pytrace=False)
     return out
+
+
+def test_tree_memory_sees_a_child_process():
+    """tools.tree_memory, which read the rehearsal's processes' memory:
+    a grandchild holding 64 MiB shows in the tree's total and by its own
+    command line, and the command's exit code comes back."""
+    child = ("import time; b = b'x' * (64 << 20); time.sleep(1.5); "
+             "print(len(b))")
+    code = (f"import subprocess, sys; subprocess.run([sys.executable, '-c', "
+            f"{child!r}], check=True); sys.exit(3)")
+    rec = tree_memory.sample_tree([sys.executable, "-c", code], every=0.1)
+    assert rec["rc"] == 3
+    assert rec["peak_total_gib"] >= 64 / 1024
+    assert any(r["peak_gib"] >= 64 / 1024 and "time.sleep" in r["cmd"]
+               for r in rec["top"])
 
 
 @pytest.fixture(scope="module")

@@ -18,14 +18,21 @@ or PyYAML on the card, held against mpmvs_tpu on the CPU.
   ``cv2.line`` drawing on a Delaunay triangulation of random seeds: at most
   0.1% of pixels differ; the JET map within 1 of OpenCV's in every entry.
 * The JPEGs that cv2 reads as another image than their planes (EXIF
-  orientations 2..8, RGB components; ``tests/data/jpeg/layouts`` and the
-  first three under ``refused/``): the host decoder, built with g++
-  (skipped without it), with the colour kernel's plain versions and
-  ``images.orient``, gives cv2's grey and BGR arrays, and so it does for the
-  YCbCr layouts beside them (EXIF orientation 1, Adobe transform 1 or 2,
-  ids 'R', 'G', 'B' or an Adobe transform 0 under a JFIF marker); what
-  stays refused (12-bit, arithmetic, lossless, CMYK) is refused with its
-  code.
+  orientations 2..8, RGB components, CMYK and YCCK, every sampling layout
+  libjpeg takes; ``tests/data/jpeg/layouts`` and the first three under
+  ``refused/``): the host decoder, built with g++ (skipped without it),
+  with the colour kernels' plain version and ``images.orient``, gives cv2's
+  grey and BGR arrays, and so it does for the YCbCr layouts beside them
+  (EXIF orientation 1, Adobe transform 1 or 2, ids 'R', 'G', 'B' or an
+  Adobe transform 0 under a JFIF marker); what stays refused (12-bit,
+  arithmetic, lossless, a sampling layout libjpeg refuses) is refused with
+  its code.
+* The colour kernels' arithmetic (``csrc/jpeg_colour.h``, built for the
+  host) equals the plain version entry for entry on every JPEG fixture, on
+  every (x, k) pair of OpenCV's CMYK -> BGR rule, every (Y, Cb, Cr) triple
+  of libjpeg's YCCK step and 10^7 seeded CMYK pixels; the port's
+  ``_load_view`` of a CMYK and a YCCK workspace image equals the JAX
+  package's.
 * The encoder without the card: its kernels' plain versions and the host's
   entropy coding (``csrc/jpeg_encode.h``, built with g++) give
   ``cv2.imencode``'s bytes for every fixture under ``tests/data/jpeg/encode``
@@ -37,15 +44,16 @@ or PyYAML on the card, held against mpmvs_tpu on the CPU.
   ``images.raster_to_bgr_plain`` give ``cv2.imread``'s BGR and grey for
   every colour type at every bit depth, Adam7, tRNS, gAMA and sRGB, with
   an eXIf orientation; BMP, WebP and the TIFFs the card does not read
-  (JPEG-compressed, float, old-style LZW, CMYK) are refused, naming the
+  (JPEG-compressed, float, old-style LZW) are refused, naming the
   cause (the TIFF reads: tests/test_torch_raster.py).
 * On the card (``cuda``, skipped without one): the fixtures under
   ``tests/data/jpeg`` (and ``layouts/``, and ``refused/`` where they have
   cv2 arrays) decode to cv2's arrays, 0 entries differ, grey and BGR; the
   rest of ``refused/`` raises, naming the cause; the PNGs read to cv2's BGR
   and what stays refused raises;
-  the IDCT and colour kernels (YCbCr and RGB forms) and the encoder's two
-  kernels equal their plain versions (also at 3200x2130); the encoder
+  the IDCT and colour kernels (YCbCr and RGB forms, and the four-component
+  kernel's CMYK and YCCK forms) and the encoder's two kernels equal their
+  plain versions (also at 3200x2130); the encoder
   writes cv2.imencode's stored bytes for every encoder fixture.
 
 OpenCV, PyYAML and the JAX package are imported inside the CPU tests, so
@@ -91,8 +99,7 @@ PNG_REFUSED = {"png/refused/image.bmp": "BMP",
                "png/refused/image.webp": "WebP",
                "tiff/refused/jpeg.tif": "JPEG-compressed",
                "tiff/refused/float.tif": "float",
-               "tiff/refused/old_lzw.tif": "old-style LZW",
-               "tiff/refused/cmyk.tif": "CMYK"}
+               "tiff/refused/old_lzw.tif": "old-style LZW"}
 LAYOUT_NAMES = sorted(f[:-4] for f in os.listdir(os.path.join(
     FIXTURES, "layouts")) if f.endswith(".jpg"))
 # the JPEGs cv2 reads as another image than their planes, which the card
@@ -101,9 +108,11 @@ LAYOUT_NAMES = sorted(f[:-4] for f in os.listdir(os.path.join(
 FORMERLY_REFUSED = {"exif_orientation6": "420_q95", "adobe_rgb": "444_q100",
                     "rgb_ids": "444_q100"}
 # what the card still refuses: the host decoder's code and the cause its
-# error names
+# error names (the Adobe CMYK JPEG once here now reads: layouts/cmyk_pil)
 REFUSED = {"twelve_bit": (2006, "12-bit"), "arithmetic": (2007, "arithmetic"),
-           "lossless": (2008, "lossless"), "cmyk": (2009, "CMYK")}
+           "lossless": (2008, "lossless"),
+           "fractional": (2011, "sampling layout"),
+           "mcu_blocks": (2011, "sampling layout")}
 REFUSED_DIR_NAMES = sorted(f[:-4] for f in os.listdir(os.path.join(
     FIXTURES, "refused")))
 
@@ -504,6 +513,109 @@ def test_host_decoder_keeps_ycc_layouts(host_decoder, case):
     np.testing.assert_array_equal(bgr, cv2.imdecode(buf, cv2.IMREAD_COLOR))
 
 
+@pytest.mark.parametrize("name", [f"layouts/{n}" for n in LAYOUT_NAMES]
+                         + FIXTURE_NAMES)
+def test_colour_kernel_arithmetic_equals_plain(host_decoder, name):
+    """The colour kernels' per-pixel arithmetic (csrc/jpeg_colour.h, built
+    for the host, over the whole image as the kernels run it) equals
+    images.colour_plain on the file's planes, grey and BGR."""
+    tool, lib = host_decoder
+    four = name.startswith(("layouts/cmyk", "layouts/ycck"))
+    form = ("ycck" if "ycck" in name else "cmyk") if four else None
+    before = images.COUNTS.plain_forms.get(form, 0)
+    assert tool.kernel_mismatches(lib, _fixture_bytes(name)) == 0
+    # the four-component plain calls are counted by form
+    assert images.COUNTS.plain_forms.get(form, 0) == before + four
+
+
+@pytest.mark.parametrize("part", ["pairs", "triples", "quads"])
+def test_cmyk_arithmetic_sweeps_equal_plain(host_decoder, part):
+    """The four-component kernel's steps built for the host against the
+    plain twin: every (x, k) pair of OpenCV's CMYK -> BGR rule, every
+    (Y, Cb, Cr) triple of libjpeg's YCCK step, 10^7 seeded CMYK pixels
+    (grey and BGR)."""
+    tool, lib = host_decoder
+    assert tool.sweep_mismatches(lib, parts=(part,)) == {part: 0}
+
+
+def test_fancy_upsampling_rule_is_libjpeg_turbos():
+    """jinit_upsampler: fancy upsampling for h2v1 and h2v2 only where the
+    component is more than 2 samples wide, for h1v2 at any width, and
+    replication for every other integer ratio."""
+    assert [images._fancy(w, 2, 2) for w in (1, 2, 3)] == [False, False,
+                                                          True]
+    assert [images._fancy(w, 2, 1) for w in (2, 3)] == [False, True]
+    assert images._fancy(1, 1, 2) and images._fancy(100, 1, 2)
+    assert not any(images._fancy(100, rh, rv) for rh, rv in (
+        (1, 1), (4, 1), (1, 4), (3, 1), (2, 4), (4, 4)))
+
+
+@pytest.mark.parametrize("name", ["cmyk_pil", "ycck_yk22_cc11"])
+def test_load_view_of_four_components_matches_jax(tmp_path, monkeypatch,
+                                                  host_decoder, name):
+    """The JAX package's _load_view (cv2.imread) and the port's, reading
+    the same CMYK or YCCK workspace image through the host decoder and the
+    colour kernels' plain version: the same grey and BGR arrays and
+    camera."""
+    from mpmvs_tpu import pipeline as jpipeline
+
+    tool, lib = host_decoder
+    ws = str(tmp_path)
+    os.makedirs(os.path.join(ws, "images"))
+    os.makedirs(os.path.join(ws, "cams"))
+    shutil.copyfile(os.path.join(FIXTURES, "layouts", f"{name}.jpg"),
+                    os.path.join(ws, "images", "00000000.jpg"))
+    g, _ = _cv2_arrays(f"layouts/{name}")
+    scene = make_plane_scene(num_views=1, height=g.shape[0], width=g.shape[1],
+                             seed=4)
+    write_cam_txt(os.path.join(ws, "cams", "00000000_cam.txt"),
+                  scene.cameras.view(0))
+
+    def host_read(path, device):
+        with open(path, "rb") as f:
+            return tuple(torch.from_numpy(a) for a in tool.decode(lib,
+                                                                  f.read()))
+
+    monkeypatch.setattr(tpipeline.image_io, "read_image", host_read)
+    got = tpipeline._load_view(ws, 0, 3200, "cpu")
+    want = jpipeline._load_view(ws, 0, 3200)
+    np.testing.assert_array_equal(got.image, np.asarray(want.image))
+    np.testing.assert_array_equal(got.color, np.asarray(want.color))
+    for f in CAMERA_FIELDS:
+        np.testing.assert_array_equal(n(getattr(got.camera, f)),
+                                      np.asarray(getattr(want.camera, f)))
+
+
+def test_ycck_conversion_source_is_read_as_cv2_reads_it(host_decoder):
+    """chip_smoke.py phase 8's YCCK source (3200x2130, Y and K at 2x2, Cb
+    and Cr at 1x1): conversion/cv2.json holds the sha-256 of the file, of
+    cv2.imread's grey and BGR arrays of it and of the JAX converter's
+    workspace image of it, and the host decoder with the colour kernels'
+    plain version gives those arrays."""
+    import hashlib
+    import json
+
+    import cv2
+
+    tool, lib = host_decoder
+    folder = os.path.join(FIXTURES, "conversion")
+    with open(os.path.join(folder, "cv2.json")) as f:
+        want = json.load(f)
+    data = _fixture_bytes("conversion/ycck_3200x2130")
+    sha = lambda b: hashlib.sha256(b).hexdigest()
+    buf = np.frombuffer(data, np.uint8)
+    bgr = cv2.imdecode(buf, cv2.IMREAD_COLOR)
+    assert want == {
+        "source_sha256": sha(data),
+        "gray_sha256": sha(cv2.imdecode(buf, cv2.IMREAD_GRAYSCALE).tobytes()),
+        "bgr_sha256": sha(bgr.tobytes()),
+        "workspace_sha256": sha(cv2.imencode(".jpg", bgr)[1].tobytes())}
+    gray, got = tool.decode(lib, data)
+    assert got.shape == (2130, 3200, 3)
+    assert (sha(gray.tobytes()), sha(got.tobytes())) == (
+        want["gray_sha256"], want["bgr_sha256"])
+
+
 @pytest.fixture(scope="module")
 def host_encoder(tmp_path_factory):
     if shutil.which("g++") is None:
@@ -668,17 +780,12 @@ def test_rgb_colour_kernel_equals_plain(dev, name):
     are not RGB) against the plain versions."""
     sub = "layouts" if name in LAYOUT_NAMES else "refused"
     with open(os.path.join(FIXTURES, sub, f"{name}.jpg"), "rb") as f:
-        comps, size, layout = images.decode_coefficients(f.read(), dev)
-    y, cb, cr, (hs, vs) = images._planes(comps, size)
+        planes, size, layout = images.decode_planes(f.read(), dev)
     before = images.COUNTS.forms.get("rgb", 0)
-    if layout.rgb:
-        got = images.rgb_to_bgr_kernel(y, cb, cr, hs, vs)
-        want = images.rgb_to_bgr_plain(y, cb, cr, hs, vs)
-        assert images.COUNTS.forms["rgb"] == before + 1
-    else:
-        got = images.ycc_to_bgr_kernel(y, cb, cr, hs, vs)
-        want = images.ycc_to_bgr_plain(y, cb, cr, hs, vs)
+    got = images.colour_kernel(planes, layout.factors, size, layout.space)
+    want = images.colour_plain(planes, layout.factors, size, layout.space)
     torch.cuda.synchronize()
+    assert images.COUNTS.forms.get("rgb", 0) == before + layout.rgb
     assert layout.rgb == ("rgb" in name)
     for a, b in zip(got, want):
         assert torch.equal(a, b)
@@ -736,13 +843,36 @@ def test_encoder_kernels_equal_plain(dev, shape):
 @pytest.mark.parametrize("name", FIXTURE_NAMES)
 def test_colour_kernel_equals_plain(dev, name):
     with open(os.path.join(FIXTURES, f"{name}.jpg"), "rb") as f:
-        y, cb, cr, (hs, vs) = images.decode_planes(f.read(), dev)
+        planes, size, layout = images.decode_planes(f.read(), dev)
     before = images.COUNTS.kernel
-    got = images.ycc_to_bgr_kernel(y, cb, cr, hs, vs)
-    want = images.ycc_to_bgr_plain(y, cb, cr, hs, vs)
+    got = images.colour_kernel(planes, layout.factors, size, layout.space)
+    want = images.colour_plain(planes, layout.factors, size, layout.space)
     torch.cuda.synchronize()
     assert images.COUNTS.kernel == before + 1
-    assert torch.equal(got, want)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", LAYOUT_NAMES)
+def test_layout_colour_kernels_equal_plain(dev, name):
+    """Every layout's colour kernel (the four-component kernel's CMYK and
+    YCCK forms, the three-component kernel at every sampling layout)
+    against the plain version, one launch of the file's form."""
+    with open(os.path.join(FIXTURES, "layouts", f"{name}.jpg"), "rb") as f:
+        planes, size, layout = images.decode_planes(f.read(), dev)
+    form = {images.SPACE_CMYK: "cmyk", images.SPACE_YCCK: "ycck",
+            images.SPACE_RGB: "rgb"}.get(layout.space)
+    before = (images.COUNTS.kernel, images.COUNTS.forms.get(form, 0))
+    got = images.colour_kernel(planes, layout.factors, size, layout.space)
+    want = images.colour_plain(planes, layout.factors, size, layout.space)
+    torch.cuda.synchronize()
+    assert images.COUNTS.kernel == before[0] + 1
+    if form:
+        assert images.COUNTS.forms[form] == before[1] + 1
+    assert name.startswith(("cmyk", "ycck")) == (len(planes) == 4)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda

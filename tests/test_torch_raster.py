@@ -9,8 +9,9 @@ skipped without it), and ``raster_to_bgr_kernel`` converts the samples
 
 * Every TIFF fixture (``tests/data/tiff``: strips and tiles, planar 1 and 2,
   compressions 1, 5, 8, 32946 and 32773, predictor 2 at 8 and 16 bits,
-  min-is-white, palettes with 8- and 16-bit colour maps, alpha, both byte
-  orders, BigTIFF, orientations) read through ``images.tiff_rows`` and the
+  min-is-white, palettes with 8- and 16-bit colour maps, alpha, 8-bit CMYK
+  contiguous and planar, both byte orders, BigTIFF, orientations) read
+  through ``images.tiff_rows`` and the
   plain twin gives cv2's grey and BGR arrays, 0 entries differing (the PNG
   fixtures are held the same way in tests/test_torch_images.py).
 * The kernel's arithmetic, built for the host, equals the plain twin entry
@@ -22,8 +23,9 @@ skipped without it), and ``raster_to_bgr_kernel`` converts the samples
 * What stays refused raises, naming its cause: the TIFFs under
   ``tests/data/tiff/refused``.
 * ``mpmvs_tpu.pipeline._load_view`` against the port's read of the same
-  workspace image, a 16-bit PNG or an LZW TIFF under the name
-  ``images/00000000.jpg``, through the host build and the plain twin.
+  workspace image, a 16-bit PNG, an LZW TIFF or a planar CMYK TIFF under
+  the name ``images/00000000.jpg``, through the host build and the plain
+  twin.
 * On the card (``cuda``, skipped without one): the fixtures read to cv2's
   arrays, the kernel equals its plain twin (also at 3200x2130), and
   ``RASTER_COUNTS`` counts the launches, no plain call.
@@ -74,7 +76,7 @@ TOOL = _tool()
 TIFF_REFUSED = {k: v for k, v in TOOL.REFUSED.items()
                 if k.startswith("tiff/") and k not in (
                     "tiff/refused/jpeg.tif", "tiff/refused/float.tif",
-                    "tiff/refused/old_lzw.tif", "tiff/refused/cmyk.tif")}
+                    "tiff/refused/old_lzw.tif")}
 
 
 def _bytes(rel):
@@ -158,13 +160,14 @@ def test_tiff_info_fields(host_raster):
 
 
 @pytest.mark.parametrize("source", ["png/rgb16_all.png",
-                                    "tiff/rgb8_lzw_pred2_strips5_mm.tif"])
+                                    "tiff/rgb8_lzw_pred2_strips5_mm.tif",
+                                    "tiff/cmyk8_planar2_lzw.tif"])
 def test_load_view_of_raster_matches_jax(tmp_path, monkeypatch,
                                          host_raster, source):
     """The JAX package's _load_view (cv2.imread) and the port's, reading
-    the same workspace image (a 16-bit PNG, an LZW TIFF, named
-    00000000.jpg) through the host build and the plain twin: the same grey
-    and BGR arrays and camera."""
+    the same workspace image (a 16-bit PNG, an LZW TIFF, a planar CMYK
+    TIFF, named 00000000.jpg) through the host build and the plain twin:
+    the same grey and BGR arrays and camera."""
     from mpmvs_tpu import pipeline as jpipeline
 
     ws = str(tmp_path)
