@@ -135,6 +135,18 @@ Phases, in order; any failure raises and the script exits non-zero:
    into host entropy decode, copy, IDCT and the four-component colour
    kernel (beside its bound and plain twin, which it must equal, on the
    file's planes and on the same planes at 1x1, in both forms).
+8b. Lossy WebP (after phase 8's parts, adding no solved view): the
+   committed ``tests/data/webp/conversion/plane_3200x2130.webp`` (view 2
+   of the scene, libwebp q75; ``cv2.json`` beside it holds the sha-256 of
+   cv2's grey and BGR arrays of it and of the JAX converter's workspace
+   image) through the converter's image step and the pipeline's read,
+   the kernels' counters set to 0 just before: the hashes must be cv2's
+   and each of ``vp8_reconstruct_kernel``, ``vp8_loop_filter_kernel`` and
+   ``webp_yuv_to_bgr_kernel`` launched twice, no plain call; each kernel
+   against its plain twin on the file's frame (no entry may differ), timed
+   with CUDA events beside its bound and the twin; the read split into the
+   host's parse and entropy decode, the copy, each kernel and the whole
+   decode.
 9. Multi-GPU (after phase 8, on its converted workspace): (a) the NCC
    kernel (tile and view-major launches, K=9) and the fused sorted path
    with one zero-extent source (the sharded pipeline's padding: all-zero
@@ -220,6 +232,8 @@ TIFF_ROWS_PER_STRIP = 16
 FILES_TINT = (0.85, 1.0, 1.1)
 # phase 8's YCCK source (tests/data/jpeg/make_ycck_source.py); what cv2
 # makes of it is recorded beside it (cv2.json, by make_fixtures.py)
+WEBP_SOURCE = os.path.join(HERE, "tests", "data", "webp", "conversion",
+                           "plane_3200x2130.webp")
 YCCK_SOURCE = os.path.join(HERE, "tests", "data", "jpeg", "conversion",
                            "ycck_3200x2130.jpg")
 CAM_TOL = 1e-5   # converted cams vs the scene's, relative
@@ -1718,6 +1732,9 @@ def phase_files(params, root: str):
     ycck_parts = phase_ycck_parts(*[os.path.join(
         dense, "images", names[FILES_SOURCES.index(k)])
         for k in ("ycck", "JPG")], dev)
+    log("phase 8b: the lossy WebP source through the converter's image "
+        "step and the pipeline's read; its kernels vs plain")
+    webp_parts = phase_webp_parts(dev)
     expected = V * (NCC_PHOTOMETRIC + 2 * NCC_GEOM) + n_prior * NCC_PRIOR
     bad = {v: e for v, e in rel.items() if not e < 0.01}
     log(f"  launches: NCC {ncc[0]} (schedule implies {expected}), plain "
@@ -1773,7 +1790,7 @@ def phase_files(params, root: str):
                enc_launches=enc_launches, enc=enc, png=png,
                raster_launches=raster[0], raster=raster_parts,
                cmyk_launches=sum(four.values()), ycck=ycck_parts,
-               ycck_read=ycck_read)
+               ycck_read=ycck_read, webp=webp_parts)
     return out
 
 
@@ -2108,6 +2125,173 @@ def phase_ycck_parts(path: str, reference: str, dev):
     return out
 
 
+def _webp_cv2() -> dict:
+    """The sha-256 of WEBP_SOURCE, of cv2.imread's grey and BGR arrays of
+    it and of the JAX converter's workspace image of it."""
+    with open(os.path.join(os.path.dirname(WEBP_SOURCE), "cv2.json")) as f:
+        return json.load(f)
+
+
+def phase_webp_parts(dev):
+    """Phase 8b: the committed lossy WebP source (3200x2130, view 2 of
+    phase 8's scene, libwebp q75) on the card. Its path, with the counters
+    set to 0 just before and read just after: the converter's image step
+    (``convert.convert_image``: the read, then the JPEG encode) and the
+    pipeline's read (``images.read_image``); the workspace image's bytes
+    and the read's grey and BGR must have cv2's recorded sha-256, and each
+    of the three kernels must have been launched twice (the reconstruction,
+    the loop filter, the colour kernel), no plain twin. Then each kernel
+    against its plain twin on the file's frame (no entry may differ), each
+    timed with CUDA events beside its bound and the twin, and the read
+    split, host clock around synchronised calls: the host's container check,
+    parse and entropy decode, the copy of the records and coefficients to
+    the card, each kernel, and the whole ``decode``."""
+    import numpy as np
+    import torch
+    from mpmvs_torch.io import images
+    from mpmvs_torch.preprocess import convert
+    from mpmvs_torch.utils.roofline import (vp8_filter_bound,
+                                            vp8_reconstruct_bound,
+                                            webp_colour_bound)
+    from mpmvs_torch.utils.trace import cuda_time_ms
+
+    want = _webp_cv2()
+    with open(WEBP_SOURCE, "rb") as f:
+        data = f.read()
+    if hashlib.sha256(data).hexdigest() != want["source_sha256"]:
+        raise AssertionError(f"{WEBP_SOURCE} is not the file whose cv2 reads "
+                             f"were recorded")
+    counters = (images.VP8_RECON_COUNTS, images.VP8_FILTER_COUNTS,
+                images.WEBP_COLOUR_COUNTS, images.CODEC_COUNTS)
+    with tempfile.TemporaryDirectory(prefix="mpmvs_webp_") as tmp:
+        src, dst = os.path.join(tmp, "IMG_0002.webp"), os.path.join(
+            tmp, "00000000.jpg")
+        with open(src, "wb") as f:
+            f.write(data)
+        for c in counters:
+            c.reset()
+        t1 = time.perf_counter()
+        convert.convert_image(src, dst, dev)
+        t2 = time.perf_counter()
+        g, c = images.read_image(src, dev)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        launches = [(k.kernel, k.plain) for k in counters[:3]]
+        codec = dict(images.CODEC_COUNTS.forms)
+        with open(dst, "rb") as f:
+            ws = hashlib.sha256(f.read()).hexdigest()
+    equal_cv2 = {"gray": sha256_of(g) == want["gray_sha256"],
+                 "bgr": sha256_of(c) == want["bgr_sha256"],
+                 "workspace_image": ws == want["workspace_sha256"]}
+    log(f"  WebP source ({len(data)} bytes): converter image step "
+        f"{(t2 - t1) * 1e3:.1f} ms, read {(t3 - t2) * 1e3:.1f} ms; equal to "
+        f"cv2's (grey, BGR, the converter's workspace image): {equal_cv2}; "
+        f"launches (kernel, plain) reconstruction, filter, colour "
+        f"{launches}; codec calls {codec}")
+    if not all(equal_cv2.values()):
+        raise AssertionError(f"the WebP source differs from cv2: {equal_cv2}")
+    if launches != [(2, 0)] * 3 or codec.get("webp") != 2:
+        raise AssertionError(f"WebP path launches {launches}, codec calls "
+                             f"{codec}: expected 2 of each kernel (the "
+                             f"converter's read and the pipeline's), no "
+                             f"plain call")
+
+    parts = {k: [] for k in ("host_decode_ms", "copy_to_card_ms",
+                             "reconstruct_ms", "filter_ms", "colour_ms",
+                             "decode_ms")}
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        frame, _ = images.webp_frame(data, images._library())
+        t2 = time.perf_counter()
+        rec = torch.from_numpy(frame.records).to(dev)
+        coefs = torch.from_numpy(frame.coefs).to(dev)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        (H, W), (mb_h, mb_w) = frame.size, frame.mbs
+        planes = images.vp8_reconstruct_kernel(rec, coefs, frame.params,
+                                               mb_w, mb_h)
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        images.vp8_loop_filter_kernel(*planes, rec, frame.params, mb_w, mb_h)
+        torch.cuda.synchronize()
+        t5 = time.perf_counter()
+        images.webp_yuv_to_bgr_kernel(*planes, W, H)
+        torch.cuda.synchronize()
+        t6 = time.perf_counter()
+        images.decode(data, dev)
+        torch.cuda.synchronize()
+        t7 = time.perf_counter()
+        for k, (a, b) in zip(parts, ((t1, t2), (t2, t3), (t3, t4), (t4, t5),
+                                     (t5, t6), (t6, t7))):
+            parts[k].append((b - a) * 1e3)
+    prm = torch.from_numpy(frame.params)
+
+    def timed(fn):  # (fn(), its ms between two CUDA events): a plain twin
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        result = fn()
+        end.record()
+        torch.cuda.synchronize()
+        return result, start.elapsed_time(end)
+
+    unfiltered = images.vp8_reconstruct_kernel(rec, coefs, frame.params,
+                                               mb_w, mb_h)
+    filtered = tuple(p.clone() for p in unfiltered)
+    images.vp8_loop_filter_kernel(*filtered, rec, frame.params, mb_w, mb_h)
+    got_out = images.webp_yuv_to_bgr_kernel(*filtered, W, H)
+    plains = [timed(lambda: images.vp8_reconstruct_plain(rec, coefs, prm,
+                                                         mb_w, mb_h)),
+              timed(lambda: images.vp8_loop_filter_plain(
+                  *unfiltered, rec, prm, mb_w, mb_h)),
+              timed(lambda: images.webp_yuv_to_bgr_plain(*filtered, W, H))]
+    n_mb = mb_w * mb_h
+    out = {"file_bytes": len(data), "size": [W, H], "mbs": [mb_w, mb_h],
+           "header": frame.header, "equal_cv2": equal_cv2,
+           "launches": launches, **parts}
+    copies = [tuple(p.clone() for p in unfiltered) for _ in range(21)]
+
+    def filter_next():  # each run on a fresh copy of the unfiltered planes
+        images.vp8_loop_filter_kernel(*copies.pop(), rec, frame.params,
+                                      mb_w, mb_h)
+
+    for name, got, (want_k, plain_ms), fn, bnd in zip(
+            ("vp8_reconstruct", "vp8_loop_filter", "webp_yuv_to_bgr"),
+            (unfiltered, filtered, got_out), plains,
+            (lambda: images.vp8_reconstruct_kernel(rec, coefs, frame.params,
+                                                   mb_w, mb_h),
+             filter_next,
+             lambda: images.webp_yuv_to_bgr_kernel(*filtered, W, H)),
+            (vp8_reconstruct_bound(frame.records), vp8_filter_bound(n_mb),
+             webp_colour_bound(H, W))):
+        err = [differing(a, b) for a, b in zip(got, want_k)]
+        if any(e[0] for e in err):
+            raise AssertionError(f"{name} kernel vs plain at full size: "
+                                 f"{err}")
+        ms = cuda_time_ms(fn, 20)
+        out[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bnd[0],
+                     "bound_by": bnd[1], "vs_plain": err,
+                     "max_abs_err": max(e[1] for e in err)}
+    r, f, o = out["vp8_reconstruct"], out["vp8_loop_filter"], \
+        out["webp_yuv_to_bgr"]
+    log(f"  WebP read at {W}x{H} ({mb_w}x{mb_h} MBs, filter type "
+        f"{frame.header['filter_type']} level {frame.header['level']}): host "
+        f"container check, parse and entropy decode "
+        f"{np.round(parts['host_decode_ms'], 2)} ms; copy to the card "
+        f"{np.round(parts['copy_to_card_ms'], 2)} ms; reconstruction "
+        f"{np.round(parts['reconstruct_ms'], 3)} ms, loop filter "
+        f"{np.round(parts['filter_ms'], 3)} ms, colour "
+        f"{np.round(parts['colour_ms'], 3)} ms (host clock); decode "
+        f"{np.round(parts['decode_ms'], 2)} ms. CUDA events: "
+        + "; ".join(f"{k} {v['ms']:.4f} ms (bound {v['bound_ms']:.4f}, share "
+                    f"{v['bound_ms'] / v['ms']:.4f}; plain {v['plain_ms']:.1f})"
+                    for k, v in (("reconstruction", r), ("filter", f),
+                                 ("colour", o)))
+        + "; every kernel equals its plain twin")
+    return out
+
+
 def phase_dummy_source(files, params):
     """Phase 9 (a): the NCC kernel (both launches) and the fused sorted
     path at 3200x2130 with one zero-extent source, phase 8's view 0 with
@@ -2357,7 +2541,8 @@ def main(argv=None) -> int:
     # the codec (host decode and encode, the IDCT and colour kernels, the
     # encoder's colour and DCT kernels, PNG reads): no TPU kernel's
     # counterpart; the details on a line of their own
-    enc, png, rast = files["enc"], files["png"], files["raster"]
+    enc, png, rast, webp = (files["enc"], files["png"], files["raster"],
+                            files["webp"])
     codec_kernel = lambda k: {
         "source": "mpmvs_torch/csrc/jpeg_codec.cu",
         "launches": files[f"{k}_launches"], "ms": files[f"{k}_ms"],
@@ -2380,6 +2565,7 @@ def main(argv=None) -> int:
         "raster_reads": {k: {f: v for f, v in r.items() if f != "form"}
                          for k, r in files["raster"].items()},
         "ycck_read": files["ycck"], "ycck_vs_cv2": files["ycck_read"],
+        "webp_read": webp,
         "four_component_fixtures_equal_cv2":
             fixture_facts["four_component_equal_cv2"],
         "image": [W_FULL, H_FULL], "calls_phase8": files["codec"],
@@ -2520,7 +2706,19 @@ def main(argv=None) -> int:
               png16={k: rast["png16"][k] for k in (
                   "kernel_ms", "plain_ms", "bound_ms")} | {
                   "max_abs_err": max(e[1] for e in
-                                     rast["png16"]["vs_plain"])})]}))
+                                     rast["png16"]["vs_plain"])})] + [
+        entry(name, "jpeg_codec.cu", no_tpu + f"; the arithmetic in "
+              f"mpmvs_torch/csrc/{header}", webp["launches"][k][0],
+              webp[name]["max_abs_err"], webp[name]["ms"],
+              webp[name]["plain_ms"], (webp[name]["bound_ms"],
+                                       webp[name]["bound_by"]),
+              scope=f"the {webp['size'][0]}x{webp['size'][1]} lossy WebP "
+              f"source (phase 8b), one launch; launches: the converter's "
+              f"read and the pipeline's")
+        for k, (name, header) in enumerate((
+            ("vp8_reconstruct", "vp8_recon.h"),
+            ("vp8_loop_filter", "vp8_filter.h"),
+            ("webp_yuv_to_bgr", "webp_colour.h")))]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

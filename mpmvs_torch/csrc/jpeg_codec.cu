@@ -1,5 +1,5 @@
 // JPEG decode and encode on the card for the port's workspace I/O (sm_90a),
-// and the host half of its PNG reads.
+// the host half of its PNG and TIFF reads, and its lossy WebP reads.
 //
 // No TPU kernel has this work: the JAX package reads and writes images with
 // OpenCV (cv2.imread / cv2.imwrite, which code JPEGs with libjpeg-turbo).
@@ -67,7 +67,8 @@
 // The C interface below is bound with ctypes by mpmvs_torch/io/images.py.
 // Every function returns 0 or an error code: a decode error of
 // jpeg_entropy.h (2001-2011), an encode or PNG error (2010, 3001-3002), a
-// TIFF error (4001-4017) or a CUDA error offset by 1000.
+// TIFF error (4001-4018), a WebP error (webp_decode.h, 5001-5007) or a CUDA
+// error offset by 1000.
 
 #include <cuda_runtime.h>
 
@@ -82,6 +83,10 @@
 #include "png_unfilter.h"
 #include "raster_bgr.h"
 #include "tiff_decode.h"
+#include "vp8_filter.h"
+#include "vp8_recon.h"
+#include "webp_colour.h"
+#include "webp_decode.h"
 
 #define CODEC_CUDA_ERR 1000
 
@@ -335,6 +340,159 @@ extern "C" int raster_to_bgr_launch(const unsigned char* raster,
   dim3 grid((unsigned)((n + 255) / 256));
   raster_to_bgr_kernel<<<grid, block, 0, stream>>>(raster, f, tables, bgr,
                                                    gray);
+  cudaError_t e = cudaGetLastError();
+  return e == cudaSuccess ? 0 : CODEC_CUDA_ERR + (int)e;
+}
+
+// Lossy WebP reads: webp_decode.h parses the RIFF and the VP8 frame header
+// and entropy-decodes every macroblock (MB) on the host (webp_host_header,
+// webp_host_decode: a record and 25 x 16 quantized coefficients an MB);
+// they are copied to the card, where
+//   * vp8_reconstruct_kernel rebuilds the unfiltered Y, U and V planes
+//     (vp8_recon.h: dequantization, inverse WHT and DCT, intra prediction);
+//   * vp8_loop_filter_kernel filters them in place (vp8_filter.h);
+//   * webp_yuv_to_bgr_kernel makes cv2.imread's BGR and grey of them
+//     (webp_colour.h: libwebp's fancy upsampling and YUV -> RGB, OpenCV's
+//     BGR -> grey), one thread a pixel.
+// MB (x, y) is rebuilt from the unfiltered samples of MBs (x - 1, y),
+// (x, y - 1) and (x + 1, y - 1) (the above-right samples of the sub-block
+// modes), and the loop filter of MB (x, y) reads what the filters of the
+// same three MBs wrote. So both kernels run one launch of warps, each
+// claiming the next MB row from a ticket (rows are claimed in order, so a
+// row's warp only waits on a row whose warp is running: no deadlock at any
+// height or grid size), walking its row left to right and before each MB
+// waiting until the row above has finished the MB above right of it (an
+// acquire load of that row's progress counter; a release store after each
+// MB). The 32 lanes of a warp share an MB's work between __syncwarp()
+// barriers; another SM's samples are read through L2 (__ldcg). All the
+// arithmetic is integer (the build's default flags: no fast math; nothing
+// to contract).
+
+__device__ __forceinline__ int vp8_load_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.s32 %0, [%1];"
+               : "=r"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void vp8_store_release(int* p, int v) {
+  asm volatile("st.release.gpu.global.s32 [%0], %1;" ::"l"(p), "r"(v)
+               : "memory");
+}
+
+// The row-ticket walk of the MBs of a frame by one warp: claim a row, then
+// for each of its MBs wait for the row above, run `mb`, publish progress.
+// sync: mb_h + 1 zeroed ints (the ticket, then each row's finished MBs).
+template <class MB>
+__device__ void vp8_row_walk(int mb_w, int mb_h, int* sync, MB mb) {
+  __shared__ int row;
+  const int lane = threadIdx.x;
+  int* progress = sync + 1;
+  for (;;) {
+    if (lane == 0) row = atomicAdd(sync, 1);
+    __syncwarp();
+    const int mby = row;
+    __syncwarp();
+    if (mby >= mb_h) return;
+    for (int mbx = 0; mbx < mb_w; mbx++) {
+      if (mby > 0) {
+        const int need = min(mbx + 2, mb_w);
+        if (lane == 0) {
+          // a wait of seconds means a broken dependency: fault, do not hang
+          for (long long spins = 0;
+               vp8_load_acquire(progress + mby - 1) < need; spins++) {
+            if (spins > (1ll << 26)) __trap();
+            __nanosleep(32);
+          }
+        }
+        __syncwarp();
+      }
+      mb(mbx, mby, lane);
+      __threadfence();
+      __syncwarp();
+      if (lane == 0) vp8_store_release(progress + mby, mbx + 1);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(32)
+    vp8_reconstruct_kernel(const vp8::Record* __restrict__ records,
+                           const short* __restrict__ coefs, vp8::Params prm,
+                           vp8::Planes pl, int* sync) {
+  __shared__ vp8::MBBuf buf;
+  vp8_row_walk(pl.mb_w, pl.mb_h, sync, [&](int mbx, int mby, int lane) {
+    const size_t i = (size_t)mby * pl.mb_w + mbx;
+    vp8::reconstruct_mb(records[i], (const int16_t*)coefs + vp8::kCoefsPerMB * i,
+                        prm, pl, mbx, mby, buf, lane, 32);
+  });
+}
+
+__global__ void __launch_bounds__(32)
+    vp8_loop_filter_kernel(const vp8::Record* __restrict__ records,
+                           vp8::Params prm, vp8::Planes pl, int* sync) {
+  vp8_row_walk(pl.mb_w, pl.mb_h, sync, [&](int mbx, int mby, int lane) {
+    vp8::filter_mb(records[(size_t)mby * pl.mb_w + mbx], prm, pl, mbx, mby,
+                   lane, 32);
+  });
+}
+
+// Enough warps to keep a row in flight for each MB row the wavefront holds
+// at once (about min(mb_h, mb_w / 2)), at most one per row.
+static int vp8_grid(int mb_w, int mb_h) {
+  int g = mb_w / 2 + 2;
+  return g < mb_h ? g : mb_h;
+}
+
+extern "C" int vp8_reconstruct_launch(const int* records, const short* coefs,
+                                      const int* params, int mb_w, int mb_h,
+                                      unsigned char* y, unsigned char* u,
+                                      unsigned char* v, int* sync,
+                                      cudaStream_t stream) {
+  vp8::Planes pl = {y, u, v, mb_w, mb_h};
+  vp8_reconstruct_kernel<<<vp8_grid(mb_w, mb_h), 32, 0, stream>>>(
+      (const vp8::Record*)records, coefs, vp8::params_of(params), pl, sync);
+  cudaError_t e = cudaGetLastError();
+  return e == cudaSuccess ? 0 : CODEC_CUDA_ERR + (int)e;
+}
+
+extern "C" int vp8_loop_filter_launch(const int* records, const int* params,
+                                      int mb_w, int mb_h, unsigned char* y,
+                                      unsigned char* u, unsigned char* v,
+                                      int* sync, cudaStream_t stream) {
+  vp8::Planes pl = {y, u, v, mb_w, mb_h};
+  vp8_loop_filter_kernel<<<vp8_grid(mb_w, mb_h), 32, 0, stream>>>(
+      (const vp8::Record*)records, vp8::params_of(params), pl, sync);
+  cudaError_t e = cudaGetLastError();
+  return e == cudaSuccess ? 0 : CODEC_CUDA_ERR + (int)e;
+}
+
+// One thread a pixel of the (h, w) image, row-major over a 1-D grid:
+// cv2.imread's BGR (h, w, 3) and grey (h, w) of a frame's filtered planes
+// (Y row stride 16 mb_w, U and V 8 mb_w).
+__global__ void webp_yuv_to_bgr_kernel(const unsigned char* __restrict__ y,
+                                       const unsigned char* __restrict__ u,
+                                       const unsigned char* __restrict__ v,
+                                       int mb_w, int w, int h,
+                                       unsigned char* __restrict__ bgr,
+                                       unsigned char* __restrict__ gray) {
+  size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= (size_t)w * h) return;
+  int r = (int)(i / w), c = (int)(i % w);
+  webp_colour::pixel(y, u, v, 16 * mb_w, 8 * mb_w, w, h, r, c, bgr + 3 * i,
+                     gray + i);
+}
+
+extern "C" int webp_yuv_to_bgr_launch(const unsigned char* y,
+                                      const unsigned char* u,
+                                      const unsigned char* v, int mb_w, int w,
+                                      int h, unsigned char* bgr,
+                                      unsigned char* gray,
+                                      cudaStream_t stream) {
+  size_t n = (size_t)w * h;
+  webp_yuv_to_bgr_kernel<<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
+      y, u, v, mb_w, w, h, bgr, gray);
   cudaError_t e = cudaGetLastError();
   return e == cudaSuccess ? 0 : CODEC_CUDA_ERR + (int)e;
 }

@@ -1,5 +1,5 @@
-"""Image files of a workspace: JPEG, PNG and TIFF reads, JPEG and PNG
-writes.
+"""Image files of a workspace: JPEG, PNG, TIFF and lossy WebP reads, JPEG
+and PNG writes.
 
 The JAX package reads and writes images with OpenCV. Here the device picks
 the codec:
@@ -31,6 +31,15 @@ the codec:
         libpng or libtiff narrows, alpha dropped or premultiplied, CMYK by
         libtiff's RGBA rule, the grey of colour by libpng's or OpenCV's
         arithmetic), and the eXIf or Orientation tag is applied;
+      - lossy WebP reads (VP8 frames, simple or extended files; ALPH and
+        ICCP chunks read past, as cv2 drops alpha; the EXIF chunk's
+        orientation applied): the RIFF is checked here
+        (:func:`webp_container`), the host parses the frame and
+        entropy-decodes every macroblock (``csrc/webp_decode.h``), and the
+        card rebuilds it (``vp8_reconstruct_kernel``), loop-filters it
+        (``vp8_loop_filter_kernel``), both as macroblock-row wavefronts, and
+        makes libwebp's fancy-upsampled BGR and OpenCV's grey of it
+        (``webp_yuv_to_bgr_kernel``);
       - JPEG writes: cv2.imencode's bytes (4:2:0 colour or grey, standard
         Huffman tables) from the card's colour conversion and downsampling
         (``bgr_to_ycc_kernel``) and forward DCT and quantization
@@ -39,8 +48,8 @@ the codec:
     A kernel that fails to build or launch raises, and so does a file the card
     cannot read, naming why (12-bit, arithmetic-coded and lossless JPEGs;
     JPEG-compressed, YCbCr, CIELab, signed, float and old-style LZW TIFFs;
-    other formats; and what cv2 does not read either). Nothing falls back to
-    OpenCV or to the CPU.
+    lossless and animated WebP; other formats; and what cv2 does not read
+    either). Nothing falls back to OpenCV or to the CPU.
   * on the CPU, through OpenCV, imported only there: the CPU tests hold the
     port's reads and writes against the JAX package's OpenCV calls.
 
@@ -51,14 +60,18 @@ Each kernel has a plain PyTorch version beside it, for the tests
 (:func:`colour_plain`, with :func:`ycc_to_bgr_plain` and
 :func:`cmyk_to_bgr_plain`;
 :func:`idct_islow_plain`, :func:`bgr_to_ycc_plain`,
-:func:`fdct_islow_plain`, :func:`raster_to_bgr_plain`). ``COUNTS`` counts
+:func:`fdct_islow_plain`, :func:`raster_to_bgr_plain`,
+:func:`vp8_reconstruct_plain`, :func:`vp8_loop_filter_plain`,
+:func:`webp_yuv_to_bgr_plain`). ``COUNTS`` counts
 launches of the colour kernels (form ``"rgb"`` for RGB components,
 ``"cmyk"`` and ``"ycck"`` for ``cmyk_to_bgr_kernel``) and their plain calls
 (the four-component ones by form in ``plain_forms``), ``IDCT_COUNTS``,
-``YCC_COUNTS``, ``FDCT_COUNTS`` and ``RASTER_COUNTS`` those of the IDCT,
-encoder colour, forward DCT and raster kernels; ``CODEC_COUNTS`` counts
-host decodes (``forms["decode"]``), PNG and TIFF reads (``forms["png"]``,
-``forms["tiff"]``) and encodes (``forms["encode"]``).
+``YCC_COUNTS``, ``FDCT_COUNTS``, ``RASTER_COUNTS``, ``VP8_RECON_COUNTS``,
+``VP8_FILTER_COUNTS`` and ``WEBP_COLOUR_COUNTS`` those of the IDCT,
+encoder colour, forward DCT, raster and WebP kernels; ``CODEC_COUNTS``
+counts host decodes (``forms["decode"]``), PNG, TIFF and WebP reads
+(``forms["png"]``, ``forms["tiff"]``, ``forms["webp"]``) and encodes
+(``forms["encode"]``).
 """
 
 from __future__ import annotations
@@ -68,7 +81,7 @@ import functools
 import math
 import struct
 import zlib
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -87,7 +100,8 @@ YCC_COUNTS = nvcc.LaunchCounts()
 FDCT_COUNTS = nvcc.LaunchCounts()
 CODEC_COUNTS = nvcc.LaunchCounts()
 RASTER_COUNTS = nvcc.LaunchCounts()
-# what the host codes of csrc/ name (a JPEG's or PNG's cause of refusal)
+# what the host codes of csrc/ name (a JPEG's, PNG's, TIFF's or WebP's
+# cause of refusal)
 _CODE_ERRORS = {
     2001: "a truncated JPEG",
     2002: "a JPEG of an unsupported layout (2 or more than 4 components, "
@@ -128,18 +142,28 @@ _CODE_ERRORS = {
           "CMYK 8)",
     4017: "a TIFF of a sample count its photometric does not take",
     4018: "a CMYK TIFF with an extra sample: five channels, which cv2 "
-          "does not read either"}
+          "does not read either",
+    5001: "a truncated WebP (a header or partition ends early)",
+    5002: "a malformed WebP (not RIFF/WEBP, or a chunk out of bounds)",
+    5003: "a lossless WebP (VP8L), which the card does not decode",
+    5004: "an animated WebP (ANIM/ANMF chunks), which the card does not "
+          "read",
+    5005: "a malformed WebP (no VP8 chunk)",
+    5006: "a WebP whose VP8 data is not a shown key frame of non-zero size",
+    5007: "a corrupt WebP (a VP8 partition read well past its end)"}
 
 _MAGIC = ((b"\xff\xd8\xff", "JPEG"), (b"\x89PNG\r\n\x1a\n", "PNG"),
           (b"II*\x00", "TIFF"), (b"MM\x00*", "TIFF"), (b"II+\x00", "TIFF"),
           (b"MM\x00+", "TIFF"), (b"BM", "BMP"),
-          (b"GIF8", "GIF"), (b"RIFF", "RIFF (WebP)"), (b"P5", "PGM"),
-          (b"P6", "PPM"))
+          (b"GIF8", "GIF"), (b"P5", "PGM"), (b"P6", "PPM"))
 
 
 def image_format(data: bytes) -> str:
-    """The format a file's first bytes name ("JPEG", "PNG", ...), or
-    "unknown"."""
+    """The format a file's first bytes name ("JPEG", "PNG", "WebP", ...),
+    or "unknown"."""
+    if data.startswith(b"RIFF"):
+        return "WebP" if data[8:12] == b"WEBP" else \
+            f"RIFF {data[8:12]!r}, not a WebP"
     for magic, name in _MAGIC:
         if data.startswith(magic):
             return name
@@ -149,8 +173,8 @@ def image_format(data: bytes) -> str:
 def bind_host(lib):
     """Set the ctypes signatures of the codec's host functions (no CUDA:
     the encoder's entropy coding, the PNG unfilter and de-interlace, the
-    TIFF reader, the EXIF reader) on a library that has them, the card's or
-    a host build of the headers."""
+    TIFF reader, the EXIF reader, the WebP entropy decode) on a library
+    that has them, the card's or a host build of the headers."""
     vp, i, sz = ctypes.c_void_p, ctypes.c_int, ctypes.c_size_t
     lib.jpeg_quality_tables.argtypes = [i, vp]
     lib.jpeg_quality_tables.restype = None
@@ -171,6 +195,11 @@ def bind_host(lib):
         getattr(lib, fn).restype = i
     lib.exif_orientation_tiff.argtypes = [ctypes.c_char_p, i]
     lib.exif_orientation_tiff.restype = i
+    if hasattr(lib, "webp_host_header"):  # a build with webp_decode.h
+        lib.webp_host_header.argtypes = [ctypes.c_char_p, sz, vp]
+        lib.webp_host_decode.argtypes = [ctypes.c_char_p, sz, vp, vp, vp]
+        for fn in ("webp_host_header", "webp_host_decode"):
+            getattr(lib, fn).restype = i
     return lib
 
 
@@ -191,9 +220,15 @@ def _library():
                                       vp]
     lib.fdct_islow_launch.argtypes = [vp, i, i, vp, vp, vp]
     lib.raster_to_bgr_launch.argtypes = [vp, vp, vp, vp, vp, vp, vp]
+    lib.vp8_reconstruct_launch.argtypes = [vp, vp, vp, i, i, vp, vp, vp, vp,
+                                           vp]
+    lib.vp8_loop_filter_launch.argtypes = [vp, vp, i, i, vp, vp, vp, vp, vp]
+    lib.webp_yuv_to_bgr_launch.argtypes = [vp, vp, vp, i, i, i, vp, vp, vp]
     for fn in ("jpeg_host_decode", "jpeg_host_upload", "idct_islow_launch",
                "ycc_to_bgr_launch", "cmyk_to_bgr_launch", "bgr_to_ycc_launch",
-               "fdct_islow_launch", "raster_to_bgr_launch"):
+               "fdct_islow_launch", "raster_to_bgr_launch",
+               "vp8_reconstruct_launch", "vp8_loop_filter_launch",
+               "webp_yuv_to_bgr_launch"):
         getattr(lib, fn).restype = i
     return lib
 
@@ -981,10 +1016,562 @@ def _decode_raster(data: bytes, dev) -> Tuple[Tensor, Tensor]:
     return orient(gray, r.orientation), orient(bgr, r.orientation)
 
 
+# ----------------------------- lossy WebP -----------------------------
+
+VP8_RECON_COUNTS = nvcc.LaunchCounts()
+VP8_FILTER_COUNTS = nvcc.LaunchCounts()
+WEBP_COLOUR_COUNTS = nvcc.LaunchCounts()
+VP8_PARAM_INTS = 49   # vp8_recon.h Params: dq (4 x 6), filter (4 x 2 x 3), type
+VP8_HEADER_FIELDS = ("width", "height", "mb_w", "mb_h", "filter_type",
+                     "level", "sharpness", "partitions", "use_segment",
+                     "update_map", "absolute_delta", "use_skip_proba",
+                     "base_q", "colorspace", "clamp_type", "simple")
+# vp8_recon.h Record word 0 and the intra modes' numbering (libwebp's)
+VP8_INNER = 1 << 7
+VP8_DC, VP8_TM, VP8_VE, VP8_HE = 0, 1, 2, 3
+
+
+class VP8Frame(NamedTuple):
+    """What the host's entropy decode (``csrc/webp_decode.h``) leaves of a
+    lossy WebP's VP8 frame, for the card's kernels: per MB (raster order) a
+    record (vp8_recon.h Record) and its 25 blocks' quantized coefficients
+    (Y2, 16 Y, 4 U, 4 V; natural order); the dequantization factors and
+    loop filter limits per segment and the filter type (``params``)."""
+    records: np.ndarray   # (mb_h * mb_w, 4) int32
+    coefs: np.ndarray     # (mb_h * mb_w, 25, 16) int16
+    params: np.ndarray    # (VP8_PARAM_INTS,) int32
+    header: dict          # VP8_HEADER_FIELDS: the frame header's values
+
+    @property
+    def size(self) -> Tuple[int, int]:
+        return self.header["height"], self.header["width"]
+
+    @property
+    def mbs(self) -> Tuple[int, int]:
+        return self.header["mb_h"], self.header["mb_w"]
+
+
+def webp_container(data: bytes) -> Tuple[bytes, Optional[bytes]]:
+    """Walk a WebP's RIFF chunks, as libwebp does, and refuse, naming the
+    cause, what the card does not read: a RIFF that is not WEBP or is
+    shorter than its size, a chunk past the end, a lossless (VP8L) or an
+    animated (ANIM, ANMF) file, a VP8X canvas other than the frame's size,
+    no VP8 frame. Returns the VP8 chunk's payload and the EXIF chunk's
+    payload (None without one)."""
+    kind = image_format(data)
+    if kind != "WebP":
+        raise ValueError(f"not a WebP ({kind})")
+    size = struct.unpack("<I", data[4:8])[0] if len(data) >= 12 else 0
+    if len(data) < 12 or size < 12 or size > len(data) - 8:
+        raise ValueError(f"a truncated WebP (its RIFF header says {size + 8}"
+                         f" bytes, the file holds {len(data)})")
+    end, pos, found = 8 + size, 12, {}
+    while pos + 8 <= end:
+        fourcc = data[pos:pos + 4]
+        n = struct.unpack("<I", data[pos + 4:pos + 8])[0]
+        if n > end - pos - 8:
+            raise ValueError(f"a truncated WebP (its {fourcc!r} chunk "
+                             f"ends past the file)")
+        if fourcc == b"VP8L":
+            raise ValueError("a lossless WebP (VP8L), which the card does "
+                             "not decode (it reads lossy VP8 frames)")
+        if fourcc in (b"ANIM", b"ANMF"):
+            raise ValueError("an animated WebP (ANIM/ANMF chunks), which the "
+                             "card does not read")
+        found.setdefault(fourcc, data[pos + 8:pos + 8 + n])
+        pos += 8 + n + (n & 1)
+    vp8 = found.get(b"VP8 ")
+    if vp8 is None or len(vp8) < 10 or vp8[3:6] != b"\x9d\x01\x2a":
+        raise ValueError("a malformed WebP (no VP8 key frame)")
+    w, h = [v & 0x3fff for v in struct.unpack("<HH", vp8[6:10])]
+    if b"VP8X" in found and len(found[b"VP8X"]) >= 10:
+        x = found[b"VP8X"]
+        cw, ch = (1 + int.from_bytes(x[4:7], "little"),
+                  1 + int.from_bytes(x[7:10], "little"))
+        if (cw, ch) != (w, h):
+            raise ValueError(f"a WebP whose VP8X canvas ({cw}x{ch}) differs "
+                             f"from its frame ({w}x{h}), which libwebp "
+                             f"refuses too")
+    return vp8, found.get(b"EXIF")
+
+
+def webp_frame(data: bytes, lib) -> Tuple[VP8Frame, int]:
+    """Check a WebP's container (:func:`webp_container`) and decode its VP8
+    frame on the host with ``lib``'s ``webp_host_header`` and
+    ``webp_host_decode`` (the card's library, or a host build of
+    ``csrc/webp_decode.h``): the :class:`VP8Frame` and the EXIF chunk's
+    orientation (1 without one; cv2 applies it)."""
+    _, exif = webp_container(data)
+    info = (ctypes.c_int * len(VP8_HEADER_FIELDS))()
+    _check(lib.webp_host_header(data, len(data), info), "WebP decode")
+    header = dict(zip(VP8_HEADER_FIELDS, info))
+    n = header["mb_w"] * header["mb_h"]
+    records = np.zeros((n, 4), np.int32)
+    coefs = np.zeros((n, 25, 16), np.int16)
+    params = np.zeros(VP8_PARAM_INTS, np.int32)
+    _check(lib.webp_host_decode(data, len(data), records.ctypes.data,
+                                coefs.ctypes.data, params.ctypes.data),
+           "WebP decode")
+    orientation = 1 if exif is None else lib.exif_orientation_tiff(
+        exif, len(exif))
+    return VP8Frame(records, coefs, params, header), orientation
+
+
+def _wrap16(x: Tensor) -> Tensor:
+    """x stored into an int16 (two's complement), as int64."""
+    return ((x + 32768) & 0xFFFF) - 32768
+
+
+def _vp8_fields(records: Tensor):
+    """Per MB: (sub-block modes?, 16x16 mode, chroma mode, segment, inner
+    edges?) as int64 tensors, and the 16 sub-block modes (n, 16)."""
+    r = records.to(torch.int64)
+    f = r[:, 0]
+    n = torch.arange(16, device=r.device)
+    word = torch.where(n < 8, r[:, 1:2], r[:, 2:3])
+    sub = (word >> (4 * (n & 7))) & 15
+    return ((f & 1) == 1, (f >> 1) & 3, (f >> 3) & 3, (f >> 5) & 3,
+            (f & VP8_INNER) != 0), sub
+
+
+def _vp8_residuals(coefs: Tensor, i4x4: Tensor, seg: Tensor,
+                   dq: Tensor) -> Tensor:
+    """(n, 24, 4, 4) int64: the inverse DCT's ((x + 4) >> 3 terms) of each
+    MB's 16 luma and 8 chroma blocks, dequantized as libwebp does (int16
+    products; a 16x16 MB's luma DCs from the WHT of its Y2)."""
+    c = coefs.to(torch.int64)
+    f = dq.to(torch.int64)[seg]                          # (n, 6)
+    pos0 = torch.arange(16, device=c.device) == 0
+    factor = lambda dc, ac: torch.where(pos0, f[:, dc:dc + 1],
+                                        f[:, ac:ac + 1])[:, None, :]
+    y2 = _wrap16(c[:, :1] * factor(2, 3))[:, 0]           # (n, 16)
+    y = _wrap16(c[:, 1:17] * factor(0, 1))
+    uv = _wrap16(c[:, 17:] * factor(4, 5))
+    # libwebp's TransformWHT_C
+    a0, a1 = y2[:, 0:4] + y2[:, 12:16], y2[:, 4:8] + y2[:, 8:12]
+    a2, a3 = y2[:, 4:8] - y2[:, 8:12], y2[:, 0:4] - y2[:, 12:16]
+    t = torch.stack([a0 + a1, a3 + a2, a0 - a1, a3 - a2], 1)   # (n, 4 r, 4 i)
+    dc0 = t[:, :, 0] + 3
+    b0, b1 = dc0 + t[:, :, 3], t[:, :, 1] + t[:, :, 2]
+    b2, b3 = t[:, :, 1] - t[:, :, 2], dc0 - t[:, :, 3]
+    wht = _wrap16(torch.stack([b0 + b1, b3 + b2, b0 - b1, b3 - b2], 2) >> 3)
+    y = y.clone()
+    y[:, :, 0] = torch.where(i4x4[:, None], y[:, :, 0], wht.reshape(-1, 16))
+    x = torch.cat([y, uv], 1).reshape(-1, 24, 4, 4)       # [.., row, col]
+    m1 = lambda a: ((a * 20091) >> 16) + a
+    m2 = lambda a: (a * 35468) >> 16
+    # vertical pass (per column), then horizontal (per row)
+    a, b = x[:, :, 0] + x[:, :, 2], x[:, :, 0] - x[:, :, 2]
+    cc = m2(x[:, :, 1]) - m1(x[:, :, 3])
+    d = m1(x[:, :, 1]) + m2(x[:, :, 3])
+    v = torch.stack([a + d, b + cc, b - cc, a - d], 2)     # (n, 24, 4 k, 4 col)
+    dc = v[..., 0] + 4
+    a, b = dc + v[..., 2], dc - v[..., 2]
+    cc = m2(v[..., 1]) - m1(v[..., 3])
+    d = m1(v[..., 1]) + m2(v[..., 3])
+    return torch.stack([a + d, b + cc, b - cc, a - d], 3) >> 3
+
+
+def _diagonals(mb_w: int, mb_h: int, device):
+    """The MBs of each anti-diagonal d = x + 2 y in order: (xs, ys)."""
+    for d in range(mb_w + 2 * (mb_h - 1)):
+        ys = torch.arange(max(0, (d - mb_w + 2) // 2), min(mb_h, d // 2 + 1),
+                          device=device)
+        yield d - 2 * ys, ys
+
+
+def _pred4_table():
+    """Each 4x4 mode's sample (x, y) as an index into _pred4's values:
+    avg3 centred on edge sample i (0-12: L K J I X A B C D E F G H, the
+    ends repeated), then avg2 of edge samples i, i + 1 (13-24), the edge
+    samples themselves (25-37), the DC (38); TM is computed apart. libwebp's
+    VE4_C ... HU4_C (dsp/dec.c) rewritten on that edge."""
+    a3, a2, e, dc = (lambda i: i), (lambda i: 13 + i), (lambda i: 25 + i), 38
+    vr = {(0, 0): a2(4), (1, 2): a2(4), (1, 0): a2(5), (2, 2): a2(5),
+          (2, 0): a2(6), (3, 2): a2(6), (3, 0): a2(7), (0, 3): a3(2),
+          (0, 2): a3(3), (0, 1): a3(4), (1, 3): a3(4), (1, 1): a3(5),
+          (2, 3): a3(5), (2, 1): a3(6), (3, 3): a3(6), (3, 1): a3(7)}
+    vl = {(0, 0): a2(5), (1, 0): a2(6), (0, 2): a2(6), (2, 0): a2(7),
+          (1, 2): a2(7), (3, 0): a2(8), (2, 2): a2(8), (0, 1): a3(6),
+          (1, 1): a3(7), (0, 3): a3(7), (2, 1): a3(8), (1, 3): a3(8),
+          (3, 1): a3(9), (2, 3): a3(9), (3, 2): a3(10), (3, 3): a3(11)}
+    hd = {(0, 0): a2(3), (2, 1): a2(3), (0, 1): a2(2), (2, 2): a2(2),
+          (0, 2): a2(1), (2, 3): a2(1), (0, 3): a2(0), (3, 0): a3(6),
+          (2, 0): a3(5), (1, 0): a3(4), (3, 1): a3(4), (1, 1): a3(3),
+          (3, 2): a3(3), (1, 2): a3(2), (3, 3): a3(2), (1, 3): a3(1)}
+    hu = {(0, 0): a2(2), (2, 0): a2(1), (0, 1): a2(1), (2, 1): a2(0),
+          (0, 2): a2(0), (1, 0): a3(2), (3, 0): a3(1), (1, 1): a3(1),
+          (3, 1): a3(0), (1, 2): a3(0)}
+    modes = {VP8_DC: lambda x, y: dc, VP8_TM: lambda x, y: 0,
+             VP8_VE: lambda x, y: a3(5 + x), VP8_HE: lambda x, y: a3(3 - y),
+             4: lambda x, y: a3(4 + x - y),           # RD
+             5: lambda x, y: vr[x, y], 6: lambda x, y: a3(6 + x + y),  # LD
+             7: lambda x, y: vl[x, y], 8: lambda x, y: hd[x, y],
+             9: lambda x, y: hu.get((x, y), e(0))}
+    return torch.tensor([[modes[m](x, y) for y in range(4) for x in range(4)]
+                         for m in range(10)])
+
+
+_PRED4 = _pred4_table()
+
+
+def _pred4(mode: Tensor, t: Tensor, left: Tensor) -> Tensor:
+    """libwebp's 4x4 predictors (dsp/dec.c) of m sub-blocks, each in its
+    mode (m,): t (m, 9) the row above from the top-left (X, A..H), left
+    (m, 4) (I..L); (m, 4, 4) [row, col]."""
+    edge = torch.cat([left.flip(1), t], 1)                # L K J I X A .. H
+    pad = torch.cat([edge[:, :1], edge, edge[:, -1:]], 1)
+    a3 = (pad[:, :-2] + 2 * pad[:, 1:-1] + pad[:, 2:] + 2) >> 2
+    a2 = (edge[:, :-1] + edge[:, 1:] + 1) >> 1
+    dc = (4 + t[:, 1:5].sum(1) + left.sum(1)) >> 3
+    vals = torch.cat([a3, a2, edge, dc[:, None]], 1)
+    out = torch.gather(vals, 1, _PRED4.to(mode.device)[mode])
+    tm = torch.clamp(t[:, None, 1:5] + left[:, :, None] - t[:, :1, None],
+                     0, 255).reshape(-1, 16)
+    return torch.where((mode == VP8_TM)[:, None], tm, out).reshape(-1, 4, 4)
+
+
+def _pred_block(mode, buf: Tensor, n: int, xs, ys) -> Tensor:
+    """A 16x16 (n 16) or chroma (n 8) mode's prediction (m, n, n) from the
+    buffers (m, n + 1, >= n + 1) [1 + row, 1 + col] of MBs at (xs, ys):
+    libwebp's DC (inside the frame only), V, H and TM forms."""
+    top, left, tl = buf[:, 0, 1:n + 1], buf[:, 1:n + 1, 0], buf[:, 0, 0]
+    shift = 4 if n == 16 else 3
+    st, sl = top.sum(1), left.sum(1)
+    has_t, has_l = ys > 0, xs > 0
+    dc = torch.where(has_t & has_l, (st + sl + n) >> (shift + 1),
+                     torch.where(has_t, (st + n // 2) >> shift,
+                                 torch.where(has_l, (sl + n // 2) >> shift,
+                                             torch.full_like(st, 128))))
+    mode = mode[:, None, None]
+    return torch.where(
+        mode == VP8_DC, dc[:, None, None], torch.where(
+            mode == VP8_VE, top[:, None, :], torch.where(
+                mode == VP8_HE, left[:, :, None], torch.clamp(
+                    top[:, None, :] + left[:, :, None] - tl[:, None, None],
+                    0, 255))))
+
+
+def _mb_border(plane: Tensor, n: int, xs, ys, mb_w: int, extra: int = 0):
+    """The buffers (m, n + 1, n + 1 + extra) of MBs at (xs, ys) with their
+    border from the unfiltered ``plane`` (n 16: Y, 8: U or V) filled in as
+    vp8_recon.h's border_sample does: row 0 the row above (127 in the top
+    row; col 0 its top-left, 129 at the left edge below the top row;
+    ``extra`` above-right samples, the last of the row above repeated in
+    the rightmost column), col 0 the column to the left (129 at the frame's
+    left)."""
+    m = xs.shape[0]
+    dev = plane.device
+    buf = torch.zeros((m, n + 1, n + 1 + extra), dtype=torch.int64,
+                      device=dev)
+    c = torch.arange(-1, n + extra, device=dev)
+    cols = n * xs[:, None] + c
+    cols = torch.where((c >= n) & (xs[:, None] == mb_w - 1),
+                       n * xs[:, None] + n - 1, cols)
+    row = torch.clamp(n * ys - 1, min=0)
+    above = plane[row[:, None], torch.clamp(cols, min=0)].to(torch.int64)
+    above = torch.where((c == -1) & (xs[:, None] == 0), 129, above)
+    buf[:, 0] = torch.where(ys[:, None] == 0, 127, above)
+    r = torch.arange(n, device=dev)
+    lft = plane[n * ys[:, None] + r, torch.clamp(n * xs - 1, min=0)[:, None]]
+    buf[:, 1:, 0] = torch.where(xs[:, None] == 0, 129, lft.to(torch.int64))
+    return buf
+
+
+def vp8_reconstruct_plain(records: Tensor, coefs: Tensor, params: Tensor,
+                          mb_w: int, mb_h: int):
+    """The plain version of ``vp8_reconstruct_kernel``: the unfiltered
+    (Y (16 mb_h, 16 mb_w), U, V (8 mb_h, 8 mb_w)) uint8 planes of a lossy
+    WebP's VP8 frame from its :class:`VP8Frame` arrays as tensors
+    (csrc/vp8_recon.h says what it computes). Int64 tensor code over each
+    anti-diagonal's MBs at once (x + 2 y: an MB's neighbours to the left,
+    above and above right come on earlier ones), the 16 sub-blocks of the
+    sub-block modes in order."""
+    VP8_RECON_COUNTS.plain += 1
+    dev = records.device
+    (i4x4, ymode, uvmode, seg, _), sub = _vp8_fields(records)
+    dq = params.to(torch.int64)[:24].reshape(4, 6).to(dev)
+    res = _vp8_residuals(coefs.to(dev), i4x4, seg, dq)
+    Y = torch.zeros((16 * mb_h, 16 * mb_w), dtype=torch.uint8, device=dev)
+    U = torch.zeros((8 * mb_h, 8 * mb_w), dtype=torch.uint8, device=dev)
+    V = torch.zeros_like(U)
+    r16, r8 = torch.arange(16, device=dev), torch.arange(8, device=dev)
+    for xs, ys in _diagonals(mb_w, mb_h, dev):
+        i = ys * mb_w + xs
+        yb = _mb_border(Y, 16, xs, ys, mb_w, 4)          # (m, 17, 21)
+        for k in (3, 7, 11):  # the above-right samples for sub-block rows
+            yb[:, 1 + k, 17:21] = yb[:, 0, 17:21]
+        luma = res[i, :16].reshape(-1, 4, 4, 4, 4).permute(0, 1, 3, 2, 4)
+        luma = luma.reshape(-1, 16, 16)
+        pred = _pred_block(ymode[i], yb, 16, xs, ys)
+        yb[:, 1:17, 1:17] = torch.where(i4x4[i, None, None],
+                                        yb[:, 1:17, 1:17],
+                                        torch.clamp(pred + luma, 0, 255))
+        s = torch.nonzero(i4x4[i])[:, 0]
+        if s.numel():
+            b = yb[s]
+            for n in range(16):
+                r, c = 4 * (n >> 2), 4 * (n & 3)
+                p = _pred4(sub[i[s], n], b[:, r, c:c + 9],
+                           b[:, 1 + r:5 + r, c])
+                b[:, 1 + r:5 + r, 1 + c:5 + c] = torch.clamp(
+                    p + res[i[s], n], 0, 255)
+            yb[s] = b
+        Y[16 * ys[:, None, None] + r16[:, None],
+          16 * xs[:, None, None] + r16] = yb[:, 1:17, 1:17].to(torch.uint8)
+        for k, P in enumerate((U, V)):
+            cb = _mb_border(P, 8, xs, ys, mb_w)
+            blocks = res[i, 16 + 4 * k:20 + 4 * k].reshape(-1, 2, 2, 4, 4)
+            blocks = blocks.permute(0, 1, 3, 2, 4).reshape(-1, 8, 8)
+            out = torch.clamp(_pred_block(uvmode[i], cb, 8, xs, ys) + blocks,
+                              0, 255)
+            P[8 * ys[:, None, None] + r8[:, None],
+              8 * xs[:, None, None] + r8] = out.to(torch.uint8)
+    return Y, U, V
+
+
+def _filter_lines(v: Tensor, kind: int, thresh: Tensor, ithresh: Tensor,
+                  hev: Tensor, on: Tensor) -> Tensor:
+    """vp8_filter.h filter_line on lines v (m, L, 8) [p3..q3] int64: kind 0
+    simple, 1 normal MB edge, 2 normal inner edge; per-MB thresh, ithresh,
+    hev (m,) and whether the MB's edge is filtered (m,)."""
+    s1 = lambda x: torch.clamp(x, -128, 127)
+    s2 = lambda x: torch.clamp(x, -16, 15)
+    c8 = lambda x: torch.clamp(x, 0, 255)
+    p3, p2, p1, p0, q0, q1, q2, q3 = v.unbind(-1)
+    t, it, ht = thresh[:, None], ithresh[:, None], hev[:, None]
+    go = on[:, None] & (4 * (p0 - q0).abs() + (p1 - q1).abs() <= 2 * t + 1)
+    # DoFilter2
+    a = 3 * (q0 - p0) + s1(p1 - q1)
+    f2 = (c8(p0 + s2((a + 3) >> 3)), c8(q0 - s2((a + 4) >> 3)))
+    out = v.clone()
+    if kind == 0:
+        out[..., 3] = torch.where(go, f2[0], p0)
+        out[..., 4] = torch.where(go, f2[1], q0)
+        return out
+    interior = ((p3 - p2).abs() <= it) & ((p2 - p1).abs() <= it) & (
+        (p1 - p0).abs() <= it) & ((q3 - q2).abs() <= it) & (
+        (q2 - q1).abs() <= it) & ((q1 - q0).abs() <= it)
+    go = go & interior
+    high = ((p1 - p0).abs() > ht) | ((q1 - q0).abs() > ht)
+    if kind == 1:  # DoFilter6
+        w = s1(3 * (q0 - p0) + s1(p1 - q1))
+        a1, a2, a3 = [(k * w + 63) >> 7 for k in (27, 18, 9)]
+        new = [c8(p2 + a3), c8(p1 + a2), c8(p0 + a1), c8(q0 - a1),
+               c8(q1 - a2), c8(q2 - a3)]
+        idx = range(1, 7)
+    else:  # DoFilter4
+        a = 3 * (q0 - p0)
+        a1, a2 = s2((a + 4) >> 3), s2((a + 3) >> 3)
+        a3 = (a1 + 1) >> 1
+        new = [c8(p1 + a3), c8(p0 + a2), c8(q0 - a1), c8(q1 - a3)]
+        idx = range(2, 6)
+    for k, val in zip(idx, new):
+        if k == 3:
+            val = torch.where(high, f2[0], val)
+        elif k == 4:
+            val = torch.where(high, f2[1], val)
+        else:
+            val = torch.where(high, v[..., k], val)
+        out[..., k] = torch.where(go, val, v[..., k])
+    return out
+
+
+def vp8_loop_filter_plain(Y: Tensor, U: Tensor, V: Tensor, records: Tensor,
+                          params: Tensor, mb_w: int, mb_h: int):
+    """The plain version of ``vp8_loop_filter_kernel``: the loop-filtered
+    copies of a VP8 frame's reconstructed planes (csrc/vp8_filter.h says
+    what it computes). Int64 tensor code over each anti-diagonal's MBs at
+    once (x + 2 y, which keeps each MB after the three it depends on), edge
+    by edge in libwebp's order."""
+    VP8_FILTER_COUNTS.plain += 1
+    dev = Y.device
+    prm = params.to(torch.int64).to(dev)
+    ftype = int(prm[48])
+    if ftype == 0:
+        return Y.clone(), U.clone(), V.clone()
+    # luma alone, then U and V together (they share every MB's limits);
+    # the simple filter leaves chroma
+    groups = [Y.to(torch.int64)[None], torch.stack([U, V]).to(torch.int64)]
+    (i4x4, _, _, seg, inner), _ = _vp8_fields(records.to(dev))
+    lim = prm[24:48].reshape(4, 2, 3)[seg, i4x4.to(torch.int64)]  # (n, 3)
+    k = torch.arange(-4, 4, device=dev)
+    for xs, ys in _diagonals(mb_w, mb_h, dev):
+        i = ys * mb_w + xs
+        limit, ilevel, hev = lim[i].unbind(1)
+        on = limit > 0
+        for n, P in zip((16, 8), groups if ftype == 2 else groups[:1]):
+            j = torch.arange(n, device=dev)
+            pl = torch.arange(P.shape[0], device=dev)[:, None, None, None]
+            for vertical in (True, False):  # vertical edges, then horizontal
+                for e in range(0, n, 4):
+                    if e == 0:  # the MB's left or top edge, not the frame's
+                        kind, t = (0 if ftype == 1 else 1), limit + 4
+                        go = on & ((xs > 0) if vertical else (ys > 0))
+                    else:
+                        kind, t, go = (0 if ftype == 1 else 2), limit, \
+                            on & inner[i]
+                    # lines j along the edge, samples k across it
+                    along = lambda o: (n * o)[:, None, None] + j[:, None]
+                    across = lambda o: (n * o + e)[:, None, None] + k
+                    rr, cc = (along(ys), across(xs)) if vertical else (
+                        across(ys), along(xs))
+                    at = torch.broadcast_tensors(pl, rr.clamp(min=0),
+                                                 cc.clamp(min=0))
+                    P[at] = _filter_lines(P[at], kind, t, ilevel, hev, go)
+    return (groups[0][0].to(torch.uint8), groups[1][0].to(torch.uint8),
+            groups[1][1].to(torch.uint8))
+
+
+def webp_yuv_to_bgr_plain(Y: Tensor, U: Tensor, V: Tensor, width: int,
+                          height: int) -> Tuple[Tensor, Tensor]:
+    """The plain version of ``webp_yuv_to_bgr_kernel``: (grey (H, W), BGR
+    (H, W, 3)) uint8, cv2.imread's, of a lossy WebP's filtered planes
+    (csrc/webp_colour.h says what it computes: libwebp's fancy upsampling
+    and YUV -> RGB, OpenCV's BGR -> grey)."""
+    WEBP_COLOUR_COUNTS.plain += 1
+    H, W = height, width
+    dev = Y.device
+    r = torch.arange(H, device=dev)[:, None]
+    c = torch.arange(W, device=dev)[None, :]
+    ch = (H + 1) >> 1
+    nr = r >> 1
+    fr = torch.where(r == 0, 0, torch.where((r & 1) == 1, (r + 1) >> 1,
+                                            (r >> 1) - 1)).clamp(max=ch - 1)
+    nc = c >> 1
+    edge = (c == 0) | ((c == W - 1) & (W % 2 == 0))
+    fc = torch.where((c & 1) == 1, nc + 1, nc - 1).clamp(0, (W - 1) >> 1)
+
+    def up(P):
+        P = P.to(torch.int64)
+        nn, nf, fn, ff = P[nr, nc], P[nr, fc], P[fr, nc], P[fr, fc]
+        avg = nn + nf + fn + ff + 8
+        return torch.where(edge, (3 * nn + fn + 2) >> 2,
+                           (((avg + 2 * (nf + fn)) >> 3) + nn) >> 1)
+
+    u, v = up(U), up(V)
+    y = Y[:H, :W].to(torch.int64)
+    mh = lambda a, k: (a * k) >> 8
+    clip = lambda x: torch.where((x & ~16383) == 0, x >> 6,
+                                 torch.where(x < 0, 0, 255))
+    red = clip(mh(y, 19077) + mh(v, 26149) - 14234)
+    green = clip(mh(y, 19077) - mh(u, 6419) - mh(v, 13320) + 8708)
+    blue = clip(mh(y, 19077) + mh(u, 33050) - 17685)
+    grey = (red * 9798 + green * 19235 + blue * 3735 + 16384) >> 15
+    return grey.to(torch.uint8), torch.stack([blue, green, red],
+                                             -1).to(torch.uint8)
+
+
+def _vp8_planes_args(Y, U, V, mb_w, mb_h):
+    dev = Y.device
+    if any(P.device.type != "cuda" or P.dtype != torch.uint8 or
+           not P.is_contiguous() for P in (Y, U, V)) or \
+            tuple(Y.shape) != (16 * mb_h, 16 * mb_w) or \
+            tuple(U.shape) != (8 * mb_h, 8 * mb_w) or U.shape != V.shape:
+        raise ValueError(f"the VP8 kernels take contiguous uint8 CUDA planes "
+                         f"Y {(16 * mb_h, 16 * mb_w)}, U and V "
+                         f"{(8 * mb_h, 8 * mb_w)}, got {tuple(Y.shape)}, "
+                         f"{tuple(U.shape)}, {tuple(V.shape)} on {dev}")
+    return Y.data_ptr(), U.data_ptr(), V.data_ptr()
+
+
+def _vp8_launch_args(records: Tensor, params, mb_w: int, mb_h: int):
+    if records.device.type != "cuda" or records.dtype != torch.int32 or \
+            tuple(records.shape) != (mb_w * mb_h, 4):
+        raise ValueError(f"the VP8 kernels take int32 CUDA records "
+                         f"({mb_w * mb_h}, 4), got {records.dtype} "
+                         f"{tuple(records.shape)} on {records.device}")
+    p = torch.as_tensor(params).to(torch.int32).cpu().reshape(-1)
+    if p.numel() != VP8_PARAM_INTS:
+        raise ValueError(f"{p.numel()} VP8 params, not {VP8_PARAM_INTS}")
+    sync = torch.zeros(mb_h + 1, dtype=torch.int32, device=records.device)
+    return (ctypes.c_int * VP8_PARAM_INTS)(*p.tolist()), sync
+
+
+def vp8_reconstruct_kernel(records: Tensor, coefs: Tensor, params,
+                           mb_w: int, mb_h: int):
+    """Launch ``vp8_reconstruct_kernel`` on a VP8 frame's CUDA records and
+    coefficients: the unfiltered (Y, U, V), as
+    :func:`vp8_reconstruct_plain`. One launch: a warp a row of MBs, rows
+    claimed in order, each MB after the row above has finished the MB
+    above right of it."""
+    prm, sync = _vp8_launch_args(records, params, mb_w, mb_h)
+    if coefs.device != records.device or coefs.dtype != torch.int16 or \
+            tuple(coefs.shape) != (mb_w * mb_h, 25, 16):
+        raise ValueError(f"the VP8 reconstruction takes int16 CUDA "
+                         f"coefficients ({mb_w * mb_h}, 25, 16), got "
+                         f"{coefs.dtype} {tuple(coefs.shape)} on "
+                         f"{coefs.device}")
+    dev = records.device
+    Y = torch.empty((16 * mb_h, 16 * mb_w), dtype=torch.uint8, device=dev)
+    U = torch.empty((8 * mb_h, 8 * mb_w), dtype=torch.uint8, device=dev)
+    V = torch.empty_like(U)
+    err = _library().vp8_reconstruct_launch(
+        records.contiguous().data_ptr(), coefs.contiguous().data_ptr(), prm,
+        mb_w, mb_h, Y.data_ptr(), U.data_ptr(), V.data_ptr(),
+        sync.data_ptr(), _stream(records))
+    _check(err, "vp8_reconstruct_kernel launch")
+    VP8_RECON_COUNTS.launched()
+    return Y, U, V
+
+
+def vp8_loop_filter_kernel(Y: Tensor, U: Tensor, V: Tensor, records: Tensor,
+                           params, mb_w: int, mb_h: int):
+    """Launch ``vp8_loop_filter_kernel``: filter a VP8 frame's CUDA planes
+    in place, as :func:`vp8_loop_filter_plain` filters copies of them, and
+    return them. One launch, MB rows claimed in order as in the
+    reconstruction. A frame whose filter is off (level 0) launches
+    nothing."""
+    prm, sync = _vp8_launch_args(records, params, mb_w, mb_h)
+    ptrs = _vp8_planes_args(Y, U, V, mb_w, mb_h)
+    if prm[48] == 0:
+        return Y, U, V
+    err = _library().vp8_loop_filter_launch(
+        records.contiguous().data_ptr(), prm, mb_w, mb_h, *ptrs,
+        sync.data_ptr(), _stream(records))
+    _check(err, "vp8_loop_filter_kernel launch")
+    VP8_FILTER_COUNTS.launched()
+    return Y, U, V
+
+
+def webp_yuv_to_bgr_kernel(Y: Tensor, U: Tensor, V: Tensor, width: int,
+                           height: int) -> Tuple[Tensor, Tensor]:
+    """Launch ``webp_yuv_to_bgr_kernel`` on a VP8 frame's filtered CUDA
+    planes: (grey, BGR), both from the one launch, as
+    :func:`webp_yuv_to_bgr_plain`."""
+    mb_h, mb_w = Y.shape[0] // 16, Y.shape[1] // 16
+    ptrs = _vp8_planes_args(Y, U, V, mb_w, mb_h)
+    if not (0 < height <= 16 * mb_h and 0 < width <= 16 * mb_w):
+        raise ValueError(f"{width}x{height} does not fit planes of "
+                         f"{mb_w}x{mb_h} MBs")
+    bgr = torch.empty((height, width, 3), dtype=torch.uint8, device=Y.device)
+    gray = torch.empty((height, width), dtype=torch.uint8, device=Y.device)
+    err = _library().webp_yuv_to_bgr_launch(*ptrs, mb_w, width, height,
+                                            bgr.data_ptr(), gray.data_ptr(),
+                                            _stream(Y))
+    _check(err, "webp_yuv_to_bgr_kernel launch")
+    WEBP_COLOUR_COUNTS.launched()
+    return gray, bgr
+
+
+def _decode_webp(data: bytes, device) -> Tuple[Tensor, Tensor]:
+    webp_container(data)  # what stays refused raises before the card
+    dev = _cuda_device(device)
+    frame, orientation = webp_frame(data, _library())
+    (H, W), (mb_h, mb_w) = frame.size, frame.mbs
+    records = torch.from_numpy(frame.records).to(dev)
+    coefs = torch.from_numpy(frame.coefs).to(dev)
+    planes = vp8_reconstruct_kernel(records, coefs, frame.params, mb_w, mb_h)
+    vp8_loop_filter_kernel(*planes, records, frame.params, mb_w, mb_h)
+    gray, bgr = webp_yuv_to_bgr_kernel(*planes, W, H)
+    CODEC_COUNTS.launched("webp")
+    return orient(gray, orientation), orient(bgr, orientation)
+
+
 def decode(data: bytes, device) -> Tuple[Tensor, Tensor]:
     """(grey (H, W), BGR (H, W, 3)) uint8 tensors on ``device`` from a
     file's bytes: what ``cv2.imread`` gives with ``IMREAD_GRAYSCALE`` and
-    ``IMREAD_COLOR``. On a CUDA device, JPEG, PNG and TIFF."""
+    ``IMREAD_COLOR``. On a CUDA device, JPEG, PNG, TIFF and lossy WebP."""
     dev = torch.device(device)
     if dev.type == "cpu":
         import cv2
@@ -1001,19 +1588,23 @@ def decode(data: bytes, device) -> Tuple[Tensor, Tensor]:
     kind = image_format(data)
     if kind in ("PNG", "TIFF"):
         return _decode_raster(data, _cuda_device(dev))
+    if kind == "WebP":
+        return _decode_webp(data, dev)
     if kind != "JPEG":
-        raise ValueError(f"not a JPEG, PNG or TIFF ({kind}): the card's "
-                         f"codec reads those only")
+        raise ValueError(f"not a JPEG, PNG, TIFF or WebP ({kind}): the "
+                         f"card's codec reads those only")
     return _decode_jpeg(data, dev)
 
 
 def decode_colour(data: bytes, device) -> Tensor:
     """BGR (H, W, 3) uint8 on ``device`` from a file's bytes: what
-    ``cv2.imread`` gives with ``IMREAD_COLOR``. On a CUDA device, JPEG, PNG
-    and TIFF."""
+    ``cv2.imread`` gives with ``IMREAD_COLOR``. On a CUDA device, JPEG, PNG,
+    TIFF and lossy WebP."""
     dev = torch.device(device)
     if dev.type == "cuda" and image_format(data) in ("PNG", "TIFF"):
         return _decode_raster(data, _cuda_device(dev))[1]
+    if dev.type == "cuda" and image_format(data) == "WebP":
+        return _decode_webp(data, dev)[1]
     if dev.type == "cpu":
         import cv2
 

@@ -114,6 +114,17 @@ def compute_view_scores(images, points3d, extrinsics,
     return score
 
 
+def convert_image(src: str, dst: str, device="cuda"):
+    """One source image into the workspace as ``dst``: copied where its
+    name ends in ``.jpg``, else read and re-encoded on ``device`` (the JAX
+    converter's cv2.imwrite(dst, cv2.imread(src)))."""
+    if src.endswith(".jpg"):
+        shutil.copyfile(src, dst)
+    else:
+        image_io.write_jpeg(dst, image_io.read_colour(src, device), device,
+                            quality=95)
+
+
 def convert_colmap(dense_folder: str, save_folder: str, max_d: int = 192,
                    interval_scale: float = 1.0, model_ext: str = ".txt",
                    num_view: int = 20, log=print, device="cuda") -> str:
@@ -173,13 +184,8 @@ def convert_colmap(dense_folder: str, save_folder: str, max_d: int = 192,
             f.write("\n")
 
     for i in range(n):
-        src = os.path.join(image_dir, images[i + 1].name)
-        dst = os.path.join(img_out, f"{i:08d}.jpg")
-        if src.endswith(".jpg"):
-            shutil.copyfile(src, dst)
-        else:  # cv2.imwrite(dst, cv2.imread(src)) of the JAX converter
-            image_io.write_jpeg(dst, image_io.read_colour(src, device),
-                                device, quality=95)
+        convert_image(os.path.join(image_dir, images[i + 1].name),
+                      os.path.join(img_out, f"{i:08d}.jpg"), device)
     log(f"converted {n} images -> {save_folder}")
     return save_folder
 

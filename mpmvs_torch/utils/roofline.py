@@ -152,3 +152,32 @@ def colour_bound(planes, H: int, W: int, grey: bool = True):
     codec's other kernels."""
     return bound(0, sum(p.numel() for p in planes)
                  + (4 if grey else 3) * H * W)
+
+
+def vp8_reconstruct_bound(records):
+    """One launch of ``vp8_reconstruct_kernel`` on a frame whose records
+    (an int32 (macroblocks, 4) array) say which blocks hold coefficients: the records read, the coefficients of those blocks
+    (and the Y2 of each 16x16 MB) read at 32 bytes a block, the unfiltered
+    planes written (384 bytes an MB). Bytes alone (integer work), as for
+    the codec's other kernels; the blocks counted are what this frame
+    needs, not the 25 an MB the host sends."""
+    import numpy as np
+
+    r = np.asarray(records)
+    blocks = int(np.unpackbits(np.ascontiguousarray(
+        r[:, 3]).view(np.uint8)).sum()) + int(((r[:, 0] & 1) == 0).sum())
+    return bound(0, (16 + 384) * len(r) + 32 * blocks)
+
+
+def vp8_filter_bound(mbs: int):
+    """One launch of ``vp8_loop_filter_kernel`` on ``mbs`` macroblocks: the
+    records read and the planes read and written once each (384 bytes an
+    MB each way)."""
+    return bound(0, 16 * mbs + 2 * 384 * mbs)
+
+
+def webp_colour_bound(H: int, W: int):
+    """One launch of ``webp_yuv_to_bgr_kernel`` on an (H, W) image: its Y
+    samples and the chroma samples that cover it read once, the BGR and
+    grey images written."""
+    return bound(0, H * W + 2 * ((H + 1) // 2) * ((W + 1) // 2) + 4 * H * W)

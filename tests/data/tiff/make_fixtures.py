@@ -231,10 +231,11 @@ def refused():
                             photometric=1),
         "grey12": tiff_bytes(grey.astype(np.uint16), photometric=1,
                              extra_tags={258: (3, [12])}),
-        # a 16-bit palette (its colour map cut to 16 entries a colour)
-        "palette16": tiff_bytes(rng.integers(0, 16, grey.shape).astype(
+        # a 16-bit palette with its full colour map (65,536 entries a
+        # colour), which cv2 refuses too
+        "palette16": tiff_bytes(rng.integers(0, 65536, grey.shape).astype(
             np.uint16), photometric=3, colormap=rng.integers(
-            0, 65536, (3, 16)).astype(np.uint16)),
+            0, 65536, (3, 65536)).astype(np.uint16)),
         "rgb1": tiff_bytes((rgb > 127).astype(np.uint8), bits=1),
     }
 

@@ -132,6 +132,31 @@ def test_host_tiff_read_refuses(host_raster, rel):
         TOOL.read(host_raster, _bytes(rel))
 
 
+@pytest.mark.parametrize("rel", sorted(k for k, v in TOOL.REFUSED.items()
+                                 if v == "bit depth"))
+def test_cv2_refuses_what_is_refused_for_its_bit_depth(rel):
+    """The TIFFs refused for their bit depth (code 4016: OpenCV does not
+    read them into an 8-bit image either) are refused by cv2 too, in grey
+    and colour; the 16-bit palette carries its full colour map (65,536
+    entries a colour), so that cv2 refuses its depth and not a malformed
+    map."""
+    import cv2
+    import struct
+
+    data = _bytes(rel)
+    buf = np.frombuffer(data, np.uint8)
+    assert cv2.imdecode(buf, cv2.IMREAD_COLOR) is None
+    assert cv2.imdecode(buf, cv2.IMREAD_GRAYSCALE) is None
+    if rel.endswith("palette16.tif"):
+        assert data[:4] == b"II*\x00"
+        ifd = struct.unpack("<I", data[4:8])[0]
+        tags = {struct.unpack("<HHI", data[e:e + 8])[0]:
+                struct.unpack("<HHI", data[e:e + 8])[2]
+                for e in range(ifd + 2, ifd + 2 + 12 * struct.unpack(
+                    "<H", data[ifd:ifd + 2])[0], 12)}
+        assert tags[320] == 3 * 65536
+
+
 def test_png_gamma_tables(host_raster):
     """A gAMA or sRGB chunk takes a colour PNG's grey through libpng's
     gamma tables (the 8-bit ones, or at 16 bits the 2048-entry ones), an
