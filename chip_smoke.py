@@ -147,6 +147,20 @@ Phases, in order; any failure raises and the script exits non-zero:
    with CUDA events beside its bound and the twin; the read split into the
    host's parse and entropy decode, the copy, each kernel and the whole
    decode.
+8c. Lossless and animated WebP (after 8b, adding no solved view): the
+   committed ``tests/data/webp/conversion/plane_3200x2130_lossless.webp``
+   (8b's source as cv2 reads it, re-encoded lossless; ``cv2.json``'s
+   ``lossless`` entry holds cv2's hashes) through the converter's image
+   step and the pipeline's read, the lossless kernels' counters set to 0
+   just before: the hashes must be cv2's and ``vp8l_predictor_kernel``,
+   ``vp8l_colour_kernel`` (once a run of element-wise transforms) and
+   ``webp_argb_to_bgr_kernel`` launched as the file's transforms imply,
+   twice each, no plain call; one animated fixture (a lossless first frame
+   at (4, 8) on a 60x50 canvas) read against cv2's array; each kernel
+   against its plain twin on the file (no entry may differ), timed with
+   CUDA events beside its bound and the twin; the read split into the
+   host's container check and entropy decode, the copy, each launch and
+   the whole decode.
 9. Multi-GPU (after phase 8, on its converted workspace): (a) the NCC
    kernel (tile and view-major launches, K=9) and the fused sorted path
    with one zero-extent source (the sharded pipeline's padding: all-zero
@@ -236,6 +250,14 @@ WEBP_SOURCE = os.path.join(HERE, "tests", "data", "webp", "conversion",
                            "plane_3200x2130.webp")
 YCCK_SOURCE = os.path.join(HERE, "tests", "data", "jpeg", "conversion",
                            "ycck_3200x2130.jpg")
+# phase 8c's lossless source (the lossy one as cv2 reads it, re-encoded
+# lossless: tests/data/webp/make_conversion.py) and an animated fixture
+# whose lossless first frame sits at (4, 8) on a 60x50 canvas
+# (tests/data/webp/make_lossless.py; cv2's arrays beside it)
+LOSSLESS_SOURCE = os.path.join(HERE, "tests", "data", "webp", "conversion",
+                               "plane_3200x2130_lossless.webp")
+ANIMATED_FIXTURE = os.path.join(HERE, "tests", "data", "webp", "lossless",
+                                "offset_lossless_flags1.webp")
 CAM_TOL = 1e-5   # converted cams vs the scene's, relative
 FILES_PREVIEWS = ["costs.jpg", "depths.jpg", "normals.jpg", "skymask.jpg",
                   "skymask_fuse.jpg", "skymask_refine.jpg",
@@ -1735,6 +1757,10 @@ def phase_files(params, root: str):
     log("phase 8b: the lossy WebP source through the converter's image "
         "step and the pipeline's read; its kernels vs plain")
     webp_parts = phase_webp_parts(dev)
+    log("phase 8c: the lossless WebP source through the converter's image "
+        "step and the pipeline's read, an animated fixture; the lossless "
+        "kernels vs plain")
+    lossless_parts = phase_lossless_parts(dev)
     expected = V * (NCC_PHOTOMETRIC + 2 * NCC_GEOM) + n_prior * NCC_PRIOR
     bad = {v: e for v, e in rel.items() if not e < 0.01}
     log(f"  launches: NCC {ncc[0]} (schedule implies {expected}), plain "
@@ -1790,7 +1816,8 @@ def phase_files(params, root: str):
                enc_launches=enc_launches, enc=enc, png=png,
                raster_launches=raster[0], raster=raster_parts,
                cmyk_launches=sum(four.values()), ycck=ycck_parts,
-               ycck_read=ycck_read, webp=webp_parts)
+               ycck_read=ycck_read, webp=webp_parts,
+               lossless=lossless_parts)
     return out
 
 
@@ -2125,6 +2152,19 @@ def phase_ycck_parts(path: str, reference: str, dev):
     return out
 
 
+def cuda_timed(fn):
+    """(fn(), its ms between two CUDA events): one run of a plain twin."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    result = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return result, start.elapsed_time(end)
+
+
 def _webp_cv2() -> dict:
     """The sha-256 of WEBP_SOURCE, of cv2.imread's grey and BGR arrays of
     it and of the JAX converter's workspace image of it."""
@@ -2227,25 +2267,17 @@ def phase_webp_parts(dev):
             parts[k].append((b - a) * 1e3)
     prm = torch.from_numpy(frame.params)
 
-    def timed(fn):  # (fn(), its ms between two CUDA events): a plain twin
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        result = fn()
-        end.record()
-        torch.cuda.synchronize()
-        return result, start.elapsed_time(end)
-
     unfiltered = images.vp8_reconstruct_kernel(rec, coefs, frame.params,
                                                mb_w, mb_h)
     filtered = tuple(p.clone() for p in unfiltered)
     images.vp8_loop_filter_kernel(*filtered, rec, frame.params, mb_w, mb_h)
     got_out = images.webp_yuv_to_bgr_kernel(*filtered, W, H)
-    plains = [timed(lambda: images.vp8_reconstruct_plain(rec, coefs, prm,
-                                                         mb_w, mb_h)),
-              timed(lambda: images.vp8_loop_filter_plain(
+    plains = [cuda_timed(lambda: images.vp8_reconstruct_plain(
+                  rec, coefs, prm, mb_w, mb_h)),
+              cuda_timed(lambda: images.vp8_loop_filter_plain(
                   *unfiltered, rec, prm, mb_w, mb_h)),
-              timed(lambda: images.webp_yuv_to_bgr_plain(*filtered, W, H))]
+              cuda_timed(lambda: images.webp_yuv_to_bgr_plain(*filtered, W,
+                                                             H))]
     n_mb = mb_w * mb_h
     out = {"file_bytes": len(data), "size": [W, H], "mbs": [mb_w, mb_h],
            "header": frame.header, "equal_cv2": equal_cv2,
@@ -2288,6 +2320,195 @@ def phase_webp_parts(dev):
                     f"{v['bound_ms'] / v['ms']:.4f}; plain {v['plain_ms']:.1f})"
                     for k, v in (("reconstruction", r), ("filter", f),
                                  ("colour", o)))
+        + "; every kernel equals its plain twin")
+    return out
+
+
+def phase_lossless_parts(dev):
+    """Phase 8c: the committed lossless WebP source (3200x2130: phase 8b's
+    source as cv2 reads it, re-encoded lossless by Pillow; subtract green,
+    a predictor and a cross-colour transform) on the card. Its path, with
+    the counters set to 0 just before and read just after: the converter's
+    image step (``convert.convert_image``) and the pipeline's read
+    (``images.read_image``); the workspace image's bytes and the read's
+    grey and BGR must have cv2's recorded sha-256, and each lossless kernel
+    must have been launched as the file's transforms imply (the
+    predictor once a read, the colour kernel once a run of element-wise
+    transforms, the conversion once), no plain twin. Then one animated
+    fixture (a lossless first frame at an offset) read through the card
+    against cv2's array. Then each kernel against its plain twin on the
+    file (no entry may differ), each timed with CUDA events beside its
+    bound and the twin, and the read split, host clock around
+    synchronised calls: the container check and host entropy decode, the
+    copy of the ARGB image and the transforms' data, each kernel launch,
+    and the whole ``decode``."""
+    import numpy as np
+    import torch
+    from mpmvs_torch.io import images
+    from mpmvs_torch.preprocess import convert
+    from mpmvs_torch.utils.roofline import (vp8l_colour_bound,
+                                            vp8l_predictor_bound,
+                                            webp_argb_bound)
+    from mpmvs_torch.utils.trace import cuda_time_ms
+
+    want = _webp_cv2()["lossless"]
+    with open(LOSSLESS_SOURCE, "rb") as f:
+        data = f.read()
+    if hashlib.sha256(data).hexdigest() != want["source_sha256"]:
+        raise AssertionError(f"{LOSSLESS_SOURCE} is not the file whose cv2 "
+                             f"reads were recorded")
+    counters = {"vp8l_predictor": images.VP8L_PREDICTOR_COUNTS,
+                "vp8l_colour": images.VP8L_COLOUR_COUNTS,
+                "webp_argb_to_bgr": images.WEBP_ARGB_COUNTS}
+    with tempfile.TemporaryDirectory(prefix="mpmvs_lossless_") as tmp:
+        src, dst = os.path.join(tmp, "IMG_0003.webp"), os.path.join(
+            tmp, "00000000.jpg")
+        with open(src, "wb") as f:
+            f.write(data)
+        for c in list(counters.values()) + [images.CODEC_COUNTS]:
+            c.reset()
+        t1 = time.perf_counter()
+        convert.convert_image(src, dst, dev)
+        t2 = time.perf_counter()
+        g, c = images.read_image(src, dev)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        launches = {k: (v.kernel, v.plain) for k, v in counters.items()}
+        colour_forms = dict(images.VP8L_COLOUR_COUNTS.forms)
+        codec = dict(images.CODEC_COUNTS.forms)
+        with open(dst, "rb") as f:
+            ws = hashlib.sha256(f.read()).hexdigest()
+    equal_cv2 = {"gray": sha256_of(g) == want["gray_sha256"],
+                 "bgr": sha256_of(c) == want["bgr_sha256"],
+                 "workspace_image": ws == want["workspace_sha256"]}
+    img, info, _ = images.vp8l_frame(data, images._library())
+    runs = images.vp8l_runs(img.transforms)
+    n_pred = sum(r[0].type == images.VP8L_PREDICTOR for r in runs)
+    expected = {"vp8l_predictor": (2 * n_pred, 0),
+                "vp8l_colour": (2 * (len(runs) - n_pred), 0),
+                "webp_argb_to_bgr": (2, 0)}
+    log(f"  lossless source ({len(data)} bytes; transforms "
+        f"{[images.VP8L_TRANSFORM_NAMES[t.type] for t in img.transforms]}, "
+        f"bits {[t.bits for t in img.transforms]}; {img.stats}): converter "
+        f"image step {(t2 - t1) * 1e3:.1f} ms, read {(t3 - t2) * 1e3:.1f} "
+        f"ms; equal to cv2's (grey, BGR, the converter's workspace image): "
+        f"{equal_cv2}; launches (kernel, plain) {launches} (expected "
+        f"{expected}), colour runs {colour_forms}; codec calls {codec}")
+    if not all(equal_cv2.values()):
+        raise AssertionError(f"the lossless source differs from cv2: "
+                             f"{equal_cv2}")
+    if launches != expected or codec.get("webp_lossless") != 2:
+        raise AssertionError(f"lossless path launches {launches}, codec "
+                             f"calls {codec}: expected {expected} and 2 "
+                             f"lossless reads (the converter's and the "
+                             f"pipeline's), no plain call")
+    arrays = np.load(os.path.join(os.path.dirname(ANIMATED_FIXTURE),
+                                  "cv2_arrays.npz"))
+    stem = os.path.basename(ANIMATED_FIXTURE)[:-5]
+    before = images.CODEC_COUNTS.forms.get("webp_animated", 0)
+    ag, ac = images.read_image(ANIMATED_FIXTURE, dev)
+    animated = {"gray": bool(np.array_equal(ag.cpu().numpy(),
+                                            arrays[f"gray_{stem}"])),
+                "bgr": bool(np.array_equal(ac.cpu().numpy(),
+                                           arrays[f"bgr_{stem}"])),
+                "shape": list(ac.shape),
+                "reads": images.CODEC_COUNTS.forms.get("webp_animated",
+                                                       0) - before}
+    log(f"  animated fixture {stem} (a 30x20 lossless first frame at (4, 8) "
+        f"on a 60x50 canvas) vs cv2's arrays: {animated}")
+    if not (animated["gray"] and animated["bgr"] and animated["reads"] == 1):
+        raise AssertionError(f"the animated fixture differs from cv2: "
+                             f"{animated}")
+
+    H, W = img.height, img.width
+    parts = {k: [] for k in ["host_decode_ms", "copy_to_card_ms"] + [
+        f"launch_{i}_ms" for i in range(len(runs))] + ["argb_to_bgr_ms",
+                                                      "decode_ms"]}
+    for _ in range(3):
+        torch.cuda.synchronize()
+        marks = [time.perf_counter()]
+        img, info, _ = images.vp8l_frame(data, images._library())
+        marks.append(time.perf_counter())
+        argb, transforms = images.vp8l_upload(img, dev)
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        for run in images.vp8l_runs(transforms):
+            argb = images.vp8l_inverse(argb, run[::-1])
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+        images.webp_argb_to_bgr_kernel(argb, info.canvas, info.offset)
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        images.decode(data, dev)
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        for k, a, b in zip(parts, marks, marks[1:]):
+            parts[k].append((b - a) * 1e3)
+
+    argb, transforms = images.vp8l_upload(img, dev)
+    out = {"file_bytes": len(data), "size": [W, H],
+           "transforms": [images.VP8L_TRANSFORM_NAMES[t.type]
+                          for t in img.transforms],
+           "bits": [t.bits for t in img.transforms], "stats": img.stats,
+           "equal_cv2": equal_cv2, "launches": launches,
+           "colour_runs": colour_forms, "animated_fixture": animated,
+           **parts, "runs": []}
+    for run in images.vp8l_runs(transforms):
+        if run[0].type == images.VP8L_PREDICTOR:
+            name = "vp8l_predictor"
+            fn = lambda: images.vp8l_predictor_kernel(argb, run[0].data,
+                                                      run[0].bits)
+            plain = lambda: images.vp8l_predictor_plain(argb, run[0].data,
+                                                        run[0].bits)
+            bnd = vp8l_predictor_bound(H, argb.shape[1], run[0].data.numel())
+        else:
+            name = "vp8l_colour"
+            fn = lambda: images.vp8l_colour_kernel(argb, run)
+            plain = lambda: images.vp8l_colour_plain(argb, run)
+            bnd = vp8l_colour_bound(H, argb.shape[1], run[-1].xsize,
+                                    sum(t.data.numel() for t in run))
+        got = fn()
+        want_k, plain_ms = cuda_timed(plain)
+        err = differing(got, want_k)
+        if err[0]:
+            raise AssertionError(f"{name} kernel vs plain at full size "
+                                 f"({[t.type for t in run]}): {err}")
+        out["runs"].append({
+            "kernel": name, "form": "+".join(
+                images.VP8L_TRANSFORM_NAMES[t.type] for t in run),
+            "ms": cuda_time_ms(fn, 20), "plain_ms": plain_ms,
+            "bound_ms": bnd[0], "bound_by": bnd[1], "vs_plain": err,
+            "max_abs_err": err[1]})
+        argb = got
+    got = images.webp_argb_to_bgr_kernel(argb, info.canvas, info.offset)
+    want_k, plain_ms = cuda_timed(lambda: images.webp_argb_to_bgr_plain(
+        argb, info.canvas, info.offset))
+    err = [differing(a, b) for a, b in zip(got, want_k)]
+    if any(e[0] for e in err):
+        raise AssertionError(f"webp_argb_to_bgr kernel vs plain at full "
+                             f"size: {err}")
+    bnd = webp_argb_bound(H, W, W, H)
+    out["webp_argb_to_bgr"] = {
+        "ms": cuda_time_ms(lambda: images.webp_argb_to_bgr_kernel(
+            argb, info.canvas, info.offset), 20),
+        "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1],
+        "vs_plain": err, "max_abs_err": max(e[1] for e in err)}
+    for name in ("vp8l_predictor", "vp8l_colour"):
+        first = next(r for r in out["runs"] if r["kernel"] == name)
+        out[name] = dict(first, forms=[r for r in out["runs"]
+                                       if r["kernel"] == name])
+    log(f"  lossless read at {W}x{H}: host container check and entropy "
+        f"decode {np.round(parts['host_decode_ms'], 2)} ms; copy to the "
+        f"card {np.round(parts['copy_to_card_ms'], 2)} ms; "
+        + "; ".join(f"{r['form']} {np.round(parts[f'launch_{i}_ms'], 3)} ms"
+                    for i, r in enumerate(out["runs"]))
+        + f"; conversion {np.round(parts['argb_to_bgr_ms'], 3)} ms (host "
+        f"clock); decode {np.round(parts['decode_ms'], 2)} ms. CUDA events: "
+        + "; ".join(f"{r['form']} {r['ms']:.4f} ms (bound "
+                    f"{r['bound_ms']:.4f}, share "
+                    f"{r['bound_ms'] / r['ms']:.4f}; plain "
+                    f"{r['plain_ms']:.1f})" for r in out["runs"] + [dict(
+                        out["webp_argb_to_bgr"], form="conversion")])
         + "; every kernel equals its plain twin")
     return out
 
@@ -2541,8 +2762,8 @@ def main(argv=None) -> int:
     # the codec (host decode and encode, the IDCT and colour kernels, the
     # encoder's colour and DCT kernels, PNG reads): no TPU kernel's
     # counterpart; the details on a line of their own
-    enc, png, rast, webp = (files["enc"], files["png"], files["raster"],
-                            files["webp"])
+    enc, png, rast, webp, ll = (files["enc"], files["png"], files["raster"],
+                                files["webp"], files["lossless"])
     codec_kernel = lambda k: {
         "source": "mpmvs_torch/csrc/jpeg_codec.cu",
         "launches": files[f"{k}_launches"], "ms": files[f"{k}_ms"],
@@ -2565,7 +2786,9 @@ def main(argv=None) -> int:
         "raster_reads": {k: {f: v for f, v in r.items() if f != "form"}
                          for k, r in files["raster"].items()},
         "ycck_read": files["ycck"], "ycck_vs_cv2": files["ycck_read"],
-        "webp_read": webp,
+        "webp_read": webp, "lossless_webp_read": {
+            k: v for k, v in ll.items() if k not in (
+                "vp8l_predictor", "vp8l_colour", "webp_argb_to_bgr")},
         "four_component_fixtures_equal_cv2":
             fixture_facts["four_component_equal_cv2"],
         "image": [W_FULL, H_FULL], "calls_phase8": files["codec"],
@@ -2718,7 +2941,25 @@ def main(argv=None) -> int:
         for k, (name, header) in enumerate((
             ("vp8_reconstruct", "vp8_recon.h"),
             ("vp8_loop_filter", "vp8_filter.h"),
-            ("webp_yuv_to_bgr", "webp_colour.h")))]}))
+            ("webp_yuv_to_bgr", "webp_colour.h")))] + [
+        entry(name, "jpeg_codec.cu", "none: cv2.imread (of a lossless or "
+              "animated WebP: mpmvs_tpu/pipeline.py:60, "
+              "mpmvs_tpu/preprocess/convert.py:161); the arithmetic in "
+              "mpmvs_torch/csrc/vp8l_transform.h", ll["launches"][name][0],
+              ll[name]["max_abs_err"], ll[name]["ms"], ll[name]["plain_ms"],
+              (ll[name]["bound_ms"], ll[name]["bound_by"]),
+              scope=f"the {ll['size'][0]}x{ll['size'][1]} lossless WebP "
+              f"source (phase 8c), one launch{scope}; launches: the "
+              f"converter's read and the pipeline's",
+              **({"forms": [{k: r[k] for k in ("form", "ms", "plain_ms",
+                                               "bound_ms", "max_abs_err")}
+                            for r in ll[name]["forms"]]}
+                 if "forms" in ll[name] else {}))
+        for name, scope in (
+            ("vp8l_predictor", ""),
+            ("vp8l_colour", " a run of element-wise transforms (the "
+             "cross-colour run; the add-green run beside it)"),
+            ("webp_argb_to_bgr", ""))]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

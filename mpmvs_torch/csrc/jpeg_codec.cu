@@ -1,5 +1,6 @@
 // JPEG decode and encode on the card for the port's workspace I/O (sm_90a),
-// the host half of its PNG and TIFF reads, and its lossy WebP reads.
+// the host half of its PNG and TIFF reads, and its lossy, lossless and
+// animated WebP reads.
 //
 // No TPU kernel has this work: the JAX package reads and writes images with
 // OpenCV (cv2.imread / cv2.imwrite, which code JPEGs with libjpeg-turbo).
@@ -67,8 +68,8 @@
 // The C interface below is bound with ctypes by mpmvs_torch/io/images.py.
 // Every function returns 0 or an error code: a decode error of
 // jpeg_entropy.h (2001-2011), an encode or PNG error (2010, 3001-3002), a
-// TIFF error (4001-4018), a WebP error (webp_decode.h, 5001-5007) or a CUDA
-// error offset by 1000.
+// TIFF error (4001-4018), a WebP error (webp_decode.h, 5001-5007;
+// webp_lossless.h, 5008-5011) or a CUDA error offset by 1000.
 
 #include <cuda_runtime.h>
 
@@ -85,8 +86,10 @@
 #include "tiff_decode.h"
 #include "vp8_filter.h"
 #include "vp8_recon.h"
+#include "vp8l_transform.h"
 #include "webp_colour.h"
 #include "webp_decode.h"
+#include "webp_lossless.h"
 
 #define CODEC_CUDA_ERR 1000
 
@@ -493,6 +496,211 @@ extern "C" int webp_yuv_to_bgr_launch(const unsigned char* y,
   size_t n = (size_t)w * h;
   webp_yuv_to_bgr_kernel<<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
       y, u, v, mb_w, w, h, bgr, gray);
+  cudaError_t e = cudaGetLastError();
+  return e == cudaSuccess ? 0 : CODEC_CUDA_ERR + (int)e;
+}
+
+// Lossless WebP reads (VP8L frames of still files, and of the first frame
+// of an animated file): webp_lossless.h entropy-decodes the bitstream on
+// the host (vp8l_host_decode: prefix codes, colour cache, LZ77) into the
+// coded ARGB image and the transforms' data; they are copied to the card,
+// where the inverse transforms run in the file's reverse order:
+//   * vp8l_predictor_kernel, the inverse predictor. Pixel (x, y) needs the
+//     rebuilt (x - 1, y), (x - 1, y - 1), (x, y - 1) and (x + 1, y - 1):
+//     a wavefront. One warp takes a band of 32 rows, lane i row i, and
+//     walks it skewed: at step s lane i rebuilds column s - 2 i, so the
+//     row above's three neighbours were rebuilt by lane i - 1 one, two and
+//     three steps before: one shuffle a step, the other two kept from the
+//     steps before. The band's first row reads the band above's last row,
+//     which that band's last lane writes column by column as tagged 64-bit
+//     words (tag and pixel in one relaxed store, so no fence); before
+//     each 32 steps the warp polls the 33 columns they need (bands are
+//     claimed in order from a ticket and a band waits only on the band
+//     above, so no deadlock; a wait of seconds traps instead of hanging,
+//     as vp8_row_walk does). A band walks its steps 32 at a time, fully
+//     unrolled; the residuals are loaded 32 columns ahead, coalesced, into
+//     registers and staged in a shared ring of 128 columns; every mode is
+//     computed and the pixel's picked by a select tree, so the lanes do
+//     not diverge. One warp alone on its SM issues the steps in order, so
+//     a step costs its instructions' latency; the critical path is
+//     W + 2 (H - 1) steps plus each band's wait (about 33 columns).
+//   * vp8l_colour_kernel, one thread an output pixel: a run of
+//     consecutive element-wise inverse transforms (cross-colour, add green,
+//     colour indexing, which widens the image), one launch a run;
+//   * webp_argb_to_bgr_kernel, one thread a canvas pixel: cv2.imread's BGR
+//     and grey of the ARGB frame at its offset on a canvas of zeros.
+// vp8l_transform.h holds their arithmetic. All bound by bytes: the
+// predictor reads 4 bytes a pixel and the modes and writes 4, the colour
+// kernel reads at most 4 and writes 4, the conversion reads 4 and writes 4.
+
+__device__ __forceinline__ unsigned long long vp8l_load_relaxed(
+    const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];"
+               : "=l"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void vp8l_store_relaxed(unsigned long long* p,
+                                                   unsigned long long v) {
+  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v));
+}
+
+// sync: 1 + W zeroed 64-bit words: the ticket (its low half), then per
+// column the last rebuilt row of a band above: (band + 1) << 32 | pixel,
+// each written whole by one relaxed 64-bit store, so a reader that sees the
+// tag it waits for has the pixel with it (no fence).
+__global__ void __launch_bounds__(32)
+    vp8l_predictor_kernel(const uint32_t* __restrict__ res,
+                          const uint32_t* __restrict__ modes, int bits,
+                          int W, int H, uint32_t* __restrict__ out,
+                          unsigned long long* sync) {
+  __shared__ uint32_t tile[32][129];  // residuals: 32 rows, 128 columns
+  const unsigned full = 0xffffffffu;
+  const int lane = threadIdx.x;
+  const int tiles = (W + (1 << bits) - 1) >> bits;
+  unsigned long long* edge = sync + 1;
+  for (;;) {
+    int band = 0;
+    if (lane == 0) band = atomicAdd((int*)sync, 1);
+    band = __shfl_sync(full, band, 0);
+    const int y0 = 32 * band;
+    if (y0 >= H) return;
+    const int rows = min(32, H - y0), y = y0 + lane;
+    const int ym = min(y, H - 1);  // a lane past the image reads row H - 1
+    const unsigned long long tag = (unsigned long long)(band + 1) << 32;
+    uint32_t pre[32];  // the next 32 columns' residuals, one row each
+    auto prefetch = [&](int col) {
+#pragma unroll
+      for (int r = 0; r < 32; r++)
+        pre[r] = r < rows && col < W
+                     ? __ldg(res + (size_t)(y0 + r) * W + col) : 0u;
+    };
+    prefetch(lane);
+    // h1: own last output (L); t, tl: the row above at this step's column
+    // and the one before (what tr was one and two steps ago)
+    uint32_t h1 = 0, first = 0, t = 0, tl = 0;
+    for (int c = 0, steps = W + 2 * (rows - 1); 32 * c < steps; c++) {
+      const int col = 32 * c + lane;
+      __syncwarp();
+#pragma unroll
+      for (int r = 0; r < 32; r++) tile[r][col & 127] = pre[r];
+      prefetch(col + 32);  // in flight while these 32 columns are rebuilt
+      // the row above at columns 32 c + lane (and 32 c + 32 on lane 0):
+      // lane 0's neighbours above for this block's 32 steps
+      uint32_t above = 0, beyond = 0;
+      if (band > 0) {
+        for (long long spins = 0;; spins++) {
+          bool ok = true;
+          unsigned long long e = 0, e2 = 0;
+          if (col < W) {
+            e = vp8l_load_relaxed(edge + col);
+            ok = (e >> 32) == (unsigned long long)band;
+          }
+          if (lane == 0 && col + 32 < W) {
+            e2 = vp8l_load_relaxed(edge + col + 32);
+            ok = ok && (e2 >> 32) == (unsigned long long)band;
+          }
+          if (__all_sync(full, ok)) {
+            above = (uint32_t)e;
+            beyond = (uint32_t)e2;
+            break;
+          }
+          // a wait of seconds means a broken dependency: fault, not hang
+          if (spins > (1ll << 26)) __trap();
+          __nanosleep(32);
+        }
+        if (c == 0) t = __shfl_sync(full, above, 0);
+      }
+#pragma unroll
+      for (int j = 0; j < 32; j++) {
+        const int x = 32 * c + j - 2 * lane;
+        // top-right: lane i - 1's last output; lane 0's from the row above
+        const uint32_t up = __shfl_up_sync(full, h1, 1);
+        const uint32_t above_tr = j < 31 ? __shfl_sync(full, above, j + 1)
+                                         : __shfl_sync(full, beyond, 0);
+        const uint32_t tr = lane ? up : above_tr;
+        // every lane computes a pixel, in or out of the image (straight
+        // code the compiler can interleave across steps); only pixels in
+        // it are stored and used
+        const int xm = min(max(x, 0), W - 1);
+        const uint32_t pix = vp8l::predictor_pixel(
+            tile[lane][x & 127], x, y, h1, t, tl, x == W - 1 ? first : tr,
+            vp8l::predictor_mode(modes, bits, tiles, xm, ym));
+        if (lane < rows && x >= 0 && x < W) {
+          out[(size_t)y * W + x] = pix;
+          if (x == 0) first = pix;
+          if (lane == rows - 1) vp8l_store_relaxed(edge + x, tag | pix);
+        }
+        tl = t;
+        t = tr;
+        h1 = pix;
+      }
+    }
+  }
+}
+
+// Enough warps for every band at once (at most 1024).
+extern "C" int vp8l_predictor_launch(const unsigned* res,
+                                     const unsigned* modes, int bits, int W,
+                                     int H, unsigned* out,
+                                     unsigned long long* sync,
+                                     cudaStream_t stream) {
+  const int bands = (H + 31) / 32;
+  vp8l_predictor_kernel<<<bands < 1024 ? bands : 1024, 32, 0, stream>>>(
+      res, modes, bits, W, H, out, sync);
+  cudaError_t e = cudaGetLastError();
+  return e == cudaSuccess ? 0 : CODEC_CUDA_ERR + (int)e;
+}
+
+__global__ void vp8l_colour_kernel(const uint32_t* __restrict__ in,
+                                   vp8l::Run run, uint32_t* __restrict__ out) {
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= (size_t)run.out_w * run.h) return;
+  out[i] = vp8l::colour_pixel(run, in, (int)(i % run.out_w),
+                              (int)(i / run.out_w));
+}
+
+// desc: n, in_w, out_w, h, then per transform (order applied) its type,
+// bits and output width; data: its data pointer (NULL for add green).
+extern "C" int vp8l_colour_launch(const unsigned* in, const int* desc,
+                                  const unsigned* const* data, unsigned* out,
+                                  cudaStream_t stream) {
+  vp8l::Run run = {};
+  run.n = desc[0];
+  run.in_w = desc[1];
+  run.out_w = desc[2];
+  run.h = desc[3];
+  for (int j = 0; j < run.n && j < 3; j++)
+    run.t[j] = {desc[4 + 3 * j], desc[5 + 3 * j], desc[6 + 3 * j], data[j]};
+  const size_t n = (size_t)run.out_w * run.h;
+  vp8l_colour_kernel<<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
+      in, run, out);
+  cudaError_t e = cudaGetLastError();
+  return e == cudaSuccess ? 0 : CODEC_CUDA_ERR + (int)e;
+}
+
+__global__ void webp_argb_to_bgr_kernel(const uint32_t* __restrict__ argb,
+                                        int w, int h, int ox, int oy,
+                                        int cw, int ch,
+                                        unsigned char* __restrict__ bgr,
+                                        unsigned char* __restrict__ gray) {
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= (size_t)cw * ch) return;
+  vp8l::canvas_pixel(argb, w, h, ox, oy, (int)(i % cw), (int)(i / cw),
+                     bgr + 3 * i, gray + i);
+}
+
+extern "C" int webp_argb_to_bgr_launch(const unsigned* argb, int w, int h,
+                                       int ox, int oy, int cw, int ch,
+                                       unsigned char* bgr,
+                                       unsigned char* gray,
+                                       cudaStream_t stream) {
+  const size_t n = (size_t)cw * ch;
+  webp_argb_to_bgr_kernel<<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
+      argb, w, h, ox, oy, cw, ch, bgr, gray);
   cudaError_t e = cudaGetLastError();
   return e == cudaSuccess ? 0 : CODEC_CUDA_ERR + (int)e;
 }

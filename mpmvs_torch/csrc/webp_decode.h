@@ -26,10 +26,11 @@
 // The boolean decoder reads past the end of a partition as zeros (libwebp
 // too, for the bytes its reader looks ahead); a partition that needs more
 // than 2 such bytes is corrupt. The RIFF container is checked in
-// mpmvs_torch/io/images.py before this runs (what the card refuses:
-// lossless VP8L, animation); here its VP8 chunk is found.
+// mpmvs_torch/io/images.py before this runs, and a lossy first frame of
+// an animated file is handed here as a still file of its VP8 chunk; here
+// the VP8 chunk is found (a VP8L frame goes to webp_lossless.h).
 //
-// Errors are 5001-5008 (images.py names each).
+// Errors are 5001-5007 (images.py names each).
 
 #pragma once
 

@@ -1,5 +1,5 @@
-"""Image files of a workspace: JPEG, PNG, TIFF and lossy WebP reads, JPEG
-and PNG writes.
+"""Image files of a workspace: JPEG, PNG, TIFF and WebP reads, JPEG and PNG
+writes.
 
 The JAX package reads and writes images with OpenCV. Here the device picks
 the codec:
@@ -40,6 +40,19 @@ the codec:
         (``vp8_loop_filter_kernel``), both as macroblock-row wavefronts, and
         makes libwebp's fancy-upsampled BGR and OpenCV's grey of it
         (``webp_yuv_to_bgr_kernel``);
+      - lossless WebP reads (VP8L frames, simple or VP8X files, the EXIF
+        orientation applied) and animated ones (cv2's read: the first ANMF
+        frame, lossy or lossless, at its offset (2 X, 2 Y) on a canvas of
+        zeros the VP8X's size): the container is walked here
+        (:func:`webp_container`), the host entropy-decodes a VP8L frame
+        (``csrc/webp_lossless.h``: prefix codes, colour cache, LZ77, the
+        transforms' data; :func:`vp8l_decode`), and the card undoes its
+        transforms in the file's reverse order, the predictor as a pixel
+        wavefront (``vp8l_predictor_kernel``), each run of element-wise
+        ones (cross-colour, add green, colour indexing) in one launch
+        (``vp8l_colour_kernel``), and makes cv2's BGR (alpha dropped) and
+        grey on the canvas (``webp_argb_to_bgr_kernel``); a lossy first
+        frame takes the lossy kernels and is placed on the canvas;
       - JPEG writes: cv2.imencode's bytes (4:2:0 colour or grey, standard
         Huffman tables) from the card's colour conversion and downsampling
         (``bgr_to_ycc_kernel``) and forward DCT and quantization
@@ -48,8 +61,9 @@ the codec:
     A kernel that fails to build or launch raises, and so does a file the card
     cannot read, naming why (12-bit, arithmetic-coded and lossless JPEGs;
     JPEG-compressed, YCbCr, CIELab, signed, float and old-style LZW TIFFs;
-    lossless and animated WebP; other formats; and what cv2 does not read
-    either). Nothing falls back to OpenCV or to the CPU.
+    other formats; and what cv2 does not read either, such as a WebP whose
+    first frame runs past its canvas or whose prefix codes libwebp
+    rejects). Nothing falls back to OpenCV or to the CPU.
   * on the CPU, through OpenCV, imported only there: the CPU tests hold the
     port's reads and writes against the JAX package's OpenCV calls.
 
@@ -62,15 +76,19 @@ Each kernel has a plain PyTorch version beside it, for the tests
 :func:`idct_islow_plain`, :func:`bgr_to_ycc_plain`,
 :func:`fdct_islow_plain`, :func:`raster_to_bgr_plain`,
 :func:`vp8_reconstruct_plain`, :func:`vp8_loop_filter_plain`,
-:func:`webp_yuv_to_bgr_plain`). ``COUNTS`` counts
+:func:`webp_yuv_to_bgr_plain`, :func:`vp8l_predictor_plain`,
+:func:`vp8l_colour_plain`, :func:`webp_argb_to_bgr_plain`). ``COUNTS`` counts
 launches of the colour kernels (form ``"rgb"`` for RGB components,
 ``"cmyk"`` and ``"ycck"`` for ``cmyk_to_bgr_kernel``) and their plain calls
 (the four-component ones by form in ``plain_forms``), ``IDCT_COUNTS``,
 ``YCC_COUNTS``, ``FDCT_COUNTS``, ``RASTER_COUNTS``, ``VP8_RECON_COUNTS``,
-``VP8_FILTER_COUNTS`` and ``WEBP_COLOUR_COUNTS`` those of the IDCT,
-encoder colour, forward DCT, raster and WebP kernels; ``CODEC_COUNTS``
-counts host decodes (``forms["decode"]``), PNG, TIFF and WebP reads
-(``forms["png"]``, ``forms["tiff"]``, ``forms["webp"]``) and encodes
+``VP8_FILTER_COUNTS``, ``WEBP_COLOUR_COUNTS``, ``VP8L_PREDICTOR_COUNTS``,
+``VP8L_COLOUR_COUNTS`` (by run, ``forms``) and ``WEBP_ARGB_COUNTS`` those
+of the IDCT, encoder colour, forward DCT, raster and WebP kernels;
+``CODEC_COUNTS`` counts host decodes (``forms["decode"]``), PNG, TIFF and
+WebP reads (``forms["png"]``, ``forms["tiff"]``, ``forms["webp"]`` for a
+lossy still file, ``"webp_lossless"`` for a lossless one,
+``"webp_animated"`` for an animated one) and encodes
 (``forms["encode"]``).
 """
 
@@ -145,12 +163,22 @@ _CODE_ERRORS = {
           "does not read either",
     5001: "a truncated WebP (a header or partition ends early)",
     5002: "a malformed WebP (not RIFF/WEBP, or a chunk out of bounds)",
-    5003: "a lossless WebP (VP8L), which the card does not decode",
-    5004: "an animated WebP (ANIM/ANMF chunks), which the card does not "
-          "read",
+    5003: "a WebP whose frame is lossless (VP8L), handed to the lossy "
+          "(VP8) decoder",
+    5004: "an animated WebP (ANIM/ANMF chunks), handed whole to the still "
+          "lossy (VP8) decoder",
     5005: "a malformed WebP (no VP8 chunk)",
     5006: "a WebP whose VP8 data is not a shown key frame of non-zero size",
-    5007: "a corrupt WebP (a VP8 partition read well past its end)"}
+    5007: "a corrupt WebP (a VP8 partition read well past its end)",
+    5008: "a lossless WebP (VP8L) whose header is not VP8L's (signature "
+          "0x2f, version 0, 5 bytes), which libwebp refuses too",
+    5009: "a truncated lossless WebP (its VP8L data ends before the image "
+          "does), which libwebp refuses too",
+    5010: "a lossless WebP (VP8L) with a prefix code libwebp rejects too "
+          "(over-subscribed, incomplete or empty)",
+    5011: "a malformed lossless WebP (VP8L: a transform repeated, colour "
+          "cache bits outside 1-11, or a back-reference outside the "
+          "image), which libwebp refuses too"}
 
 _MAGIC = ((b"\xff\xd8\xff", "JPEG"), (b"\x89PNG\r\n\x1a\n", "PNG"),
           (b"II*\x00", "TIFF"), (b"MM\x00*", "TIFF"), (b"II+\x00", "TIFF"),
@@ -200,6 +228,9 @@ def bind_host(lib):
         lib.webp_host_decode.argtypes = [ctypes.c_char_p, sz, vp, vp, vp]
         for fn in ("webp_host_header", "webp_host_decode"):
             getattr(lib, fn).restype = i
+    if hasattr(lib, "vp8l_host_decode"):  # a build with webp_lossless.h
+        lib.vp8l_host_decode.argtypes = [ctypes.c_char_p, sz, vp, vp, vp, vp]
+        lib.vp8l_host_decode.restype = i
     return lib
 
 
@@ -224,11 +255,15 @@ def _library():
                                            vp]
     lib.vp8_loop_filter_launch.argtypes = [vp, vp, i, i, vp, vp, vp, vp, vp]
     lib.webp_yuv_to_bgr_launch.argtypes = [vp, vp, vp, i, i, i, vp, vp, vp]
+    lib.vp8l_predictor_launch.argtypes = [vp, vp, i, i, i, vp, vp, vp]
+    lib.vp8l_colour_launch.argtypes = [vp, vp, vp, vp, vp]
+    lib.webp_argb_to_bgr_launch.argtypes = [vp, i, i, i, i, i, i, vp, vp, vp]
     for fn in ("jpeg_host_decode", "jpeg_host_upload", "idct_islow_launch",
                "ycc_to_bgr_launch", "cmyk_to_bgr_launch", "bgr_to_ycc_launch",
                "fdct_islow_launch", "raster_to_bgr_launch",
                "vp8_reconstruct_launch", "vp8_loop_filter_launch",
-               "webp_yuv_to_bgr_launch"):
+               "webp_yuv_to_bgr_launch", "vp8l_predictor_launch",
+               "vp8l_colour_launch", "webp_argb_to_bgr_launch"):
         getattr(lib, fn).restype = i
     return lib
 
@@ -1051,13 +1086,69 @@ class VP8Frame(NamedTuple):
         return self.header["mb_h"], self.header["mb_w"]
 
 
-def webp_container(data: bytes) -> Tuple[bytes, Optional[bytes]]:
-    """Walk a WebP's RIFF chunks, as libwebp does, and refuse, naming the
-    cause, what the card does not read: a RIFF that is not WEBP or is
-    shorter than its size, a chunk past the end, a lossless (VP8L) or an
-    animated (ANIM, ANMF) file, a VP8X canvas other than the frame's size,
-    no VP8 frame. Returns the VP8 chunk's payload and the EXIF chunk's
-    payload (None without one)."""
+class WebPFile(NamedTuple):
+    """What a WebP's RIFF chunks say (:func:`webp_container`): the frame
+    cv2.imread reads (a still file's, or an animated file's first) with
+    its kind ("lossy": VP8, "lossless": VP8L) and its chunk's payload, the
+    EXIF chunk's payload (None without one), the canvas, the frame's
+    offset on it and its size, each (x, y) or (width, height)."""
+    kind: str
+    frame: bytes
+    exif: Optional[bytes]
+    canvas: Tuple[int, int]
+    offset: Tuple[int, int]
+    size: Tuple[int, int]
+    animated: bool
+
+
+def _le24(b: bytes) -> int:
+    return int.from_bytes(b[:3], "little")
+
+
+def _riff_chunks(data: bytes, pos: int, end: int):
+    """(fourcc, payload) of the chunks of data[pos:end]; a chunk that ends
+    past ``end`` raises."""
+    out = []
+    while pos + 8 <= end:
+        fourcc = data[pos:pos + 4]
+        n = struct.unpack("<I", data[pos + 4:pos + 8])[0]
+        if n > end - pos - 8:
+            raise ValueError(f"a truncated WebP (its {fourcc!r} chunk "
+                             f"ends past the file)")
+        out.append((fourcc, data[pos + 8:pos + 8 + n]))
+        pos += 8 + n + (n & 1)
+    return out
+
+
+def vp8l_header(payload: bytes) -> Tuple[int, int]:
+    """(width, height) of a VP8L chunk's payload; raises, as libwebp
+    refuses them, on a wrong signature, a version other than 0 or fewer
+    than 5 bytes (webp_lossless.h read_header, code 5008)."""
+    if len(payload) < 5 or payload[0] != 0x2F or payload[4] >> 5:
+        raise ValueError(_CODE_ERRORS[5008])
+    bits = struct.unpack("<I", payload[1:5])[0]
+    return (bits & 0x3FFF) + 1, ((bits >> 14) & 0x3FFF) + 1
+
+
+def _frame_size(fourcc: bytes, payload: bytes) -> Tuple[int, int]:
+    if fourcc == b"VP8L":
+        return vp8l_header(payload)
+    if len(payload) < 10 or payload[3:6] != b"\x9d\x01\x2a":
+        raise ValueError("a malformed WebP (no VP8 key frame)")
+    return tuple(v & 0x3FFF for v in struct.unpack("<HH", payload[6:10]))
+
+
+def webp_container(data: bytes) -> WebPFile:
+    """Walk a WebP's RIFF chunks as libwebp (and its demuxer, for an
+    animated file) does and find the frame cv2.imread reads: a still
+    file's first VP8 or VP8L chunk (simple or VP8X format), or an animated
+    file's (VP8X with the animation flag) first ANMF frame, placed at its
+    offset (2 X, 2 Y) on the VP8X canvas. Refuses, naming the cause, what
+    libwebp refuses: a RIFF that is not WEBP or is shorter than its size,
+    a chunk past the end, no frame, a VP8L header that is not VP8L's, a
+    still file whose VP8X canvas is not its frame's size, an animated file
+    without an ANMF or whose ANIM comes after it, a first frame that runs
+    past the canvas."""
     kind = image_format(data)
     if kind != "WebP":
         raise ValueError(f"not a WebP ({kind})")
@@ -1065,46 +1156,86 @@ def webp_container(data: bytes) -> Tuple[bytes, Optional[bytes]]:
     if len(data) < 12 or size < 12 or size > len(data) - 8:
         raise ValueError(f"a truncated WebP (its RIFF header says {size + 8}"
                          f" bytes, the file holds {len(data)})")
-    end, pos, found = 8 + size, 12, {}
-    while pos + 8 <= end:
-        fourcc = data[pos:pos + 4]
-        n = struct.unpack("<I", data[pos + 4:pos + 8])[0]
-        if n > end - pos - 8:
-            raise ValueError(f"a truncated WebP (its {fourcc!r} chunk "
-                             f"ends past the file)")
-        if fourcc == b"VP8L":
-            raise ValueError("a lossless WebP (VP8L), which the card does "
-                             "not decode (it reads lossy VP8 frames)")
-        if fourcc in (b"ANIM", b"ANMF"):
-            raise ValueError("an animated WebP (ANIM/ANMF chunks), which the "
-                             "card does not read")
-        found.setdefault(fourcc, data[pos + 8:pos + 8 + n])
-        pos += 8 + n + (n & 1)
-    vp8 = found.get(b"VP8 ")
-    if vp8 is None or len(vp8) < 10 or vp8[3:6] != b"\x9d\x01\x2a":
-        raise ValueError("a malformed WebP (no VP8 key frame)")
-    w, h = [v & 0x3fff for v in struct.unpack("<HH", vp8[6:10])]
-    if b"VP8X" in found and len(found[b"VP8X"]) >= 10:
-        x = found[b"VP8X"]
-        cw, ch = (1 + int.from_bytes(x[4:7], "little"),
-                  1 + int.from_bytes(x[7:10], "little"))
-        if (cw, ch) != (w, h):
-            raise ValueError(f"a WebP whose VP8X canvas ({cw}x{ch}) differs "
-                             f"from its frame ({w}x{h}), which libwebp "
+    chunks = _riff_chunks(data, 12, 8 + size)
+    first = {}
+    for fourcc, payload in chunks:
+        first.setdefault(fourcc, payload)
+    exif, x = first.get(b"EXIF"), first.get(b"VP8X")
+    canvas = None
+    if x is not None and len(x) >= 10:
+        canvas = 1 + _le24(x[4:7]), 1 + _le24(x[7:10])
+    frames = (b"VP8 ", b"VP8L")
+    if canvas is not None and x[0] & 0x02:  # the animation flag
+        names = [f for f, _ in chunks]
+        if b"ANMF" not in names:
+            raise ValueError("an animated WebP without a frame (no ANMF "
+                             "chunk), which libwebp refuses too")
+        if b"ANIM" not in names[:names.index(b"ANMF")]:
+            raise ValueError("an animated WebP whose first ANMF frame comes "
+                             "before its ANIM chunk, which libwebp refuses "
+                             "too")
+        anmf = first[b"ANMF"]
+        if len(anmf) < 16:
+            raise ValueError("a truncated WebP (an ANMF chunk shorter than "
+                             "its header)")
+        inner = [c for c in _riff_chunks(anmf, 16, len(anmf))
+                 if c[0] in frames]
+        if not inner:
+            raise ValueError("an animated WebP whose first frame holds no "
+                             "VP8 or VP8L bitstream")
+        fourcc, frame = inner[0]
+        offset = 2 * _le24(anmf[0:3]), 2 * _le24(anmf[3:6])
+        w, h = _frame_size(fourcc, frame)
+        if offset[0] + w > canvas[0] or offset[1] + h > canvas[1]:
+            raise ValueError(f"an animated WebP whose first frame ({w}x{h} "
+                             f"at {offset}) runs past its canvas "
+                             f"({canvas[0]}x{canvas[1]}), which libwebp "
                              f"refuses too")
-    return vp8, found.get(b"EXIF")
+        return WebPFile("lossless" if fourcc == b"VP8L" else "lossy", frame,
+                        exif, canvas, offset, (w, h), True)
+    still = [c for c in chunks if c[0] in frames]
+    if not still:
+        raise ValueError("a malformed WebP (no VP8 or VP8L frame)")
+    fourcc, frame = still[0]
+    w, h = _frame_size(fourcc, frame)
+    if canvas is not None and canvas != (w, h):
+        raise ValueError(f"a WebP whose VP8X canvas ({canvas[0]}x"
+                         f"{canvas[1]}) differs from its frame ({w}x{h}), "
+                         f"which libwebp refuses too")
+    return WebPFile("lossless" if fourcc == b"VP8L" else "lossy", frame, exif,
+                    (w, h), (0, 0), (w, h), False)
+
+
+def _riff(chunks) -> bytes:
+    """A RIFF/WEBP file of (fourcc, payload) chunks."""
+    body = b"WEBP" + b"".join(
+        f + struct.pack("<I", len(p)) + p + b"\x00" * (len(p) & 1)
+        for f, p in chunks)
+    return b"RIFF" + struct.pack("<I", len(body)) + body
+
+
+def webp_orientation(info: WebPFile, lib) -> int:
+    """The EXIF chunk's orientation (1 without one): cv2 applies it to
+    lossy, lossless and animated files alike."""
+    return 1 if info.exif is None else lib.exif_orientation_tiff(
+        info.exif, len(info.exif))
 
 
 def webp_frame(data: bytes, lib) -> Tuple[VP8Frame, int]:
-    """Check a WebP's container (:func:`webp_container`) and decode its VP8
-    frame on the host with ``lib``'s ``webp_host_header`` and
-    ``webp_host_decode`` (the card's library, or a host build of
-    ``csrc/webp_decode.h``): the :class:`VP8Frame` and the EXIF chunk's
-    orientation (1 without one; cv2 applies it)."""
-    _, exif = webp_container(data)
-    info = (ctypes.c_int * len(VP8_HEADER_FIELDS))()
-    _check(lib.webp_host_header(data, len(data), info), "WebP decode")
-    header = dict(zip(VP8_HEADER_FIELDS, info))
+    """Check a WebP's container (:func:`webp_container`) and decode its
+    lossy (VP8) frame, a still file's or an animated file's first, on the
+    host with ``lib``'s ``webp_host_header`` and ``webp_host_decode`` (the
+    card's library, or a host build of ``csrc/webp_decode.h``): the
+    :class:`VP8Frame` and the EXIF chunk's orientation (1 without one; cv2
+    applies it)."""
+    info = webp_container(data)
+    if info.kind != "lossy":
+        raise ValueError("a lossless WebP (VP8L): vp8l_frame decodes it")
+    if info.animated:  # the frame's VP8 chunk, as a still file
+        data = _riff([(b"VP8 ", info.frame)])
+    header_info = (ctypes.c_int * len(VP8_HEADER_FIELDS))()
+    _check(lib.webp_host_header(data, len(data), header_info), "WebP decode")
+    header = dict(zip(VP8_HEADER_FIELDS, header_info))
     n = header["mb_w"] * header["mb_h"]
     records = np.zeros((n, 4), np.int32)
     coefs = np.zeros((n, 25, 16), np.int16)
@@ -1112,9 +1243,8 @@ def webp_frame(data: bytes, lib) -> Tuple[VP8Frame, int]:
     _check(lib.webp_host_decode(data, len(data), records.ctypes.data,
                                 coefs.ctypes.data, params.ctypes.data),
            "WebP decode")
-    orientation = 1 if exif is None else lib.exif_orientation_tiff(
-        exif, len(exif))
-    return VP8Frame(records, coefs, params, header), orientation
+    return VP8Frame(records, coefs, params, header), webp_orientation(info,
+                                                                      lib)
 
 
 def _wrap16(x: Tensor) -> Tensor:
@@ -1554,24 +1684,371 @@ def webp_yuv_to_bgr_kernel(Y: Tensor, U: Tensor, V: Tensor, width: int,
     return gray, bgr
 
 
+# ----------------------- lossless and animated WebP -----------------------
+
+VP8L_PREDICTOR_COUNTS = nvcc.LaunchCounts()
+VP8L_COLOUR_COUNTS = nvcc.LaunchCounts()
+WEBP_ARGB_COUNTS = nvcc.LaunchCounts()
+# VP8L's transform types (webp_lossless.h, vp8l_transform.h)
+VP8L_PREDICTOR, VP8L_CROSS_COLOUR, VP8L_SUBTRACT_GREEN, VP8L_COLOUR_INDEXING \
+    = 0, 1, 2, 3
+VP8L_TRANSFORM_NAMES = ("predictor", "cross_colour", "subtract_green",
+                        "colour_indexing")
+# webp_lossless.h Stat: what the host decode met, in this order
+VP8L_STATS = ("cache_bits", "meta_bits", "groups", "simple_codes",
+              "single_codes", "normal_codes", "back_refs", "plane_refs",
+              "cache_hits", "literals", "colours")
+
+
+class VP8LTransform(NamedTuple):
+    """One of a VP8L image's transforms: its type, bits (block size of the
+    predictor and cross-colour transforms, bundling of colour indexing),
+    the width it outputs and its data (the sub-image of modes or
+    multipliers, subsampled by 2^bits; the palette, decoded and padded
+    with zeros to the 2^(8 >> bits) entries an index can reach; nothing
+    for subtract green), uint32 ARGB words on the host or int32 on a
+    device."""
+    type: int
+    bits: int
+    xsize: int
+    data: object
+
+
+class VP8LImage(NamedTuple):
+    """What the host's entropy decode (``csrc/webp_lossless.h``) leaves of
+    a VP8L bitstream: its size, its transforms in stream order (they are
+    undone in reverse), the coded image (height, coded_width) of uint32
+    ARGB, and what the decode met (VP8L_STATS)."""
+    width: int
+    height: int
+    coded_width: int
+    transforms: list
+    argb: np.ndarray
+    stats: dict
+
+
+def vp8l_decode(payload: bytes, lib) -> VP8LImage:
+    """Entropy-decode a VP8L chunk's payload on the host with ``lib``'s
+    ``vp8l_host_decode`` (the card's library, or a host build of
+    ``csrc/webp_lossless.h``)."""
+    w, h = vp8l_header(payload)
+    info = (ctypes.c_int * 21)()
+    argb = np.empty(w * h, np.uint32)
+    data = np.empty(2 * ((w + 3) // 4) * ((h + 3) // 4) + 256, np.uint32)
+    stats = (ctypes.c_int * len(VP8L_STATS))()
+    _check(lib.vp8l_host_decode(payload, len(payload), info,
+                                argb.ctypes.data, data.ctypes.data, stats),
+           "WebP decode")
+    width, height, _, coded_w, n = info[:5]
+    transforms, at = [], 0
+    for k in range(n):
+        kind, bits, xsize, words = info[5 + 4 * k:9 + 4 * k]
+        transforms.append(VP8LTransform(kind, bits, xsize,
+                                        data[at:at + words].copy()))
+        at += words
+    return VP8LImage(width, height, coded_w, transforms,
+                     argb[:coded_w * height].reshape(height, coded_w),
+                     dict(zip(VP8L_STATS, stats)))
+
+
+def vp8l_frame(data: bytes, lib) -> Tuple[VP8LImage, WebPFile, int]:
+    """Check a WebP's container (:func:`webp_container`) and entropy-decode
+    its lossless (VP8L) frame, a still file's or an animated file's first,
+    on the host: the :class:`VP8LImage`, the container's
+    :class:`WebPFile` and the EXIF orientation (1 without one)."""
+    info = webp_container(data)
+    if info.kind != "lossless":
+        raise ValueError("a lossy WebP (VP8): webp_frame decodes it")
+    return vp8l_decode(info.frame, lib), info, webp_orientation(info, lib)
+
+
+def vp8l_runs(transforms) -> list:
+    """A VP8L image's transforms in the order they are undone (the
+    stream's reverse), grouped into launches: a predictor alone, each run
+    of consecutive element-wise ones (cross-colour, subtract green, colour
+    indexing) together."""
+    runs = []
+    for t in reversed(transforms):
+        if t.type == VP8L_PREDICTOR or not runs or \
+                runs[-1][0].type == VP8L_PREDICTOR:
+            runs.append([t])
+        else:
+            runs[-1].append(t)
+    return runs
+
+
+def _subsample(size: int, bits: int) -> int:
+    return (size + (1 << bits) - 1) >> bits
+
+
+def _channels(argb: Tensor) -> Tensor:
+    """(..., 4) int64 channels (B, G, R, A) of int32 ARGB words."""
+    v = argb.to(torch.int64) & 0xFFFFFFFF
+    return torch.stack([(v >> s) & 255 for s in (0, 8, 16, 24)], -1)
+
+
+def _words(ch: Tensor) -> Tensor:
+    """int32 ARGB words of (..., 4) channels."""
+    v = ch[..., 0] | (ch[..., 1] << 8) | (ch[..., 2] << 16) | (ch[..., 3]
+                                                              << 24)
+    return torch.where(v >= 2 ** 31, v - 2 ** 32, v).to(torch.int32)
+
+
+def vp8l_predictor_plain(residuals: Tensor, modes: Tensor,
+                         bits: int) -> Tensor:
+    """The plain version of ``vp8l_predictor_kernel``: the inverse
+    predictor transform (csrc/vp8l_transform.h says what it computes) of
+    an (H, W) int32 ARGB image of residuals, whose modes are the green
+    bytes of ``modes`` (the sub-image, subsampled by 2^bits). Pixel (x, y)
+    needs its left, top-left, top and top-right neighbours rebuilt, so the
+    image is rebuilt one anti-diagonal t = x + 2 y at a time, on which
+    every neighbour lies on an earlier one."""
+    VP8L_PREDICTOR_COUNTS.plain += 1
+    H, W = residuals.shape
+    dev = residuals.device
+    res = _channels(residuals)
+    out = torch.zeros_like(res)
+    tiles = _subsample(W, bits)
+    mode_of = ((modes.to(torch.int64).reshape(-1) >> 8) & 15).reshape(
+        -1, tiles)
+    black = torch.tensor([0, 0, 0, 255], device=dev)
+    avg = lambda a, b: (a + b) >> 1
+    for t in range(W + 2 * (H - 1)):
+        ys = torch.arange(max(0, (t - W + 2) // 2), min(H - 1, t // 2) + 1,
+                          device=dev)
+        xs = t - 2 * ys
+        up, left = (ys - 1).clamp(min=0), (xs - 1).clamp(min=0)
+        L, T, TL = out[ys, left], out[up, xs], out[up, left]
+        TR = torch.where((xs == W - 1)[:, None], out[ys, 0],
+                         out[up, (xs + 1).clamp(max=W - 1)])
+        sel = ((L - TL).abs() - (T - TL).abs()).sum(1, keepdim=True) <= 0
+        a = avg(L, T)
+        preds = torch.stack([
+            black.expand_as(L), L, T, TR, TL, avg(avg(L, TR), T), avg(L, TL),
+            a, avg(TL, T), avg(T, TR), avg(avg(L, TL), avg(T, TR)),
+            torch.where(sel, T, L), (L + T - TL).clamp(0, 255),
+            (a + torch.div(a - TL, 2, rounding_mode="trunc")).clamp(0, 255),
+            black.expand_as(L), black.expand_as(L)])
+        mode = torch.where(ys == 0, torch.where(xs == 0, 0, 1),
+                           torch.where(xs == 0, 2,
+                                       mode_of[ys >> bits, xs >> bits]))
+        pred = preds[mode, torch.arange(len(ys), device=dev)]
+        out[ys, xs] = (res[ys, xs] + pred) & 255
+    return _words(out)
+
+
+def vp8l_colour_plain(argb: Tensor, run) -> Tensor:
+    """The plain version of ``vp8l_colour_kernel``: a run of element-wise
+    inverse transforms (VP8LTransform, in the order they are undone:
+    cross-colour, add green, colour indexing; csrc/vp8l_transform.h) on an
+    (H, W) int32 ARGB image; (H, the last transform's width) int32."""
+    VP8L_COLOUR_COUNTS.plain += 1
+    H = argb.shape[0]
+    dev = argb.device
+    out_w = run[-1].xsize
+    x = torch.arange(out_w, device=dev)[None, :].expand(H, out_w)
+    y = torch.arange(H, device=dev)[:, None].expand(H, out_w)
+    cols = []  # each transform's output column of every output pixel
+    cx = x
+    for t in reversed(run):
+        cols.append(cx)
+        if t.type == VP8L_COLOUR_INDEXING:
+            cx = cx >> t.bits
+    cols.reverse()
+    ch = _channels(argb)[y, cx]
+    for t, xs in zip(run, cols):
+        if t.type == VP8L_SUBTRACT_GREEN:
+            ch = torch.stack([(ch[..., 0] + ch[..., 1]) & 255, ch[..., 1],
+                              (ch[..., 2] + ch[..., 1]) & 255, ch[..., 3]],
+                             -1)
+        elif t.type == VP8L_CROSS_COLOUR:
+            tiles = _subsample(t.xsize, t.bits)
+            m = t.data.to(torch.int64).reshape(-1) & 0xFFFFFFFF
+            m = m[(y >> t.bits) * tiles + (xs >> t.bits)]
+            s8 = lambda v: ((v & 255) ^ 128) - 128  # a byte as int8
+            delta = lambda k, c: (s8(k) * s8(c)) >> 5
+            g = ch[..., 1]
+            red = (ch[..., 2] + delta(m, g)) & 255
+            blue = (ch[..., 0] + delta(m >> 8, g) + delta(m >> 16, red)) & 255
+            ch = torch.stack([blue, g, red, ch[..., 3]], -1)
+        elif t.type == VP8L_COLOUR_INDEXING:
+            bpp = 8 >> t.bits
+            sub = xs & ((1 << t.bits) - 1)
+            index = (ch[..., 1] >> (sub * bpp)) & ((1 << bpp) - 1)
+            ch = _channels(t.data.reshape(-1))[index]
+        else:
+            raise ValueError(f"transform type {t.type} is not element-wise")
+    return _words(ch)
+
+
+def webp_argb_to_bgr_plain(argb: Tensor, canvas: Tuple[int, int] = None,
+                           offset: Tuple[int, int] = (0, 0)
+                           ) -> Tuple[Tensor, Tensor]:
+    """The plain version of ``webp_argb_to_bgr_kernel``: cv2.imread's (grey
+    (ch, cw), BGR (ch, cw, 3)) uint8 of an (h, w) int32 ARGB frame at
+    ``offset`` (x, y) on a canvas (cw, ch) of zeros (the frame's own size
+    if None): alpha dropped, the grey OpenCV 5's cvtColor of the BGR."""
+    WEBP_ARGB_COUNTS.plain += 1
+    h, w = argb.shape
+    cw, ch = canvas or (w, h)
+    ox, oy = offset
+    c = torch.zeros((ch, cw, 4), dtype=torch.int64, device=argb.device)
+    c[oy:oy + h, ox:ox + w] = _channels(argb)
+    b, g, r = c[..., 0], c[..., 1], c[..., 2]
+    grey = (r * 9798 + g * 19235 + b * 3735 + 16384) >> 15
+    return grey.to(torch.uint8), c[..., :3].to(torch.uint8)
+
+
+def _argb_arg(t: Tensor, what: str):
+    if t.device.type != "cuda" or t.dtype != torch.int32 or \
+            not t.is_contiguous():
+        raise ValueError(f"{what} takes contiguous int32 CUDA ARGB, got "
+                         f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    return t.data_ptr()
+
+
+def vp8l_predictor_kernel(residuals: Tensor, modes: Tensor,
+                          bits: int) -> Tensor:
+    """Launch ``vp8l_predictor_kernel`` on an (H, W) int32 CUDA image of
+    residuals and its CUDA sub-image of modes: the rebuilt image, as
+    :func:`vp8l_predictor_plain`. One launch: a warp a band of 32 rows,
+    bands claimed in order, each lane a row of the band, skewed two
+    columns behind the lane above; ``sync`` holds the ticket and the
+    tagged last row of the band above."""
+    ptr = _argb_arg(residuals, "vp8l_predictor_kernel")
+    H, W = residuals.shape
+    if modes.numel() != _subsample(W, bits) * _subsample(H, bits):
+        raise ValueError(f"{modes.numel()} modes for a {W}x{H} image of "
+                         f"blocks of 2^{bits}")
+    mptr = _argb_arg(modes, "vp8l_predictor_kernel")
+    out = torch.empty_like(residuals)
+    sync = torch.zeros(W + 1, dtype=torch.int64, device=residuals.device)
+    _check(_library().vp8l_predictor_launch(ptr, mptr, bits, W, H,
+                                            out.data_ptr(), sync.data_ptr(),
+                                            _stream(residuals)),
+           "vp8l_predictor_kernel launch")
+    VP8L_PREDICTOR_COUNTS.launched()
+    return out
+
+
+def vp8l_colour_kernel(argb: Tensor, run) -> Tensor:
+    """Launch ``vp8l_colour_kernel`` on an (H, W) int32 CUDA image: a run
+    of element-wise inverse transforms (VP8LTransform with CUDA data, in
+    the order they are undone), as :func:`vp8l_colour_plain`. One launch,
+    a thread an output pixel."""
+    ptr = _argb_arg(argb, "vp8l_colour_kernel")
+    if not 1 <= len(run) <= 3 or any(t.type == VP8L_PREDICTOR for t in run):
+        raise ValueError(f"a colour run is 1-3 element-wise transforms, got "
+                         f"{[t.type for t in run]}")
+    H, W = argb.shape
+    desc = [len(run), W, run[-1].xsize, H]
+    data = (ctypes.c_void_p * 3)()
+    for j, t in enumerate(run):
+        desc += [t.type, t.bits, t.xsize]
+        if t.type != VP8L_SUBTRACT_GREEN:
+            words = (_subsample(t.xsize, t.bits) * _subsample(H, t.bits)
+                     if t.type == VP8L_CROSS_COLOUR else 1 << (8 >> t.bits))
+            if t.data.numel() != words:
+                raise ValueError(f"transform {t.type} of bits {t.bits} takes "
+                                 f"{words} words, got {t.data.numel()}")
+            data[j] = _argb_arg(t.data, "vp8l_colour_kernel")
+    out = torch.empty((H, run[-1].xsize), dtype=torch.int32,
+                      device=argb.device)
+    _check(_library().vp8l_colour_launch(
+        ptr, (ctypes.c_int * len(desc))(*desc), data, out.data_ptr(),
+        _stream(argb)), "vp8l_colour_kernel launch")
+    VP8L_COLOUR_COUNTS.launched(
+        "+".join(VP8L_TRANSFORM_NAMES[t.type] for t in run))
+    return out
+
+
+def webp_argb_to_bgr_kernel(argb: Tensor, canvas: Tuple[int, int] = None,
+                            offset: Tuple[int, int] = (0, 0)
+                            ) -> Tuple[Tensor, Tensor]:
+    """Launch ``webp_argb_to_bgr_kernel`` on an (h, w) int32 CUDA ARGB
+    frame: (grey, BGR) on the canvas, both from the one launch, as
+    :func:`webp_argb_to_bgr_plain`."""
+    ptr = _argb_arg(argb, "webp_argb_to_bgr_kernel")
+    h, w = argb.shape
+    cw, ch = canvas or (w, h)
+    ox, oy = offset
+    if not (0 <= ox and ox + w <= cw and 0 <= oy and oy + h <= ch):
+        raise ValueError(f"a {w}x{h} frame at {offset} is not on a {cw}x{ch}"
+                         f" canvas")
+    bgr = torch.empty((ch, cw, 3), dtype=torch.uint8, device=argb.device)
+    gray = torch.empty((ch, cw), dtype=torch.uint8, device=argb.device)
+    _check(_library().webp_argb_to_bgr_launch(
+        ptr, w, h, ox, oy, cw, ch, bgr.data_ptr(), gray.data_ptr(),
+        _stream(argb)), "webp_argb_to_bgr_kernel launch")
+    WEBP_ARGB_COUNTS.launched()
+    return gray, bgr
+
+
+def vp8l_upload(img: VP8LImage, dev):
+    """A decoded VP8L image on the card: its coded image and its
+    transforms with their data (one copy of each)."""
+    argb = torch.from_numpy(img.argb.view(np.int32)).to(dev)
+    words = np.concatenate([t.data for t in img.transforms] +
+                           [np.zeros(0, np.uint32)]).view(np.int32)
+    data = torch.from_numpy(words).to(dev)
+    transforms, at = [], 0
+    for t in img.transforms:
+        transforms.append(t._replace(data=data[at:at + len(t.data)]))
+        at += len(t.data)
+    return argb, transforms
+
+
+def vp8l_inverse(argb: Tensor, transforms) -> Tensor:
+    """Undo a VP8L image's transforms (stream order given) on its coded
+    CUDA image with the kernels, a launch a run of :func:`vp8l_runs`: the
+    (height, width) ARGB."""
+    for run in vp8l_runs(transforms):
+        if run[0].type == VP8L_PREDICTOR:
+            argb = vp8l_predictor_kernel(argb, run[0].data, run[0].bits)
+        else:
+            argb = vp8l_colour_kernel(argb, run)
+    return argb
+
+
+def _on_canvas(img: Tensor, info: WebPFile) -> Tensor:
+    """A lossy animated file's first frame, read, placed on its canvas of
+    zeros (cv2's read of an animated file)."""
+    (cw, ch), (ox, oy) = info.canvas, info.offset
+    out = img.new_zeros((ch, cw) + tuple(img.shape[2:]))
+    out[oy:oy + img.shape[0], ox:ox + img.shape[1]] = img
+    return out
+
+
 def _decode_webp(data: bytes, device) -> Tuple[Tensor, Tensor]:
-    webp_container(data)  # what stays refused raises before the card
-    dev = _cuda_device(device)
-    frame, orientation = webp_frame(data, _library())
-    (H, W), (mb_h, mb_w) = frame.size, frame.mbs
-    records = torch.from_numpy(frame.records).to(dev)
-    coefs = torch.from_numpy(frame.coefs).to(dev)
-    planes = vp8_reconstruct_kernel(records, coefs, frame.params, mb_w, mb_h)
-    vp8_loop_filter_kernel(*planes, records, frame.params, mb_w, mb_h)
-    gray, bgr = webp_yuv_to_bgr_kernel(*planes, W, H)
-    CODEC_COUNTS.launched("webp")
+    info = webp_container(data)  # what stays refused raises before the card
+    lib = _library()
+    if info.kind == "lossy":
+        frame, orientation = webp_frame(data, lib)
+        dev = _cuda_device(device)
+        (H, W), (mb_h, mb_w) = frame.size, frame.mbs
+        records = torch.from_numpy(frame.records).to(dev)
+        coefs = torch.from_numpy(frame.coefs).to(dev)
+        planes = vp8_reconstruct_kernel(records, coefs, frame.params, mb_w,
+                                        mb_h)
+        vp8_loop_filter_kernel(*planes, records, frame.params, mb_w, mb_h)
+        gray, bgr = webp_yuv_to_bgr_kernel(*planes, W, H)
+        if info.animated:
+            gray, bgr = _on_canvas(gray, info), _on_canvas(bgr, info)
+    else:
+        img, _, orientation = vp8l_frame(data, lib)
+        argb = vp8l_inverse(*vp8l_upload(img, _cuda_device(device)))
+        gray, bgr = webp_argb_to_bgr_kernel(argb, info.canvas, info.offset)
+    CODEC_COUNTS.launched("webp_animated" if info.animated else
+                          "webp_lossless" if info.kind == "lossless" else
+                          "webp")
     return orient(gray, orientation), orient(bgr, orientation)
 
 
 def decode(data: bytes, device) -> Tuple[Tensor, Tensor]:
     """(grey (H, W), BGR (H, W, 3)) uint8 tensors on ``device`` from a
     file's bytes: what ``cv2.imread`` gives with ``IMREAD_GRAYSCALE`` and
-    ``IMREAD_COLOR``. On a CUDA device, JPEG, PNG, TIFF and lossy WebP."""
+    ``IMREAD_COLOR``. On a CUDA device, JPEG, PNG, TIFF and WebP (lossy,
+    lossless, and the first frame of an animated file on its canvas)."""
     dev = torch.device(device)
     if dev.type == "cpu":
         import cv2
@@ -1599,7 +2076,7 @@ def decode(data: bytes, device) -> Tuple[Tensor, Tensor]:
 def decode_colour(data: bytes, device) -> Tensor:
     """BGR (H, W, 3) uint8 on ``device`` from a file's bytes: what
     ``cv2.imread`` gives with ``IMREAD_COLOR``. On a CUDA device, JPEG, PNG,
-    TIFF and lossy WebP."""
+    TIFF and WebP (lossy, lossless, animated)."""
     dev = torch.device(device)
     if dev.type == "cuda" and image_format(data) in ("PNG", "TIFF"):
         return _decode_raster(data, _cuda_device(dev))[1]

@@ -2,7 +2,9 @@
 (``csrc/ncc_eval.cu``, ``--kernel ncc``, the default), the sorted path
 (``csrc/ncc_samples.cu``, ``--kernel sorted``), the bilateral kernel
 (``csrc/bilateral_refine.cu``, ``--kernel bilateral``) and the geometric
-cost (``csrc/geom_cost.cu``, ``--kernel geom``).
+cost (``csrc/geom_cost.cu``, ``--kernel geom``), and the lossless WebP
+predictor (``csrc/jpeg_codec.cu``, ``--kernel vp8l``: random images from
+one band of 32 rows to 3200x2130, no scene).
 
 Port of tools/kernel_bench.py (the JAX package's Pallas-kernel bench):
 the same operating point (``make_plane_scene`` at 3200x2130 with 11
@@ -814,6 +816,42 @@ def geom_floors() -> dict:
             "max_sm_clock_mhz": max_sm_clock_mhz()}
 
 
+# (rows, columns) of the lossless WebP predictor's cases: one band of 32
+# rows (the walk of one warp), then more bands (each waits on the one
+# above), up to phase 8c's image
+VP8L_CASES = ((32, 3200), (64, 3200), (128, 3200), (512, 3200),
+              (2130, 3200), (2130, 1600))
+
+
+def run_vp8l(reps: int, check: bool) -> list:
+    """``vp8l_predictor_kernel`` on random residuals and random modes 0-13
+    (blocks of 32) at VP8L_CASES: ms, and ns a step of the wavefront's
+    critical path if bands did not wait (W + 2 (H - 1) steps)."""
+    from mpmvs_torch.io import images
+    from mpmvs_torch.utils.trace import cuda_time_ms
+
+    out = []
+    for H, W in VP8L_CASES:
+        g = torch.Generator().manual_seed(H * 7 + W)
+        res = torch.randint(-2 ** 31, 2 ** 31, (H, W), generator=g,
+                            dtype=torch.int64).to(torch.int32).cuda()
+        bits = 5
+        tiles = images._subsample(W, bits) * images._subsample(H, bits)
+        modes = (torch.randint(0, 14, (tiles,), generator=g) << 8).to(
+            torch.int32).cuda()
+        fn = lambda: images.vp8l_predictor_kernel(res, modes, bits)
+        ms = cuda_time_ms(fn, reps)
+        steps = W + 2 * (H - 1)
+        r = dict(kernel="vp8l_predictor", shape=f"{W}x{H}",
+                 bands=(H + 31) // 32, ms=ms, ideal_steps=steps,
+                 ns_a_step=ms * 1e6 / steps)
+        if check and H <= 512:
+            r["entries_differing"] = int((fn() != images.vp8l_predictor_plain(
+                res, modes, bits)).sum())
+        out.append(r)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--height", type=int, default=2130)
@@ -836,7 +874,7 @@ def main(argv=None) -> int:
     ap.add_argument("--check", action="store_true",
                     help="also compare with the plain version")
     ap.add_argument("--kernel", default="ncc",
-                    choices=("ncc", "sorted", "bilateral", "geom"))
+                    choices=("ncc", "sorted", "bilateral", "geom", "vp8l"))
     ap.add_argument("--sorted-cases", default=",".join(SORTED_CASES),
                     help=f"comma-separated, of {list(SORTED_CASES)}")
     ap.add_argument("--sass", action="store_true",
@@ -852,6 +890,14 @@ def main(argv=None) -> int:
     from mpmvs_torch.tools import build_kernels
 
     build_kernels(torch.device("cuda"), verbose=True)
+    if args.kernel == "vp8l":  # no scene: random images
+        from mpmvs_torch.tools import device_record
+
+        rec = device_record(torch.device("cuda", 0))
+        for res in run_vp8l(4 * args.reps, args.check):
+            res.update(kind=rec["kind"], nvidia_smi=rec["nvidia_smi"])
+            print(json.dumps(res), flush=True)
+        return 0
     t0 = time.perf_counter()
     bench = setup(args.height, args.width, args.views, args.band_rows,
                   args.cap_mult)

@@ -181,3 +181,24 @@ def webp_colour_bound(H: int, W: int):
     samples and the chroma samples that cover it read once, the BGR and
     grey images written."""
     return bound(0, H * W + 2 * ((H + 1) // 2) * ((W + 1) // 2) + 4 * H * W)
+
+
+def vp8l_predictor_bound(H: int, W: int, modes: int):
+    """One launch of ``vp8l_predictor_kernel`` on an (H, W) ARGB image: its
+    residuals and the ``modes`` words of its sub-image read once, the
+    rebuilt image written (4 bytes a pixel each way). Bytes alone (integer
+    work), as for the codec's other kernels."""
+    return bound(0, 8 * H * W + 4 * modes)
+
+
+def vp8l_colour_bound(H: int, in_w: int, out_w: int, data_words: int):
+    """One launch of ``vp8l_colour_kernel``: the (H, in_w) ARGB image and
+    the run's multipliers and palette read once, the (H, out_w) image
+    written."""
+    return bound(0, 4 * H * (in_w + out_w) + 4 * data_words)
+
+
+def webp_argb_bound(h: int, w: int, cw: int, ch: int):
+    """One launch of ``webp_argb_to_bgr_kernel``: the (h, w) ARGB frame
+    read, the (ch, cw) canvas's BGR and grey written."""
+    return bound(0, 4 * h * w + 4 * cw * ch)

@@ -66,7 +66,9 @@ libpng's gamma tables. ``cv2_arrays.npz`` holds ``cv2.imread``'s BGR
 ``../png/conversion/`` holds the workspace images the JAX converter writes
 (``cv2.imwrite(dst, cv2.imread(src))``) for the sources of ``CONVERSION``
 but the first, which it copies; and ``../png/refused/`` what the card
-refuses: ``image.bmp`` and ``image.webp``.
+refuses: ``image.bmp``. cv2's lossless WebP of the same image, refused
+here once, is ``../webp/lossless/imencode_45x37.webp``, which the card
+reads.
 
     python tests/data/jpeg/make_fixtures.py --part new
 
@@ -537,11 +539,13 @@ def write_png_fixtures() -> None:
     assert np.array_equal(arrays["bgr_interlaced"], small)
     for name in os.listdir(refused_dir):
         os.remove(os.path.join(refused_dir, name))
-    refused = {"image.bmp": cv2.imencode(".bmp", small)[1].tobytes(),
-               "image.webp": cv2.imencode(".webp", small)[1].tobytes()}
+    refused = {"image.bmp": cv2.imencode(".bmp", small)[1].tobytes()}
     for name, data in refused.items():
         with open(os.path.join(refused_dir, name), "wb") as f:
             f.write(data)
+    with open(os.path.join(HERE, os.pardir, "webp", "lossless",
+                           "imencode_45x37.webp"), "wb") as f:
+        f.write(cv2.imencode(".webp", small)[1].tobytes())
 
 
 # a COLMAP model's image names -> the fixtures they are copied from

@@ -22,10 +22,10 @@ Written here:
   ``Exif`` prefix, which cv2 does not read as EXIF);
 * ``cv2_arrays.npz``: cv2.imdecode's grey and BGR arrays of each
   (``gray_<name>``, ``bgr_<name>``);
-* ``refused/``: what cv2 refuses too or the card does not read (a lossless
-  VP8L file, an animated file, a truncated RIFF, a RIFF that is not WEBP,
-  a VP8X canvas that differs from the frame);
-* ``conversion/``: see ``make_conversion.py``.
+* ``refused/``: what cv2 refuses too (a truncated RIFF, a RIFF that is
+  not WEBP, a VP8X canvas that differs from the frame);
+* ``conversion/``: see ``make_conversion.py``; lossless and animated
+  files: ``make_lossless.py``.
 """
 
 import ctypes
@@ -322,17 +322,7 @@ def refused():
     w71 = noisy(71, 53, 3)
     good = encode(w71, 75)
     frame = dict(chunks(good))[b"VP8 "]
-    from PIL import Image
-
-    f = io.BytesIO()
-    Image.fromarray(w71).save(f, "WEBP", lossless=True)
-    g = io.BytesIO()
-    Image.fromarray(w71).save(g, "WEBP", quality=75, save_all=True,
-                              append_images=[Image.fromarray(
-                                  np.ascontiguousarray(w71[::-1]))])
     return {
-        "lossless.webp": f.getvalue(),
-        "animated.webp": g.getvalue(),
         "truncated.webp": good[:len(good) // 2],
         "not_webp.webp": b"RIFF" + struct.pack("<I", 36) + b"WAVEfmt "
                          + b"\x00" * 28,
@@ -370,8 +360,7 @@ def main() -> int:
     os.makedirs(os.path.join(HERE, "refused"), exist_ok=True)
     for name, data in refused().items():
         if cv2.imdecode(np.frombuffer(data, np.uint8),
-                        cv2.IMREAD_COLOR) is not None and \
-                name not in ("lossless.webp", "animated.webp"):
+                        cv2.IMREAD_COLOR) is not None:
             raise AssertionError(f"cv2 reads refused/{name}")
         with open(os.path.join(HERE, "refused", name), "wb") as f:
             f.write(data)

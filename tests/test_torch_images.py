@@ -94,9 +94,9 @@ PNG_NAMES = sorted(f[:-4] for f in os.listdir(PNG_DIR) if f.endswith(".png"))
 # what the card refuses of the sources a converter meets (files under
 # tests/data): the cause its error names. The interlaced, 16-bit, 1-bit grey
 # and 4-bit palette PNGs and the TIFF once here now read (PNG_NAMES,
-# tests/test_torch_raster.py)
+# tests/test_torch_raster.py), and so does cv2's lossless WebP
+# (webp/lossless/imencode_45x37.webp, tests/test_torch_webp_lossless.py)
 PNG_REFUSED = {"png/refused/image.bmp": "BMP",
-               "png/refused/image.webp": "WebP",
                "tiff/refused/jpeg.tif": "JPEG-compressed",
                "tiff/refused/float.tif": "float",
                "tiff/refused/old_lzw.tif": "old-style LZW"}

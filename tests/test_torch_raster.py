@@ -228,7 +228,8 @@ def test_card_reads_raise_before_the_card_for_what_stays_refused():
     with pytest.raises(ValueError, match="BMP"):
         images.decode(_bytes("png/refused/image.bmp"), "cuda")
     with pytest.raises(ValueError, match="WebP"):
-        images.decode_colour(_bytes("png/refused/image.webp"), "cuda")
+        images.decode_colour(_bytes(
+            "webp/lossless/refused/frame_past_canvas.webp"), "cuda")
 
 
 # ----------------------------- on the card -----------------------------

@@ -19,10 +19,11 @@ it (``vp8_reconstruct_kernel``, ``vp8_loop_filter_kernel``,
 * Each plain twin equals the host build, stage by stage, on every fixture.
 * The full-size source of ``chip_smoke.py``'s ``phase_webp_parts``
   (3200x2130) read through the host build gives cv2's recorded hashes.
-* What stays refused (lossless VP8L, animated, truncated, a RIFF that is
-  not WEBP, a VP8X canvas other than the frame) raises, naming WebP and the
-  cause, before any library load or copy to the card; the host decoder's
-  error codes name the same.
+* What stays refused (truncated, a RIFF that is not WEBP, a VP8X canvas
+  other than the frame) raises, naming WebP and the cause, before any
+  library load or copy to the card; the host decoder's error codes name
+  the same. Lossless and animated files read
+  (``tests/test_torch_webp_lossless.py``).
 * ``mpmvs_tpu.pipeline._load_view`` against the port's read of a workspace
   whose ``00000000.jpg`` holds WebP bytes: equal arrays and camera.
 * On the card (``cuda``, skipped without one): the fixtures read to cv2's
@@ -70,11 +71,10 @@ def _tool():
 
 TOOL = _tool()
 # the host decoder's code of each refused file, where it reaches the host
-CODES = {"webp/refused/lossless.webp": 5003,
-         "webp/refused/animated.webp": 5004,
-         "webp/refused/truncated.webp": 5001,
-         "webp/refused/not_webp.webp": 5002,
-         "png/refused/image.webp": 5003}
+# (the lossless and animated files once here now read:
+# tests/test_torch_webp_lossless.py)
+CODES = {"webp/refused/truncated.webp": 5001,
+         "webp/refused/not_webp.webp": 5002}
 
 
 def _bytes(rel):
@@ -205,7 +205,8 @@ def test_card_reads_raise_before_the_card(rel):
 
 def test_image_format_names_webp():
     assert images.image_format(_bytes("webp/flat_q75.webp")) == "WebP"
-    assert images.image_format(_bytes("png/refused/image.webp")) == "WebP"
+    assert images.image_format(_bytes(
+        "webp/lossless/imencode_45x37.webp")) == "WebP"
     kind = images.image_format(_bytes("webp/refused/not_webp.webp"))
     assert kind.startswith("RIFF") and "not a WebP" in kind
 
