@@ -28,11 +28,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    version; the encoder's fixtures
    (``encode/``, colour and grey, 1x1 to 120x176, q75-100) must encode to
    cv2.imencode's stored bytes; the PNGs of ``tests/data/png`` (every
-   colour type and bit depth, Adam7, tRNS, gAMA) and the TIFFs of
-   ``tests/data/tiff`` read in grey and colour against cv2's arrays, with
-   the raster kernel against its plain twin on each; those under
-   ``png/refused`` and ``tiff/refused`` raising. No entry or byte may
-   differ.
+   colour type and bit depth, Adam7, tRNS, gAMA), the TIFFs of
+   ``tests/data/tiff`` (JPEG-compressed, YCbCr and signed ones too), the
+   BMPs of ``tests/data/bmp`` and the PNMs of ``tests/data/pnm`` read in
+   grey and colour against cv2's arrays, with the raster kernel (for a
+   JPEG-compressed TIFF the IDCT over every chunk and the chunked colour
+   form) against its plain twin on each; those under ``png/refused``,
+   ``tiff/refused``, ``bmp/refused`` and ``pnm/refused`` raising. No entry
+   or byte may differ.
 2. NCC kernel vs plain: ``ncc_eval_multi`` on the card against its plain
    PyTorch version at K in {1, 5, 9}, S = 10, scales 0 and 2, on
    ground-truth and random planes at the default footprint cap, through
@@ -161,6 +164,23 @@ Phases, in order; any failure raises and the script exits non-zero:
    CUDA events beside its bound and the twin; the read split into the
    host's container check and entropy decode, the copy, each launch and
    the whole decode.
+8d. JPEG-compressed TIFF, YCbCr, BMP and PNM (after 8c, adding no solved
+   view): the committed ``tests/data/tiff/conversion/
+   plane_3200x2130_jpeg.tif`` (8b's source as cv2 reads it, YCbCr 4:2:0
+   in 134 strips of 16 rows under one JPEGTables tag; ``cv2.json`` beside
+   it holds cv2's hashes) and five small sources (a (2, 2) YCbCr TIFF,
+   5-6-5, 24-bit and RLE8 BMPs, a 16-bit PPM) through the converter's
+   image step and the pipeline's read, the counters set to 0 just before:
+   the TIFF's hashes must be cv2's, the small sources' reads cv2's arrays;
+   ``idct_islow_kernel`` launched 3 times and ``ycc_to_bgr_kernel``'s
+   chunked form once a read of the TIFF, ``raster_to_bgr_kernel`` twice a
+   small source (its ``ycbcr``, ``bmp16`` and ``bgr`` forms twice each),
+   no plain call; the IDCT over every strip and the chunked form against
+   their twins on the TIFF, the raster kernel's YCbCr and BMP forms on
+   3200x2130 samples made from a seed (no entry may differ), each timed
+   with CUDA events beside its bound and the twin; the TIFF's read split
+   into the host's parse and entropy decode, the copy, the IDCT launches,
+   the colour launch and the whole decode.
 9. Multi-GPU (after phase 8, on its converted workspace): (a) the NCC
    kernel (tile and view-major launches, K=9) and the fused sorted path
    with one zero-extent source (the sharded pipeline's padding: all-zero
@@ -194,6 +214,7 @@ import argparse
 import hashlib
 import json
 import os
+import struct
 import subprocess
 import sys
 import tempfile
@@ -246,6 +267,13 @@ TIFF_ROWS_PER_STRIP = 16
 FILES_TINT = (0.85, 1.0, 1.1)
 # phase 8's YCCK source (tests/data/jpeg/make_ycck_source.py); what cv2
 # makes of it is recorded beside it (cv2.json, by make_fixtures.py)
+# phase 8d: a JPEG-compressed TIFF source (phase 8b's source as cv2 reads
+# it, YCbCr 4:2:0 in 134 strips of 16 rows under one JPEGTables tag), and
+# the small YCbCr, BMP and PNM sources read in the same counted run
+TIFF_JPEG_SOURCE = os.path.join(HERE, "tests", "data", "tiff", "conversion",
+                                "plane_3200x2130_jpeg.tif")
+RASTER_SOURCES = ("tiff/ycbcr22_deflate.tif", "bmp/rgb565_bitfields.bmp",
+                  "bmp/bgr24_topdown.bmp", "bmp/rle8.bmp", "pnm/p6_16.ppm")
 WEBP_SOURCE = os.path.join(HERE, "tests", "data", "webp", "conversion",
                            "plane_3200x2130.webp")
 YCCK_SOURCE = os.path.join(HERE, "tests", "data", "jpeg", "conversion",
@@ -1269,8 +1297,11 @@ def phase_fixtures():
     fixtures (encode/) encoded to cv2.imencode's stored bytes; the PNGs
     (tests/data/png) and TIFFs (tests/data/tiff) read in grey and colour
     against their cv2 arrays, the raster kernel against its plain twin on
-    each, those under png/refused and tiff/refused raising. No entry or
-    byte may differ. Returns {fixture: {"gray"/"bgr": (entries differing,
+    each, those under png/refused and tiff/refused raising; the BMPs
+    (tests/data/bmp) and PNMs (tests/data/pnm) the same way; a
+    JPEG-compressed TIFF's IDCT over every chunk and chunked colour form
+    against their twins. No entry or byte may differ. Returns {fixture:
+    {"gray"/"bgr": (entries differing,
     of, largest |diff|)}} and the encoder's, refusals' and raster kernel's
     counts."""
     import numpy as np
@@ -1375,11 +1406,14 @@ def phase_fixtures():
     log(f"  encoder: {len(names) - len(enc_bad)} of {len(names)} fixtures "
         f"(colour and grey, 1x1 to 120x176, q75-100) encode to cv2's bytes; "
         f"differing {enc_bad}")
-    # PNG and TIFF sources, grey and colour, the raster kernel against its
-    # plain twin on each
+    # PNG, TIFF, BMP and PNM sources, grey and colour, the raster kernel
+    # (a JPEG-compressed TIFF: the IDCT and the chunked colour form)
+    # against its plain twin on each
     data_dir = os.path.dirname(folder)
-    raster_equal = 0
-    for sub, ext in (("png", ".png"), ("tiff", ".tif")):
+    raster_equal = chunked_equal = 0
+    lib = images._library()
+    for sub, ext in (("png", (".png",)), ("tiff", (".tif",)),
+                     ("bmp", (".bmp",)), ("pnm", (".pbm", ".pgm", ".ppm"))):
         sub_dir = os.path.join(data_dir, sub)
         arrays = np.load(os.path.join(sub_dir, "cv2_arrays.npz"))
         for fname in sorted(f for f in os.listdir(sub_dir)
@@ -1391,21 +1425,37 @@ def phase_fixtures():
             gray, bgr2 = images.decode(data, dev)
             out[name]["gray"] = against(gray, arrays[f"gray_{stem}"])
             out[name]["bgr_of_decode"] = against(bgr2, arrays[f"bgr_{stem}"])
-            r = images.raster_rows(data, images._library())
-            samples = torch.from_numpy(r.samples).to(dev)
-            tables = torch.from_numpy(r.tables).to(dev)
-            for k, p in zip(images.raster_to_bgr_kernel(samples, r.form,
-                                                        tables),
-                            images.raster_to_bgr_plain(samples, r.form,
-                                                       tables)):
+            if sub == "tiff" and images.tiff_compression(data, lib) == 7:
+                tj = images.tiff_jpeg_coefficients(data, lib)
+                planes = images.tiff_jpeg_planes(tj, dev)
+                for c, q, p in zip(tj.coefs, tj.qt, planes):
+                    args = (torch.from_numpy(c).to(dev),
+                            torch.from_numpy(q.view(np.int16)).to(dev),
+                            8 * c.shape[0], 8 * c.shape[1])
+                    if not torch.equal(p, images.idct_islow_plain(*args)):
+                        raise AssertionError(f"{name}: IDCT over every "
+                                             f"chunk vs plain differ")
+                got = images.colour_kernel(planes, tj.factors, tj.size,
+                                           tj.space, tj.chunks)
+                want_p = images.colour_plain(planes, tj.factors, tj.size,
+                                             tj.space, tj.chunks)
+                what = "IDCT and chunked colour kernels equal plain"
+                chunked_equal += 1
+            else:
+                r = images.raster_rows(data, lib)
+                samples = torch.from_numpy(r.samples).to(dev)
+                tables = torch.from_numpy(r.tables).to(dev)
+                got = images.raster_to_bgr_kernel(samples, r.form, tables)
+                want_p = images.raster_to_bgr_plain(samples, r.form, tables)
+                what = "raster kernel equals plain"
+                raster_equal += 1
+            for k, p in zip(got, want_p):
                 if not torch.equal(k, p):
-                    raise AssertionError(f"{name}: raster kernel vs plain "
-                                         f"differ on {int((k != p).sum())} "
-                                         f"entries")
-            raster_equal += 1
+                    raise AssertionError(f"{name}: kernel vs plain differ "
+                                         f"on {int((k != p).sum())} entries")
             log(f"  {name} {tuple(bgr.shape)}: (entries differing, of, "
-                f"largest) {out[name]}; raster kernel equals plain")
-    for sub in ("png", "tiff"):
+                f"largest) {out[name]}; {what}")
+    for sub in ("png", "tiff", "bmp", "pnm"):
         for fname in sorted(os.listdir(os.path.join(data_dir, sub,
                                                     "refused"))):
             path = os.path.join(data_dir, sub, "refused", fname)
@@ -1426,6 +1476,7 @@ def phase_fixtures():
                              f"encode {enc_bad}")
     return out, {"encoded_equal": len(names), "refused": refused,
                  "raster_kernel_equal_plain": raster_equal,
+                 "chunked_colour_equal_plain": chunked_equal,
                  "four_component_equal_cv2": four}
 
 
@@ -1761,6 +1812,11 @@ def phase_files(params, root: str):
         "step and the pipeline's read, an animated fixture; the lossless "
         "kernels vs plain")
     lossless_parts = phase_lossless_parts(dev)
+    log("phase 8d: the JPEG-compressed TIFF source and the YCbCr, BMP and "
+        "PNM sources through the converter's image step and the pipeline's "
+        "read; the chunked colour form and the raster kernel's new forms vs "
+        "plain")
+    tiff_jpeg_parts = phase_tiff_jpeg_parts(dev)
     expected = V * (NCC_PHOTOMETRIC + 2 * NCC_GEOM) + n_prior * NCC_PRIOR
     bad = {v: e for v, e in rel.items() if not e < 0.01}
     log(f"  launches: NCC {ncc[0]} (schedule implies {expected}), plain "
@@ -1817,7 +1873,7 @@ def phase_files(params, root: str):
                raster_launches=raster[0], raster=raster_parts,
                cmyk_launches=sum(four.values()), ycck=ycck_parts,
                ycck_read=ycck_read, webp=webp_parts,
-               lossless=lossless_parts)
+               lossless=lossless_parts, tiff_jpeg=tiff_jpeg_parts)
     return out
 
 
@@ -2324,6 +2380,277 @@ def phase_webp_parts(dev):
     return out
 
 
+def phase_tiff_jpeg_parts(dev):
+    """Phase 8d: the committed JPEG-compressed TIFF source (3200x2130:
+    phase 8b's source as cv2 reads it, YCbCr at (2, 2), 134 strips of 16
+    rows, one JPEGTables tag and abbreviated streams) and the small YCbCr,
+    BMP and PNM sources (RASTER_SOURCES) on the card. Their path, with the
+    counters set to 0 just before and read just after: the converter's
+    image step (``convert.convert_image``) and the pipeline's read
+    (``images.read_image``) of each; the TIFF's read and workspace image
+    must have cv2's recorded sha-256, the small sources' reads cv2's stored
+    arrays and their workspace images the encoding of those; the IDCT must
+    have been launched 3 times a read of the TIFF, the chunked colour form
+    once a read, the raster kernel twice a small source (forms ycbcr,
+    bmp16, bgr twice each), no plain twin. Then the chunked form and the
+    IDCT over every strip against their twins on the TIFF, and the raster
+    kernel's YCbCr and BMP forms against theirs on samples made from a
+    seed at 3200x2130 (no entry may differ), each timed with CUDA events
+    beside its bound and the twin (back-to-back calls, and the launches
+    alone from a CUDA graph: ``graph_ms``); and the TIFF's read split,
+    host clock around synchronised calls: the host's parse and entropy
+    decode of the
+    134 strips, the copy of the coefficients, the IDCT launches, the
+    colour launch, and the whole ``decode``. Last, the host parses of
+    3200x2130 BMP and PPM files made from the TIFF's read
+    (:func:`host_parse_sources`), host clock: ``images.bmp_rows`` and
+    ``images.pnm_rows`` (their samples checked) and the whole ``decode``
+    of each."""
+    import numpy as np
+    import torch
+    from mpmvs_torch.io import images
+    from mpmvs_torch.preprocess import convert
+    from mpmvs_torch.utils.roofline import (chunked_colour_bound, idct_bound,
+                                            raster_bound, ycbcr_raster_bound)
+    from mpmvs_torch.utils.trace import cuda_graph_ms, cuda_time_ms
+
+    data_dir = os.path.join(HERE, "tests", "data")
+    with open(os.path.join(os.path.dirname(TIFF_JPEG_SOURCE), "cv2.json")) \
+            as f:
+        want = json.load(f)[os.path.basename(TIFF_JPEG_SOURCE)]
+    with open(TIFF_JPEG_SOURCE, "rb") as f:
+        data = f.read()
+    counters = (images.IDCT_COUNTS, images.COUNTS, images.RASTER_COUNTS,
+                images.CODEC_COUNTS, images.YCC_COUNTS, images.FDCT_COUNTS)
+    sources = [TIFF_JPEG_SOURCE] + [os.path.join(data_dir, r)
+                                    for r in RASTER_SOURCES]
+    reads, converted = {}, {}
+    with tempfile.TemporaryDirectory(prefix="mpmvs_tiff_jpeg_") as tmp:
+        for c in counters:
+            c.reset()
+        t1 = time.perf_counter()
+        for k, src in enumerate(sources):
+            dst = os.path.join(tmp, f"{k:08d}.jpg")
+            convert.convert_image(src, dst, dev)
+            reads[src] = images.read_image(src, dev)
+            with open(dst, "rb") as f:
+                converted[src] = f.read()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        launches = {n: (c.kernel, c.plain, dict(c.forms)) for n, c in zip(
+            ("idct", "colour", "raster", "codec", "enc_colour", "fdct"),
+            counters)}
+    g, c = reads[TIFF_JPEG_SOURCE]
+    equal_cv2 = {"gray": sha256_of(g) == want["gray"],
+                 "bgr": sha256_of(c) == want["bgr"],
+                 "workspace_image": hashlib.sha256(
+                     converted[TIFF_JPEG_SOURCE]).hexdigest()
+                 == want["converted"]}
+    small = {}
+    for rel, src in zip(RASTER_SOURCES, sources[1:]):
+        folder, name = os.path.split(src)
+        arrays = np.load(os.path.join(folder, "cv2_arrays.npz"))
+        stem = name.rsplit(".", 1)[0]
+        g, c = reads[src]
+        ws = images.encode_jpeg(torch.as_tensor(arrays[f"bgr_{stem}"],
+                                                device=dev), dev)
+        small[rel] = {"gray": bool(np.array_equal(
+                          g.cpu().numpy(), arrays[f"gray_{stem}"])),
+                      "bgr": bool(np.array_equal(c.cpu().numpy(),
+                                                 arrays[f"bgr_{stem}"])),
+                      "workspace_image": converted[src] == ws}
+    log(f"  JPEG TIFF source ({len(data)} bytes) and {len(RASTER_SOURCES)} "
+        f"small sources: converter image steps and reads "
+        f"{(t2 - t1) * 1e3:.1f} ms; the TIFF equal to cv2's (grey, BGR, the "
+        f"converter's workspace image): {equal_cv2}; the small sources "
+        f"equal to cv2's arrays {small}; launches (kernel, plain, forms) "
+        f"{launches}")
+    if not all(equal_cv2.values()) or not all(
+            all(v.values()) for v in small.values()):
+        raise AssertionError(f"phase 8d's reads differ from cv2: TIFF "
+                             f"{equal_cv2}, small sources {small}")
+    n = len(RASTER_SOURCES)
+    expect = {"idct": (6, 0), "colour": (2, 0), "raster": (2 * n, 0)}
+    if any(launches[k][:2] != v for k, v in expect.items()) or \
+            launches["colour"][2] != {"chunks": 2} or \
+            launches["raster"][2] != {"ycbcr": 2, "bmp16": 2, "bgr": 2} or \
+            launches["codec"][2].get("tiff_jpeg") != 2 or \
+            launches["codec"][2].get("bmp") != 6 or \
+            launches["codec"][2].get("pnm") != 2 or \
+            launches["codec"][2].get("tiff") != 2:
+        raise AssertionError(f"phase 8d launches {launches}: expected the "
+                             f"IDCT 3 times and the chunked colour form "
+                             f"once a read of the TIFF, the raster kernel "
+                             f"twice a small source, no plain call")
+
+    lib = images._library()
+    parts = {k: [] for k in ("host_decode_ms", "copy_to_card_ms",
+                             "idct_ms", "colour_ms", "decode_ms")}
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        tj = images.tiff_jpeg_coefficients(data, lib)
+        t2 = time.perf_counter()
+        coefs = [torch.from_numpy(k).to(dev) for k in tj.coefs]
+        qts = [torch.from_numpy(q.view(np.int16)).to(dev) for q in tj.qt]
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        planes = [images.idct_islow_kernel(k, q, 8 * k.shape[0],
+                                           8 * k.shape[1])
+                  for k, q in zip(coefs, qts)]
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        images.colour_kernel(planes, tj.factors, tj.size, tj.space,
+                             tj.chunks)
+        torch.cuda.synchronize()
+        t5 = time.perf_counter()
+        images.decode(data, dev)
+        torch.cuda.synchronize()
+        t6 = time.perf_counter()
+        for k, (a, b) in zip(parts, ((t1, t2), (t2, t3), (t3, t4), (t4, t5),
+                                     (t5, t6))):
+            parts[k].append((b - a) * 1e3)
+    H, W = tj.size
+    out = {"file_bytes": len(data), "size": [W, H], "chunks":
+           tj.chunks._asdict(), "equal_cv2": equal_cv2,
+           "small_sources_equal_cv2": small,
+           "launches": {k: [v[0], v[1], v[2]] for k, v in launches.items()},
+           **parts}
+
+    def held(name, run, plain, got, bnd, reps=20):
+        want_k = plain()
+        err = [differing(a, b) for a, b in zip(got, want_k)]
+        if any(e[0] for e in err):
+            raise AssertionError(f"{name} vs plain at full size: {err}")
+        out[name] = {"ms": cuda_time_ms(run, reps),
+                     "graph_ms": cuda_graph_ms(run, reps),
+                     "plain_ms": cuda_time_ms(plain, 3), "bound_ms": bnd[0],
+                     "bound_by": bnd[1], "vs_plain": err,
+                     "max_abs_err": max(e[1] for e in err)}
+
+    idct_k = lambda: [images.idct_islow_kernel(k, q, 8 * k.shape[0],
+                                               8 * k.shape[1])
+                      for k, q in zip(coefs, qts)]
+    idct_p = lambda: [images.idct_islow_plain(k, q, 8 * k.shape[0],
+                                              8 * k.shape[1])
+                      for k, q in zip(coefs, qts)]
+    held("idct_chunks", idct_k, idct_p, idct_k(),
+         idct_bound(coefs, planes))
+    args = (planes, tj.factors, tj.size, tj.space, tj.chunks)
+    held("ycc_to_bgr_chunks", lambda: images.colour_kernel(*args),
+         lambda: images.colour_plain(*args), images.colour_kernel(*args),
+         chunked_colour_bound(tj.chunks, tj.factors, H, W))
+    del coefs, planes
+    rng = np.random.default_rng(18)
+    forms = {
+        "ycbcr": images.RasterForm(
+            images.RASTER_YCBCR, 8, 3, 0, 0, 0, images.NARROW_ROUND257, 0,
+            images.GREY_OPENCV, W, H, (W // 2) * 6, (W // 2) * 6 * (H // 2),
+            sub_h=2, sub_v=2),
+        "bgr": images.RasterForm(
+            images.RASTER_RGB, 8, 3, 0, 0, 0, images.NARROW_SHIFT, 0,
+            images.GREY_OPENCV, W, H, 3 * W, 3 * W * H, bgr=1),
+        "bmp16": images.RasterForm(
+            images.RASTER_BMP16, 16, 1, 0, 1, 0, images.NARROW_SHIFT, 0,
+            images.GREY_OPENCV, W, H, 2 * W, 2 * W * H, green6=1)}
+    for form_name, form in forms.items():
+        samples = torch.from_numpy(rng.integers(
+            0, 256, form.plane_bytes).astype(np.uint8)).to(dev)
+        tables = np.zeros(images.TABLES_LEN, np.uint8)
+        if form.kind == images.RASTER_YCBCR:
+            tables[:5 * 1024] = images.ycbcr_tables(
+                ref=(16., 235., 128., 240., 128., 240.)).astype(
+                "<i4").view(np.uint8).reshape(-1)
+        tables = torch.from_numpy(tables).to(dev)
+        run = (lambda s=samples, f=form, t=tables:
+               images.raster_to_bgr_kernel(s, f, t))
+        held(f"raster_{form_name}", run,
+             lambda s=samples, f=form, t=tables:
+             images.raster_to_bgr_plain(s, f, t), run(),
+             ycbcr_raster_bound(form) if form_name == "ycbcr"
+             else raster_bound(form, 0))
+    log(f"  JPEG TIFF read at {W}x{H} ({tj.chunks.count} strips of "
+        f"{tj.chunks.height} rows): host parse and entropy decode "
+        f"{np.round(parts['host_decode_ms'], 2)} ms; copy of the "
+        f"coefficients {np.round(parts['copy_to_card_ms'], 2)} ms; IDCT "
+        f"launches {np.round(parts['idct_ms'], 3)} ms; colour launch "
+        f"{np.round(parts['colour_ms'], 3)} ms (host clock); decode "
+        f"{np.round(parts['decode_ms'], 2)} ms. CUDA events: "
+        + "; ".join(f"{k} {out[k]['ms']:.4f} ms, launches alone "
+                    f"{out[k]['graph_ms']:.4f} (bound "
+                    f"{out[k]['bound_ms']:.4f}, share "
+                    f"{out[k]['bound_ms'] / out[k]['ms']:.4f}; plain "
+                    f"{out[k]['plain_ms']:.1f})"
+                    for k in ("idct_chunks", "ycc_to_bgr_chunks",
+                              "raster_ycbcr", "raster_bgr", "raster_bmp16"))
+        + "; every form equals its plain twin")
+    g, c = reads[TIFF_JPEG_SOURCE]
+    out["host_parse"] = {}
+    for name, (blob, parse, want_samples) in host_parse_sources(
+            g.cpu().numpy(), c.cpu().numpy()).items():
+        t1 = time.perf_counter()
+        r = parse(blob)
+        t2 = time.perf_counter()
+        images.decode(blob, dev)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        if not np.array_equal(r.samples, want_samples):
+            raise AssertionError(f"phase 8d: {name}'s host parse differs "
+                                 f"from the samples it was made of")
+        out["host_parse"][name] = {"file_bytes": len(blob),
+                                   "parse_ms": (t2 - t1) * 1e3,
+                                   "decode_ms": (t3 - t2) * 1e3}
+    log("  host parses at 3200x2130, host clock: " + "; ".join(
+        f"{k} ({v['file_bytes']} bytes) parse {v['parse_ms']:.1f} ms, "
+        f"decode {v['decode_ms']:.1f} ms"
+        for k, v in out["host_parse"].items()))
+    torch.cuda.empty_cache()
+    return out
+
+
+def host_parse_sources(grey, bgr) -> dict:
+    """BMP and PPM files of an (H, W) grey and BGR image (W even), each
+    with its parse and the samples that parse must give: the grey as an
+    8-bit grey-palette RLE8 BMP of 2-pixel runs (the run-length loop's
+    most ops: W / 2 a row; each run repeats its first pixel) and of
+    255-pixel absolute runs (its fewest), and the BGR as a P3 PPM of
+    3-digit ASCII samples (the numpy parse)."""
+    import numpy as np
+    from mpmvs_torch.io import images
+
+    H, W = grey.shape
+    pairs = grey[:, 0::2]
+
+    def bmp(stream: bytes) -> bytes:
+        head = struct.pack("<iiHHIIiiII", W, H, 1, 8, 1, len(stream), 2835,
+                           2835, 256, 0)
+        palette = np.repeat(np.arange(256, dtype=np.uint8), 4)
+        palette[3::4] = 0
+        body = struct.pack("<I", 40) + head + palette.tobytes()
+        return b"BM" + struct.pack("<IHHI", 14 + len(body) + len(stream), 0,
+                                   0, 14 + len(body)) + body + stream
+
+    runs = np.zeros((H, W // 2 + 1, 2), np.uint8)
+    runs[:, :-1, 0], runs[:, :-1, 1] = 2, pairs  # then an end of line
+    absolute = bytearray()
+    for row in grey:
+        for x in range(0, W, 255):
+            n = min(255, W - x)
+            absolute += bytes([0, n]) + row[x:x + n].tobytes() + \
+                b"\0" * (n & 1)
+        absolute += b"\0\0"
+    rgb = bgr[..., ::-1].reshape(-1).astype(np.int64)
+    digits = np.stack([rgb // 100, rgb // 10 % 10, rgb % 10,
+                       np.full_like(rgb, -16)], -1) + ord("0")  # "ddd "
+    ppm = b"P3\n%d %d\n255\n" % (W, H) + digits.astype(np.uint8).tobytes()
+    bmp_parse, pnm_parse = images.bmp_rows, images.pnm_rows
+    return {"bmp_rle8_runs2": (bmp(runs.tobytes() + b"\0\1"), bmp_parse,
+                               np.repeat(pairs, 2, axis=1)),
+            "bmp_rle8_absolute": (bmp(bytes(absolute) + b"\0\1"), bmp_parse,
+                                  grey),
+            "ppm_p3": (ppm, pnm_parse, bgr[..., ::-1].reshape(H, 3 * W))}
+
+
 def phase_lossless_parts(dev):
     """Phase 8c: the committed lossless WebP source (3200x2130: phase 8b's
     source as cv2 reads it, re-encoded lossless by Pillow; subtract green,
@@ -2762,8 +3089,9 @@ def main(argv=None) -> int:
     # the codec (host decode and encode, the IDCT and colour kernels, the
     # encoder's colour and DCT kernels, PNG reads): no TPU kernel's
     # counterpart; the details on a line of their own
-    enc, png, rast, webp, ll = (files["enc"], files["png"], files["raster"],
-                                files["webp"], files["lossless"])
+    enc, png, rast, webp, ll, tj = (
+        files["enc"], files["png"], files["raster"], files["webp"],
+        files["lossless"], files["tiff_jpeg"])
     codec_kernel = lambda k: {
         "source": "mpmvs_torch/csrc/jpeg_codec.cu",
         "launches": files[f"{k}_launches"], "ms": files[f"{k}_ms"],
@@ -2786,7 +3114,13 @@ def main(argv=None) -> int:
         "raster_reads": {k: {f: v for f, v in r.items() if f != "form"}
                          for k, r in files["raster"].items()},
         "ycck_read": files["ycck"], "ycck_vs_cv2": files["ycck_read"],
-        "webp_read": webp, "lossless_webp_read": {
+        "webp_read": webp, "tiff_jpeg_read": {
+            k: v for k, v in tj.items() if k not in (
+                "idct_chunks", "ycc_to_bgr_chunks", "raster_ycbcr",
+                "raster_bgr", "raster_bmp16")},
+        "chunked_fixtures_kernel_equal_plain":
+            fixture_facts["chunked_colour_equal_plain"],
+        "lossless_webp_read": {
             k: v for k, v in ll.items() if k not in (
                 "vp8l_predictor", "vp8l_colour", "webp_argb_to_bgr")},
         "four_component_fixtures_equal_cv2":
@@ -2959,7 +3293,39 @@ def main(argv=None) -> int:
             ("vp8l_predictor", ""),
             ("vp8l_colour", " a run of element-wise transforms (the "
              "cross-colour run; the add-green run beside it)"),
-            ("webp_argb_to_bgr", ""))]}))
+            ("webp_argb_to_bgr", ""))] + [
+        entry(name, "jpeg_codec.cu", "none: cv2.imread (of a JPEG-"
+              "compressed, YCbCr or signed TIFF, a BMP or a PNM: "
+              f"mpmvs_tpu/pipeline.py:60, "
+              f"mpmvs_tpu/preprocess/convert.py:161); the arithmetic in "
+              f"mpmvs_torch/csrc/{header}", launches,
+              tj[key]["max_abs_err"], tj[key]["ms"], tj[key]["plain_ms"],
+              (tj[key]["bound_ms"], tj[key]["bound_by"]), form=form,
+              graph_ms=tj[key]["graph_ms"], scope=scope)
+        for name, key, form, header, launches, scope in (
+            ("idct_islow", "idct_chunks", "every chunk at once",
+             "jpeg_idct.h", tj["launches"]["idct"][0],
+             f"the three components of phase 8d's {tj['size'][0]}x"
+             f"{tj['size'][1]} JPEG TIFF, every one of its "
+             f"{tj['chunks']['count']} strips in one launch a component "
+             f"(three launches); launches: the converter's read and the "
+             f"pipeline's"),
+            ("ycc_to_bgr", "ycc_to_bgr_chunks", "chunks", "jpeg_colour.h",
+             tj["launches"]["colour"][2].get("chunks", 0),
+             "phase 8d's JPEG TIFF, each strip upsampled on its own, grey "
+             "and BGR in one launch"),
+            ("raster_to_bgr", "raster_ycbcr", "ycbcr", "raster_bgr.h",
+             tj["launches"]["raster"][2].get("ycbcr", 0),
+             "3200x2130 YCbCr data units at (2, 2) made from a seed; "
+             "launches: phase 8d's YCbCr TIFF source"),
+            ("raster_to_bgr", "raster_bgr", "bgr", "raster_bgr.h",
+             tj["launches"]["raster"][2].get("bgr", 0),
+             "3200x2130 B, G, R samples made from a seed; launches: phase "
+             "8d's 24-bit BMP source"),
+            ("raster_to_bgr", "raster_bmp16", "bmp16", "raster_bgr.h",
+             tj["launches"]["raster"][2].get("bmp16", 0),
+             "3200x2130 5-6-5 pixels made from a seed; launches: phase "
+             "8d's 16-bit BMP source"))]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -37,6 +37,14 @@
 //     orientation is applied to both images on the card afterwards
 //     (io/images.py).
 //
+// JPEG-compressed TIFFs (tiff_jpeg.h): each strip or tile is a stream of
+// its own, entropy-decoded on the host; the coefficients of every chunk,
+// concatenated, go through one IDCT launch a component, and one launch of
+// ycc_to_bgr_kernel's chunked form upsamples each chunk on its own and
+// converts as libtiff has libjpeg convert (YCbCr, or the components as
+// they are for RGB), with OpenCV's grey of the BGR, both images from the
+// one launch.
+//
 // Encoding gives cv2.imencode's bytes (quality q, 4:2:0 or grey):
 //   * bgr_to_ycc_kernel: libjpeg-turbo's BGR -> YCbCr, edge expansion and
 //     2x2 chroma downsampling (jpeg_fdct.h), one thread per 2x2 group;
@@ -54,21 +62,23 @@
 // sample and writes 2 a coefficient. The host's entropy coding takes far
 // longer than any of them.
 //
-// PNG and TIFF reads: png_unfilter.h undoes a PNG's row filters and
-// Adam7 interlacing on the host (png_unfilter_rows, png_adam7_rows),
+// PNG, TIFF, BMP and PNM reads: png_unfilter.h undoes a PNG's row filters
+// and Adam7 interlacing on the host (png_unfilter_rows, png_adam7_rows),
 // exif_orientation_tiff reads its eXIf; tiff_decode.h parses a TIFF and
 // decompresses its strips or tiles on the host (tiff_host_info,
-// tiff_host_layout, tiff_host_decode). The samples are copied to the card,
-// where raster_to_bgr_kernel makes cv2.imread's BGR and grey images of them
+// tiff_host_layout, tiff_host_decode); BMP and PNM are parsed in
+// io/images.py. The samples are copied to the card, where
+// raster_to_bgr_kernel makes cv2.imread's BGR and grey images of them
 // (raster_bgr.h: sub-8-bit grey expanded, palette looked up, 16 bits
-// narrowed, alpha dropped or premultiplied, RGB to BGR, and the grey of a
-// colour image by libpng's or OpenCV's arithmetic), one thread a pixel.
-// It reads at most 8 bytes a pixel and writes 4.
+// narrowed, alpha dropped or premultiplied, RGB or BGR samples, a BMP's
+// 16-bit pixels, a TIFF's YCbCr data units by libtiff's tables, and the
+// grey of a colour image by libpng's or OpenCV's arithmetic), one thread a
+// pixel. It reads at most 8 bytes a pixel and writes 4.
 //
 // The C interface below is bound with ctypes by mpmvs_torch/io/images.py.
 // Every function returns 0 or an error code: a decode error of
 // jpeg_entropy.h (2001-2011), an encode or PNG error (2010, 3001-3002), a
-// TIFF error (4001-4018), a WebP error (webp_decode.h, 5001-5007;
+// TIFF error (4001-4021), a WebP error (webp_decode.h, 5001-5007;
 // webp_lossless.h, 5008-5011) or a CUDA error offset by 1000.
 
 #include <cuda_runtime.h>
@@ -84,6 +94,7 @@
 #include "png_unfilter.h"
 #include "raster_bgr.h"
 #include "tiff_decode.h"
+#include "tiff_jpeg.h"
 #include "vp8_filter.h"
 #include "vp8_recon.h"
 #include "vp8l_transform.h"
@@ -191,41 +202,57 @@ extern "C" int idct_islow_launch(const short* coef, const unsigned short* qt,
   return e == cudaSuccess ? 0 : CODEC_CUDA_ERR + (int)e;
 }
 
-// The planes of n components (pointers and n x 5 ints: h, w, rh, rv, fancy,
-// the fields of jpeg_colour::Plane) as the kernels take them.
+// The planes of n components (pointers and n x 6 ints: w, rh, rv, fancy,
+// pitch, stride, the fields of jpeg_colour::Plane) as the kernels take
+// them.
 static jpeg_colour::Planes planes_of(const unsigned char* const* ptrs,
                                      const int* geo, int n) {
   jpeg_colour::Planes pl = {};
   for (int i = 0; i < n; i++) {
-    const int* g = geo + 5 * i;
-    pl.c[i] = {ptrs[i], g[0], g[1], g[2], g[3], g[4]};
+    const int* g = geo + 6 * i;
+    pl.c[i] = {ptrs[i], g[0], g[1], g[2], g[3], g[4], g[5]};
   }
   return pl;
 }
 
-// One thread a pixel of the (H, W) image of one or three components: BGR
-// (H, W, 3) and, where gray is not NULL, grey (jpeg_colour.h ycc_pixel;
-// form 0 YCbCr, 1 RGB).
+// One thread a pixel of the (H, W) image of one or three components, cut
+// into chunks ck (kChunks) or one chunk, a JPEG file: BGR (H, W, 3) and,
+// where gray is not NULL, grey (jpeg_colour.h ycc_pixel; form: YccForm
+// bits). A file's pixels take their spot without spot()'s divisions.
+template <bool kChunks>
 __global__ void ycc_to_bgr_kernel(jpeg_colour::Planes pl, int n, int form,
-                                  int H, int W,
+                                  jpeg_colour::Chunks ck, int H, int W,
                                   unsigned char* __restrict__ bgr,
                                   unsigned char* __restrict__ gray) {
   int col = blockIdx.x * blockDim.x + threadIdx.x;
   int r = blockIdx.y;
   if (col >= W) return;
   size_t i = (size_t)r * W + col;
-  jpeg_colour::ycc_pixel(pl, n, form, r, col, bgr + 3 * i,
+  jpeg_colour::Spot s = kChunks ? jpeg_colour::spot(ck, r, col)
+                                : jpeg_colour::whole(H, r, col);
+  jpeg_colour::ycc_pixel(pl, n, form, s, bgr + 3 * i,
                          gray ? gray + i : nullptr);
 }
 
+// chunks: the fields of jpeg_colour::Chunks (8 ints), or NULL for one
+// chunk, the image.
 extern "C" int ycc_to_bgr_launch(const unsigned char* const* ptrs,
-                                 const int* geo, int n, int form, int H,
-                                 int W, unsigned char* bgr,
-                                 unsigned char* gray, cudaStream_t stream) {
+                                 const int* geo, int n, int form,
+                                 const int* chunks, int H, int W,
+                                 unsigned char* bgr, unsigned char* gray,
+                                 cudaStream_t stream) {
   dim3 block(256);
   dim3 grid((W + 255) / 256, H);
-  ycc_to_bgr_kernel<<<grid, block, 0, stream>>>(planes_of(ptrs, geo, n), n,
-                                                form, H, W, bgr, gray);
+  jpeg_colour::Planes pl = planes_of(ptrs, geo, n);
+  if (chunks) {
+    jpeg_colour::Chunks ck = {chunks[0], chunks[1], chunks[2], chunks[3],
+                              chunks[4], chunks[5], chunks[6], chunks[7]};
+    ycc_to_bgr_kernel<true><<<grid, block, 0, stream>>>(pl, n, form, ck, H,
+                                                        W, bgr, gray);
+  } else {
+    ycc_to_bgr_kernel<false><<<grid, block, 0, stream>>>(
+        pl, n, form, jpeg_colour::Chunks{}, H, W, bgr, gray);
+  }
   cudaError_t e = cudaGetLastError();
   return e == cudaSuccess ? 0 : CODEC_CUDA_ERR + (int)e;
 }
@@ -240,7 +267,7 @@ __global__ void cmyk_to_bgr_kernel(jpeg_colour::Planes pl, int ycck, int H,
   size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= (size_t)H * W) return;
   int r = (int)(i / W), col = (int)(i % W);
-  jpeg_colour::cmyk_pixel(pl, ycck, r, col, bgr + 3 * i, gray + i);
+  jpeg_colour::cmyk_pixel(pl, ycck, H, r, col, bgr + 3 * i, gray + i);
 }
 
 extern "C" int cmyk_to_bgr_launch(const unsigned char* const* ptrs,
@@ -330,7 +357,8 @@ __global__ void raster_to_bgr_kernel(const unsigned char* __restrict__ raster,
   raster_bgr::pixel(raster, form, tables, y, x, bgr + 3 * i, gray + i);
 }
 
-// form: the fields of raster_bgr::Form in order (11 ints, 2 long longs).
+// form: the fields of raster_bgr::Form in order (raster_bgr::kFormInts
+// ints, 2 long longs).
 extern "C" int raster_to_bgr_launch(const unsigned char* raster,
                                     const int* form_ints,
                                     const long long* form_sizes,

@@ -19,12 +19,29 @@
 // The first component is upsampled by the same rule when it is not the
 // largest.
 //
+// Chunks: a TIFF's JPEG-coded strips or tiles are each a JPEG of its own,
+// decoded on its own (tiff_jpeg.h), so each is upsampled on its own: a
+// neighbour is clamped to the pixel's own chunk (a strip's edge rows are
+// replicated as an image's are), the last strip's samples are its
+// stream's rows (which may pass the image's last row), and tiles are
+// cropped at the image's right and bottom edges. Where the orientation
+// mirrors the image left-right, libtiff's tile reader mirrors each tile on
+// its own and OpenCV no more (tiff_decode.h), so `mirror` lays the tiles
+// out in mirrored order, each tile's columns as they are, for the
+// orientation applied after to mirror the whole image. A component's samples of
+// every chunk lie one after another in one plane (the IDCT's output, rows
+// of `pitch` bytes, `stride` rows a chunk). A JPEG file is one chunk, the
+// image, and the rule is the one above.
+//
 // Colour:
 //   * YCbCr: jdcolor.c's fixed-point YCbCr -> RGB (16 fractional bits,
 //     FIX(1.402), FIX(1.772), FIX(0.71414), FIX(0.34414), rounding as its
 //     tables do), clamped; the grey image is the (upsampled) Y component;
 //   * RGB components: the samples in B, G, R order, the grey
 //     rgb_gray_convert's (19595 R + 38470 G + 7471 B + 32768) >> 16;
+//   * with the OpenCV grey (a TIFF's: OpenCV converts libtiff's RGBA
+//     image), the grey of either is OpenCV's BGR -> grey of the BGR,
+//     (4899 R + 9617 G + 1868 B + 8192) >> 14, not libjpeg's;
 //   * CMYK: libjpeg hands OpenCV the four samples (null_convert); YCCK:
 //     ycck_cmyk_convert, the YCbCr -> RGB above with C, M, Y = 255 - R, G, B
 //     and K passed through. OpenCV then makes BGR by icvCvt_CMYK2BGR_8u_C4C3R,
@@ -38,16 +55,20 @@
 #include <stddef.h>
 #include <stdint.h>
 
-#include "jpeg_fdct.h"  // y_of: rgb_gray_convert's coefficients
+#include "jpeg_fdct.h"   // y_of: rgb_gray_convert's coefficients
+#include "raster_bgr.h"  // opencv_grey
 
 namespace jpeg_colour {
 
 // One component's samples and how they are upsampled to the image.
 struct Plane {
   const uint8_t* p;
-  int h, w;    // its samples: ceil(H / rv) x ceil(W / rh)
+  int w;       // its samples across a chunk: ceil(cols / rh) (of the
+               // image, for a JPEG); down, ceil(the stream's rows / rv)
   int rh, rv;  // hmax / h_samp_factor, vmax / v_samp_factor
   int fancy;   // 1: fancy upsampling (rh, rv in {1, 2}), 0: replication
+  int pitch;   // bytes a row of samples (w for a JPEG)
+  int stride;  // rows of samples from one chunk to the next
 };
 
 // Up to four components (the count is the kernel's form).
@@ -55,15 +76,51 @@ struct Planes {
   Plane c[4];
 };
 
-// The component's upsampled sample at image pixel (r, col).
-JPEG_HD int upsampled(const Plane& q, int r, int col) {
-  if (q.rh == 1 && q.rv == 1) return q.p[r * q.w + col];
-  if (!q.fancy) return q.p[(r / q.rv) * q.w + col / q.rh];
-  const uint8_t* p = q.p;
-  int pitch = q.w;
+// How the image is cut into chunks, each coded on its own.
+struct Chunks {
+  int tiled;   // 1: tiles, 0: strips
+  int w, h;    // a chunk's pixels (a strip is the image's width)
+  int across;  // chunks a row of them (1 for strips)
+  int last_h;  // the last strip's stream's rows (h for tiles)
+  int n;       // chunks in all
+  int mirror;  // tiles laid out in mirrored order (see above)
+  int image_w; // the image's width
+};
+
+// Where an image pixel lies: its chunk, its row and column there, and the
+// rows of that chunk's stream.
+struct Spot {
+  int chunk, r, c, rows;
+};
+
+// The spot of pixel (r, col) of a JPEG file of H rows: its one chunk.
+JPEG_HD Spot whole(int H, int r, int col) { return {0, r, col, H}; }
+
+JPEG_HD Spot spot(const Chunks& k, int r, int col) {
+  int from = k.mirror ? k.image_w - 1 - col : col;  // the column in the file
+  int ty = r / k.h, tx = k.tiled ? from / k.w : 0;
+  Spot s;
+  s.chunk = ty * k.across + tx;
+  s.r = r - ty * k.h;
+  s.c = from - tx * k.w;
+  if (k.mirror) {  // the tile's columns in order at its mirrored place
+    int x0 = tx * k.w, n = k.image_w - x0 < k.w ? k.image_w - x0 : k.w;
+    s.c = n - 1 - s.c;
+  }
+  s.rows = !k.tiled && s.chunk == k.n - 1 ? k.last_h : k.h;
+  return s;
+}
+
+// The component's upsampled sample at a pixel's spot in its chunk.
+JPEG_HD int upsampled(const Plane& q, const Spot& s) {
+  const uint8_t* p = q.p + (size_t)s.chunk * q.stride * q.pitch;
+  int pitch = q.pitch, r = s.r, col = s.c;
+  if (q.rh == 1 && q.rv == 1) return p[r * pitch + col];
+  if (!q.fancy) return p[(r / q.rv) * pitch + col / q.rh];
+  int h = (s.rows + q.rv - 1) >> (q.rv - 1);  // fancy: rv is 1 or 2
   if (q.rh == 2 && q.rv == 2) {
     int i = r >> 1, j = col >> 1;
-    int i2 = (r & 1) ? (i + 1 < q.h ? i + 1 : q.h - 1) : (i > 0 ? i - 1 : 0);
+    int i2 = (r & 1) ? (i + 1 < h ? i + 1 : h - 1) : (i > 0 ? i - 1 : 0);
     int jn = (col & 1) ? (j + 1 < q.w ? j + 1 : q.w - 1) : (j > 0 ? j - 1 : 0);
     int cs = 3 * p[i * pitch + j] + p[i2 * pitch + j];
     int cn = 3 * p[i * pitch + jn] + p[i2 * pitch + jn];
@@ -76,7 +133,7 @@ JPEG_HD int upsampled(const Plane& q, int r, int col) {
            2;
   }
   int i = r >> 1;  // h1v2
-  int i2 = (r & 1) ? (i + 1 < q.h ? i + 1 : q.h - 1) : (i > 0 ? i - 1 : 0);
+  int i2 = (r & 1) ? (i + 1 < h ? i + 1 : h - 1) : (i > 0 ? i - 1 : 0);
   return (3 * p[i * pitch + col] + p[i2 * pitch + col] + ((r & 1) ? 2 : 1)) >>
          2;
 }
@@ -104,30 +161,38 @@ JPEG_HD void ycck_cmy(int y, int cb, int cr, int* c, int* m, int* yy) {
 // icvCvt_CMYK2BGR_8u_C4C3R: one of C, M, Y under black k.
 JPEG_HD int cmyk_channel(int x, int k) { return k - ((255 - x) * k >> 8); }
 
-// One pixel of a one- or three-component JPEG: bgr[0..2] and, where grey
-// is not NULL, its grey (form 0: YCbCr or one component, 1: RGB).
-JPEG_HD void ycc_pixel(const Planes& pl, int n, int form, int r, int col,
+// The form of ycc_pixel: bit 0 RGB components (else YCbCr, or one
+// component), bit 1 OpenCV's grey of the BGR (else libjpeg's).
+enum YccForm { kFormRgb = 1, kFormOpenCvGrey = 2 };
+
+// The pixel at spot s (spot(), or whole() for a JPEG file) of a one- or
+// three-component JPEG: bgr[0..2] and, where grey is not NULL, its grey
+// (YccForm bits).
+JPEG_HD void ycc_pixel(const Planes& pl, int n, int form, const Spot& s,
                        uint8_t* bgr, uint8_t* grey) {
-  int y = upsampled(pl.c[0], r, col);
+  int y = upsampled(pl.c[0], s);
   if (n == 1) {
     bgr[0] = bgr[1] = bgr[2] = (uint8_t)y;
-    if (grey) *grey = (uint8_t)y;
+    if (grey) *grey = (uint8_t)y;  // OpenCV's grey of (y, y, y) is y
     return;
   }
-  int u = upsampled(pl.c[1], r, col), v = upsampled(pl.c[2], r, col);
-  if (form == 1) {  // y, u, v are R, G, B
-    bgr[0] = (uint8_t)v;
-    bgr[1] = (uint8_t)u;
-    bgr[2] = (uint8_t)y;
-    if (grey) *grey = (uint8_t)jpeg_fdct::y_of(y, u, v);
-    return;
-  }
+  int u = upsampled(pl.c[1], s), v = upsampled(pl.c[2], s);
   int red, green, blue;
-  ycc_rgb(y, u, v, &red, &green, &blue);
+  if (form & kFormRgb) {  // y, u, v are R, G, B
+    red = y;
+    green = u;
+    blue = v;
+  } else {
+    ycc_rgb(y, u, v, &red, &green, &blue);
+  }
   bgr[0] = (uint8_t)blue;
   bgr[1] = (uint8_t)green;
   bgr[2] = (uint8_t)red;
-  if (grey) *grey = (uint8_t)y;
+  if (!grey) return;
+  if (form & kFormOpenCvGrey)
+    *grey = (uint8_t)raster_bgr::opencv_grey(blue, green, red);
+  else
+    *grey = (uint8_t)(form & kFormRgb ? jpeg_fdct::y_of(y, u, v) : y);
 }
 
 // OpenCV's BGR and grey of libjpeg's C, M, Y, K samples.
@@ -138,15 +203,16 @@ JPEG_HD void cmyk_bgr(int c, int m, int y, int k, uint8_t* bgr,
   bgr[0] = (uint8_t)blue;
   bgr[1] = (uint8_t)green;
   bgr[2] = (uint8_t)red;
-  *grey = (uint8_t)((blue * 1868 + green * 9617 + red * 4899 + 8192) >> 14);
+  *grey = (uint8_t)raster_bgr::opencv_grey(blue, green, red);
 }
 
 // One pixel of a four-component JPEG (ycck: the components are Y, Cb, Cr,
 // K): bgr[0..2] and grey.
-JPEG_HD void cmyk_pixel(const Planes& pl, int ycck, int r, int col,
+JPEG_HD void cmyk_pixel(const Planes& pl, int ycck, int H, int r, int col,
                         uint8_t* bgr, uint8_t* grey) {
-  int c = upsampled(pl.c[0], r, col), m = upsampled(pl.c[1], r, col);
-  int y = upsampled(pl.c[2], r, col), k = upsampled(pl.c[3], r, col);
+  Spot s = whole(H, r, col);
+  int c = upsampled(pl.c[0], s), m = upsampled(pl.c[1], s);
+  int y = upsampled(pl.c[2], s), k = upsampled(pl.c[3], s);
   if (ycck) ycck_cmy(c, m, y, &c, &m, &y);
   cmyk_bgr(c, m, y, k, bgr, grey);
 }

@@ -21,7 +21,10 @@
 // from the JFIF and Adobe markers and the component ids): YCbCr or RGB for
 // three, CMYK or YCCK for four. Every coefficient is stored in natural
 // (row-major) order, as libjpeg's coefficient buffer holds it, with each
-// component's blocks padded to whole MCUs.
+// component's blocks padded to whole MCUs. A tables-only stream (a TIFF's
+// JPEGTables) can be loaded into a Decoder first; the abbreviated streams
+// of the TIFF's strips or tiles are then decoded with its tables, as
+// libjpeg decodes them after jpeg_read_header(TRUE) of the tables.
 
 #pragma once
 
@@ -519,8 +522,11 @@ static void guess_space(Decoder* d) {
 }
 
 // Parse a whole JPEG and entropy-decode every scan into d->comp[*].coef.
+// tables_only: the stream is a tables-only one (SOI, DQT, DHT, DRI, EOI:
+// a TIFF's JPEGTables tag), whose tables stay in d for the abbreviated
+// streams decoded after it; no frame is needed.
 static int decode(Decoder* d, const uint8_t* data, size_t length,
-                  bool headers_only) {
+                  bool headers_only, bool tables_only = false) {
   if (length < 4 || data[0] != 0xFF || data[1] != 0xD8) return kBadStream;
   size_t pos = 2;
   while (pos + 4 <= length) {
@@ -550,9 +556,11 @@ static int decode(Decoder* d, const uint8_t* data, size_t length,
     switch (marker) {
       case 0xC0:
       case 0xC1:
+        if (tables_only) return kBadStream;
         err = parse_sof(d, p, n, false);
         break;
       case 0xC2:
+        if (tables_only) return kBadStream;
         err = parse_sof(d, p, n, true);
         break;
       case 0xC3: case 0xC5: case 0xC6: case 0xC7:
@@ -587,6 +595,7 @@ static int decode(Decoder* d, const uint8_t* data, size_t length,
         }
         break;
       case 0xDA:
+        if (tables_only) return kBadStream;
         if (d->frame && d->scans++ == 0) guess_space(d);
         if (headers_only) return d->frame ? kOk : kBadStream;
         err = decode_scan(d, p, n, data, length, pos + 2 + len);
@@ -601,6 +610,7 @@ static int decode(Decoder* d, const uint8_t* data, size_t length,
     if (err != kOk) return err;
     pos += 2 + len;
   }
+  if (tables_only) return d->frame ? kBadStream : kOk;
   if (!d->frame) return kBadStream;
   for (int i = 0; i < d->ncomp; i++)
     if (!d->qt_defined[d->comp[i].tq]) return kBadStream;

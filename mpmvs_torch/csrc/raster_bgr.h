@@ -1,5 +1,6 @@
 // The arithmetic of raster_to_bgr_kernel (jpeg_codec.cu): cv2.imread's BGR
-// and grey pixels of a PNG's or a TIFF's samples, one pixel at a time.
+// and grey pixels of a PNG's, a TIFF's, a BMP's or a PNM's samples, one
+// pixel at a time.
 // Shared by the kernel and by the host, where the tests build it with g++;
 // the plain PyTorch version is mpmvs_torch/io/images.py::raster_to_bgr_plain.
 //
@@ -16,10 +17,21 @@
 //   * CMYK (a TIFF's 8-bit separated samples): libtiff's RGBA reader
 //     (putRGBcontig8bitCMYKtile, putCMYKseparate8bittile), R = (255 - K)
 //     (255 - C) / 255 in integers, and likewise G of M and B of Y;
-//   * RGB: 16-bit samples narrowed v >> 8 (libpng) or (v + 128) / 257
+//   * RGB: 16-bit samples narrowed v >> 8 (libpng, PNM) or (v + 128) / 257
 //     (libtiff's Bitdepth16To8); with unassociated alpha (a TIFF's
 //     ExtraSamples 2) the colours are premultiplied, (v * a + 127) / 255,
-//     as libtiff's RGBA reader does; other alpha is dropped;
+//     as libtiff's RGBA reader does; other alpha is dropped; a BMP's
+//     samples are in B, G, R (A) order (`bgr`);
+//   * a BMP's 16-bit pixels (little-endian words), 5-5-5 or (`green6`)
+//     5-6-5, each field shifted to the top of its byte as OpenCV's
+//     icvCvt_BGR5552BGR / BGR5652BGR do (no bit replication);
+//   * YCbCr (a TIFF's 8-bit Photometric 6, uncompressed or losslessly
+//     compressed): libtiff's data units of sub_h x sub_v Y samples, then
+//     Cb, then Cr (a plain pixel at 1 x 1, planar or not), each unit's
+//     chroma replicated over it, converted by TIFFYCbCrtoRGB with the
+//     int32 tables TIFFYCbCrToRGBInit builds from YCbCrCoefficients and
+//     ReferenceBlackWhite (built on the host, io/images.py
+//     ycbcr_tables);
 //   * the grey image of colour: libpng's png_do_rgb_to_gray with OpenCV's
 //     coefficients (0.299, 0.587 -> 9797, 19234, 3737 of 32768): R where
 //     R = G = B, else (rc R + gc G + bc B) >> 15 on 8-bit samples, with
@@ -47,7 +59,14 @@
 
 namespace raster_bgr {
 
-enum Kind { kGrey = 0, kRgb = 1, kPalette = 2, kCmyk = 3 };
+// OpenCV's BGR -> grey (14-bit fixed point, rounding), which it applies to
+// libtiff's RGBA image, to libjpeg's CMYK and to a TIFF's JPEG strips.
+RASTER_HD int opencv_grey(int b, int g, int r) {
+  return (b * 1868 + g * 9617 + r * 4899 + 8192) >> 14;
+}
+
+enum Kind { kGrey = 0, kRgb = 1, kPalette = 2, kCmyk = 3, kYcbcr = 4,
+            kBmp16 = 5 };
 enum GreyRule { kLibpng = 0, kLibpngGamma = 1, kOpenCv = 2 };
 enum Narrow { kShift = 0, kRound257 = 1 };
 
@@ -64,12 +83,17 @@ struct Form {
   int premultiply;   // channel 3 is unassociated alpha
   int grey_rule;     // GreyRule of a colour image
   int width, height;
-  long long rowbytes;    // bytes a row (of a plane)
+  int bgr;           // RGB samples in B, G, R order (a BMP's)
+  int green6;        // kBmp16: 5-6-5 (else 5-5-5)
+  int sub_h, sub_v;  // kYcbcr: YCbCrSubSampling
+  long long rowbytes;    // bytes a row (of a plane; of data units)
   long long plane_bytes; // bytes a plane
 };
 
-// A Form from its fields in order: 11 ints, then rowbytes and plane_bytes
-// (the layout mpmvs_torch/io/images.py passes).
+constexpr int kFormInts = 15;
+
+// A Form from its fields in order: kFormInts ints, then rowbytes and
+// plane_bytes (the layout mpmvs_torch/io/images.py passes).
 RASTER_HD Form form_of(const int* v, const long long* sizes) {
   Form f;
   f.kind = v[0];
@@ -83,6 +107,10 @@ RASTER_HD Form form_of(const int* v, const long long* sizes) {
   f.grey_rule = v[8];
   f.width = v[9];
   f.height = v[10];
+  f.bgr = v[11];
+  f.green6 = v[12];
+  f.sub_h = v[13];
+  f.sub_v = v[14];
   f.rowbytes = sizes[0];
   f.plane_bytes = sizes[1];
   return f;
@@ -91,9 +119,21 @@ RASTER_HD Form form_of(const int* v, const long long* sizes) {
 // The tables beside the samples: the palette (256 x RGB), libpng's 8-bit
 // gamma tables to_1 and from_1 (256 each), then its 16-bit ones to_1,
 // from_1 and grey (2048 big-endian 16-bit entries each).
+// A YCbCr image's tables take their place: libtiff's Y_tab, Cr_r_tab,
+// Cb_b_tab, Cr_g_tab and Cb_g_tab, 256 little-endian int32 entries each.
 constexpr int kPaletteAt = 0, kToOneAt = 768, kFromOneAt = 1024,
               kToOne16At = 1280, kFromOne16At = 1280 + 4096,
               kGrey16At = 1280 + 8192, kTablesLen = 1280 + 12288;
+constexpr int kYTabAt = 0, kCrRAt = 1024, kCbBAt = 2048, kCrGAt = 3072,
+              kCbGAt = 4096;
+
+RASTER_HD int table32(const uint8_t* tables, int at, int i) {
+  const uint8_t* e = tables + at + 4 * i;
+  return (int)((uint32_t)e[0] | (uint32_t)e[1] << 8 | (uint32_t)e[2] << 16 |
+               (uint32_t)e[3] << 24);
+}
+
+RASTER_HD int clamp255(int v) { return v < 0 ? 0 : v > 255 ? 255 : v; }
 
 RASTER_HD int table16(const uint8_t* tables, int at, int v) {
   const uint8_t* e = tables + at + 2 * (v >> 5);
@@ -148,15 +188,40 @@ RASTER_HD void pixel(const uint8_t* raster, const Form& f,
     r = p[0];
     g = p[1];
     b = p[2];
+  } else if (f.kind == kYcbcr) {
+    int y0, cb, cr;
+    if (f.sub_h * f.sub_v == 1) {
+      y0 = sample(raster, f, y, x, 0);
+      cb = sample(raster, f, y, x, 1);
+      cr = sample(raster, f, y, x, 2);
+    } else {
+      int unit = f.sub_h * f.sub_v + 2;
+      const uint8_t* u = raster + (long long)(y / f.sub_v) * f.rowbytes +
+                         (long long)(x / f.sub_h) * unit;
+      y0 = u[(y % f.sub_v) * f.sub_h + x % f.sub_h];
+      cb = u[unit - 2];
+      cr = u[unit - 1];
+    }
+    // TIFFYCbCrtoRGB
+    int yv = table32(tables, kYTabAt, y0);
+    r = clamp255(yv + table32(tables, kCrRAt, cr));
+    g = clamp255(yv + ((table32(tables, kCbGAt, cb) +
+                        table32(tables, kCrGAt, cr)) >> 16));
+    b = clamp255(yv + table32(tables, kCbBAt, cb));
+  } else if (f.kind == kBmp16) {
+    int v = sample(raster, f, y, x, 0);
+    b = (v << 3) & 0xF8;
+    g = f.green6 ? (v >> 3) & 0xFC : (v >> 2) & 0xF8;
+    r = f.green6 ? (v >> 8) & 0xF8 : (v >> 7) & 0xF8;
   } else if (f.kind == kCmyk) {
     int k = 255 - sample(raster, f, y, x, 3);
     r = k * (255 - sample(raster, f, y, x, 0)) / 255;
     g = k * (255 - sample(raster, f, y, x, 1)) / 255;
     b = k * (255 - sample(raster, f, y, x, 2)) / 255;
   } else {
-    r = sample(raster, f, y, x, 0);
+    r = sample(raster, f, y, x, f.bgr ? 2 : 0);
     g = sample(raster, f, y, x, 1);
-    b = sample(raster, f, y, x, 2);
+    b = sample(raster, f, y, x, f.bgr ? 0 : 2);
     int a = f.premultiply ? sample(raster, f, y, x, 3) : 0;
     if (f.bits == 16) {  // libpng converts before it narrows
       bool same = r == g && r == b;
@@ -185,7 +250,7 @@ RASTER_HD void pixel(const uint8_t* raster, const Form& f,
   bgr[2] = (uint8_t)r;
   int v;
   if (f.grey_rule == kOpenCv) {
-    v = (r * 4899 + g * 9617 + b * 1868 + 8192) >> 14;
+    v = opencv_grey(b, g, r);
   } else if (g16 >= 0) {
     v = g16 >> 8;
   } else if (r == g && r == b) {

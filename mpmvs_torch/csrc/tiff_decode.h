@@ -11,6 +11,8 @@
 //   * Compression 1 (none), 5 (LZW), 8 and 32946 (Deflate: the chunks are
 //     inflated in Python with zlib and handed back here) and 32773
 //     (PackBits); FillOrder 2 (bits reversed within each byte);
+//     Compression 7 (JPEG) is described here, its streams decoded by
+//     tiff_jpeg.h;
 //   * Predictor 2 (horizontal differencing) on 8- and 16-bit samples, in the
 //     file's byte order;
 //   * Photometric 0 and 1 (min-is-white, min-is-black) at 1, 8 and 16 bits,
@@ -18,6 +20,15 @@
 //     (separated) with InkSet 1 (CMYK) at 8 bits and four samples, which
 //     libtiff's RGBA reader converts for OpenCV; one extra sample (alpha) of
 //     grey or RGB is kept for the card to drop or premultiply by;
+//   * SampleFormat 2 (signed) at 8 and 16 bits, read as the unsigned
+//     samples of the same bits, as cv2 reads them;
+//   * Photometric 6 (YCbCr) at 8 bits and three samples, chunky at every
+//     YCbCrSubSampling libtiff's RGBA reader takes ((1, 1), (2, 1), (2, 2),
+//     (4, 1), (4, 2), (4, 4) and (1, 2)), planar at (1, 1): the data is
+//     left in libtiff's data units (hs vs Y samples, then Cb, then Cr; a
+//     row of units ceil(W / hs) units across), for the card to convert by
+//     TIFFYCbCrtoRGB with tables built from YCbCrCoefficients and
+//     ReferenceBlackWhite (tiff_host_rationals);
 //   * the Orientation tag, which the card applies after the conversion as
 //     cv2 does. libtiff's tile reader mirrors each tile on its own where the
 //     orientation flips left-right (2, 3, 6, 7) and OpenCV mirrors no more,
@@ -35,7 +46,8 @@
 // The raster left in `out`: planes (1 for chunky data, one a sample for
 // planar) of height rows of ceil(width * samples * bits / 8) bytes, samples
 // packed most significant bit first below 8 bits, 16-bit samples in the
-// file's byte order.
+// file's byte order; subsampled YCbCr: ceil(height / vs) rows of data
+// units.
 //
 // The C interface needs no CUDA; the tests build this header with g++.
 
@@ -52,28 +64,33 @@ enum Error {
   kOk = 0,
   kTruncated = 4001,   // header, IFD, values or image data past the end
   kMalformed = 4002,   // a required tag missing or a value out of range
-  kJpeg = 4003,        // Compression 6 or 7: JPEG in TIFF
+  kJpeg = 4003,        // Compression 6: old-style JPEG in TIFF
   kCompression = 4004, // another compression (CCITT, JPEG 2000, ZSTD, ...)
   kOldLzw = 4005,      // the pre-1991 bit-reversed LZW
   kLzw = 4006,         // LZW data that is corrupt
   kShort = 4007,       // a strip or tile that holds fewer bytes than rows
-  kFloat = 4008,       // SampleFormat 2 or 3: signed or float samples
+  kFloat = 4008,       // SampleFormat 3, or 2 above 16 bits
   kPredictor3 = 4009,  // Predictor 3: the floating-point predictor
   kPredictor = 4010,   // Predictor 2 on other than 8- or 16-bit samples
   kInkSet = 4011,      // Photometric 5 of another InkSet than CMYK
-  kYcbcr = 4012,       // Photometric 6
+  kYcbcr = 4012,       // Photometric 6 of a layout the RGBA reader refuses
   kLab = 4013,         // Photometric 8, 9 or 10 (CIELab, ICCLab, ITULab)
   kPhotometric = 4014, // another photometric (mask, LogL, LogLuv, raw)
   kDeep = 4015,        // more than 16 bits a sample
   kBits = 4016,        // a bit depth OpenCV does not read into 8 bits
   kSampleCount = 4017, // a sample count the photometric does not take
   kChannels = 4018,    // CMYK with an extra sample: five samples a pixel
+  kJpegTags = 4019,    // a JPEG stream's components or sampling off its tags
+  kJpegSize = 4020,    // a JPEG stream larger (or smaller) than its chunk
+  kJpegLayout = 4021,  // a JPEG-in-TIFF layout the card does not read
 };
 
 enum Info {
   kWidth, kHeight, kBitsPerSample, kSamples, kPhotometricTag, kPlanar,
   kCompressionTag, kPredictorTag, kOrientation, kTiled, kChunkWidth,
   kChunkHeight, kChunks, kAlpha, kLittle, kColormap, kBigTiff, kFillOrder,
+  kSubH, kSubV,        // YCbCrSubSampling (0 where the tag is absent)
+  kTablesAt, kTablesLen,  // the JPEGTables tag's bytes (0, 0 without)
   kInfoLen
 };
 
@@ -141,7 +158,7 @@ struct Tiff {
 static inline bool wanted(int tag) {
   static const int kTags[] = {256, 257, 258, 259, 262, 266, 273, 274, 277,
                               278, 279, 284, 317, 320, 322, 323, 324, 325,
-                              332, 338, 339};
+                              332, 338, 339, 347, 529, 530, 532};
   for (int k : kTags)
     if (k == tag) return true;
   return false;
@@ -221,16 +238,50 @@ static int describe(const uint8_t* data, size_t len, Tiff* t) {
       W * H > ((int64_t)1 << 30))
     return kMalformed;
   int64_t comp = in[kCompressionTag];
-  if (comp == 6 || comp == 7) return kJpeg;
-  if (comp != 1 && comp != 5 && comp != 8 && comp != 32946 && comp != 32773)
+  if (comp == 6) return kJpeg;
+  if (comp != 1 && comp != 5 && comp != 7 && comp != 8 && comp != 32946 &&
+      comp != 32773)
     return kCompression;
-  if (sample_format == 2 || sample_format == 3) return kFloat;
-  if (sample_format != 1 && sample_format != 4) return kMalformed;
+  // signed samples read as the unsigned ones of the same bits (cv2's read)
+  if (sample_format == 3 || (sample_format == 2 && bits > 16)) return kFloat;
+  if (sample_format < 1 || sample_format > 4) return kMalformed;
   if (in[kPredictorTag] == 3) return kPredictor3;
   if (in[kPredictorTag] != 1 && in[kPredictorTag] != 2) return kMalformed;
-  if (pm == 6) return kYcbcr;
+  if (in[kPlanar] != 1 && in[kPlanar] != 2) return kMalformed;
+  const Entry* sub = t->find(530);
+  if (sub && sub->count >= 2) {
+    in[kSubH] = (int64_t)t->value(sub, 0, &ok);
+    in[kSubV] = (int64_t)t->value(sub, 1, &ok);
+  }
+  const Entry* tables = t->find(347);
+  if (tables && type_size(tables->type) == 1) {
+    in[kTablesAt] = (int64_t)tables->at;
+    in[kTablesLen] = (int64_t)tables->count;
+  }
+  if (comp == 7) {
+    // libtiff's JPEG codec under the RGBA reader: chunky grey, RGB (the
+    // components as they are) or YCbCr (libjpeg's conversion) of 8 bits
+    if (bits != 8 || in[kPlanar] != 1 || !(pm == 1 || pm == 2 || pm == 6) ||
+        spp != (pm == 1 ? 1 : 3))
+      return kJpegLayout;
+  } else if (pm == 6) {
+    // libtiff's RGBA reader (pickContigCase, pickSeparateCase): 8 bits,
+    // three samples, chunky at the subsamplings it has a routine for,
+    // planar at (1, 1) only (the tag's default is (2, 2))
+    int64_t hs = sub ? in[kSubH] : 2, vs = sub ? in[kSubV] : 2;
+    in[kSubH] = hs;
+    in[kSubV] = vs;
+    int code = (int)(hs << 4 | vs);
+    bool contig = code == 0x11 || code == 0x21 || code == 0x22 ||
+                  code == 0x41 || code == 0x42 || code == 0x44 ||
+                  code == 0x12;
+    if (bits != 8 || spp != 3 ||
+        (in[kPlanar] == 1 ? !contig : code != 0x11) ||
+        in[kPredictorTag] != 1)
+      return kYcbcr;
+  }
   if (pm == 8 || pm == 9 || pm == 10) return kLab;
-  if (pm < 0 || (pm > 3 && pm != 5)) return kPhotometric;
+  if (pm < 0 || (pm > 3 && pm != 5 && pm != 6)) return kPhotometric;
   // libtiff's TIFFRGBAImageOK: a separated image of InkSet 1 (CMYK) only
   if (pm == 5 && t->scalar(332, 1, &ok) != 1) return kInkSet;
   if (bits > 16) return kDeep;
@@ -239,16 +290,15 @@ static int describe(const uint8_t* data, size_t len, Tiff* t) {
   // 16-bit CMYK)
   bool bits_ok = pm <= 1 ? (bits == 1 || bits == 8 || bits == 16)
                  : pm == 2 ? (bits == 8 || bits == 16)
-                 : pm == 5 ? bits == 8
+                 : pm == 5 || pm == 6 ? bits == 8
                            : (bits == 1 || bits == 4 || bits == 8);
   if (!bits_ok) return kBits;
-  int colour = pm == 2 ? 3 : pm == 5 ? 4 : 1;
+  int colour = pm == 2 || pm == 6 ? 3 : pm == 5 ? 4 : 1;
   // OpenCV takes at most four channels (normalizeChannelsNumber)
   if (pm == 5 && spp > 4) return kChannels;
   if (spp < colour || spp > colour + 1 || (pm == 3 && spp != 1))
     return kSampleCount;
   if (in[kPredictorTag] == 2 && bits != 8 && bits != 16) return kPredictor;
-  if (in[kPlanar] != 1 && in[kPlanar] != 2) return kMalformed;
   if (spp == 1) in[kPlanar] = 1;  // one plane either way
   // the extra sample: 0 unspecified, 1 associated alpha, 2 unassociated
   const Entry* extra = t->find(338);
@@ -277,6 +327,15 @@ static int describe(const uint8_t* data, size_t len, Tiff* t) {
     chunks = (H + in[kChunkHeight] - 1) / in[kChunkHeight] * planes;
   }
   in[kChunks] = chunks;
+  if (comp != 7 && pm == 6 && in[kSubH] * in[kSubV] > 1) {
+    // whole data units a chunk; tiles whose orientation mirrors them (the
+    // reader's tile-by-tile mirroring) are not laid out here
+    int o = (int)in[kOrientation];
+    if ((tiled && in[kChunkWidth] % in[kSubH]) ||
+        (in[kChunkHeight] % in[kSubV] && in[kChunkHeight] < H) ||
+        (tiled && (o == 2 || o == 3 || o == 6 || o == 7)))
+      return kYcbcr;
+  }
   const Entry* offs = t->find(tiled ? 324 : 273);
   const Entry* counts = t->find(tiled ? 325 : 279);
   if (!ok) return kTruncated;
@@ -418,10 +477,20 @@ static int decode(const uint8_t* data, size_t len,
   int err = describe(data, len, &t);
   if (err) return err;
   const int64_t* in = t.info;
+  if (in[kCompressionTag] == 7) return kJpegLayout;  // tiff_jpeg.h's work
   int64_t W = in[kWidth], H = in[kHeight], bits = in[kBitsPerSample];
   int64_t spp = in[kSamples], cw = in[kChunkWidth], ch = in[kChunkHeight];
   bool planar = in[kPlanar] == 2, tiled = in[kTiled];
   int64_t planes = planar ? spp : 1, per_pixel = planar ? 1 : spp;
+  if (in[kPhotometricTag] == 6 && in[kSubH] * in[kSubV] > 1) {
+    // subsampled YCbCr: an image of data units, hs vs + 2 bytes each
+    int64_t hs = in[kSubH], vs = in[kSubV];
+    per_pixel = hs * vs + 2;
+    W = (W + hs - 1) / hs;
+    H = (H + vs - 1) / vs;
+    cw = tiled ? cw / hs : W;
+    ch = (ch + vs - 1) / vs;
+  }
   size_t out_row = (size_t)((W * per_pixel * bits + 7) / 8);
   size_t chunk_row = (size_t)((cw * per_pixel * bits + 7) / 8);
   int64_t across = (W + cw - 1) / cw, down = (H + ch - 1) / ch;
@@ -526,4 +595,31 @@ extern "C" int tiff_host_decode(const unsigned char* data, size_t len,
                                 const size_t* inflated_len,
                                 unsigned char* out) {
   return tiff_decode::decode(data, len, inflated, inflated_len, out);
+}
+
+// The RATIONAL (or FLOAT) values of a tag of the first IFD, as libtiff
+// hands them to its callers: float, into out (at most n). Returns how many
+// the tag holds (0 where it is absent), or -1 if they cannot be read.
+extern "C" int tiff_host_rationals(const unsigned char* data, size_t len,
+                                   int tag, float* out, int n) {
+  tiff_decode::Tiff t;
+  if (tiff_decode::parse(data, len, &t)) return -1;
+  const tiff_decode::Entry* e = t.find(tag);
+  if (!e) return 0;
+  bool ok = true;
+  for (uint64_t i = 0; i < e->count && (int)i < n; i++) {
+    if (e->type == 5 || e->type == 10) {
+      uint64_t num = t.r.u(e->at + 8 * i, 4, &ok);
+      uint64_t den = t.r.u(e->at + 8 * i + 4, 4, &ok);
+      double v = e->type == 10 ? (double)(int32_t)num / (int32_t)den
+                               : (double)num / (double)den;
+      out[i] = den ? (float)v : 0.0f;
+    } else if (e->type == 11) {
+      uint32_t bits = (uint32_t)t.r.u(e->at + 4 * i, 4, &ok);
+      memcpy(&out[i], &bits, 4);
+    } else {
+      return -1;
+    }
+  }
+  return ok ? (int)e->count : -1;
 }

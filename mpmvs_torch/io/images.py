@@ -1,5 +1,5 @@
-"""Image files of a workspace: JPEG, PNG, TIFF and WebP reads, JPEG and PNG
-writes.
+"""Image files of a workspace: JPEG, PNG, TIFF, WebP, BMP and PNM reads,
+JPEG and PNG writes.
 
 The JAX package reads and writes images with OpenCV. Here the device picks
 the codec:
@@ -21,16 +21,29 @@ the codec:
       - PNG reads of every colour type at every bit depth, Adam7 included
         (:func:`png_rows`: the chunks are parsed and inflated here with
         ``zlib``, the rows unfiltered and de-interlaced on the host,
-        ``csrc/png_unfilter.h``), and TIFF reads (:func:`tiff_rows`: classic
+        ``csrc/png_unfilter.h``), TIFF reads (:func:`tiff_rows`: classic
         and BigTIFF, strips and tiles, chunky and planar, uncompressed, LZW,
-        Deflate and PackBits, predictor 2, grey, RGB, palette and 8-bit
-        CMYK, 1 to 16 bits; parsed and decompressed on the host,
-        ``csrc/tiff_decode.h``): the samples are copied to the card, where
-        ``raster_to_bgr_kernel`` makes cv2's BGR and grey images of them
-        (sub-8-bit grey expanded, palette looked up, 16 bits narrowed as
-        libpng or libtiff narrows, alpha dropped or premultiplied, CMYK by
-        libtiff's RGBA rule, the grey of colour by libpng's or OpenCV's
-        arithmetic), and the eXIf or Orientation tag is applied;
+        Deflate and PackBits, predictor 2, grey, RGB, palette, 8-bit CMYK
+        and YCbCr in libtiff's data units, 1 to 16 bits, signed samples as
+        their bits; parsed and decompressed on the host,
+        ``csrc/tiff_decode.h``), BMP reads (:func:`bmp_rows`: 1 to 32 bits,
+        RLE4 and RLE8 expanded on the host, OS/2 headers) and PBM, PGM and
+        PPM reads (:func:`pnm_rows`, P1 to P6): the samples are copied to
+        the card, where ``raster_to_bgr_kernel`` makes cv2's BGR and grey
+        images of them (sub-8-bit grey expanded, palette looked up, 16 bits
+        narrowed as libpng or libtiff narrows, alpha dropped or
+        premultiplied, CMYK by libtiff's RGBA rule, YCbCr by libtiff's
+        tables (:func:`ycbcr_tables`), a BMP's B, G, R order and 16-bit
+        fields, the grey of colour by libpng's or OpenCV's arithmetic), and
+        the eXIf or Orientation tag (a bottom-up BMP: a top-down mirror) is
+        applied;
+      - JPEG-compressed TIFF reads (:func:`tiff_jpeg_coefficients`: each
+        strip or tile a JPEG stream of its own, decoded on the host with the
+        JPEGTables' tables, ``csrc/tiff_jpeg.h``): one IDCT launch a
+        component over every chunk at once, and one launch of
+        ``ycc_to_bgr_kernel``'s chunked form, which upsamples each chunk on
+        its own and writes libjpeg's BGR (YCbCr converted, RGB as it is) and
+        OpenCV's grey of it;
       - lossy WebP reads (VP8 frames, simple or extended files; ALPH and
         ICCP chunks read past, as cv2 drops alpha; the EXIF chunk's
         orientation applied): the RIFF is checked here
@@ -60,10 +73,11 @@ the codec:
         (``csrc/jpeg_encode.h``).
     A kernel that fails to build or launch raises, and so does a file the card
     cannot read, naming why (12-bit, arithmetic-coded and lossless JPEGs;
-    JPEG-compressed, YCbCr, CIELab, signed, float and old-style LZW TIFFs;
-    other formats; and what cv2 does not read either, such as a WebP whose
-    first frame runs past its canvas or whose prefix codes libwebp
-    rejects). Nothing falls back to OpenCV or to the CPU.
+    old-style JPEG, CIELab, float and old-style LZW TIFFs; PAM, PFM, GIF
+    and other formats; and what cv2 does not read either, such as a WebP
+    whose first frame runs past its canvas or whose prefix codes libwebp
+    rejects, or a BMP run past its row). Nothing falls back to OpenCV or to
+    the CPU.
   * on the CPU, through OpenCV, imported only there: the CPU tests hold the
     port's reads and writes against the JAX package's OpenCV calls.
 
@@ -85,11 +99,15 @@ launches of the colour kernels (form ``"rgb"`` for RGB components,
 ``VP8_FILTER_COUNTS``, ``WEBP_COLOUR_COUNTS``, ``VP8L_PREDICTOR_COUNTS``,
 ``VP8L_COLOUR_COUNTS`` (by run, ``forms``) and ``WEBP_ARGB_COUNTS`` those
 of the IDCT, encoder colour, forward DCT, raster and WebP kernels;
-``CODEC_COUNTS`` counts host decodes (``forms["decode"]``), PNG, TIFF and
-WebP reads (``forms["png"]``, ``forms["tiff"]``, ``forms["webp"]`` for a
-lossy still file, ``"webp_lossless"`` for a lossless one,
-``"webp_animated"`` for an animated one) and encodes
-(``forms["encode"]``).
+``CODEC_COUNTS`` counts host decodes (``forms["decode"]``), PNG, TIFF, BMP,
+PNM and WebP reads (``forms["png"]``, ``forms["tiff"]``,
+``forms["tiff_jpeg"]`` for a JPEG-compressed TIFF, ``forms["bmp"]``,
+``forms["pnm"]``, ``forms["webp"]`` for a lossy still file,
+``"webp_lossless"`` for a lossless one, ``"webp_animated"`` for an
+animated one) and encodes (``forms["encode"]``). ``COUNTS`` names the
+chunked colour forms ``"chunks"`` and ``"chunks_rgb"``, and
+``RASTER_COUNTS`` the raster forms ``"ycbcr"``, ``"bmp16"`` and
+``"bgr"``.
 """
 
 from __future__ import annotations
@@ -97,6 +115,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+import re
 import struct
 import zlib
 from typing import NamedTuple, Optional, Tuple
@@ -136,24 +155,30 @@ _CODE_ERRORS = {
     3002: "a PNG with a row filter type above 4",
     4001: "a truncated TIFF",
     4002: "a malformed TIFF (a required tag missing or out of range)",
-    4003: "a TIFF of JPEG-compressed data (Compression 6 or 7), which "
-          "OpenCV reads through libtiff's JPEG codec; the card does not",
+    4003: "a TIFF of old-style JPEG data (Compression 6), which the card "
+          "does not read",
     4004: "a TIFF of a compression the card does not read (it reads none, "
           "LZW, Deflate and PackBits)",
     4005: "a TIFF of old-style LZW (the pre-1991 bit-reversed form)",
     4006: "a TIFF whose LZW data is corrupt",
     4007: "a TIFF whose strip or tile holds fewer bytes than its rows",
-    4008: "a TIFF of signed or float samples (SampleFormat 2 or 3)",
+    4008: "a TIFF of signed or float samples that cv2 does not read into "
+          "an 8-bit image either (SampleFormat 3, or SampleFormat 2 above "
+          "16 bits)",
     4009: "a TIFF of the floating-point predictor (Predictor 3)",
     4010: "a TIFF of horizontal differencing on samples other than 8- or "
           "16-bit, which libtiff refuses too",
     4011: "a TIFF of separated samples of another InkSet than CMYK, which "
           "cv2 (libtiff's RGBA reader) does not read either",
-    4012: "a TIFF of YCbCr samples, which OpenCV converts through libtiff's "
-          "RGBA reader; the card does not",
+    4012: "a TIFF of YCbCr samples of a layout libtiff's RGBA reader does "
+          "not read either (other than 8 bits and 3 samples, a subsampling "
+          "other than (1, 1), (2, 1), (2, 2), (4, 1), (4, 2), (4, 4), "
+          "(1, 2), planar and subsampled, or a predictor), or of subsampled "
+          "tiles under an orientation that mirrors them, which the card "
+          "does not lay out",
     4013: "a TIFF of CIELab samples, which the card does not convert",
     4014: "a TIFF of a photometric the card does not read (it reads "
-          "min-is-white, min-is-black, RGB, palette and CMYK)",
+          "min-is-white, min-is-black, RGB, palette, CMYK and YCbCr)",
     4015: "a TIFF of more than 16 bits a sample",
     4016: "a TIFF of a bit depth OpenCV does not read into an 8-bit image "
           "either (grey takes 1, 8, 16; RGB 8, 16; a palette 1, 4, 8; "
@@ -161,6 +186,15 @@ _CODE_ERRORS = {
     4017: "a TIFF of a sample count its photometric does not take",
     4018: "a CMYK TIFF with an extra sample: five channels, which cv2 "
           "does not read either",
+    4019: "a JPEG-compressed TIFF whose stream's component count or "
+          "sampling factors do not match its tags, which libtiff refuses "
+          "too (Improper JPEG sampling factors or component count)",
+    4020: "a JPEG-compressed TIFF whose stream is larger than its strip or "
+          "tile, which libtiff refuses too, or smaller, which the card "
+          "does not read",
+    4021: "a JPEG-compressed TIFF of a layout the card does not read "
+          "(planar, not grey, RGB or YCbCr of 8 bits, or quantization "
+          "tables that differ from one strip or tile to another)",
     5001: "a truncated WebP (a header or partition ends early)",
     5002: "a malformed WebP (not RIFF/WEBP, or a chunk out of bounds)",
     5003: "a WebP whose frame is lossless (VP8L), handed to the lossy "
@@ -183,15 +217,23 @@ _CODE_ERRORS = {
 _MAGIC = ((b"\xff\xd8\xff", "JPEG"), (b"\x89PNG\r\n\x1a\n", "PNG"),
           (b"II*\x00", "TIFF"), (b"MM\x00*", "TIFF"), (b"II+\x00", "TIFF"),
           (b"MM\x00+", "TIFF"), (b"BM", "BMP"),
-          (b"GIF8", "GIF"), (b"P5", "PGM"), (b"P6", "PPM"))
+          (b"GIF8", "GIF"), (b"PF", "PFM"), (b"Pf", "PFM"))
+# the netpbm formats as OpenCV's decoders tell them: P, a digit, whitespace
+_PNM = {b"1": "PBM", b"2": "PGM", b"3": "PPM", b"4": "PBM", b"5": "PGM",
+        b"6": "PPM", b"7": "PAM"}
+_SPACE = b" \t\n\v\f\r"
 
 
 def image_format(data: bytes) -> str:
-    """The format a file's first bytes name ("JPEG", "PNG", "WebP", ...),
-    or "unknown"."""
+    """The format a file's first bytes name ("JPEG", "PNG", "WebP", "BMP",
+    "PGM", ...), or "unknown". A netpbm file is named as OpenCV's decoders
+    check it: "P", the kind's digit, then whitespace."""
     if data.startswith(b"RIFF"):
         return "WebP" if data[8:12] == b"WEBP" else \
             f"RIFF {data[8:12]!r}, not a WebP"
+    if data[:1] == b"P" and data[1:2] in _PNM and data[2:3] and \
+            data[2:3] in _SPACE:
+        return _PNM[data[1:2]]
     for magic, name in _MAGIC:
         if data.startswith(magic):
             return name
@@ -223,6 +265,14 @@ def bind_host(lib):
         getattr(lib, fn).restype = i
     lib.exif_orientation_tiff.argtypes = [ctypes.c_char_p, i]
     lib.exif_orientation_tiff.restype = i
+    lib.tiff_host_rationals.argtypes = [ctypes.c_char_p, sz, i, vp, i]
+    lib.tiff_host_rationals.restype = i
+    if hasattr(lib, "tiff_jpeg_host_info"):  # a build with tiff_jpeg.h
+        lib.tiff_jpeg_host_info.argtypes = [ctypes.c_char_p, sz, vp]
+        lib.tiff_jpeg_host_decode.argtypes = [ctypes.c_char_p, sz, vp, vp,
+                                              vp]
+        for fn in ("tiff_jpeg_host_info", "tiff_jpeg_host_decode"):
+            getattr(lib, fn).restype = i
     if hasattr(lib, "webp_host_header"):  # a build with webp_decode.h
         lib.webp_host_header.argtypes = [ctypes.c_char_p, sz, vp]
         lib.webp_host_decode.argtypes = [ctypes.c_char_p, sz, vp, vp, vp]
@@ -245,7 +295,7 @@ def _library():
     lib.jpeg_host_free.argtypes = [vp]
     lib.jpeg_host_free.restype = None
     lib.idct_islow_launch.argtypes = [vp, vp, i, i, i, vp, i, i, vp]
-    lib.ycc_to_bgr_launch.argtypes = [vp, vp, i, i, i, i, vp, vp, vp]
+    lib.ycc_to_bgr_launch.argtypes = [vp, vp, i, i, vp, i, i, vp, vp, vp]
     lib.cmyk_to_bgr_launch.argtypes = [vp, vp, i, i, i, vp, vp, vp]
     lib.bgr_to_ycc_launch.argtypes = [vp, i, i, i, vp, i, i, vp, vp, i, i,
                                       vp]
@@ -346,12 +396,17 @@ def ycck_to_cmy_plain(y: Tensor, cb: Tensor, cr: Tensor):
     return [255 - v for v in _ycc_rgb(y, cb, cr)]
 
 
+def opencv_grey(b: Tensor, g: Tensor, r: Tensor) -> Tensor:
+    """OpenCV's BGR -> grey of int64 samples (14-bit fixed point,
+    rounding)."""
+    return (b * 1868 + g * 9617 + r * 4899 + 8192) >> 14
+
+
 def cmyk_bgr_plain(c: Tensor, m: Tensor, y: Tensor, k: Tensor):
     """OpenCV's icvCvt_CMYK2Gray_8u_C4C1R and icvCvt_CMYK2BGR_8u_C4C3R of
     int64 C, M, Y, K samples: (grey, B, G, R), int64."""
     red, green, blue = [k - ((255 - x) * k >> 8) for x in (c, m, y)]
-    return (blue * 1868 + green * 9617 + red * 4899 + 8192) >> 14, \
-        blue, green, red
+    return opencv_grey(blue, green, red), blue, green, red
 
 
 def _check_planes(planes, factors, size):
@@ -365,19 +420,121 @@ def _check_planes(planes, factors, size):
                              f"fit {size} at ratios {(rh, rv)}")
 
 
-def colour_plain(planes, factors, size, space: int) -> Tuple[Tensor, Tensor]:
+class Chunks(NamedTuple):
+    """How a JPEG-compressed TIFF's image is cut into strips or tiles, each
+    a JPEG stream of its own (``jpeg_colour::Chunks``, in its order)."""
+    tiled: int        # 1: tiles, 0: strips
+    width: int        # a chunk's pixels across (a strip's: the image's)
+    height: int       # its rows (RowsPerStrip, or the tile's)
+    across: int       # chunks a row of them (1 for strips)
+    last_height: int  # the rows of the last strip's stream (height: tiles)
+    count: int        # chunks in all
+    mirror: int       # tiles laid out mirrored (an orientation 2, 3, 6, 7)
+    image_width: int
+
+
+def _chunk_planes(planes, factors, size, chunks: Chunks):
+    """Check the chunked planes (each (count * stride, pitch) uint8, a
+    chunk's samples every ``stride`` rows) and return each plane's
+    (h, w, stride): its samples a chunk."""
+    H, W = size
+    k = chunks
+    if len(planes) != len(factors) or len(planes) not in (1, 3):
+        raise ValueError(f"{len(planes)} chunked planes with {len(factors)} "
+                         f"factors")
+    if k.count != (-(-H // k.height)) * (k.across if k.tiled else 1) or (
+            k.tiled and k.across != -(-W // k.width)) or (
+            not k.tiled and k.width != W):
+        raise ValueError(f"chunks {k} do not cut a {size} image")
+    out = []
+    for p, (rh, rv) in zip(planes, factors):
+        h, w = -(-k.height // rv), -(-k.width // rh)
+        rows = max(h, -(-k.last_height // rv))
+        if p.dtype != torch.uint8 or p.ndim != 2 or \
+                p.shape[0] % k.count or p.shape[0] // k.count < rows or \
+                p.shape[1] < w:
+            raise ValueError(f"a chunked plane {p.dtype} {tuple(p.shape)} "
+                             f"does not hold {k.count} chunks of {rows} x "
+                             f"{w} samples")
+        out.append((h, w, p.shape[0] // k.count))
+    return out
+
+
+def _spots(chunks: Chunks, H: int, W: int, dev):
+    """jpeg_colour.h spot of every pixel: its chunk, row and column there
+    and the rows of the chunk's stream, (H, W) int64 each."""
+    k = chunks
+    r = torch.arange(H, device=dev)[:, None]
+    c = torch.arange(W, device=dev)[None, :]
+    if k.mirror:
+        c = W - 1 - c
+    ty = r // k.height
+    tx = c // k.width if k.tiled else torch.zeros_like(c)
+    chunk = ty * k.across + tx
+    rows = torch.where((chunk == k.count - 1) & (k.tiled == 0),
+                       k.last_height, k.height)
+    col = c - tx * k.width
+    if k.mirror:  # each tile's columns in order at its mirrored place
+        col = torch.clamp(W - tx * k.width, max=k.width) - 1 - col
+    return chunk, r - ty * k.height, col, rows
+
+
+def _upsample_chunked(p: Tensor, spots, w: int, stride: int, rh: int,
+                      rv: int) -> Tensor:
+    """jpeg_colour.h upsampled() of one component at every pixel: each
+    chunk's samples upsampled on their own, neighbours clamped to the
+    chunk, int64 (H, W)."""
+    chunk, r, col, rows = spots
+    pitch = p.shape[1]
+    flat = p.reshape(-1).to(torch.int64)
+    base = chunk * stride * pitch
+    at = lambda i, j: flat[base + i * pitch + j]
+    if rh == 1 and rv == 1:
+        return at(r, col)
+    if not _fancy(w, rh, rv):
+        return at(r // rv, col // rh)
+    h = (rows + rv - 1) // rv
+    odd_r, odd_c = (r & 1) == 1, (col & 1) == 1
+    i, j = r // rv, col // rh
+    i2 = torch.where(odd_r, torch.minimum(i + 1, h - 1),
+                     torch.clamp(i - 1, min=0))
+    jn = torch.where(odd_c, torch.clamp(j + 1, max=w - 1),
+                     torch.clamp(j - 1, min=0))
+    if rh == 2 and rv == 2:
+        cs = 3 * at(i, j) + at(i2, j)
+        cn = 3 * at(i, jn) + at(i2, jn)
+        return (3 * cs + cn + torch.where(odd_c, 7, 8)) >> 4
+    if rh == 2:
+        return (3 * at(i, j) + at(i, jn) + torch.where(odd_c, 2, 1)) >> 2
+    return (3 * at(i, j) + at(i2, j) + torch.where(odd_r, 2, 1)) >> 2
+
+
+def colour_plain(planes, factors, size, space: int,
+                 chunks: Chunks = None) -> Tuple[Tensor, Tensor]:
     """The plain version of the colour kernels: (grey (H, W), BGR (H, W, 3))
     uint8, cv2.imread's, from a JPEG's component planes (uint8, each at its
     sampled size), their ratios ``factors`` ((hmax / h, vmax / v) each) and
     the image's ``size`` (H, W), in colour ``space`` (``SPACE_*``;
     csrc/jpeg_colour.h says what each computes). Four components go through
-    :func:`cmyk_to_bgr_plain`."""
+    :func:`cmyk_to_bgr_plain`. With ``chunks`` (a JPEG-compressed TIFF's
+    strips or tiles, their planes laid out as :func:`tiff_jpeg_planes`
+    gives them) each chunk is upsampled on its own and the grey is OpenCV's
+    of the BGR (form ``"chunks"``, ``"chunks_rgb"``)."""
     if space in (SPACE_CMYK, SPACE_YCCK):
         return cmyk_to_bgr_plain(planes, factors, space == SPACE_YCCK, size)
-    _check_planes(planes, factors, size)
-    COUNTS.plain += 1
     H, W = size
-    up = [_upsample(p, H, W, *f) for p, f in zip(planes, factors)]
+    if chunks is None:
+        _check_planes(planes, factors, size)
+        up = [_upsample(p, H, W, *f) for p, f in zip(planes, factors)]
+    else:
+        geo = _chunk_planes(planes, factors, size, chunks)
+        spots = _spots(chunks, H, W, planes[0].device)
+        up = [_upsample_chunked(p, spots, w, stride, *f)
+              for p, f, (_, w, stride) in zip(planes, factors, geo)]
+        form = "chunks_rgb" if space == SPACE_RGB and len(up) == 3 \
+            else "chunks"
+        COUNTS.plain_forms[form] = COUNTS.plain_forms.get(form, 0) + 1
+    COUNTS.plain += 1
     Y = up[0]
     if len(up) == 1:
         grey, bgr = Y, torch.stack([Y, Y, Y], -1)
@@ -388,6 +545,8 @@ def colour_plain(planes, factors, size, space: int) -> Tuple[Tensor, Tensor]:
     else:
         red, green, blue = _ycc_rgb(*up)
         grey, bgr = Y, torch.stack([blue, green, red], -1)
+    if chunks is not None:
+        grey = opencv_grey(*bgr.unbind(-1))
     return grey.to(torch.uint8), bgr.to(torch.uint8)
 
 
@@ -583,40 +742,62 @@ def decode_planes(data: bytes, device):
     return _planes(comps), size, layout
 
 
-def _plane_args(planes, factors):
-    """The launches' plane pointers and n x 5 ints (h, w, rh, rv, fancy:
-    jpeg_colour::Plane)."""
+def plane_ints(planes, factors, geo=None):
+    """n x 6 ints of jpeg_colour::Plane (w, rh, rv, fancy, pitch, stride);
+    ``geo``: each plane's (h, w, stride) a chunk (:func:`_chunk_planes`),
+    else the plane is the image's."""
+    geo = geo or [(p.shape[0], p.shape[1], p.shape[0]) for p in planes]
+    return (ctypes.c_int * 24)(*[
+        v for p, (rh, rv), (_, w, stride) in zip(planes, factors, geo)
+        for v in (w, rh, rv, int(_fancy(w, rh, rv)), p.shape[1], stride)])
+
+
+def _plane_args(planes, factors, geo=None):
+    """The launches' plane pointers and :func:`plane_ints`."""
     ptrs = (ctypes.c_void_p * 4)(*[p.data_ptr() for p in planes])
-    geo = (ctypes.c_int * 20)(*[v for p, (rh, rv) in zip(planes, factors)
-                                for v in (p.shape[0], p.shape[1], rh, rv,
-                                          int(_fancy(p.shape[1], rh, rv)))])
-    return ptrs, geo
+    return ptrs, plane_ints(planes, factors, geo)
 
 
-def colour_kernel(planes, factors, size, space: int) -> Tuple[Tensor, Tensor]:
+# ycc_to_bgr_kernel's form bits (jpeg_colour::YccForm)
+FORM_RGB, FORM_OPENCV_GREY = 1, 2
+
+
+def colour_kernel(planes, factors, size, space: int,
+                  chunks: Chunks = None) -> Tuple[Tensor, Tensor]:
     """Launch the colour kernel of ``space`` on a JPEG's CUDA planes:
     (grey, BGR), as :func:`colour_plain`. One or three components launch
     ``ycc_to_bgr_kernel`` (form ``"rgb"`` for RGB components), four
     ``cmyk_to_bgr_kernel`` (:func:`cmyk_to_bgr_kernel`). The grey of a
-    YCbCr or grey JPEG whose first plane is at full size is that plane."""
+    YCbCr or grey JPEG whose first plane is at full size is that plane.
+    With ``chunks`` (a JPEG-compressed TIFF) the kernel's chunked form
+    (``"chunks"``, ``"chunks_rgb"``) writes both images in one launch."""
     if space in (SPACE_CMYK, SPACE_YCCK):
         return cmyk_to_bgr_kernel(planes, factors, space == SPACE_YCCK, size)
     if any(p.device.type != "cuda" for p in planes):
         raise ValueError("the colour kernel takes CUDA planes")
-    _check_planes(planes, factors, size)
+    geo = None
+    if chunks is None:
+        _check_planes(planes, factors, size)
+    else:
+        geo = _chunk_planes(planes, factors, size, chunks)
     planes = [p.contiguous() for p in planes]
     H, W = size
     dev = planes[0].device
     bgr = torch.empty((H, W, 3), dtype=torch.uint8, device=dev)
     rgb = space == SPACE_RGB and len(planes) == 3
-    gray = None if factors[0] == (1, 1) and not rgb else torch.empty(
-        (H, W), dtype=torch.uint8, device=dev)
-    ptrs, geo = _plane_args(planes, factors)
+    gray = None if factors[0] == (1, 1) and not rgb and chunks is None \
+        else torch.empty((H, W), dtype=torch.uint8, device=dev)
+    ptrs, ints = _plane_args(planes, factors, geo)
+    form = (FORM_RGB if rgb else 0) | (0 if chunks is None
+                                       else FORM_OPENCV_GREY)
     err = _library().ycc_to_bgr_launch(
-        ptrs, geo, len(planes), int(rgb), H, W, bgr.data_ptr(),
-        None if gray is None else gray.data_ptr(), _stream(planes[0]))
+        ptrs, ints, len(planes), form,
+        None if chunks is None else (ctypes.c_int * 8)(*chunks), H, W,
+        bgr.data_ptr(), None if gray is None else gray.data_ptr(),
+        _stream(planes[0]))
     _check(err, "ycc_to_bgr_kernel launch")
-    COUNTS.launched("rgb" if rgb else None)
+    COUNTS.launched(("chunks_rgb" if rgb else "chunks") if chunks
+                    else "rgb" if rgb else None)
     return (planes[0] if gray is None else gray), bgr
 
 
@@ -678,12 +859,98 @@ def _decode_jpeg(data: bytes, dev) -> Tuple[Tensor, Tensor]:
     return orient(gray, layout.orientation), orient(bgr, layout.orientation)
 
 
+class TiffJpeg(NamedTuple):
+    """A JPEG-compressed TIFF's strips or tiles entropy-decoded on the host
+    (``csrc/tiff_jpeg.h``): per component its coefficients, every chunk's
+    after the one before, each padded to the same blocks down, and its
+    quantization table; and how the card makes cv2's images of them."""
+    coefs: tuple          # (count * blocks down, blocks across, 64) int16
+    qt: np.ndarray        # (components, 64) uint16
+    factors: tuple        # (hmax / h, vmax / v) of each component
+    chunks: Chunks
+    size: Tuple[int, int]
+    space: int            # SPACE_YCC (YCbCr, or grey) or SPACE_RGB
+    orientation: int
+
+
+TIFF_INFO_LEN = 22        # tiff_decode::kInfoLen
+TIFF_JPEG_INFO_LEN = 17   # tiff_jpeg::kInfoLen
+
+
+def _tiff_info(data: bytes, lib) -> list:
+    if image_format(data) != "TIFF":
+        raise ValueError(f"not a TIFF ({image_format(data)})")
+    info = (ctypes.c_longlong * TIFF_INFO_LEN)()
+    _check(lib.tiff_host_info(data, len(data), info), "TIFF read")
+    return list(info)
+
+
+def tiff_compression(data: bytes, lib) -> int:
+    """The Compression tag of a TIFF's first IFD, read by ``lib``'s
+    ``tiff_host_info`` (which refuses, naming why, what the card does not
+    read); 7 is JPEG (:func:`tiff_jpeg_coefficients`)."""
+    return _tiff_info(data, lib)[6]
+
+
+def tiff_jpeg_coefficients(data: bytes, lib, tiff_info=None) -> TiffJpeg:
+    """Entropy-decode every strip or tile of a JPEG-compressed TIFF on the
+    host with ``lib``'s ``tiff_jpeg_host_*`` functions (the card's library,
+    or a host build of ``csrc/tiff_jpeg.h``), each with the JPEGTables'
+    tables, each frame checked against the tags as libtiff checks it.
+    ``tiff_info``: the file's ``tiff_host_info`` fields where the caller
+    has read them. Raises ValueError, naming the cause, for what the card
+    does not read."""
+    (W, H, _, _, pm, _, comp, _, orientation, tiled, cw, ch, n_chunks, *_
+     ) = tiff_info or _tiff_info(data, lib)
+    if comp != 7:
+        raise ValueError(f"not a JPEG-compressed TIFF (Compression {comp})")
+    info = (ctypes.c_longlong * TIFF_JPEG_INFO_LEN)()
+    _check(lib.tiff_jpeg_host_info(data, len(data), info), "TIFF read")
+    count, n, hmax, vmax, last_h = list(info[:5])
+    comps = [list(info[5 + 4 * k:9 + 4 * k]) for k in range(n)]
+    coefs = [np.empty((count * bh, bw, 64), np.int16)
+             for _, _, bw, bh in comps]
+    qt = np.empty((n, 64), np.uint16)
+    ptrs = (ctypes.c_void_p * 3)(*[c.ctypes.data for c in coefs])
+    _check(lib.tiff_jpeg_host_decode(data, len(data), info, ptrs,
+                                     qt.ctypes.data), "TIFF read")
+    chunks = Chunks(int(tiled), cw, ch, -(-W // cw) if tiled else 1,
+                    ch if tiled else last_h, count,
+                    int(bool(tiled) and orientation in (2, 3, 6, 7)), W)
+    return TiffJpeg(tuple(coefs), qt,
+                    tuple((hmax // h, vmax // v) for h, v, _, _ in comps),
+                    chunks, (H, W), SPACE_RGB if pm == 2 else SPACE_YCC,
+                    orientation)
+
+
+def tiff_jpeg_planes(tj: TiffJpeg, dev) -> list:
+    """The card's planes of a :class:`TiffJpeg`: its coefficients copied to
+    a CUDA ``dev`` and one IDCT launch a component over every chunk's
+    blocks at once: (count * 8 blocks down, 8 blocks across) uint8 each,
+    chunk k's samples from row 8 k blocks down."""
+    planes = []
+    for coef, qt in zip(tj.coefs, tj.qt):
+        c = torch.from_numpy(coef).to(dev)
+        q = torch.from_numpy(qt.view(np.int16)).to(dev)
+        planes.append(idct_islow_kernel(c, q, 8 * coef.shape[0],
+                                        8 * coef.shape[1]))
+    return planes
+
+
+def _decode_tiff_jpeg(data: bytes, tiff_info, dev) -> Tuple[Tensor, Tensor]:
+    tj = tiff_jpeg_coefficients(data, _library(), tiff_info)
+    gray, bgr = colour_kernel(tiff_jpeg_planes(tj, dev), tj.factors,
+                              tj.size, tj.space, tj.chunks)
+    CODEC_COUNTS.launched("tiff_jpeg")
+    return orient(gray, tj.orientation), orient(bgr, tj.orientation)
+
+
 class RasterForm(NamedTuple):
-    """What a PNG's or a TIFF's samples are and which of OpenCV's
-    conversions applies to them: the fields of ``raster_bgr::Form``
-    (csrc/raster_bgr.h), in its order."""
-    kind: int          # RASTER_GREY, RASTER_RGB, RASTER_PALETTE or
-                       # RASTER_CMYK
+    """What a PNG's, a TIFF's, a BMP's or a PNM's samples are and which of
+    OpenCV's conversions applies to them: the fields of ``raster_bgr::Form``
+    (csrc/raster_bgr.h; :func:`form_ints` gives them in its order)."""
+    kind: int          # RASTER_GREY, RASTER_RGB, RASTER_PALETTE,
+                       # RASTER_CMYK, RASTER_YCBCR or RASTER_BMP16
     bits: int          # 1, 2, 4, 8 or 16
     channels: int      # samples a pixel, alpha included
     planar: int        # 1: a plane a channel
@@ -694,11 +961,22 @@ class RasterForm(NamedTuple):
     grey_rule: int     # GREY_LIBPNG, GREY_LIBPNG_GAMMA or GREY_OPENCV
     width: int
     height: int
-    rowbytes: int      # bytes a row of a plane
+    rowbytes: int      # bytes a row of a plane (of YCbCr data units)
     plane_bytes: int   # bytes a plane
+    bgr: int = 0       # RGB samples in B, G, R order (a BMP's)
+    green6: int = 0    # RASTER_BMP16: 5-6-5 (else 5-5-5)
+    sub_h: int = 1     # RASTER_YCBCR: YCbCrSubSampling
+    sub_v: int = 1
+
+
+def form_ints(form: RasterForm):
+    """The kernel's ints of a form (``raster_bgr::form_of``: its 15 ints;
+    rowbytes and plane_bytes go as long longs)."""
+    return (ctypes.c_int * 15)(*form[:11], *form[13:])
 
 
 RASTER_GREY, RASTER_RGB, RASTER_PALETTE, RASTER_CMYK = 0, 1, 2, 3
+RASTER_YCBCR, RASTER_BMP16 = 4, 5
 GREY_LIBPNG, GREY_LIBPNG_GAMMA, GREY_OPENCV = 0, 1, 2
 NARROW_SHIFT, NARROW_ROUND257 = 0, 1
 # raster_bgr.h: the palette (256 x RGB), libpng's 8-bit gamma tables, then
@@ -706,18 +984,58 @@ NARROW_SHIFT, NARROW_ROUND257 = 0, 1
 TO_ONE_AT, FROM_ONE_AT = 768, 1024
 TO_ONE16_AT, FROM_ONE16_AT, GREY16_AT = 1280, 1280 + 4096, 1280 + 8192
 TABLES_LEN = 1280 + 12288
+# a YCbCr TIFF's tables take their place: ycbcr_tables' five, 256
+# little-endian int32 entries each
 # libpng's png_set_rgb_to_gray coefficients for OpenCV's 0.299, 0.587
 LIBPNG_RC, LIBPNG_GC = 9797, 19234
 LIBPNG_BC = 32768 - LIBPNG_RC - LIBPNG_GC
 
 
 class Raster(NamedTuple):
-    """A PNG's or a TIFF's samples as the host leaves them (unfiltered,
-    decompressed, de-interlaced) and what the card makes of them."""
-    samples: np.ndarray      # (planes * height, rowbytes) uint8
+    """A PNG's, a TIFF's, a BMP's or a PNM's samples as the host leaves them
+    (unfiltered, decompressed, de-interlaced, run-length expanded, parsed)
+    and what the card makes of them."""
+    samples: np.ndarray      # (planes * rows, rowbytes) uint8
     form: RasterForm
     tables: np.ndarray       # (TABLES_LEN,) uint8: palette, gamma tables
     orientation: int         # applied after the conversion (orient)
+
+
+def ycbcr_tables(luma=(0.299, 0.587, 0.114),
+                 ref=(0., 255., 128., 255., 128., 255.)) -> np.ndarray:
+    """libtiff's TIFFYCbCrToRGBInit (tif_color.c) of YCbCrCoefficients
+    ``luma`` and ReferenceBlackWhite ``ref`` (float32, as libtiff reads the
+    tags): its int32 Y_tab, Cr_r_tab, Cb_b_tab, Cr_g_tab and Cb_g_tab, in
+    float32 arithmetic with FIX at 16 bits and the CLAMPw clamps, (5, 256)
+    int64 in that order (csrc/raster_bgr.h reads them so)."""
+    f32 = np.float32
+    lr, lg, lb = (f32(v) for v in luma)
+    ref = [f32(v) for v in ref]
+
+    def fix(x):  # FIX(CLAMP(x, 0, 2)); the product is float, + 0.5 double
+        x = f32(0) if not x >= 0 else f32(2) if x > 2 else x
+        return int(float(f32(x * f32(65536))) + .5)
+
+    def code2v(c, rb, rw, cr):
+        d = f32(rw - rb)
+        return f32(f32(c - int(rb)) * f32(cr)) / (d if d != 0 else f32(1))
+
+    def clampw(v):  # CLAMPw(v, -128 * 32, 128 * 32), then (int32_t)
+        return int(-4096 if v < -4096 else 4096 if v > 4096 else v)
+
+    f1 = f32(2) - f32(2) * lr
+    f3 = f32(2) - f32(2) * lb
+    d1, d2 = fix(f1), -fix(f32(lr * f1) / lg)
+    d3, d4 = fix(f3), -fix(f32(lb * f3) / lg)
+    out = np.zeros((5, 256), np.int64)
+    for i in range(256):
+        x = i - 128
+        cr = clampw(code2v(x, ref[4] - f32(128), ref[5] - f32(128), 127))
+        cb = clampw(code2v(x, ref[2] - f32(128), ref[3] - f32(128), 127))
+        out[:, i] = (clampw(code2v(x + 128, ref[0], ref[1], 255)),
+                     (d1 * cr + 32768) >> 16, (d3 * cb + 32768) >> 16,
+                     d2 * cr, d4 * cb + 32768)
+    return out
 
 
 _PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
@@ -873,19 +1191,23 @@ def png_rows(data: bytes, lib) -> Raster:
     return Raster(rows, form, tables, orientation)
 
 
-def tiff_rows(data: bytes, lib) -> Raster:
+def tiff_rows(data: bytes, lib, tiff_info=None) -> Raster:
     """Parse a TIFF's first IFD and decode its strips or tiles on the host
     with ``lib``'s ``tiff_host_*`` functions (the card's library, or a host
     build of ``csrc/tiff_decode.h``), Deflate chunks inflated here with
     ``zlib``: the samples ``cv2.imread`` converts, and how it converts them
-    (libtiff's 16-bit narrowing and colour-map rule, OpenCV's grey).
-    Raises ValueError, naming the cause, for what the card does not read."""
-    if image_format(data) != "TIFF":
-        raise ValueError(f"not a TIFF ({image_format(data)})")
-    info = (ctypes.c_longlong * 18)()
-    _check(lib.tiff_host_info(data, len(data), info), "TIFF read")
+    (libtiff's 16-bit narrowing and colour-map rule, its YCbCr tables,
+    OpenCV's grey); signed samples are read as their bits, as cv2 reads
+    them. A JPEG-compressed TIFF is :func:`tiff_jpeg_coefficients`'s.
+    ``tiff_info``: the file's ``tiff_host_info`` fields where the caller
+    has read them. Raises ValueError, naming the cause, for what the card
+    does not read."""
     (W, H, bits, spp, pm, planar, comp, _, orientation, _, _, _, chunks,
-     alpha, little, n_map, _, _) = list(info)
+     alpha, little, n_map, _, _, sub_h, sub_v, _, _) = \
+        tiff_info or _tiff_info(data, lib)
+    if comp == 7:
+        raise ValueError("a JPEG-compressed TIFF: its strips or tiles are "
+                         "JPEG streams (tiff_jpeg_coefficients), not rows")
     offsets = np.zeros(chunks, np.uint64)
     counts = np.zeros(chunks, np.uint64)
     cmap = np.zeros(3 * max(n_map, 1), np.uint16)
@@ -906,7 +1228,13 @@ def tiff_rows(data: bytes, lib) -> Raster:
                     (ctypes.c_size_t * chunks)(*map(len, keep)))
     planes = spp if planar == 2 else 1
     rowbytes = (W * (1 if planar == 2 else spp) * bits + 7) // 8
-    rows = np.empty((planes * H, rowbytes), np.uint8)
+    n_rows = H
+    if pm != 6:
+        sub_h = sub_v = 1
+    elif sub_h * sub_v > 1:  # libtiff's data units: hs vs Y, Cb, Cr
+        rowbytes = -(-W // sub_h) * (sub_h * sub_v + 2)
+        n_rows = -(-H // sub_v)
+    rows = np.empty((planes * n_rows, rowbytes), np.uint8)
     _check(lib.tiff_host_decode(data, len(data),
                                 inflated[0] if inflated else None,
                                 inflated[1] if inflated else None,
@@ -916,13 +1244,50 @@ def tiff_rows(data: bytes, lib) -> Raster:
         m = cmap.reshape(3, n_map)
         m = m >> 8 if (m >= 256).any() else m
         tables[:3 * n_map] = m.T.reshape(-1).astype(np.uint8)
+    if pm == 6:
+        luma = _rationals(data, lib, 529, 3) or (0.299, 0.587, 0.114)
+        ref = _rationals(data, lib, 532, 6) or (0., 255., 128., 255., 128.,
+                                                255.)
+        if not (np.isfinite(luma).all() and np.isfinite(ref).all()) or \
+                luma[1] == 0:
+            raise ValueError("a YCbCr TIFF whose YCbCrCoefficients or "
+                             "ReferenceBlackWhite libtiff rejects too (not "
+                             "finite, or a zero green)")
+        tables[:5 * 1024] = ycbcr_tables(luma, ref).astype("<i4").view(
+            np.uint8).reshape(-1)
     kind = {0: RASTER_GREY, 1: RASTER_GREY, 2: RASTER_RGB,
-            3: RASTER_PALETTE, 5: RASTER_CMYK}[pm]
+            3: RASTER_PALETTE, 5: RASTER_CMYK, 6: RASTER_YCBCR}[pm]
     form = RasterForm(kind, bits, spp, int(planar == 2), little,
                       int(pm == 0), NARROW_ROUND257,
                       int(kind == RASTER_RGB and spp == 4 and alpha == 2),
-                      GREY_OPENCV, W, H, rowbytes, rowbytes * H)
+                      GREY_OPENCV, W, H, rowbytes, rowbytes * n_rows,
+                      sub_h=sub_h, sub_v=sub_v)
     return Raster(rows, form, tables, orientation)
+
+
+def _rationals(data: bytes, lib, tag: int, n: int):
+    """The n float values of a TIFF tag as libtiff reads them, or None where
+    the tag is absent or holds fewer."""
+    out = np.zeros(n, np.float32)
+    got = lib.tiff_host_rationals(data, len(data), tag, out.ctypes.data, n)
+    if got < 0:
+        raise ValueError(f"a malformed TIFF (tag {tag} is not rational)")
+    return tuple(out.tolist()) if got >= n else None
+
+
+def _ycbcr_samples(raster: Tensor, f: RasterForm):
+    """(Y, Cb, Cr) int64 (H, W) of a YCbCr raster: each pixel's Y and its
+    data unit's chroma (a plain pixel at 1 x 1)."""
+    if f.sub_h * f.sub_v == 1:
+        return _raster_samples(raster, f).unbind(-1)
+    H, W, hs, vs = f.height, f.width, f.sub_h, f.sub_v
+    unit = hs * vs + 2
+    flat = raster.reshape(-1).to(torch.int64)
+    y = torch.arange(H, device=raster.device)[:, None]
+    x = torch.arange(W, device=raster.device)[None, :]
+    base = (y // vs) * f.rowbytes + (x // hs) * unit
+    return (flat[base + (y % vs) * hs + x % hs], flat[base + unit - 2],
+            flat[base + unit - 1])
 
 
 def _raster_samples(raster: Tensor, f: RasterForm) -> Tensor:
@@ -953,7 +1318,7 @@ def raster_to_bgr_plain(raster: Tensor, form: RasterForm,
     (csrc/raster_bgr.h says what each form computes)."""
     RASTER_COUNTS.plain += 1
     f = form
-    s = _raster_samples(raster, f)
+    s = None if f.kind == RASTER_YCBCR else _raster_samples(raster, f)
     t = tables.to(torch.int64)
     if f.kind == RASTER_GREY:
         v = s[..., 0]
@@ -966,11 +1331,28 @@ def raster_to_bgr_plain(raster: Tensor, form: RasterForm,
     if f.kind == RASTER_PALETTE:
         rgb = t[:768].reshape(256, 3)[s[..., 0]]
         r, g, b = rgb.unbind(-1)
+    elif f.kind == RASTER_YCBCR:  # libtiff's TIFFYCbCrtoRGB
+        y0, cb, cr = _ycbcr_samples(raster, f)
+        tab = tables[:5 * 1024].reshape(5, 256, 4).to(torch.int64)
+        tab = (tab * torch.tensor([1, 256, 65536, 16777216],
+                                  device=tab.device)).sum(-1)
+        tab = torch.where(tab >= 1 << 31, tab - (1 << 32), tab)
+        yv = tab[0][y0]
+        r = torch.clamp(yv + tab[1][cr], 0, 255)
+        g = torch.clamp(yv + ((tab[4][cb] + tab[3][cr]) >> 16), 0, 255)
+        b = torch.clamp(yv + tab[2][cb], 0, 255)
+    elif f.kind == RASTER_BMP16:  # OpenCV's BGR555 / BGR565 expansion
+        v = s[..., 0]
+        b = (v << 3) & 0xF8
+        g = (v >> 3) & 0xFC if f.green6 else (v >> 2) & 0xF8
+        r = (v >> 8) & 0xF8 if f.green6 else (v >> 7) & 0xF8
     elif f.kind == RASTER_CMYK:  # libtiff's RGBA reader
         k = 255 - s[..., 3]
         r, g, b = [k * (255 - s[..., i]) // 255 for i in range(3)]
     else:
         r, g, b = s[..., 0], s[..., 1], s[..., 2]
+        if f.bgr:
+            r, b = b, r
         a = s[..., 3] if f.premultiply else None
         if f.bits == 16:  # libpng converts before it narrows
             same = (r == g) & (r == b)
@@ -993,7 +1375,7 @@ def raster_to_bgr_plain(raster: Tensor, form: RasterForm,
         if a is not None:
             r, g, b = [(x * a + 127) // 255 for x in (r, g, b)]
     if f.grey_rule == GREY_OPENCV:
-        grey = (r * 4899 + g * 9617 + b * 1868 + 8192) >> 14
+        grey = opencv_grey(b, g, r)
     elif g16 is not None:
         grey = g16 >> 8
     else:
@@ -1025,29 +1407,334 @@ def raster_to_bgr_kernel(raster: Tensor, form: RasterForm,
     H, W = form.height, form.width
     bgr = torch.empty((H, W, 3), dtype=torch.uint8, device=raster.device)
     gray = torch.empty((H, W), dtype=torch.uint8, device=raster.device)
-    ints = (ctypes.c_int * 11)(*form[:11])
     sizes = (ctypes.c_longlong * 2)(form.rowbytes, form.plane_bytes)
     err = _library().raster_to_bgr_launch(
-        raster.data_ptr(), ints, sizes, tables.data_ptr(), bgr.data_ptr(),
-        gray.data_ptr(), _stream(raster))
+        raster.data_ptr(), form_ints(form), sizes, tables.data_ptr(),
+        bgr.data_ptr(), gray.data_ptr(), _stream(raster))
     _check(err, "raster_to_bgr_kernel launch")
-    RASTER_COUNTS.launched()
+    RASTER_COUNTS.launched(raster_form_name(form))
     return gray, bgr
 
 
-def raster_rows(data: bytes, lib) -> Raster:
-    """:func:`png_rows` or :func:`tiff_rows` by the file's first bytes."""
-    return (png_rows if image_format(data) == "PNG" else tiff_rows)(data,
-                                                                    lib)
+def raster_form_name(form: RasterForm):
+    """The launch counters' name of a raster form that later reads added
+    ("ycbcr", "bmp16", "bgr"), None for the rest."""
+    return {RASTER_YCBCR: "ycbcr", RASTER_BMP16: "bmp16"}.get(
+        form.kind, "bgr" if form.bgr else None)
 
 
-def _decode_raster(data: bytes, dev) -> Tuple[Tensor, Tensor]:
+# ------------------------------- BMP, PNM -------------------------------
+
+def _bmp_error(why: str):
+    return ValueError(f"a BMP {why}, which cv2 does not read either")
+
+
+def _rle_fill(out, pos, count: int, value: int):
+    """OpenCV's FillUniColor: ``count`` pixels of ``value`` from pos (x, y),
+    wrapping to the next row at each row's end; the new position."""
+    x, y = pos
+    H, W = out.shape
+    while True:
+        n = min(count, W - x)
+        out[y, x:x + n] = value
+        x += n
+        count -= n
+        if x >= W:
+            x, y = 0, y + 1
+            if y >= H:
+                break
+        if count <= 0:
+            break
+    return x, y
+
+
+def bmp_rle(data: bytes, at: int, W: int, H: int, bits: int) -> np.ndarray:
+    """A BMP's RLE8 (``bits`` 8) or RLE4 (4) image data from ``at``
+    expanded as OpenCV's BmpDecoder expands it: (H, W) palette indices in
+    the file's row order (bottom row first), skipped pixels (end of line,
+    delta, end of bitmap) index 0, as OpenCV fills them with palette entry
+    0. Its quirks are kept: an RLE8 end of line right after a run that
+    ended its row is passed over, an RLE4 delta and end of bitmap skip
+    pixels along the row (wrapping) without their rows. Raises, as OpenCV
+    refuses the file, for a run past its row's end or data that ends
+    before the image does."""
+    out = np.zeros((H, W), np.uint8)
+    x = y = 0
+    ended_row = False  # RLE8: the last run wrapped to this row
+
+    def take(n):
+        nonlocal at
+        if at + n > len(data):
+            raise _bmp_error("whose run-length data ends before its image")
+        at += n
+        return data[at - n:at]
+
+    while True:
+        n, code = take(2)
+        if n:  # a run
+            if x + n > W:
+                raise _bmp_error("whose run passes its row's end")
+            if bits == 8:
+                y0 = y
+                x, y = _rle_fill(out, (x, y), n, code)
+                ended_row = y != y0
+                if y >= H:
+                    break
+            else:
+                out[y, x:x + n] = np.resize([code >> 4, code & 15], n)
+                x += n
+        elif code > 2:  # absolute: code indices, padded to 16 bits
+            if x + code > W:
+                raise _bmp_error("whose run passes its row's end")
+            if bits == 8:
+                out[y, x:x + code] = np.frombuffer(
+                    take((code + 1) & ~1), np.uint8)[:code]
+            else:
+                b = np.frombuffer(take((((code + 1) >> 1) + 1) & ~1),
+                                  np.uint8)
+                out[y, x:x + code] = np.stack([b >> 4, b & 15],
+                                              -1).reshape(-1)[:code]
+            x += code
+            ended_row = False
+        else:  # 0: end of line, 1: end of bitmap, 2: delta
+            dx, dy = W - x, H - y
+            if bits == 4:
+                if code == 2:
+                    dx = take(2)[0]
+                x, y = _rle_fill(out, (x, y), dx, 0)
+                if y >= H:
+                    break
+                continue
+            if code or not ended_row or dx < W:
+                if code == 2:
+                    dx, dy = take(2)
+                if code:
+                    dx += dy * W
+                if y >= H:
+                    break
+                x, y = _rle_fill(out, (x, y), dx, 0)
+                if y >= H:
+                    break
+            ended_row = False
+            if y >= H:
+                break
+    return out
+
+
+def bmp_rows(data: bytes) -> Raster:
+    """Parse a BMP as OpenCV's BmpDecoder (grfmt_bmp.cpp) reads it: the
+    40-byte (or longer) header and the 12-byte OS/2 one; 1, 4 and 8 bits
+    with a palette (RLE8 and RLE4 expanded here, :func:`bmp_rle`), 16 bits
+    as 5-5-5 or, by BI_BITFIELDS masks, 5-6-5, 24 and 32 bits (alpha and
+    32-bit masks ignored); rows bottom-up (applied as the orientation that
+    mirrors the image top-down) or, with a negative height, top-down. The
+    samples stay as the file holds them (B, G, R order and 16-bit words
+    are forms of the card's kernel). Raises, naming the cause, what cv2
+    refuses."""
+    if image_format(data) != "BMP" or len(data) < 18:
+        raise _bmp_error("without a whole file header")
+    offset, size = struct.unpack("<II", data[10:18])
+    if size >= 36 and len(data) >= 14 + 36:
+        W, H, _, bits, comp = struct.unpack("<iiHHI", data[18:34])
+        used = struct.unpack("<I", data[46:50])[0]
+        entry, at = 4, 14 + size
+        ok = W > 0 and H != 0 and (
+            (bits in (1, 4, 8, 24, 32) and comp == 0)
+            or (bits in (16, 32) and comp in (0, 3))
+            or (bits == 4 and comp == 2) or (bits == 8 and comp == 1))
+    elif size == 12 and len(data) >= 26:
+        W, H, planes, bits = struct.unpack("<HHHH", data[18:26])
+        comp, used, entry, at = 0, 0, 3, 26
+        ok = W > 0 and H > 0 and planes == 1 and bits in (1, 4, 8, 24, 32)
+    else:
+        raise _bmp_error(f"of a header of {size} bytes")
+    if not ok:
+        raise _bmp_error(f"of {bits} bits, compression {comp}, "
+                         f"{W}x{H}")
+    if W * abs(H) > 1 << 30:
+        raise _bmp_error(f"of {W}x{abs(H)}: more than 2^30 pixels")
+    tables = np.zeros(TABLES_LEN, np.uint8)
+    green6 = 0
+    if bits <= 8:
+        n = used or 1 << bits
+        if n > 256 or at + n * entry > len(data):
+            raise _bmp_error("whose palette is longer than 256 entries or "
+                             "than the file")
+        pal = np.frombuffer(data[at:at + n * entry], np.uint8).reshape(
+            n, entry)
+        tables[:3 * n] = pal[:, 2::-1].reshape(-1)  # BGR(A) -> RGB
+    elif bits == 16 and comp == 3:
+        if at + 12 > len(data):
+            raise _bmp_error("whose bit-field masks pass the file's end")
+        masks = struct.unpack("<III", data[at:at + 12])
+        if masks not in ((0x7C00, 0x3E0, 0x1F), (0xF800, 0x7E0, 0x1F)):
+            raise _bmp_error(f"of 16-bit fields other than 5-5-5 and 5-6-5 "
+                             f"(masks {tuple(map(hex, masks))})")
+        green6 = int(masks[1] == 0x7E0)
+    rows = abs(H)
+    orientation = 4 if H > 0 else 1  # bottom-up: mirrored top-down
+    if comp in (1, 2):
+        samples = bmp_rle(data, offset, W, rows, bits)
+        bits, rowbytes = 8, W
+    else:
+        rowbytes = (W * bits + 31) // 32 * 4
+        if offset > len(data) or offset + rows * rowbytes > len(data):
+            raise _bmp_error("whose image data ends before its image does")
+        samples = np.frombuffer(data, np.uint8, rows * rowbytes,
+                                offset).reshape(rows, rowbytes).copy()
+    kind = RASTER_PALETTE if bits <= 8 else RASTER_BMP16 if bits == 16 \
+        else RASTER_RGB
+    form = RasterForm(kind, 16 if bits == 16 else min(bits, 8),
+                      bits // 8 if bits >= 24 else 1, 0, 1, 0, NARROW_SHIFT,
+                      0, GREY_OPENCV, W, rows, rowbytes, rowbytes * rows,
+                      bgr=int(bits >= 24), green6=green6)
+    return Raster(samples, form, tables, orientation)
+
+
+# whitespace and comments (to their line's end), then a number
+_PNM_NUMBER = re.compile(rb"(?:[ \t\n\v\f\r]+|#[^\r\n]*[\r\n])*(\d)(\d*)")
+
+
+def _pnm_number(data: bytes, pos: int, one_digit: bool = False):
+    """OpenCV's ReadNumber (grfmt_pxm.cpp) from pos: whitespace and
+    comments (to the end of their line) skipped, then digits (one with
+    ``one_digit``), and the character after them consumed; (value, new
+    position). Anything else, or the data's end, raises."""
+    m = _PNM_NUMBER.match(data, pos)
+    if m is None or m.end(1) > len(data):
+        raise ValueError("a PNM whose header or samples hold something "
+                         "other than numbers where numbers belong, or end "
+                         "early, which cv2 does not read either")
+    if one_digit:
+        return int(m.group(1)), m.end(1)
+    end = m.end(2)
+    if end >= len(data):  # the character after the number is read too
+        raise ValueError("a PNM that ends inside a number, which cv2 does "
+                         "not read either")
+    return int(m.group(1) + m.group(2)), end + 1
+
+
+_PNM_DIGITS_AND_SPACE = b"0123456789 \t\n\v\f\r"
+
+
+def _pnm_ascii(data: bytes, pos: int, count: int,
+               one_digit: bool) -> np.ndarray:
+    """``count`` ASCII samples from pos, int64, as that many
+    :func:`_pnm_number` calls read them. Where the data from pos holds
+    only digits and whitespace, numpy finds the numbers at once (a number
+    of up to 18 digits, followed by a character); else, or where that
+    falls short, one call a sample, which raises as cv2 refuses."""
+    body = data[pos:]
+    if not body.translate(None, _PNM_DIGITS_AND_SPACE):
+        b = np.frombuffer(body, np.uint8)
+        digit = (b >= ord("0")) & (b <= ord("9"))
+        if one_digit:  # a digit a sample, nothing consumed after it
+            values = b[digit][:count].astype(np.int64) - ord("0")
+            if len(values) == count:
+                return values
+        else:
+            edges = np.flatnonzero(np.diff(digit, prepend=False,
+                                           append=False))
+            starts, ends = edges[0::2][:count], edges[1::2][:count]
+            lengths = ends - starts
+            if len(starts) == count and ends[-1] < len(b) and \
+                    lengths.max() <= 18:
+                values = np.zeros(count, np.int64)
+                for k in range(int(lengths.max())):
+                    m = lengths > k
+                    values[m] = values[m] * 10 + b[starts[m] + k] - ord("0")
+                return values
+    values = np.empty(count, np.int64)
+    for i in range(count):
+        values[i], pos = _pnm_number(data, pos, one_digit)
+    return values
+
+
+def pnm_rows(data: bytes) -> Raster:
+    """Parse a PBM, PGM or PPM (P1 to P6) as OpenCV's PxMDecoder reads it:
+    the header's numbers with comments; binary samples as stored (no
+    rescaling by maxval; 16-bit big-endian ones narrowed v >> 8 by the
+    card's kernel); ASCII samples clamped to maxval and, at 8 bits,
+    rescaled v * 255 / maxval by OpenCV's palette (so written here as
+    bytes); P1 and P4 with 1 as black. The binary data starts one
+    character after maxval's last digit. Raises, naming the cause, what
+    cv2 refuses. PAM (P7) and PFM are not read here."""
     kind = image_format(data)
-    r = raster_rows(data, _library())
+    if kind not in ("PBM", "PGM", "PPM"):
+        raise ValueError(f"not a PBM, PGM or PPM ({kind})")
+    digit = data[1] - ord("0")
+    binary, channels = digit >= 4, 3 if digit in (3, 6) else 1
+    pos = 2
+    W, pos = _pnm_number(data, pos)
+    H, pos = _pnm_number(data, pos)
+    maxval = 1
+    if digit not in (1, 4):
+        maxval, pos = _pnm_number(data, pos)
+    if not (0 < W and 0 < H and 0 < maxval < 1 << 16):
+        raise ValueError(f"a PNM of {W}x{H}, maxval {maxval}, which cv2 "
+                         f"does not read either")
+    if W * H > 1 << 30:
+        raise ValueError(f"a PNM of {W}x{H}: more than 2^30 pixels")
+    bits = 1 if digit in (1, 4) else 8 if maxval < 256 else 16
+    n = W * channels
+    if binary:
+        rowbytes = (n * bits + 7) // 8
+        if pos + H * rowbytes > len(data):
+            raise ValueError("a PNM whose samples end before its image "
+                             "does, which cv2 does not read either")
+        samples = np.frombuffer(data, np.uint8, H * rowbytes,
+                                pos).reshape(H, rowbytes).copy()
+    else:
+        values = _pnm_ascii(data, pos, H * n, digit == 1)
+        if bits == 1:  # OpenCV's palette: 0 white, anything else black
+            values, bits = np.where(values != 0, 0, 255), 8
+        elif bits == 8:
+            values = np.minimum(values, maxval) * 255 // maxval
+        else:
+            values = np.minimum(values, maxval)
+        samples = values.astype(">u2" if bits == 16 else np.uint8).view(
+            np.uint8).reshape(H, -1)
+        rowbytes = samples.shape[1]
+    form = RasterForm(RASTER_RGB if channels == 3 else RASTER_GREY, bits,
+                      channels, 0, 0, int(binary and bits == 1),
+                      NARROW_SHIFT, 0, GREY_OPENCV, W, H, rowbytes,
+                      rowbytes * H)
+    return Raster(samples, form, np.zeros(TABLES_LEN, np.uint8), 1)
+
+
+def raster_rows(data: bytes, lib) -> Raster:
+    """:func:`png_rows`, :func:`tiff_rows`, :func:`bmp_rows` or
+    :func:`pnm_rows` by the file's first bytes."""
+    kind = image_format(data)
+    if kind == "PNG":
+        return png_rows(data, lib)
+    if kind == "BMP":
+        return bmp_rows(data)
+    if kind in ("PBM", "PGM", "PPM"):
+        return pnm_rows(data)
+    if kind != "TIFF":
+        raise ValueError(f"not a PNG, TIFF, BMP, PBM, PGM or PPM ({kind})")
+    return tiff_rows(data, lib)
+
+
+_RASTER_FORMATS = {"PNG": "png", "TIFF": "tiff", "BMP": "bmp", "PBM": "pnm",
+                   "PGM": "pnm", "PPM": "pnm"}
+
+
+def _decode_raster(data: bytes, device) -> Tuple[Tensor, Tensor]:
+    kind = image_format(data)
+    # BMP and PNM are parsed here, before the card's library is built, so
+    # what they refuse raises before anything reaches the card
+    lib = None if kind in ("BMP", "PBM", "PGM", "PPM") else _library()
+    info = _tiff_info(data, lib) if kind == "TIFF" else None
+    if info and info[6] == 7:
+        return _decode_tiff_jpeg(data, info, _cuda_device(device))
+    r = tiff_rows(data, lib, info) if info else raster_rows(data, lib)
+    dev = _cuda_device(device)
     samples = torch.from_numpy(r.samples).to(dev)
     tables = torch.from_numpy(r.tables).to(dev)
     gray, bgr = raster_to_bgr_kernel(samples, r.form, tables)
-    CODEC_COUNTS.launched(kind.lower())
+    CODEC_COUNTS.launched(_RASTER_FORMATS[kind])
     return orient(gray, r.orientation), orient(bgr, r.orientation)
 
 
@@ -2047,8 +2734,11 @@ def _decode_webp(data: bytes, device) -> Tuple[Tensor, Tensor]:
 def decode(data: bytes, device) -> Tuple[Tensor, Tensor]:
     """(grey (H, W), BGR (H, W, 3)) uint8 tensors on ``device`` from a
     file's bytes: what ``cv2.imread`` gives with ``IMREAD_GRAYSCALE`` and
-    ``IMREAD_COLOR``. On a CUDA device, JPEG, PNG, TIFF and WebP (lossy,
-    lossless, and the first frame of an animated file on its canvas)."""
+    ``IMREAD_COLOR``. On a CUDA device: JPEG; PNG; TIFF (uncompressed, LZW,
+    Deflate, PackBits and JPEG-compressed; grey, RGB, palette, CMYK and
+    YCbCr; signed samples as their bits); WebP (lossy, lossless, and the
+    first frame of an animated file on its canvas); BMP; and PBM, PGM and
+    PPM (P1 to P6)."""
     dev = torch.device(device)
     if dev.type == "cpu":
         import cv2
@@ -2063,23 +2753,23 @@ def decode(data: bytes, device) -> Tuple[Tensor, Tensor]:
     if dev.type != "cuda":
         raise ValueError(f"no image codec for device {dev}")
     kind = image_format(data)
-    if kind in ("PNG", "TIFF"):
-        return _decode_raster(data, _cuda_device(dev))
+    if kind in _RASTER_FORMATS:
+        return _decode_raster(data, dev)
     if kind == "WebP":
         return _decode_webp(data, dev)
     if kind != "JPEG":
-        raise ValueError(f"not a JPEG, PNG, TIFF or WebP ({kind}): the "
-                         f"card's codec reads those only")
+        raise ValueError(f"not a JPEG, PNG, TIFF, WebP, BMP, PBM, PGM or PPM "
+                         f"({kind}): the card's codec reads those only")
     return _decode_jpeg(data, dev)
 
 
 def decode_colour(data: bytes, device) -> Tensor:
     """BGR (H, W, 3) uint8 on ``device`` from a file's bytes: what
-    ``cv2.imread`` gives with ``IMREAD_COLOR``. On a CUDA device, JPEG, PNG,
-    TIFF and WebP (lossy, lossless, animated)."""
+    ``cv2.imread`` gives with ``IMREAD_COLOR``. On a CUDA device, the
+    formats :func:`decode` reads."""
     dev = torch.device(device)
-    if dev.type == "cuda" and image_format(data) in ("PNG", "TIFF"):
-        return _decode_raster(data, _cuda_device(dev))[1]
+    if dev.type == "cuda" and image_format(data) in _RASTER_FORMATS:
+        return _decode_raster(data, dev)[1]
     if dev.type == "cuda" and image_format(data) == "WebP":
         return _decode_webp(data, dev)[1]
     if dev.type == "cpu":

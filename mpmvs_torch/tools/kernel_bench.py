@@ -4,7 +4,9 @@
 (``csrc/bilateral_refine.cu``, ``--kernel bilateral``) and the geometric
 cost (``csrc/geom_cost.cu``, ``--kernel geom``), and the lossless WebP
 predictor (``csrc/jpeg_codec.cu``, ``--kernel vp8l``: random images from
-one band of 32 rows to 3200x2130, no scene).
+one band of 32 rows to 3200x2130, no scene), and the JPEG colour kernels
+(``--kernel colour``: ``ycc_to_bgr_kernel`` and ``cmyk_to_bgr_kernel`` on
+random 3200x2130 planes, no scene).
 
 Port of tools/kernel_bench.py (the JAX package's Pallas-kernel bench):
 the same operating point (``make_plane_scene`` at 3200x2130 with 11
@@ -852,6 +854,67 @@ def run_vp8l(reps: int, check: bool) -> list:
     return out
 
 
+# (name, ratios a plane, colour space name): a 4:2:0 JPEG, phase 8's YCCK
+# source's layout (Y, K at full size, Cb, Cr at 2x2), a CMYK file's at 1x1
+COLOUR_CASES = (("ycc_420", ((1, 1), (2, 2), (2, 2)), "SPACE_YCC"),
+                ("ycck_file", ((1, 1), (2, 2), (2, 2), (1, 1)), "SPACE_YCCK"),
+                ("cmyk_11", ((1, 1),) * 4, "SPACE_CMYK"))
+
+
+def run_colour(reps: int, check: bool, H: int = 2130, W: int = 3200) -> list:
+    """The JPEG colour kernels through ``images.colour_kernel`` on random
+    planes of an (H, W) image at COLOUR_CASES, and, where the tree has the
+    chunked form (``images.Chunks``), on a JPEG-compressed TIFF's planes
+    at 4:2:0 in strips of 16 rows (``chunks_420``, phase 8d's layout):
+    CUDA-event ms of back-to-back calls (``ms``, the wrapper's host work
+    included where it is the longer) and of the launches alone from a
+    CUDA graph (``graph_ms``, ``utils.trace.cuda_graph_ms``), the bytes
+    bound (``utils.roofline``) and, with
+    ``check``, the entries that differ from ``images.colour_plain``. Of
+    the image module it uses only what the colour kernels' callers had
+    before the chunked form, so with this module and ``utils/trace.py``
+    copied in it times an older tree too."""
+    from mpmvs_torch.io import images
+    from mpmvs_torch.utils import roofline
+    from mpmvs_torch.utils.trace import cuda_graph_ms, cuda_time_ms
+
+    g = torch.Generator().manual_seed(H + W)
+    rand = lambda h, w: torch.randint(0, 256, (h, w), generator=g,
+                                      dtype=torch.uint8).cuda()
+    cases = [(name, [rand(-(-H // rv), -(-W // rh)) for rh, rv in factors],
+              factors, getattr(images, space), None,
+              # a YCbCr JPEG's grey is its full-size Y plane, not written
+              lambda p, h, w, grey=space != "SPACE_YCC":
+              roofline.colour_bound(p, h, w, grey))
+             for name, factors, space in COLOUR_CASES]
+    if hasattr(images, "Chunks"):
+        n = -(-H // 16)
+        k = images.Chunks(0, W, 16, 1, H - 16 * (n - 1), n, 0, W)
+        factors = ((1, 1), (2, 2), (2, 2))
+        cases.append(("chunks_420", [rand(n * 16 // rv, -(-W // rh))
+                                     for rh, rv in factors],
+                      factors, images.SPACE_YCC, k,
+                      lambda p, h, w, k=k, f=factors:
+                      roofline.chunked_colour_bound(k, f, h, w)))
+    out = []
+    for name, planes, factors, space, chunks, bound in cases:
+        args = (planes, factors, (H, W), space) + ((chunks,) if chunks
+                                                   else ())
+        fn = lambda: images.colour_kernel(*args)
+        ms = cuda_time_ms(fn, reps)
+        bnd = bound(planes, H, W)
+        r = dict(kernel="colour", case=name, shape=f"{W}x{H}", ms=ms,
+                 bound_ms=bnd[0], bound_by=bnd[1], share_of_bound=bnd[0] / ms)
+        r["graph_ms"] = cuda_graph_ms(fn, reps)
+        r["graph_share_of_bound"] = bnd[0] / r["graph_ms"]
+        if check:
+            got, want = fn(), images.colour_plain(*args)
+            r["entries_differing"] = sum(int((a != b).sum())
+                                         for a, b in zip(got, want))
+        out.append(r)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--height", type=int, default=2130)
@@ -874,7 +937,8 @@ def main(argv=None) -> int:
     ap.add_argument("--check", action="store_true",
                     help="also compare with the plain version")
     ap.add_argument("--kernel", default="ncc",
-                    choices=("ncc", "sorted", "bilateral", "geom", "vp8l"))
+                    choices=("ncc", "sorted", "bilateral", "geom", "vp8l",
+                             "colour"))
     ap.add_argument("--sorted-cases", default=",".join(SORTED_CASES),
                     help=f"comma-separated, of {list(SORTED_CASES)}")
     ap.add_argument("--sass", action="store_true",
@@ -890,11 +954,12 @@ def main(argv=None) -> int:
     from mpmvs_torch.tools import build_kernels
 
     build_kernels(torch.device("cuda"), verbose=True)
-    if args.kernel == "vp8l":  # no scene: random images
+    if args.kernel in ("vp8l", "colour"):  # no scene: random images
         from mpmvs_torch.tools import device_record
 
         rec = device_record(torch.device("cuda", 0))
-        for res in run_vp8l(4 * args.reps, args.check):
+        run = run_vp8l if args.kernel == "vp8l" else run_colour
+        for res in run(4 * args.reps, args.check):
             res.update(kind=rec["kind"], nvidia_smi=rec["nvidia_smi"])
             print(json.dumps(res), flush=True)
         return 0

@@ -133,11 +133,12 @@ def fdct_bound(blocks: int):
 
 
 def raster_bound(form, table_bytes: int):
-    """One launch of the raster kernel (``csrc/jpeg_codec.cu``) on a PNG's
-    or a TIFF's samples (an ``io.images.RasterForm``): the samples read
-    once (every plane), the tables, the BGR image and the grey image
-    written (4 bytes a pixel). Bytes alone, as for the codec's other
-    kernels."""
+    """One launch of the raster kernel (``csrc/jpeg_codec.cu``) on a PNG's,
+    a TIFF's, a BMP's or a PNM's samples (an ``io.images.RasterForm``; a
+    BMP's B, G, R order and 16-bit fields move the same bytes): the
+    samples read once (every plane), the tables, the BGR image and the
+    grey image written (4 bytes a pixel). Bytes alone, as for the codec's
+    other kernels."""
     planes = form.channels if form.planar else 1
     return bound(0, planes * form.plane_bytes + table_bytes
                  + 4 * form.width * form.height)
@@ -152,6 +153,66 @@ def colour_bound(planes, H: int, W: int, grey: bool = True):
     codec's other kernels."""
     return bound(0, sum(p.numel() for p in planes)
                  + (4 if grey else 3) * H * W)
+
+
+def idct_bound(coefs, planes):
+    """The IDCT launches of a JPEG's or a JPEG-compressed TIFF's components
+    (``idct_islow_kernel``, one a component; a TIFF's every chunk at once):
+    2 bytes a coefficient read, 1 a sample written. Bytes alone: the int32
+    work has no peak in the table."""
+    return bound(0, sum(2 * c.numel() for c in coefs)
+                 + sum(p.numel() for p in planes))
+
+
+def chunk_samples_read(chunks, factors, H: int, W: int) -> int:
+    """The component samples that ``ycc_to_bgr_kernel``'s chunked form
+    reads (``csrc/jpeg_colour.h`` upsampled()) of a JPEG-compressed TIFF
+    cut into ``chunks`` (an ``io.images.Chunks``) at ``factors`` ((rh, rv)
+    a component): in each chunk, cropped to the image, the sample rows
+    and columns that its pixels and their fancy neighbours touch. The
+    padding of the IDCT's blocks, a tile's overhang and the last strip's
+    rows past the image are not read and not counted."""
+    from mpmvs_torch.io.images import _fancy
+
+    def touched(n: int, r: int, fancy: bool, have: int) -> int:
+        # samples along one axis that n pixels at ratio r read, of `have`
+        # in the chunk: each pixel's own, and under fancy 2x upsampling
+        # the one past the last when n is even and the chunk has it
+        if r == 1:
+            return n
+        own = -(-n // r)
+        return own + int(fancy and n % 2 == 0 and n // 2 < have)
+
+    k = chunks
+    down = -(-H // k.height)
+    rows = [min(k.height, H - t * k.height) for t in range(down)]
+    cols = [min(k.width, W - t * k.width) for t in range(k.across)] \
+        if k.tiled else [W]
+    total = 0
+    for rh, rv in factors:
+        w = -(-k.width // rh)
+        fancy = _fancy(w, rh, rv)
+        across = sum(touched(c, rh, fancy and rh == 2, w) for c in cols)
+        for t, ch in enumerate(rows):
+            stream = k.last_height if not k.tiled and t == down - 1 \
+                else k.height
+            total += across * touched(ch, rv, fancy and rv == 2,
+                                      -(-stream // rv))
+    return total
+
+
+def chunked_colour_bound(chunks, factors, H: int, W: int):
+    """One launch of ``ycc_to_bgr_kernel``'s chunked form (a JPEG-compressed
+    TIFF): the samples it reads (:func:`chunk_samples_read`) read once,
+    BGR and grey written."""
+    return bound(0, chunk_samples_read(chunks, factors, H, W) + 4 * H * W)
+
+
+def ycbcr_raster_bound(form):
+    """One launch of the raster kernel's YCbCr form (a TIFF's data units):
+    the units read once, libtiff's five int32 tables (5 KiB), BGR and grey
+    written."""
+    return raster_bound(form, 5 * 1024)
 
 
 def vp8_reconstruct_bound(records):

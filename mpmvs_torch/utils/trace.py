@@ -42,6 +42,30 @@ def cuda_time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def cuda_graph_ms(fn, reps: int, replays: int = 5) -> float:
+    """Device time in ms of one ``fn()`` without its host work: ``reps``
+    calls captured in one CUDA graph (after a warm-up call outside it),
+    the graph replayed ``replays`` times between CUDA events. Where a
+    wrapper's checks and argument building take longer than its kernel,
+    :func:`cuda_time_ms` times the host; this times the launches alone.
+    ``fn`` must queue only capturable work on the current stream."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (replays * reps)
+
+
 class StageStats:
     __slots__ = ("count", "total", "min", "max")
 

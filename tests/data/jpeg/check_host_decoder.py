@@ -76,23 +76,33 @@ extern "C" int planes(const uint8_t* data, size_t len, int* info,
   return 0;
 }
 // The colour kernels' per-pixel arithmetic (jpeg_colour.h) over a whole
-// (H, W) image, as the kernels run it: n planes, n x 5 ints (h, w, rh, rv,
-// fancy), form 0 YCbCr / 1 RGB (n 1 or 3), 2 CMYK / 3 YCCK (n 4).
+// (H, W) image, as the kernels run it: n planes, n x 6 ints (w, rh, rv,
+// fancy, pitch, stride), form: YccForm bits (n 1 or 3: bit 0 RGB, bit 1
+// OpenCV's grey), 2 CMYK / 3 YCCK (n 4); chunks: jpeg_colour::Chunks's 8
+// ints, or NULL for one chunk, the image.
 extern "C" void colour_pixels(const uint8_t* const* ptrs, const int* geo,
-                              int n, int form, int H, int W, uint8_t* bgr,
-                              uint8_t* grey) {
+                              int n, int form, const int* chunks, int H,
+                              int W, uint8_t* bgr, uint8_t* grey) {
   jpeg_colour::Planes pl = {};
   for (int i = 0; i < n; i++) {
-    const int* g = geo + 5 * i;
-    pl.c[i] = {ptrs[i], g[0], g[1], g[2], g[3], g[4]};
+    const int* g = geo + 6 * i;
+    pl.c[i] = {ptrs[i], g[0], g[1], g[2], g[3], g[4], g[5]};
   }
+  jpeg_colour::Chunks ck = {};
+  if (chunks)
+    ck = {chunks[0], chunks[1], chunks[2], chunks[3],
+          chunks[4], chunks[5], chunks[6], chunks[7]};
   for (int r = 0; r < H; r++)
     for (int col = 0; col < W; col++) {
       size_t i = (size_t)r * W + col;
       if (n == 4)
-        jpeg_colour::cmyk_pixel(pl, form == 3, r, col, bgr + 3 * i, grey + i);
+        jpeg_colour::cmyk_pixel(pl, form == 3, H, r, col, bgr + 3 * i,
+                                grey + i);
       else
-        jpeg_colour::ycc_pixel(pl, n, form, r, col, bgr + 3 * i, grey + i);
+        jpeg_colour::ycc_pixel(pl, n, form,
+                               chunks ? jpeg_colour::spot(ck, r, col)
+                                      : jpeg_colour::whole(H, r, col),
+                               bgr + 3 * i, grey + i);
     }
 }
 // Element-wise steps: OpenCV's CMYK -> BGR channel of (x, k) pairs, and
@@ -124,7 +134,7 @@ def build(tmp):
                     src], check=True)
     lib = ctypes.CDLL(lib)
     vp, i = ctypes.c_void_p, ctypes.c_int
-    lib.colour_pixels.argtypes = [vp, vp, i, i, i, i, vp, vp]
+    lib.colour_pixels.argtypes = [vp, vp, i, i, vp, i, i, vp, vp]
     lib.cmyk_channels.argtypes = [vp, vp, i, vp]
     lib.ycck_cmys.argtypes = [vp, vp, vp, i, vp]
     for fn in ("colour_pixels", "cmyk_channels", "ycck_cmys"):
@@ -186,13 +196,11 @@ def kernel_host(lib, data):
     the orientation."""
     out, factors, (H, W), space, _ = planes(lib, data)
     ptrs = (ctypes.c_void_p * 4)(*[p.ctypes.data for p in out])
-    geo = (ctypes.c_int * 20)(*[v for p, (rh, rv) in zip(out, factors)
-                                for v in (p.shape[0], p.shape[1], rh, rv,
-                                          int(images._fancy(p.shape[1], rh,
-                                                            rv)))])
+    geo = images.plane_ints(out, factors)
     bgr = np.zeros((H, W, 3), np.uint8)
     grey = np.zeros((H, W), np.uint8)
-    lib.colour_pixels(ptrs, geo, len(out), space, H, W, bgr.ctypes.data,
+    lib.colour_pixels(ptrs, geo, len(out), space, None, H, W,
+                      bgr.ctypes.data,
                       grey.ctypes.data)
     return grey, bgr
 
@@ -256,9 +264,9 @@ def _quads(lib, quads: int, seed: int) -> int:
         n = min(step, quads - start)
         cmyk = rng.integers(0, 256, (4, 1, n)).astype(np.uint8)
         ptrs = (ctypes.c_void_p * 4)(*[c.ctypes.data for c in cmyk])
-        geo = (ctypes.c_int * 20)(*[1, n, 1, 1, 0] * 4)
+        geo = (ctypes.c_int * 24)(*[n, 1, 1, 0, n, 1] * 4)
         bgr, grey = np.zeros((1, n, 3), np.uint8), np.zeros((1, n), np.uint8)
-        lib.colour_pixels(ptrs, geo, 4, images.SPACE_CMYK, 1, n,
+        lib.colour_pixels(ptrs, geo, 4, images.SPACE_CMYK, None, 1, n,
                           bgr.ctypes.data, grey.ctypes.data)
         want = images.cmyk_to_bgr_plain([torch.as_tensor(c) for c in cmyk],
                                         [(1, 1)] * 4, False)

@@ -66,9 +66,10 @@ libpng's gamma tables. ``cv2_arrays.npz`` holds ``cv2.imread``'s BGR
 ``../png/conversion/`` holds the workspace images the JAX converter writes
 (``cv2.imwrite(dst, cv2.imread(src))``) for the sources of ``CONVERSION``
 but the first, which it copies; and ``../png/refused/`` what the card
-refuses: ``image.bmp``. cv2's lossless WebP of the same image, refused
-here once, is ``../webp/lossless/imencode_45x37.webp``, which the card
-reads.
+refuses: ``image.gif`` (Pillow's GIF of the same image, which cv2 reads).
+cv2's BMP of it, refused here once, is ``../bmp/image.bmp``, and its
+lossless WebP ``../webp/lossless/imencode_45x37.webp``; the card reads
+both.
 
     python tests/data/jpeg/make_fixtures.py --part new
 
@@ -89,6 +90,7 @@ import sys
 
 import cv2
 import numpy as np
+from PIL import Image
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 PNG_DIR = os.path.join(os.path.dirname(HERE), "png")
@@ -539,10 +541,14 @@ def write_png_fixtures() -> None:
     assert np.array_equal(arrays["bgr_interlaced"], small)
     for name in os.listdir(refused_dir):
         os.remove(os.path.join(refused_dir, name))
-    refused = {"image.bmp": cv2.imencode(".bmp", small)[1].tobytes()}
+    gif = io.BytesIO()
+    Image.fromarray(small[..., ::-1]).save(gif, "GIF")
+    refused = {"image.gif": gif.getvalue()}
     for name, data in refused.items():
         with open(os.path.join(refused_dir, name), "wb") as f:
             f.write(data)
+    with open(os.path.join(HERE, os.pardir, "bmp", "image.bmp"), "wb") as f:
+        f.write(cv2.imencode(".bmp", small)[1].tobytes())
     with open(os.path.join(HERE, os.pardir, "webp", "lossless",
                            "imencode_45x37.webp"), "wb") as f:
         f.write(cv2.imencode(".webp", small)[1].tobytes())

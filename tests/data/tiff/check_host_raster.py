@@ -16,7 +16,13 @@ directory, then:
 * checks that what stays refused raises, naming its cause;
 * holds the grey of every 8-bit RGB triple (one 4096x4096 image, made
   here) to cv2's, as a PNG without and with a gAMA chunk and as a TIFF,
-  and of every 16-bit value in each channel of a PNG with a gAMA chunk.
+  and of every 16-bit value in each channel of a PNG with a gAMA chunk,
+  and the grey and BGR of every (Y, Cb, Cr) triple as a YCbCr TIFF;
+* reads the BMPs under ``../bmp`` and PNMs under ``../pnm`` as the PNGs
+  and TIFFs, and the JPEG-compressed TIFFs through the host JPEG decode
+  (``tiff_jpeg.h``), the IDCT's and the chunked colour form's plain
+  versions, holding the chunked form's host-built arithmetic to its
+  twin.
 
 It needs g++ and OpenCV. Exit code 0 when nothing differs.
 """
@@ -40,17 +46,19 @@ sys.path.insert(0, HERE)
 from mpmvs_torch.io import images  # noqa: E402
 from tiff_file import tiff_bytes  # noqa: E402
 
-# what the card refuses, under tests/data: the cause its error names
+# what the card refuses, under tests/data: the cause its error names. The
+# BMP, the JPEG-compressed and YCbCr TIFFs (Pillow's) and the signed 16-bit
+# TIFF once here now read (../bmp/image.bmp, pil_jpeg.tif, pil_ycbcr.tif,
+# signed16_*.tif); a GIF, an old-style JPEG TIFF and what libtiff refuses
+# of the new layouts stand here
 REFUSED = {
-    "png/refused/image.bmp": "BMP",
+    "png/refused/image.gif": "GIF",
     # cv2's lossless WebP, once png/refused/image.webp, now reads
     # (webp/lossless/imencode_45x37.webp); a WebP cv2 refuses stands here
     "webp/lossless/refused/frame_past_canvas.webp": "WebP",
-    "tiff/refused/jpeg.tif": "JPEG-compressed",
+    "tiff/refused/old_jpeg.tif": "old-style JPEG",
     "tiff/refused/float.tif": "float", "tiff/refused/int32.tif": "signed or float",
-    "tiff/refused/signed16.tif": "signed",
     "tiff/refused/predictor3.tif": "floating-point predictor",
-    "tiff/refused/ycbcr.tif": "YCbCr",
     "tiff/refused/lab.tif": "CIELab",
     "tiff/refused/old_lzw.tif": "old-style LZW",
     "tiff/refused/grey2.tif": "bit depth", "tiff/refused/grey4.tif":
@@ -60,14 +68,23 @@ REFUSED = {
     "tiff/refused/cmyk16.tif": "bit depth",
     "tiff/refused/inkset2.tif": "InkSet",
     "tiff/refused/cmyk_alpha.tif": "five channels",
-    "tiff/refused/cmyk3.tif": "sample count"}
+    "tiff/refused/cmyk3.tif": "sample count",
+    "tiff/refused/jpeg_rgb420.tif": "sampling factors",
+    "tiff/refused/jpeg_strip_taller.tif": "larger than its strip",
+    "tiff/refused/jpeg12.tif": "12-bit",
+    "tiff/refused/ycbcr24.tif": "YCbCr samples of a layout",
+    "tiff/refused/ycbcr22_planar2.tif": "YCbCr samples of a layout",
+    "tiff/refused/ycbcr11_alpha.tif": "YCbCr samples of a layout",
+    "tiff/refused/ycbcr22_tiles_orient2.tif": "mirrors them"}
 
 SHIM = r'''
+#include "jpeg_colour.h"
 #include "jpeg_encode.h"
 #include "jpeg_entropy.h"
 #include "png_unfilter.h"
 #include "raster_bgr.h"
 #include "tiff_decode.h"
+#include "tiff_jpeg.h"
 // raster_to_bgr_kernel's work, thread by thread
 extern "C" void raster_pixels(const uint8_t* raster, const int* ints,
                               const long long* sizes, const uint8_t* tables,
@@ -77,6 +94,25 @@ extern "C" void raster_pixels(const uint8_t* raster, const int* ints,
     for (int x = 0; x < f.width; x++) {
       size_t i = (size_t)y * f.width + x;
       raster_bgr::pixel(raster, f, tables, y, x, bgr + 3 * i, grey + i);
+    }
+}
+// ycc_to_bgr_kernel's chunked work, thread by thread: n planes, n x 6
+// ints (jpeg_colour::Plane), form (YccForm bits), chunks (8 ints)
+extern "C" void chunk_pixels(const uint8_t* const* ptrs, const int* geo,
+                             int n, int form, const int* chunks, int H,
+                             int W, uint8_t* bgr, uint8_t* grey) {
+  jpeg_colour::Planes pl = {};
+  for (int i = 0; i < n; i++) {
+    const int* g = geo + 6 * i;
+    pl.c[i] = {ptrs[i], g[0], g[1], g[2], g[3], g[4], g[5]};
+  }
+  jpeg_colour::Chunks ck = {chunks[0], chunks[1], chunks[2], chunks[3],
+                            chunks[4], chunks[5], chunks[6], chunks[7]};
+  for (int r = 0; r < H; r++)
+    for (int col = 0; col < W; col++) {
+      size_t i = (size_t)r * W + col;
+      jpeg_colour::ycc_pixel(pl, n, form, jpeg_colour::spot(ck, r, col),
+                             bgr + 3 * i, grey + i);
     }
 }
 '''
@@ -92,12 +128,30 @@ def build(tmp):
                     src], check=True)
     lib = images.bind_host(ctypes.CDLL(lib))
     lib.raster_pixels.restype = None
+    lib.chunk_pixels.restype = None
     return lib
 
 
+def tiff_jpeg_planes(lib, data: bytes):
+    """A JPEG-compressed TIFF's host decode and its planes from the IDCT's
+    plain version (the card's layout: every chunk's samples in one plane a
+    component): (TiffJpeg, planes)."""
+    tj = images.tiff_jpeg_coefficients(data, lib)
+    return tj, [images.idct_islow_plain(
+        torch.from_numpy(c), torch.from_numpy(q.view(np.int16)),
+        8 * c.shape[0], 8 * c.shape[1]) for c, q in zip(tj.coefs, tj.qt)]
+
+
 def read(lib, data: bytes):
-    """The card's read with its kernel's plain version: (grey, BGR) numpy
+    """The card's read with its kernels' plain versions: (grey, BGR) numpy
     arrays; raises ValueError, naming the cause, as the card does."""
+    if images.image_format(data) == "TIFF" and \
+            images.tiff_compression(data, lib) == 7:
+        tj, planes = tiff_jpeg_planes(lib, data)
+        g, bgr = images.colour_plain(planes, tj.factors, tj.size, tj.space,
+                                     tj.chunks)
+        return (images.orient(g, tj.orientation).numpy(),
+                images.orient(bgr, tj.orientation).numpy())
     r = images.raster_rows(data, lib)
     g, bgr = images.raster_to_bgr_plain(torch.from_numpy(r.samples), r.form,
                                         torch.from_numpy(r.tables))
@@ -111,7 +165,7 @@ def kernel_host(lib, r: images.Raster):
     f = r.form
     bgr = np.zeros((f.height, f.width, 3), np.uint8)
     g = np.zeros((f.height, f.width), np.uint8)
-    ints = (ctypes.c_int * 11)(*f[:11])
+    ints = images.form_ints(f)
     sizes = (ctypes.c_longlong * 2)(f.rowbytes, f.plane_bytes)
     samples = np.ascontiguousarray(r.samples)
     lib.raster_pixels(ctypes.c_void_p(samples.ctypes.data), ints, sizes,
@@ -121,9 +175,36 @@ def kernel_host(lib, r: images.Raster):
     return g, bgr
 
 
+def chunk_kernel_host(lib, tj, planes):
+    """ycc_to_bgr_kernel's chunked arithmetic on the host: (grey, BGR)
+    before the orientation."""
+    H, W = tj.size
+    ints = images.plane_ints(planes, tj.factors, images._chunk_planes(
+        planes, tj.factors, tj.size, tj.chunks))
+    planes = [np.ascontiguousarray(p.numpy()) for p in planes]
+    ptrs = (ctypes.c_void_p * 4)(*[p.ctypes.data for p in planes])
+    form = (images.FORM_RGB if tj.space == images.SPACE_RGB and
+            len(planes) == 3 else 0) | images.FORM_OPENCV_GREY
+    bgr = np.zeros((H, W, 3), np.uint8)
+    g = np.zeros((H, W), np.uint8)
+    lib.chunk_pixels(ptrs, ints, len(planes), form,
+                     (ctypes.c_int * 8)(*tj.chunks), H, W,
+                     ctypes.c_void_p(bgr.ctypes.data),
+                     ctypes.c_void_p(g.ctypes.data))
+    return g, bgr
+
+
 def kernel_mismatches(lib, data: bytes) -> int:
     """Entries of the kernel's host-built grey and BGR that differ from the
-    plain version's."""
+    plain version's (the raster kernel's, or for a JPEG-compressed TIFF the
+    colour kernel's chunked form)."""
+    if images.image_format(data) == "TIFF" and \
+            images.tiff_compression(data, lib) == 7:
+        tj, planes = tiff_jpeg_planes(lib, data)
+        want = images.colour_plain(planes, tj.factors, tj.size, tj.space,
+                                   tj.chunks)
+        return sum(int((a != b.numpy()).sum())
+                   for a, b in zip(chunk_kernel_host(lib, tj, planes), want))
     r = images.raster_rows(data, lib)
     want = images.raster_to_bgr_plain(torch.from_numpy(r.samples), r.form,
                                       torch.from_numpy(r.tables))
@@ -132,9 +213,13 @@ def kernel_mismatches(lib, data: bytes) -> int:
 
 
 def fixtures():
-    """(label, bytes, cv2's grey, cv2's BGR) of every PNG and TIFF fixture
-    the card reads."""
-    for folder, ext in ((PNG_DIR, ".png"), (HERE, ".tif")):
+    """(label, bytes, cv2's grey, cv2's BGR) of every PNG, TIFF, BMP and
+    PNM fixture the card reads."""
+    data_dir = os.path.dirname(HERE)
+    for folder, ext in ((PNG_DIR, (".png",)), (HERE, (".tif",)),
+                        (os.path.join(data_dir, "bmp"), (".bmp",)),
+                        (os.path.join(data_dir, "pnm"),
+                         (".pbm", ".pgm", ".ppm"))):
         want = np.load(os.path.join(folder, "cv2_arrays.npz"))
         for name in sorted(os.listdir(folder)):
             if not name.endswith(ext):
@@ -200,22 +285,39 @@ def dense_cases():
     yield "png rgb16 gAMA 200000", png_of(every16(), gama_chunk(200000))
 
 
-def dense_mismatches(lib, data: bytes, rows=slice(None)):
-    """Grey entries of the kernel's host-built arithmetic, and of the plain
-    version on ``rows``, that differ from cv2.imread's."""
+def every_triple_ycbcr() -> bytes:
+    """A 4096x4096 YCbCr TIFF at subsampling (1, 1) holding every 8-bit
+    (Y, Cb, Cr) triple once."""
+    return tiff_bytes(every_triple(), photometric=6, compression=8,
+                      rows_per_strip=256, extra_tags={530: (3, [1, 1])})
+
+
+def dense_mismatches(lib, data: bytes, rows=slice(None), colour=False):
+    """Grey entries (and with ``colour`` BGR entries) of the kernel's
+    host-built arithmetic, and of the plain version on ``rows``, that
+    differ from cv2.imread's."""
     import cv2
 
-    want = cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_GRAYSCALE)
+    buf = np.frombuffer(data, np.uint8)
+    want = cv2.imdecode(buf, cv2.IMREAD_GRAYSCALE)
+    want_bgr = cv2.imdecode(buf, cv2.IMREAD_COLOR) if colour else None
     r = images.raster_rows(data, lib)
-    g, _ = kernel_host(lib, r)
+    g, bgr = kernel_host(lib, r)
     f = r.form
     n_rows = len(range(f.height)[rows])
     sub = r.samples.reshape(-1, f.height, f.rowbytes)[:, rows]
     form = f._replace(height=n_rows, plane_bytes=f.rowbytes * n_rows)
-    plain, _ = images.raster_to_bgr_plain(
+    if f.kind == images.RASTER_YCBCR and f.sub_h * f.sub_v > 1:
+        raise ValueError("rows of subsampled data units are not pixel rows")
+    plain, plain_bgr = images.raster_to_bgr_plain(
         torch.from_numpy(np.ascontiguousarray(sub)), form,
         torch.from_numpy(r.tables))
-    return int((g != want).sum()), int((plain.numpy() != want[rows]).sum())
+    k = int((g != want).sum())
+    p = int((plain.numpy() != want[rows]).sum())
+    if colour:
+        k += int((bgr != want_bgr).sum())
+        p += int((plain_bgr.numpy() != want_bgr[rows]).sum())
+    return k, p
 
 
 def main() -> int:
@@ -254,6 +356,11 @@ def main() -> int:
             total += k + p
             print(f"{label}: grey entries differing from cv2: kernel "
                   f"arithmetic {k}, plain (every 8th row) {p}")
+        k, p = dense_mismatches(lib, every_triple_ycbcr(),
+                                slice(None, None, 8), colour=True)
+        total += k + p
+        print(f"tiff ycbcr (1, 1): grey and BGR entries differing from cv2: "
+              f"kernel arithmetic {k}, plain (every 8th row) {p}")
     print(f"in all: {total} mismatches")
     return 0 if total == 0 else 1
 

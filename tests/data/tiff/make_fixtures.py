@@ -22,19 +22,50 @@ unassociated (which libtiff premultiplies) and unspecified; FillOrder 2;
 orientations 2..8 on strips and tiles; all 65,536 16-bit values in the grey
 and RGB ``*_all`` images.
 
+JPEG-compressed TIFFs (``jpeg_*``, and ``pil_jpeg``, Pillow's, once
+``refused/jpeg``): each strip or tile a ``cv2.imencode`` stream of its own,
+abbreviated with one JPEGTables tag or whole; strips and tiles of odd image
+sizes, Photometric YCbCr at subsampling (2, 2), (2, 1) and (1, 1) (and
+without the tag, which libtiff takes from the first frame), RGB (4:4:4
+streams, components as they are) and grey, a restart interval,
+orientations on strips and on tiles (libtiff mirrors each tile on its
+own), strips 1 and 2 chroma samples wide, and a last strip coded at full
+height. YCbCr TIFFs (``ycbcr*``, and ``pil_ycbcr``, once ``refused/ycbcr``):
+libtiff's data units at every subsampling its RGBA reader takes, at sizes
+that are not multiples of the unit, uncompressed, LZW, Deflate and
+PackBits, strips and tiles, planar at (1, 1), without the subsampling tag,
+and with a ReferenceBlackWhite and YCbCrCoefficients of their own. Signed
+samples (``signed*``, negative values; SampleFormat 2) at 8 and 16 bits,
+grey and RGB, which cv2 reads as the unsigned samples of the same bits.
+
 ``refused/`` holds TIFFs the card refuses, each for a cause it names:
-JPEG-compressed (PIL), float and 32-bit integer (PIL), signed 16-bit,
-predictor 3, YCbCr and CIELab (PIL), old-style LZW, 2-bit grey, 4-bit grey,
+old-style JPEG (Compression 6), float and 32-bit integer (PIL),
+predictor 3, CIELab (PIL), old-style LZW, 2-bit grey, 4-bit grey,
 12-bit grey, 16-bit palette and 1-bit RGB (of which cv2 reads none of the
 last five into an 8-bit image either), and separated samples cv2 does not
 read either: 16-bit CMYK, InkSet 2, CMYK with an alpha sample and three
-samples. CMYK itself (8-bit, InkSet 1, four samples) reads: ``pil_cmyk``
-(once ``refused/cmyk``) and ``cmyk8_*``, contiguous and planar, over every
+samples; and what libtiff refuses too: an RGB JPEG TIFF of 4:2:0 streams,
+a JPEG stream taller than its strip, a 12-bit JPEG stream, YCbCr at
+subsampling (2, 4), planar and subsampled, with an extra sample, and
+uncompressed subsampled tiles under a mirroring orientation. CMYK itself
+(8-bit, InkSet 1, four samples) reads: ``pil_cmyk`` (once
+``refused/cmyk``) and ``cmyk8_*``, contiguous and planar, over every
 compression, with an explicit InkSet and an orientation.
+
+    python tests/data/tiff/make_fixtures.py --part new
+
+writes only the files of the JPEG, YCbCr and signed cases and the
+refusals that go with them, adding their arrays to ``cv2_arrays.npz``;
+``--part conversion`` writes ``conversion/plane_3200x2130_jpeg.tif``
+(chip_smoke.py's phase 8d source) and its ``conversion/cv2.json``.
 """
 
+import argparse
+import hashlib
 import io
+import json
 import os
+import struct
 import sys
 
 import cv2
@@ -43,7 +74,10 @@ from PIL import Image
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
-from tiff_file import tiff_bytes  # noqa: E402
+from tiff_file import (RATIONAL, SHORT, UNDEFINED, tags_of,  # noqa: E402
+                       tiff_bytes)
+
+DATA = os.path.dirname(HERE)
 
 
 def picture(h: int, w: int, seed: int) -> np.ndarray:
@@ -207,11 +241,8 @@ def refused():
     rng = np.random.default_rng(8)
     cmyk = cmyk_of(rgb, np.random.default_rng(9))
     return {
-        "jpeg": pil_bytes(Image.fromarray(rgb), compression="jpeg"),
         "float": pil_bytes(Image.fromarray(grey.astype(np.float32))),
         "int32": pil_bytes(Image.fromarray(grey.astype(np.int32))),
-        "signed16": tiff_bytes(grey.astype(np.uint16), photometric=1,
-                               sample_format=2),
         "predictor3": tiff_bytes(grey.astype(np.uint16), photometric=1,
                                  compression=8, extra_tags={317: (3, [3])}),
         # separated samples cv2 does not read: 16-bit, another InkSet, an
@@ -222,7 +253,6 @@ def refused():
         "cmyk_alpha": tiff_bytes(np.concatenate(
             [cmyk, cmyk[..., :1]], -1), photometric=5, extra_samples=(2,)),
         "cmyk3": tiff_bytes(cmyk[..., :3], photometric=5),
-        "ycbcr": pil_bytes(Image.fromarray(rgb).convert("YCbCr")),
         "lab": pil_bytes(Image.fromarray(rgb).convert("LAB")),
         "old_lzw": tiff_bytes(rgb, compression=5, old_lzw=True),
         "grey2": tiff_bytes((grey >> 6).astype(np.uint8), bits=2,
@@ -240,7 +270,369 @@ def refused():
     }
 
 
+def jpeg_stream(img: np.ndarray, quality: int = 75, sampling=None,
+                restart: int = 0) -> bytes:
+    """cv2.imencode's JPEG of a BGR or grey image."""
+    params = [cv2.IMWRITE_JPEG_QUALITY, quality]
+    if sampling is not None:
+        params += [cv2.IMWRITE_JPEG_SAMPLING_FACTOR, sampling]
+    if restart:
+        params += [cv2.IMWRITE_JPEG_RST_INTERVAL, restart]
+    return cv2.imencode(".jpg", img, params)[1].tobytes()
+
+
+def split_tables(stream: bytes):
+    """(tables, abbreviated): a JPEG's DQT and DHT segments as a
+    tables-only stream (SOI, tables, EOI: a JPEGTables tag), and the stream
+    without them."""
+    pos, keep, tables = 2, [b"\xff\xd8"], [b"\xff\xd8"]
+    while stream[pos + 1] != 0xDA:
+        n = struct.unpack(">H", stream[pos + 2:pos + 4])[0]
+        (tables if stream[pos + 1] in (0xDB, 0xC4) else keep).append(
+            stream[pos:pos + 2 + n])
+        pos += 2 + n
+    return b"".join(tables) + b"\xff\xd9", b"".join(keep) + stream[pos:]
+
+
+def jpeg_tiff(bgr: np.ndarray, photometric: int = 6, rows: int = 16,
+              tile=None, sub=(2, 2), tag530: bool = True,
+              abbreviated: bool = True, sampling=None, restart: int = 0,
+              orientation: int = None, last_rows: int = None,
+              quality: int = 75) -> bytes:
+    """A JPEG-compressed TIFF (Compression 7) of a BGR (or, Photometric 1,
+    grey) image: strips of ``rows`` rows or ``tile`` (width, length)
+    tiles, each cv2.imencode's stream of its pixels (tiles padded with
+    zeros), abbreviated under one JPEGTables tag or whole. Photometric 2
+    streams are coded so that their Y, Cb, Cr are about the image's R, G,
+    B: the components libtiff hands on as they are.
+    ``last_rows``: the last strip's stream coded at that many rows (the
+    image's rows, then zeros)."""
+    H, W = bgr.shape[:2]
+    if tile:
+        tw, th = tile
+        full = np.zeros((-(-H // th) * th, -(-W // tw) * tw) + bgr.shape[2:],
+                        np.uint8)
+        full[:H, :W] = bgr
+        parts = [full[y:y + th, x:x + tw] for y in range(0, H, th)
+                 for x in range(0, W, tw)]
+    else:
+        parts = [bgr[y:y + rows] for y in range(0, H, rows)]
+        if last_rows:
+            last = np.zeros((last_rows,) + bgr.shape[1:], np.uint8)
+            last[:len(parts[-1])] = parts[-1]
+            parts[-1] = last
+    if photometric == 2:  # the streams' Y, Cb, Cr are the R, G, B samples
+        parts = [cv2.cvtColor(np.ascontiguousarray(p[..., [2, 0, 1]]),
+                              cv2.COLOR_YCrCb2BGR) for p in parts]
+    chunks, tables = [], None
+    for p in parts:
+        stream = jpeg_stream(p, quality, sampling, restart)
+        if abbreviated:
+            tables, stream = split_tables(stream)
+        chunks.append(stream)
+    tags = {}
+    if tables:
+        tags[347] = (UNDEFINED, list(tables))
+    if photometric == 6 and tag530:
+        tags[530] = (SHORT, list(sub))
+    samples = bgr[..., ::-1].copy() if bgr.ndim == 3 else bgr
+    layout = dict(tile=tile) if tile else dict(rows_per_strip=rows)
+    return tiff_bytes(samples, photometric=photometric, compression=7,
+                      chunks=chunks, extra_tags=tags,
+                      orientation=orientation, **layout)
+
+
+def ycbcr_units(y, cb, cr, hs: int, vs: int) -> np.ndarray:
+    """libtiff's data units of Y (H, W) and chroma (ceil(H / vs),
+    ceil(W / hs)): per unit hs vs Y samples (edge units padded with
+    zeros), then Cb, then Cr; one row of units per vs image rows."""
+    H, W = y.shape
+    hu, wu = -(-H // vs), -(-W // hs)
+    yp = np.zeros((hu * vs, wu * hs), np.uint8)
+    yp[:H, :W] = y
+    units = yp.reshape(hu, vs, wu, hs).transpose(0, 2, 1, 3).reshape(
+        hu, wu, hs * vs)
+    return np.concatenate([units, cb[..., None], cr[..., None]],
+                          -1).reshape(hu, -1)
+
+
+def ycbcr_tiff(y, cb, cr, hs: int, vs: int, rows: int = None, tile=None,
+               compression: int = 1, tag530: bool = True, extra=None,
+               orientation: int = None) -> bytes:
+    """An uncompressed or losslessly compressed YCbCr TIFF of libtiff's
+    data units, in strips of ``rows`` rows or ``tile`` tiles."""
+    H, W = y.shape
+    tags = {530: (SHORT, [hs, vs])} if tag530 else {}
+    tags.update(extra or {})
+    if tile:
+        tw, th = tile
+        hp, wp = -(-H // th) * th, -(-W // tw) * tw
+        full = [np.zeros((hp // d, wp // e), np.uint8)
+                for d, e in ((1, 1), (vs, hs), (vs, hs))]
+        for f, p in zip(full, (y, cb, cr)):
+            f[:p.shape[0], :p.shape[1]] = p
+        chunks = [ycbcr_units(full[0][ty:ty + th, tx:tx + tw],
+                              full[1][ty // vs:(ty + th) // vs,
+                                      tx // hs:(tx + tw) // hs],
+                              full[2][ty // vs:(ty + th) // vs,
+                                      tx // hs:(tx + tw) // hs],
+                              hs, vs).tobytes()
+                  for ty in range(0, H, th) for tx in range(0, W, tw)]
+        layout = dict(tile=tile)
+    else:
+        rows = rows or H
+        units = ycbcr_units(y, cb, cr, hs, vs)
+        chunks = [units[r // vs:(r + rows) // vs if r + rows < H else None
+                        ].tobytes() for r in range(0, H, rows)]
+        layout = dict(rows_per_strip=rows)
+    return tiff_bytes(np.zeros((H, W, 3), np.uint8), photometric=6,
+                      compression=compression, chunks=chunks,
+                      extra_tags=tags, orientation=orientation, **layout)
+
+
+def rationals(values, den: int):
+    """RATIONAL values of a tag: (numerator, denominator) pairs, flat."""
+    return [v for x in values for v in (int(round(x * den)), den)]
+
+
+def new_fixtures():
+    """The JPEG-compressed, YCbCr and signed TIFFs."""
+    bgr = picture(37, 45, 3)[..., ::-1].copy()
+    grey = cv2.cvtColor(bgr, cv2.COLOR_BGR2GRAY)
+    s444 = cv2.IMWRITE_JPEG_SAMPLING_FACTOR_444
+    s422 = cv2.IMWRITE_JPEG_SAMPLING_FACTOR_422
+    rng = np.random.default_rng(17)
+    f = {
+        "jpeg_ycbcr22_strips16_tables": jpeg_tiff(bgr),
+        "jpeg_ycbcr22_strips8_whole": jpeg_tiff(bgr, rows=8,
+                                                abbreviated=False),
+        "jpeg_ycbcr21_tiles_tables": jpeg_tiff(bgr, tile=(16, 16),
+                                               sub=(2, 1), sampling=s422),
+        "jpeg_ycbcr11_strips16_q90": jpeg_tiff(bgr, sub=(1, 1),
+                                               sampling=s444, quality=90),
+        "jpeg_ycbcr21_strips16_notag": jpeg_tiff(bgr, tag530=False,
+                                                 sampling=s422),
+        "jpeg_rgb_strips16_tables": jpeg_tiff(bgr, photometric=2,
+                                              sampling=s444),
+        "jpeg_grey_tiles32x16": jpeg_tiff(grey, photometric=1,
+                                          tile=(32, 16)),
+        "jpeg_ycbcr22_restart": jpeg_tiff(bgr, rows=32, restart=2),
+        "jpeg_ycbcr22_orient6": jpeg_tiff(bgr, orientation=6),
+        "jpeg_ycbcr22_tiles_orient7": jpeg_tiff(bgr, tile=(16, 16),
+                                                orientation=7),
+        "jpeg_ycbcr22_tiles_orient2": jpeg_tiff(bgr, tile=(32, 16),
+                                                orientation=2),
+        "jpeg_ycbcr22_width3": jpeg_tiff(bgr[:, :3].copy()),
+        "jpeg_ycbcr22_width2": jpeg_tiff(bgr[:, :2].copy(), rows=8),
+        "jpeg_ycbcr22_last_strip_tall": jpeg_tiff(bgr, last_rows=16),
+        "pil_jpeg": pil_bytes(Image.fromarray(picture(21, 27, 2)),
+                              compression="jpeg"),
+        "pil_ycbcr": pil_bytes(Image.fromarray(picture(21, 27, 2)).convert(
+            "YCbCr")),
+    }
+    H, W = 37, 45
+    y = rng.integers(0, 256, (H, W)).astype(np.uint8)
+    for (hs, vs), comp, rows in (((1, 1), 1, None), ((2, 1), 5, 8),
+                                 ((2, 2), 8, 8), ((4, 1), 32773, 5),
+                                 ((4, 2), 1, 6), ((4, 4), 5, 12),
+                                 ((1, 2), 32946, 10)):
+        cb, cr = rng.integers(0, 256, (2, -(-H // vs), -(-W // hs))).astype(
+            np.uint8)
+        name = {1: "none", 5: "lzw", 8: "deflate", 32773: "packbits",
+                32946: "adobe_deflate"}[comp]
+        f[f"ycbcr{hs}{vs}_{name}"] = ycbcr_tiff(y, cb, cr, hs, vs, rows,
+                                                compression=comp)
+    cb, cr = rng.integers(0, 256, (2, 19, 23)).astype(np.uint8)
+    f["ycbcr22_tiles_lzw"] = ycbcr_tiff(y, cb, cr, 2, 2, tile=(16, 16),
+                                        compression=5)
+    f["ycbcr22_notag_orient8"] = ycbcr_tiff(y, cb, cr, 2, 2, tag530=False,
+                                            orientation=8)
+    f["ycbcr22_refbw_luma"] = ycbcr_tiff(y, cb, cr, 2, 2, extra={
+        532: (RATIONAL, rationals((16, 235, 128, 240, 100.5, 220.25), 4)),
+        529: (RATIONAL, rationals((0.2126, 0.7152, 0.0722), 8192))})
+    f["ycbcr11_planar2_lzw"] = tiff_bytes(
+        rng.integers(0, 256, (H, W, 3)).astype(np.uint8), photometric=6,
+        planar=2, compression=5, extra_tags={530: (SHORT, [1, 1])})
+    s16 = rng.integers(-32768, 32768, (H, W, 3)).astype(np.int16)
+    s8 = rng.integers(-128, 128, (H, W, 3)).astype(np.int8)
+    f["signed8_grey"] = tiff_bytes(s8[..., 0].view(np.uint8),
+                                   photometric=1, sample_format=2)
+    f["signed8_rgb_lzw"] = tiff_bytes(s8.view(np.uint8), compression=5,
+                                      sample_format=2)
+    f["signed16_grey_packbits_mm"] = tiff_bytes(
+        s16[..., 0].view(np.uint16), photometric=1, compression=32773,
+        sample_format=2, big=True)
+    f["signed16_rgb_planar2_deflate"] = tiff_bytes(
+        s16.view(np.uint16), planar=2, compression=8, sample_format=2)
+    return f
+
+
+def new_refused():
+    """What libtiff (so cv2) refuses of the new layouts, and an old-style
+    JPEG TIFF (Compression 6, made only to be refused)."""
+    bgr = picture(21, 27, 2)[..., ::-1].copy()
+    rng = np.random.default_rng(18)
+    with open(os.path.join(DATA, "jpeg", "refused", "twelve_bit.jpg"),
+              "rb") as fh:
+        twelve = fh.read()
+    y = rng.integers(0, 256, (21, 27)).astype(np.uint8)
+    cb, cr = rng.integers(0, 256, (2, 11, 14)).astype(np.uint8)
+    return {
+        "old_jpeg": tiff_bytes(bgr[..., ::-1].copy(), photometric=6,
+                               compression=6, chunks=[jpeg_stream(bgr)],
+                               extra_tags={530: (SHORT, [2, 2])}),
+        "jpeg_rgb420": jpeg_tiff(bgr, photometric=2),
+        "jpeg_strip_taller": _taller_strip(bgr),
+        "jpeg12": tiff_bytes(np.zeros((48, 64, 3), np.uint8),
+                             photometric=6, compression=7, chunks=[twelve],
+                             extra_tags={530: (SHORT, [1, 1])}),
+        "ycbcr24": ycbcr_tiff(y, rng.integers(0, 256, (6, 14)).astype(
+            np.uint8), rng.integers(0, 256, (6, 14)).astype(np.uint8), 2, 4),
+        "ycbcr22_planar2": tiff_bytes(
+            rng.integers(0, 256, (21, 27, 3)).astype(np.uint8),
+            photometric=6, planar=2, extra_tags={530: (SHORT, [2, 2])}),
+        "ycbcr11_alpha": tiff_bytes(
+            rng.integers(0, 256, (21, 27, 4)).astype(np.uint8),
+            photometric=6, extra_samples=(0,),
+            extra_tags={530: (SHORT, [1, 1])}),
+        "ycbcr22_tiles_orient2": ycbcr_tiff(y, cb, cr, 2, 2, tile=(16, 16),
+                                            orientation=2),
+    }
+
+
+def _taller_strip(bgr: np.ndarray) -> bytes:
+    """A JPEG TIFF of 8-row strips whose second strip's stream is 16 rows
+    tall: libtiff's "JPEG strip/tile size exceeds expected dimensions"."""
+    H, W = bgr.shape[:2]
+    parts = [bgr[y:y + 8] for y in range(0, H, 8)]
+    parts[1] = bgr[8:24]
+    chunks, tables = [], None
+    for p in parts:
+        tables, stream = split_tables(jpeg_stream(p))
+        chunks.append(stream)
+    return tiff_bytes(bgr[..., ::-1].copy(), photometric=6, compression=7,
+                      chunks=chunks, rows_per_strip=8,
+                      extra_tags={347: (UNDEFINED, list(tables)),
+                                  530: (SHORT, [2, 2])})
+
+
+def cv2_arrays(data: bytes, name: str):
+    buf = np.frombuffer(data, np.uint8)
+    g = cv2.imdecode(buf, cv2.IMREAD_GRAYSCALE)
+    c = cv2.imdecode(buf, cv2.IMREAD_COLOR)
+    assert g is not None and c is not None, name
+    return g, c
+
+
+def conversion_source() -> bytes:
+    """chip_smoke.py's phase 8d source: cv2's decode of the lossy WebP
+    conversion source (3200x2130) as a YCbCr JPEG TIFF at subsampling
+    (2, 2), strips of 16 rows, one JPEGTables tag and abbreviated streams
+    (tiffcp -c jpeg -r 16's layout), each stream cv2.imencode's at quality
+    75."""
+    path = os.path.join(DATA, "webp", "conversion", "plane_3200x2130.webp")
+    bgr = cv2.imread(path, cv2.IMREAD_COLOR)
+    return jpeg_tiff(bgr, rows=16)
+
+
+def write_conversion() -> None:
+    folder = os.path.join(HERE, "conversion")
+    os.makedirs(folder, exist_ok=True)
+    data = conversion_source()
+    name = "plane_3200x2130_jpeg.tif"
+    with open(os.path.join(folder, name), "wb") as fh:
+        fh.write(data)
+    g, c = cv2_arrays(data, name)
+    sha = lambda a: hashlib.sha256(np.ascontiguousarray(a).tobytes()
+                                   ).hexdigest()
+    # the JAX converter's workspace image: cv2.imwrite(dst, cv2.imread(src))
+    converted = cv2.imencode(".jpg", c)[1].tobytes()
+    with open(os.path.join(folder, "cv2.json"), "w") as fh:
+        json.dump({name: {"gray": sha(g), "bgr": sha(c),
+                          "converted": hashlib.sha256(converted).hexdigest(),
+                          "shape": list(c.shape)}}, fh, indent=1)
+        fh.write("\n")
+
+
+def _frames(data: bytes):
+    """The SOF segments of every chunk's stream of a JPEG TIFF (and whether
+    each holds a DRI): what a fixture's streams were coded with."""
+    t = tags_of(data)
+    offs, counts = t.get(273, t.get(324)), t.get(279, t.get(325))
+    out = []
+    for off, cnt in zip(offs, counts):
+        stream = data[off:off + cnt]
+        at = next(stream.find(m) for m in (b"\xff\xc0", b"\xff\xc1",
+                                           b"\xff\xc2") if m in stream)
+        out.append((stream[at + 5:at + 9], stream[at + 11:at + 20:3],
+                    b"\xff\xdd" in stream))
+    return out
+
+
+def check_new(f: dict) -> None:
+    """Each option of the new fixtures, in the bytes written."""
+    t = {k: tags_of(v) for k, v in f.items()}
+    for name, tags in t.items():
+        if name.startswith("jpeg_"):
+            assert tags[259] == (7,), name
+            abbreviated = "whole" not in name
+            assert (347 in tags) == abbreviated, name
+    assert t["jpeg_ycbcr22_strips16_tables"][530] == (2, 2)
+    assert t["jpeg_ycbcr21_tiles_tables"][530] == (2, 1)
+    assert 322 in t["jpeg_ycbcr21_tiles_tables"]
+    assert 530 not in t["jpeg_ycbcr21_strips16_notag"]
+    assert t["jpeg_rgb_strips16_tables"][262] == (2,)
+    assert t["jpeg_grey_tiles32x16"][262] == (1,)
+    assert t["jpeg_ycbcr22_orient6"][274] == (6,)
+    assert t["jpeg_ycbcr22_tiles_orient2"][274] == (2,)
+    assert all(f[2] for f in _frames(f["jpeg_ycbcr22_restart"]))
+    assert [s for s, _, _ in _frames(f["jpeg_ycbcr22_last_strip_tall"])][
+        -1][:2] == b"\x00\x10"  # the last stream: 16 rows for 5
+    assert {v for _, v, _ in _frames(f["jpeg_ycbcr21_strips16_notag"])} == {
+        bytes([0x21, 0x11, 0x11])}
+    for name in ("ycbcr11_none", "ycbcr21_lzw", "ycbcr22_deflate",
+                 "ycbcr41_packbits", "ycbcr42_none", "ycbcr44_lzw",
+                 "ycbcr12_adobe_deflate"):
+        hs, vs = int(name[5]), int(name[6])
+        assert t[name][530] == (hs, vs) and t[name][262] == (6,), name
+    assert 530 not in t["ycbcr22_notag_orient8"]
+    assert t["ycbcr22_refbw_luma"][532][::2] == (64, 940, 512, 960, 402,
+                                                 881)
+    assert t["ycbcr11_planar2_lzw"][284] == (2,)
+    for name in ("signed8_grey", "signed8_rgb_lzw",
+                 "signed16_grey_packbits_mm",
+                 "signed16_rgb_planar2_deflate"):
+        assert set(t[name][339]) == {2}, name
+
+
+def write_new() -> None:
+    path = os.path.join(HERE, "cv2_arrays.npz")
+    arrays = dict(np.load(path))
+    fixtures_new = new_fixtures()
+    check_new(fixtures_new)
+    for name, data in fixtures_new.items():
+        with open(os.path.join(HERE, f"{name}.tif"), "wb") as fh:
+            fh.write(data)
+        arrays[f"gray_{name}"], arrays[f"bgr_{name}"] = cv2_arrays(data,
+                                                                   name)
+    np.savez_compressed(path, **arrays)
+    for name, data in new_refused().items():
+        with open(os.path.join(HERE, "refused", f"{name}.tif"), "wb") as fh:
+            fh.write(data)
+        buf = np.frombuffer(data, np.uint8)
+        assert cv2.imdecode(buf, cv2.IMREAD_COLOR) is None, name
+        assert cv2.imdecode(buf, cv2.IMREAD_GRAYSCALE) is None, name
+
+
 def main() -> None:
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--part", choices=("all", "new", "conversion"),
+                        default="all")
+    part = parser.parse_args().part
+    if part == "conversion":
+        return write_conversion()
+    if part == "new":
+        return write_new()
     arrays = {}
     for name, data in fixtures().items():
         with open(os.path.join(HERE, f"{name}.tif"), "wb") as fh:
@@ -260,6 +652,7 @@ def main() -> None:
         back = cv2.imdecode(np.frombuffer(fh.read(), np.uint8),
                             cv2.IMREAD_COLOR)
     assert np.array_equal(back, picture(21, 27, 2)[..., ::-1])
+    write_new()
 
 
 if __name__ == "__main__":

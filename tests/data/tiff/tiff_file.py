@@ -9,7 +9,9 @@ PIL cannot write: tiles, BigTIFF, planar configuration 2, min-is-white,
 sample below 2 ** ``bits``. Compressions: 1 (none), 5 (LZW, by
 ``lzw_encode.c`` beside this file, built with the C compiler at first use),
 8 and 32946 (Deflate), 32773 (PackBits); any other value is written as its
-tag over uncompressed data (a file a reader must refuse by its tag).
+tag over the data as given (a file a reader must refuse by its tag, or,
+with ``chunks``, the strips or tiles of another codec: JPEG streams for
+Compression 7, with their ``JPEGTables`` in ``extra_tags``).
 """
 
 import atexit
@@ -25,7 +27,7 @@ import zlib
 import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-SHORT, LONG, LONG8 = 3, 4, 16
+BYTE, SHORT, LONG, RATIONAL, UNDEFINED, LONG8 = 1, 3, 4, 5, 7, 16
 
 
 @functools.lru_cache(maxsize=None)
@@ -122,22 +124,30 @@ def tiff_bytes(samples: np.ndarray, bits: int = None, photometric: int = 2,
                colormap: np.ndarray = None, extra_samples: tuple = None,
                orientation: int = None, sample_format: int = None,
                extra_tags: dict = None, pad: int = 0,
-               old_lzw: bool = False, fill_order: int = 1) -> bytes:
+               old_lzw: bool = False, fill_order: int = 1,
+               chunks: list = None) -> bytes:
     """A TIFF of one image. ``tile`` (tile width, tile length) writes tiles
     (the edge tiles' overhang filled with ``pad``), else strips of
     ``rows_per_strip`` rows (the whole image by default). ``colormap``
     (3, 2 ** bits) uint16; ``extra_samples`` the ExtraSamples values of the
     channels past the colour ones; ``extra_tags`` {tag: (type, values)};
     ``old_lzw`` codes LZW in the pre-1991 bit-reversed form; ``fill_order``
-    2 reverses the bits of every byte of image data (FillOrder 2)."""
+    2 reverses the bits of every byte of image data (FillOrder 2).
+    ``chunks``: the strips' or tiles' bytes as they are before compression
+    (``samples`` then gives the image's shape only), for data the rows of
+    ``samples`` cannot hold: JPEG streams, YCbCr data units. RATIONAL
+    values in ``extra_tags`` are (numerator, denominator) pairs, flat;
+    BYTE and UNDEFINED values are bytes."""
     s = samples if samples.ndim == 3 else samples[..., None]
     H, W, C = s.shape
     if bits is None:
         bits = 8 * s.dtype.itemsize
     e = ">" if big else "<"
     planes = [s] if planar == 1 else [s[..., c:c + 1] for c in range(C)]
-    chunks = []
-    if tile:
+    given, chunks = chunks, []
+    if given is not None:
+        pass
+    elif tile:
         tw, th = tile
         across, down = -(-W // tw), -(-H // th)
         for p in planes:
@@ -154,11 +164,12 @@ def tiff_bytes(samples: np.ndarray, bits: int = None, photometric: int = 2,
                 chunks.append(p[y0:y0 + rps].reshape(-1, W * p.shape[2]))
     per_pixel = C if planar == 1 else 1
     blobs = []
-    for ch in chunks:
-        if predictor == 2:
-            ch = predict(ch, per_pixel)
-        blob = compress(pack_rows(ch, bits, big).tobytes(), compression,
-                        old_lzw)
+    for ch in given if given is not None else chunks:
+        if given is None:
+            if predictor == 2:
+                ch = predict(ch, per_pixel)
+            ch = pack_rows(ch, bits, big).tobytes()
+        blob = compress(ch, compression, old_lzw)
         if fill_order == 2:
             blob = np.unpackbits(np.frombuffer(blob, np.uint8)).reshape(
                 -1, 8)[:, ::-1].copy()
@@ -190,8 +201,9 @@ def tiff_bytes(samples: np.ndarray, bits: int = None, photometric: int = 2,
     tags[counts_tag] = (off_type, [len(b) for b in blobs])
     tags[offs_tag] = (off_type, [0] * len(blobs))  # set below
 
-    size = {SHORT: 2, LONG: 4, LONG8: 8}
-    code = {SHORT: "H", LONG: "I", LONG8: "Q"}
+    size = {BYTE: 1, UNDEFINED: 1, SHORT: 2, LONG: 4, RATIONAL: 4, LONG8: 8}
+    code = {BYTE: "B", UNDEFINED: "B", SHORT: "H", LONG: "I", RATIONAL: "I",
+            LONG8: "Q"}
     head = 16 if bigtiff else 8
     entry, inline = (20, 8) if bigtiff else (12, 4)
     count_fmt = "Q" if bigtiff else "I"
@@ -219,7 +231,8 @@ def tiff_bytes(samples: np.ndarray, bits: int = None, photometric: int = 2,
     for tag in sorted(tags):
         t, vals = tags[tag]
         body = struct.pack(e + code[t] * len(vals), *vals)
-        out += struct.pack(e + "HH" + count_fmt, tag, t, len(vals))
+        count = len(vals) // 2 if t == RATIONAL else len(vals)
+        out += struct.pack(e + "HH" + count_fmt, tag, t, count)
         if len(body) <= inline:
             out += body + b"\0" * (inline - len(body))
         else:
@@ -228,3 +241,23 @@ def tiff_bytes(samples: np.ndarray, bits: int = None, photometric: int = 2,
     out += struct.pack(e + count_fmt, 0)
     assert len(out) == data_at and len(ext) == extern
     return bytes(out + ext + b"".join(blobs))
+
+
+def tags_of(data: bytes) -> dict:
+    """{tag: values} of a classic TIFF's first IFD (either byte order;
+    RATIONAL values as (numerator, denominator) pairs, flat): the check
+    that a fixture holds the options it was written with."""
+    e = "<" if data[:2] == b"II" else ">"
+    ifd = struct.unpack(e + "I", data[4:8])[0]
+    n = struct.unpack(e + "H", data[ifd:ifd + 2])[0]
+    out = {}
+    for at in range(ifd + 2, ifd + 2 + 12 * n, 12):
+        tag, typ, count = struct.unpack(e + "HHI", data[at:at + 8])
+        fmt = {BYTE: "B", UNDEFINED: "B", SHORT: "H", LONG: "I",
+               RATIONAL: "I"}[typ]
+        count *= 2 if typ == RATIONAL else 1
+        size = struct.calcsize(fmt) * count
+        pos = at + 8 if size <= 4 else struct.unpack(
+            e + "I", data[at + 8:at + 12])[0]
+        out[tag] = struct.unpack(f"{e}{count}{fmt}", data[pos:pos + size])
+    return out

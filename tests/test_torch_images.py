@@ -43,9 +43,9 @@ or PyYAML on the card, held against mpmvs_tpu on the CPU.
   de-interlace of ``csrc/png_unfilter.h``, built with g++) and
   ``images.raster_to_bgr_plain`` give ``cv2.imread``'s BGR and grey for
   every colour type at every bit depth, Adam7, tRNS, gAMA and sRGB, with
-  an eXIf orientation; BMP, WebP and the TIFFs the card does not read
-  (JPEG-compressed, float, old-style LZW) are refused, naming the
-  cause (the TIFF reads: tests/test_torch_raster.py).
+  an eXIf orientation; GIF, a WebP cv2 refuses and the TIFFs the card
+  does not read (old-style JPEG, float, old-style LZW) are refused, naming
+  the cause (the TIFF reads: tests/test_torch_raster.py).
 * On the card (``cuda``, skipped without one): the fixtures under
   ``tests/data/jpeg`` (and ``layouts/``, and ``refused/`` where they have
   cv2 arrays) decode to cv2's arrays, 0 entries differ, grey and BGR; the
@@ -96,8 +96,11 @@ PNG_NAMES = sorted(f[:-4] for f in os.listdir(PNG_DIR) if f.endswith(".png"))
 # and 4-bit palette PNGs and the TIFF once here now read (PNG_NAMES,
 # tests/test_torch_raster.py), and so does cv2's lossless WebP
 # (webp/lossless/imencode_45x37.webp, tests/test_torch_webp_lossless.py)
-PNG_REFUSED = {"png/refused/image.bmp": "BMP",
-               "tiff/refused/jpeg.tif": "JPEG-compressed",
+# The BMP and the JPEG-compressed TIFF once here read too
+# (tests/test_torch_bmp_pnm.py, tests/test_torch_tiff_jpeg.py); a GIF and an
+# old-style JPEG TIFF stand in their place
+PNG_REFUSED = {"png/refused/image.gif": "GIF",
+               "tiff/refused/old_jpeg.tif": "old-style JPEG",
                "tiff/refused/float.tif": "float",
                "tiff/refused/old_lzw.tif": "old-style LZW"}
 LAYOUT_NAMES = sorted(f[:-4] for f in os.listdir(os.path.join(

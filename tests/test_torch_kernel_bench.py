@@ -259,7 +259,7 @@ def test_geom_cases_build(case):
             float(real.mean()) < 0.5)
 
 
-@pytest.mark.parametrize("kernel", ["sorted", "bilateral", "geom"])
+@pytest.mark.parametrize("kernel", ["sorted", "bilateral", "geom", "colour"])
 def test_kernel_cases_exit_nonzero_without_cuda(kernel):
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-m",
@@ -270,3 +270,16 @@ def test_kernel_cases_exit_nonzero_without_cuda(kernel):
     assert out.returncode != 0
     assert "no CUDA device" in out.stderr
     assert not out.stdout.strip()
+
+
+@pytest.mark.cuda
+def test_colour_cases_equal_plain():
+    """``--kernel colour`` at a small odd size: every case (the JPEG,
+    YCCK and CMYK forms and the chunked form) equals its plain twin."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    rows = kernel_bench.run_colour(2, True, H=37, W=94)
+    assert [r["case"] for r in rows] == [c[0] for c in
+                                         kernel_bench.COLOUR_CASES] + [
+                                             "chunks_420"]
+    assert all(r["entries_differing"] == 0 for r in rows)

@@ -274,8 +274,8 @@ def test_card_converts_jpegs_and_refuses_other_formats(dev, tmp_path):
     with open(os.path.join(str(tmp_path / "ws2"), "images", "00000001.jpg"),
               "rb") as f:
         assert f.read() == images.encode_jpeg(rgb.astype(np.uint8), dev, 95)
-    shutil.copyfile(os.path.join(DATA, "png", "refused", "image.bmp"), png)
-    with pytest.raises(ValueError, match="BMP"):
+    shutil.copyfile(os.path.join(DATA, "png", "refused", "image.gif"), png)
+    with pytest.raises(ValueError, match="GIF"):
         convert_colmap(dense, str(tmp_path / "ws3"), log=lambda *a: None,
                        device=dev)
 

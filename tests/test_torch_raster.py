@@ -23,9 +23,9 @@ skipped without it), and ``raster_to_bgr_kernel`` converts the samples
 * What stays refused raises, naming its cause: the TIFFs under
   ``tests/data/tiff/refused``.
 * ``mpmvs_tpu.pipeline._load_view`` against the port's read of the same
-  workspace image, a 16-bit PNG, an LZW TIFF or a planar CMYK TIFF under
-  the name ``images/00000000.jpg``, through the host build and the plain
-  twin.
+  workspace image, a 16-bit PNG, an LZW TIFF, a planar CMYK TIFF, a YCbCr
+  JPEG TIFF, a (2, 2) YCbCr TIFF, an RLE8 BMP or a PPM under the name
+  ``images/00000000.jpg``, through the host builds and the plain twins.
 * On the card (``cuda``, skipped without one): the fixtures read to cv2's
   arrays, the kernel equals its plain twin (also at 3200x2130), and
   ``RASTER_COUNTS`` counts the launches, no plain call.
@@ -58,9 +58,14 @@ TIFF_DIR = os.path.join(DATA, "tiff")
 PNG_DIR = os.path.join(DATA, "png")
 TIFF_NAMES = sorted(f[:-4] for f in os.listdir(TIFF_DIR)
                     if f.endswith(".tif"))
+# the JPEG-compressed TIFFs go through the IDCT and colour kernels, not the
+# raster kernel (tests/test_torch_tiff_jpeg.py)
+JPEG_TIFF_NAMES = [n for n in TIFF_NAMES
+                   if n.startswith("jpeg_") or n == "pil_jpeg"]
 RASTER_FILES = ([f"png/{f}" for f in sorted(os.listdir(PNG_DIR))
                  if f.endswith(".png")]
-                + [f"tiff/{f}.tif" for f in TIFF_NAMES])
+                + [f"tiff/{f}.tif" for f in TIFF_NAMES
+                   if f not in JPEG_TIFF_NAMES])
 
 
 def _tool():
@@ -75,7 +80,7 @@ TOOL = _tool()
 # the refusals tests/test_torch_images.py does not hold
 TIFF_REFUSED = {k: v for k, v in TOOL.REFUSED.items()
                 if k.startswith("tiff/") and k not in (
-                    "tiff/refused/jpeg.tif", "tiff/refused/float.tif",
+                    "tiff/refused/old_jpeg.tif", "tiff/refused/float.tif",
                     "tiff/refused/old_lzw.tif")}
 
 
@@ -184,15 +189,17 @@ def test_tiff_info_fields(host_raster):
     assert r.samples.shape == (3 * 256, 512) and r.orientation == 1
 
 
-@pytest.mark.parametrize("source", ["png/rgb16_all.png",
-                                    "tiff/rgb8_lzw_pred2_strips5_mm.tif",
-                                    "tiff/cmyk8_planar2_lzw.tif"])
+@pytest.mark.parametrize("source", [
+    "png/rgb16_all.png", "tiff/rgb8_lzw_pred2_strips5_mm.tif",
+    "tiff/cmyk8_planar2_lzw.tif", "tiff/jpeg_ycbcr22_strips16_tables.tif",
+    "tiff/ycbcr22_deflate.tif", "bmp/rle8.bmp", "pnm/p6.ppm"])
 def test_load_view_of_raster_matches_jax(tmp_path, monkeypatch,
                                          host_raster, source):
     """The JAX package's _load_view (cv2.imread) and the port's, reading
     the same workspace image (a 16-bit PNG, an LZW TIFF, a planar CMYK
-    TIFF, named 00000000.jpg) through the host build and the plain twin:
-    the same grey and BGR arrays and camera."""
+    TIFF, a YCbCr JPEG TIFF, a (2, 2) YCbCr TIFF, an RLE8 BMP and a PPM,
+    named 00000000.jpg) through the host builds and the plain twins: the
+    same grey and BGR arrays and camera."""
     from mpmvs_tpu import pipeline as jpipeline
 
     ws = str(tmp_path)
@@ -225,8 +232,8 @@ def test_card_reads_raise_before_the_card_for_what_stays_refused():
     """On a CUDA device a refused file raises its cause before any copy to
     the card (so also here, where there is none), and a format the card
     does not read is named."""
-    with pytest.raises(ValueError, match="BMP"):
-        images.decode(_bytes("png/refused/image.bmp"), "cuda")
+    with pytest.raises(ValueError, match="GIF"):
+        images.decode(_bytes("png/refused/image.gif"), "cuda")
     with pytest.raises(ValueError, match="WebP"):
         images.decode_colour(_bytes(
             "webp/lossless/refused/frame_past_canvas.webp"), "cuda")
