@@ -21,8 +21,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    RGB-coded files (``layouts/``, and ``refused/`` where
    ``cv2_arrays.npz`` holds them) against cv2's arrays, the RGB form of the
    colour kernel against its plain version; the rest of ``refused/``
-   (12-bit, arithmetic, lossless, sampling layouts libjpeg refuses) must
-   raise; the four-component JPEGs (CMYK, YCCK) and every sampling layout
+   (12-bit, arithmetic-coded lossless, hierarchical, a lossless scan and
+   sampling layouts libjpeg refuses) must raise; the arithmetic-coded
+   JPEGs of ``arith/`` and the streams cut short of ``truncated/`` against
+   cv2's arrays, the IDCT and colour kernels against their plain versions
+   on each; the lossless JPEGs of ``lossless/`` in each mode cv2 reads
+   (the other raising), each undifferencing form against its twin on the
+   file's planes, ``lossless/refused/`` raising in both entries; the four-component JPEGs (CMYK, YCCK) and every sampling layout
    in ``layouts/`` against cv2's arrays with the colour kernel of each
    (``ycc_to_bgr_kernel``, ``cmyk_to_bgr_kernel``) equal to its plain
    version; the encoder's fixtures
@@ -181,6 +186,24 @@ Phases, in order; any failure raises and the script exits non-zero:
    with CUDA events beside its bound and the twin; the TIFF's read split
    into the host's parse and entropy decode, the copy, the IDCT launches,
    the colour launch and the whole decode.
+8e. Arithmetic-coded and lossless JPEGs (after 8d, adding no solved
+   view): phase 8b's source as the card reads it (cv2's hash), the
+   committed ``tests/data/jpeg/conversion/plane_3200x2130_arith.jpg`` (its
+   q95 4:2:0 JPEG transcoded to arithmetic coding) and two lossless RGB
+   streams of it written here by ``tests/data/jpeg/jpeg_file.py``
+   (predictor 1 with a restart every 16 rows, predictor 7; each stream's
+   sha-256 checked against ``cv2.json``), each named ``.jpeg``, through the
+   converter's image step, and the arithmetic one through the pipeline's
+   read, the counters set to 0 just before: the hashes of the read and of
+   the three workspace images must be cv2's, the pipeline's read of a
+   lossless stream must raise (cv2 reads its colour only); launches: IDCT
+   6 and colour 2 for the arithmetic reads, for the lossless ones
+   ``ljpeg_scan_kernel`` 2 (its two passes), ``ljpeg_wavefront_kernel`` 1
+   and the colour kernel's RGB form 2, no plain call; each form against
+   its twin at full size (no entry may differ), timed with CUDA events and
+   from a CUDA graph beside its bound (and the wavefront's step count);
+   each read split into host entropy decode (QM or Huffman), copy, each
+   launch and the whole decode.
 9. Multi-GPU (after phase 8, on its converted workspace): (a) the NCC
    kernel (tile and view-major launches, K=9) and the fused sorted path
    with one zero-extent source (the sharded pipeline's padding: all-zero
@@ -284,6 +307,16 @@ YCCK_SOURCE = os.path.join(HERE, "tests", "data", "jpeg", "conversion",
 # (tests/data/webp/make_lossless.py; cv2's arrays beside it)
 LOSSLESS_SOURCE = os.path.join(HERE, "tests", "data", "webp", "conversion",
                                "plane_3200x2130_lossless.webp")
+# phase 8e: an arithmetic-coded 4:2:0 JPEG of phase 8b's source as cv2 reads
+# it (tests/data/jpeg/make_arith_lossless.py), and two lossless streams of
+# the same pixels written here by tests/data/jpeg/jpeg_file.py; cv2's hashes
+# of all three in cv2.json beside the first
+ARITH_SOURCE = os.path.join(HERE, "tests", "data", "jpeg", "conversion",
+                            "plane_3200x2130_arith.jpg")
+JPEG_FILE = os.path.join(HERE, "tests", "data", "jpeg", "jpeg_file.py")
+LOSSLESS_STREAMS = {"lossless_p1_restart16": {"predictor": 1,
+                                              "restart_rows": 16},
+                    "lossless_p7": {"predictor": 7}}
 ANIMATED_FIXTURE = os.path.join(HERE, "tests", "data", "webp", "lossless",
                                 "offset_lossless_flags1.webp")
 CAM_TOL = 1e-5   # converted cams vs the scene's, relative
@@ -1390,6 +1423,84 @@ def phase_fixtures():
                 f"{layout.factors}): grey, BGR (entries differing, of, "
                 f"largest) {out[name]['gray']}, {out[name]['bgr']}; colour "
                 f"kernel equals plain")
+    # arithmetic-coded and truncated JPEGs: grey and BGR, the IDCT and
+    # colour kernels against their plain versions; lossless ones in the
+    # modes cv2 reads (the other refused), each form against its twin on the
+    # file's planes; what stays refused
+    coding = {"arith": 0, "truncated": 0, "lossless": 0}
+    for sub in ("arith", "truncated"):
+        arrays = np.load(os.path.join(folder, sub, "cv2_arrays.npz"))
+        for fname in sorted(f for f in os.listdir(os.path.join(folder, sub))
+                            if f.endswith(".jpg")):
+            name, stem = f"{sub}/{fname[:-4]}", fname[:-4]
+            data = read(os.path.join(folder, sub, fname))
+            gray, bgr = images.decode(data, dev)
+            comps, _, _ = images.decode_coefficients(data, dev)
+            for c in comps:
+                if not torch.equal(images.idct_islow_kernel(*c),
+                                   images.idct_islow_plain(*c)):
+                    raise AssertionError(f"{name}: IDCT kernel vs plain "
+                                         f"differ")
+            colour_equals_plain(data, name)
+            out[name] = {"gray": against(gray, arrays[f"gray_{stem}"]),
+                         "bgr": against(bgr, arrays[f"bgr_{stem}"])}
+            coding[sub] += 1
+    arrays = np.load(os.path.join(folder, "lossless", "cv2_arrays.npz"))
+    for fname in sorted(f for f in os.listdir(os.path.join(folder,
+                                                           "lossless"))
+                        if f.endswith(".jpg")):
+        name, stem = f"lossless/{fname[:-4]}", fname[:-4]
+        data = read(os.path.join(folder, "lossless", fname))
+        img = images.lossless_image(*images.host_decode(data))
+        up = images.ljpeg_upload(img, dev)
+        planes = [None] * len(img.diffs)
+        for p in set(img.predictors):
+            at = [k for k, q in enumerate(img.predictors) if q == p]
+            got = images.ljpeg_undiff_kernel(
+                [up[0][k] for k in at], [up[1][k] for k in at], up[2][at], p,
+                img.precision, [img.pts[k] for k in at])
+            for k, g in zip(at, got):
+                planes[k] = g
+                if not torch.equal(g, images.ljpeg_undiff_plain(
+                        up[0][k], up[1][k], p, img.precision, img.pts[k])):
+                    raise AssertionError(f"{name}: lossless form vs its "
+                                         f"twin differ")
+        row, causes = {}, []
+        for fn, modes in ((images.decode_colour, ("bgr",)),
+                          (images.decode, ("gray", "bgr"))):
+            if all(f"{m}_{stem}" in arrays for m in modes):
+                got = fn(data, dev)
+                for m, t in zip(modes, got if len(modes) == 2 else [got]):
+                    row[m] = against(t, arrays[f"{m}_{stem}"])
+                continue
+            try:
+                fn(data, dev)
+            except ValueError as e:
+                causes.append(str(e))
+                continue
+            raise AssertionError(f"{name} was read in a mode cv2 refuses")
+        if len(img.diffs) == 1:  # cv2's grey, which no entry reads: the
+            # kernel's plane, oriented
+            row["gray"] = against(images.orient(planes[0], img.orientation),
+                                  arrays[f"gray_{stem}"])
+        out[name] = row
+        coding["lossless"] += 1
+        log(f"  {name} ({len(img.diffs)} components, predictor "
+            f"{img.predictors[0]}, Pt {img.pts[0]}, {img.precision} bits): "
+            f"(entries differing, of, largest) {row}; refused modes "
+            f"{causes}; forms equal their twin")
+    for sub in ("lossless/refused",):
+        for fname in sorted(os.listdir(os.path.join(folder, sub))):
+            data = read(os.path.join(folder, sub, fname))
+            for fn in (images.decode_colour, images.decode):
+                try:
+                    fn(data, dev)
+                except ValueError:
+                    continue
+                raise AssertionError(f"{sub}/{fname} was read")
+            refused.append(f"jpeg/{sub}/{fname}")
+    log(f"  arithmetic-coded, truncated and lossless JPEGs read on the card "
+        f"against cv2's arrays: {coding}")
     # the encoder: cv2.imencode's stored bytes
     enc_dir = os.path.join(folder, "encode")
     sources = np.load(os.path.join(enc_dir, "sources.npz"))
@@ -1475,6 +1586,7 @@ def phase_fixtures():
         raise AssertionError(f"fixtures differ from cv2: decode {bad}, "
                              f"encode {enc_bad}")
     return out, {"encoded_equal": len(names), "refused": refused,
+                 "jpeg_coding_fixtures": coding,
                  "raster_kernel_equal_plain": raster_equal,
                  "chunked_colour_equal_plain": chunked_equal,
                  "four_component_equal_cv2": four}
@@ -1817,6 +1929,10 @@ def phase_files(params, root: str):
         "read; the chunked colour form and the raster kernel's new forms vs "
         "plain")
     tiff_jpeg_parts = phase_tiff_jpeg_parts(dev)
+    log("phase 8e: the arithmetic-coded and lossless JPEG sources through "
+        "the converter's image step and the pipeline's read; the lossless "
+        "forms vs their twin")
+    jpeg_coding_parts = phase_jpeg_coding_parts(dev)
     expected = V * (NCC_PHOTOMETRIC + 2 * NCC_GEOM) + n_prior * NCC_PRIOR
     bad = {v: e for v, e in rel.items() if not e < 0.01}
     log(f"  launches: NCC {ncc[0]} (schedule implies {expected}), plain "
@@ -1873,7 +1989,8 @@ def phase_files(params, root: str):
                raster_launches=raster[0], raster=raster_parts,
                cmyk_launches=sum(four.values()), ycck=ycck_parts,
                ycck_read=ycck_read, webp=webp_parts,
-               lossless=lossless_parts, tiff_jpeg=tiff_jpeg_parts)
+               lossless=lossless_parts, tiff_jpeg=tiff_jpeg_parts,
+               jpeg_coding=jpeg_coding_parts)
     return out
 
 
@@ -2840,6 +2957,226 @@ def phase_lossless_parts(dev):
     return out
 
 
+def _jpeg_cv2() -> dict:
+    """conversion/cv2.json beside ARITH_SOURCE: cv2's hashes of phase 8e's
+    arithmetic source and lossless streams (and of phase 8's YCCK
+    source)."""
+    with open(os.path.join(os.path.dirname(ARITH_SOURCE), "cv2.json")) as f:
+        return json.load(f)
+
+
+def _jpeg_file_module():
+    """tests/data/jpeg/jpeg_file.py (numpy and scipy only), loaded by
+    path."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("jpeg_file", JPEG_FILE)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_jpeg_coding_parts(dev):
+    """Phase 8e: arithmetic-coded and lossless JPEGs at 3200x2130 on the
+    card. The source is phase 8b's, cv2's BGR of WEBP_SOURCE, read here by
+    the card (its hash must be cv2's); ARITH_SOURCE is a 4:2:0 JPEG of it
+    transcoded to arithmetic coding, and two lossless RGB streams of it
+    (predictor 1 with a restart every 16 rows, predictor 7) are written
+    here by jpeg_file.lossless_jpeg, each stream's sha-256 checked against
+    cv2.json's. With the counters set to 0 just before: the converter's
+    image step (``convert.convert_image``) of each, named ``.jpeg``, and
+    the pipeline's read (``images.read_image``) of the arithmetic one; the
+    hashes of that read's grey and BGR and of the three workspace images
+    must be cv2's, and ``read_image`` of a lossless stream must raise
+    (cv2 reads its colour only). Launches: the IDCT 3 and the colour kernel
+    1 a read of the arithmetic file; for each lossless read, its form (the
+    scan form's two launches for predictor 1, the wavefront's one for
+    predictor 7) and one colour launch (RGB form); no plain call. Then each
+    lossless form against its twin at full size (no entry may differ),
+    timed with CUDA events and from a CUDA graph beside its byte bound, the
+    wavefront's step count and the twin; and each read split, host clock
+    around synchronised calls: the host entropy decode (QM, or lossless
+    Huffman), the copy to the card, each launch and the whole decode."""
+    import numpy as np
+    import torch
+    from mpmvs_torch.io import images
+    from mpmvs_torch.preprocess import convert
+    from mpmvs_torch.utils.roofline import (colour_bound, idct_bound,
+                                            ljpeg_bound)
+    from mpmvs_torch.utils.trace import cuda_graph_ms, cuda_time_ms
+
+    want = _jpeg_cv2()
+    _, src = images.read_image(WEBP_SOURCE, dev)
+    if sha256_of(src) != _webp_cv2()["bgr_sha256"]:
+        raise AssertionError("phase 8e's source is not cv2's BGR of the "
+                             "WebP source")
+    bgr = src.cpu().numpy()
+    jf = _jpeg_file_module()
+    t0 = time.perf_counter()
+    streams = {k: jf.lossless_jpeg([bgr[..., 2], bgr[..., 1], bgr[..., 0]],
+                                   **kw) for k, kw in LOSSLESS_STREAMS.items()}
+    write_s = time.perf_counter() - t0
+    with open(ARITH_SOURCE, "rb") as f:
+        arith = f.read()
+    shas = {k: hashlib.sha256(v).hexdigest() for k, v in streams.items()}
+    if hashlib.sha256(arith).hexdigest() != want["arith"]["source_sha256"] \
+            or any(shas[k] != want[k]["stream_sha256"] for k in streams):
+        raise AssertionError(f"phase 8e's files are not those whose cv2 "
+                             f"reads were recorded: {shas}")
+    counters = {"idct_islow": images.IDCT_COUNTS, "colour": images.COUNTS,
+                "ljpeg": images.LJPEG_COUNTS}
+    with tempfile.TemporaryDirectory(prefix="mpmvs_jpeg_coding_") as tmp:
+        srcs = {"arith": os.path.join(tmp, "IMG_0005.jpeg"),
+                **{k: os.path.join(tmp, f"IMG_{k}.jpeg") for k in streams}}
+        for k, path in srcs.items():
+            with open(path, "wb") as f:
+                f.write(arith if k == "arith" else streams[k])
+        for c in list(counters.values()) + [images.CODEC_COUNTS]:
+            c.reset()
+        ws, secs = {}, {}
+        for k, path in srcs.items():
+            t1 = time.perf_counter()
+            convert.convert_image(path, os.path.join(tmp, f"{k}.jpg"), dev)
+            secs[f"convert_{k}_s"] = time.perf_counter() - t1
+            with open(os.path.join(tmp, f"{k}.jpg"), "rb") as f:
+                ws[k] = hashlib.sha256(f.read()).hexdigest()
+        t1 = time.perf_counter()
+        g, c = images.read_image(srcs["arith"], dev)
+        torch.cuda.synchronize()
+        secs["read_arith_s"] = time.perf_counter() - t1
+        refusals = {}
+        for k in streams:
+            try:
+                images.read_image(srcs[k], dev)
+            except ValueError as e:
+                refusals[k] = str(e)
+        launches = {k: (v.kernel, v.plain, dict(v.forms))
+                    for k, v in counters.items()}
+        codec = dict(images.CODEC_COUNTS.forms)
+    equal_cv2 = {"arith_gray": sha256_of(g) == want["arith"]["gray_sha256"],
+                 "arith_bgr": sha256_of(c) == want["arith"]["bgr_sha256"],
+                 **{f"{k}_workspace": ws[k] == want[k]["workspace_sha256"]
+                    for k in srcs}}
+    expected = {"idct_islow": (6, 0, {}), "colour": (4, 0, {"rgb": 2}),
+                "ljpeg": (3, 0, {"scan": 2, "wavefront": 1})}
+    log(f"  arithmetic source ({len(arith)} bytes) and lossless streams "
+        f"({ {k: len(v) for k, v in streams.items()} } bytes, written in "
+        f"{write_s:.1f} s): {secs}; equal to cv2's (the arithmetic read's "
+        f"grey and BGR, each converted workspace image): {equal_cv2}; "
+        f"read_image of the lossless streams raises: {refusals}; launches "
+        f"(kernel, plain, forms) {launches} (expected {expected}); codec "
+        f"calls {codec}")
+    if not all(equal_cv2.values()):
+        raise AssertionError(f"phase 8e differs from cv2: {equal_cv2}")
+    if launches != expected or len(refusals) != len(streams) or \
+            any("colour only" not in e for e in refusals.values()) or \
+            codec.get("jpeg_arith") != 2 or \
+            codec.get("jpeg_lossless") != len(streams):
+        raise AssertionError(f"phase 8e launches {launches}, refusals "
+                             f"{refusals}, codec calls {codec}: expected "
+                             f"{expected}, the lossless reads refused for "
+                             f"cv2's grey, 2 arithmetic and 2 lossless "
+                             f"reads")
+
+    out = {"size": list(src.shape[1::-1]), "arith_bytes": len(arith),
+           "stream_bytes": {k: len(v) for k, v in streams.items()},
+           "write_streams_s": write_s, **secs, "equal_cv2": equal_cv2,
+           "launches": launches, "codec": codec}
+    # the arithmetic read, part by part
+    parts = {k: [] for k in ("host_qm_decode_ms", "copy_to_card_ms",
+                             "idct_0_ms", "idct_1_ms", "idct_2_ms",
+                             "colour_ms", "decode_ms")}
+    for _ in range(3):
+        torch.cuda.synchronize()
+        marks = [time.perf_counter()]
+        handle, info = images.host_decode(arith)
+        marks.append(time.perf_counter())
+        comps, size, layout = images.upload_coefficients(handle, info, dev)
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        planes = []
+        for cp in comps:
+            planes.append(images.idct_islow_kernel(*cp))
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+        images.colour_kernel(planes, layout.factors, size, layout.space)
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        images.decode(arith, dev)
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        for k, a, b in zip(parts, marks, marks[1:]):
+            parts[k].append((b - a) * 1e3)
+    H, W = size
+    out["arith_read"] = dict(parts, idct_bound_ms=idct_bound(
+        [cp[0] for cp in comps], planes)[0], colour_bound_ms=colour_bound(
+        planes, H, W)[0])
+    log(f"  arithmetic read at {W}x{H}: host QM decode "
+        f"{np.round(parts['host_qm_decode_ms'], 1)} ms; copy "
+        f"{np.round(parts['copy_to_card_ms'], 2)} ms; IDCT "
+        f"{[np.round(parts[f'idct_{i}_ms'], 3) for i in range(3)]} ms; "
+        f"colour {np.round(parts['colour_ms'], 3)} ms (host clock); "
+        f"decode {np.round(parts['decode_ms'], 1)} ms")
+    # the lossless forms: against the twin, timed, and each read's parts
+    out["forms"] = {}
+    for k, data in streams.items():
+        p = LOSSLESS_STREAMS[k]["predictor"]
+        form = "scan" if p <= 4 else "wavefront"
+        img = images.lossless_image(*images.host_decode(data))
+        diffs, firsts, bands = images.ljpeg_upload(img, dev)
+        fn = lambda: images.ljpeg_undiff_kernel(diffs, firsts, bands, p,
+                                                img.precision, img.pts)
+        got = fn()
+        twin, plain_ms = cuda_timed(lambda: [images.ljpeg_undiff_plain(
+            d, f, p, img.precision, pt)
+            for d, f, pt in zip(diffs, firsts, img.pts)])
+        err = [differing(a, b) for a, b in zip(got, twin)]
+        if any(e[0] for e in err):
+            raise AssertionError(f"{form} form vs its twin at full size "
+                                 f"({k}): {err}")
+        bnd = ljpeg_bound([tuple(d.shape) for d in diffs])
+        parts = {q: [] for q in ("host_huffman_decode_ms", "copy_to_card_ms",
+                                 "undiff_ms", "colour_ms", "decode_ms")}
+        for _ in range(3):
+            torch.cuda.synchronize()
+            marks = [time.perf_counter()]
+            li = images.lossless_image(*images.host_decode(data))
+            marks.append(time.perf_counter())
+            up = images.ljpeg_upload(li, dev)
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+            pl = images.ljpeg_undiff_kernel(*up, p, li.precision, li.pts)
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+            images.colour_kernel(pl, li.factors, li.size, li.space,
+                                 fancy=False)
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+            images.decode_colour(data, dev)
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+            for q, a, b in zip(parts, marks, marks[1:]):
+                parts[q].append((b - a) * 1e3)
+        out["forms"][k] = {
+            "form": form, "predictor": p,
+            "restart_bands": int(bands.shape[1] - 1),
+            "ms": cuda_time_ms(fn, 20), "graph_ms": cuda_graph_ms(fn, 10),
+            "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1],
+            "vs_plain": err, "max_abs_err": max(e[1] for e in err), **parts}
+        f = out["forms"][k]
+        log(f"  {k} ({form} form, {f['restart_bands']} restart band(s) a "
+            f"plane): CUDA events {f['ms']:.4f} ms, graph {f['graph_ms']:.4f} ms (bound "
+            f"{f['bound_ms']:.4f}, share {f['bound_ms'] / f['graph_ms']:.4f}"
+            f"; twin {f['plain_ms']:.1f} ms, equal); "
+            f"read: host Huffman decode "
+            f"{np.round(parts['host_huffman_decode_ms'], 1)} ms, copy "
+            f"{np.round(parts['copy_to_card_ms'], 2)} ms, undifferencing "
+            f"{np.round(parts['undiff_ms'], 3)} ms, colour "
+            f"{np.round(parts['colour_ms'], 3)} ms (host clock), "
+            f"decode_colour {np.round(parts['decode_ms'], 1)} ms")
+    return out
+
+
 def phase_dummy_source(files, params):
     """Phase 9 (a): the NCC kernel (both launches) and the fused sorted
     path at 3200x2130 with one zero-extent source, phase 8's view 0 with
@@ -3089,9 +3426,9 @@ def main(argv=None) -> int:
     # the codec (host decode and encode, the IDCT and colour kernels, the
     # encoder's colour and DCT kernels, PNG reads): no TPU kernel's
     # counterpart; the details on a line of their own
-    enc, png, rast, webp, ll, tj = (
+    enc, png, rast, webp, ll, tj, jc = (
         files["enc"], files["png"], files["raster"], files["webp"],
-        files["lossless"], files["tiff_jpeg"])
+        files["lossless"], files["tiff_jpeg"], files["jpeg_coding"])
     codec_kernel = lambda k: {
         "source": "mpmvs_torch/csrc/jpeg_codec.cu",
         "launches": files[f"{k}_launches"], "ms": files[f"{k}_ms"],
@@ -3125,6 +3462,9 @@ def main(argv=None) -> int:
                 "vp8l_predictor", "vp8l_colour", "webp_argb_to_bgr")},
         "four_component_fixtures_equal_cv2":
             fixture_facts["four_component_equal_cv2"],
+        "jpeg_coding_read": {k: v for k, v in jc.items() if k != "forms"},
+        "jpeg_coding_fixtures_equal_cv2":
+            fixture_facts["jpeg_coding_fixtures"],
         "image": [W_FULL, H_FULL], "calls_phase8": files["codec"],
         "idct_islow": codec_kernel("idct"),
         "ycc_to_bgr": codec_kernel("ycc"),
@@ -3223,11 +3563,14 @@ def main(argv=None) -> int:
         entry("idct_islow", "jpeg_codec.cu", no_tpu, files["idct_launches"],
               max(e[1] for e in files["idct_vs_plain"]), files["idct_ms"],
               files["idct_plain_ms"], (files["idct_bound_ms"], "bytes"),
-              scope="the three components of a 3200x2130 4:2:0 JPEG"),
+              scope="the three components of a 3200x2130 4:2:0 JPEG",
+              arithmetic_reads_launches=jc["launches"]["idct_islow"][0]),
         entry("ycc_to_bgr", "jpeg_codec.cu", no_tpu, files["ycc_launches"],
               max(e[1] for e in files["ycc_vs_plain"]), files["ycc_ms"],
               files["ycc_plain_ms"], (files["ycc_bound_ms"], "bytes"),
-              scope="a 3200x2130 4:2:0 JPEG, the YCbCr form"),
+              scope="a 3200x2130 4:2:0 JPEG, the YCbCr form",
+              phase8e_launches=jc["launches"]["colour"][0],
+              phase8e_forms=jc["launches"]["colour"][2]),
         entry("bgr_to_ycc", "jpeg_codec.cu", no_tpu,
               files["enc_launches"][0],
               max(e[1] for e in enc["ycc_vs_plain"]), enc["ycc_ms"],
@@ -3325,7 +3668,24 @@ def main(argv=None) -> int:
             ("raster_to_bgr", "raster_bmp16", "bmp16", "raster_bgr.h",
              tj["launches"]["raster"][2].get("bmp16", 0),
              "3200x2130 5-6-5 pixels made from a seed; launches: phase "
-             "8d's 16-bit BMP source"))]}))
+             "8d's 16-bit BMP source"))] + [
+        entry(name, "jpeg_codec.cu", "none: cv2.imread (of a lossless JPEG: "
+              "mpmvs_tpu/pipeline.py:60, mpmvs_tpu/preprocess/convert.py:161)"
+              "; the arithmetic in mpmvs_torch/csrc/jpeg_lossless_pred.h",
+              jc["launches"]["ljpeg"][2].get(form, 0),
+              jc["forms"][key]["max_abs_err"], jc["forms"][key]["ms"],
+              jc["forms"][key]["plain_ms"], (jc["forms"][key]["bound_ms"],
+                                             jc["forms"][key]["bound_by"]),
+              form=form, graph_ms=jc["forms"][key]["graph_ms"], scope=scope)
+        for name, key, form, scope in (
+            ("ljpeg_scan", "lossless_p1_restart16", "scan",
+             "the three planes of phase 8e's 3200x2130 lossless RGB stream, "
+             "predictor 1, a restart every 16 rows (134 bands): both passes "
+             "(two launches); launches: the converter's read"),
+            ("ljpeg_wavefront", "lossless_p7", "wavefront",
+             "the three planes of phase 8e's 3200x2130 lossless RGB stream, "
+             "predictor 7, no restart: one launch; launches: the "
+             "converter's read"))]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

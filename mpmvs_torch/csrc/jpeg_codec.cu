@@ -10,7 +10,8 @@
 // Decoding:
 //   * the host parses the file and entropy-decodes it to quantized DCT
 //     coefficients as libjpeg does (jpeg_entropy.h: baseline, extended and
-//     progressive Huffman, restart intervals); they are copied to the card;
+//     progressive Huffman, restart intervals; jpeg_arith.h: sequential and
+//     progressive arithmetic coding); they are copied to the card;
 //   * idct_islow_kernel runs libjpeg's accurate integer inverse DCT
 //     (jidctint.c, jpeg_idct.h) with its dequantization and range limit,
 //     one thread per 8x8 block, into each component's plane. nvJPEG's own
@@ -36,6 +37,14 @@
 //     a one-component JPEG gives B = G = R = Y, as cv2 gives it. An EXIF
 //     orientation is applied to both images on the card afterwards
 //     (io/images.py).
+//
+// Lossless JPEGs (SOF3): the host entropy-decodes each component's sample
+// differences (jpeg_lossless.h), they are copied to the card, and
+// ljpeg_scan_kernel (predictors 1-4) or ljpeg_wavefront_kernel (5-7)
+// undifference them into the planes the IDCT would write (uint8, each at
+// its sampled size); ycc_to_bgr_kernel's RGB form or cmyk_to_bgr_kernel's
+// CMYK form then makes the BGR, each component upsampled by replication
+// (libjpeg-turbo takes no fancy upsampling in lossless mode).
 //
 // JPEG-compressed TIFFs (tiff_jpeg.h): each strip or tile is a stream of
 // its own, entropy-decoded on the host; the coefficients of every chunk,
@@ -77,7 +86,7 @@
 //
 // The C interface below is bound with ctypes by mpmvs_torch/io/images.py.
 // Every function returns 0 or an error code: a decode error of
-// jpeg_entropy.h (2001-2011), an encode or PNG error (2010, 3001-3002), a
+// jpeg_entropy.h (2001-2014), an encode or PNG error (2010, 3001-3002), a
 // TIFF error (4001-4021), a WebP error (webp_decode.h, 5001-5007;
 // webp_lossless.h, 5008-5011) or a CUDA error offset by 1000.
 
@@ -85,10 +94,14 @@
 
 #include <stdint.h>
 #include <stdlib.h>
+#include <string.h>
 
 #include "jpeg_colour.h"
 #include "jpeg_encode.h"
 #include "jpeg_entropy.h"
+#include "jpeg_arith.h"
+#include "jpeg_lossless.h"
+#include "jpeg_lossless_pred.h"
 #include "jpeg_fdct.h"
 #include "jpeg_idct.h"
 #include "png_unfilter.h"
@@ -104,14 +117,17 @@
 
 #define CODEC_CUDA_ERR 1000
 
-// Parse and entropy-decode a JPEG on the host. info (39 ints) receives the
+// Parse and entropy-decode a JPEG on the host. info (50 ints) receives the
 // number of components, the width and height, the EXIF orientation, the
 // colour space (jpeg_entropy::Space), the largest sampling factors hmax and
 // vmax, then from info[7] per component eight values: its plane's width and
 // height (the sampled size, ceil(W * h / hmax)), the coefficient array's
 // blocks across and down (padded to whole MCUs), the blocks that cover the
-// plane across and down, and its factors h and v. *out holds the
-// coefficients until jpeg_host_free.
+// plane across and down, and its factors h and v; info[39] is 1 for a
+// lossless JPEG, info[40] its precision, and per component
+// its predictor and point transform (info[42], info[43] for the first);
+// info[41] is 1 for an arithmetic-coded one. *out holds the coefficients
+// (or a lossless JPEG's differences) until jpeg_host_free.
 extern "C" int jpeg_host_decode(const unsigned char* data, size_t length,
                                 void** out, int* info) {
   jpeg_entropy::Decoder* d = new jpeg_entropy::Decoder();
@@ -120,25 +136,7 @@ extern "C" int jpeg_host_decode(const unsigned char* data, size_t length,
     delete d;
     return err;
   }
-  info[0] = d->ncomp;
-  info[1] = d->width;
-  info[2] = d->height;
-  info[3] = d->orientation;
-  info[4] = d->space;
-  info[5] = d->hmax;
-  info[6] = d->vmax;
-  for (int i = 0; i < d->ncomp; i++) {
-    const jpeg_entropy::Component& c = d->comp[i];
-    int* ci = info + 7 + 8 * i;
-    ci[0] = (d->width * c.h + d->hmax - 1) / d->hmax;
-    ci[1] = (d->height * c.v + d->vmax - 1) / d->vmax;
-    ci[2] = c.blocks_w;
-    ci[3] = c.blocks_h;
-    ci[4] = c.width_in_blocks;
-    ci[5] = c.height_in_blocks;
-    ci[6] = c.h;
-    ci[7] = c.v;
-  }
+  jpeg_entropy::host_info(d, info);
   *out = d;
   return 0;
 }
@@ -161,6 +159,14 @@ extern "C" int jpeg_host_upload(void* img, int comp, short* coef,
 
 extern "C" void jpeg_host_free(void* img) {
   delete (jpeg_entropy::Decoder*)img;
+}
+
+// Copy a lossless JPEG's component comp's sample differences (plane height
+// x width int16) and its first-row marks (height bytes) to host memory.
+extern "C" int jpeg_host_lossless(void* img, int comp, short* diff,
+                                  unsigned char* first) {
+  return jpeg_entropy::lossless_planes((jpeg_entropy::Decoder*)img, comp,
+                                       diff, first);
 }
 
 // One thread per 8x8 block of the plane: libjpeg's islow IDCT of the
@@ -729,6 +735,224 @@ extern "C" int webp_argb_to_bgr_launch(const unsigned* argb, int w, int h,
   const size_t n = (size_t)cw * ch;
   webp_argb_to_bgr_kernel<<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
       argb, w, h, ox, oy, cw, ch, bgr, gray);
+  cudaError_t e = cudaGetLastError();
+  return e == cudaSuccess ? 0 : CODEC_CUDA_ERR + (int)e;
+}
+
+// Lossless JPEG reads: the undifferencing of each component's sample
+// differences (jpeg_lossless.h) into its samples, jdlossls.c's arithmetic
+// (jpeg_lossless_pred.h, which derives the scan form's identities).
+//   * ljpeg_scan_kernel, predictors 1-4, whose predictions are linear mod
+//     2^16: two launches. Pass A, a warp a row (every row for predictors 1
+//     and 4, each band's first row for 2 and 3): the row's prefix sums of
+//     its differences, a warp scan of 32 columns at a time carried along
+//     the row, into a uint16 plane. Pass B, a thread a column (1, 2, 4) or
+//     a diagonal (3) of one band (a first row and the rows up to the next:
+//     a restart interval), grid (lanes, bands, components): it walks the
+//     band's rows, its running sum the sample (scan_walk); a warp's lanes
+//     read and write 32 neighbouring columns of a row, coalesced. Bands are
+//     independent, so a file with restarts runs them all at once.
+//   * ljpeg_wavefront_kernel, predictors 5-7, whose shifted sums are not
+//     associative: the VP8L predictor kernel's design. One warp takes a
+//     band of 32 rows, lane i row i, and walks it skewed by one column
+//     (step s: lane i rebuilds column s - i), so the row above's Rb is lane
+//     i - 1's last sample (one shuffle a step) and its Rc the Rb of the step
+//     before. The band's first lane reads the band above's last row, which
+//     that band's last lane writes column by column as tagged 64-bit words
+//     (band + 1 in the high half, the 16-bit sample in the low; one relaxed
+//     store), polled before each 32 steps; a band whose first row is a
+//     first row (a restart) waits on nothing. Bands of every component are
+//     claimed in order from a ticket, and a band waits only on the band
+//     above of its component, which holds an earlier ticket: no deadlock; a
+//     wait of seconds traps. The differences are staged 32 columns ahead,
+//     coalesced, in a shared ring of 128 columns. The critical path is
+//     W + 31 steps a band plus each band's wait, about W + H steps for a
+//     component without restarts.
+// Both write the uint8 planes idct_islow_kernel writes. Bound by bytes: 2
+// read (the difference) and 1 written (the sample) a sample; pass A's
+// prefix sums add 2 written and 2 read a sample of the rows it scans.
+
+struct LjpegPlanes {
+  ljpeg::Plane c[4];
+  int n;
+};
+
+static LjpegPlanes ljpeg_planes(const short* const* d, unsigned short* const* r,
+                                unsigned char* const* out,
+                                const unsigned char* const* first,
+                                const int* geo, int n) {
+  LjpegPlanes pl = {};
+  pl.n = n;
+  for (int i = 0; i < n && i < 4; i++)
+    pl.c[i] = {(const int16_t*)d[i], r ? (uint16_t*)r[i] : nullptr, out[i],
+               first[i], geo[4 * i], geo[4 * i + 1], geo[4 * i + 2],
+               geo[4 * i + 3]};
+  return pl;
+}
+
+// One pass of the scan form. kPass 0 (A): warp w of the grid takes row w
+// of the planes' rows, one after another, and writes its prefix sums.
+// kPass 1 (B): thread x of block (bx, band, z) walks lane bx * blockDim.x
+// + x of band `band` of plane z: a column, or for predictor 3 diagonal
+// lane - (rows - 1). bands: per plane max_bands + 1 row starts, the last
+// ones the height.
+template <int kPass>
+__global__ void ljpeg_scan_kernel(LjpegPlanes pl, int p, const int* bands,
+                                  int max_bands) {
+  if (kPass == 0) {
+    const unsigned full = 0xffffffffu;
+    const int lane = threadIdx.x & 31;
+    int row = (int)((blockIdx.x * (size_t)blockDim.x + threadIdx.x) >> 5);
+    int z = 0;
+    while (z < pl.n && row >= pl.c[z].h) row -= pl.c[z++].h;
+    if (z >= pl.n) return;
+    const ljpeg::Plane& q = pl.c[z];
+    if (!ljpeg::scan_row_needed(p, q, row)) return;
+    const int16_t* d = q.d + (size_t)row * q.w;
+    uint16_t* out = q.r + (size_t)row * q.w;
+    uint32_t carry = 0;
+    for (int c0 = 0; c0 < q.w; c0 += 32) {
+      const int c = c0 + lane;
+      uint32_t v = c < q.w ? (uint16_t)d[c] : 0u;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const uint32_t u = __shfl_up_sync(full, v, o);
+        if (lane >= o) v += u;
+      }
+      v += carry;
+      if (c < q.w) out[c] = (uint16_t)v;
+      carry = __shfl_sync(full, v, 31);
+    }
+    return;
+  }
+  const int z = blockIdx.z, b = blockIdx.y;
+  if (z >= pl.n) return;
+  const ljpeg::Plane& q = pl.c[z];
+  const int r0 = max(bands[z * (max_bands + 1) + b], 0);
+  const int r1 = min(bands[z * (max_bands + 1) + b + 1], q.h);
+  if (r0 >= r1) return;
+  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  const int g = p == 3 ? lane - (r1 - r0 - 1) : lane;
+  if (g >= q.w) return;
+  ljpeg::scan_walk(p, q, r0, r1, g);
+}
+
+// geo: n x 4 ints (w, h, pt, init) a plane; r: the uint16 scratch planes of
+// pass A; pass 0 (A) or 1 (B); bands: device ints (pass B).
+extern "C" int ljpeg_scan_launch(const short* const* d,
+                                 unsigned short* const* r,
+                                 unsigned char* const* out,
+                                 const unsigned char* const* first,
+                                 const int* geo, int n, int p, int pass,
+                                 const int* bands, int max_bands,
+                                 cudaStream_t stream) {
+  LjpegPlanes pl = ljpeg_planes(d, r, out, first, geo, n);
+  int max_w = 0, max_h = 0;
+  size_t rows = 0;
+  for (int i = 0; i < n; i++) {
+    rows += pl.c[i].h;
+    max_w = pl.c[i].w > max_w ? pl.c[i].w : max_w;
+    max_h = pl.c[i].h > max_h ? pl.c[i].h : max_h;
+  }
+  if (pass == 0) {
+    ljpeg_scan_kernel<0><<<(unsigned)((rows * 32 + 255) / 256), 256, 0,
+                           stream>>>(pl, p, bands, max_bands);
+  } else {
+    const int lanes = p == 3 ? max_w + max_h - 1 : max_w;
+    dim3 grid((lanes + 127) / 128, max_bands, n);
+    ljpeg_scan_kernel<1><<<grid, 128, 0, stream>>>(pl, p, bands, max_bands);
+  }
+  cudaError_t e = cudaGetLastError();
+  return e == cudaSuccess ? 0 : CODEC_CUDA_ERR + (int)e;
+}
+
+// sync: 1 + the planes' widths zeroed 64-bit words: the ticket, then each
+// plane's edge words (the band above's last row, tagged).
+__global__ void __launch_bounds__(32)
+    ljpeg_wavefront_kernel(LjpegPlanes pl, int p, unsigned long long* sync) {
+  __shared__ int16_t tile[32][128 + 8];  // differences: 32 rows, 128 columns
+  const unsigned full = 0xffffffffu;
+  const int lane = threadIdx.x;
+  for (;;) {
+    int ticket = 0;
+    if (lane == 0) ticket = atomicAdd((int*)sync, 1);
+    ticket = __shfl_sync(full, ticket, 0);
+    int z = 0, band = ticket;
+    size_t edge_at = 1;
+    while (z < pl.n && band >= (pl.c[z].h + 31) / 32) {
+      band -= (pl.c[z].h + 31) / 32;
+      edge_at += pl.c[z++].w;
+    }
+    if (z >= pl.n) return;
+    const ljpeg::Plane& q = pl.c[z];
+    unsigned long long* edge = sync + edge_at;
+    const int W = q.w, y0 = 32 * band, rows = min(32, q.h - y0);
+    const int y = y0 + lane, ym = min(y, q.h - 1);
+    const bool first = q.first[ym] != 0;
+    const bool need_above = band > 0 && !q.first[y0];
+    const unsigned long long tag = (unsigned long long)(band + 1) << 32;
+    int16_t pre[32];  // the next 32 columns' differences, one row each
+    auto prefetch = [&](int col) {
+#pragma unroll
+      for (int r = 0; r < 32; r++)
+        pre[r] = r < rows && col < W ? q.d[(size_t)(y0 + r) * W + col] : 0;
+    };
+    prefetch(lane);
+    int h1 = 0, rb_prev = 0;
+    for (int c = 0, steps = W + rows - 1; 32 * c < steps; c++) {
+      const int col = 32 * c + lane;
+      __syncwarp();
+#pragma unroll
+      for (int r = 0; r < 32; r++) tile[r][col & 127] = pre[r];
+      prefetch(col + 32);  // in flight while these 32 columns are rebuilt
+      int above = 0;  // the row above at column col: lane 0's Rb at step j
+      if (need_above) {
+        for (long long spins = 0;; spins++) {
+          bool ok = true;
+          unsigned long long e = 0;
+          if (col < W) {
+            e = vp8l_load_relaxed(edge + col);
+            ok = (e >> 32) == (unsigned long long)band;
+          }
+          if (__all_sync(full, ok)) {
+            above = (int)(e & 0xFFFF);
+            break;
+          }
+          // a wait of seconds means a broken dependency: fault, not hang
+          if (spins > (1ll << 26)) __trap();
+          __nanosleep(32);
+        }
+      }
+      __syncwarp();
+#pragma unroll
+      for (int j = 0; j < 32; j++) {
+        const int x = 32 * c + j - lane;
+        const int up = __shfl_up_sync(full, h1, 1);
+        const int ab = __shfl_sync(full, above, j);
+        const int v = ljpeg::wave_step(p, tile[lane][x & 127], x, first,
+                                       q.init, lane ? up : ab, &h1,
+                                       &rb_prev);
+        if (lane < rows && x >= 0 && x < W) {
+          q.out[(size_t)y * W + x] = ljpeg::narrow(v, q.pt);
+          if (lane == rows - 1) vp8l_store_relaxed(edge + x, tag | v);
+        }
+      }
+    }
+  }
+}
+
+// Enough warps for every band of every plane at once (at most 1024).
+extern "C" int ljpeg_wavefront_launch(const short* const* d,
+                                      unsigned char* const* out,
+                                      const unsigned char* const* first,
+                                      const int* geo, int n, int p,
+                                      unsigned long long* sync,
+                                      cudaStream_t stream) {
+  LjpegPlanes pl = ljpeg_planes(d, nullptr, out, first, geo, n);
+  int bands = 0;
+  for (int i = 0; i < n; i++) bands += (pl.c[i].h + 31) / 32;
+  ljpeg_wavefront_kernel<<<bands < 1024 ? bands : 1024, 32, 0, stream>>>(
+      pl, p, sync);
   cudaError_t e = cudaGetLastError();
   return e == cudaSuccess ? 0 : CODEC_CUDA_ERR + (int)e;
 }

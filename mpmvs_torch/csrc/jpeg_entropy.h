@@ -4,17 +4,22 @@
 // The card's decode must give what cv2.imread gives, and OpenCV decodes with
 // libjpeg-turbo: its integer inverse DCT (jidctint.c) and fancy upsampling.
 // nvJPEG's inverse DCT is another, so the coefficients are decoded here, on
-// the host, as libjpeg's jdhuff.c / jdphuff.c decode them, and the card runs
-// jidctint's arithmetic (idct_islow_kernel in jpeg_codec.cu).
+// the host, as libjpeg's jdhuff.c / jdphuff.c (Huffman) and jdarith.c
+// (arithmetic, jpeg_arith.h) decode them, and the card runs jidctint's
+// arithmetic (idct_islow_kernel in jpeg_codec.cu).
 //
-// Supported: baseline and extended sequential Huffman (SOF0, SOF1) and
-// progressive Huffman (SOF2) JPEGs of 8-bit samples with one, three or four
+// Supported: baseline and extended sequential (SOF0, SOF1) and progressive
+// (SOF2) Huffman JPEGs and sequential (SOF9) and progressive (SOF10)
+// arithmetic-coded ones, of 8-bit samples with one, three or four
 // components, interleaved or not, with restart intervals, at every sampling
 // layout libjpeg takes: factors 1 to 4 that divide the largest of their
-// axis, at most 10 blocks in an interleaved MCU. Refused, each with its own
-// code: 12-bit samples, arithmetic coding, lossless and hierarchical
-// processes, 2 or more than 4 components, and the sampling layouts libjpeg
-// refuses too. Two things that make cv2.imread give another image than the
+// axis, at most 10 blocks in an interleaved MCU. Lossless Huffman JPEGs
+// (SOF3) of 2 to 8 bits are entropy-decoded to sample differences instead
+// (jpeg_lossless.h), which the card undifferences. Refused, each with its
+// own code: 12-bit DCT samples and lossless ones above 8 bits, arithmetic-
+// coded lossless (SOF11) and hierarchical (DHP, SOF5-7, SOF13-15)
+// processes, a lossless scan libjpeg refuses, 2 or more than 4 components,
+// and the sampling layouts libjpeg refuses too. Two things that make cv2.imread give another image than the
 // planes are reported with the coefficients, for the caller to apply: the
 // EXIF orientation (OpenCV rotates or mirrors by 2..8) and the colour space
 // libjpeg takes the components for (jdapimin.c default_decompress_parms,
@@ -40,10 +45,16 @@ enum Error {
   kTruncated = 2001,     // the stream ended inside a marker segment
   kUnsupported = 2002,   // a coding process or layout this decoder refuses
   kBadStream = 2003,     // a malformed segment or an undefined table
-  kPrecision = 2006,     // samples of another precision than 8 bits
-  kArithmetic = 2007,    // arithmetic coding (SOF9-11, SOF13-15)
-  kLossless = 2008,      // lossless or hierarchical Huffman (SOF3, SOF5-7)
+  kPrecision = 2006,     // DCT samples of another precision than 8 bits,
+                         // lossless ones outside 2-8
+  kArithmetic = 2007,    // arithmetic-coded lossless (SOF11)
+  kHierarchical = 2008,  // hierarchical (DHP, SOF5-7, SOF13-15)
   kSampling = 2011,      // sampling factors libjpeg refuses too
+  kLosslessScan = 2012,  // a lossless scan libjpeg refuses (Ss outside 1-7,
+                         // Se or Ah not 0, Pt not below the precision)
+  kLosslessRestart = 2013,  // a lossless restart interval of part of a row
+  kLosslessColour = 2014,   // lossless YCbCr or YCCK components, which
+                            // libjpeg-turbo does not convert
 };
 
 // The colour space of the components (libjpeg's jpeg_color_space); one
@@ -77,13 +88,22 @@ struct Component {
   int blocks_w = 0, blocks_h = 0;                 // padded to whole MCUs
   int dc_pred = 0;
   std::vector<int16_t> coef;                      // blocks_h x blocks_w x 64
+  // lossless: the sample differences (height_in_blocks x width_in_blocks,
+  // a block being a sample), the rows that predict as a first row, and the
+  // predictor and point transform of the component's scan
+  std::vector<int16_t> diff;
+  std::vector<uint8_t> first;
+  int predictor = 0, pt = 0;
 };
 
 struct Decoder {
   int width = 0, height = 0, ncomp = 0;
   int hmax = 1, vmax = 1, mcus_x = 0, mcus_y = 0;
-  bool progressive = false;
+  bool progressive = false, arithmetic = false, lossless = false;
+  int precision = 8;
   int restart_interval = 0;
+  // the DAC marker's conditioning of each table (jdmarker.c get_dac)
+  uint8_t arith_dc_L[16], arith_dc_U[16], arith_ac_K[16];
   uint16_t qt[4][64];  // natural order
   bool qt_defined[4] = {false, false, false, false};
   Huffman dc[4], ac[4];
@@ -94,14 +114,31 @@ struct Decoder {
   size_t length = 0, pos = 0;
   uint32_t bitbuf = 0;
   int bitcnt = 0;
+  int real_bits = 0;          // of bitcnt, those read from the data
+  bool insufficient = false;  // a read went past the data (libjpeg's
+                              // insufficient_data): the scan's later MCUs
+                              // are left as they are, until a restart
   bool hit_marker = false;
+  size_t marker_pos = 0;  // where an arithmetic scan's data met a marker
   int eobrun = 0;
   // what the markers before the first scan say of the image's layout
   bool saw_jfif = false, saw_adobe = false, saw_app1 = false;
   int adobe_transform = 1, orientation = 1;
   int space = kYcc;  // libjpeg's guess from the markers and ids (Space)
   int scans = 0;
+  Decoder() {
+    memset(arith_dc_L, 0, sizeof(arith_dc_L));
+    memset(arith_dc_U, 1, sizeof(arith_dc_U));
+    memset(arith_ac_K, 5, sizeof(arith_ac_K));
+  }
 };
+
+static int decode_arith_scan(Decoder* d, Component** sc, int ns, int ss,
+                             int se, int ah, int al, const uint8_t* data,
+                             size_t length, size_t start);
+static int decode_lossless_scan(Decoder* d, Component** sc, int ns, int ss,
+                                int se, int ah, int al, const uint8_t* data,
+                                size_t length, size_t start);
 
 static inline int read16(const uint8_t* p) { return (p[0] << 8) | p[1]; }
 
@@ -142,23 +179,34 @@ static bool build_huffman(Huffman* t, const uint8_t* counts,
 static inline void fill_bits(Decoder* d) {
   while (d->bitcnt <= 24) {
     uint32_t byte = 0;
+    bool real = false;
     if (!d->hit_marker && d->pos < d->length) {
       byte = d->data[d->pos];
       if (byte == 0xFF) {
         uint8_t next = d->pos + 1 < d->length ? d->data[d->pos + 1] : 0xD9;
         if (next == 0x00) {
           d->pos += 2;
+          real = true;
         } else {
           d->hit_marker = true;
           byte = 0;
         }
       } else {
         d->pos++;
+        real = true;
       }
     }
     d->bitbuf |= byte << (24 - d->bitcnt);
     d->bitcnt += 8;
+    if (real) d->real_bits += 8;
   }
+}
+
+// n bits taken from the buffer: past the data's bits, libjpeg's
+// jpeg_fill_bit_buffer sets insufficient_data (and stuffs zeros).
+static inline void took(Decoder* d, int n) {
+  if (n > d->real_bits) d->insufficient = true;
+  d->real_bits = n > d->real_bits ? 0 : d->real_bits - n;
 }
 
 static inline int get_bits(Decoder* d, int n) {
@@ -167,6 +215,7 @@ static inline int get_bits(Decoder* d, int n) {
   int v = (int)(d->bitbuf >> (32 - n));
   d->bitbuf <<= n;
   d->bitcnt -= n;
+  took(d, n);
   return v;
 }
 
@@ -185,6 +234,7 @@ static inline int decode_symbol(Decoder* d, const Huffman* t) {
     int l = e >> 8;
     d->bitbuf <<= l;
     d->bitcnt -= l;
+    took(d, l);
     return e & 0xFF;
   }
   int code = (int)(d->bitbuf >> (32 - 10));
@@ -196,16 +246,26 @@ static inline int decode_symbol(Decoder* d, const Huffman* t) {
   if (l > 16) {  // a corrupt code: libjpeg returns 0 and goes on
     d->bitbuf <<= 16;
     d->bitcnt -= 16;
+    took(d, 16);
     return 0;
   }
   d->bitbuf <<= l;
   d->bitcnt -= l;
+  took(d, l);
   return t->vals[t->valptr[l] + code - t->mincode[l]];
 }
 
-static int parse_sof(Decoder* d, const uint8_t* p, int len, bool progressive) {
+// A frame of DCT coefficients (progressive or sequential, Huffman or
+// arithmetic-coded) or, with lossless, of sample differences.
+static int parse_sof(Decoder* d, const uint8_t* p, int len, bool progressive,
+                     bool arithmetic = false, bool lossless = false) {
   if (len < 6) return kBadStream;
-  if (p[0] != 8) return kPrecision;
+  // jdinput.c initial_setup: a lossless precision of 2 to 16 bits (cv2
+  // reads 8 bits and fewer), a DCT one of 8 (12 is another build)
+  if (lossless ? p[0] < 2 || p[0] > 8 : p[0] != 8) return kPrecision;
+  d->precision = p[0];
+  d->arithmetic = arithmetic;
+  d->lossless = lossless;
   d->height = read16(p + 1);
   d->width = read16(p + 3);
   d->ncomp = p[5];
@@ -231,16 +291,23 @@ static int parse_sof(Decoder* d, const uint8_t* p, int len, bool progressive) {
   // is JERR_FRACT_SAMPLE_NOTIMPL
   for (int i = 0; i < d->ncomp; i++)
     if (d->hmax % d->comp[i].h || d->vmax % d->comp[i].v) return kSampling;
-  d->mcus_x = (d->width + 8 * d->hmax - 1) / (8 * d->hmax);
-  d->mcus_y = (d->height + 8 * d->vmax - 1) / (8 * d->vmax);
+  const int bs = lossless ? 1 : 8;  // a lossless block is a sample
+  d->mcus_x = (d->width + bs * d->hmax - 1) / (bs * d->hmax);
+  d->mcus_y = (d->height + bs * d->vmax - 1) / (bs * d->vmax);
   for (int i = 0; i < d->ncomp; i++) {
     Component& c = d->comp[i];
     // jdinput.c: width_in_blocks = ceil(image_width * h / (hmax * 8))
-    c.width_in_blocks = (d->width * c.h + 8 * d->hmax - 1) / (8 * d->hmax);
-    c.height_in_blocks = (d->height * c.v + 8 * d->vmax - 1) / (8 * d->vmax);
+    c.width_in_blocks = (d->width * c.h + bs * d->hmax - 1) / (bs * d->hmax);
+    c.height_in_blocks =
+        (d->height * c.v + bs * d->vmax - 1) / (bs * d->vmax);
     c.blocks_w = d->mcus_x * c.h;
     c.blocks_h = d->mcus_y * c.v;
-    c.coef.assign((size_t)c.blocks_w * c.blocks_h * 64, 0);
+    if (lossless) {
+      c.diff.assign((size_t)c.width_in_blocks * c.height_in_blocks, 0);
+      c.first.assign(c.height_in_blocks, 0);
+    } else {
+      c.coef.assign((size_t)c.blocks_w * c.blocks_h * 64, 0);
+    }
   }
   d->frame = true;
   return kOk;
@@ -378,15 +445,21 @@ static void decode_block_progressive(Decoder* d, Component& c, int16_t* blk,
   }
 }
 
-// Restart: skip to the RSTn marker, reset the predictions and the EOB run.
+// Restart: skip to the RSTn marker, reset the predictions and the EOB run;
+// the out-of-data state is cleared only where a marker was found (libjpeg
+// leaves it set when the stream has ended).
 static void restart(Decoder* d) {
   d->bitbuf = 0;
   d->bitcnt = 0;
+  d->real_bits = 0;
   while (d->pos + 1 < d->length &&
          !(d->data[d->pos] == 0xFF && d->data[d->pos + 1] >= 0xD0 &&
            d->data[d->pos + 1] <= 0xD7))
     d->pos++;
-  if (d->pos + 1 < d->length) d->pos += 2;
+  if (d->pos + 1 < d->length) {
+    d->pos += 2;
+    d->insufficient = false;
+  }
   d->hit_marker = false;
   for (int i = 0; i < d->ncomp; i++) d->comp[i].dc_pred = 0;
   d->eobrun = 0;
@@ -410,6 +483,9 @@ static int decode_scan(Decoder* d, const uint8_t* p, int len,
   }
   int ss = p[1 + 2 * ns], se = p[2 + 2 * ns];
   int ah = p[3 + 2 * ns] >> 4, al = p[3 + 2 * ns] & 15;
+  if (d->lossless)
+    return decode_lossless_scan(d, sc, ns, ss, se, ah, al, data, length,
+                                start);
   if (!d->progressive) {
     ss = 0;
     se = 63;
@@ -422,6 +498,8 @@ static int decode_scan(Decoder* d, const uint8_t* p, int len,
   int mcu_blocks = 0;
   for (int i = 0; i < ns; i++) mcu_blocks += sc[i]->h * sc[i]->v;
   if (ns > 1 && mcu_blocks > 10) return kSampling;
+  if (d->arithmetic)
+    return decode_arith_scan(d, sc, ns, ss, se, ah, al, data, length, start);
   for (int i = 0; i < ns; i++) {
     bool need_dc = ss == 0 && ah == 0;
     bool need_ac = !d->progressive || ss > 0;
@@ -435,6 +513,8 @@ static int decode_scan(Decoder* d, const uint8_t* p, int len,
   d->pos = start;
   d->bitbuf = 0;
   d->bitcnt = 0;
+  d->real_bits = 0;
+  d->insufficient = false;
   d->hit_marker = false;
   d->eobrun = 0;
   int mcus_x, mcus_y;
@@ -455,6 +535,9 @@ static int decode_scan(Decoder* d, const uint8_t* p, int len,
         }
         todo--;
       }
+      // jdhuff.c / jdphuff.c: once the data has run out, the MCU is left
+      // as it is (uniform grey in a sequential scan)
+      if (d->insufficient) continue;
       for (int i = 0; i < ns; i++) {
         Component& c = *sc[i];
         int bh = ns == 1 ? 1 : c.v, bw = ns == 1 ? 1 : c.h;
@@ -509,6 +592,8 @@ static int exif_orientation(const uint8_t* t, int tn) {
 // 'R', 'G', 'B' mean RGB. Four: the Adobe marker's transform 0 means CMYK,
 // any other YCCK (libjpeg warns of a transform other than 2 and takes
 // YCCK); no Adobe marker means CMYK, whatever else the file holds.
+// A lossless frame's three components without those markers are RGB
+// whatever their ids (libjpeg-turbo assumes no colour transform there).
 static void guess_space(Decoder* d) {
   if (d->ncomp == 4) {
     d->space = d->saw_adobe && d->adobe_transform != 0 ? kYcck : kCmyk;
@@ -516,8 +601,9 @@ static void guess_space(Decoder* d) {
   }
   if (d->ncomp != 3 || d->saw_jfif) return;
   bool rgb = d->saw_adobe ? d->adobe_transform == 0
-                          : d->comp[0].id == 'R' && d->comp[1].id == 'G' &&
-                                d->comp[2].id == 'B';
+                          : d->lossless || (d->comp[0].id == 'R' &&
+                                            d->comp[1].id == 'G' &&
+                                            d->comp[2].id == 'B');
   d->space = rgb ? kRgb : kYcc;
 }
 
@@ -563,12 +649,38 @@ static int decode(Decoder* d, const uint8_t* data, size_t length,
         if (tables_only) return kBadStream;
         err = parse_sof(d, p, n, true);
         break;
-      case 0xC3: case 0xC5: case 0xC6: case 0xC7:
-        return kLossless;
-      case 0xC9: case 0xCA: case 0xCB: case 0xCD: case 0xCE: case 0xCF:
+      case 0xC3:
+        if (tables_only) return kBadStream;
+        err = parse_sof(d, p, n, false, false, true);
+        break;
+      case 0xC9:
+      case 0xCA:
+        if (tables_only) return kBadStream;
+        err = parse_sof(d, p, n, marker == 0xCA, true);
+        break;
+      case 0xCB:
         return kArithmetic;
+      // jdmarker.c: SOF5-7 and SOF13-15 are JERR_SOF_UNSUPPORTED, DHP and
+      // EXP unknown markers
+      case 0xC5: case 0xC6: case 0xC7: case 0xCD: case 0xCE: case 0xCF:
+      case 0xDE: case 0xDF:
+        return kHierarchical;
       case 0xC4:
         err = parse_dht(d, p, n);
+        break;
+      case 0xCC:  // DAC: Tc Tb, then L and U (DC) or Kx (AC)
+        for (int k = 0; k + 1 < n; k += 2) {
+          int index = p[k], val = p[k + 1];
+          if (index >= 32) return kBadStream;
+          if (index >= 16) {
+            d->arith_ac_K[index - 16] = (uint8_t)val;
+          } else {
+            d->arith_dc_L[index] = (uint8_t)(val & 15);
+            d->arith_dc_U[index] = (uint8_t)(val >> 4);
+            if ((val & 15) > (val >> 4)) return kBadStream;
+          }
+        }
+        if (n & 1) return kBadStream;
         break;
       case 0xDB:
         err = parse_dqt(d, p, n);
@@ -612,12 +724,56 @@ static int decode(Decoder* d, const uint8_t* data, size_t length,
   }
   if (tables_only) return d->frame ? kBadStream : kOk;
   if (!d->frame) return kBadStream;
+  if (d->lossless) {  // no quantization; every component coded
+    for (int i = 0; i < d->ncomp; i++)
+      if (!d->comp[i].predictor) return kBadStream;
+    // libjpeg-turbo converts no colour in lossless mode: cv2 asks for BGR
+    // or grey (or CMYK of four components), so YCbCr and YCCK fail in both
+    return (d->ncomp == 3 && d->space == kYcc) ||
+                   (d->ncomp == 4 && d->space == kYcck)
+               ? kLosslessColour
+               : kOk;
+  }
   for (int i = 0; i < d->ncomp; i++)
     if (!d->qt_defined[d->comp[i].tq]) return kBadStream;
   return kOk;
 }
 
+// What a decode tells its caller (jpeg_codec.cu jpeg_host_decode says
+// which; kInfoLen ints).
+enum { kInfoLen = 50 };
+static void host_info(const Decoder* d, int* info) {
+  memset(info, 0, kInfoLen * sizeof(int));
+  info[0] = d->ncomp;
+  info[1] = d->width;
+  info[2] = d->height;
+  info[3] = d->orientation;
+  info[4] = d->space;
+  info[5] = d->hmax;
+  info[6] = d->vmax;
+  for (int i = 0; i < d->ncomp; i++) {
+    const Component& c = d->comp[i];
+    int* ci = info + 7 + 8 * i;
+    ci[0] = (d->width * c.h + d->hmax - 1) / d->hmax;
+    ci[1] = (d->height * c.v + d->vmax - 1) / d->vmax;
+    ci[2] = c.blocks_w;
+    ci[3] = c.blocks_h;
+    ci[4] = c.width_in_blocks;
+    ci[5] = c.height_in_blocks;
+    ci[6] = c.h;
+    ci[7] = c.v;
+    info[42 + 2 * i] = c.predictor;
+    info[43 + 2 * i] = c.pt;
+  }
+  info[39] = d->lossless;
+  info[40] = d->precision;
+  info[41] = d->arithmetic;
+}
+
 }  // namespace jpeg_entropy
+
+#include "jpeg_arith.h"
+#include "jpeg_lossless.h"
 
 // The orientation of EXIF data that starts with its TIFF header (a PNG's
 // eXIf chunk), as for a JPEG's APP1 segment.

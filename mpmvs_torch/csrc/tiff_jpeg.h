@@ -23,8 +23,9 @@
 //     YCbCr is converted by libjpeg, every other photometric's components
 //     are taken as they are (JCS_UNKNOWN).
 // Not read (kJpegLayout): planar data, other photometrics, extra samples,
-// and quantization tables that differ from one chunk to another (the card
-// runs one IDCT launch a component, with one table).
+// quantization tables that differ from one chunk to another (the card
+// runs one IDCT launch a component, with one table), and lossless (SOF3)
+// chunks.
 //
 // The coefficients of every chunk are concatenated, chunk after chunk, in
 // one array a component, each chunk's blocks padded to the largest chunk's
@@ -102,6 +103,7 @@ static int chunk(const File& f, size_t i, bool headers_only,
   int err = jpeg_entropy::decode(d, f.chunks[i].p, f.chunks[i].n,
                                  headers_only);
   if (err) return err;
+  if (d->lossless) return kJpegLayout;  // libtiff reads DCT data only
   int64_t pm = in[kPhotometricTag];
   if (d->ncomp != (pm == 1 ? 1 : 3)) return kJpegTags;
   if (pm == 6 && sub[0] == 0) {  // JPEGFixupTags: the first frame's factors

@@ -7,8 +7,10 @@ the codec:
   * on a CUDA device, through ``csrc/jpeg_codec.cu``, with what ``cv2``
     gives, bit for bit, and no OpenCV:
       - JPEG reads of one, three or four components at every sampling
-        layout libjpeg takes: the host entropy-decodes the file to DCT
-        coefficients (``csrc/jpeg_entropy.h``), the card runs libjpeg's
+        layout libjpeg takes, Huffman or arithmetic-coded, sequential or
+        progressive: the host entropy-decodes the file to DCT
+        coefficients (``csrc/jpeg_entropy.h``; arithmetic coding by
+        ``csrc/jpeg_arith.h``, libjpeg's QM decoder), the card runs libjpeg's
         integer inverse DCT (``idct_islow_kernel``) and libjpeg-turbo's
         upsampling of each component and colour conversion with OpenCV's
         after it (``ycc_to_bgr_kernel``: YCbCr, or RGB components;
@@ -18,6 +20,18 @@ the codec:
         Y plane of a YCbCr JPEG, as ``cv2.imread(IMREAD_GRAYSCALE)`` gives
         it, libjpeg-turbo's ``rgb_gray_convert`` of an RGB one and OpenCV's
         ``icvCvt_CMYK2Gray_8u_C4C1R`` of a CMYK or YCCK one;
+      - lossless JPEG reads (SOF3, 2 to 8 bits, predictors 1 to 7, any
+        point transform, restarts, any sampling): the host entropy-decodes
+        each component's sample differences (``csrc/jpeg_lossless.h``,
+        :func:`lossless_image`), the card undifferences them
+        (``ljpeg_scan_kernel`` for predictors 1 to 4, prefix sums;
+        ``ljpeg_wavefront_kernel`` for 5 to 7, a wavefront; their
+        arithmetic in ``csrc/jpeg_lossless_pred.h``) into the planes the
+        IDCT would give, and the RGB or CMYK colour form makes the BGR,
+        components replicated (no fancy upsampling in lossless mode). As
+        cv2 reads them: RGB in colour only (:func:`decode_colour`), CMYK in
+        both modes, grey in grey only, which no entry here takes; YCbCr and
+        YCCK in neither;
       - PNG reads of every colour type at every bit depth, Adam7 included
         (:func:`png_rows`: the chunks are parsed and inflated here with
         ``zlib``, the rows unfiltered and de-interlaced on the host,
@@ -72,7 +86,8 @@ the codec:
         (``fdct_islow_quant_kernel``), Huffman-coded on the host
         (``csrc/jpeg_encode.h``).
     A kernel that fails to build or launch raises, and so does a file the card
-    cannot read, naming why (12-bit, arithmetic-coded and lossless JPEGs;
+    cannot read, naming why (12-bit, arithmetic-coded lossless and
+    hierarchical JPEGs, and the lossless reads cv2 refuses;
     old-style JPEG, CIELab, float and old-style LZW TIFFs; PAM, PFM, GIF
     and other formats; and what cv2 does not read either, such as a WebP
     whose first frame runs past its canvas or whose prefix codes libwebp
@@ -91,15 +106,19 @@ Each kernel has a plain PyTorch version beside it, for the tests
 :func:`fdct_islow_plain`, :func:`raster_to_bgr_plain`,
 :func:`vp8_reconstruct_plain`, :func:`vp8_loop_filter_plain`,
 :func:`webp_yuv_to_bgr_plain`, :func:`vp8l_predictor_plain`,
-:func:`vp8l_colour_plain`, :func:`webp_argb_to_bgr_plain`). ``COUNTS`` counts
+:func:`vp8l_colour_plain`, :func:`webp_argb_to_bgr_plain`,
+:func:`ljpeg_undiff_plain`). ``COUNTS`` counts
 launches of the colour kernels (form ``"rgb"`` for RGB components,
 ``"cmyk"`` and ``"ycck"`` for ``cmyk_to_bgr_kernel``) and their plain calls
 (the four-component ones by form in ``plain_forms``), ``IDCT_COUNTS``,
 ``YCC_COUNTS``, ``FDCT_COUNTS``, ``RASTER_COUNTS``, ``VP8_RECON_COUNTS``,
 ``VP8_FILTER_COUNTS``, ``WEBP_COLOUR_COUNTS``, ``VP8L_PREDICTOR_COUNTS``,
-``VP8L_COLOUR_COUNTS`` (by run, ``forms``) and ``WEBP_ARGB_COUNTS`` those
-of the IDCT, encoder colour, forward DCT, raster and WebP kernels;
-``CODEC_COUNTS`` counts host decodes (``forms["decode"]``), PNG, TIFF, BMP,
+``VP8L_COLOUR_COUNTS`` (by run, ``forms``), ``WEBP_ARGB_COUNTS`` and
+``LJPEG_COUNTS`` (forms ``"scan"``, a launch a pass, and ``"wavefront"``)
+those of the IDCT, encoder colour, forward DCT, raster, WebP and lossless
+JPEG kernels; ``CODEC_COUNTS`` counts host decodes (``forms["decode"]``;
+``"jpeg_arith"`` too for an arithmetic-coded JPEG, ``"jpeg_lossless"``
+for a lossless one's read), PNG, TIFF, BMP,
 PNM and WebP reads (``forms["png"]``, ``forms["tiff"]``,
 ``forms["tiff_jpeg"]`` for a JPEG-compressed TIFF, ``forms["bmp"]``,
 ``forms["pnm"]``, ``forms["webp"]`` for a lossy still file,
@@ -137,6 +156,7 @@ YCC_COUNTS = nvcc.LaunchCounts()
 FDCT_COUNTS = nvcc.LaunchCounts()
 CODEC_COUNTS = nvcc.LaunchCounts()
 RASTER_COUNTS = nvcc.LaunchCounts()
+LJPEG_COUNTS = nvcc.LaunchCounts()
 # what the host codes of csrc/ name (a JPEG's, PNG's, TIFF's or WebP's
 # cause of refusal)
 _CODE_ERRORS = {
@@ -144,13 +164,30 @@ _CODE_ERRORS = {
     2002: "a JPEG of an unsupported layout (2 or more than 4 components, "
           "or more than 2^28 pixels)",
     2003: "a malformed JPEG",
-    2006: "a JPEG of 12-bit (not 8-bit) samples",
-    2007: "an arithmetic-coded JPEG",
-    2008: "a lossless or hierarchical JPEG",
+    2006: "a JPEG of another sample precision than cv2 reads (12-bit DCT "
+          "samples, or a lossless JPEG of more than 8 bits or of 1)",
+    2007: "an arithmetic-coded lossless JPEG (SOF11), which libjpeg-turbo "
+          "refuses too",
+    2008: "a hierarchical JPEG (DHP, SOF5-7, SOF13-15), which libjpeg "
+          "refuses too",
     2010: "coefficients that do not fit the image's size",
     2011: "a JPEG of a sampling layout libjpeg refuses too (a factor "
           "outside 1-4, a factor that does not divide the largest of its "
           "axis, or more than 10 blocks in an interleaved MCU)",
+    2012: "a lossless JPEG whose scan libjpeg refuses too (a predictor Ss "
+          "outside 1-7, Se or Ah not 0, or a point transform not below the "
+          "precision)",
+    2013: "a lossless JPEG whose restart interval is not whole MCU rows, "
+          "which libjpeg-turbo refuses too",
+    2014: "a lossless JPEG of YCbCr or YCCK components (a JFIF marker, or "
+          "an Adobe transform other than 0), which cv2 reads in neither "
+          "mode: libjpeg-turbo converts no colour in lossless mode",
+    2015: "a lossless JPEG of one component, which cv2 reads in grey only: "
+          "IMREAD_COLOR fails, as libjpeg-turbo makes no BGR of grey in "
+          "lossless mode",
+    2016: "a lossless RGB JPEG, which cv2 reads in colour only: "
+          "IMREAD_GRAYSCALE fails, as libjpeg-turbo makes no grey of RGB "
+          "in lossless mode",
     3001: "a PNG whose image data is shorter than its header implies",
     3002: "a PNG with a row filter type above 4",
     4001: "a truncated TIFF",
@@ -294,6 +331,9 @@ def _library():
     lib.jpeg_host_upload.argtypes = [vp, i, vp, vp, vp]
     lib.jpeg_host_free.argtypes = [vp]
     lib.jpeg_host_free.restype = None
+    lib.jpeg_host_lossless.argtypes = [vp, i, vp, vp]
+    lib.ljpeg_scan_launch.argtypes = [vp, vp, vp, vp, vp, i, i, i, vp, i, vp]
+    lib.ljpeg_wavefront_launch.argtypes = [vp, vp, vp, vp, i, i, vp, vp]
     lib.idct_islow_launch.argtypes = [vp, vp, i, i, i, vp, i, i, vp]
     lib.ycc_to_bgr_launch.argtypes = [vp, vp, i, i, vp, i, i, vp, vp, vp]
     lib.cmyk_to_bgr_launch.argtypes = [vp, vp, i, i, i, vp, vp, vp]
@@ -313,7 +353,9 @@ def _library():
                "fdct_islow_launch", "raster_to_bgr_launch",
                "vp8_reconstruct_launch", "vp8_loop_filter_launch",
                "webp_yuv_to_bgr_launch", "vp8l_predictor_launch",
-               "vp8l_colour_launch", "webp_argb_to_bgr_launch"):
+               "vp8l_colour_launch", "webp_argb_to_bgr_launch",
+               "jpeg_host_lossless", "ljpeg_scan_launch",
+               "ljpeg_wavefront_launch"):
         getattr(lib, fn).restype = i
     return lib
 
@@ -352,10 +394,12 @@ def _fancy(w: int, rh: int, rv: int) -> bool:
     return (rh, rv) == (1, 2) or ((rh, rv) in ((2, 1), (2, 2)) and w > 2)
 
 
-def _upsample(p: Tensor, H: int, W: int, rh: int, rv: int) -> Tensor:
+def _upsample(p: Tensor, H: int, W: int, rh: int, rv: int,
+              fancy: bool = True) -> Tensor:
     """libjpeg-turbo's upsampling (jdsample.c) of a component's plane to
     (H, W), int64, at ratios ``rh``, ``rv``: as it is at 1 x 1, fancy
-    (:func:`_fancy`) or each sample replicated ``rh`` x ``rv`` times."""
+    (:func:`_fancy`; never without ``fancy``, a lossless JPEG's) or each
+    sample replicated ``rh`` x ``rv`` times."""
     Hc, Wc = p.shape
     dev = p.device
     r = torch.arange(H, device=dev)[:, None]
@@ -363,7 +407,7 @@ def _upsample(p: Tensor, H: int, W: int, rh: int, rv: int) -> Tensor:
     p = p.to(torch.int64)
     if rh == 1 and rv == 1:
         return p[:H, :W]
-    if not _fancy(Wc, rh, rv):
+    if not (fancy and _fancy(Wc, rh, rv)):
         return p[r // rv, c // rh]
     odd_r, odd_c = (r & 1) == 1, (c & 1) == 1
     i, j = r // rv, c // rh
@@ -510,7 +554,8 @@ def _upsample_chunked(p: Tensor, spots, w: int, stride: int, rh: int,
 
 
 def colour_plain(planes, factors, size, space: int,
-                 chunks: Chunks = None) -> Tuple[Tensor, Tensor]:
+                 chunks: Chunks = None,
+                 fancy: bool = True) -> Tuple[Tensor, Tensor]:
     """The plain version of the colour kernels: (grey (H, W), BGR (H, W, 3))
     uint8, cv2.imread's, from a JPEG's component planes (uint8, each at its
     sampled size), their ratios ``factors`` ((hmax / h, vmax / v) each) and
@@ -519,13 +564,16 @@ def colour_plain(planes, factors, size, space: int,
     :func:`cmyk_to_bgr_plain`. With ``chunks`` (a JPEG-compressed TIFF's
     strips or tiles, their planes laid out as :func:`tiff_jpeg_planes`
     gives them) each chunk is upsampled on its own and the grey is OpenCV's
-    of the BGR (form ``"chunks"``, ``"chunks_rgb"``)."""
+    of the BGR (form ``"chunks"``, ``"chunks_rgb"``). Without ``fancy`` (a
+    lossless JPEG's planes) every component is upsampled by
+    replication."""
     if space in (SPACE_CMYK, SPACE_YCCK):
-        return cmyk_to_bgr_plain(planes, factors, space == SPACE_YCCK, size)
+        return cmyk_to_bgr_plain(planes, factors, space == SPACE_YCCK, size,
+                                 fancy)
     H, W = size
     if chunks is None:
         _check_planes(planes, factors, size)
-        up = [_upsample(p, H, W, *f) for p, f in zip(planes, factors)]
+        up = [_upsample(p, H, W, *f, fancy) for p, f in zip(planes, factors)]
     else:
         geo = _chunk_planes(planes, factors, size, chunks)
         spots = _spots(chunks, H, W, planes[0].device)
@@ -550,8 +598,8 @@ def colour_plain(planes, factors, size, space: int,
     return grey.to(torch.uint8), bgr.to(torch.uint8)
 
 
-def cmyk_to_bgr_plain(planes, factors, ycck: bool,
-                      size=None) -> Tuple[Tensor, Tensor]:
+def cmyk_to_bgr_plain(planes, factors, ycck: bool, size=None,
+                      fancy: bool = True) -> Tuple[Tensor, Tensor]:
     """The plain version of ``cmyk_to_bgr_kernel``: (grey (H, W), BGR
     (H, W, 3)) uint8, cv2.imread's, from the four planes of a CMYK or (with
     ``ycck``) YCCK JPEG at their sampled sizes and ratios ``factors``, each
@@ -568,7 +616,8 @@ def cmyk_to_bgr_plain(planes, factors, ycck: bool,
     COUNTS.plain_forms["ycck" if ycck else "cmyk"] = \
         COUNTS.plain_forms.get("ycck" if ycck else "cmyk", 0) + 1
     H, W = size
-    c, m, y, k = [_upsample(p, H, W, *f) for p, f in zip(planes, factors)]
+    c, m, y, k = [_upsample(p, H, W, *f, fancy)
+                  for p, f in zip(planes, factors)]
     if ycck:
         c, m, y = ycck_to_cmy_plain(c, m, y)
     grey, b, g, r = cmyk_bgr_plain(c, m, y, k)
@@ -680,15 +729,20 @@ class Layout(NamedTuple):
         return self.space == SPACE_RGB
 
 
+JPEG_INFO_LEN = 50  # jpeg_host_decode's info
+INFO_LOSSLESS, INFO_PRECISION, INFO_ARITHMETIC = 39, 40, 41
+
+
 def host_decode(data: bytes):
     """Parse and entropy-decode a JPEG on the host (``jpeg_host_decode``):
-    the decoder's handle, which holds the coefficients until
-    :func:`upload_coefficients` frees it, and its ``info`` (39 ints,
-    csrc/jpeg_codec.cu says which)."""
+    the decoder's handle, which holds the coefficients (a lossless JPEG's
+    sample differences) until :func:`upload_coefficients`
+    (:func:`lossless_image`) frees it, and its ``info``
+    (``JPEG_INFO_LEN`` ints, csrc/jpeg_codec.cu says which)."""
     if image_format(data) != "JPEG":
         raise ValueError(f"not a JPEG ({image_format(data)})")
     handle = ctypes.c_void_p()
-    info = (ctypes.c_int * 39)()
+    info = (ctypes.c_int * JPEG_INFO_LEN)()
     _check(_library().jpeg_host_decode(data, len(data), ctypes.byref(handle),
                                        info), "JPEG decode")
     return handle, info
@@ -701,6 +755,10 @@ def upload_coefficients(handle, info, device):
     (height, width) and its :class:`Layout`."""
     dev = _cuda_device(device)
     lib = _library()
+    if info[INFO_LOSSLESS]:
+        lib.jpeg_host_free(handle)
+        raise ValueError("a lossless JPEG holds sample differences, not "
+                         "coefficients: lossless_image reads them")
     try:
         comps, factors = [], []
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -720,11 +778,18 @@ def upload_coefficients(handle, info, device):
                                              tuple(factors))
 
 
-def decode_coefficients(data: bytes, device):
-    """Entropy-decode a JPEG on the host and copy its coefficients to a
-    CUDA ``device``: :func:`upload_coefficients` of :func:`host_decode`."""
-    out = upload_coefficients(*host_decode(data), device)
+def decode_coefficients(data: bytes, device, decoded=None):
+    """Entropy-decode a JPEG on the host (or take ``decoded``, a
+    :func:`host_decode`'s handle and info) and copy its coefficients to a
+    CUDA ``device``: :func:`upload_coefficients` of :func:`host_decode`.
+    An arithmetic-coded file counts in ``CODEC_COUNTS`` as
+    ``"jpeg_arith"`` too."""
+    handle, info = decoded or host_decode(data)
+    arithmetic = info[INFO_ARITHMETIC]
+    out = upload_coefficients(handle, info, device)
     CODEC_COUNTS.launched("decode")
+    if arithmetic:
+        CODEC_COUNTS.launched("jpeg_arith")
     return out
 
 
@@ -734,28 +799,30 @@ def _planes(comps):
     return [idct_islow_kernel(*c) for c in comps]
 
 
-def decode_planes(data: bytes, device):
+def decode_planes(data: bytes, device, decoded=None):
     """A JPEG's component planes on a CUDA ``device`` (uint8, each at its
     sampled size, from the IDCT kernel), the image's (height, width) and its
     :class:`Layout`: what :func:`colour_kernel` takes."""
-    comps, size, layout = decode_coefficients(data, device)
+    comps, size, layout = decode_coefficients(data, device, decoded)
     return _planes(comps), size, layout
 
 
-def plane_ints(planes, factors, geo=None):
+def plane_ints(planes, factors, geo=None, fancy: bool = True):
     """n x 6 ints of jpeg_colour::Plane (w, rh, rv, fancy, pitch, stride);
     ``geo``: each plane's (h, w, stride) a chunk (:func:`_chunk_planes`),
-    else the plane is the image's."""
+    else the plane is the image's; without ``fancy`` no plane is fancy
+    upsampled (a lossless JPEG's)."""
     geo = geo or [(p.shape[0], p.shape[1], p.shape[0]) for p in planes]
     return (ctypes.c_int * 24)(*[
         v for p, (rh, rv), (_, w, stride) in zip(planes, factors, geo)
-        for v in (w, rh, rv, int(_fancy(w, rh, rv)), p.shape[1], stride)])
+        for v in (w, rh, rv, int(fancy and _fancy(w, rh, rv)), p.shape[1],
+                  stride)])
 
 
-def _plane_args(planes, factors, geo=None):
+def _plane_args(planes, factors, geo=None, fancy: bool = True):
     """The launches' plane pointers and :func:`plane_ints`."""
     ptrs = (ctypes.c_void_p * 4)(*[p.data_ptr() for p in planes])
-    return ptrs, plane_ints(planes, factors, geo)
+    return ptrs, plane_ints(planes, factors, geo, fancy)
 
 
 # ycc_to_bgr_kernel's form bits (jpeg_colour::YccForm)
@@ -763,16 +830,20 @@ FORM_RGB, FORM_OPENCV_GREY = 1, 2
 
 
 def colour_kernel(planes, factors, size, space: int,
-                  chunks: Chunks = None) -> Tuple[Tensor, Tensor]:
+                  chunks: Chunks = None,
+                  fancy: bool = True) -> Tuple[Tensor, Tensor]:
     """Launch the colour kernel of ``space`` on a JPEG's CUDA planes:
     (grey, BGR), as :func:`colour_plain`. One or three components launch
     ``ycc_to_bgr_kernel`` (form ``"rgb"`` for RGB components), four
     ``cmyk_to_bgr_kernel`` (:func:`cmyk_to_bgr_kernel`). The grey of a
     YCbCr or grey JPEG whose first plane is at full size is that plane.
     With ``chunks`` (a JPEG-compressed TIFF) the kernel's chunked form
-    (``"chunks"``, ``"chunks_rgb"``) writes both images in one launch."""
+    (``"chunks"``, ``"chunks_rgb"``) writes both images in one launch.
+    Without ``fancy`` (a lossless JPEG's planes) every component is
+    upsampled by replication."""
     if space in (SPACE_CMYK, SPACE_YCCK):
-        return cmyk_to_bgr_kernel(planes, factors, space == SPACE_YCCK, size)
+        return cmyk_to_bgr_kernel(planes, factors, space == SPACE_YCCK, size,
+                                  fancy)
     if any(p.device.type != "cuda" for p in planes):
         raise ValueError("the colour kernel takes CUDA planes")
     geo = None
@@ -787,7 +858,7 @@ def colour_kernel(planes, factors, size, space: int,
     rgb = space == SPACE_RGB and len(planes) == 3
     gray = None if factors[0] == (1, 1) and not rgb and chunks is None \
         else torch.empty((H, W), dtype=torch.uint8, device=dev)
-    ptrs, ints = _plane_args(planes, factors, geo)
+    ptrs, ints = _plane_args(planes, factors, geo, fancy)
     form = (FORM_RGB if rgb else 0) | (0 if chunks is None
                                        else FORM_OPENCV_GREY)
     err = _library().ycc_to_bgr_launch(
@@ -801,8 +872,8 @@ def colour_kernel(planes, factors, size, space: int,
     return (planes[0] if gray is None else gray), bgr
 
 
-def cmyk_to_bgr_kernel(planes, factors, ycck: bool,
-                       size=None) -> Tuple[Tensor, Tensor]:
+def cmyk_to_bgr_kernel(planes, factors, ycck: bool, size=None,
+                       fancy: bool = True) -> Tuple[Tensor, Tensor]:
     """Launch ``cmyk_to_bgr_kernel`` on the four CUDA planes of a CMYK or
     (with ``ycck``) YCCK JPEG: (grey, BGR), both from the one launch, as
     :func:`cmyk_to_bgr_plain` (form ``"cmyk"`` or ``"ycck"``)."""
@@ -820,7 +891,7 @@ def cmyk_to_bgr_kernel(planes, factors, ycck: bool,
     dev = planes[0].device
     bgr = torch.empty((H, W, 3), dtype=torch.uint8, device=dev)
     gray = torch.empty((H, W), dtype=torch.uint8, device=dev)
-    ptrs, geo = _plane_args(planes, factors)
+    ptrs, geo = _plane_args(planes, factors, None, fancy)
     err = _library().cmyk_to_bgr_launch(ptrs, geo, int(ycck), H, W,
                                         bgr.data_ptr(), gray.data_ptr(),
                                         _stream(planes[0]))
@@ -853,10 +924,209 @@ def orient(img: Tensor, orientation: int) -> Tensor:
     return (torch.flip(img, flip) if flip else img).contiguous()
 
 
-def _decode_jpeg(data: bytes, dev) -> Tuple[Tensor, Tensor]:
-    planes, size, layout = decode_planes(data, dev)
-    gray, bgr = colour_kernel(planes, layout.factors, size, layout.space)
-    return orient(gray, layout.orientation), orient(bgr, layout.orientation)
+def _decode_jpeg(data: bytes, dev, grey: bool = True
+                 ) -> Tuple[Tensor, Tensor]:
+    """A JPEG's (grey, BGR) on the card; ``grey`` False where the caller
+    takes the BGR only (cv2's IMREAD_COLOR), which decides what a lossless
+    JPEG's refusal is. What stays refused raises before any copy."""
+    decoded = host_decode(data)
+    if decoded[1][INFO_LOSSLESS]:
+        try:
+            lossless_check_modes(decoded[1][0], grey)
+        except ValueError:
+            _library().jpeg_host_free(decoded[0])
+            raise
+        img = lossless_image(*decoded)
+        gray, bgr = colour_kernel(ljpeg_planes(img, dev), img.factors,
+                                  img.size, img.space, fancy=False)
+        CODEC_COUNTS.launched("jpeg_lossless")
+        orientation = img.orientation
+    else:
+        planes, size, layout = decode_planes(data, dev, decoded)
+        gray, bgr = colour_kernel(planes, layout.factors, size, layout.space)
+        orientation = layout.orientation
+    return orient(gray, orientation), orient(bgr, orientation)
+
+
+# ----------------------------- lossless JPEG -----------------------------
+
+class LosslessImage(NamedTuple):
+    """A lossless JPEG entropy-decoded on the host (``csrc/jpeg_lossless.h``):
+    per component its sample differences (plane height, width) int16, its
+    first-row marks (height,) uint8 (the scan's first row and the first
+    after each restart), its predictor (1-7) and point transform; the
+    precision, the image's (height, width), each component's ratios (hmax /
+    h, vmax / v), libjpeg's colour space (``SPACE_*``, lossless-mode
+    guess) and the EXIF orientation."""
+    diffs: list
+    firsts: list
+    predictors: list
+    pts: list
+    precision: int
+    size: Tuple[int, int]
+    factors: tuple
+    space: int
+    orientation: int
+
+
+def lossless_image(handle, info, lib=None) -> LosslessImage:
+    """Copy a lossless :func:`host_decode`'s differences out of its handle
+    (``lib``'s ``jpeg_host_lossless``: the card's library, or a host build)
+    and free it."""
+    lib = lib or _library()
+    try:
+        n = info[0]
+        diffs, firsts, factors = [], [], []
+        for c in range(n):
+            pw, ph, _, _, _, _, h, v = info[7 + 8 * c:15 + 8 * c]
+            diff = np.empty((ph, pw), np.int16)
+            first = np.empty(ph, np.uint8)
+            _check(lib.jpeg_host_lossless(handle, c, diff.ctypes.data,
+                                          first.ctypes.data), "JPEG decode")
+            diffs.append(diff)
+            firsts.append(first)
+            factors.append((info[5] // h, info[6] // v))
+    finally:
+        lib.jpeg_host_free(handle)
+    return LosslessImage(diffs, firsts, [info[42 + 2 * c] for c in range(n)],
+                         [info[43 + 2 * c] for c in range(n)],
+                         info[INFO_PRECISION], (info[2], info[1]),
+                         tuple(factors), info[4], info[3])
+
+
+def lossless_check_modes(n: int, grey: bool = True) -> None:
+    """Raise, naming the mode, where cv2 refuses a lossless JPEG of ``n``
+    components in a mode the caller reads (its BGR, and with ``grey`` its
+    grey too): one component reads in grey only, RGB in colour only, CMYK
+    in both (libjpeg-turbo converts no colour in lossless mode; the host
+    decode has refused YCbCr and YCCK)."""
+    if n == 1:
+        _check(2015, "JPEG decode")
+    if n == 3 and grey:
+        _check(2016, "JPEG decode")
+
+
+def ljpeg_bands(firsts) -> np.ndarray:
+    """The scan kernel's bands of each plane: its first rows, then its
+    height, padded with it to the most bands of any plane; (planes, most
+    bands + 1) int32."""
+    if not all(len(f) and f[0] for f in firsts):
+        raise ValueError("a plane's row 0 predicts as a first row")
+    starts = [np.append(np.flatnonzero(f), len(f)) for f in firsts]
+    most = max(len(b) for b in starts)
+    return np.stack([np.pad(b, (0, most - len(b)), constant_values=b[-1])
+                     for b in starts]).astype(np.int32)
+
+
+def ljpeg_undiff_plain(diff: Tensor, first: Tensor, predictor: int,
+                       precision: int, pt: int) -> Tensor:
+    """The plain version of the lossless kernels: the (h, w) uint8 samples
+    of a component from its int16 differences, its first-row marks (h,),
+    its predictor (1-7), the precision and its point transform, by
+    jdlossls.c's rule for each sample (csrc/jpeg_lossless_pred.h says
+    which). A sample needs its left, upper and upper-left neighbours, so
+    the plane is rebuilt one anti-diagonal r + c = t at a time, in order,
+    each diagonal's samples at once."""
+    LJPEG_COUNTS.plain += 1
+    H, W = diff.shape
+    dev = diff.device
+    d = diff.to(torch.int64)
+    fr = first.to(torch.bool)
+    x = torch.zeros((H, W), dtype=torch.int64, device=dev)
+    init = 1 << (precision - pt - 1)
+    for t in range(H + W - 1):
+        rs = torch.arange(max(0, t - W + 1), min(H - 1, t) + 1, device=dev)
+        cs = t - rs
+        up, left = (rs - 1).clamp(min=0), (cs - 1).clamp(min=0)
+        ra, rb, rc = x[rs, left], x[up, cs], x[up, left]
+        pred = {1: ra, 2: rb, 3: rc, 4: ra + rb - rc,
+                5: ra + ((rb - rc) >> 1), 6: rb + ((ra - rc) >> 1),
+                7: (ra + rb) >> 1}[predictor]
+        pred = torch.where(cs == 0, rb, pred)
+        pred = torch.where(fr[rs], torch.where(cs == 0, init, ra), pred)
+        x[rs, cs] = (d[rs, cs] + pred) & 0xFFFF
+    return ((x << pt) & 0xFF).to(torch.uint8)
+
+
+def ljpeg_undiff_kernel(diffs, firsts, bands: Optional[Tensor],
+                        predictor: int, precision: int, pts) -> list:
+    """Launch the lossless kernels on components of one predictor: their
+    (h, w) uint8 samples from their CUDA int16 differences and uint8
+    first-row marks, each as :func:`ljpeg_undiff_plain`. Predictors 1-4:
+    ``ljpeg_scan_kernel``'s two launches (form ``"scan"``, counted once a
+    launch), which take ``bands`` (:func:`ljpeg_bands` on the card);
+    5-7: one launch of ``ljpeg_wavefront_kernel`` (form ``"wavefront"``)."""
+    n = len(diffs)
+    if not 1 <= n <= 4 or len(firsts) != n or len(pts) != n:
+        raise ValueError(f"{n} planes with {len(firsts)} marks, {len(pts)} "
+                         f"point transforms")
+    if not 1 <= predictor <= 7:
+        raise ValueError(f"predictor {predictor} is not 1-7")
+    for d, f in zip(diffs, firsts):
+        if d.device.type != "cuda" or d.dtype != torch.int16 or d.ndim != 2 \
+                or not d.is_contiguous() or f.device != d.device or \
+                f.dtype != torch.uint8 or tuple(f.shape) != d.shape[:1]:
+            raise ValueError(f"the lossless kernels take contiguous int16 "
+                             f"CUDA differences (h, w) and uint8 marks (h,), "
+                             f"got {d.dtype} {tuple(d.shape)} on {d.device}, "
+                             f"{f.dtype} {tuple(f.shape)}")
+    outs = [torch.empty(d.shape, dtype=torch.uint8, device=d.device)
+            for d in diffs]
+    vp = ctypes.c_void_p
+    geo = (ctypes.c_int * (4 * n))(*[
+        v for d, pt in zip(diffs, pts)
+        for v in (d.shape[1], d.shape[0], pt, 1 << (precision - pt - 1))])
+    ptrs = lambda ts: (vp * n)(*[t.data_ptr() for t in ts])
+    lib, stream = _library(), _stream(diffs[0])
+    if predictor <= 4:
+        if bands is None or bands.dtype != torch.int32 or \
+                bands.ndim != 2 or bands.shape[0] != n or \
+                bands.shape[1] < 2 or not bands.is_contiguous() or \
+                bands.device != diffs[0].device:
+            raise ValueError("the scan form takes each plane's bands, int32 "
+                             "on the card (ljpeg_bands)")
+        scratch = [torch.empty_like(d) for d in diffs]
+        for pass_ in (0, 1):
+            _check(lib.ljpeg_scan_launch(
+                ptrs(diffs), ptrs(scratch), ptrs(outs), ptrs(firsts), geo, n,
+                predictor, pass_, bands.data_ptr(), bands.shape[1] - 1,
+                stream), "ljpeg_scan_kernel launch")
+            LJPEG_COUNTS.launched("scan")
+    else:
+        sync = torch.zeros(1 + sum(d.shape[1] for d in diffs),
+                           dtype=torch.int64, device=diffs[0].device)
+        _check(lib.ljpeg_wavefront_launch(
+            ptrs(diffs), ptrs(outs), ptrs(firsts), geo, n, predictor,
+            sync.data_ptr(), stream), "ljpeg_wavefront_kernel launch")
+        LJPEG_COUNTS.launched("wavefront")
+    return outs
+
+
+def ljpeg_upload(img: LosslessImage, dev):
+    """A lossless image's differences, first-row marks and bands
+    (:func:`ljpeg_bands`) copied to the card."""
+    diffs = [torch.from_numpy(d).to(dev) for d in img.diffs]
+    firsts = [torch.from_numpy(f).to(dev) for f in img.firsts]
+    return diffs, firsts, torch.from_numpy(ljpeg_bands(img.firsts)).to(dev)
+
+
+def ljpeg_planes(img: LosslessImage, device) -> list:
+    """A lossless image's component planes on a CUDA ``device`` (uint8,
+    each at its sampled size): its differences copied there and
+    undifferenced by the kernels, a launch (or the scan form's two) for
+    each predictor its scans use."""
+    diffs, firsts, bands = ljpeg_upload(img, _cuda_device(device))
+    planes = [None] * len(diffs)
+    for p in sorted(set(img.predictors)):
+        at = [c for c, q in enumerate(img.predictors) if q == p]
+        outs = ljpeg_undiff_kernel([diffs[c] for c in at],
+                                   [firsts[c] for c in at],
+                                   bands if len(at) == len(diffs)
+                                   else bands[at], p,
+                                   img.precision, [img.pts[c] for c in at])
+        for c, o in zip(at, outs):
+            planes[c] = o
+    return planes
 
 
 class TiffJpeg(NamedTuple):
@@ -2734,11 +3004,13 @@ def _decode_webp(data: bytes, device) -> Tuple[Tensor, Tensor]:
 def decode(data: bytes, device) -> Tuple[Tensor, Tensor]:
     """(grey (H, W), BGR (H, W, 3)) uint8 tensors on ``device`` from a
     file's bytes: what ``cv2.imread`` gives with ``IMREAD_GRAYSCALE`` and
-    ``IMREAD_COLOR``. On a CUDA device: JPEG; PNG; TIFF (uncompressed, LZW,
-    Deflate, PackBits and JPEG-compressed; grey, RGB, palette, CMYK and
-    YCbCr; signed samples as their bits); WebP (lossy, lossless, and the
-    first frame of an animated file on its canvas); BMP; and PBM, PGM and
-    PPM (P1 to P6)."""
+    ``IMREAD_COLOR``. On a CUDA device: JPEG (Huffman or arithmetic-coded,
+    sequential or progressive; lossless CMYK, the only lossless layout cv2
+    reads in both modes: grey and RGB lossless files raise, naming the mode
+    cv2 refuses); PNG; TIFF (uncompressed, LZW, Deflate, PackBits and
+    JPEG-compressed; grey, RGB, palette, CMYK and YCbCr; signed samples as
+    their bits); WebP (lossy, lossless, and the first frame of an animated
+    file on its canvas); BMP; and PBM, PGM and PPM (P1 to P6)."""
     dev = torch.device(device)
     if dev.type == "cpu":
         import cv2
@@ -2766,8 +3038,12 @@ def decode(data: bytes, device) -> Tuple[Tensor, Tensor]:
 def decode_colour(data: bytes, device) -> Tensor:
     """BGR (H, W, 3) uint8 on ``device`` from a file's bytes: what
     ``cv2.imread`` gives with ``IMREAD_COLOR``. On a CUDA device, the
-    formats :func:`decode` reads."""
+    formats :func:`decode` reads, and lossless RGB JPEGs (three components
+    without a JFIF marker or an Adobe transform other than 0), which cv2
+    reads in colour only."""
     dev = torch.device(device)
+    if dev.type == "cuda" and image_format(data) == "JPEG":
+        return _decode_jpeg(data, dev, grey=False)[1]
     if dev.type == "cuda" and image_format(data) in _RASTER_FORMATS:
         return _decode_raster(data, dev)[1]
     if dev.type == "cuda" and image_format(data) == "WebP":

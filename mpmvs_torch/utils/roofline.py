@@ -263,3 +263,12 @@ def webp_argb_bound(h: int, w: int, cw: int, ch: int):
     """One launch of ``webp_argb_to_bgr_kernel``: the (h, w) ARGB frame
     read, the (ch, cw) canvas's BGR and grey written."""
     return bound(0, 4 * h * w + 4 * cw * ch)
+
+
+def ljpeg_bound(planes):
+    """One undifferencing of a lossless JPEG's planes ((h, w) each), by
+    either form (``ljpeg_scan_kernel``, ``ljpeg_wavefront_kernel``): each
+    plane's int16 differences read once and its uint8 samples written, 3
+    bytes a sample. Bytes alone (integer work, mod 2^16)."""
+    return bound(0, 3 * sum(h * w for h, w in planes))
+

@@ -16,7 +16,11 @@ where the colour kernels' arithmetic (``csrc/jpeg_colour.h``, built for the
 host) differs from the plain version, on each file below 10^6 pixels and on
 the sweeps of :func:`sweep_mismatches`. A JPEG under ``refused/`` with
 arrays in ``cv2_arrays.npz`` must decode to them; the others must be
-refused (a non-zero code, printed). It needs g++ and OpenCV.
+refused (a non-zero code, printed: 12-bit samples, an arithmetic-coded
+lossless file, a hierarchical one, a lossless scan libjpeg refuses and two
+sampling layouts). The build decodes arithmetic-coded files too
+(``jpeg_arith.h``; ``check_host_lossless.py`` reads the fixtures under
+``arith/`` and ``lossless/``). It needs g++ and OpenCV.
 """
 
 import ctypes
@@ -47,6 +51,7 @@ extern "C" int planes(const uint8_t* data, size_t len, int* info,
                       uint8_t** out) {
   Decoder* d = new Decoder();
   int err = decode(d, data, len, false);
+  if (!err && d->lossless) err = -1;  // differences: check_host_lossless.py
   if (err) { delete d; return err; }
   info[0] = d->ncomp;
   info[1] = d->orientation;
@@ -72,6 +77,34 @@ extern "C" int planes(const uint8_t* data, size_t len, int* info,
             cols < 8 ? cols : 8);
       }
   }
+  delete d;
+  return 0;
+}
+// The quantized coefficients a decode leaves: info as planes()'s, then per
+// component its blocks down and across (padded to whole MCUs), its id and
+// its quantization table's index; coef[i] (blocks x 64 int16, natural
+// order) and qt (4 x 64) receive them where not NULL.
+extern "C" int coefficients(const uint8_t* data, size_t len, int* info,
+                            int16_t** coef, uint16_t* qt) {
+  Decoder* d = new Decoder();
+  int err = decode(d, data, len, false);
+  if (err) { delete d; return err; }
+  info[0] = d->ncomp;
+  info[1] = d->width;
+  info[2] = d->height;
+  for (int i = 0; i < d->ncomp; i++) {
+    Component& c = d->comp[i];
+    int* ci = info + 3 + 6 * i;
+    ci[0] = c.blocks_h;
+    ci[1] = c.blocks_w;
+    ci[2] = c.h;
+    ci[3] = c.v;
+    ci[4] = c.id;
+    ci[5] = c.tq;
+    if (coef && coef[i])
+      memcpy(coef[i], c.coef.data(), c.coef.size() * sizeof(int16_t));
+  }
+  if (qt) memcpy(qt, d->qt, sizeof(d->qt));
   delete d;
   return 0;
 }
@@ -134,12 +167,34 @@ def build(tmp):
                     src], check=True)
     lib = ctypes.CDLL(lib)
     vp, i = ctypes.c_void_p, ctypes.c_int
+    lib.coefficients.argtypes = [ctypes.c_char_p, ctypes.c_size_t, vp, vp,
+                                 vp]
     lib.colour_pixels.argtypes = [vp, vp, i, i, vp, i, i, vp, vp]
     lib.cmyk_channels.argtypes = [vp, vp, i, vp]
     lib.ycck_cmys.argtypes = [vp, vp, vp, i, vp]
     for fn in ("colour_pixels", "cmyk_channels", "ycck_cmys"):
         getattr(lib, fn).restype = None
     return lib
+
+
+def coefficients(lib, data):
+    """A JPEG's quantized coefficients as the host decoder leaves them:
+    ([(blocks down, blocks across, 64) int16 in natural order a component,
+    padded to whole MCUs], [(h, v)], [id], [table index], (4, 64) uint16
+    tables, (H, W))."""
+    info = (ctypes.c_int * 27)()
+    code = lib.coefficients(data, len(data), info, None, None)
+    if code:
+        raise ValueError(f"the host decoder refuses it: code {code}")
+    n = info[0]
+    comp = [info[3 + 6 * i:9 + 6 * i] for i in range(n)]
+    coefs = [np.zeros((bh, bw, 64), np.int16) for bh, bw, *_ in comp]
+    qt = np.zeros((4, 64), np.uint16)
+    ptrs = (ctypes.c_void_p * 4)(*[c.ctypes.data for c in coefs])
+    assert lib.coefficients(data, len(data), info, ptrs, qt.ctypes.data) == 0
+    return (coefs, [(h, v) for _, _, h, v, _, _ in comp],
+            [i for *_, i, _ in comp], [t for *_, t in comp], qt,
+            (info[2], info[1]))
 
 
 def status(lib, data) -> int:

@@ -16,10 +16,14 @@ APP14 marker of transform 0, which libjpeg reads as RGB) and ``rgb_ids``
 These three were refused until the card's decoder learnt EXIF orientation and
 RGB components; they now decode, and ``refused/`` also holds what the card
 still refuses, each for a cause it names: ``twelve_bit`` (420_q95 with its
-SOF0 sample precision set to 12), ``arithmetic`` (its SOF0 marker made SOF9),
-``lossless`` (made SOF3), and two sampling layouts libjpeg refuses too
+SOF0 sample precision set to 12), ``lossless`` (made SOF3: a lossless scan
+of predictor 0, which libjpeg refuses), ``arithmetic_lossless`` (a true
+arithmetic-coded lossless stream, SOF11), ``hierarchical`` (DHP, SOF9, EXP
+and SOF13 frames) and two sampling layouts libjpeg refuses too
 (``fractional``: Y at 2x1 under a Cb at 3x1; ``mcu_blocks``: Y at 3x3, 11
-blocks in an interleaved MCU; written by ``jpeg_file.py``).
+blocks in an interleaved MCU; written by ``jpeg_file.py``). 420_q95 made
+SOF9, once ``refused/arithmetic``, reads as cv2 reads it and is
+``arith/patched_sof9``, written by ``make_arith_lossless.py``.
 
 ``layouts/`` holds 420_q95 with EXIF orientations 2..8 (odd_101x203_q95 for
 6, so that the rotation is not square), ``rgb_ids_420`` (420_q95 without
@@ -226,8 +230,11 @@ def sampled(factors, h: int, w: int, seed: int, **kw) -> bytes:
 
 
 def stays_refused(data_420: bytes) -> dict:
+    from jpeg_file import hierarchical_jpeg, sof11_constant
+
     return {"twelve_bit": with_sof(data_420, precision=12),
-            "arithmetic": with_sof(data_420, marker=0xC9),
+            "arithmetic_lossless": sof11_constant(16, 24),
+            "hierarchical": hierarchical_jpeg(16, 24),
             "lossless": with_sof(data_420, marker=0xC3),
             "fractional": sampled([(2, 1), (3, 1), (1, 1)], 21, 27, 60),
             "mcu_blocks": sampled([(3, 3), (1, 1), (1, 1)], 21, 27, 63,
@@ -587,12 +594,15 @@ def write_ycck_hashes() -> None:
     bgr = cv2.imread(path, cv2.IMREAD_COLOR)
     ok, ws = cv2.imencode(".jpg", bgr)
     assert ok
-    record = {"source_sha256": sha(data),
-              "gray_sha256": sha(cv2.imread(path,
-                                            cv2.IMREAD_GRAYSCALE).tobytes()),
-              "bgr_sha256": sha(bgr.tobytes()),
-              "workspace_sha256": sha(ws.tobytes())}
-    with open(os.path.join(HERE, "conversion", "cv2.json"), "w") as f:
+    out = os.path.join(HERE, "conversion", "cv2.json")
+    with open(out) as f:  # make_arith_lossless.py's entries stay
+        record = json.load(f)
+    record.update({"source_sha256": sha(data),
+                   "gray_sha256": sha(cv2.imread(
+                       path, cv2.IMREAD_GRAYSCALE).tobytes()),
+                   "bgr_sha256": sha(bgr.tobytes()),
+                   "workspace_sha256": sha(ws.tobytes())})
+    with open(out, "w") as f:
         json.dump(record, f, indent=1)
         f.write("\n")
 

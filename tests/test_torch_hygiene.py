@@ -59,7 +59,7 @@ SLICE_MODULES = [
     "mpmvs_torch.parallel.dryrun", "mpmvs_torch.native",
     "mpmvs_torch.tools.scaling_bench", "mpmvs_torch.bench",
     "mpmvs_torch.tools.prior_stages", "mpmvs_torch.ops.geom_cost_cuda",
-    "mpmvs_torch.tools.bench_spread",
+    "mpmvs_torch.tools.bench_spread", "mpmvs_torch.tools.jpeg_host_ab",
 ]
 
 

@@ -25,8 +25,10 @@ or PyYAML on the card, held against mpmvs_tpu on the CPU.
   grey and BGR arrays, and so it does for the YCbCr layouts beside them
   (EXIF orientation 1, Adobe transform 1 or 2, ids 'R', 'G', 'B' or an
   Adobe transform 0 under a JFIF marker); what stays refused (12-bit,
-  arithmetic, lossless, a sampling layout libjpeg refuses) is refused with
-  its code.
+  arithmetic-coded lossless, hierarchical, a lossless scan libjpeg refuses,
+  a sampling layout libjpeg refuses) is refused with its code (arithmetic
+  and lossless reads: tests/test_torch_jpeg_arith.py,
+  tests/test_torch_jpeg_lossless.py).
 * The colour kernels' arithmetic (``csrc/jpeg_colour.h``, built for the
   host) equals the plain version entry for entry on every JPEG fixture, on
   every (x, k) pair of OpenCV's CMYK -> BGR rule, every (Y, Cb, Cr) triple
@@ -111,9 +113,15 @@ LAYOUT_NAMES = sorted(f[:-4] for f in os.listdir(os.path.join(
 FORMERLY_REFUSED = {"exif_orientation6": "420_q95", "adobe_rgb": "444_q100",
                     "rgb_ids": "444_q100"}
 # what the card still refuses: the host decoder's code and the cause its
-# error names (the Adobe CMYK JPEG once here now reads: layouts/cmyk_pil)
-REFUSED = {"twelve_bit": (2006, "12-bit"), "arithmetic": (2007, "arithmetic"),
-           "lossless": (2008, "lossless"),
+# error names (the Adobe CMYK JPEG once here now reads: layouts/cmyk_pil;
+# so does the SOF9-marked Huffman stream once "arithmetic", now
+# arith/patched_sof9, tests/test_torch_jpeg_arith.py; a true arithmetic-
+# coded lossless file takes its place, and "lossless", an SOF3-marked DCT
+# stream, is refused for its scan: predictor 0)
+REFUSED = {"twelve_bit": (2006, "12-bit"),
+           "arithmetic_lossless": (2007, "arithmetic-coded lossless"),
+           "hierarchical": (2008, "hierarchical"),
+           "lossless": (2012, "lossless JPEG whose scan"),
            "fractional": (2011, "sampling layout"),
            "mcu_blocks": (2011, "sampling layout")}
 REFUSED_DIR_NAMES = sorted(f[:-4] for f in os.listdir(os.path.join(
@@ -608,7 +616,8 @@ def test_ycck_conversion_source_is_read_as_cv2_reads_it(host_decoder):
     sha = lambda b: hashlib.sha256(b).hexdigest()
     buf = np.frombuffer(data, np.uint8)
     bgr = cv2.imdecode(buf, cv2.IMREAD_COLOR)
-    assert want == {
+    assert {k: want[k] for k in ("source_sha256", "gray_sha256",
+                                 "bgr_sha256", "workspace_sha256")} == {
         "source_sha256": sha(data),
         "gray_sha256": sha(cv2.imdecode(buf, cv2.IMREAD_GRAYSCALE).tobytes()),
         "bgr_sha256": sha(bgr.tobytes()),
