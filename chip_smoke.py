@@ -23,9 +23,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    colour kernel against its plain version; the rest of ``refused/``
    (12-bit, arithmetic-coded lossless, hierarchical, a lossless scan and
    sampling layouts libjpeg refuses) must raise; the arithmetic-coded
-   JPEGs of ``arith/`` and the streams cut short of ``truncated/`` against
-   cv2's arrays, the IDCT and colour kernels against their plain versions
-   on each; the lossless JPEGs of ``lossless/`` in each mode cv2 reads
+   JPEGs of ``arith/`` and the streams cut short of ``truncated/`` (the
+   progressive ones, which libjpeg-turbo smooths, too) against cv2's
+   arrays, the smoothing kernel (where the file is smoothed), the IDCT and
+   colour kernels against their plain versions on each; the lossless JPEGs of ``lossless/`` in each mode cv2 reads
    (the other raising), each undifferencing form against its twin on the
    file's planes, ``lossless/refused/`` raising in both entries; the four-component JPEGs (CMYK, YCCK) and every sampling layout
    in ``layouts/`` against cv2's arrays with the colour kernel of each
@@ -34,7 +35,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    (``encode/``, colour and grey, 1x1 to 120x176, q75-100) must encode to
    cv2.imencode's stored bytes; the PNGs of ``tests/data/png`` (every
    colour type and bit depth, Adam7, tRNS, gAMA), the TIFFs of
-   ``tests/data/tiff`` (JPEG-compressed, YCbCr and signed ones too), the
+   ``tests/data/tiff`` (JPEG-compressed, YCbCr, signed, CIELab, old-style
+   LZW and cut-short ones too), the
    BMPs of ``tests/data/bmp`` and the PNMs of ``tests/data/pnm`` read in
    grey and colour against cv2's arrays, with the raster kernel (for a
    JPEG-compressed TIFF the IDCT over every chunk and the chunked colour
@@ -204,6 +206,23 @@ Phases, in order; any failure raises and the script exits non-zero:
    from a CUDA graph beside its bound (and the wavefront's step count);
    each read split into host entropy decode (QM or Huffman), copy, each
    launch and the whole decode.
+8f. Rarer sources (after 8e, adding no solved view): the committed
+   ``tests/data/jpeg/conversion/plane_3200x2130_progressive_cut.jpg``
+   (8b's source as cv2.imencode's progressive 4:2:0 q90 JPEG, cut inside
+   its sixth scan: libjpeg-turbo smooths its blocks; ``cv2.json``'s
+   ``progressive_cut`` holds cv2's hashes), and a CIELab TIFF and an
+   old-style LZW TIFF of 8b's source written here
+   (``tiff_file.rare_conversion_sources``; their bytes' and cv2's hashes in
+   ``tests/data/tiff/conversion/cv2.json``), each through the converter's
+   image step and the pipeline's read, the counters set to 0 just before:
+   every hash must be cv2's; launches: ``jpeg_smooth_kernel`` 6, the IDCT
+   6 and the colour kernel 2 for the cut JPEG, the raster kernel 4 (its
+   ``cielab`` form 2), no plain call; the smoothing kernel and the CIELab
+   form against their twins at full size (no entry may differ), timed with
+   CUDA events and from a CUDA graph beside their bounds
+   (``roofline.smooth_bound``, ``cielab_bound``) and the twins; each read
+   split into the host's entropy decode or parse and decompression, the
+   copy, each launch and the whole decode.
 9. Multi-GPU (after phase 8, on its converted workspace): (a) the NCC
    kernel (tile and view-major launches, K=9) and the fused sorted path
    with one zero-extent source (the sharded pipeline's padding: all-zero
@@ -311,6 +330,8 @@ LOSSLESS_SOURCE = os.path.join(HERE, "tests", "data", "webp", "conversion",
 # it (tests/data/jpeg/make_arith_lossless.py), and two lossless streams of
 # the same pixels written here by tests/data/jpeg/jpeg_file.py; cv2's hashes
 # of all three in cv2.json beside the first
+CUT_SOURCE = os.path.join(HERE, "tests", "data", "jpeg", "conversion",
+                          "plane_3200x2130_progressive_cut.jpg")
 ARITH_SOURCE = os.path.join(HERE, "tests", "data", "jpeg", "conversion",
                             "plane_3200x2130_arith.jpg")
 JPEG_FILE = os.path.join(HERE, "tests", "data", "jpeg", "jpeg_file.py")
@@ -1427,7 +1448,7 @@ def phase_fixtures():
     # colour kernels against their plain versions; lossless ones in the
     # modes cv2 reads (the other refused), each form against its twin on the
     # file's planes; what stays refused
-    coding = {"arith": 0, "truncated": 0, "lossless": 0}
+    coding = {"arith": 0, "truncated": 0, "lossless": 0, "smoothed": 0}
     for sub in ("arith", "truncated"):
         arrays = np.load(os.path.join(folder, sub, "cv2_arrays.npz"))
         for fname in sorted(f for f in os.listdir(os.path.join(folder, sub))
@@ -1435,7 +1456,13 @@ def phase_fixtures():
             name, stem = f"{sub}/{fname[:-4]}", fname[:-4]
             data = read(os.path.join(folder, sub, fname))
             gray, bgr = images.decode(data, dev)
-            comps, _, _ = images.decode_coefficients(data, dev)
+            comps, _, layout = images.decode_coefficients(data, dev)
+            for c, p in zip(comps, layout.smooth):
+                if not torch.equal(images.jpeg_smooth_kernel(c[0], p),
+                                   images.jpeg_smooth_plain(c[0], p)):
+                    raise AssertionError(f"{name}: smoothing kernel vs "
+                                         f"plain differ")
+            coding["smoothed"] += bool(layout.smooth)
             for c in comps:
                 if not torch.equal(images.idct_islow_kernel(*c),
                                    images.idct_islow_plain(*c)):
@@ -1933,6 +1960,10 @@ def phase_files(params, root: str):
         "the converter's image step and the pipeline's read; the lossless "
         "forms vs their twin")
     jpeg_coding_parts = phase_jpeg_coding_parts(dev)
+    log("phase 8f: a cut progressive JPEG, a CIELab TIFF and an old-style "
+        "LZW TIFF through the converter's image step and the pipeline's "
+        "read; the smoothing kernel and the CIELab form vs their twins")
+    rare_parts = phase_rare_parts(dev)
     expected = V * (NCC_PHOTOMETRIC + 2 * NCC_GEOM) + n_prior * NCC_PRIOR
     bad = {v: e for v, e in rel.items() if not e < 0.01}
     log(f"  launches: NCC {ncc[0]} (schedule implies {expected}), plain "
@@ -1990,7 +2021,7 @@ def phase_files(params, root: str):
                cmyk_launches=sum(four.values()), ycck=ycck_parts,
                ycck_read=ycck_read, webp=webp_parts,
                lossless=lossless_parts, tiff_jpeg=tiff_jpeg_parts,
-               jpeg_coding=jpeg_coding_parts)
+               jpeg_coding=jpeg_coding_parts, rare=rare_parts)
     return out
 
 
@@ -3177,6 +3208,244 @@ def phase_jpeg_coding_parts(dev):
     return out
 
 
+def _tiff_cv2() -> dict:
+    """tests/data/tiff/conversion/cv2.json: cv2's hashes of phase 8d's JPEG
+    TIFF and of phase 8f's run-time CIELab and old-style LZW TIFFs."""
+    with open(os.path.join(os.path.dirname(TIFF_JPEG_SOURCE),
+                           "cv2.json")) as f:
+        return json.load(f)
+
+
+def _split(steps, reps: int = 3):
+    """Host-clock times (ms) of each of ``steps`` ((name, fn), run in turn,
+    each synchronised), ``reps`` times: {name: [ms, ...]}."""
+    import torch
+
+    out = {k: [] for k, _ in steps}
+    for _ in range(reps):
+        for k, fn in steps:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out[k].append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def phase_rare_parts(dev):
+    """Phase 8f: a progressive JPEG cut short, a CIELab TIFF and an old-
+    style LZW TIFF at 3200x2130 on the card. CUT_SOURCE (committed: phase
+    8b's source as cv2.imencode's progressive 4:2:0 q90 JPEG, cut inside
+    its sixth scan) is read with libjpeg-turbo's block smoothing; the two
+    TIFFs are made here from phase 8b's source as the card reads it (its
+    hash must be cv2's) by tests/data/tiff/tiff_file.py's
+    rare_conversion_sources, their bytes' sha-256 checked against
+    tests/data/tiff/conversion/cv2.json. With the counters set to 0 just
+    before: the converter's image step of each (named ``.jpeg`` and
+    ``.tif``) and the pipeline's read; the hashes of each read's grey and
+    BGR and of each workspace image must be cv2's. Launches: the smoothing
+    kernel 3, the IDCT 3 and the colour kernel 1 a read of the cut JPEG;
+    the raster kernel 1 a TIFF read, its CIELab form for the CIELab one; no
+    plain call. Then the smoothing kernel (each component of the cut file)
+    and the CIELab form (the CIELab TIFF's samples) against their twins
+    (no entry may differ), timed with CUDA events and from a CUDA graph
+    beside their bounds and the twins; and each read split, host clock
+    around synchronised calls: the host's entropy decode or parse and
+    decompression, the copy to the card, each launch and the whole
+    decode."""
+    import numpy as np
+    import torch
+    from mpmvs_torch.io import images
+    from mpmvs_torch.preprocess import convert
+    from mpmvs_torch.utils.roofline import (cielab_bound, colour_bound,
+                                            idct_bound, raster_bound,
+                                            smooth_bound)
+    from mpmvs_torch.utils.trace import cuda_graph_ms, cuda_time_ms
+
+    want_jpeg, want_tiff = _jpeg_cv2()["progressive_cut"], _tiff_cv2()
+    _, src = images.read_image(WEBP_SOURCE, dev)
+    if sha256_of(src) != _webp_cv2()["bgr_sha256"]:
+        raise AssertionError("phase 8f's source is not cv2's BGR of the "
+                             "WebP source")
+    t0 = time.perf_counter()
+    tiffs = _tiff_file().rare_conversion_sources(src.cpu().numpy())
+    write_s = time.perf_counter() - t0
+    with open(CUT_SOURCE, "rb") as f:
+        cut = f.read()
+    shas = {k: hashlib.sha256(v).hexdigest() for k, v in tiffs.items()}
+    if hashlib.sha256(cut).hexdigest() != want_jpeg["source_sha256"] or \
+            any(shas[k] != want_tiff[k]["source"] for k in tiffs):
+        raise AssertionError(f"phase 8f's files are not those whose cv2 "
+                             f"reads were recorded: {shas}")
+    lab_name, lzw_name = "lab_3200x2130.tif", "old_lzw_3200x2130.tif"
+    counters = {"jpeg_smooth": images.SMOOTH_COUNTS,
+                "idct_islow": images.IDCT_COUNTS, "colour": images.COUNTS,
+                "raster": images.RASTER_COUNTS}
+    with tempfile.TemporaryDirectory(prefix="mpmvs_rare_") as tmp:
+        srcs = {"cut": os.path.join(tmp, "IMG_cut.jpeg"),
+                lab_name: os.path.join(tmp, "IMG_lab.tif"),
+                lzw_name: os.path.join(tmp, "IMG_old_lzw.tif")}
+        for k, path in srcs.items():
+            with open(path, "wb") as f:
+                f.write(cut if k == "cut" else tiffs[k])
+        for c in list(counters.values()) + [images.CODEC_COUNTS]:
+            c.reset()
+        ws, reads, secs = {}, {}, {}
+        for k, path in srcs.items():
+            t1 = time.perf_counter()
+            convert.convert_image(path, os.path.join(tmp, "ws.jpg"), dev)
+            secs[f"convert_{k}_s"] = time.perf_counter() - t1
+            with open(os.path.join(tmp, "ws.jpg"), "rb") as f:
+                ws[k] = hashlib.sha256(f.read()).hexdigest()
+            t1 = time.perf_counter()
+            reads[k] = images.read_image(path, dev)
+            torch.cuda.synchronize()
+            secs[f"read_{k}_s"] = time.perf_counter() - t1
+        launches = {k: (v.kernel, v.plain, dict(v.forms))
+                    for k, v in counters.items()}
+        codec = dict(images.CODEC_COUNTS.forms)
+    equal_cv2 = {"cut_gray": sha256_of(reads["cut"][0]) ==
+                 want_jpeg["gray_sha256"],
+                 "cut_bgr": sha256_of(reads["cut"][1]) ==
+                 want_jpeg["bgr_sha256"],
+                 "cut_workspace": ws["cut"] == want_jpeg["workspace_sha256"]}
+    for k in tiffs:
+        equal_cv2.update({f"{k}_gray": sha256_of(reads[k][0]) ==
+                          want_tiff[k]["gray"],
+                          f"{k}_bgr": sha256_of(reads[k][1]) ==
+                          want_tiff[k]["bgr"],
+                          f"{k}_workspace": ws[k] == want_tiff[k]["converted"]})
+    expected = {"jpeg_smooth": (6, 0, {}), "idct_islow": (6, 0, {}),
+                "colour": (2, 0, {}), "raster": (4, 0, {"cielab": 2})}
+    log(f"  cut progressive source ({len(cut)} bytes), CIELab and old-style "
+        f"LZW TIFFs ({ {k: len(v) for k, v in tiffs.items()} } bytes, "
+        f"written in {write_s:.1f} s): {secs}; equal to cv2's (each read's "
+        f"grey and BGR, each converted workspace image): {equal_cv2}; "
+        f"launches (kernel, plain, forms) {launches} (expected {expected}); "
+        f"codec calls {codec}")
+    if not all(equal_cv2.values()):
+        raise AssertionError(f"phase 8f differs from cv2: {equal_cv2}")
+    if launches != expected or codec.get("tiff") != 4 or \
+            codec.get("decode") != 2:
+        raise AssertionError(f"phase 8f launches {launches}, codec calls "
+                             f"{codec}: expected {expected}, 4 TIFF reads "
+                             f"and 2 JPEG decodes")
+    out = {"size": list(src.shape[1::-1]), "cut_bytes": len(cut),
+           "tiff_bytes": {k: len(v) for k, v in tiffs.items()},
+           "write_tiffs_s": write_s, **secs, "equal_cv2": equal_cv2,
+           "launches": launches, "codec": codec}
+
+    # the smoothing kernel: against its twin, timed, and the cut read's parts
+    handle, info = images.host_decode(cut)
+    comps, size, layout = images.upload_coefficients(handle, info, dev)
+    coefs = [c[0] for c in comps]
+    smooth = lambda: [images.jpeg_smooth_kernel(c, p)
+                      for c, p in zip(coefs, layout.smooth)]
+    got = smooth()
+    twin, plain_ms = cuda_timed(lambda: [images.jpeg_smooth_plain(c, p)
+                                         for c, p in zip(coefs,
+                                                         layout.smooth)])
+    err = [differing(a, b) for a, b in zip(got, twin)]
+    if any(e[0] for e in err):
+        raise AssertionError(f"smoothing kernel vs its twin at full size: "
+                             f"{err}")
+    bnd = smooth_bound(coefs)
+    parts = {k: [] for k in ("host_entropy_decode_ms", "copy_to_card_ms",
+                             "smooth_ms", "idct_ms", "colour_ms",
+                             "decode_ms")}
+    for _ in range(3):
+        torch.cuda.synchronize()
+        marks = [time.perf_counter()]
+        decoded = images.host_decode(cut)
+        marks.append(time.perf_counter())
+        cs, size, lay = images.upload_coefficients(*decoded, dev)
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        cs = [(images.jpeg_smooth_kernel(c[0], p),) + tuple(c[1:])
+              for c, p in zip(cs, lay.smooth)]
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        planes = [images.idct_islow_kernel(*c) for c in cs]
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        images.colour_kernel(planes, lay.factors, size, lay.space)
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        images.decode(cut, dev)
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        for k, a, b in zip(parts, marks, marks[1:]):
+            parts[k].append((b - a) * 1e3)
+    H, W = size
+    out["jpeg_smooth"] = {
+        "components": [list(c.shape[:2]) for c in coefs],
+        "latch": [list(p.bits) for p in layout.smooth],
+        "last_good": layout.smooth[0].last_good,
+        "ms": cuda_time_ms(smooth, 20), "graph_ms": cuda_graph_ms(smooth, 10),
+        "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1],
+        "vs_plain": err, "max_abs_err": max(e[1] for e in err)}
+    out["cut_read"] = dict(parts, idct_bound_ms=idct_bound(
+        coefs, planes)[0], colour_bound_ms=colour_bound(planes, H, W)[0])
+    s = out["jpeg_smooth"]
+    log(f"  smoothing kernel on the cut source's {len(coefs)} components "
+        f"({s['components']} blocks; last good iMCU row {s['last_good']}): "
+        f"CUDA events {s['ms']:.4f} ms, graph {s['graph_ms']:.4f} ms (bound "
+        f"{s['bound_ms']:.4f} ({s['bound_by']}), share "
+        f"{s['bound_ms'] / s['graph_ms']:.4f}; twin {s['plain_ms']:.1f} ms, "
+        f"equal); read at {W}x{H}: host entropy decode "
+        f"{np.round(parts['host_entropy_decode_ms'], 1)} ms, copy "
+        f"{np.round(parts['copy_to_card_ms'], 2)} ms, smoothing "
+        f"{np.round(parts['smooth_ms'], 3)} ms, IDCT "
+        f"{np.round(parts['idct_ms'], 3)} ms, colour "
+        f"{np.round(parts['colour_ms'], 3)} ms (host clock), decode "
+        f"{np.round(parts['decode_ms'], 1)} ms")
+
+    # the CIELab form against its twin, timed; each TIFF read's parts
+    lib = images._library()
+    for k in tiffs:
+        r = images.raster_rows(tiffs[k], lib)
+        samples = torch.from_numpy(r.samples).to(dev)
+        tables = torch.from_numpy(r.tables).to(dev)
+        fn = lambda: images.raster_to_bgr_kernel(samples, r.form, tables)
+        parts = _split([
+            ("host_parse_decompress_ms", lambda: images.raster_rows(
+                tiffs[k], lib)),
+            ("copy_to_card_ms", lambda: (torch.from_numpy(r.samples).to(dev),
+                                         torch.from_numpy(r.tables).to(dev))),
+            ("kernel_ms", fn),
+            ("decode_ms", lambda: images.decode(tiffs[k], dev))])
+        row = {"form": images.raster_form_name(r.form) or "rgb", **parts}
+        if k == lab_name:
+            got = fn()
+            want, plain_ms = cuda_timed(lambda: images.raster_to_bgr_plain(
+                samples, r.form, tables))
+            err = [differing(a, b) for a, b in zip(got, want)]
+            if any(e[0] for e in err):
+                raise AssertionError(f"CIELab form vs its twin at full "
+                                     f"size: {err}")
+            bnd = cielab_bound(r.form)
+            row.update(ms=cuda_time_ms(fn, 20), graph_ms=cuda_graph_ms(fn,
+                                                                       10),
+                       plain_ms=plain_ms, bound_ms=bnd[0], bound_by=bnd[1],
+                       vs_plain=err, max_abs_err=max(e[1] for e in err))
+            log(f"  CIELab form on {r.form.width}x{r.form.height} 8-bit "
+                f"samples: CUDA events {row['ms']:.4f} ms, graph "
+                f"{row['graph_ms']:.4f} ms (bound {row['bound_ms']:.4f} "
+                f"({row['bound_by']}), share "
+                f"{row['bound_ms'] / row['graph_ms']:.4f}; twin "
+                f"{row['plain_ms']:.1f} ms, equal)")
+        else:
+            row["bound_ms"] = raster_bound(r.form, 0)[0]
+        out[k] = row
+        log(f"  {k} read: host parse and "
+            f"{'LZW' if k == lab_name else 'old-style LZW'} "
+            f"{np.round(parts['host_parse_decompress_ms'], 1)} ms, copy "
+            f"{np.round(parts['copy_to_card_ms'], 2)} ms, raster kernel "
+            f"({row['form']} form) {np.round(parts['kernel_ms'], 3)} ms "
+            f"(host clock), decode {np.round(parts['decode_ms'], 1)} ms")
+    return out
+
+
 def phase_dummy_source(files, params):
     """Phase 9 (a): the NCC kernel (both launches) and the fused sorted
     path at 3200x2130 with one zero-extent source, phase 8's view 0 with
@@ -3426,9 +3695,10 @@ def main(argv=None) -> int:
     # the codec (host decode and encode, the IDCT and colour kernels, the
     # encoder's colour and DCT kernels, PNG reads): no TPU kernel's
     # counterpart; the details on a line of their own
-    enc, png, rast, webp, ll, tj, jc = (
+    enc, png, rast, webp, ll, tj, jc, rare = (
         files["enc"], files["png"], files["raster"], files["webp"],
-        files["lossless"], files["tiff_jpeg"], files["jpeg_coding"])
+        files["lossless"], files["tiff_jpeg"], files["jpeg_coding"],
+        files["rare"])
     codec_kernel = lambda k: {
         "source": "mpmvs_torch/csrc/jpeg_codec.cu",
         "launches": files[f"{k}_launches"], "ms": files[f"{k}_ms"],
@@ -3463,6 +3733,8 @@ def main(argv=None) -> int:
         "four_component_fixtures_equal_cv2":
             fixture_facts["four_component_equal_cv2"],
         "jpeg_coding_read": {k: v for k, v in jc.items() if k != "forms"},
+        "rare_read": {k: v for k, v in rare.items()
+                      if k != "jpeg_smooth"},
         "jpeg_coding_fixtures_equal_cv2":
             fixture_facts["jpeg_coding_fixtures"],
         "image": [W_FULL, H_FULL], "calls_phase8": files["codec"],
@@ -3685,7 +3957,36 @@ def main(argv=None) -> int:
             ("ljpeg_wavefront", "lossless_p7", "wavefront",
              "the three planes of phase 8e's 3200x2130 lossless RGB stream, "
              "predictor 7, no restart: one launch; launches: the "
-             "converter's read"))]}))
+             "converter's read"))] + [
+        entry("jpeg_smooth", "jpeg_codec.cu", "none: cv2.imread (of a "
+              "progressive JPEG cut short, or whose scans stop before the "
+              "last bit: mpmvs_tpu/pipeline.py:60, "
+              "mpmvs_tpu/preprocess/convert.py:161); the arithmetic in "
+              "mpmvs_torch/csrc/jpeg_smooth.h",
+              rare["launches"]["jpeg_smooth"][0],
+              rare["jpeg_smooth"]["max_abs_err"], rare["jpeg_smooth"]["ms"],
+              rare["jpeg_smooth"]["plain_ms"],
+              (rare["jpeg_smooth"]["bound_ms"],
+               rare["jpeg_smooth"]["bound_by"]),
+              graph_ms=rare["jpeg_smooth"]["graph_ms"],
+              scope=f"the three components of phase 8f's "
+              f"{rare['size'][0]}x{rare['size'][1]} progressive 4:2:0 JPEG "
+              f"cut inside its sixth scan, a launch each (three launches); "
+              f"launches: the converter's read and the pipeline's"),
+        entry("raster_to_bgr", "jpeg_codec.cu", "none: cv2.imread (of a "
+              "CIELab TIFF: mpmvs_tpu/pipeline.py:60, "
+              "mpmvs_tpu/preprocess/convert.py:161); the arithmetic in "
+              "mpmvs_torch/csrc/raster_bgr.h",
+              rare["launches"]["raster"][2].get("cielab", 0),
+              rare["lab_3200x2130.tif"]["max_abs_err"],
+              rare["lab_3200x2130.tif"]["ms"],
+              rare["lab_3200x2130.tif"]["plain_ms"],
+              (rare["lab_3200x2130.tif"]["bound_ms"],
+               rare["lab_3200x2130.tif"]["bound_by"]), form="cielab",
+              graph_ms=rare["lab_3200x2130.tif"]["graph_ms"],
+              scope="the samples of phase 8f's 3200x2130 8-bit CIELab "
+              "TIFF, one launch; launches: the converter's read and the "
+              "pipeline's")]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -385,6 +385,7 @@ static int decode_arith_scan(Decoder* d, Component** sc, int ns, int ss,
   int mcus_y = ns == 1 ? sc[0]->height_in_blocks : d->mcus_y;
   int todo = d->restart_interval;
   for (int my = 0; my < mcus_y; my++) {
+    input_row_starts(d, ns == 1 ? sc[0]->v : 1, my);
     for (int mx = 0; mx < mcus_x; mx++) {
       if (d->restart_interval) {
         if (todo == 0) {

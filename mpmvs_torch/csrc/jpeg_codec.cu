@@ -12,8 +12,14 @@
 //     coefficients as libjpeg does (jpeg_entropy.h: baseline, extended and
 //     progressive Huffman, restart intervals; jpeg_arith.h: sequential and
 //     progressive arithmetic coding); they are copied to the card;
-//   * idct_islow_kernel runs libjpeg's accurate integer inverse DCT
-//     (jidctint.c, jpeg_idct.h) with its dequantization and range limit,
+//   * a progressive file whose coefficients libjpeg-turbo would smooth (a
+//     file cut short, or one whose scans stop before the last bit) goes
+//     through jpeg_smooth_kernel first (jpeg_smooth.h: its estimates of the
+//     first coefficients from the 5 x 5 blocks' DC values), one thread per
+//     block, into a new coefficient array;
+//   * idct_islow_kernel runs libjpeg-turbo's accurate integer inverse DCT
+//     as cv2 runs it (jidctint.c's sums in jsimd_idct_islow_avx2's lane
+//     widths, jpeg_idct.h) with its dequantization and saturation,
 //     one thread per 8x8 block, into each component's plane. nvJPEG's own
 //     decode was tried first and differs: its inverse DCT is not jidctint
 //     (1.3-2.1% of grey values off by 1 on the H100);
@@ -64,8 +70,9 @@
 //     nvJPEG's encoder writes other bytes than cv2: its colour conversion,
 //     DCT and rounding are its own.
 //
-// What bounds the kernels: bytes. The IDCT reads 2 bytes a coefficient and
-// writes 1 a sample, the YCbCr colour kernel reads 1.5 bytes a pixel
+// What bounds the kernels: bytes. The smoothing kernel reads and writes 2
+// bytes a coefficient, the IDCT reads 2 bytes a coefficient and writes 1 a
+// sample, the YCbCr colour kernel reads 1.5 bytes a pixel
 // (4:2:0) and writes 3, the four-component one reads up to 4 and writes 4
 // (BGR and grey); bgr_to_ycc reads 3 and writes 1.5, the forward DCT reads 1 a
 // sample and writes 2 a coefficient. The host's entropy coding takes far
@@ -80,14 +87,15 @@
 // raster_to_bgr_kernel makes cv2.imread's BGR and grey images of them
 // (raster_bgr.h: sub-8-bit grey expanded, palette looked up, 16 bits
 // narrowed, alpha dropped or premultiplied, RGB or BGR samples, a BMP's
-// 16-bit pixels, a TIFF's YCbCr data units by libtiff's tables, and the
-// grey of a colour image by libpng's or OpenCV's arithmetic), one thread a
-// pixel. It reads at most 8 bytes a pixel and writes 4.
+// 16-bit pixels, a TIFF's YCbCr data units by libtiff's tables, its CIELab
+// samples by libtiff's RGBA reader's float arithmetic, and the grey of a
+// colour image by libpng's or OpenCV's arithmetic), one thread a pixel. It
+// reads at most 8 bytes a pixel and writes 4.
 //
 // The C interface below is bound with ctypes by mpmvs_torch/io/images.py.
 // Every function returns 0 or an error code: a decode error of
 // jpeg_entropy.h (2001-2014), an encode or PNG error (2010, 3001-3002), a
-// TIFF error (4001-4021), a WebP error (webp_decode.h, 5001-5007;
+// TIFF error (4001-4024), a WebP error (webp_decode.h, 5001-5007;
 // webp_lossless.h, 5008-5011) or a CUDA error offset by 1000.
 
 #include <cuda_runtime.h>
@@ -104,6 +112,7 @@
 #include "jpeg_lossless_pred.h"
 #include "jpeg_fdct.h"
 #include "jpeg_idct.h"
+#include "jpeg_smooth.h"
 #include "png_unfilter.h"
 #include "raster_bgr.h"
 #include "tiff_decode.h"
@@ -167,6 +176,43 @@ extern "C" int jpeg_host_lossless(void* img, int comp, short* diff,
                                   unsigned char* first) {
   return jpeg_entropy::lossless_planes((jpeg_entropy::Decoder*)img, comp,
                                        diff, first);
+}
+
+// What libjpeg's smoothing_ok latches of a decode (jpeg_entropy.h
+// smoothing): out (jpeg_entropy::kSmoothLen ints) receives 1 where libjpeg
+// smooths the image's blocks, then per component the kSmoothInts ints of
+// jpeg_smooth::Params.
+extern "C" int jpeg_host_smoothing(void* img, int* out) {
+  jpeg_entropy::smoothing((jpeg_entropy::Decoder*)img, out);
+  return 0;
+}
+
+// One thread a block of a component's coefficient array (blocks_h x
+// blocks_w x 64 int16): libjpeg-turbo's inter-block smoothing of a
+// progressive image (jpeg_smooth.h) into out, a new array of the same
+// layout, which idct_islow_kernel then takes. Blocks outside the samples'
+// are copied as they are.
+__global__ void jpeg_smooth_kernel(const short* __restrict__ coef,
+                                   jpeg_smooth::Params p,
+                                   short* __restrict__ out) {
+  int bx = blockIdx.x * blockDim.x + threadIdx.x;
+  int by = blockIdx.y;
+  if (bx >= p.blocks_w || by >= p.blocks_h) return;
+  int16_t blk[64];
+  jpeg_smooth::smooth_block(coef, p, bx, by, blk);
+  short* dst = out + ((size_t)by * p.blocks_w + bx) * 64;
+  for (int k = 0; k < 64; k++) dst[k] = blk[k];
+}
+
+// params: a component's jpeg_entropy::kSmoothInts ints.
+extern "C" int jpeg_smooth_launch(const short* coef, const int* params,
+                                  short* out, cudaStream_t stream) {
+  jpeg_smooth::Params p = jpeg_smooth::params_of(params);
+  dim3 block(128);
+  dim3 grid((p.blocks_w + 127) / 128, p.blocks_h);
+  jpeg_smooth_kernel<<<grid, block, 0, stream>>>(coef, p, out);
+  cudaError_t e = cudaGetLastError();
+  return e == cudaSuccess ? 0 : CODEC_CUDA_ERR + (int)e;
 }
 
 // One thread per 8x8 block of the plane: libjpeg's islow IDCT of the

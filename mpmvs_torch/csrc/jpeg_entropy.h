@@ -126,7 +126,18 @@ struct Decoder {
   int adobe_transform = 1, orientation = 1;
   int space = kYcc;  // libjpeg's guess from the markers and ids (Space)
   int scans = 0;
+  // libjpeg's progression status (coef_bits, set by jdphuff.c / jdarith.c
+  // start_pass when a scan starts) of each component's first ten
+  // coefficients: -1 until a scan codes one, then that scan's Al;
+  // prev_bits the status before the component's latest scan (0 for the
+  // first scan); last_good the last iMCU row the input started before its
+  // data ran out (jdcoefct.c consume_data's last_good_iMCU_row, 0 at first
+  // and kept from scan to scan). jpeg_smooth.h smooths by them.
+  int coef_bits[4][10], prev_bits[4][10];
+  int last_good = 0;
   Decoder() {
+    memset(coef_bits, 0xFF, sizeof(coef_bits));
+    memset(prev_bits, 0xFF, sizeof(prev_bits));
     memset(arith_dc_L, 0, sizeof(arith_dc_L));
     memset(arith_dc_U, 1, sizeof(arith_dc_U));
     memset(arith_ac_K, 5, sizeof(arith_ac_K));
@@ -445,6 +456,13 @@ static void decode_block_progressive(Decoder* d, Component& c, int16_t* blk,
   }
 }
 
+// jdcoefct.c consume_data: an iMCU row of the input (an MCU row of an
+// interleaved scan, v block rows of a component's own scan) that starts
+// before the entropy decoder has run out of data is the last good one.
+static inline void input_row_starts(Decoder* d, int v, int my) {
+  if (my % v == 0 && !d->insufficient) d->last_good = my / v;
+}
+
 // Restart: skip to the RSTn marker, reset the predictions and the EOB run;
 // the out-of-data state is cleared only where a marker was found (libjpeg
 // leaves it set when the stream has ended).
@@ -498,6 +516,14 @@ static int decode_scan(Decoder* d, const uint8_t* p, int len,
   int mcu_blocks = 0;
   for (int i = 0; i < ns; i++) mcu_blocks += sc[i]->h * sc[i]->v;
   if (ns > 1 && mcu_blocks > 10) return kSampling;
+  if (d->progressive) {  // start_pass: the progression status
+    for (int i = 0; i < ns; i++) {
+      int ci = (int)(sc[i] - d->comp);
+      for (int k = ss == 0 ? 0 : 1; k < 10; k++)
+        d->prev_bits[ci][k] = d->scans > 1 ? d->coef_bits[ci][k] : 0;
+      for (int k = ss; k <= se && k < 10; k++) d->coef_bits[ci][k] = al;
+    }
+  }
   if (d->arithmetic)
     return decode_arith_scan(d, sc, ns, ss, se, ah, al, data, length, start);
   for (int i = 0; i < ns; i++) {
@@ -527,6 +553,7 @@ static int decode_scan(Decoder* d, const uint8_t* p, int len,
   }
   int todo = d->restart_interval;
   for (int my = 0; my < mcus_y; my++) {
+    input_row_starts(d, ns == 1 ? sc[0]->v : 1, my);
     for (int mx = 0; mx < mcus_x; mx++) {
       if (d->restart_interval) {
         if (todo == 0) {
@@ -723,7 +750,9 @@ static int decode(Decoder* d, const uint8_t* data, size_t length,
     pos += 2 + len;
   }
   if (tables_only) return d->frame ? kBadStream : kOk;
-  if (!d->frame) return kBadStream;
+  // a frame and no scan (a file cut before its first): libjpeg's
+  // JERR_NO_IMAGE
+  if (!d->frame || d->scans == 0) return kBadStream;
   if (d->lossless) {  // no quantization; every component coded
     for (int i = 0; i < d->ncomp; i++)
       if (!d->comp[i].predictor) return kBadStream;
@@ -768,6 +797,45 @@ static void host_info(const Decoder* d, int* info) {
   info[39] = d->lossless;
   info[40] = d->precision;
   info[41] = d->arithmetic;
+}
+
+// What jdcoefct.c smoothing_ok latches when the output pass starts (after
+// the whole file is read), as jpeg_smooth.h's Params take it: out[0] 1
+// where libjpeg smooths the image's blocks, then per component
+// kSmoothInts ints: its coefficient array's blocks across and down, the
+// blocks that cover its samples across and down, its v factor, the
+// frame's iMCU rows, the last good one, its ten coefficients' status
+// (coef_bits), the ten before its latest scan (-1 while the file has had
+// one scan) and their quantization entries. libjpeg smooths a progressive
+// image only, when every component's DC and first nine AC quantization
+// entries are non-zero, every DC is at least partly known, and one of
+// those AC coefficients is not exact.
+enum { kSmoothInts = 37, kSmoothLen = 1 + 4 * kSmoothInts };
+static void smoothing(const Decoder* d, int* out) {
+  memset(out, 0, kSmoothLen * sizeof(int));
+  if (!d->progressive || d->lossless) return;
+  static const int pos[10] = {0, 1, 8, 16, 9, 2, 3, 10, 17, 24};
+  bool useful = false;
+  for (int i = 0; i < d->ncomp; i++) {
+    const Component& c = d->comp[i];
+    if (!d->qt_defined[c.tq] || d->coef_bits[i][0] < 0) return;
+    int* p = out + 1 + kSmoothInts * i;
+    p[0] = c.blocks_w;
+    p[1] = c.blocks_h;
+    p[2] = c.width_in_blocks;
+    p[3] = c.height_in_blocks;
+    p[4] = c.v;
+    p[5] = d->mcus_y;
+    p[6] = d->last_good;
+    for (int k = 0; k < 10; k++) {
+      p[7 + k] = d->coef_bits[i][k];
+      p[17 + k] = k == 0 ? 0 : (d->scans > 1 ? d->prev_bits[i][k] : -1);
+      p[27 + k] = d->qt[c.tq][pos[k]];
+      if (p[27 + k] == 0) return;
+      if (k > 0 && p[7 + k] != 0) useful = true;
+    }
+  }
+  out[0] = useful;
 }
 
 }  // namespace jpeg_entropy

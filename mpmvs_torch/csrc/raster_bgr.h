@@ -32,6 +32,16 @@
 //     int32 tables TIFFYCbCrToRGBInit builds from YCbCrCoefficients and
 //     ReferenceBlackWhite (built on the host, io/images.py
 //     ycbcr_tables);
+//   * CIELab (a TIFF's Photometric 8, 8- or 16-bit L*, a*, b*, a* and b*
+//     signed): libtiff 4.7.1's RGBA reader (putcontig8bitCIELab8/16):
+//     TIFFCIELab16ToXYZ (8-bit samples scaled to it: L x 257, a* and b* x
+//     256) against the reference white of the WhitePoint tag (D50 without
+//     it), then TIFFXYZToRGB under display_sRGB: its matrix, the clips to
+//     [1, 100], the index into the Yr2r table (built on the host,
+//     io/images.py cielab_tables; Yg2g and Yb2b are the same table under
+//     display_sRGB) and RINT; every step in libtiff's float arithmetic,
+//     each product, sum and quotient rounded on its own (no contraction
+//     into fused multiply-adds on the card);
 //   * the grey image of colour: libpng's png_do_rgb_to_gray with OpenCV's
 //     coefficients (0.299, 0.587 -> 9797, 19234, 3737 of 32768): R where
 //     R = G = B, else (rc R + gc G + bc B) >> 15 on 8-bit samples, with
@@ -48,6 +58,7 @@
 
 #include <stddef.h>
 #include <stdint.h>
+#include <string.h>
 
 #ifndef RASTER_HD
 #ifdef __CUDACC__
@@ -66,7 +77,7 @@ RASTER_HD int opencv_grey(int b, int g, int r) {
 }
 
 enum Kind { kGrey = 0, kRgb = 1, kPalette = 2, kCmyk = 3, kYcbcr = 4,
-            kBmp16 = 5 };
+            kBmp16 = 5, kCielab = 6 };
 enum GreyRule { kLibpng = 0, kLibpngGamma = 1, kOpenCv = 2 };
 enum Narrow { kShift = 0, kRound257 = 1 };
 
@@ -126,6 +137,10 @@ constexpr int kPaletteAt = 0, kToOneAt = 768, kFromOneAt = 1024,
               kGrey16At = 1280 + 8192, kTablesLen = 1280 + 12288;
 constexpr int kYTabAt = 0, kCrRAt = 1024, kCbBAt = 2048, kCrGAt = 3072,
               kCbGAt = 4096;
+// A CIELab image's: libtiff's Yr2r (kLabRange + 1 little-endian float32
+// entries), then X0, Y0, Z0 of the reference white and the table's step.
+constexpr int kLabRange = 1500, kLabTableAt = 0,
+              kLabWhiteAt = 4 * (kLabRange + 1);
 
 RASTER_HD int table32(const uint8_t* tables, int at, int i) {
   const uint8_t* e = tables + at + 4 * i;
@@ -159,6 +174,78 @@ RASTER_HD int sample(const uint8_t* raster, const Form& f, int y, int x,
   long long bit = i * f.bits;
   return (row[bit >> 3] >> (8 - f.bits - (int)(bit & 7))) &
          ((1 << f.bits) - 1);
+}
+
+RASTER_HD float table_float(const uint8_t* tables, int at, int i) {
+  uint32_t u = (uint32_t)table32(tables, at, i);
+  float v;
+  memcpy(&v, &u, 4);
+  return v;
+}
+
+// libtiff's float arithmetic, one rounding an operation.
+#ifdef __CUDA_ARCH__
+RASTER_HD float fmul(float a, float b) { return __fmul_rn(a, b); }
+RASTER_HD float fadd(float a, float b) { return __fadd_rn(a, b); }
+RASTER_HD float fsub(float a, float b) { return __fsub_rn(a, b); }
+RASTER_HD float fdiv(float a, float b) { return __fdiv_rn(a, b); }
+#else
+RASTER_HD float fmul(float a, float b) { return a * b; }
+RASTER_HD float fadd(float a, float b) { return a + b; }
+RASTER_HD float fsub(float a, float b) { return a - b; }
+RASTER_HD float fdiv(float a, float b) { return a / b; }
+#endif
+
+// TIFFXYZToRGB's one channel of luminosity lum: clipped to [1, 100],
+// looked up and rounded (RINT, in double), clipped to 255.
+RASTER_HD int cielab_channel(float lum, const uint8_t* tables, float step) {
+  lum = lum > 1.0f ? lum : 1.0f;
+  lum = lum < 100.0f ? lum : 100.0f;
+  int i = (int)fdiv(fsub(lum, 1.0f), step);
+  i = i < kLabRange ? i : kLabRange;
+  int v = (int)((double)table_float(tables, kLabTableAt, i) + 0.5);
+  return v < 255 ? v : 255;
+}
+
+// TIFFCIELab16ToXYZ and TIFFXYZToRGB of one pixel's L*, a*, b*.
+RASTER_HD void cielab_rgb(const uint8_t* raster, const Form& f,
+                          const uint8_t* tables, int y, int x, int* r,
+                          int* g, int* b) {
+  int l = sample(raster, f, y, x, 0), a = sample(raster, f, y, x, 1);
+  int bs = sample(raster, f, y, x, 2);
+  if (f.bits == 8) {  // TIFFCIELabToXYZ
+    l *= 257;
+    a = (int8_t)a * 256;
+    bs = (int8_t)bs * 256;
+  } else {
+    a = (int16_t)a;
+    bs = (int16_t)bs;
+  }
+  const float X0 = table_float(tables, kLabWhiteAt, 0);
+  const float Y0 = table_float(tables, kLabWhiteAt, 1);
+  const float Z0 = table_float(tables, kLabWhiteAt, 2);
+  const float step = table_float(tables, kLabWhiteAt, 3);
+  float L = fdiv(fmul((float)l, 100.0f), 65535.0f), Y, cby;
+  if (L < 8.856f) {
+    Y = fdiv(fmul(L, Y0), 903.292f);
+    cby = fadd(fmul(7.787f, fdiv(Y, Y0)), fdiv(16.0f, 116.0f));
+  } else {
+    cby = fdiv(fadd(L, 16.0f), 116.0f);
+    Y = fmul(fmul(fmul(Y0, cby), cby), cby);
+  }
+  float t = fadd(fdiv(fdiv((float)a, 256.0f), 500.0f), cby);
+  float X = t < 0.2069f ? fdiv(fmul(X0, fsub(t, 0.13793f)), 7.787f)
+                        : fmul(fmul(fmul(X0, t), t), t);
+  t = fsub(cby, fdiv(fdiv((float)bs, 256.0f), 200.0f));
+  float Z = t < 0.2069f ? fdiv(fmul(Z0, fsub(t, 0.13793f)), 7.787f)
+                        : fmul(fmul(fmul(Z0, t), t), t);
+  // display_sRGB's XYZ -> luminosity matrix
+  *r = cielab_channel(fadd(fadd(fmul(3.2410f, X), fmul(-1.5374f, Y)),
+                           fmul(-0.4986f, Z)), tables, step);
+  *g = cielab_channel(fadd(fadd(fmul(-0.9692f, X), fmul(1.8760f, Y)),
+                           fmul(0.0416f, Z)), tables, step);
+  *b = cielab_channel(fadd(fadd(fmul(0.0556f, X), fmul(-0.2040f, Y)),
+                           fmul(1.0570f, Z)), tables, step);
 }
 
 RASTER_HD int narrow16(int v, int rule) {
@@ -208,6 +295,8 @@ RASTER_HD void pixel(const uint8_t* raster, const Form& f,
     g = clamp255(yv + ((table32(tables, kCbGAt, cb) +
                         table32(tables, kCrGAt, cr)) >> 16));
     b = clamp255(yv + table32(tables, kCbBAt, cb));
+  } else if (f.kind == kCielab) {
+    cielab_rgb(raster, f, tables, y, x, &r, &g, &b);
   } else if (f.kind == kBmp16) {
     int v = sample(raster, f, y, x, 0);
     b = (v << 3) & 0xF8;

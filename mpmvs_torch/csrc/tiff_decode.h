@@ -14,7 +14,8 @@
 //     Compression 7 (JPEG) is described here, its streams decoded by
 //     tiff_jpeg.h;
 //   * Predictor 2 (horizontal differencing) on 8- and 16-bit samples, in the
-//     file's byte order;
+//     file's byte order, of LZW and Deflate data (libtiff ignores the tag
+//     on uncompressed and PackBits data);
 //   * Photometric 0 and 1 (min-is-white, min-is-black) at 1, 8 and 16 bits,
 //     2 (RGB) at 8 and 16 bits, 3 (palette) at 1, 4 and 8 bits, 5
 //     (separated) with InkSet 1 (CMYK) at 8 bits and four samples, which
@@ -22,6 +23,9 @@
 //     grey or RGB is kept for the card to drop or premultiply by;
 //   * SampleFormat 2 (signed) at 8 and 16 bits, read as the unsigned
 //     samples of the same bits, as cv2 reads them;
+//   * Photometric 8 (CIELab) at 8 and 16 bits, three chunky samples (a*
+//     and b* signed), for the card to convert as libtiff's RGBA reader
+//     does (raster_bgr.h);
 //   * Photometric 6 (YCbCr) at 8 bits and three samples, chunky at every
 //     YCbCrSubSampling libtiff's RGBA reader takes ((1, 1), (2, 1), (2, 2),
 //     (4, 1), (4, 2), (4, 4) and (1, 2)), planar at (1, 1): the data is
@@ -40,8 +44,20 @@
 //
 // LZW and PackBits are serial, byte by byte. LZW here is libtiff's: codes
 // most significant bit first, 9 to 12 bits wide, one bit wider one code
-// before GIF's rule; the pre-1991 bit-reversed form (first byte 0, next bit
-// 1) is refused, not misread.
+// before GIF's rule; and the pre-1991 form libtiff still reads
+// (LZWDecodeCompat: first byte 0, next bit 1), codes least significant bit
+// first, one bit wider one code later.
+//
+// 16-bit grey tiles clipped at the image's right edge are read as libtiff
+// 4.7.1's RGBA reader reads them (put16bitbwtile skews each row by the
+// clipped pixels' count in bytes), which OpenCV shows.
+//
+// A compressed strip or tile whose data ends before its rows do (LZW,
+// Deflate or PackBits) is read as libtiff reads it: what the data holds,
+// then zeros to the chunk's end; libtiff's decoder returns an error there,
+// so neither the predictor nor the byte swap of 16-bit samples runs on that
+// chunk, and its RGBA reader carries on with the next. An uncompressed one
+// is refused (cv2 refuses it).
 //
 // The raster left in `out`: planes (1 for chunky data, one a sample for
 // planar) of height rows of ceil(width * samples * bits / 8) bytes, samples
@@ -66,15 +82,16 @@ enum Error {
   kMalformed = 4002,   // a required tag missing or a value out of range
   kJpeg = 4003,        // Compression 6: old-style JPEG in TIFF
   kCompression = 4004, // another compression (CCITT, JPEG 2000, ZSTD, ...)
-  kOldLzw = 4005,      // the pre-1991 bit-reversed LZW
+  kOldLzw = 4005,      // old-style (pre-1991) LZW data that is corrupt
   kLzw = 4006,         // LZW data that is corrupt
-  kShort = 4007,       // a strip or tile that holds fewer bytes than rows
+  kShort = 4007,       // an uncompressed strip or tile shorter than its
+                       // rows (a compressed one is zero-filled)
   kFloat = 4008,       // SampleFormat 3, or 2 above 16 bits
   kPredictor3 = 4009,  // Predictor 3: the floating-point predictor
   kPredictor = 4010,   // Predictor 2 on other than 8- or 16-bit samples
   kInkSet = 4011,      // Photometric 5 of another InkSet than CMYK
   kYcbcr = 4012,       // Photometric 6 of a layout the RGBA reader refuses
-  kLab = 4013,         // Photometric 8, 9 or 10 (CIELab, ICCLab, ITULab)
+  kLab = 4013,         // Photometric 9 or 10 (ICCLab, ITULab)
   kPhotometric = 4014, // another photometric (mask, LogL, LogLuv, raw)
   kDeep = 4015,        // more than 16 bits a sample
   kBits = 4016,        // a bit depth OpenCV does not read into 8 bits
@@ -83,6 +100,9 @@ enum Error {
   kJpegTags = 4019,    // a JPEG stream's components or sampling off its tags
   kJpegSize = 4020,    // a JPEG stream larger (or smaller) than its chunk
   kJpegLayout = 4021,  // a JPEG-in-TIFF layout the card does not read
+  kLabPlanar = 4022,   // CIELab in planes, which the RGBA reader refuses
+  kLabSamples = 4023,  // CIELab of other than three samples
+  kLabBits = 4024,     // CIELab of other than 8 or 16 bits
 };
 
 enum Info {
@@ -157,8 +177,8 @@ struct Tiff {
 // is passed over unread, as a broken one does not stop libtiff either.
 static inline bool wanted(int tag) {
   static const int kTags[] = {256, 257, 258, 259, 262, 266, 273, 274, 277,
-                              278, 279, 284, 317, 320, 322, 323, 324, 325,
-                              332, 338, 339, 347, 529, 530, 532};
+                              278, 279, 284, 317, 318, 320, 322, 323, 324,
+                              325, 332, 338, 339, 347, 529, 530, 532};
   for (int k : kTags)
     if (k == tag) return true;
   return false;
@@ -238,6 +258,9 @@ static int describe(const uint8_t* data, size_t len, Tiff* t) {
       W * H > ((int64_t)1 << 30))
     return kMalformed;
   int64_t comp = in[kCompressionTag];
+  // libtiff runs a predictor for the codecs that set one up (LZW and
+  // Deflate here); it ignores the tag on uncompressed and PackBits data
+  if (comp == 1 || comp == 32773) in[kPredictorTag] = 1;
   if (comp == 6) return kJpeg;
   if (comp != 1 && comp != 5 && comp != 7 && comp != 8 && comp != 32946 &&
       comp != 32773)
@@ -280,8 +303,16 @@ static int describe(const uint8_t* data, size_t len, Tiff* t) {
         in[kPredictorTag] != 1)
       return kYcbcr;
   }
-  if (pm == 8 || pm == 9 || pm == 10) return kLab;
-  if (pm < 0 || (pm > 3 && pm != 5 && pm != 6)) return kPhotometric;
+  if (pm == 9 || pm == 10) return kLab;
+  if (pm == 8) {
+    // libtiff's RGBA reader: chunky L*, a*, b* of 8 or 16 bits, no extra
+    // sample (TIFFRGBAImageOK, pickContigCase; pickSeparateCase has none)
+    if (in[kPlanar] == 2 && spp > 1) return kLabPlanar;
+    if (spp != 3) return kLabSamples;
+    if (bits != 8 && bits != 16) return kLabBits;
+  }
+  if (pm < 0 || (pm > 3 && pm != 5 && pm != 6 && pm != 8))
+    return kPhotometric;
   // libtiff's TIFFRGBAImageOK: a separated image of InkSet 1 (CMYK) only
   if (pm == 5 && t->scalar(332, 1, &ok) != 1) return kInkSet;
   if (bits > 16) return kDeep;
@@ -289,11 +320,11 @@ static int describe(const uint8_t* data, size_t len, Tiff* t) {
   // 8, 16, a palette at 1, 4, 8, CMYK at 8 (libtiff's RGBA reader has no
   // 16-bit CMYK)
   bool bits_ok = pm <= 1 ? (bits == 1 || bits == 8 || bits == 16)
-                 : pm == 2 ? (bits == 8 || bits == 16)
+                 : pm == 2 || pm == 8 ? (bits == 8 || bits == 16)
                  : pm == 5 || pm == 6 ? bits == 8
                            : (bits == 1 || bits == 4 || bits == 8);
   if (!bits_ok) return kBits;
-  int colour = pm == 2 || pm == 6 ? 3 : pm == 5 ? 4 : 1;
+  int colour = pm == 2 || pm == 6 || pm == 8 ? 3 : pm == 5 ? 4 : 1;
   // OpenCV takes at most four channels (normalizeChannelsNumber)
   if (pm == 5 && spp > 4) return kChannels;
   if (spp < colour || spp > colour + 1 || (pm == 3 && spp != 1))
@@ -347,10 +378,20 @@ static int describe(const uint8_t* data, size_t len, Tiff* t) {
 
 // ------------------------------ decompression ------------------------------
 
-// LZW as libtiff decodes it into exactly `want` bytes; kShort if the data
-// ends (or an EOI comes) first.
+// libtiff's LZWPreDecode: data that starts with a 0 byte whose next has
+// its low bit set is the old-style (compat) form.
+static inline bool old_style_lzw(const uint8_t* in, size_t n) {
+  return n >= 2 && in[0] == 0 && (in[1] & 1);
+}
+
+// LZW as libtiff decodes it into exactly `want` bytes (LZWDecode; with
+// compat, LZWDecodeCompat: codes read least significant bit first, the
+// width growing once the table's next entry passes the widest code, where
+// the new form grows one entry earlier); kShort, the rest zero-filled, if
+// the data ends (or an EOI comes) first.
 static int lzw(const uint8_t* in, size_t n, uint8_t* out, size_t want) {
-  if (n >= 2 && in[0] == 0 && (in[1] & 1)) return kOldLzw;
+  const bool compat = old_style_lzw(in, n);
+  const int corrupt = compat ? kOldLzw : kLzw;
   static thread_local uint16_t prefix[4096];
   static thread_local uint8_t suffix[4096], first[4096];
   static thread_local uint16_t length[4096];
@@ -364,11 +405,18 @@ static int lzw(const uint8_t* in, size_t n, uint8_t* out, size_t want) {
   int nacc = 0, nbits = 9, free_ent = 258, old = -1;
   while (got < want) {
     while (nacc < nbits && pos < n) {
-      acc = (acc << 8) | in[pos++];
+      acc = compat ? acc | (uint64_t)in[pos++] << nacc
+                   : (acc << 8) | in[pos++];
       nacc += 8;
     }
     if (nacc < nbits) break;
-    int code = (int)((acc >> (nacc - nbits)) & ((1u << nbits) - 1));
+    int code;
+    if (compat) {
+      code = (int)(acc & ((1u << nbits) - 1));
+      acc >>= nbits;
+    } else {
+      code = (int)((acc >> (nacc - nbits)) & ((1u << nbits) - 1));
+    }
     nacc -= nbits;
     if (code == 257) break;
     if (code == 256) {
@@ -378,18 +426,18 @@ static int lzw(const uint8_t* in, size_t n, uint8_t* out, size_t want) {
       continue;
     }
     if (old == -1) {
-      if (code > 255) return kLzw;
+      if (code > 255) return corrupt;
       out[got++] = (uint8_t)code;
       old = code;
       continue;
     }
-    if (code > free_ent || free_ent >= 4096) return kLzw;
+    if (code > free_ent || free_ent >= 4096) return corrupt;
     prefix[free_ent] = (uint16_t)old;
     first[free_ent] = first[old];
     suffix[free_ent] = code < free_ent ? first[code] : first[old];
     length[free_ent] = (uint16_t)(length[old] + 1);
     free_ent++;
-    if (free_ent > (1 << nbits) - 2 && nbits < 12) nbits++;
+    if (free_ent > (1 << nbits) - (compat ? 1 : 2) && nbits < 12) nbits++;
     int len = length[code];
     size_t end = got + len;
     int c = code;
@@ -401,11 +449,13 @@ static int lzw(const uint8_t* in, size_t n, uint8_t* out, size_t want) {
     got = end < want ? end : want;
     old = code;
   }
-  return got < want ? kShort : kOk;
+  if (got == want) return kOk;
+  memset(out + got, 0, want - got);
+  return kShort;
 }
 
 // PackBits into exactly `want` bytes (a run past it is cut, as libtiff
-// cuts it); kShort if the data ends first.
+// cuts it); kShort, the rest zero-filled, if the data ends first.
 static int packbits(const uint8_t* in, size_t n, uint8_t* out, size_t want) {
   size_t pos = 0, got = 0;
   while (got < want && pos < n) {
@@ -416,13 +466,18 @@ static int packbits(const uint8_t* in, size_t n, uint8_t* out, size_t want) {
       size_t run = (size_t)(1 - c);
       uint8_t v = in[pos++];
       for (size_t k = 0; k < run && got < want; k++) out[got++] = v;
-    } else {
+    } else {  // a literal run cut by the data's end is dropped whole
       size_t run = (size_t)c + 1;
-      for (size_t k = 0; k < run && got < want && pos < n; k++)
-        out[got++] = in[pos++];
+      if (run > want - got) run = want - got;
+      if (run > n - pos) break;
+      memcpy(out + got, in + pos, run);
+      got += run;
+      pos += (size_t)c + 1;
     }
   }
-  return got < want ? kShort : kOk;
+  if (got == want) return kOk;
+  memset(out + got, 0, want - got);
+  return kShort;
 }
 
 static inline uint8_t reverse_bits(uint8_t b) {
@@ -529,12 +584,20 @@ static int decode(const uint8_t* data, size_t len,
     } else if (comp == 1) {
       if (cnt < want) err = kShort;
       else memcpy(buf, src, want);
+    } else if (!inflated || !inflated[c]) {
+      err = kShort;
     } else {
-      if (!inflated || !inflated[c] || inflated_len[c] < want) err = kShort;
-      else memcpy(buf, inflated[c], want);
+      size_t got = inflated_len[c] < want ? inflated_len[c] : want;
+      memcpy(buf, inflated[c], got);
+      memset(buf + got, 0, want - got);
+      if (got < want) err = kShort;
     }
+    // a compressed chunk cut short: zero-filled, and libtiff's decode
+    // error skips its predictor and its 16-bit byte swap
+    bool cut = err == kShort && comp != 1;
+    if (cut) err = kOk;
     if (err) break;
-    if (in[kPredictorTag] == 2)
+    if (in[kPredictorTag] == 2 && !cut)
       undo_predictor(buf, (int)rows, chunk_row, (size_t)(cw * per_pixel),
                      (int)per_pixel, (int)bits, in[kLittle]);
     uint8_t* plane = out + (size_t)p * out_row * H;
@@ -542,8 +605,33 @@ static int decode(const uint8_t* data, size_t len,
     int64_t n = W - x0 < cw ? W - x0 : cw;
     int64_t dx = mirror_tiles ? W - x0 - n : x0;
     size_t px_bits = (size_t)(per_pixel * bits);
+    // The 16-bit words as libtiff holds them (host order, which its byte
+    // swap of a big-endian file makes, except on a chunk cut short) are
+    // what the RGBA reader converts; the raster keeps the file's order.
+    // libtiff's put16bitbwtile (16-bit grey) steps each row of a tile
+    // clipped at the image's right edge by cw - n bytes where it means
+    // pixels: row r of such a tile starts r (2 samples n + cw - n) bytes in.
+    const bool swabbed = bits == 16 && !in[kLittle] && !cut;
+    const bool skew = tiled && bits == 16 && in[kPhotometricTag] <= 1 &&
+                      !planar && n < cw;
+    const size_t step = skew ? (size_t)(2 * per_pixel * n + cw - n)
+                             : chunk_row;
+    if (bits == 16 && (cut || skew) && !in[kLittle]) {
+      for (int64_t r = 0; r < rows && y0 + r < H; r++) {
+        uint8_t* dst = plane + (size_t)(y0 + r) * out_row +
+                       (size_t)dx * px_bits / 8;
+        size_t from = (size_t)r * step;
+        for (size_t i = 0; i < (size_t)(n * per_pixel); i++) {
+          // a host word's low and high bytes, written big-endian
+          size_t lo = from + 2 * i, hi = lo + 1;
+          dst[2 * i] = buf[swabbed ? hi ^ 1 : hi];
+          dst[2 * i + 1] = buf[swabbed ? lo ^ 1 : lo];
+        }
+      }
+      continue;
+    }
     for (int64_t r = 0; r < rows && y0 + r < H; r++)
-      copy_bits(buf + (size_t)r * chunk_row, 0,
+      copy_bits(buf + (size_t)r * step, 0,
                 plane + (size_t)(y0 + r) * out_row, (size_t)dx * px_bits,
                 (size_t)n * px_bits);
   }

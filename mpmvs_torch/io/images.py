@@ -36,18 +36,20 @@ the codec:
         (:func:`png_rows`: the chunks are parsed and inflated here with
         ``zlib``, the rows unfiltered and de-interlaced on the host,
         ``csrc/png_unfilter.h``), TIFF reads (:func:`tiff_rows`: classic
-        and BigTIFF, strips and tiles, chunky and planar, uncompressed, LZW,
-        Deflate and PackBits, predictor 2, grey, RGB, palette, 8-bit CMYK
-        and YCbCr in libtiff's data units, 1 to 16 bits, signed samples as
-        their bits; parsed and decompressed on the host,
-        ``csrc/tiff_decode.h``), BMP reads (:func:`bmp_rows`: 1 to 32 bits,
+        and BigTIFF, strips and tiles, chunky and planar, uncompressed, LZW
+        (old-style too), Deflate and PackBits, a compressed chunk cut short
+        read as libtiff reads it, predictor 2, grey, RGB, palette, 8-bit
+        CMYK, YCbCr in libtiff's data units and CIELab at 8 and 16 bits, 1
+        to 16 bits, signed samples as their bits; parsed and decompressed
+        on the host, ``csrc/tiff_decode.h``), BMP reads (:func:`bmp_rows`: 1 to 32 bits,
         RLE4 and RLE8 expanded on the host, OS/2 headers) and PBM, PGM and
         PPM reads (:func:`pnm_rows`, P1 to P6): the samples are copied to
         the card, where ``raster_to_bgr_kernel`` makes cv2's BGR and grey
         images of them (sub-8-bit grey expanded, palette looked up, 16 bits
         narrowed as libpng or libtiff narrows, alpha dropped or
         premultiplied, CMYK by libtiff's RGBA rule, YCbCr by libtiff's
-        tables (:func:`ycbcr_tables`), a BMP's B, G, R order and 16-bit
+        tables (:func:`ycbcr_tables`), CIELab by libtiff's RGBA reader's
+        conversion (:func:`cielab_tables`), a BMP's B, G, R order and 16-bit
         fields, the grey of colour by libpng's or OpenCV's arithmetic), and
         the eXIf or Orientation tag (a bottom-up BMP: a top-down mirror) is
         applied;
@@ -102,7 +104,8 @@ standard library's ``zlib``, on every device.
 Each kernel has a plain PyTorch version beside it, for the tests
 (:func:`colour_plain`, with :func:`ycc_to_bgr_plain` and
 :func:`cmyk_to_bgr_plain`;
-:func:`idct_islow_plain`, :func:`bgr_to_ycc_plain`,
+:func:`jpeg_smooth_plain`, :func:`idct_islow_plain`,
+:func:`bgr_to_ycc_plain`,
 :func:`fdct_islow_plain`, :func:`raster_to_bgr_plain`,
 :func:`vp8_reconstruct_plain`, :func:`vp8_loop_filter_plain`,
 :func:`webp_yuv_to_bgr_plain`, :func:`vp8l_predictor_plain`,
@@ -110,13 +113,14 @@ Each kernel has a plain PyTorch version beside it, for the tests
 :func:`ljpeg_undiff_plain`). ``COUNTS`` counts
 launches of the colour kernels (form ``"rgb"`` for RGB components,
 ``"cmyk"`` and ``"ycck"`` for ``cmyk_to_bgr_kernel``) and their plain calls
-(the four-component ones by form in ``plain_forms``), ``IDCT_COUNTS``,
+(the four-component ones by form in ``plain_forms``), ``SMOOTH_COUNTS``,
+``IDCT_COUNTS``,
 ``YCC_COUNTS``, ``FDCT_COUNTS``, ``RASTER_COUNTS``, ``VP8_RECON_COUNTS``,
 ``VP8_FILTER_COUNTS``, ``WEBP_COLOUR_COUNTS``, ``VP8L_PREDICTOR_COUNTS``,
 ``VP8L_COLOUR_COUNTS`` (by run, ``forms``), ``WEBP_ARGB_COUNTS`` and
 ``LJPEG_COUNTS`` (forms ``"scan"``, a launch a pass, and ``"wavefront"``)
-those of the IDCT, encoder colour, forward DCT, raster, WebP and lossless
-JPEG kernels; ``CODEC_COUNTS`` counts host decodes (``forms["decode"]``;
+those of the smoothing, IDCT, encoder colour, forward DCT, raster, WebP
+and lossless JPEG kernels; ``CODEC_COUNTS`` counts host decodes (``forms["decode"]``;
 ``"jpeg_arith"`` too for an arithmetic-coded JPEG, ``"jpeg_lossless"``
 for a lossless one's read), PNG, TIFF, BMP,
 PNM and WebP reads (``forms["png"]``, ``forms["tiff"]``,
@@ -125,8 +129,8 @@ PNM and WebP reads (``forms["png"]``, ``forms["tiff"]``,
 ``"webp_lossless"`` for a lossless one, ``"webp_animated"`` for an
 animated one) and encodes (``forms["encode"]``). ``COUNTS`` names the
 chunked colour forms ``"chunks"`` and ``"chunks_rgb"``, and
-``RASTER_COUNTS`` the raster forms ``"ycbcr"``, ``"bmp16"`` and
-``"bgr"``.
+``RASTER_COUNTS`` the raster forms ``"ycbcr"``, ``"bmp16"``, ``"bgr"``
+and ``"cielab"``.
 """
 
 from __future__ import annotations
@@ -155,6 +159,7 @@ IDCT_COUNTS = nvcc.LaunchCounts()
 YCC_COUNTS = nvcc.LaunchCounts()
 FDCT_COUNTS = nvcc.LaunchCounts()
 CODEC_COUNTS = nvcc.LaunchCounts()
+SMOOTH_COUNTS = nvcc.LaunchCounts()
 RASTER_COUNTS = nvcc.LaunchCounts()
 LJPEG_COUNTS = nvcc.LaunchCounts()
 # what the host codes of csrc/ name (a JPEG's, PNG's, TIFF's or WebP's
@@ -196,9 +201,11 @@ _CODE_ERRORS = {
           "does not read",
     4004: "a TIFF of a compression the card does not read (it reads none, "
           "LZW, Deflate and PackBits)",
-    4005: "a TIFF of old-style LZW (the pre-1991 bit-reversed form)",
+    4005: "a TIFF whose old-style LZW data (the pre-1991 bit-reversed "
+          "form) is corrupt",
     4006: "a TIFF whose LZW data is corrupt",
-    4007: "a TIFF whose strip or tile holds fewer bytes than its rows",
+    4007: "a TIFF whose uncompressed strip or tile holds fewer bytes than "
+          "its rows, which cv2 refuses too",
     4008: "a TIFF of signed or float samples that cv2 does not read into "
           "an 8-bit image either (SampleFormat 3, or SampleFormat 2 above "
           "16 bits)",
@@ -213,7 +220,8 @@ _CODE_ERRORS = {
           "(1, 2), planar and subsampled, or a predictor), or of subsampled "
           "tiles under an orientation that mirrors them, which the card "
           "does not lay out",
-    4013: "a TIFF of CIELab samples, which the card does not convert",
+    4013: "a TIFF of ICCLab or ITULab samples (Photometric 9 or 10), "
+          "which libtiff's RGBA reader, and so cv2, does not read either",
     4014: "a TIFF of a photometric the card does not read (it reads "
           "min-is-white, min-is-black, RGB, palette, CMYK and YCbCr)",
     4015: "a TIFF of more than 16 bits a sample",
@@ -232,6 +240,13 @@ _CODE_ERRORS = {
     4021: "a JPEG-compressed TIFF of a layout the card does not read "
           "(planar, not grey, RGB or YCbCr of 8 bits, or quantization "
           "tables that differ from one strip or tile to another)",
+    4022: "a CIELab TIFF of planar samples (PlanarConfiguration 2), "
+          "which libtiff's RGBA reader, and so cv2, does not read either",
+    4023: "a CIELab TIFF of other than three samples (an extra sample, or "
+          "L* alone), which libtiff's RGBA reader, and so cv2, does not "
+          "read either",
+    4024: "a CIELab TIFF of other than 8 or 16 bits a sample, which cv2 "
+          "does not read either",
     5001: "a truncated WebP (a header or partition ends early)",
     5002: "a malformed WebP (not RIFF/WEBP, or a chunk out of bounds)",
     5003: "a WebP whose frame is lossless (VP8L), handed to the lossy "
@@ -332,6 +347,8 @@ def _library():
     lib.jpeg_host_free.argtypes = [vp]
     lib.jpeg_host_free.restype = None
     lib.jpeg_host_lossless.argtypes = [vp, i, vp, vp]
+    lib.jpeg_host_smoothing.argtypes = [vp, vp]
+    lib.jpeg_smooth_launch.argtypes = [vp, vp, vp, vp]
     lib.ljpeg_scan_launch.argtypes = [vp, vp, vp, vp, vp, i, i, i, vp, i, vp]
     lib.ljpeg_wavefront_launch.argtypes = [vp, vp, vp, vp, i, i, vp, vp]
     lib.idct_islow_launch.argtypes = [vp, vp, i, i, i, vp, i, i, vp]
@@ -354,7 +371,8 @@ def _library():
                "vp8_reconstruct_launch", "vp8_loop_filter_launch",
                "webp_yuv_to_bgr_launch", "vp8l_predictor_launch",
                "vp8l_colour_launch", "webp_argb_to_bgr_launch",
-               "jpeg_host_lossless", "ljpeg_scan_launch",
+               "jpeg_host_lossless", "jpeg_host_smoothing",
+               "jpeg_smooth_launch", "ljpeg_scan_launch",
                "ljpeg_wavefront_launch"):
         getattr(lib, fn).restype = i
     return lib
@@ -640,30 +658,44 @@ def ycc_to_bgr_plain(y: Tensor, cb: Tensor = None, cr: Tensor = None,
     return colour_plain(planes, factors, size, SPACE_YCC)[1]
 
 
+def _wrap16(x: Tensor) -> Tensor:
+    return ((x + 32768) & 0xFFFF) - 32768
+
+
+def _wrap32(x: Tensor) -> Tensor:
+    return ((x + (1 << 31)) & 0xFFFFFFFF) - (1 << 31)
+
+
+def _madd(a, ca: int, b, cb: int) -> Tensor:
+    """pmaddwd: a * ca + b * cb in 32 bits."""
+    return _wrap32(a * ca + b * cb)
+
+
 def _idct_1d(v):
-    """jidctint's 1-D pass over eight int64 tensors: (even part tmp10,
-    tmp11, tmp12, tmp13; odd part tmp0..tmp3)."""
-    z1 = (v[2] + v[6]) * 4433
-    tmp2 = z1 + v[6] * -15137
-    tmp3 = z1 + v[2] * 6270
-    tmp0 = (v[0] + v[4]) * 8192
-    tmp1 = (v[0] - v[4]) * 8192
-    ev = (tmp0 + tmp3, tmp1 + tmp2, tmp1 - tmp2, tmp0 - tmp3)
-    t0, t1, t2, t3 = v[7], v[5], v[3], v[1]
-    z5 = (t0 + t2 + t1 + t3) * 9633
-    z1, z2 = (t0 + t3) * -7373, (t1 + t2) * -20995
-    z3, z4 = (t0 + t2) * -16069 + z5, (t1 + t3) * -3196 + z5
-    od = (t0 * 2446 + z1 + z3, t1 * 16819 + z2 + z4, t2 * 25172 + z2 + z3,
-          t3 * 12299 + z1 + z4)
-    return ev, od
+    """One pass of libjpeg-turbo's SIMD islow IDCT (``csrc/jpeg_idct.h``
+    idct_1d) over eight int64 tensors of 16-bit values: the eight 32-bit
+    sums of outputs 0..7 before the descale."""
+    tmp3 = _madd(v[2], 4433 + 6270, v[6], 4433)
+    tmp2 = _madd(v[2], 4433, v[6], 4433 - 15137)
+    tmp0 = _wrap32(_wrap16(v[0] + v[4]) * 8192)
+    tmp1 = _wrap32(_wrap16(v[0] - v[4]) * 8192)
+    t10, t13 = _wrap32(tmp0 + tmp3), _wrap32(tmp0 - tmp3)
+    t11, t12 = _wrap32(tmp1 + tmp2), _wrap32(tmp1 - tmp2)
+    z3, z4 = _wrap16(v[7] + v[3]), _wrap16(v[5] + v[1])
+    z3s = _madd(z3, 9633 - 16069, z4, 9633)
+    z4s = _madd(z3, 9633, z4, 9633 - 3196)
+    o0 = _wrap32(_madd(v[7], 2446 - 7373, v[1], -7373) + z3s)
+    o3 = _wrap32(_madd(v[7], -7373, v[1], 12299 - 7373) + z4s)
+    o1 = _wrap32(_madd(v[5], 16819 - 20995, v[3], -20995) + z4s)
+    o2 = _wrap32(_madd(v[5], -20995, v[3], 25172 - 20995) + z3s)
+    return [_wrap32(t10 + o3), _wrap32(t11 + o2), _wrap32(t12 + o1),
+            _wrap32(t13 + o0), _wrap32(t13 - o0), _wrap32(t12 - o1),
+            _wrap32(t11 - o2), _wrap32(t10 - o3)]
 
 
-def _idct_outputs(ev, od, n):
-    """The eight outputs of a pass, descaled by n bits, in order 0..7."""
-    d = lambda x: (x + (1 << (n - 1))) >> n
-    return [d(ev[0] + od[3]), d(ev[1] + od[2]), d(ev[2] + od[1]),
-            d(ev[3] + od[0]), d(ev[3] - od[0]), d(ev[2] - od[1]),
-            d(ev[1] - od[2]), d(ev[0] - od[3])]
+def _idct_descale(x: Tensor, n: int) -> Tensor:
+    """paddd of the rounding, psrad by n, packssdw."""
+    return (_wrap32(x + (1 << (n - 1))) >> n).clamp(-32768, 32767)
 
 
 def idct_islow_plain(coef: Tensor, qt: Tensor, plane_h: int,
@@ -671,20 +703,22 @@ def idct_islow_plain(coef: Tensor, qt: Tensor, plane_h: int,
     """The plain version of ``idct_islow_kernel``: the (plane_h, plane_w)
     uint8 samples of a component from its quantized coefficients
     ``coef`` (blocks_h, blocks_w, 64) int16 and quantization table ``qt``
-    (64,) (int16 holding uint16 bits), both in natural order: libjpeg's
-    jidctint (CONST_BITS 13, PASS1_BITS 2) and its range limit."""
+    (64,) (int16 holding uint16 bits), both in natural order: libjpeg-
+    turbo's SIMD islow IDCT as cv2 runs it (jidctint's sums in 16- and
+    32-bit lanes, the DC shortcut of a block whose rows 1 to 7 are zero,
+    the samples saturated; csrc/jpeg_idct.h)."""
     IDCT_COUNTS.plain += 1
     bh, bw = coef.shape[:2]
-    x = coef.to(torch.int64) * (qt.to(torch.int64) & 0xFFFF)
+    c64 = coef.to(torch.int64)
+    x = _wrap16(c64 * (qt.to(torch.int64) & 0xFFFF))
     x = x.reshape(bh, bw, 8, 8)  # [..., row k, column c]
-    ev, od = _idct_1d([x[..., k, :] for k in range(8)])
-    ws = _idct_outputs(ev, od, 13 - 2)           # 8 x (bh, bw, 8 columns)
-    ws = torch.stack(ws, -2)                     # (bh, bw, 8 rows, 8 cols)
-    ev, od = _idct_1d([ws[..., c] for c in range(8)])
-    out = torch.stack(_idct_outputs(ev, od, 13 + 2 + 3), -1)
-    i = out & 1023  # libjpeg's IDCT_range_limit table, indexed by x & 1023
-    out = torch.where(i < 128, i + 128, torch.where(
-        i < 512, 255, torch.where(i < 896, 0, i - 896)))
+    ac = (c64[..., 8:] != 0).any(-1)[..., None, None]
+    ws = torch.stack([_idct_descale(o, 13 - 2) for o in _idct_1d(
+        [x[..., k, :] for k in range(8)])], -2)  # (bh, bw, 8 rows, 8 cols)
+    ws = torch.where(ac, ws, _wrap16(x[..., :1, :] * 4).expand_as(ws))
+    out = torch.stack([_idct_descale(o, 13 + 2 + 3) for o in _idct_1d(
+        [ws[..., c] for c in range(8)])], -1)
+    out = out.clamp(-128, 127) + 128  # packsswb, then + CENTERJSAMPLE
     plane = out.permute(0, 2, 1, 3).reshape(bh * 8, bw * 8)
     return plane[:plane_h, :plane_w].to(torch.uint8)
 
@@ -715,14 +749,197 @@ def idct_islow_kernel(coef: Tensor, qt: Tensor, plane_h: int,
     return plane
 
 
+# ----------------------------- block smoothing -----------------------------
+
+class Smoothing(NamedTuple):
+    """What libjpeg-turbo's smoothing_ok latches of a progressive JPEG's
+    component (``jpeg_host_smoothing``; ``csrc/jpeg_smooth.h`` Params): its
+    coefficient array's blocks across and down, the blocks that cover its
+    samples across and down, its v factor, the frame's iMCU rows and the
+    one in which the input ran out of data, the progression status
+    (libjpeg's coef_bits: -1 unknown, else the scan's Al) of its first ten
+    coefficients in zigzag order after the last scan (``bits``) and before
+    it (``prev``, for the iMCU rows past ``last_good``), and their
+    quantization entries."""
+    blocks_w: int
+    blocks_h: int
+    width_in_blocks: int
+    height_in_blocks: int
+    v: int
+    total_imcu_rows: int
+    last_good: int
+    bits: Tuple[int, ...]
+    prev: Tuple[int, ...]
+    q: Tuple[int, ...]
+
+    @classmethod
+    def of(cls, ints) -> "Smoothing":
+        v = [int(x) for x in ints]
+        return cls(*v[:7], tuple(v[7:17]), tuple(v[17:27]), tuple(v[27:37]))
+
+    def ints(self):
+        return (ctypes.c_int * SMOOTH_INTS)(*self[:7], *self.bits,
+                                            *self.prev, *self.q)
+
+
+SMOOTH_INTS = 37  # jpeg_entropy::kSmoothInts
+JPEG_SMOOTH_LEN = 1 + 4 * SMOOTH_INTS  # jpeg_entropy::kSmoothLen
+
+
+def smoothing(handle, lib=None) -> tuple:
+    """A :func:`host_decode`'s smoothing latch: a :class:`Smoothing` per
+    component where libjpeg-turbo smooths the file's blocks (a progressive
+    JPEG whose first coefficients are not all exact: cut short, or its scans
+    stop before the last bit), else ()."""
+    out = (ctypes.c_int * JPEG_SMOOTH_LEN)()
+    (lib or _library()).jpeg_host_smoothing(handle, out)
+    if not out[0]:
+        return ()
+    n = sum(1 for c in range(4) if out[1 + SMOOTH_INTS * c + 4])
+    return tuple(Smoothing.of(out[1 + SMOOTH_INTS * c:1 + SMOOTH_INTS * (c + 1)])
+                 for c in range(n))
+
+
+# The DC weights of jdcoefct.c decompress_smooth_data, as 5 x 5 arrays over
+# the neighbourhood (rows two above to two below, columns two left to two
+# right), by zigzag coefficient: _SMOOTH_CHANGE_DC where no AC coefficient of
+# the nine is known (libjpeg's change_dc: nine estimates and, at 0, the DC's
+# own), _SMOOTH_KEEP_DC otherwise (the first five).
+def _weights(terms):
+    w = np.zeros((5, 5), np.int64)
+    for n, c in terms.items():
+        w[(n - 1) // 5, (n - 1) % 5] = c
+    return w
+
+
+_SMOOTH_CHANGE_DC = {
+    1: _weights({1: -1, 2: -1, 4: 1, 5: 1, 6: -3, 7: 13, 9: -13, 10: 3,
+                 11: -3, 12: 38, 14: -38, 15: 3, 16: -3, 17: 13, 19: -13,
+                 20: 3, 21: -1, 22: -1, 24: 1, 25: 1}),
+    2: _weights({1: -1, 2: -3, 3: -3, 4: -3, 5: -1, 6: -1, 7: 13, 8: 38,
+                 9: 13, 10: -1, 16: 1, 17: -13, 18: -38, 19: -13, 20: 1,
+                 21: 1, 22: 3, 23: 3, 24: 3, 25: 1}),
+    3: _weights({3: 1, 7: 2, 8: 7, 9: 2, 12: -5, 13: -14, 14: -5, 17: 2,
+                 18: 7, 19: 2, 23: 1}),
+    4: _weights({1: -1, 5: 1, 7: 9, 9: -9, 17: -9, 19: 9, 21: 1, 25: -1}),
+    5: _weights({7: 2, 8: -5, 9: 2, 11: 1, 12: 7, 13: -14, 14: 7, 15: 1,
+                 17: 2, 18: -5, 19: 2}),
+    6: _weights({7: 1, 9: -1, 12: 2, 14: -2, 17: 1, 19: -1}),
+    7: _weights({7: 1, 8: -3, 9: 1, 17: -1, 18: 3, 19: -1}),
+    8: _weights({7: 1, 9: -1, 12: -3, 14: 3, 17: 1, 19: -1}),
+    9: _weights({7: 1, 8: 2, 9: 1, 17: -1, 18: -2, 19: -1}),
+    0: _weights({1: -2, 2: -6, 3: -8, 4: -6, 5: -2, 6: -6, 7: 6, 8: 42,
+                 9: 6, 10: -6, 11: -8, 12: 42, 13: 152, 14: 42, 15: -8,
+                 16: -6, 17: 6, 18: 42, 19: 6, 20: -6, 21: -2, 22: -6,
+                 23: -8, 24: -6, 25: -2})}
+_SMOOTH_KEEP_DC = {
+    1: _weights({11: -7, 12: 50, 14: -50, 15: 7}),
+    2: _weights({3: -7, 8: 50, 18: -50, 23: 7}),
+    3: _weights({3: -1, 8: 13, 13: -24, 18: 13, 23: -1}),
+    4: _weights({10: 1, 16: 1, 17: -10, 19: 10, 2: -1, 20: -1, 22: 1,
+                 24: -1, 4: 1, 6: -1, 7: 10, 9: -10}),
+    5: _weights({11: -1, 12: 13, 13: -24, 14: 13, 15: -1})}
+_SMOOTH_POS = (0, 1, 8, 16, 9, 2, 3, 10, 17, 24)  # jpeg_smooth.h's pos
+
+
+def _smooth_rows(p: Smoothing) -> np.ndarray:
+    """(height_in_blocks, 5) block rows each block row's window reads
+    (jpeg_smooth::window_rows)."""
+    rows = np.zeros((p.height_in_blocks, 5), np.int64)
+    last = p.total_imcu_rows - 1
+    for by in range(p.height_in_blocks):
+        imcu, br = divmod(by, p.v)
+        block_rows = p.v
+        if imcu == last:
+            block_rows = p.height_in_blocks % p.v or p.v
+        n, r = block_rows * p.total_imcu_rows, imcu * block_rows + br
+        up = by - 1 if r > 0 else by
+        down = by + 1 if r < n - 1 else by
+        rows[by] = (by - 2 if r > 1 else up, up, by, down,
+                    by + 2 if r < n - 2 else down)
+    return rows
+
+
+def _estimate(num: Tensor, q: int, al: Tensor) -> Tensor:
+    """jpeg_smooth::estimate, element-wise: num (int64) with al per row."""
+    mag = (q * 128 + num.abs()) // (q * 256)
+    cap = (torch.ones_like(al) << al.clamp(min=0)) - 1
+    mag = torch.where(al > 0, torch.minimum(mag, cap), mag)
+    return torch.where(num >= 0, mag, -mag)
+
+
+def jpeg_smooth_plain(coef: Tensor, p: Smoothing) -> Tensor:
+    """The plain version of ``jpeg_smooth_kernel``: a component's quantized
+    coefficients (blocks_h, blocks_w, 64) int16 with libjpeg-turbo's
+    inter-block smoothing (``csrc/jpeg_smooth.h``) applied to the blocks of
+    its samples, a new array."""
+    SMOOTH_COUNTS.plain += 1
+    dev = coef.device
+    H, W = p.height_in_blocks, p.width_in_blocks
+    rows = torch.as_tensor(_smooth_rows(p), device=dev)
+    cols = (torch.arange(W, device=dev)[:, None] +
+            torch.arange(-2, 3, device=dev)).clamp(0, W - 1)
+    dc = coef[..., 0].to(torch.int64)
+    win = dc[rows[:, None, :, None], cols[None, :, None, :]]  # (H, W, 5, 5)
+    past = torch.arange(H, device=dev) // p.v > p.last_good
+    bits = torch.where(past[:, None], torch.tensor(p.prev, device=dev),
+                       torch.tensor(p.bits, device=dev))  # (H, 10)
+    change_dc = (bits[:, 1:] == -1).all(1)[:, None]          # (H, 1)
+    out = coef.clone()
+    blk = out[:H, :W].to(torch.int64)
+    q00 = p.q[0]
+    for k in range(1, 10):
+        sums = (win * torch.as_tensor(_SMOOTH_CHANGE_DC[k], device=dev)
+                ).sum((2, 3))
+        if k in _SMOOTH_KEEP_DC:
+            plain = (win * torch.as_tensor(_SMOOTH_KEEP_DC[k], device=dev)
+                     ).sum((2, 3))
+            sums = torch.where(change_dc, sums, plain)
+            use = torch.ones_like(change_dc)
+        else:
+            use = change_dc
+        al = bits[:, k][:, None]
+        at = _SMOOTH_POS[k]
+        est = _estimate(q00 * sums, p.q[k], al.expand(H, W))
+        blk[..., at] = torch.where(use & (al != 0) & (blk[..., at] == 0),
+                                   est, blk[..., at])
+    sums = (win * torch.as_tensor(_SMOOTH_CHANGE_DC[0], device=dev)
+            ).sum((2, 3))
+    est = _estimate(q00 * sums, q00, torch.zeros_like(sums))
+    blk[..., 0] = torch.where(change_dc, est, blk[..., 0])
+    out[:H, :W] = blk.to(torch.int32).to(torch.int16)
+    return out
+
+
+def jpeg_smooth_kernel(coef: Tensor, p: Smoothing) -> Tensor:
+    """Launch ``jpeg_smooth_kernel`` on a component's CUDA coefficients:
+    as :func:`jpeg_smooth_plain`."""
+    if coef.device.type != "cuda" or coef.dtype != torch.int16 or \
+            coef.ndim != 3 or coef.shape[2] != 64 or \
+            tuple(coef.shape[:2]) != (p.blocks_h, p.blocks_w):
+        raise ValueError(f"the smoothing kernel takes int16 CUDA "
+                         f"coefficients ({p.blocks_h}, {p.blocks_w}, 64), "
+                         f"got {coef.dtype} {tuple(coef.shape)} on "
+                         f"{coef.device}")
+    coef = coef.contiguous()
+    out = torch.empty_like(coef)
+    err = _library().jpeg_smooth_launch(coef.data_ptr(), p.ints(),
+                                        out.data_ptr(), _stream(coef))
+    _check(err, "jpeg_smooth_kernel launch")
+    SMOOTH_COUNTS.launched()
+    return out
+
+
 class Layout(NamedTuple):
     """What a JPEG's markers say of the image cv2.imread makes of its
     planes: the EXIF orientation (1..8), the colour space libjpeg takes its
-    components for (``SPACE_*``) and each component's ratios (hmax / h,
-    vmax / v), by which it is upsampled."""
+    components for (``SPACE_*``), each component's ratios (hmax / h,
+    vmax / v), by which it is upsampled, and, where libjpeg-turbo smooths
+    the file's blocks, each component's :class:`Smoothing`."""
     orientation: int
     space: int
     factors: Tuple[Tuple[int, int], ...]
+    smooth: Tuple[Smoothing, ...] = ()
 
     @property
     def rgb(self) -> bool:
@@ -761,6 +978,7 @@ def upload_coefficients(handle, info, device):
                          "coefficients: lossless_image reads them")
     try:
         comps, factors = [], []
+        smooth = smoothing(handle, lib)
         stream = torch.cuda.current_stream(dev).cuda_stream
         for c in range(info[0]):
             pw, ph, bw, bh, _, _, h, v = info[7 + 8 * c:15 + 8 * c]
@@ -775,7 +993,7 @@ def upload_coefficients(handle, info, device):
     finally:
         lib.jpeg_host_free(handle)
     return comps, (info[2], info[1]), Layout(info[3], info[4],
-                                             tuple(factors))
+                                             tuple(factors), smooth)
 
 
 def decode_coefficients(data: bytes, device, decoded=None):
@@ -793,9 +1011,13 @@ def decode_coefficients(data: bytes, device, decoded=None):
     return out
 
 
-def _planes(comps):
+def _planes(comps, smooth=()):
     """The IDCT kernel's plane of each component's decoded coefficients, at
-    its sampled size."""
+    its sampled size; with ``smooth`` (a :class:`Layout`'s), each
+    component's coefficients smoothed by ``jpeg_smooth_kernel`` first."""
+    if smooth:
+        comps = [(jpeg_smooth_kernel(c[0], p),) + tuple(c[1:])
+                 for c, p in zip(comps, smooth)]
     return [idct_islow_kernel(*c) for c in comps]
 
 
@@ -804,7 +1026,7 @@ def decode_planes(data: bytes, device, decoded=None):
     sampled size, from the IDCT kernel), the image's (height, width) and its
     :class:`Layout`: what :func:`colour_kernel` takes."""
     comps, size, layout = decode_coefficients(data, device, decoded)
-    return _planes(comps), size, layout
+    return _planes(comps, layout.smooth), size, layout
 
 
 def plane_ints(planes, factors, geo=None, fancy: bool = True):
@@ -1220,7 +1442,8 @@ class RasterForm(NamedTuple):
     OpenCV's conversions applies to them: the fields of ``raster_bgr::Form``
     (csrc/raster_bgr.h; :func:`form_ints` gives them in its order)."""
     kind: int          # RASTER_GREY, RASTER_RGB, RASTER_PALETTE,
-                       # RASTER_CMYK, RASTER_YCBCR or RASTER_BMP16
+                       # RASTER_CMYK, RASTER_YCBCR, RASTER_BMP16 or
+                       # RASTER_CIELAB
     bits: int          # 1, 2, 4, 8 or 16
     channels: int      # samples a pixel, alpha included
     planar: int        # 1: a plane a channel
@@ -1246,7 +1469,7 @@ def form_ints(form: RasterForm):
 
 
 RASTER_GREY, RASTER_RGB, RASTER_PALETTE, RASTER_CMYK = 0, 1, 2, 3
-RASTER_YCBCR, RASTER_BMP16 = 4, 5
+RASTER_YCBCR, RASTER_BMP16, RASTER_CIELAB = 4, 5, 6
 GREY_LIBPNG, GREY_LIBPNG_GAMMA, GREY_OPENCV = 0, 1, 2
 NARROW_SHIFT, NARROW_ROUND257 = 0, 1
 # raster_bgr.h: the palette (256 x RGB), libpng's 8-bit gamma tables, then
@@ -1255,7 +1478,10 @@ TO_ONE_AT, FROM_ONE_AT = 768, 1024
 TO_ONE16_AT, FROM_ONE16_AT, GREY16_AT = 1280, 1280 + 4096, 1280 + 8192
 TABLES_LEN = 1280 + 12288
 # a YCbCr TIFF's tables take their place: ycbcr_tables' five, 256
-# little-endian int32 entries each
+# little-endian int32 entries each; a CIELab TIFF's: cielab_tables' Yr2r
+# (LAB_RANGE + 1 float32 entries), then X0, Y0, Z0 and the table's step
+LAB_RANGE = 1500
+LAB_WHITE_AT = 4 * (LAB_RANGE + 1)
 # libpng's png_set_rgb_to_gray coefficients for OpenCV's 0.299, 0.587
 LIBPNG_RC, LIBPNG_GC = 9797, 19234
 LIBPNG_BC = 32768 - LIBPNG_RC - LIBPNG_GC
@@ -1306,6 +1532,31 @@ def ycbcr_tables(luma=(0.299, 0.587, 0.114),
                      (d1 * cr + 32768) >> 16, (d3 * cb + 32768) >> 16,
                      d2 * cr, d4 * cb + 32768)
     return out
+
+
+def cielab_tables(white=None) -> np.ndarray:
+    """libtiff's CIELab state as its RGBA reader builds it
+    (initCIELabConversion, TIFFCIELabToRGBInit under display_sRGB) from a
+    WhitePoint tag's chromaticities ``white`` (float32 x, y; None: D50, the
+    tag's TIFFGetFieldDefaulted): the Yr2r table ((float) pow(i / 1500,
+    1 / 2.4) times 255, in float), then the reference white X0, Y0, Z0 and
+    the table's step, float32 (LAB_RANGE + 5,) as raster_bgr.h reads
+    them. Raises ValueError for a white point of y 0, which libtiff
+    rejects."""
+    f32 = np.float32
+    if white is None:  # D50_X0 / (D50_X0 + D50_Y0 + D50_Z0), in float
+        s = f32(f32(f32(96.4250) + f32(100.0)) + f32(82.4680))
+        white = (f32(96.4250) / s, f32(100.0) / s)
+    x, y = f32(white[0]), f32(white[1])
+    if y == 0:
+        raise ValueError("a CIELab TIFF whose WhitePoint has a y of 0, which "
+                         "libtiff rejects too")
+    ref = (f32(x / y * f32(100)), f32(100),
+           f32(f32(f32(f32(1) - x) - y) / y * f32(100)))
+    i = np.arange(LAB_RANGE + 1)
+    yr = f32(255) * np.power(i / LAB_RANGE, 1.0 / float(f32(2.4))).astype(f32)
+    step = f32(f32(99) / f32(LAB_RANGE))  # (d_YCR - d_Y0R) / range
+    return np.concatenate([yr.astype(f32), np.array([*ref, step], f32)])
 
 
 _PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
@@ -1525,8 +1776,12 @@ def tiff_rows(data: bytes, lib, tiff_info=None) -> Raster:
                              "finite, or a zero green)")
         tables[:5 * 1024] = ycbcr_tables(luma, ref).astype("<i4").view(
             np.uint8).reshape(-1)
+    if pm == 8:
+        lab = cielab_tables(_rationals(data, lib, 318, 2))
+        tables[:lab.nbytes] = lab.astype("<f4").view(np.uint8)
     kind = {0: RASTER_GREY, 1: RASTER_GREY, 2: RASTER_RGB,
-            3: RASTER_PALETTE, 5: RASTER_CMYK, 6: RASTER_YCBCR}[pm]
+            3: RASTER_PALETTE, 5: RASTER_CMYK, 6: RASTER_YCBCR,
+            8: RASTER_CIELAB}[pm]
     form = RasterForm(kind, bits, spp, int(planar == 2), little,
                       int(pm == 0), NARROW_ROUND257,
                       int(kind == RASTER_RGB and spp == 4 and alpha == 2),
@@ -1580,6 +1835,42 @@ def _raster_samples(raster: Tensor, f: RasterForm) -> Tensor:
     return v.reshape(planes, H, W, per).permute(1, 2, 0, 3).reshape(H, W, C)
 
 
+def _cielab_rgb(s: Tensor, f: RasterForm, tables: Tensor):
+    """libtiff's TIFFCIELab16ToXYZ and TIFFXYZToRGB of (H, W, 3) L*, a*, b*
+    samples (int64, their bits) with :func:`cielab_tables`' state, in
+    float32, an operation at a time: R, G, B int64."""
+    lab = tables[:LAB_WHITE_AT + 16].view(torch.float32)  # little-endian
+    yr, (X0, Y0, Z0, step) = lab[:LAB_RANGE + 1], lab[LAB_RANGE + 1:]
+    l, a, b = s.unbind(-1)
+    sign = 1 << (f.bits - 1)
+    a, b = (a ^ sign) - sign, (b ^ sign) - sign  # signed char / int16
+    if f.bits == 8:  # TIFFCIELabToXYZ: TIFFCIELab16ToXYZ of l 257, a 256
+        l, a, b = l * 257, a * 256, b * 256
+    c = lambda v: torch.tensor(v, dtype=torch.float32, device=s.device)
+    L = l.to(torch.float32) * c(100) / c(65535)
+    small = L < c(8.856)
+    Ys = L * Y0 / c(903.292)
+    cby = torch.where(small, c(7.787) * (Ys / Y0) + c(16) / c(116),
+                      (L + c(16)) / c(116))
+    Y = torch.where(small, Ys, Y0 * cby * cby * cby)
+
+    def xz(t, w):
+        return torch.where(t < c(0.2069), w * (t - c(0.13793)) / c(7.787),
+                           w * t * t * t)
+
+    X = xz(a.to(torch.float32) / c(256) / c(500) + cby, X0)
+    Z = xz(cby - b.to(torch.float32) / c(256) / c(200), Z0)
+    out = []
+    for m0, m1, m2 in ((3.2410, -1.5374, -0.4986), (-0.9692, 1.8760, 0.0416),
+                       (0.0556, -0.2040, 1.0570)):
+        lum = c(m0) * X + c(m1) * Y + c(m2) * Z
+        lum = torch.clamp(lum, min=1, max=100)
+        i = torch.clamp(((lum - c(1)) / step).to(torch.int64), max=LAB_RANGE)
+        v = (yr[i].to(torch.float64) + 0.5).to(torch.int64)
+        out.append(torch.clamp(v, max=255))
+    return out
+
+
 def raster_to_bgr_plain(raster: Tensor, form: RasterForm,
                         tables: Tensor) -> Tuple[Tensor, Tensor]:
     """The plain version of ``raster_to_bgr_kernel``: (grey (H, W), BGR
@@ -1611,6 +1902,8 @@ def raster_to_bgr_plain(raster: Tensor, form: RasterForm,
         r = torch.clamp(yv + tab[1][cr], 0, 255)
         g = torch.clamp(yv + ((tab[4][cb] + tab[3][cr]) >> 16), 0, 255)
         b = torch.clamp(yv + tab[2][cb], 0, 255)
+    elif f.kind == RASTER_CIELAB:  # libtiff's RGBA reader
+        r, g, b = _cielab_rgb(s, f, tables)
     elif f.kind == RASTER_BMP16:  # OpenCV's BGR555 / BGR565 expansion
         v = s[..., 0]
         b = (v << 3) & 0xF8
@@ -1688,9 +1981,10 @@ def raster_to_bgr_kernel(raster: Tensor, form: RasterForm,
 
 def raster_form_name(form: RasterForm):
     """The launch counters' name of a raster form that later reads added
-    ("ycbcr", "bmp16", "bgr"), None for the rest."""
-    return {RASTER_YCBCR: "ycbcr", RASTER_BMP16: "bmp16"}.get(
-        form.kind, "bgr" if form.bgr else None)
+    ("ycbcr", "bmp16", "bgr", "cielab"), None for the rest."""
+    return {RASTER_YCBCR: "ycbcr", RASTER_BMP16: "bmp16",
+            RASTER_CIELAB: "cielab"}.get(form.kind,
+                                         "bgr" if form.bgr else None)
 
 
 # ------------------------------- BMP, PNM -------------------------------

@@ -272,3 +272,25 @@ def ljpeg_bound(planes):
     bytes a sample. Bytes alone (integer work, mod 2^16)."""
     return bound(0, 3 * sum(h * w for h, w in planes))
 
+
+
+def smooth_bound(coefs):
+    """The smoothing launches of a progressive JPEG's components
+    (``jpeg_smooth_kernel``, one a component): each int16 coefficient read
+    once and written once into the new array, 4 bytes a coefficient. Bytes
+    alone: the integer work has no peak in the table."""
+    return bound(0, sum(4 * c.numel() for c in coefs))
+
+
+# the float operations of raster_bgr.h's cielab_rgb a pixel: L* (2), Y and
+# cby (5 on the larger path), X and Z (6 each), the matrix (15) and the
+# three channels' index (2 each)
+CIELAB_OPS = 2 + 5 + 2 * 6 + 15 + 3 * 2
+
+
+def cielab_bound(form):
+    """One launch of the raster kernel's CIELab form: its samples read
+    once, the Yr2r table and the reference white (6,020 bytes), BGR and grey
+    written, against CIELAB_OPS float operations a pixel."""
+    return max(raster_bound(form, 4 * 1505),
+               bound(CIELAB_OPS * form.width * form.height, 0))

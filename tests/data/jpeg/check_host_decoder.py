@@ -44,7 +44,44 @@ SHIM = r'''
 #include "jpeg_colour.h"
 #include "jpeg_entropy.h"
 #include "jpeg_idct.h"
+#include "jpeg_smooth.h"
 using namespace jpeg_entropy;
+// Every block of each component smoothed as the card's jpeg_smooth_kernel
+// smooths it, where libjpeg would (smoothing()'s latch).
+static void smooth(Decoder* d) {
+  int latch[kSmoothLen];
+  smoothing(d, latch);
+  if (!latch[0]) return;
+  for (int i = 0; i < d->ncomp; i++) {
+    Component& c = d->comp[i];
+    jpeg_smooth::Params p =
+        jpeg_smooth::params_of(latch + 1 + kSmoothInts * i);
+    std::vector<int16_t> out(c.coef.size());
+    for (int by = 0; by < c.blocks_h; by++)
+      for (int bx = 0; bx < c.blocks_w; bx++)
+        jpeg_smooth::smooth_block(c.coef.data(), p, bx, by,
+                                  &out[((size_t)by * c.blocks_w + bx) * 64]);
+    c.coef.swap(out);
+  }
+}
+// The smoothing latch of a decode (jpeg_entropy::kSmoothLen ints).
+extern "C" int smoothing_of(const uint8_t* data, size_t len, int* latch) {
+  Decoder* d = new Decoder();
+  int err = decode(d, data, len, false);
+  if (!err) smoothing(d, latch);
+  delete d;
+  return err;
+}
+// jpeg_smooth_kernel's arithmetic over a component's whole coefficient
+// array, a block at a time as its threads run it.
+extern "C" void smooth_host(const int16_t* coef, const int* params,
+                            int16_t* out) {
+  jpeg_smooth::Params p = jpeg_smooth::params_of(params);
+  for (int by = 0; by < p.blocks_h; by++)
+    for (int bx = 0; bx < p.blocks_w; bx++)
+      jpeg_smooth::smooth_block(coef, p, bx, by,
+                                out + ((size_t)by * p.blocks_w + bx) * 64);
+}
 // info: ncomp, orientation, colour space, hmax, vmax, then per component
 // its plane's height and width and its factors h, v
 extern "C" int planes(const uint8_t* data, size_t len, int* info,
@@ -53,6 +90,7 @@ extern "C" int planes(const uint8_t* data, size_t len, int* info,
   int err = decode(d, data, len, false);
   if (!err && d->lossless) err = -1;  // differences: check_host_lossless.py
   if (err) { delete d; return err; }
+  smooth(d);
   info[0] = d->ncomp;
   info[1] = d->orientation;
   info[2] = d->space;
@@ -170,6 +208,9 @@ def build(tmp):
     lib.coefficients.argtypes = [ctypes.c_char_p, ctypes.c_size_t, vp, vp,
                                  vp]
     lib.colour_pixels.argtypes = [vp, vp, i, i, vp, i, i, vp, vp]
+    lib.smoothing_of.argtypes = [ctypes.c_char_p, ctypes.c_size_t, vp]
+    lib.smooth_host.argtypes = [vp, vp, vp]
+    lib.smooth_host.restype = None
     lib.cmyk_channels.argtypes = [vp, vp, i, vp]
     lib.ycck_cmys.argtypes = [vp, vp, vp, i, vp]
     for fn in ("colour_pixels", "cmyk_channels", "ycck_cmys"):
@@ -195,6 +236,28 @@ def coefficients(lib, data):
     return (coefs, [(h, v) for _, _, h, v, _, _ in comp],
             [i for *_, i, _ in comp], [t for *_, t in comp], qt,
             (info[2], info[1]))
+
+
+def smoothing(lib, data):
+    """A JPEG's ``images.Smoothing`` per component where libjpeg-turbo
+    smooths its blocks, else ()."""
+    latch = (ctypes.c_int * images.JPEG_SMOOTH_LEN)()
+    assert lib.smoothing_of(data, len(data), latch) == 0
+    if not latch[0]:
+        return ()
+    n = images.SMOOTH_INTS
+    return tuple(images.Smoothing.of(latch[1 + n * c:1 + n * (c + 1)])
+                 for c in range(4) if latch[1 + n * c + 4])
+
+
+def smooth_host(lib, coef: np.ndarray, p) -> np.ndarray:
+    """``csrc/jpeg_smooth.h`` built for the host over a component's
+    coefficients (blocks down, blocks across, 64) int16, as the kernel's
+    threads run it."""
+    coef = np.ascontiguousarray(coef, np.int16)
+    out = np.empty_like(coef)
+    lib.smooth_host(coef.ctypes.data, p.ints(), out.ctypes.data)
+    return out
 
 
 def status(lib, data) -> int:

@@ -358,7 +358,8 @@ def lossless_jpeg(planes, precision: int = 8, predictor: int = 1,
     """A lossless JPEG (SOF3, Huffman; T.81 Annex H) of ``planes`` (integer
     arrays, a component each, at their sampled sizes for ``factors``; the
     first plane's size at the largest factors is the image's) of
-    ``precision`` bits, ``predictor`` 1..7 and point transform ``pt``: one
+    ``precision`` bits, ``predictor`` 1..7 and point transform ``pt`` (or,
+    with a scan a component, a point transform a component): one
     interleaved scan (``interleave`` False: a scan a component, its MCU
     a sample), a restart every ``restart_rows`` MCU rows (T.81 H.1.2.1:
     the first row after each is predicted as a first row), ``pre`` the
@@ -377,11 +378,14 @@ def lossless_jpeg(planes, precision: int = 8, predictor: int = 1,
             raise ValueError(f"plane {np.shape(p)} at factors {(h, v)} of "
                              f"{(H, W)}")
     mx, my = -(-W // hmax), -(-H // vmax)
-    initial = 1 << (precision - pt - 1)
+    pts = list(pt) if np.ndim(pt) else [pt] * n
+    if interleave and len(set(pts)) > 1:
+        raise ValueError("one interleaved scan has one point transform")
     units = []  # (my, mx, samples of the MCU) of each component
-    for p, (h, v) in zip(planes, factors):
-        x = np.asarray(p).astype(np.int64) >> pt
+    for p, (h, v), t in zip(planes, factors, pts):
+        x = np.asarray(p).astype(np.int64) >> t
         first = first_rows(len(x), v if interleave else 1, restart_rows)
+        initial = 1 << (precision - t - 1)
         diff = (x - predict(x, predictor, first, initial)) & 0xFFFF
         if not interleave:  # an MCU row is a row of the component
             units.append(diff[:, :, None])
@@ -414,7 +418,8 @@ def lossless_jpeg(planes, precision: int = 8, predictor: int = 1,
     for j, scan in enumerate(scans):
         comps = range(n) if interleave else [j]
         out += segment(0xDA, bytes([len(comps)]) + b"".join(
-            bytes([ids[c], 0x00]) for c in comps) + bytes([predictor, 0, pt]))
+            bytes([ids[c], 0x00]) for c in comps) + bytes([predictor, 0,
+                                                            pts[j]]))
         rows, per_row = scan.shape[0], scan[0].size
         step = restart_rows or rows
         for k, r0 in enumerate(range(0, rows, step)):

@@ -216,6 +216,14 @@ LOSSLESS = {
     "cmyk_scans_restart1_p2": (CMYK, 13, 11, 87, {"predictor": 2,
                                                   "restart_rows": 1,
                                                   "interleave": False}),
+    # a scan a component, each of its own point transform
+    "rgb_scans_pts_021_p1": (RGB, 23, 31, 88, {"predictor": 1,
+                                               "pt": (0, 2, 1),
+                                               "interleave": False}),
+    "cmyk_scans_pts_3102_p6": (CMYK, 19, 26, 89, {"predictor": 6,
+                                                  "pt": (3, 1, 0, 2),
+                                                  "restart_rows": 2,
+                                                  "interleave": False}),
 }
 TRUNCATED = {"rgb_truncated_p7": (RGB, 40, 52, 90, {"predictor": 7}),
              "cmyk_truncated_p2": (CMYK, 33, 45, 91, {"predictor": 2})}

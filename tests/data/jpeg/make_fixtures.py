@@ -238,7 +238,9 @@ def stays_refused(data_420: bytes) -> dict:
             "lossless": with_sof(data_420, marker=0xC3),
             "fractional": sampled([(2, 1), (3, 1), (1, 1)], 21, 27, 60),
             "mcu_blocks": sampled([(3, 3), (1, 1), (1, 1)], 21, 27, 63,
-                                  interleave=True)}
+                                  interleave=True),
+            # cut before its first scan: libjpeg's "no image"
+            "no_scan": data_420[:data_420.index(b"\xff\xda")]}
 
 
 def components() -> dict:

@@ -17,7 +17,9 @@ directory, then:
 * holds the grey of every 8-bit RGB triple (one 4096x4096 image, made
   here) to cv2's, as a PNG without and with a gAMA chunk and as a TIFF,
   and of every 16-bit value in each channel of a PNG with a gAMA chunk,
-  and the grey and BGR of every (Y, Cb, Cr) triple as a YCbCr TIFF;
+  and the grey and BGR of every (Y, Cb, Cr) triple as a YCbCr TIFF, of
+  every 8-bit (L*, a*, b*) triple as a CIELab TIFF and of 2^20 seeded
+  16-bit ones;
 * reads the BMPs under ``../bmp`` and PNMs under ``../pnm`` as the PNGs
   and TIFFs, and the JPEG-compressed TIFFs through the host JPEG decode
   (``tiff_jpeg.h``), the IDCT's and the chunked colour form's plain
@@ -59,8 +61,16 @@ REFUSED = {
     "tiff/refused/old_jpeg.tif": "old-style JPEG",
     "tiff/refused/float.tif": "float", "tiff/refused/int32.tif": "signed or float",
     "tiff/refused/predictor3.tif": "floating-point predictor",
-    "tiff/refused/lab.tif": "CIELab",
-    "tiff/refused/old_lzw.tif": "old-style LZW",
+    # Pillow's CIELab and the old-style LZW file once here read now
+    # (pil_lab.tif, old_lzw.tif); what stays refused of them stands here
+    "tiff/refused/icclab.tif": "ICCLab",
+    "tiff/refused/old_lzw_corrupt.tif": "old-style LZW",
+    "tiff/refused/itulab.tif": "ITULab",
+    "tiff/refused/lab_planar2.tif": "CIELab TIFF of planar",
+    "tiff/refused/lab_alpha.tif": "CIELab TIFF of other than three",
+    "tiff/refused/lab_l_only.tif": "CIELab TIFF of other than three",
+    "tiff/refused/lab4.tif": "CIELab TIFF of other than 8 or 16",
+    "tiff/refused/short_none.tif": "uncompressed strip",
     "tiff/refused/grey2.tif": "bit depth", "tiff/refused/grey4.tif":
         "bit depth", "tiff/refused/grey12.tif": "bit depth",
     "tiff/refused/palette16.tif": "bit depth",
@@ -285,6 +295,22 @@ def dense_cases():
     yield "png rgb16 gAMA 200000", png_of(every16(), gama_chunk(200000))
 
 
+def every_triple_cielab() -> bytes:
+    """A 4096x4096 8-bit CIELab TIFF holding every (L*, a*, b*) triple
+    once."""
+    return tiff_bytes(every_triple(), photometric=8, compression=8,
+                      rows_per_strip=256)
+
+
+def cielab16_sample(seed: int = 0) -> bytes:
+    """A 1024x1024 16-bit CIELab TIFF of seeded random (L*, a*, b*)
+    samples, the rows spanning L* from 0 to 65535."""
+    rng = np.random.default_rng(seed)
+    lab = rng.integers(0, 65536, (1024, 1024, 3)).astype(np.uint16)
+    lab[..., 0] = np.linspace(0, 65535, 1024).astype(np.uint16)[:, None]
+    return tiff_bytes(lab, photometric=8, compression=8, rows_per_strip=64)
+
+
 def every_triple_ycbcr() -> bytes:
     """A 4096x4096 YCbCr TIFF at subsampling (1, 1) holding every 8-bit
     (Y, Cb, Cr) triple once."""
@@ -356,11 +382,14 @@ def main() -> int:
             total += k + p
             print(f"{label}: grey entries differing from cv2: kernel "
                   f"arithmetic {k}, plain (every 8th row) {p}")
-        k, p = dense_mismatches(lib, every_triple_ycbcr(),
-                                slice(None, None, 8), colour=True)
-        total += k + p
-        print(f"tiff ycbcr (1, 1): grey and BGR entries differing from cv2: "
-              f"kernel arithmetic {k}, plain (every 8th row) {p}")
+        for label, data in (("tiff ycbcr (1, 1)", every_triple_ycbcr()),
+                            ("tiff cielab 8-bit", every_triple_cielab()),
+                            ("tiff cielab 16-bit", cielab16_sample())):
+            k, p = dense_mismatches(lib, data, slice(None, None, 8),
+                                    colour=True)
+            total += k + p
+            print(f"{label}: grey and BGR entries differing from cv2: "
+                  f"kernel arithmetic {k}, plain (every 8th row) {p}")
     print(f"in all: {total} mismatches")
     return 0 if total == 0 else 1
 

@@ -40,7 +40,7 @@ grey and RGB, which cv2 reads as the unsigned samples of the same bits.
 
 ``refused/`` holds TIFFs the card refuses, each for a cause it names:
 old-style JPEG (Compression 6), float and 32-bit integer (PIL),
-predictor 3, CIELab (PIL), old-style LZW, 2-bit grey, 4-bit grey,
+predictor 3, 2-bit grey, 4-bit grey,
 12-bit grey, 16-bit palette and 1-bit RGB (of which cv2 reads none of the
 last five into an 8-bit image either), and separated samples cv2 does not
 read either: 16-bit CMYK, InkSet 2, CMYK with an alpha sample and three
@@ -58,6 +58,14 @@ writes only the files of the JPEG, YCbCr and signed cases and the
 refusals that go with them, adding their arrays to ``cv2_arrays.npz``;
 ``--part conversion`` writes ``conversion/plane_3200x2130_jpeg.tif``
 (chip_smoke.py's phase 8d source) and its ``conversion/cv2.json``.
+
+    python tests/data/tiff/make_fixtures.py --part rare
+
+writes the rarer TIFFs' fixtures only (:func:`rare_fixtures`: CIELab at 8
+and 16 bits, old-style LZW, compressed strips and tiles cut short, and the
+refusals of :func:`rare_refused`), adding their arrays to
+``cv2_arrays.npz``, and cv2's hashes of chip_smoke.py phase 8f's run-time
+CIELab and old-style LZW TIFFs to ``conversion/cv2.json``.
 """
 
 import argparse
@@ -74,8 +82,8 @@ from PIL import Image
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
-from tiff_file import (RATIONAL, SHORT, UNDEFINED, tags_of,  # noqa: E402
-                       tiff_bytes)
+from tiff_file import (RATIONAL, SHORT, UNDEFINED, cut_chunk,  # noqa: E402
+                       rare_conversion_sources, tags_of, tiff_bytes)
 
 DATA = os.path.dirname(HERE)
 
@@ -253,8 +261,6 @@ def refused():
         "cmyk_alpha": tiff_bytes(np.concatenate(
             [cmyk, cmyk[..., :1]], -1), photometric=5, extra_samples=(2,)),
         "cmyk3": tiff_bytes(cmyk[..., :3], photometric=5),
-        "lab": pil_bytes(Image.fromarray(rgb).convert("LAB")),
-        "old_lzw": tiff_bytes(rgb, compression=5, old_lzw=True),
         "grey2": tiff_bytes((grey >> 6).astype(np.uint8), bits=2,
                             photometric=1),
         "grey4": tiff_bytes((grey >> 4).astype(np.uint8), bits=4,
@@ -516,6 +522,163 @@ def _taller_strip(bgr: np.ndarray) -> bytes:
                                   530: (SHORT, [2, 2])})
 
 
+def _lab(rgb: np.ndarray) -> np.ndarray:
+    """8-bit L*, a*, b* samples of an RGB picture (a* and b* as signed
+    bytes' bits)."""
+    return np.asarray(Image.fromarray(rgb).convert("LAB"))
+
+
+def _short(data: bytes, index: int = -1, keep: float = 2 / 3) -> bytes:
+    """``data`` with strip or tile ``index`` cut to ``keep`` of its bytes
+    (the last: the file cut short there)."""
+    t = tags_of(data)
+    counts = t[325 if 325 in t else 279]
+    index %= len(counts)
+    return cut_chunk(data, index, int(counts[index] * keep))
+
+
+def rare_fixtures():
+    """CIELab TIFFs at 8 and 16 bits (libtiff's RGBA reader converts them
+    for cv2), old-style LZW, and compressed strips and tiles cut short
+    (libtiff reads what they hold, zero-fills the rest and skips their
+    predictor and byte swap)."""
+    rgb = picture(21, 27, 2)
+    big = picture(96, 128, 23)
+    lab = _lab(picture(37, 53, 20))
+    rng = np.random.default_rng(21)
+    lab16 = rng.integers(0, 65536, (29, 35, 3)).astype(np.uint16)
+    lab16[..., 0] = np.linspace(0, 65535, 35).astype(np.uint16)
+    grey16 = (picture(33, 41, 22)[..., 0].astype(np.uint16) * 257 +
+              rng.integers(0, 256, (33, 41)).astype(np.uint16))
+    d65 = {318: (RATIONAL, [3127, 10000, 3290, 10000])}
+    return {
+        # Pillow's CIELab, once refused/lab
+        "pil_lab": pil_bytes(Image.fromarray(rgb).convert("LAB")),
+        "lab8_strips5": tiff_bytes(lab, photometric=8, rows_per_strip=5),
+        "lab8_lzw_pred2": tiff_bytes(lab, photometric=8, compression=5,
+                                     predictor=2),
+        "lab8_tiles_deflate": tiff_bytes(lab, photometric=8, compression=8,
+                                         tile=(16, 16)),
+        "lab8_whitepoint_d65": tiff_bytes(lab, photometric=8,
+                                          extra_tags=d65),
+        "lab8_signed_packbits_mm": tiff_bytes(lab, photometric=8,
+                                              compression=32773, big=True,
+                                              sample_format=2),
+        "lab16": tiff_bytes(lab16, photometric=8),
+        "lab16_mm_deflate_pred2_orient6": tiff_bytes(
+            lab16, photometric=8, compression=8, predictor=2, big=True,
+            orientation=6),
+        # old-style LZW: once refused/old_lzw; strips and tiles, a
+        # predictor, and an image long enough for 12-bit codes and Clear
+        "old_lzw": tiff_bytes(rgb, compression=5, old_lzw=True),
+        "old_lzw_strips7_pred2": tiff_bytes(rgb, compression=5,
+                                            old_lzw=True, predictor=2,
+                                            rows_per_strip=7),
+        "old_lzw_tiles_grey16_mm": tiff_bytes(grey16, photometric=1,
+                                              compression=5, old_lzw=True,
+                                              tile=(16, 16), big=True),
+        "old_lzw_96x128": tiff_bytes(big, compression=5, old_lzw=True),
+        "old_lzw_lab8": tiff_bytes(lab, photometric=8, compression=5,
+                                   old_lzw=True),
+        # compressed strips and tiles whose data ends before their rows
+        "short_lzw": _short(tiff_bytes(rgb, compression=5)),
+        "short_lzw_pred2_grey16_mm": _short(tiff_bytes(
+            grey16, photometric=1, compression=5, predictor=2, big=True)),
+        "short_deflate_pred2": _short(tiff_bytes(rgb, compression=8,
+                                                 predictor=2)),
+        "short_packbits_grey8": _short(tiff_bytes(
+            rgb[..., 1], photometric=1, compression=32773), keep=1 / 2),
+        "short_lzw_first_of_3_strips": _short(tiff_bytes(
+            big, compression=5, rows_per_strip=40), index=0, keep=1 / 2),
+        "short_deflate_tile": _short(tiff_bytes(
+            big, compression=8, tile=(32, 48)), index=4, keep=1 / 3),
+        "short_packbits_planar2": _short(tiff_bytes(
+            rgb, compression=32773, planar=2)),
+        "short_old_lzw": _short(tiff_bytes(big, compression=5,
+                                           old_lzw=True)),
+        "short_lzw_lab16": _short(tiff_bytes(lab16, photometric=8,
+                                             compression=5)),
+    }
+
+
+def rare_refused():
+    """What stays refused of the rarer TIFFs, each for a cause named: the
+    CIELab layouts libtiff's RGBA reader (so cv2) does not read, ICCLab and
+    ITULab, corrupt old-style LZW data, an uncompressed strip cut short."""
+    lab = _lab(picture(21, 27, 2))
+    rgb = picture(21, 27, 2)
+    old = tiff_bytes(rgb, compression=5, old_lzw=True)
+    at = tags_of(old)[273][0]
+    return {
+        "icclab": tiff_bytes(lab, photometric=9),
+        "itulab": tiff_bytes(lab, photometric=10),
+        "lab_planar2": tiff_bytes(lab, photometric=8, planar=2),
+        "lab_alpha": tiff_bytes(np.concatenate([lab, lab[..., :1]], -1),
+                                photometric=8, extra_samples=(2,)),
+        "lab_l_only": tiff_bytes(lab[..., 0], photometric=8),
+        "lab4": tiff_bytes(lab >> 4, bits=4, photometric=8),
+        # three 0xFF bytes in the codes: a code past the table (cv2 reads
+        # it with libtiff's "Corrupted LZW table" error)
+        "old_lzw_corrupt": old[:at + 8] + b"\xff" * 3 + old[at + 11:],
+        "short_none": _short(tiff_bytes(rgb)),
+    }
+
+
+def write_rare() -> None:
+    path = os.path.join(HERE, "cv2_arrays.npz")
+    arrays = dict(np.load(path))
+    made = rare_fixtures()
+    t = {k: tags_of(v) for k, v in made.items()}
+    assert t["lab8_whitepoint_d65"][318] == (3127, 10000, 3290, 10000)
+    assert t["lab16"][258] == (16, 16, 16) and t["lab16"][262] == (8,)
+    for name, data in made.items():
+        at = t[name].get(273, t[name].get(324))[0]
+        assert ("old_lzw" in name) == (data[at] == 0 and data[at + 1] & 1), \
+            name
+        with open(os.path.join(HERE, f"{name}.tif"), "wb") as fh:
+            fh.write(data)
+        arrays[f"gray_{name}"], arrays[f"bgr_{name}"] = cv2_arrays(data,
+                                                                   name)
+    # the old-style LZW file is a real one: cv2 (libtiff) reads its pixels
+    assert np.array_equal(arrays["bgr_old_lzw"],
+                          picture(21, 27, 2)[..., ::-1])
+    np.savez_compressed(path, **arrays)
+    for name, data in rare_refused().items():
+        with open(os.path.join(HERE, "refused", f"{name}.tif"), "wb") as fh:
+            fh.write(data)
+        buf = np.frombuffer(data, np.uint8)
+        readable = name == "old_lzw_corrupt"
+        assert (cv2.imdecode(buf, cv2.IMREAD_COLOR) is not None) == \
+            readable, name
+
+
+def write_rare_conversion() -> None:
+    """Phase 8f's TIFFs, made here from cv2's BGR of the lossy WebP
+    conversion source as the phase makes them from the card's read of it,
+    and cv2's hashes of them (and of their sources' bytes) added to
+    conversion/cv2.json."""
+    path = os.path.join(DATA, "webp", "conversion", "plane_3200x2130.webp")
+    bgr = cv2.imread(path, cv2.IMREAD_COLOR)
+    sha = lambda a: hashlib.sha256(np.ascontiguousarray(a).tobytes()
+                                   ).hexdigest()
+    record_path = os.path.join(HERE, "conversion", "cv2.json")
+    with open(record_path) as fh:
+        record = json.load(fh)
+    for name, data in rare_conversion_sources(bgr).items():
+        g, c = cv2_arrays(data, name)
+        converted = cv2.imencode(".jpg", c)[1].tobytes()
+        record[name] = {"from": "webp/conversion/plane_3200x2130.webp as "
+                        "cv2 reads it, made by tiff_file."
+                        "rare_conversion_sources (not committed)",
+                        "source": hashlib.sha256(data).hexdigest(),
+                        "gray": sha(g), "bgr": sha(c),
+                        "converted": hashlib.sha256(converted).hexdigest(),
+                        "shape": list(c.shape)}
+    with open(record_path, "w") as fh:
+        json.dump(record, fh, indent=1)
+        fh.write("\n")
+
+
 def cv2_arrays(data: bytes, name: str):
     buf = np.frombuffer(data, np.uint8)
     g = cv2.imdecode(buf, cv2.IMREAD_GRAYSCALE)
@@ -626,13 +789,16 @@ def write_new() -> None:
 
 def main() -> None:
     parser = argparse.ArgumentParser()
-    parser.add_argument("--part", choices=("all", "new", "conversion"),
-                        default="all")
+    parser.add_argument("--part", choices=("all", "new", "rare",
+                                           "conversion"), default="all")
     part = parser.parse_args().part
     if part == "conversion":
         return write_conversion()
     if part == "new":
         return write_new()
+    if part == "rare":
+        write_rare()
+        return write_rare_conversion()
     arrays = {}
     for name, data in fixtures().items():
         with open(os.path.join(HERE, f"{name}.tif"), "wb") as fh:
@@ -647,12 +813,9 @@ def main() -> None:
     for name, data in refused().items():
         with open(os.path.join(HERE, "refused", f"{name}.tif"), "wb") as fh:
             fh.write(data)
-    # the old-style LZW file is a real one: cv2 (libtiff) reads it
-    with open(os.path.join(HERE, "refused", "old_lzw.tif"), "rb") as fh:
-        back = cv2.imdecode(np.frombuffer(fh.read(), np.uint8),
-                            cv2.IMREAD_COLOR)
-    assert np.array_equal(back, picture(21, 27, 2)[..., ::-1])
     write_new()
+    write_rare()
+    write_rare_conversion()
 
 
 if __name__ == "__main__":

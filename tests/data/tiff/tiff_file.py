@@ -261,3 +261,54 @@ def tags_of(data: bytes) -> dict:
             e + "I", data[at + 8:at + 12])[0]
         out[tag] = struct.unpack(f"{e}{count}{fmt}", data[pos:pos + size])
     return out
+
+
+def cut_chunk(data: bytes, index: int, keep: int) -> bytes:
+    """A classic TIFF whose strip or tile ``index`` holds only its first
+    ``keep`` bytes: its byte count is set to ``keep``, and where its data
+    ends the file, the file ends there too (a file cut short)."""
+    e = "<" if data[:2] == b"II" else ">"
+    t = tags_of(data)
+    counts_tag = 325 if 325 in t else 279
+    offs = t[324 if counts_tag == 325 else 273]
+    out = bytearray(data)
+    ifd = struct.unpack(e + "I", data[4:8])[0]
+    for at in range(ifd + 2, ifd + 2 + 12 * struct.unpack(
+            e + "H", data[ifd:ifd + 2])[0], 12):
+        tag, typ, count = struct.unpack(e + "HHI", data[at:at + 8])
+        if tag != counts_tag:
+            continue
+        fmt = {SHORT: "H", LONG: "I"}[typ]
+        size = struct.calcsize(fmt)
+        pos = at + 8 if size * count <= 4 else struct.unpack(
+            e + "I", data[at + 8:at + 12])[0]
+        out[pos + size * index:pos + size * (index + 1)] = struct.pack(
+            e + fmt, keep)
+    end = offs[index] + t[counts_tag][index]
+    return bytes(out[:offs[index] + keep] if end == len(data) else out)
+
+
+def cielab_samples(bgr: np.ndarray) -> np.ndarray:
+    """(H, W, 3) uint8 CIELab samples made from a BGR image in integers:
+    L* its luma, a* and b* half the red-green and green-blue differences
+    (signed bytes' bits): a CIELab TIFF's data at the image's size."""
+    b, g, r = (bgr[..., i].astype(np.int64) for i in range(3))
+    lum = (2126 * r + 7152 * g + 722 * b + 5000) // 10000
+    a = np.clip((r - g) // 2, -128, 127)
+    bb = np.clip((g - b) // 2, -128, 127)
+    return np.stack([lum, a & 255, bb & 255], -1).astype(np.uint8)
+
+
+def rare_conversion_sources(bgr: np.ndarray) -> dict:
+    """chip_smoke.py phase 8f's run-time TIFFs of a BGR image (the lossy
+    WebP conversion source as cv2 reads it): its CIELab samples
+    (:func:`cielab_samples`, LZW with predictor 2, 16-row strips) and its
+    RGB in old-style LZW (16-row strips). LZW comes from ``lzw_encode.c``,
+    so the bytes do not hang on a zlib's; ``conversion/cv2.json`` holds
+    their sha-256 and cv2's hashes of them."""
+    return {"lab_3200x2130.tif": tiff_bytes(
+        cielab_samples(bgr), photometric=8, compression=5, predictor=2,
+        rows_per_strip=16),
+        "old_lzw_3200x2130.tif": tiff_bytes(
+            np.ascontiguousarray(bgr[..., ::-1]), compression=5,
+            old_lzw=True, rows_per_strip=16)}

@@ -100,11 +100,13 @@ PNG_NAMES = sorted(f[:-4] for f in os.listdir(PNG_DIR) if f.endswith(".png"))
 # (webp/lossless/imencode_45x37.webp, tests/test_torch_webp_lossless.py)
 # The BMP and the JPEG-compressed TIFF once here read too
 # (tests/test_torch_bmp_pnm.py, tests/test_torch_tiff_jpeg.py); a GIF and an
-# old-style JPEG TIFF stand in their place
+# old-style JPEG TIFF stand in their place; so does the old-style LZW TIFF
+# (tiff/old_lzw.tif, tests/test_torch_tiff_rare.py): corrupt old-style
+# data stands in its place
 PNG_REFUSED = {"png/refused/image.gif": "GIF",
                "tiff/refused/old_jpeg.tif": "old-style JPEG",
                "tiff/refused/float.tif": "float",
-               "tiff/refused/old_lzw.tif": "old-style LZW"}
+               "tiff/refused/old_lzw_corrupt.tif": "old-style LZW"}
 LAYOUT_NAMES = sorted(f[:-4] for f in os.listdir(os.path.join(
     FIXTURES, "layouts")) if f.endswith(".jpg"))
 # the JPEGs cv2 reads as another image than their planes, which the card
@@ -123,7 +125,8 @@ REFUSED = {"twelve_bit": (2006, "12-bit"),
            "hierarchical": (2008, "hierarchical"),
            "lossless": (2012, "lossless JPEG whose scan"),
            "fractional": (2011, "sampling layout"),
-           "mcu_blocks": (2011, "sampling layout")}
+           "mcu_blocks": (2011, "sampling layout"),
+           "no_scan": (2003, "malformed JPEG")}
 REFUSED_DIR_NAMES = sorted(f[:-4] for f in os.listdir(os.path.join(
     FIXTURES, "refused")))
 
@@ -369,50 +372,59 @@ def test_ycc_plain_matches_libjpeg_loops(hs, vs, H, W):
 
 
 def _jidctint_loops(coef, qt):
-    """jidctint.c's jpeg_idct_islow (libjpeg 6b, as libjpeg-turbo keeps
-    it), loop by loop: 64 natural-order coefficients and quantization
-    values -> 8x8 samples."""
+    """jidctint.c's jpeg_idct_islow as libjpeg-turbo's SIMD form computes
+    it on x86-64 (jsimd_idct_islow_avx2, which cv2 runs), loop by loop: 64
+    natural-order coefficients and quantization values -> 8x8 samples. The
+    sums are jidctint's, in the SIMD code's lane widths: 16-bit dequantized
+    values and pair sums, 32-bit products and sums, each pass saturated to
+    16 bits, the samples to -128..127; a block of zeros in rows 1 to 7 takes
+    pass 1's DC shortcut."""
+    w16 = lambda x: (x + 32768) % 65536 - 32768
+    w32 = lambda x: (x + 2 ** 31) % 2 ** 32 - 2 ** 31
+    sat = lambda x, lo, hi: max(lo, min(hi, x))
+
     def descale(x, n):
-        return (x + (1 << (n - 1))) >> n
+        return sat(w32(x + (1 << (n - 1))) >> n, -32768, 32767)
 
     def one_d(g):  # g(k) -> the k-th input of this pass
         z2, z3 = g(2), g(6)
-        z1 = (z2 + z3) * 4433
-        tmp2, tmp3 = z1 + z3 * -15137, z1 + z2 * 6270
-        tmp0, tmp1 = (g(0) + g(4)) << 13, (g(0) - g(4)) << 13
-        tmp10, tmp13, tmp11, tmp12 = (tmp0 + tmp3, tmp0 - tmp3, tmp1 + tmp2,
-                                      tmp1 - tmp2)
-        tmp0, tmp1, tmp2, tmp3 = g(7), g(5), g(3), g(1)
-        z1, z2, z3, z4 = tmp0 + tmp3, tmp1 + tmp2, tmp0 + tmp2, tmp1 + tmp3
-        z5 = (z3 + z4) * 9633
-        tmp0, tmp1, tmp2, tmp3 = (tmp0 * 2446, tmp1 * 16819, tmp2 * 25172,
-                                  tmp3 * 12299)
-        z1, z2, z3, z4 = z1 * -7373, z2 * -20995, z3 * -16069, z4 * -3196
-        z3 += z5
-        z4 += z5
-        tmp0 += z1 + z3
-        tmp1 += z2 + z4
-        tmp2 += z2 + z3
-        tmp3 += z1 + z4
-        return [tmp10 + tmp3, tmp11 + tmp2, tmp12 + tmp1, tmp13 + tmp0,
-                tmp13 - tmp0, tmp12 - tmp1, tmp11 - tmp2, tmp10 - tmp3]
+        tmp2 = w32(z2 * 4433 + z3 * (4433 - 15137))
+        tmp3 = w32(z2 * (4433 + 6270) + z3 * 4433)
+        tmp0, tmp1 = w16(g(0) + g(4)) << 13, w16(g(0) - g(4)) << 13
+        tmp10, tmp13, tmp11, tmp12 = (w32(tmp0 + tmp3), w32(tmp0 - tmp3),
+                                      w32(tmp1 + tmp2), w32(tmp1 - tmp2))
+        t0, t1, t2, t3 = g(7), g(5), g(3), g(1)
+        z3, z4 = w16(t0 + t2), w16(t1 + t3)
+        z3, z4 = (w32(z3 * (9633 - 16069) + z4 * 9633),
+                  w32(z3 * 9633 + z4 * (9633 - 3196)))
+        tmp0 = w32(w32(t0 * (2446 - 7373) + t3 * -7373) + z3)
+        tmp3 = w32(w32(t0 * -7373 + t3 * (12299 - 7373)) + z4)
+        tmp1 = w32(w32(t1 * (16819 - 20995) + t2 * -20995) + z4)
+        tmp2 = w32(w32(t1 * -20995 + t2 * (25172 - 20995)) + z3)
+        return [w32(tmp10 + tmp3), w32(tmp11 + tmp2), w32(tmp12 + tmp1),
+                w32(tmp13 + tmp0), w32(tmp13 - tmp0), w32(tmp12 - tmp1),
+                w32(tmp11 - tmp2), w32(tmp10 - tmp3)]
 
     ws = [[0] * 8 for _ in range(8)]
+    dc_only = not any(int(v) for v in coef[8:])
     for c in range(8):
-        col = one_d(lambda k: int(coef[8 * k + c]) * int(qt[8 * k + c]))
+        deq = lambda k: w16(int(coef[8 * k + c]) * int(qt[8 * k + c]))
+        col = [w16(deq(0) * 4)] * 8 if dc_only else [descale(v, 11) for v in
+                                                     one_d(deq)]
         for r in range(8):
-            ws[r][c] = descale(col[r], 11)
+            ws[r][c] = col[r]
     out = np.zeros((8, 8), np.uint8)
     for r in range(8):
         row = one_d(lambda k: ws[r][k])
         for c in range(8):
-            i = descale(row[c], 18) & 1023
-            out[r, c] = i + 128 if i < 128 else (
-                255 if i < 512 else (0 if i < 896 else i - 896))
+            out[r, c] = sat(descale(row[c], 18), -128, 127) + 128
     return out
 
 
 def test_idct_plain_matches_jidctint_loops():
+    """The plain IDCT against jidctint's sums in libjpeg-turbo's SIMD lane
+    widths, loop by loop (what cv2 runs), on small, dense, saturating and
+    wrapping coefficients."""
     rng = np.random.default_rng(5)
     bh, bw = 3, 4
     coef = np.zeros((bh, bw, 64), np.int16)

@@ -81,7 +81,7 @@ TOOL = _tool()
 TIFF_REFUSED = {k: v for k, v in TOOL.REFUSED.items()
                 if k.startswith("tiff/") and k not in (
                     "tiff/refused/old_jpeg.tif", "tiff/refused/float.tif",
-                    "tiff/refused/old_lzw.tif")}
+                    "tiff/refused/old_lzw_corrupt.tif")}
 
 
 def _bytes(rel):
