@@ -26,7 +26,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    JPEGs of ``arith/`` and the streams cut short of ``truncated/`` (the
    progressive ones, which libjpeg-turbo smooths, too) against cv2's
    arrays, the smoothing kernel (where the file is smoothed), the IDCT and
-   colour kernels against their plain versions on each; the lossless JPEGs of ``lossless/`` in each mode cv2 reads
+   colour kernels against their plain versions on each; the JPEGs of
+   ``cut_segments/`` (cut after every byte of marker segments:
+   ``cuts.json`` names cv2.imread's arrays of each, or null where it
+   refuses) read to those arrays with the same kernel checks, or refused
+   naming the cut segment or the missing scan; the lossless JPEGs of ``lossless/`` in each mode cv2 reads
    (the other raising), each undifferencing form against its twin on the
    file's planes, ``lossless/refused/`` raising in both entries; the four-component JPEGs (CMYK, YCCK) and every sampling layout
    in ``layouts/`` against cv2's arrays with the colour kernel of each
@@ -41,8 +45,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    grey and colour against cv2's arrays, with the raster kernel (for a
    JPEG-compressed TIFF the IDCT over every chunk and the chunked colour
    form) against its plain twin on each; those under ``png/refused``,
-   ``tiff/refused``, ``bmp/refused`` and ``pnm/refused`` raising. No entry
-   or byte may differ.
+   ``tiff/refused``, ``bmp/refused`` and ``pnm/refused`` raising; the
+   WebPs first held to cv2 here (loop-filter deltas, 1200 prefix-code
+   groups) with each kernel against its twin, and a VP8L back-reference
+   before the first pixel raising. No entry or byte may differ.
 2. NCC kernel vs plain: ``ncc_eval_multi`` on the card against its plain
    PyTorch version at K in {1, 5, 9}, S = 10, scales 0 and 2, on
    ground-truth and random planes at the default footprint cap, through
@@ -222,7 +228,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    CUDA events and from a CUDA graph beside their bounds
    (``roofline.smooth_bound``, ``cielab_bound``) and the twins; each read
    split into the host's entropy decode or parse and decompression, the
-   copy, each launch and the whole decode.
+   copy, each launch and the whole decode. Then the cut JPEG's first
+   bytes up to 5 into the symbols of the DHT before its sixth scan
+   (``progressive_cut_in_dht``): the pipeline's read of it, the counters
+   set to 0 just before (smoothing 3, IDCT 3, colour 1, no plain call),
+   its hashes cv2's; each kernel against its twin and from a CUDA graph
+   beside its bound; the read split on the host clock.
 9. Multi-GPU (after phase 8, on its converted workspace): (a) the NCC
    kernel (tile and view-major launches, K=9) and the fused sorted path
    with one zero-extent source (the sharded pipeline's padding: all-zero
@@ -1444,6 +1455,21 @@ def phase_fixtures():
                 f"{layout.factors}): grey, BGR (entries differing, of, "
                 f"largest) {out[name]['gray']}, {out[name]['bgr']}; colour "
                 f"kernel equals plain")
+    def kernels_equal_plain(data, name):
+        """A JPEG's smoothing (where libjpeg smooths), IDCT and colour
+        kernels against their plain versions; returns its Layout."""
+        comps, _, layout = images.decode_coefficients(data, dev)
+        for c, p in zip(comps, layout.smooth):
+            if not torch.equal(images.jpeg_smooth_kernel(c[0], p),
+                               images.jpeg_smooth_plain(c[0], p)):
+                raise AssertionError(f"{name}: smoothing kernel vs plain "
+                                     f"differ")
+        for c in comps:
+            if not torch.equal(images.idct_islow_kernel(*c),
+                               images.idct_islow_plain(*c)):
+                raise AssertionError(f"{name}: IDCT kernel vs plain differ")
+        return colour_equals_plain(data, name)
+
     # arithmetic-coded and truncated JPEGs: grey and BGR, the IDCT and
     # colour kernels against their plain versions; lossless ones in the
     # modes cv2 reads (the other refused), each form against its twin on the
@@ -1456,19 +1482,7 @@ def phase_fixtures():
             name, stem = f"{sub}/{fname[:-4]}", fname[:-4]
             data = read(os.path.join(folder, sub, fname))
             gray, bgr = images.decode(data, dev)
-            comps, _, layout = images.decode_coefficients(data, dev)
-            for c, p in zip(comps, layout.smooth):
-                if not torch.equal(images.jpeg_smooth_kernel(c[0], p),
-                                   images.jpeg_smooth_plain(c[0], p)):
-                    raise AssertionError(f"{name}: smoothing kernel vs "
-                                         f"plain differ")
-            coding["smoothed"] += bool(layout.smooth)
-            for c in comps:
-                if not torch.equal(images.idct_islow_kernel(*c),
-                                   images.idct_islow_plain(*c)):
-                    raise AssertionError(f"{name}: IDCT kernel vs plain "
-                                         f"differ")
-            colour_equals_plain(data, name)
+            coding["smoothed"] += bool(kernels_equal_plain(data, name).smooth)
             out[name] = {"gray": against(gray, arrays[f"gray_{stem}"]),
                          "bgr": against(bgr, arrays[f"bgr_{stem}"])}
             coding[sub] += 1
@@ -1528,6 +1542,8 @@ def phase_fixtures():
             refused.append(f"jpeg/{sub}/{fname}")
     log(f"  arithmetic-coded, truncated and lossless JPEGs read on the card "
         f"against cv2's arrays: {coding}")
+    coding.update(phase_cut_segments(folder, out, against,
+                                     kernels_equal_plain))
     # the encoder: cv2.imencode's stored bytes
     enc_dir = os.path.join(folder, "encode")
     sources = np.load(os.path.join(enc_dir, "sources.npz"))
@@ -1607,6 +1623,7 @@ def phase_fixtures():
                 raise AssertionError(f"{sub}/refused/{fname} was read")
             refused.append(f"{sub}/refused/{fname}")
             log(f"  {sub}/refused/{fname}: raises ({causes[0]})")
+    coding.update(webp_fixtures(data_dir, out, against))
     bad = {name: r for name, r in out.items()
            if any(v[0] for v in r.values())}
     if bad or enc_bad:
@@ -1617,6 +1634,126 @@ def phase_fixtures():
                  "raster_kernel_equal_plain": raster_equal,
                  "chunked_colour_equal_plain": chunked_equal,
                  "four_component_equal_cv2": four}
+
+
+def phase_cut_segments(folder: str, out: dict, against,
+                       kernels_equal_plain) -> dict:
+    """Phase 1b's JPEGs cut inside a marker segment
+    (tests/data/jpeg/cut_segments, cuts.json: cv2.imread's arrays of each
+    file, by key, or null where cv2 refuses it): each read on the card to
+    those arrays, its smoothing, IDCT and colour kernels against their
+    twins, or refused, naming the cut segment (2001) or the missing scan
+    (2003). Adds each read's (entries differing, of, largest) to ``out``;
+    returns the counts read and refused."""
+    import numpy as np
+    import torch
+    from mpmvs_torch.io import images
+
+    dev = torch.device("cuda", 0)
+    cut_dir = os.path.join(folder, "cut_segments")
+    with open(os.path.join(cut_dir, "cuts.json")) as f:
+        cuts = json.load(f)
+    arrays = {"truncated": np.load(os.path.join(folder, "truncated",
+                                                "cv2_arrays.npz")),
+              "cut_segments": np.load(os.path.join(cut_dir,
+                                                   "cv2_arrays.npz"))}
+    causes = (images._CODE_ERRORS[2001], images._CODE_ERRORS[2003])
+    counts = {"cut_segments_read": 0, "cut_segments_refused": 0}
+    for stem, key in sorted(cuts.items()):
+        with open(os.path.join(cut_dir, f"{stem}.jpg"), "rb") as f:
+            data = f.read()
+        if key is None:
+            try:
+                images.decode(data, dev)
+            except ValueError as e:
+                if not str(e).endswith(causes):
+                    raise AssertionError(f"cut_segments/{stem}: refused "
+                                         f"for another cause: {e}")
+                counts["cut_segments_refused"] += 1
+                continue
+            raise AssertionError(f"cut_segments/{stem} was read; cv2 "
+                                 f"refuses it")
+        gray, bgr = images.decode(data, dev)
+        kernels_equal_plain(data, f"cut_segments/{stem}")
+        where, name = key.split("/") if "/" in key else ("cut_segments", key)
+        out[f"cut_segments/{stem}"] = {
+            "gray": against(gray, arrays[where][f"gray_{name}"]),
+            "bgr": against(bgr, arrays[where][f"bgr_{name}"])}
+        counts["cut_segments_read"] += 1
+    log(f"  JPEGs cut inside a marker segment (every byte of DHT, SOS, SOF, "
+        f"DQT, DRI, DAC, COM and APPn segments): {counts}; every read's "
+        f"smoothing, IDCT and colour kernels equal their twins")
+    return counts
+
+
+def webp_fixtures(data_dir: str, out: dict, against) -> dict:
+    """Phase 1b's WebP reads first held to cv2.imread here: lossy frames
+    with the loop filter's reference and mode deltas, a VP8L image of 1200
+    prefix-code groups, read on the card to cv2's arrays with each kernel
+    against its twin, and a VP8L backward reference before the first
+    pixel, refused. Adds each read's (entries differing, of, largest) to
+    ``out``; returns the counts."""
+    import numpy as np
+    import torch
+    from mpmvs_torch.io import images
+
+    dev = torch.device("cuda", 0)
+    lib = images._library()
+    counts = {"webp_read": 0, "webp_refused": 0}
+    for rel in ("webp/lf_deltas", "webp/lf_deltas_clipped",
+                "webp/lossless/groups_1200"):
+        folder, stem = os.path.split(os.path.join(data_dir, rel))
+        with open(f"{os.path.join(folder, stem)}.webp", "rb") as f:
+            data = f.read()
+        want = np.load(os.path.join(folder, "cv2_arrays.npz"))
+        gray, bgr = images.decode(data, dev)
+        out[rel] = {"gray": against(gray, want[f"gray_{stem}"]),
+                    "bgr": against(bgr, want[f"bgr_{stem}"])}
+        def equal(got, twin, what):
+            if any(not torch.equal(a, b) for a, b in zip(got, twin)):
+                raise AssertionError(f"{rel}: {what} kernel vs its twin "
+                                     f"differ")
+
+        if "lossless" in rel:
+            img, info, _ = images.vp8l_frame(data, lib)
+            argb, _ = images.vp8l_upload(img, dev)
+            equal(images.webp_argb_to_bgr_kernel(argb, info.canvas,
+                                                 info.offset),
+                  images.webp_argb_to_bgr_plain(argb, info.canvas,
+                                                info.offset), "ARGB")
+        else:
+            frame, _ = images.webp_frame(data, lib)
+            (H, W), (mb_h, mb_w) = frame.size, frame.mbs
+            rec = torch.from_numpy(frame.records).to(dev)
+            coefs = torch.from_numpy(frame.coefs).to(dev)
+            prm = frame.params
+            planes = images.vp8_reconstruct_kernel(rec, coefs, prm, mb_w,
+                                                   mb_h)
+            equal(planes, images.vp8_reconstruct_plain(
+                rec, coefs, torch.from_numpy(prm), mb_w, mb_h),
+                "reconstruction")
+            plain = images.vp8_loop_filter_plain(
+                *planes, rec, torch.from_numpy(prm), mb_w, mb_h)
+            images.vp8_loop_filter_kernel(*planes, rec, prm, mb_w, mb_h)
+            equal(planes, plain, "loop filter")
+            equal(images.webp_yuv_to_bgr_kernel(*planes, W, H),
+                  images.webp_yuv_to_bgr_plain(*planes, W, H), "colour")
+        counts["webp_read"] += 1
+    rel = "webp/lossless/refused/backref_before_first_pixel.webp"
+    with open(os.path.join(data_dir, rel), "rb") as f:
+        data = f.read()
+    try:
+        images.decode(data, dev)
+    except ValueError as e:
+        if "back-reference outside" not in str(e):
+            raise AssertionError(f"{rel}: refused for another cause: {e}")
+        counts["webp_refused"] += 1
+    else:
+        raise AssertionError(f"{rel} was read; cv2 refuses it")
+    log(f"  WebP loop-filter deltas, 1200 prefix-code groups and a backward "
+        f"reference before the first pixel: {counts}; kernels equal their "
+        f"twins")
+    return counts
 
 
 def write_colmap_model(scene, dense: str, names, per_view: int = 400,
@@ -3232,6 +3369,110 @@ def _split(steps, reps: int = 3):
     return out
 
 
+def dht_cut_parts(cut: bytes, dev) -> dict:
+    """Phase 8f's progressive source cut inside a DHT's symbols between its
+    fifth and sixth scans: CUT_SOURCE's first bytes, as many as
+    conversion/cv2.json's ``progressive_cut_in_dht`` says (their sha-256
+    checked). With the counters set to 0 just before, the pipeline's read
+    of it as a file: its grey and BGR hashes must be cv2's, with 3
+    smoothing, 3 IDCT and 1 colour launches and no plain call. Then the
+    smoothing, IDCT and colour kernels against their twins on its planes
+    (no entry may differ), each timed from a CUDA graph beside its bound
+    and its twin, and the read split on the host clock: entropy decode,
+    coefficient copy, each launch."""
+    import numpy as np
+    import torch
+    from mpmvs_torch.io import images
+    from mpmvs_torch.utils.roofline import (colour_bound, idct_bound,
+                                            smooth_bound)
+    from mpmvs_torch.utils.trace import cuda_graph_ms
+
+    rec = _jpeg_cv2()["progressive_cut_in_dht"]
+    data = cut[:rec["source_bytes"]]
+    if hashlib.sha256(data).hexdigest() != rec["source_sha256"]:
+        raise AssertionError("phase 8f's DHT cut is not the file whose cv2 "
+                             "read was recorded")
+    counters = {"jpeg_smooth": images.SMOOTH_COUNTS,
+                "idct_islow": images.IDCT_COUNTS, "colour": images.COUNTS}
+    with tempfile.TemporaryDirectory(prefix="mpmvs_dht_cut_") as tmp:
+        path = os.path.join(tmp, "IMG_dht_cut.jpg")
+        with open(path, "wb") as f:
+            f.write(data)
+        for c in counters.values():
+            c.reset()
+        gray, bgr = images.read_image(path, dev)
+        torch.cuda.synchronize()
+        launches = {k: (v.kernel, v.plain) for k, v in counters.items()}
+    equal = {"gray": sha256_of(gray) == rec["gray_sha256"],
+             "bgr": sha256_of(bgr) == rec["bgr_sha256"]}
+    expected = {"jpeg_smooth": (3, 0), "idct_islow": (3, 0),
+                "colour": (1, 0)}
+    if not all(equal.values()) or launches != expected:
+        raise AssertionError(f"phase 8f's DHT cut: equal to cv2 {equal}, "
+                             f"launches {launches} (expected {expected})")
+    handle, info = images.host_decode(data)
+    comps, size, layout = images.upload_coefficients(handle, info, dev)
+    H, W = size
+    coefs = [c[0] for c in comps]
+    smoothed = [(images.jpeg_smooth_kernel(c[0], p),) + tuple(c[1:])
+                for c, p in zip(comps, layout.smooth)]
+    planes = [images.idct_islow_kernel(*c) for c in smoothed]
+    steps = {
+        "jpeg_smooth": (lambda: [images.jpeg_smooth_kernel(c, p) for c, p
+                                 in zip(coefs, layout.smooth)],
+                        lambda: [images.jpeg_smooth_plain(c, p) for c, p
+                                 in zip(coefs, layout.smooth)],
+                        smooth_bound(coefs)),
+        "idct_islow": (lambda: [images.idct_islow_kernel(*c)
+                                for c in smoothed],
+                       lambda: [images.idct_islow_plain(*c)
+                                for c in smoothed],
+                       idct_bound(coefs, planes)),
+        "colour": (lambda: images.colour_kernel(planes, layout.factors, size,
+                                                layout.space),
+                   lambda: images.colour_plain(planes, layout.factors, size,
+                                               layout.space),
+                   colour_bound(planes, H, W))}
+    out = {"bytes": len(data), "size": [W, H], "equal_cv2": equal,
+           "launches": launches,
+           "latch": [list(p.bits) for p in layout.smooth]}
+    for k, (kernel, plain, bnd) in steps.items():
+        got = kernel()
+        twin, plain_ms = cuda_timed(plain)
+        err = [differing(a, b) for a, b in zip(got, twin)]
+        if any(e[0] for e in err):
+            raise AssertionError(f"phase 8f's DHT cut: {k} kernel vs its "
+                                 f"twin: {err}")
+        out[k] = {"graph_ms": cuda_graph_ms(kernel, 10), "plain_ms": plain_ms,
+                  "bound_ms": bnd[0], "bound_by": bnd[1],
+                  "max_abs_err": max(e[1] for e in err)}
+    out["read"] = {k: [] for k in ("host_entropy_decode_ms",
+                                   "copy_to_card_ms", "decode_ms")}
+    for _ in range(3):
+        torch.cuda.synchronize()
+        marks = [time.perf_counter()]
+        decoded = images.host_decode(data)
+        marks.append(time.perf_counter())
+        images.upload_coefficients(*decoded, dev)
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        images.decode(data, dev)
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        for k, a, b in zip(out["read"], marks, marks[1:]):
+            out["read"][k].append((b - a) * 1e3)
+    log(f"  the source cut inside a DHT's symbols ({len(data)} bytes, "
+        f"{W}x{H}, latch {out['latch'][0]}): equal to cv2 {equal}, "
+        f"launches {launches}; graph ms (bound, twin): " + ", ".join(
+            f"{k} {out[k]['graph_ms']:.4f} ({out[k]['bound_ms']:.4f} "
+            f"{out[k]['bound_by']}, {out[k]['plain_ms']:.1f})"
+            for k in steps) + f"; host entropy decode "
+        f"{np.round(out['read']['host_entropy_decode_ms'], 1)} ms, copy "
+        f"{np.round(out['read']['copy_to_card_ms'], 2)} ms, decode "
+        f"{np.round(out['read']['decode_ms'], 1)} ms (host clock)")
+    return out
+
+
 def phase_rare_parts(dev):
     """Phase 8f: a progressive JPEG cut short, a CIELab TIFF and an old-
     style LZW TIFF at 3200x2130 on the card. CUT_SOURCE (committed: phase
@@ -3399,6 +3640,8 @@ def phase_rare_parts(dev):
         f"{np.round(parts['idct_ms'], 3)} ms, colour "
         f"{np.round(parts['colour_ms'], 3)} ms (host clock), decode "
         f"{np.round(parts['decode_ms'], 1)} ms")
+
+    out["dht_cut"] = dht_cut_parts(cut, dev)
 
     # the CIELab form against its twin, timed; each TIFF read's parts
     lib = images._library()

@@ -160,7 +160,7 @@ extern "C" int jpeg_host_upload(void* img, int comp, short* coef,
                                   c.coef.size() * sizeof(int16_t),
                                   cudaMemcpyHostToDevice, stream);
   if (e == cudaSuccess)
-    e = cudaMemcpyAsync(qt, d->qt[c.tq], 64 * sizeof(uint16_t),
+    e = cudaMemcpyAsync(qt, c.qt, 64 * sizeof(uint16_t),
                         cudaMemcpyHostToDevice, stream);
   if (e == cudaSuccess) e = cudaStreamSynchronize(stream);
   return e == cudaSuccess ? 0 : CODEC_CUDA_ERR + (int)e;
@@ -287,18 +287,19 @@ __global__ void ycc_to_bgr_kernel(jpeg_colour::Planes pl, int n, int form,
 }
 
 // chunks: the fields of jpeg_colour::Chunks (8 ints), or NULL for one
-// chunk, the image.
+// chunk, the image; rows: each chunk's stream's rows on the card, or NULL.
 extern "C" int ycc_to_bgr_launch(const unsigned char* const* ptrs,
                                  const int* geo, int n, int form,
-                                 const int* chunks, int H, int W,
-                                 unsigned char* bgr, unsigned char* gray,
-                                 cudaStream_t stream) {
+                                 const int* chunks, const int* rows, int H,
+                                 int W, unsigned char* bgr,
+                                 unsigned char* gray, cudaStream_t stream) {
   dim3 block(256);
   dim3 grid((W + 255) / 256, H);
   jpeg_colour::Planes pl = planes_of(ptrs, geo, n);
   if (chunks) {
     jpeg_colour::Chunks ck = {chunks[0], chunks[1], chunks[2], chunks[3],
-                              chunks[4], chunks[5], chunks[6], chunks[7]};
+                              chunks[4], chunks[5], chunks[6], chunks[7],
+                              rows};
     ycc_to_bgr_kernel<true><<<grid, block, 0, stream>>>(pl, n, form, ck, H,
                                                         W, bgr, gray);
   } else {

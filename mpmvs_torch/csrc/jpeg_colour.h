@@ -85,6 +85,11 @@ struct Chunks {
   int n;       // chunks in all
   int mirror;  // tiles laid out in mirrored order (see above)
   int image_w; // the image's width
+  // each chunk's stream's rows where one is shorter than its chunk, or
+  // null; the rows past a stream are black, as libtiff leaves them (its
+  // JPEG codec decodes the frame's rows into the zeroed buffer of cv2's
+  // read)
+  const int* rows;
 };
 
 // Where an image pixel lies: its chunk, its row and column there, and the
@@ -107,7 +112,8 @@ JPEG_HD Spot spot(const Chunks& k, int r, int col) {
     int x0 = tx * k.w, n = k.image_w - x0 < k.w ? k.image_w - x0 : k.w;
     s.c = n - 1 - s.c;
   }
-  s.rows = !k.tiled && s.chunk == k.n - 1 ? k.last_h : k.h;
+  s.rows = k.rows ? k.rows[s.chunk]
+                  : !k.tiled && s.chunk == k.n - 1 ? k.last_h : k.h;
   return s;
 }
 
@@ -170,6 +176,11 @@ enum YccForm { kFormRgb = 1, kFormOpenCvGrey = 2 };
 // (YccForm bits).
 JPEG_HD void ycc_pixel(const Planes& pl, int n, int form, const Spot& s,
                        uint8_t* bgr, uint8_t* grey) {
+  if (s.r >= s.rows) {  // past a chunk's shorter stream
+    bgr[0] = bgr[1] = bgr[2] = 0;
+    if (grey) *grey = 0;
+    return;
+  }
   int y = upsampled(pl.c[0], s);
   if (n == 1) {
     bgr[0] = bgr[1] = bgr[2] = (uint8_t)y;

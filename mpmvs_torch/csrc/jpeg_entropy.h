@@ -42,7 +42,7 @@ namespace jpeg_entropy {
 
 enum Error {
   kOk = 0,
-  kTruncated = 2001,     // the stream ended inside a marker segment
+  kTruncated = 2001,     // a cut marker segment libjpeg rejects completed
   kUnsupported = 2002,   // a coding process or layout this decoder refuses
   kBadStream = 2003,     // a malformed segment or an undefined table
   kPrecision = 2006,     // DCT samples of another precision than 8 bits,
@@ -69,8 +69,13 @@ static const int kNatural[64 + 16] = {
     // extra entries for safety in decoders that overrun k (jpeg_natural_order)
     63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63};
 
+// A DHT's table as the segment gave it (jdmarker.c get_dht keeps the counts
+// and symbols), and the decoding tables built from it when a scan first
+// uses it (jdhuff.c jpeg_make_d_derived_tbl, which checks them only then).
 struct Huffman {
-  bool defined = false;
+  bool defined = false, built = false;
+  uint8_t counts[16];
+  int nvals = 0;
   // canonical code: for each length l (1..16) the largest code (maxcode) and
   // the index of its first symbol (valptr) with its first code (mincode)
   int32_t maxcode[18];
@@ -83,6 +88,11 @@ struct Huffman {
 
 struct Component {
   int id = 0, h = 1, v = 1, tq = 0;
+  // the quantization table latched at the component's first scan
+  // (jdinput.c latch_quant_tables: a DQT after it changes nothing here);
+  // zeros while no scan has coded it, as jddctmgr.c leaves its multipliers
+  bool latched = false;
+  uint16_t qt[64] = {0};
   int dc_tbl = 0, ac_tbl = 0;
   int width_in_blocks = 0, height_in_blocks = 0;  // of the image's samples
   int blocks_w = 0, blocks_h = 0;                 // padded to whole MCUs
@@ -153,11 +163,14 @@ static int decode_lossless_scan(Decoder* d, Component** sc, int ns, int ss,
 
 static inline int read16(const uint8_t* p) { return (p[0] << 8) | p[1]; }
 
-// False for a table whose code lengths overflow (libjpeg's
-// JERR_BAD_HUFF_TABLE).
-static bool build_huffman(Huffman* t, const uint8_t* counts,
-                          const uint8_t* vals, int nvals) {
-  memcpy(t->vals, vals, nvals);
+// Build a stored table's decoding tables; false where libjpeg's
+// jpeg_make_d_derived_tbl raises JERR_BAD_HUFF_TABLE: code lengths that
+// overflow, or a DC symbol above 15 (16 in lossless mode).
+static bool build_huffman(Huffman* t, bool dc, bool lossless) {
+  if (t->built) return true;
+  const uint8_t* counts = t->counts;
+  for (int i = 0; dc && i < t->nvals; i++)
+    if (t->vals[i] > (lossless ? 16 : 15)) return false;
   int code = 0, k = 0;
   for (int l = 1; l <= 16; l++) {
     t->valptr[l] = k;
@@ -180,8 +193,16 @@ static bool build_huffman(Huffman* t, const uint8_t* counts,
         t->look[(c << shift) | j] = (uint16_t)((l << 8) | t->vals[k]);
     }
   }
-  t->defined = true;
+  t->built = true;
   return true;
+}
+
+// The table number tbl of a scan ready to decode with, or null where
+// libjpeg raises JERR_NO_HUFF_TABLE or JERR_BAD_HUFF_TABLE.
+static const Huffman* huffman_table(Decoder* d, bool dc, int tbl) {
+  if (tbl > 3) return nullptr;
+  Huffman* t = dc ? &d->dc[tbl] : &d->ac[tbl];
+  return t->defined && build_huffman(t, dc, d->lossless) ? t : nullptr;
 }
 
 // One byte of entropy-coded data: 0xFF 0x00 is a data 0xFF; any other
@@ -333,12 +354,31 @@ static int parse_dht(Decoder* d, const uint8_t* p, int len) {
     int n = 0;
     for (int i = 0; i < 16; i++) n += p[off + 1 + i];
     if (n > 256 || off + 17 + n > len) return kBadStream;
-    if (!build_huffman(tc == 0 ? &d->dc[th] : &d->ac[th], p + off + 1,
-                       p + off + 17, n))
-      return kBadStream;
+    Huffman* t = tc == 0 ? &d->dc[th] : &d->ac[th];
+    memcpy(t->counts, p + off + 1, 16);
+    memcpy(t->vals, p + off + 17, n);
+    t->nvals = n;
+    t->defined = true;
+    t->built = false;
     off += 17 + n;
   }
   return kOk;
+}
+
+// jdmarker.c get_dac: pairs of Tc Tb, then L and U (DC) or Kx (AC).
+static int parse_dac(Decoder* d, const uint8_t* p, int len) {
+  for (int k = 0; k + 1 < len; k += 2) {
+    int index = p[k], val = p[k + 1];
+    if (index >= 32) return kBadStream;
+    if (index >= 16) {
+      d->arith_ac_K[index - 16] = (uint8_t)val;
+    } else {
+      d->arith_dc_L[index] = (uint8_t)(val & 15);
+      d->arith_dc_U[index] = (uint8_t)(val >> 4);
+      if ((val & 15) > (val >> 4)) return kBadStream;
+    }
+  }
+  return len & 1 ? kBadStream : kOk;
 }
 
 static int parse_dqt(Decoder* d, const uint8_t* p, int len) {
@@ -483,17 +523,23 @@ static void restart(Decoder* d) {
   d->eobrun = 0;
 }
 
+// A scan: its header (jdmarker.c get_sos: the length, a count of 1 to 4,
+// each component's id found once), the checks of its start (jdphuff.c,
+// jdarith.c start_pass: JERR_BAD_PROGRESSION), then its entropy-coded data
+// from start.
 static int decode_scan(Decoder* d, const uint8_t* p, int len,
                        const uint8_t* data, size_t length, size_t start) {
   if (!d->frame || len < 1) return kBadStream;
   int ns = p[0];
-  if (ns < 1 || ns > d->ncomp || len < 1 + 2 * ns + 3) return kBadStream;
+  if (ns < 1 || ns > 4 || len != 2 * ns + 4) return kBadStream;
   Component* sc[4];
   for (int i = 0; i < ns; i++) {
     int id = p[1 + 2 * i];
     sc[i] = nullptr;
     for (int j = 0; j < d->ncomp; j++)
       if (d->comp[j].id == id) sc[i] = &d->comp[j];
+    for (int j = 0; j < i; j++)
+      if (sc[j] == sc[i]) return kBadStream;
     if (!sc[i]) return kBadStream;
     sc[i]->dc_tbl = p[2 + 2 * i] >> 4;
     sc[i]->ac_tbl = p[2 + 2 * i] & 15;
@@ -509,13 +555,20 @@ static int decode_scan(Decoder* d, const uint8_t* p, int len,
     se = 63;
     ah = al = 0;
   } else if (ss > se || se > 63 || (ss == 0 && se != 0) ||
-             (ss > 0 && ns != 1)) {
+             (ss > 0 && ns != 1) || (ah != 0 && al != ah - 1) || al > 13) {
     return kBadStream;
   }
   // jdinput.c per_scan_setup: JERR_BAD_MCU_SIZE (D_MAX_BLOCKS_IN_MCU 10)
   int mcu_blocks = 0;
   for (int i = 0; i < ns; i++) mcu_blocks += sc[i]->h * sc[i]->v;
   if (ns > 1 && mcu_blocks > 10) return kSampling;
+  for (int i = 0; i < ns; i++) {  // jdinput.c latch_quant_tables
+    Component& c = *sc[i];
+    if (c.latched) continue;
+    if (!d->qt_defined[c.tq]) return kBadStream;
+    memcpy(c.qt, d->qt[c.tq], sizeof(c.qt));
+    c.latched = true;
+  }
   if (d->progressive) {  // start_pass: the progression status
     for (int i = 0; i < ns; i++) {
       int ci = (int)(sc[i] - d->comp);
@@ -529,8 +582,8 @@ static int decode_scan(Decoder* d, const uint8_t* p, int len,
   for (int i = 0; i < ns; i++) {
     bool need_dc = ss == 0 && ah == 0;
     bool need_ac = !d->progressive || ss > 0;
-    if ((need_dc && !d->dc[sc[i]->dc_tbl].defined) ||
-        (need_ac && !d->ac[sc[i]->ac_tbl].defined))
+    if ((need_dc && !huffman_table(d, true, sc[i]->dc_tbl)) ||
+        (need_ac && !huffman_table(d, false, sc[i]->ac_tbl)))
       return kBadStream;
     sc[i]->dc_pred = 0;
   }
@@ -634,15 +687,33 @@ static void guess_space(Decoder* d) {
   d->space = rgb ? kRgb : kYcc;
 }
 
+// Byte i of what libjpeg reads from a stream of n bytes: the stream's, then
+// the fake EOI markers (FF D9) that its source hands out at every read past
+// the end (jdatasrc.c's file source, which cv2.imread's JPEG reader uses,
+// and libtiff's JPEG codec).
+static inline uint8_t fed(const uint8_t* data, size_t n, size_t i) {
+  return i < n ? data[i] : ((i - n) & 1 ? 0xD9 : 0xFF);
+}
+
 // Parse a whole JPEG and entropy-decode every scan into d->comp[*].coef.
 // tables_only: the stream is a tables-only one (SOI, DQT, DHT, DRI, EOI:
 // a TIFF's JPEGTables tag), whose tables stay in d for the abbreviated
 // streams decoded after it; no frame is needed.
+//
+// A stream cut short inside a marker segment is read as libjpeg reads it:
+// the segment is completed with the fake EOI's bytes and parsed by the
+// marker's own rule (jdmarker.c: get_dht's count sum, get_dqt's and
+// get_dac's table index, get_dri's length, get_sos's count and component
+// ids, then start_pass's progression checks; skip_variable for COM and
+// APPn). Where that fails the stream is refused (kTruncated); else the next
+// marker is the fake EOI. A stream that ends in 0xFF reads: libjpeg skips
+// fill bytes before the fake EOI.
 static int decode(Decoder* d, const uint8_t* data, size_t length,
                   bool headers_only, bool tables_only = false) {
   if (length < 4 || data[0] != 0xFF || data[1] != 0xD8) return kBadStream;
   size_t pos = 2;
-  while (pos + 4 <= length) {
+  std::vector<uint8_t> completed;  // a cut segment and 4 fed bytes after it
+  while (pos + 1 < length) {
     if (data[pos] != 0xFF) {  // entropy data left after a scan: skip it
       pos++;
       continue;
@@ -661,10 +732,17 @@ static int decode(Decoder* d, const uint8_t* data, size_t length,
       pos += 2;
       continue;
     }
-    int len = read16(data + pos + 2);
-    if (len < 2 || pos + 2 + len > length) return kTruncated;
+    int len = fed(data, length, pos + 2) << 8 | fed(data, length, pos + 3);
+    if (len < 2) return kTruncated;
+    const bool cut = pos + 2 + len > length;
     const uint8_t* p = data + pos + 4;
     int n = len - 2;
+    if (cut) {
+      completed.resize((size_t)n + 4);
+      for (size_t k = 0; k < completed.size(); k++)
+        completed[k] = fed(data, length, pos + 4 + k);
+      p = completed.data();
+    }
     int err = kOk;
     switch (marker) {
       case 0xC0:
@@ -695,25 +773,14 @@ static int decode(Decoder* d, const uint8_t* data, size_t length,
       case 0xC4:
         err = parse_dht(d, p, n);
         break;
-      case 0xCC:  // DAC: Tc Tb, then L and U (DC) or Kx (AC)
-        for (int k = 0; k + 1 < n; k += 2) {
-          int index = p[k], val = p[k + 1];
-          if (index >= 32) return kBadStream;
-          if (index >= 16) {
-            d->arith_ac_K[index - 16] = (uint8_t)val;
-          } else {
-            d->arith_dc_L[index] = (uint8_t)(val & 15);
-            d->arith_dc_U[index] = (uint8_t)(val >> 4);
-            if ((val & 15) > (val >> 4)) return kBadStream;
-          }
-        }
-        if (n & 1) return kBadStream;
+      case 0xCC:
+        err = parse_dac(d, p, n);
         break;
       case 0xDB:
         err = parse_dqt(d, p, n);
         break;
-      case 0xDD:
-        if (n < 2) return kBadStream;
+      case 0xDD:  // get_dri: a length of 4
+        if (n != 2) return cut ? kTruncated : kBadStream;
         d->restart_interval = read16(p);
         break;
       case 0xE0:  // jdmarker.c examine_app0: 14 bytes or more, "JFIF\0"
@@ -737,14 +804,21 @@ static int decode(Decoder* d, const uint8_t* data, size_t length,
         if (tables_only) return kBadStream;
         if (d->frame && d->scans++ == 0) guess_space(d);
         if (headers_only) return d->frame ? kOk : kBadStream;
-        err = decode_scan(d, p, n, data, length, pos + 2 + len);
-        if (err == kOk) {
+        // a cut header's scan reads the fed bytes after it: none, or the
+        // fake EOI's second byte
+        err = cut ? decode_scan(d, p, n, p, (size_t)n + 4, (size_t)n)
+                  : decode_scan(d, p, n, data, length, pos + 2 + len);
+        if (err == kOk && !cut) {
           pos = d->pos;  // resume at the marker that ended the scan
           continue;
         }
         break;
       default:  // APPn, COM and the rest carry nothing the decode needs
         break;
+    }
+    if (cut) {  // the next marker is the fake EOI
+      if (err != kOk) return kTruncated;
+      break;
     }
     if (err != kOk) return err;
     pos += 2 + len;
@@ -763,8 +837,6 @@ static int decode(Decoder* d, const uint8_t* data, size_t length,
                ? kLosslessColour
                : kOk;
   }
-  for (int i = 0; i < d->ncomp; i++)
-    if (!d->qt_defined[d->comp[i].tq]) return kBadStream;
   return kOk;
 }
 
@@ -818,7 +890,7 @@ static void smoothing(const Decoder* d, int* out) {
   bool useful = false;
   for (int i = 0; i < d->ncomp; i++) {
     const Component& c = d->comp[i];
-    if (!d->qt_defined[c.tq] || d->coef_bits[i][0] < 0) return;
+    if (!c.latched || d->coef_bits[i][0] < 0) return;
     int* p = out + 1 + kSmoothInts * i;
     p[0] = c.blocks_w;
     p[1] = c.blocks_h;
@@ -830,7 +902,7 @@ static void smoothing(const Decoder* d, int* out) {
     for (int k = 0; k < 10; k++) {
       p[7 + k] = d->coef_bits[i][k];
       p[17 + k] = k == 0 ? 0 : (d->scans > 1 ? d->prev_bits[i][k] : -1);
-      p[27 + k] = d->qt[c.tq][pos[k]];
+      p[27 + k] = c.qt[pos[k]];
       if (p[27 + k] == 0) return;
       if (k > 0 && p[7 + k] != 0) useful = true;
     }

@@ -45,7 +45,7 @@ static int decode_lossless_scan(Decoder* d, Component** sc, int ns, int ss,
   if (ss < 1 || ss > 7 || se != 0 || ah != 0 || al >= d->precision)
     return kLosslessScan;
   for (int i = 0; i < ns; i++)
-    if (!d->dc[sc[i]->dc_tbl].defined) return kBadStream;
+    if (!huffman_table(d, true, sc[i]->dc_tbl)) return kBadStream;
   const int mcus_x = ns == 1 ? sc[0]->width_in_blocks : d->mcus_x;
   const int mcus_y = ns == 1 ? sc[0]->height_in_blocks : d->mcus_y;
   if (d->restart_interval % mcus_x) return kLosslessRestart;

@@ -84,8 +84,10 @@ enum Error {
   kCompression = 4004, // another compression (CCITT, JPEG 2000, ZSTD, ...)
   kOldLzw = 4005,      // old-style (pre-1991) LZW data that is corrupt
   kLzw = 4006,         // LZW data that is corrupt
-  kShort = 4007,       // an uncompressed strip or tile shorter than its
-                       // rows (a compressed one is zero-filled)
+  kShort = 4007,       // uncompressed data that libtiff fails to read: a
+                       // byte count of 0 or past the end of the file, a
+                       // tile short of its rows (a strip short of them
+                       // reads as zeros, a compressed chunk zero-filled)
   kFloat = 4008,       // SampleFormat 3, or 2 above 16 bits
   kPredictor3 = 4009,  // Predictor 3: the floating-point predictor
   kPredictor = 4010,   // Predictor 2 on other than 8- or 16-bit samples
@@ -98,7 +100,7 @@ enum Error {
   kSampleCount = 4017, // a sample count the photometric does not take
   kChannels = 4018,    // CMYK with an extra sample: five samples a pixel
   kJpegTags = 4019,    // a JPEG stream's components or sampling off its tags
-  kJpegSize = 4020,    // a JPEG stream larger (or smaller) than its chunk
+  kJpegSize = 4020,    // a JPEG stream larger than its chunk, or narrower
   kJpegLayout = 4021,  // a JPEG-in-TIFF layout the card does not read
   kLabPlanar = 4022,   // CIELab in planes, which the RGBA reader refuses
   kLabSamples = 4023,  // CIELab of other than three samples
@@ -523,6 +525,34 @@ static void copy_bits(const uint8_t* src, size_t s0, uint8_t* dst, size_t d0,
   }
 }
 
+// The byte count libtiff takes for uncompressed chunk c: the tag's, unless
+// tif_dirread.c replaces every count by its estimate (EstimateStripByteCounts:
+// a whole tile, or H / strips rows of a strip), as it does for a single
+// strip whose count is 0, runs past the file or is short of the image
+// (ByteCountLooksBad), and for more than two contiguous chunks whose first
+// two counts differ and are not 0 ("Wrong StripByteCounts field").
+// scanline: a row's bytes (TIFFScanlineSize64), tile: a tile's.
+static uint64_t uncompressed_count(const Tiff& t, size_t len, int64_t c,
+                                   uint64_t scanline, uint64_t tile,
+                                   bool* ok) {
+  const int64_t* in = t.info;
+  bool tiled = in[kTiled];
+  const Entry* offs = t.find(tiled ? 324 : 273);
+  const Entry* counts = t.find(tiled ? 325 : 279);
+  int64_t n = in[kChunks];
+  uint64_t c0 = t.value(counts, 0, ok), off0 = t.value(offs, 0, ok);
+  bool estimate;
+  if (n == 1 && !tiled) {
+    estimate = off0 != 0 && (c0 == 0 || (off0 <= len && c0 > len - off0) ||
+                             c0 < scanline * (uint64_t)in[kHeight]);
+  } else {
+    uint64_t c1 = n > 1 ? t.value(counts, 1, ok) : 0;
+    estimate = in[kPlanar] != 2 && n > 2 && c0 != c1 && c0 && c1;
+  }
+  if (!estimate) return t.value(counts, c, ok);
+  return tiled ? tile : scanline * (uint64_t)(in[kHeight] / n);
+}
+
 // Decode every chunk into the raster `out` (see the header comment).
 // inflated[i], inflated_len[i]: chunk i inflated (Deflate only, else NULL).
 static int decode(const uint8_t* data, size_t len,
@@ -555,6 +585,10 @@ static int decode(const uint8_t* data, size_t len,
   const Entry* offs = t.find(tiled ? 324 : 273);
   const Entry* counts = t.find(tiled ? 325 : 279);
   size_t buf_size = chunk_row * (size_t)ch;
+  // libtiff's scanline of subsampled YCbCr: a row of data units over vs
+  const uint64_t scanline = in[kPhotometricTag] == 6 && in[kSubH] *
+                                in[kSubV] > 1 ? chunk_row / in[kSubV]
+                                              : out_row;
   uint8_t* buf = (uint8_t*)malloc(buf_size ? buf_size : 1);
   uint8_t* raw = nullptr;
   if (!buf) return kMalformed;
@@ -566,8 +600,16 @@ static int decode(const uint8_t* data, size_t len,
     int64_t rows = tiled ? ch : (H - ty * ch < ch ? H - ty * ch : ch);
     size_t want = chunk_row * (size_t)rows;
     uint64_t off = t.value(offs, c, &ok), cnt = t.value(counts, c, &ok);
+    if (comp == 1)
+      cnt = uncompressed_count(t, len, c, scanline, buf_size, &ok);
     if (!ok || off > len) {
       err = kTruncated;
+      break;
+    }
+    // uncompressed: TIFFFillStrip / TIFFFillTile fail on a count of 0 or
+    // one past the end of the file (the read fails, cv2 refuses it)
+    if (comp == 1 && (cnt == 0 || cnt > len - off)) {
+      err = kShort;
       break;
     }
     if (cnt > len - off) cnt = len - off;  // as libtiff: read what is there
@@ -582,8 +624,12 @@ static int decode(const uint8_t* data, size_t len,
     } else if (comp == 32773) {
       err = packbits(src, cnt, buf, want);
     } else if (comp == 1) {
-      if (cnt < want) err = kShort;
-      else memcpy(buf, src, want);
+      // a strip short of its rows: DumpModeDecode fails and cv2's read
+      // (libtiff's RGBA reader or its own) keeps the zeroed buffer; a tile
+      // short of them fails the read
+      if (cnt >= want) memcpy(buf, src, want);
+      else if (tiled) err = kShort;
+      else memset(buf, 0, want);
     } else if (!inflated || !inflated[c]) {
       err = kShort;
     } else {

@@ -17,8 +17,13 @@
 //     JPEG sampling factors"); a stream larger than its strip or tile is
 //     refused as libtiff refuses it, except a last strip coded at full
 //     height, of which libtiff reads the first rows (the card's colour
-//     kernel upsamples it over its own rows, last_h); a smaller one libtiff
-//     reads with zeros past it, which the card refuses;
+//     kernel upsamples it over its own rows, last_h); one of fewer rows
+//     libtiff decodes into the zeroed buffer of cv2's read, so the rows
+//     past it are black (the colour kernel takes each chunk's rows,
+//     tiff_jpeg_host_rows); one of another width is refused;
+//   * a stream cut short, or cut inside a marker segment, is read as
+//     libjpeg reads it from libtiff's source, which feeds a fake EOI past
+//     the end (jpeg_entropy.h);
 //   * the colour space is libtiff's, not libjpeg's guess from the markers:
 //     YCbCr is converted by libjpeg, every other photometric's components
 //     are taken as they are (JCS_UNKNOWN).
@@ -117,12 +122,11 @@ static int chunk(const File& f, size_t i, bool headers_only,
   int64_t W = in[kWidth], H = in[kHeight];
   int64_t cw = in[kChunkWidth], ch = in[kChunkHeight];
   if (in[kTiled]) {
-    if (d->width != cw || d->height != ch) return kJpegSize;
+    if (d->width != cw || d->height > ch) return kJpegSize;
   } else {
     int64_t rows = H - (int64_t)i * ch < ch ? H - (int64_t)i * ch : ch;
     bool last = i + 1 == f.chunks.size();
-    if (d->width != W || (d->height != rows && !(last && d->height > rows)))
-      return kJpegSize;
+    if (d->width != W || (d->height > rows && !last)) return kJpegSize;
   }
   return kOk;
 }
@@ -159,6 +163,23 @@ extern "C" int tiff_jpeg_host_info(const unsigned char* data, size_t len,
   return 0;
 }
 
+// Each chunk's stream's rows (its frame's height), from its headers.
+extern "C" int tiff_jpeg_host_rows(const unsigned char* data, size_t len,
+                                   int* rows) {
+  tiff_jpeg::File f;
+  int err = tiff_jpeg::open(data, len, &f);
+  if (err) return err;
+  int64_t sub[2] = {f.t.info[tiff_decode::kSubH],
+                    f.t.info[tiff_decode::kSubV]};
+  for (size_t i = 0; i < f.chunks.size(); i++) {
+    jpeg_entropy::Decoder d;
+    err = tiff_jpeg::chunk(f, i, true, &d, sub);
+    if (err) return err;
+    rows[i] = d.height;
+  }
+  return 0;
+}
+
 // Entropy-decode every chunk: coefs[k] receives component k's coefficients
 // (chunks x blocks down x blocks across x 64, natural order, the blocks
 // that tiff_jpeg_host_info gave in info), qt[64 k ..] its quantization
@@ -189,7 +210,7 @@ extern "C" int tiff_jpeg_host_decode(const unsigned char* data, size_t len,
       memcpy(out, c.coef.data(), c.coef.size() * sizeof(int16_t));
       memset(out + c.coef.size(), 0,
              (per_chunk - c.coef.size()) * sizeof(int16_t));
-      const uint16_t* table = d.qt[c.tq];
+      const uint16_t* table = c.qt;
       if (i == 0)
         memcpy(qt + 64 * k, table, 64 * sizeof(uint16_t));
       else if (memcmp(qt + 64 * k, table, 64 * sizeof(uint16_t)))

@@ -87,16 +87,31 @@ the codec:
         (``bgr_to_ycc_kernel``) and forward DCT and quantization
         (``fdct_islow_quant_kernel``), Huffman-coded on the host
         (``csrc/jpeg_encode.h``).
+    Files cut short read as ``cv2.imread`` reads them from the path, through
+    libjpeg's and libtiff's sources, which feed a fake EOI (FF D9) past the
+    end: a JPEG cut inside its entropy-coded data decodes what it holds
+    (libjpeg's insufficient-data rule, block smoothing of progressive
+    files); one cut inside a marker segment has the segment completed with
+    the fake EOI's bytes and parsed by libjpeg's rule for that marker,
+    refused where libjpeg errors (a cut before the first scan always is);
+    a JPEG-compressed TIFF's stream of fewer rows than its strip or tile
+    leaves the rest black; an uncompressed TIFF strip short of its rows
+    reads as zeros after libtiff's estimate of the byte counts, and a count
+    of 0 or past the end of the file, or a short tile, is refused.
     A kernel that fails to build or launch raises, and so does a file the card
     cannot read, naming why (12-bit, arithmetic-coded lossless and
     hierarchical JPEGs, and the lossless reads cv2 refuses;
-    old-style JPEG, CIELab, float and old-style LZW TIFFs; PAM, PFM, GIF
+    old-style JPEG, ICCLab, ITULab and float TIFFs; PAM, PFM, GIF
     and other formats; and what cv2 does not read either, such as a WebP
     whose first frame runs past its canvas or whose prefix codes libwebp
     rejects, or a BMP run past its row). Nothing falls back to OpenCV or to
     the CPU.
-  * on the CPU, through OpenCV, imported only there: the CPU tests hold the
-    port's reads and writes against the JAX package's OpenCV calls.
+  * on the CPU, through OpenCV, imported only there: :func:`read_image` and
+    :func:`read_colour` are ``cv2.imread`` of the path, as the JAX package
+    reads a view; :func:`decode` and :func:`decode_colour`, which have no
+    path, ``cv2.imdecode`` of the bytes (which refuses a JPEG cut short).
+    The CPU tests hold the port's reads and writes against the JAX
+    package's OpenCV calls.
 
 PNG files (``triangulation.png``) are written on the host with the
 standard library's ``zlib``, on every device.
@@ -138,6 +153,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+import os
 import re
 import struct
 import zlib
@@ -165,10 +181,16 @@ LJPEG_COUNTS = nvcc.LaunchCounts()
 # what the host codes of csrc/ name (a JPEG's, PNG's, TIFF's or WebP's
 # cause of refusal)
 _CODE_ERRORS = {
-    2001: "a truncated JPEG",
+    2001: "a truncated JPEG, cut inside a marker segment whose "
+          "completion libjpeg rejects too: completed with the fake EOI "
+          "bytes (FF D9) that libjpeg's source feeds past the end, as "
+          "cv2.imread reads a file, its Huffman table counts, table index, "
+          "restart-interval length, scan header or progression are not "
+          "valid",
     2002: "a JPEG of an unsupported layout (2 or more than 4 components, "
           "or more than 2^28 pixels)",
-    2003: "a malformed JPEG",
+    2003: "a malformed JPEG (or one with no scan, such as a file cut "
+          "before its first)",
     2006: "a JPEG of another sample precision than cv2 reads (12-bit DCT "
           "samples, or a lossless JPEG of more than 8 bits or of 1)",
     2007: "an arithmetic-coded lossless JPEG (SOF11), which libjpeg-turbo "
@@ -204,8 +226,11 @@ _CODE_ERRORS = {
     4005: "a TIFF whose old-style LZW data (the pre-1991 bit-reversed "
           "form) is corrupt",
     4006: "a TIFF whose LZW data is corrupt",
-    4007: "a TIFF whose uncompressed strip or tile holds fewer bytes than "
-          "its rows, which cv2 refuses too",
+    4007: "a TIFF of uncompressed data that libtiff fails to read, so cv2 "
+          "refuses it too: a strip or tile byte count of 0 or past the end "
+          "of the file (as libtiff estimates the counts where it replaces "
+          "them), or a tile shorter than its rows (a strip shorter than its "
+          "rows reads as zeros)",
     4008: "a TIFF of signed or float samples that cv2 does not read into "
           "an 8-bit image either (SampleFormat 3, or SampleFormat 2 above "
           "16 bits)",
@@ -235,8 +260,9 @@ _CODE_ERRORS = {
           "sampling factors do not match its tags, which libtiff refuses "
           "too (Improper JPEG sampling factors or component count)",
     4020: "a JPEG-compressed TIFF whose stream is larger than its strip or "
-          "tile, which libtiff refuses too, or smaller, which the card "
-          "does not read",
+          "tile, which libtiff refuses too, or of another width, which the "
+          "card does not read (a stream of fewer rows reads, the rows past "
+          "it black, as cv2 reads it)",
     4021: "a JPEG-compressed TIFF of a layout the card does not read "
           "(planar, not grey, RGB or YCbCr of 8 bits, or quantization "
           "tables that differ from one strip or tile to another)",
@@ -321,9 +347,11 @@ def bind_host(lib):
     lib.tiff_host_rationals.restype = i
     if hasattr(lib, "tiff_jpeg_host_info"):  # a build with tiff_jpeg.h
         lib.tiff_jpeg_host_info.argtypes = [ctypes.c_char_p, sz, vp]
+        lib.tiff_jpeg_host_rows.argtypes = [ctypes.c_char_p, sz, vp]
         lib.tiff_jpeg_host_decode.argtypes = [ctypes.c_char_p, sz, vp, vp,
                                               vp]
-        for fn in ("tiff_jpeg_host_info", "tiff_jpeg_host_decode"):
+        for fn in ("tiff_jpeg_host_info", "tiff_jpeg_host_rows",
+                   "tiff_jpeg_host_decode"):
             getattr(lib, fn).restype = i
     if hasattr(lib, "webp_host_header"):  # a build with webp_decode.h
         lib.webp_host_header.argtypes = [ctypes.c_char_p, sz, vp]
@@ -352,7 +380,8 @@ def _library():
     lib.ljpeg_scan_launch.argtypes = [vp, vp, vp, vp, vp, i, i, i, vp, i, vp]
     lib.ljpeg_wavefront_launch.argtypes = [vp, vp, vp, vp, i, i, vp, vp]
     lib.idct_islow_launch.argtypes = [vp, vp, i, i, i, vp, i, i, vp]
-    lib.ycc_to_bgr_launch.argtypes = [vp, vp, i, i, vp, i, i, vp, vp, vp]
+    lib.ycc_to_bgr_launch.argtypes = [vp, vp, i, i, vp, vp, i, i, vp, vp,
+                                      vp]
     lib.cmyk_to_bgr_launch.argtypes = [vp, vp, i, i, i, vp, vp, vp]
     lib.bgr_to_ycc_launch.argtypes = [vp, i, i, i, vp, i, i, vp, vp, i, i,
                                       vp]
@@ -493,6 +522,9 @@ class Chunks(NamedTuple):
     count: int        # chunks in all
     mirror: int       # tiles laid out mirrored (an orientation 2, 3, 6, 7)
     image_width: int
+    # each chunk's stream's rows where one is shorter than its chunk (the
+    # rows past it are black), else ()
+    rows: tuple = ()
 
 
 def _chunk_planes(planes, factors, size, chunks: Chunks):
@@ -533,8 +565,11 @@ def _spots(chunks: Chunks, H: int, W: int, dev):
     ty = r // k.height
     tx = c // k.width if k.tiled else torch.zeros_like(c)
     chunk = ty * k.across + tx
-    rows = torch.where((chunk == k.count - 1) & (k.tiled == 0),
-                       k.last_height, k.height)
+    if k.rows:
+        rows = torch.tensor(k.rows, device=dev)[chunk]
+    else:
+        rows = torch.where((chunk == k.count - 1) & (k.tiled == 0),
+                           k.last_height, k.height)
     col = c - tx * k.width
     if k.mirror:  # each tile's columns in order at its mirrored place
         col = torch.clamp(W - tx * k.width, max=k.width) - 1 - col
@@ -613,6 +648,9 @@ def colour_plain(planes, factors, size, space: int,
         grey, bgr = Y, torch.stack([blue, green, red], -1)
     if chunks is not None:
         grey = opencv_grey(*bgr.unbind(-1))
+        past = spots[1] >= spots[3]  # past a chunk's shorter stream
+        grey = torch.where(past, 0, grey)
+        bgr = torch.where(past[..., None], 0, bgr)
     return grey.to(torch.uint8), bgr.to(torch.uint8)
 
 
@@ -1083,9 +1121,12 @@ def colour_kernel(planes, factors, size, space: int,
     ptrs, ints = _plane_args(planes, factors, geo, fancy)
     form = (FORM_RGB if rgb else 0) | (0 if chunks is None
                                        else FORM_OPENCV_GREY)
+    rows = torch.tensor(chunks.rows, dtype=torch.int32, device=dev) \
+        if chunks is not None and chunks.rows else None
     err = _library().ycc_to_bgr_launch(
         ptrs, ints, len(planes), form,
-        None if chunks is None else (ctypes.c_int * 8)(*chunks), H, W,
+        None if chunks is None else (ctypes.c_int * 8)(*chunks[:8]),
+        None if rows is None else rows.data_ptr(), H, W,
         bgr.data_ptr(), None if gray is None else gray.data_ptr(),
         _stream(planes[0]))
     _check(err, "ycc_to_bgr_kernel launch")
@@ -1406,9 +1447,14 @@ def tiff_jpeg_coefficients(data: bytes, lib, tiff_info=None) -> TiffJpeg:
     ptrs = (ctypes.c_void_p * 3)(*[c.ctypes.data for c in coefs])
     _check(lib.tiff_jpeg_host_decode(data, len(data), info, ptrs,
                                      qt.ctypes.data), "TIFF read")
+    rows = (ctypes.c_int * count)()
+    _check(lib.tiff_jpeg_host_rows(data, len(data), rows), "TIFF read")
+    full = [ch if tiled else min(ch, H - k * ch) for k in range(count)]
     chunks = Chunks(int(tiled), cw, ch, -(-W // cw) if tiled else 1,
                     ch if tiled else last_h, count,
-                    int(bool(tiled) and orientation in (2, 3, 6, 7)), W)
+                    int(bool(tiled) and orientation in (2, 3, 6, 7)), W,
+                    tuple(rows) if any(r < f for r, f in zip(rows, full))
+                    else ())
     return TiffJpeg(tuple(coefs), qt,
                     tuple((hmax // h, vmax // v) for h, v, _, _ in comps),
                     chunks, (H, W), SPACE_RGB if pm == 2 else SPACE_YCC,
@@ -3304,7 +3350,14 @@ def decode(data: bytes, device) -> Tuple[Tensor, Tensor]:
     cv2 refuses); PNG; TIFF (uncompressed, LZW, Deflate, PackBits and
     JPEG-compressed; grey, RGB, palette, CMYK and YCbCr; signed samples as
     their bits); WebP (lossy, lossless, and the first frame of an animated
-    file on its canvas); BMP; and PBM, PGM and PPM (P1 to P6)."""
+    file on its canvas); BMP; and PBM, PGM and PPM (P1 to P6). A file cut
+    short reads as ``cv2.imread`` reads it from a file (see the module's
+    doc): a JPEG cut inside a marker segment by libjpeg's rule for the
+    segment completed with the fake EOI's bytes, a JPEG TIFF's stream of
+    fewer rows than its chunk with the rest black, an uncompressed TIFF
+    strip short of its rows as zeros. On the CPU: ``cv2.imdecode`` of the
+    bytes, which refuses a JPEG cut short (:func:`read_image` reads the
+    path with ``cv2.imread``)."""
     dev = torch.device(device)
     if dev.type == "cpu":
         import cv2
@@ -3334,7 +3387,7 @@ def decode_colour(data: bytes, device) -> Tensor:
     ``cv2.imread`` gives with ``IMREAD_COLOR``. On a CUDA device, the
     formats :func:`decode` reads, and lossless RGB JPEGs (three components
     without a JFIF marker or an Adobe transform other than 0), which cv2
-    reads in colour only."""
+    reads in colour only. On the CPU: ``cv2.imdecode`` of the bytes."""
     dev = torch.device(device)
     if dev.type == "cuda" and image_format(data) == "JPEG":
         return _decode_jpeg(data, dev, grey=False)[1]
@@ -3365,13 +3418,43 @@ def _read(path: str, fn, device):
         raise ValueError(f"{path}: {e}") from None
 
 
+def _imread(path: str, modes):
+    """``cv2.imread`` of ``path`` in each of ``modes``, as the JAX package
+    reads a view: libjpeg's file source feeds a cut JPEG a fake EOI, which
+    ``cv2.imdecode`` of the bytes refuses. Raises where cv2 returns None."""
+    import cv2
+
+    if not os.path.exists(path):
+        raise FileNotFoundError(path)
+    out = []
+    for mode in modes:
+        img = cv2.imread(path, mode)
+        if img is None:
+            with open(path, "rb") as f:
+                kind = image_format(f.read(16))
+            raise ValueError(f"{path}: OpenCV cannot read this {kind} file")
+        out.append(torch.from_numpy(img))
+    return out
+
+
 def read_image(path: str, device) -> Tuple[Tensor, Tensor]:
-    """:func:`decode` of the file at ``path``."""
+    """:func:`decode` of the file at ``path`` on a CUDA device; on the CPU
+    ``cv2.imread`` of the path with ``IMREAD_GRAYSCALE`` and
+    ``IMREAD_COLOR``."""
+    if torch.device(device).type == "cpu":
+        import cv2
+
+        return tuple(_imread(path, (cv2.IMREAD_GRAYSCALE, cv2.IMREAD_COLOR)))
     return _read(path, decode, device)
 
 
 def read_colour(path: str, device) -> Tensor:
-    """:func:`decode_colour` of the file at ``path``."""
+    """:func:`decode_colour` of the file at ``path`` on a CUDA device; on
+    the CPU ``cv2.imread`` of the path with ``IMREAD_COLOR``."""
+    if torch.device(device).type == "cpu":
+        import cv2
+
+        return _imread(path, (cv2.IMREAD_COLOR,))[0]
     return _read(path, decode_colour, device)
 
 

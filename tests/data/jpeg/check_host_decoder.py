@@ -110,7 +110,7 @@ extern "C" int planes(const uint8_t* data, size_t len, int* info,
       for (int bx = 0; bx < c.width_in_blocks; bx++) {
         int rows = ph - 8 * by, cols = pw - 8 * bx;
         jpeg_idct::idct_islow_block(
-            &c.coef[((size_t)by * c.blocks_w + bx) * 64], d->qt[c.tq],
+            &c.coef[((size_t)by * c.blocks_w + bx) * 64], c.qt,
             out[i] + (size_t)8 * by * pw + 8 * bx, pw, rows < 8 ? rows : 8,
             cols < 8 ? cols : 8);
       }

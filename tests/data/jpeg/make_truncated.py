@@ -30,7 +30,13 @@ their arrays join ``lossless/cv2_arrays.npz``.
 ``conversion/plane_3200x2130_progressive_cut.jpg``: cv2's BGR of
 ``tests/data/webp/conversion/plane_3200x2130.webp`` as cv2.imencode's
 progressive 4:2:0 q90 JPEG, cut in the middle of its sixth scan's data, and
-adds cv2's hashes of it (``progressive_cut``) to ``conversion/cv2.json``.
+adds cv2's hashes of it (``progressive_cut``) to ``conversion/cv2.json``,
+and those of its first bytes up to 5 bytes into the symbols of the DHT
+before its sixth scan (``progressive_cut_in_dht``, with their count).
+
+``--part segments`` writes ``cut_segments/`` (:func:`write_segments`):
+JPEGs cut after every byte of marker segments, and which of cv2's arrays
+each reads to.
 """
 
 import argparse
@@ -181,12 +187,157 @@ def write_fixtures() -> None:
     np.savez_compressed(path, **arrays)
 
 
-def conversion_source() -> bytes:
-    """Phase 8f's cut progressive source (see the module's doc)."""
+def segments(data: bytes):
+    """(offset, marker, size) of each marker segment of a JPEG, from its
+    first after SOI to its EOI, skipping each scan's entropy-coded data;
+    size counts the marker and the length."""
+    out, pos = [], 2
+    while data[pos + 1] != 0xD9:
+        size = 2 + int.from_bytes(data[pos + 2:pos + 4], "big")
+        out.append((pos, data[pos + 1], size))
+        pos += size
+        if out[-1][1] == 0xDA:
+            while not (data[pos] == 0xFF and data[pos + 1] not in (
+                    0x00, *range(0xD0, 0xD8))):
+                pos += 1
+    return out
+
+
+def before_scan(data: bytes, k: int, segment: bytes) -> bytes:
+    """``data`` with ``segment`` inserted just before its k-th scan's SOS
+    (k from 1)."""
+    at = scan_starts(data)[k - 1][0]
+    return data[:at] + segment + data[at:]
+
+
+MARKERS = {0xC0: "sof", 0xC2: "sof", 0xCA: "sof", 0xC4: "dht", 0xCC: "dac",
+           0xDA: "sos", 0xDB: "dqt",
+           0xDD: "dri", 0xE0: "app0", 0xE1: "app1", 0xFE: "com"}
+
+
+def sequential_scans() -> bytes:
+    """A multi-scan sequential JPEG: 4:2:0 YCbCr as three non-interleaved
+    scans, each the scan of cv2.imencode's grey q90 JPEG of the plane
+    (``jpeg_file.scans_jpeg``), with the AC table sent again before the
+    third scan."""
+    factors = [(2, 2), (1, 1), (1, 1)]
+    greys = [cv2.imencode(".jpg", p.astype(np.uint8),
+                          [cv2.IMWRITE_JPEG_QUALITY, 90])[1].tobytes()
+             for p in mal.planes_of(factors, 30, 44, 7)]
+    data = jf.scans_jpeg(greys, factors, (30, 44))
+    dht = [data[a:a + n] for a, m, n in segments(data) if m == 0xC4]
+    return before_scan(data, 3, dht[-1])
+
+
+def segment_sources(lib) -> dict:
+    """{name: (JPEG, the segments to cut at every byte)}: see
+    ``write_segments``."""
+    huff = sources()["420"]
+    tables = huff
+    for k, seg in ((2, jf.segment(0xDB, bytes([0]) + bytes(range(3, 67)))),
+                   (3, jf.segment(0xDD, bytes(2))),
+                   (4, jf.segment(0xFE, b"cut here")),
+                   (5, jf.segment(0xE1, b"http://ns.adobe.com/xap/1.0/\0"
+                                        b"<x:xmpmeta/>"))):
+        tables = before_scan(tables, k, seg)
+    dht = next(huff[a:a + n] for a, m, n in segments(huff)[7:] if m == 0xC4)
+    arith = mal.transcode(lib, huff, progressive=True)
+    arith = before_scan(before_scan(arith, 3, jf.dac_segment(
+        {("dc", 0): (0, 1), ("ac", 0): 5})), 6, dht)
+    seq = sequential_scans()
+    first_scan = lambda d: next(i for i, (_, m, _) in enumerate(segments(d))
+                                if m == 0xDA)
+    inserted = lambda d: [i for i, (_, m, _) in enumerate(segments(d))
+                          if i > first_scan(d) and m in (
+                              0xCC, 0xDB, 0xDD, 0xE1, 0xFE) or
+                          (m == 0xC4 and d is arith)]
+    return {
+        "prog_420": (huff, list(range(len(segments(huff))))),
+        "prog_420_tables": (tables, inserted(tables)),
+        "prog_arith_420": (arith, inserted(arith)),
+        "seq_scans": (seq, [i for i, (_, m, _) in enumerate(segments(seq))
+                            if m == 0xDA or i > first_scan(seq)])}
+
+
+def segment_cuts(lib) -> dict:
+    """{name: JPEG}: each source of :func:`segment_sources` cut after every
+    byte of each segment it names (``<source>_<marker><k>_at<j>``: j bytes
+    of the k-th such marker's segment kept), and the whole files with
+    inserted segments."""
+    out = {}
+    for name, (data, picks) in segment_sources(lib).items():
+        segs, seen = segments(data), {}
+        for i, (at, marker, size) in enumerate(segs):
+            tag = MARKERS[marker]
+            seen[tag] = seen.get(tag, 0) + 1
+            if i not in picks:
+                continue
+            for j in range(1, size + 1):
+                out[f"{name}_{tag}{seen[tag]}_at{j}"] = data[:at + j]
+        if name != "prog_420":
+            out[f"{name}_whole"] = data
+    return out
+
+
+def _digest(grey, bgr) -> str:
+    return hashlib.sha256(grey.tobytes() + bgr.tobytes()).hexdigest()
+
+
+def write_segments() -> None:
+    """``cut_segments/``: the files of :func:`segment_cuts`, ``cuts.json``
+    ({file: what cv2.imread gives: null where it returns None in both
+    modes, else the key of its arrays: "truncated/<name>" where
+    ``truncated/cv2_arrays.npz`` holds them, else "<name>" in
+    ``cut_segments/cv2_arrays.npz``}) and those arrays."""
+    folder = os.path.join(HERE, "cut_segments")
+    os.makedirs(folder, exist_ok=True)
+    for f in os.listdir(folder):
+        os.remove(os.path.join(folder, f))
+    known = {}
+    old = np.load(os.path.join(TRUNCATED, "cv2_arrays.npz"))
+    for key in old.files:
+        if key.startswith("gray_"):
+            stem = key[5:]
+            known.setdefault(_digest(old[key], old[f"bgr_{stem}"]),
+                             f"truncated/{stem}")
+    record, arrays = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        cuts = segment_cuts(check_host_decoder.build(tmp))
+    for name, data in sorted(cuts.items()):
+        path = os.path.join(folder, f"{name}.jpg")
+        with open(path, "wb") as f:
+            f.write(data)
+        grey, bgr = cv2_modes(path)
+        assert (grey is None) == (bgr is None), f"cv2 reads one mode of {path}"
+        if grey is None:
+            record[name] = None
+            continue
+        digest = _digest(grey, bgr)
+        if digest not in known:
+            known[digest] = name
+            arrays[f"gray_{name}"], arrays[f"bgr_{name}"] = grey, bgr
+        record[name] = known[digest]
+    with open(os.path.join(folder, "cuts.json"), "w") as f:
+        json.dump(record, f, indent=0, sort_keys=True)
+        f.write("\n")
+    np.savez_compressed(os.path.join(folder, "cv2_arrays.npz"), **arrays)
+
+
+def conversion_source(whole: bool = False) -> bytes:
+    """Phase 8f's cut progressive source (see the module's doc), or with
+    ``whole`` the file it is cut from."""
     bgr = cv2.imread(mal.WEBP_SOURCE, cv2.IMREAD_COLOR)
     data = encode(bgr, cv2.IMWRITE_JPEG_SAMPLING_FACTOR_420)
     _, start, end = scan_starts(data)[5]
-    return data[:(start + end) // 2]
+    return data if whole else data[:(start + end) // 2]
+
+
+def in_dht(data: bytes) -> int:
+    """The length of ``data`` cut 5 bytes into the symbols (past the 16
+    counts) of the DHT segment just before its sixth scan."""
+    at = scan_starts(data)[5][0]
+    return max(a for a, m, _ in segments(data) if m == 0xC4 and a < at) + \
+        4 + 17 + 5
 
 
 def write_conversion() -> None:
@@ -207,6 +358,19 @@ def write_conversion() -> None:
         "source_sha256": sha(data), "gray_sha256": sha(grey.tobytes()),
         "bgr_sha256": sha(bgr.tobytes()),
         "workspace_sha256": sha(cv2.imencode(".jpg", bgr)[1].tobytes())}
+    n = in_dht(conversion_source(whole=True))
+    with tempfile.TemporaryDirectory() as tmp:
+        cut = os.path.join(tmp, "cut.jpg")
+        with open(cut, "wb") as f:
+            f.write(data[:n])
+        grey, bgr = cv2_modes(cut)
+    record["progressive_cut_in_dht"] = {
+        "from": "the first source_bytes bytes of "
+                "plane_3200x2130_progressive_cut.jpg: cut 5 bytes into the "
+                "symbols of the DHT before its sixth scan",
+        "source_bytes": n, "source_sha256": sha(data[:n]),
+        "gray_sha256": sha(grey.tobytes()), "bgr_sha256": sha(bgr.tobytes()),
+        "workspace_sha256": sha(cv2.imencode(".jpg", bgr)[1].tobytes())}
     with open(path, "w") as f:
         json.dump(record, f, indent=1)
         f.write("\n")
@@ -214,11 +378,13 @@ def write_conversion() -> None:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--part", choices=("all", "fixtures", "conversion"),
-                    default="all")
+    ap.add_argument("--part", choices=("all", "fixtures", "segments",
+                                       "conversion"), default="all")
     part = ap.parse_args().part
     if part in ("all", "fixtures"):
         write_fixtures()
+    if part in ("all", "segments"):
+        write_segments()
     if part in ("all", "conversion"):
         write_conversion()
 

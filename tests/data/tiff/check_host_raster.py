@@ -70,7 +70,13 @@ REFUSED = {
     "tiff/refused/lab_alpha.tif": "CIELab TIFF of other than three",
     "tiff/refused/lab_l_only.tif": "CIELab TIFF of other than three",
     "tiff/refused/lab4.tif": "CIELab TIFF of other than 8 or 16",
-    "tiff/refused/short_none.tif": "uncompressed strip",
+    "tiff/refused/short_none.tif": "uncompressed data",
+    "tiff/refused/short_none_tile3.tif": "uncompressed data",
+    "tiff/refused/short_none_strip2_count0.tif": "uncompressed data",
+    "tiff/refused/short_none_strip3_past_end.tif": "uncompressed data",
+    "tiff/refused/jpeg_short_whole_strip1_cut_in_dht.tif": "no scan",
+    "tiff/refused/short_none_rows7_estimate_past_end.tif":
+        "uncompressed data",
     "tiff/refused/grey2.tif": "bit depth", "tiff/refused/grey4.tif":
         "bit depth", "tiff/refused/grey12.tif": "bit depth",
     "tiff/refused/palette16.tif": "bit depth",
@@ -107,17 +113,20 @@ extern "C" void raster_pixels(const uint8_t* raster, const int* ints,
     }
 }
 // ycc_to_bgr_kernel's chunked work, thread by thread: n planes, n x 6
-// ints (jpeg_colour::Plane), form (YccForm bits), chunks (8 ints)
+// ints (jpeg_colour::Plane), form (YccForm bits), chunks (8 ints), rows
+// (each chunk's stream's rows, or NULL)
 extern "C" void chunk_pixels(const uint8_t* const* ptrs, const int* geo,
-                             int n, int form, const int* chunks, int H,
-                             int W, uint8_t* bgr, uint8_t* grey) {
+                             int n, int form, const int* chunks,
+                             const int* rows, int H, int W, uint8_t* bgr,
+                             uint8_t* grey) {
   jpeg_colour::Planes pl = {};
   for (int i = 0; i < n; i++) {
     const int* g = geo + 6 * i;
     pl.c[i] = {ptrs[i], g[0], g[1], g[2], g[3], g[4], g[5]};
   }
   jpeg_colour::Chunks ck = {chunks[0], chunks[1], chunks[2], chunks[3],
-                            chunks[4], chunks[5], chunks[6], chunks[7]};
+                            chunks[4], chunks[5], chunks[6], chunks[7],
+                            rows};
   for (int r = 0; r < H; r++)
     for (int col = 0; col < W; col++) {
       size_t i = (size_t)r * W + col;
@@ -197,8 +206,10 @@ def chunk_kernel_host(lib, tj, planes):
             len(planes) == 3 else 0) | images.FORM_OPENCV_GREY
     bgr = np.zeros((H, W, 3), np.uint8)
     g = np.zeros((H, W), np.uint8)
+    rows = (ctypes.c_int * len(tj.chunks.rows))(*tj.chunks.rows) \
+        if tj.chunks.rows else None
     lib.chunk_pixels(ptrs, ints, len(planes), form,
-                     (ctypes.c_int * 8)(*tj.chunks), H, W,
+                     (ctypes.c_int * 8)(*tj.chunks[:8]), rows, H, W,
                      ctypes.c_void_p(bgr.ctypes.data),
                      ctypes.c_void_p(g.ctypes.data))
     return g, bgr

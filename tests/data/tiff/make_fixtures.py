@@ -6,9 +6,19 @@ Each ``<name>.tif`` is one image of at most 256x256, assembled field by
 field by ``tiff_file.py`` (layouts that cv2.imencode and PIL cannot write:
 tiles, BigTIFF, planar configuration 2, min-is-white, 16-bit colour maps,
 predictor 2 on 16-bit samples), written by PIL (``pil_*``) or by
-cv2.imencode (``image.tif``). ``cv2_arrays.npz`` holds ``cv2.imread``'s
+cv2.imencode (``image.tif``). ``cv2_arrays.npz`` holds ``cv2.imdecode``'s
 grey (``gray_<name>``, IMREAD_GRAYSCALE) and BGR (``bgr_<name>``,
-IMREAD_COLOR) arrays of each, the target of the card's TIFF reader.
+IMREAD_COLOR) arrays of each, the target of the card's TIFF reader. They
+are ``cv2.imread``'s of the file too, but for the 14 files of orientations
+5 to 8 (``orient5_lzw.tif`` to ``orient8_tiles_lzw.tif``,
+``orient7_grey1_tiles_lzw.tif``, ``cmyk8_inkset1_packbits_orient6.tif``,
+``jpeg_ycbcr22_orient6.tif``, ``jpeg_ycbcr22_tiles_orient7.tif``,
+``ycbcr22_notag_orient8.tif``, ``lab16_mm_deflate_pred2_orient6.tif``), on
+which cv2 5.0.0's ``imread`` fails in both modes (an internal assertion):
+a fault of that cv2, not copied, so ``imdecode`` is their oracle. The
+``short_none_*`` files (``--part short``), uncompressed strips cut short,
+whose read depends on how libtiff opens the file, hold ``cv2.imread``'s
+arrays of the file.
 
 The cases: strips (RowsPerStrip dividing the height or not) and tiles
 (overhanging the edges), planar configurations 1 and 2, compressions 1, 5,
@@ -82,7 +92,8 @@ from PIL import Image
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
-from tiff_file import (RATIONAL, SHORT, UNDEFINED, cut_chunk,  # noqa: E402
+from tiff_file import (LONG, RATIONAL, SHORT, UNDEFINED,  # noqa: E402
+                       cut_chunk,
                        rare_conversion_sources, tags_of, tiff_bytes)
 
 DATA = os.path.dirname(HERE)
@@ -304,7 +315,8 @@ def jpeg_tiff(bgr: np.ndarray, photometric: int = 6, rows: int = 16,
               tile=None, sub=(2, 2), tag530: bool = True,
               abbreviated: bool = True, sampling=None, restart: int = 0,
               orientation: int = None, last_rows: int = None,
-              quality: int = 75) -> bytes:
+              quality: int = 75, frame_rows: dict = None,
+              cut: dict = None) -> bytes:
     """A JPEG-compressed TIFF (Compression 7) of a BGR (or, Photometric 1,
     grey) image: strips of ``rows`` rows or ``tile`` (width, length)
     tiles, each cv2.imencode's stream of its pixels (tiles padded with
@@ -312,7 +324,9 @@ def jpeg_tiff(bgr: np.ndarray, photometric: int = 6, rows: int = 16,
     streams are coded so that their Y, Cb, Cr are about the image's R, G,
     B: the components libtiff hands on as they are.
     ``last_rows``: the last strip's stream coded at that many rows (the
-    image's rows, then zeros)."""
+    image's rows, then zeros). ``frame_rows`` {chunk: rows}: those chunks'
+    streams coded at their first rows only; ``cut`` {chunk: bytes}: those
+    streams cut to their first bytes (the byte count set so)."""
     H, W = bgr.shape[:2]
     if tile:
         tw, th = tile
@@ -331,10 +345,14 @@ def jpeg_tiff(bgr: np.ndarray, photometric: int = 6, rows: int = 16,
         parts = [cv2.cvtColor(np.ascontiguousarray(p[..., [2, 0, 1]]),
                               cv2.COLOR_YCrCb2BGR) for p in parts]
     chunks, tables = [], None
-    for p in parts:
+    for i, p in enumerate(parts):
+        if frame_rows and i in frame_rows:
+            p = p[:frame_rows[i]]
         stream = jpeg_stream(p, quality, sampling, restart)
         if abbreviated:
             tables, stream = split_tables(stream)
+        if cut and i in cut:
+            stream = stream[:cut[i]]
         chunks.append(stream)
     tags = {}
     if tables:
@@ -652,6 +670,138 @@ def write_rare() -> None:
             readable, name
 
 
+def _with_count(data: bytes, index: int, count: int) -> bytes:
+    """A classic little-endian TIFF with chunk ``index``'s byte count set
+    to ``count``, its bytes left in place."""
+    t = tags_of(data)
+    tag = 325 if 325 in t else 279
+    ifd = struct.unpack("<I", data[4:8])[0]
+    out = bytearray(data)
+    for at in range(ifd + 2, ifd + 2 + 12 * struct.unpack(
+            "<H", data[ifd:ifd + 2])[0], 12):
+        if struct.unpack("<H", data[at:at + 2])[0] != tag:
+            continue
+        typ, n = struct.unpack("<HI", data[at + 2:at + 8])
+        fmt = {SHORT: "H", LONG: "I"}[typ]
+        size = struct.calcsize(fmt)
+        pos = at + 8 if size * n <= 4 else struct.unpack(
+            "<I", data[at + 8:at + 12])[0]
+        out[pos + size * index:pos + size * (index + 1)] = struct.pack(
+            "<" + fmt, count)
+    return bytes(out)
+
+
+def short_uncompressed():
+    """Uncompressed TIFFs whose strip or tile holds fewer bytes than its
+    rows, among several, as cv2.imread (libtiff, the file mapped) reads
+    them, and those it refuses: ({name: TIFF}, {name: refused TIFF}).
+
+    libtiff replaces every byte count by its estimate (a whole tile, or
+    H / strips rows) where there are more than two contiguous chunks whose
+    first two counts differ, or one strip whose count is short of the
+    image; it fails the read of a count of 0 or one past the end of the
+    file, and of a tile short of its rows; a strip short of its rows reads
+    as zeros (DumpModeDecode fails and the read keeps its zeroed
+    buffer)."""
+    rgb = picture(40, 27, 5)
+    grey = rgb[..., 1].copy()
+    g16 = rgb[..., 0].astype(np.uint16) * 257 + 3
+    cmap = (np.arange(3 * 256).reshape(3, 256) * 85 % 65536).astype(
+        np.uint16)
+    strips = lambda img, **kw: tiff_bytes(img, rows_per_strip=10, **kw)
+    rows7 = tiff_bytes(rgb, rows_per_strip=7)
+    tiles = tiff_bytes(rgb, tile=(16, 16))
+    whole = tiff_bytes(rgb)
+    read = {
+        # strips 2, 3: their rows read as zeros
+        "short_none_strip2_of_4": _short(strips(rgb), index=2, keep=1 / 2),
+        "short_none_strip3_of_4_last": _short(strips(rgb), index=3,
+                                              keep=1 / 2),
+        "short_none_grey_strip2_1byte": _short(strips(grey, photometric=1),
+                                               index=2, keep=1 / 200),
+        "short_none_miniswhite_strip3": _short(strips(
+            grey, photometric=0), index=3, keep=1 / 3),
+        "short_none_grey16_mm_strip2": _short(strips(
+            g16, photometric=1, big=True), index=2, keep=1 / 2),
+        "short_none_palette_strip2": _short(strips(
+            grey, photometric=3, colormap=cmap), index=2, keep=1 / 2),
+        "short_none_rgba_strip3": _short(strips(
+            np.concatenate([rgb, rgb[..., :1]], -1), extra_samples=(2,)),
+            index=3, keep=1 / 2),
+        "short_none_planar2_strip1": _short(tiff_bytes(rgb, planar=2),
+                                            index=1, keep=1 / 2),
+        "short_none_two_strips_first": _short(tiff_bytes(
+            rgb, rows_per_strip=20), index=0, keep=1 / 2),
+        # strip 0 or 1: every count estimated, each strip's whole rows read
+        "short_none_strip0_of_4_estimated": _short(strips(rgb), index=0,
+                                                   keep=1 / 2),
+        "short_none_tile1_estimated": _short(tiles, index=1, keep=1 / 5),
+        # a single strip short of the image, its data there: estimated
+        "short_none_single_strip_data_there": _with_count(
+            whole + bytes(64), 0, 100),
+        # 40 / 6 = 6 rows estimated for strips of 7: all but the last (of
+        # 5 rows, bytes after it in the file) read as zeros
+        "short_none_rows7_estimated_short": _with_count(
+            rows7 + bytes(200), 1, 100),
+    }
+    bgr = picture(40, 48, 9)[..., ::-1]
+    stream = tags_of(jpeg_tiff(bgr))[279][1]
+    dht = jpeg_stream(bgr[16:32]).find(b"\xff\xc4") + 25
+    read.update({
+        # JPEG streams of fewer rows than their chunk: the rows past them
+        # black; streams cut short, in their data or a segment
+        "jpeg_short_strip1_frame10": jpeg_tiff(bgr, frame_rows={1: 10}),
+        "jpeg_short_last_strip_frame4": jpeg_tiff(bgr, frame_rows={2: 4}),
+        "jpeg_short_grey_strip0_frame7": jpeg_tiff(
+            bgr[..., 1].copy(), photometric=1, frame_rows={0: 7}),
+        "jpeg_rgb_short_strip1_frame9": jpeg_tiff(
+            bgr, photometric=2, sampling=cv2.IMWRITE_JPEG_SAMPLING_FACTOR_444,
+            frame_rows={1: 9}),
+        "jpeg_short_tile1_frame10": jpeg_tiff(bgr, tile=(16, 16),
+                                              frame_rows={1: 10}),
+        "jpeg_short_tiles_orient2_frame5": jpeg_tiff(
+            bgr, tile=(16, 16), orientation=2, frame_rows={0: 5, 4: 12}),
+        "jpeg_short_strip1_stream_cut": jpeg_tiff(bgr,
+                                                  cut={1: stream - 100}),
+        "jpeg_short_strip1_cut_after_ff": jpeg_tiff(bgr,
+                                                    cut={1: stream - 1}),
+    })
+    refused = {
+        # a stream cut before its first scan: libjpeg finds no image
+        "jpeg_short_whole_strip1_cut_in_dht": jpeg_tiff(
+            bgr, abbreviated=False, cut={1: dht}),
+        "short_none_tile3": _short(tiles, index=3, keep=1 / 5),
+        "short_none_strip2_count0": _with_count(strips(rgb), 2, 0),
+        "short_none_strip3_past_end": _with_count(strips(rgb), 3, 900),
+        # the estimate of the last strip (40 / 6 = 6 rows; it holds 5)
+        # runs past the end of the file
+        "short_none_rows7_estimate_past_end": _short(rows7, index=0,
+                                                     keep=1 / 2),
+    }
+    return read, refused
+
+
+def write_short() -> None:
+    """The ``short_none_*`` fixtures of :func:`short_uncompressed`, their
+    ``cv2.imread`` arrays added to ``cv2_arrays.npz``, the refused ones
+    under ``refused/``."""
+    path = os.path.join(HERE, "cv2_arrays.npz")
+    arrays = dict(np.load(path))
+    read, refused = short_uncompressed()
+    for folder, made in ((HERE, read), (os.path.join(HERE, "refused"),
+                                        refused)):
+        for name, data in made.items():
+            file = os.path.join(folder, f"{name}.tif")
+            with open(file, "wb") as fh:
+                fh.write(data)
+            g = cv2.imread(file, cv2.IMREAD_GRAYSCALE)
+            c = cv2.imread(file, cv2.IMREAD_COLOR)
+            assert (g is None) == (c is None) == (folder != HERE), name
+            if folder == HERE:
+                arrays[f"gray_{name}"], arrays[f"bgr_{name}"] = g, c
+    np.savez_compressed(path, **arrays)
+
+
 def write_rare_conversion() -> None:
     """Phase 8f's TIFFs, made here from cv2's BGR of the lossy WebP
     conversion source as the phase makes them from the card's read of it,
@@ -789,9 +939,11 @@ def write_new() -> None:
 
 def main() -> None:
     parser = argparse.ArgumentParser()
-    parser.add_argument("--part", choices=("all", "new", "rare",
+    parser.add_argument("--part", choices=("all", "new", "rare", "short",
                                            "conversion"), default="all")
     part = parser.parse_args().part
+    if part == "short":
+        return write_short()
     if part == "conversion":
         return write_conversion()
     if part == "new":
@@ -816,6 +968,7 @@ def main() -> None:
     write_new()
     write_rare()
     write_rare_conversion()
+    write_short()
 
 
 if __name__ == "__main__":

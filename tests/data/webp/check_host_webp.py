@@ -63,7 +63,9 @@ LOSSLESS_REFUSED = {
     "webp/lossless/refused/oversubscribed.webp": (5010, "prefix code"),
     "webp/lossless/refused/incomplete.webp": (5010, "prefix code"),
     "webp/lossless/refused/repeated_transform.webp": (5011, "repeated"),
-    "webp/lossless/refused/cache_bits_12.webp": (5011, "cache bits")}
+    "webp/lossless/refused/cache_bits_12.webp": (5011, "cache bits"),
+    "webp/lossless/refused/backref_before_first_pixel.webp": (
+        5011, "back-reference outside")}
 
 SHIM = r'''
 #include "jpeg_encode.h"

@@ -19,7 +19,11 @@ Written here:
   and the normal loop filter, sharpness 0-7, filter strength 0 (no
   filter), 1-4 segments, 1/2/4/8 token partitions, lossy with ``ALPH``,
   with ``ICCP``, with ``EXIF`` orientations 1-8 (also with the chunk's
-  ``Exif`` prefix, which cv2 does not read as EXIF);
+  ``Exif`` prefix, which cv2 does not read as EXIF), and
+  ``lf_deltas.webp``: a frame whose header carries the loop filter's
+  reference and mode deltas, which libwebp's encoder never writes
+  (:func:`with_lf_deltas`; ``--part deltas`` writes it alone, its arrays
+  cv2.imread's of the file);
 * ``cv2_arrays.npz``: cv2.imdecode's grey and BGR arrays of each
   (``gray_<name>``, ``bgr_<name>``);
 * ``refused/``: what cv2 refuses too (a truncated RIFF, a RIFF that is
@@ -28,13 +32,16 @@ Written here:
   files: ``make_lossless.py``.
 """
 
+import argparse
 import ctypes
 import glob
 import io
 import json
 import os
 import struct
+import subprocess
 import sys
+import tempfile
 
 import numpy as np
 
@@ -204,14 +211,187 @@ def vp8_header(data: bytes) -> dict:
         if seg["update_map"]:
             [br.lit(8) if br.get() else 255 for _ in range(3)]
     simple, level, sharpness = br.get(), br.lit(6), br.lit(3)
+    deltas = {}
     if br.get() and br.get():
-        for _ in range(8):
-            if br.get():
-                br.signed(6)
+        deltas = {"lf_deltas": [br.signed(6) if br.get() else 0
+                                for _ in range(8)]}
     partitions = 1 << br.lit(2)
     return dict(width=width, height=height, simple=simple, level=level,
                 sharpness=sharpness, partitions=partitions,
-                base_q=br.lit(7), **seg)
+                base_q=br.lit(7), **seg, **deltas)
+
+
+# ------------------------- the loop filter's deltas -------------------------
+
+# The host decoder (csrc/webp_decode.h) with every read of the first
+# partition recorded, (probability << 1 | bit), built for the host.
+_TRACE_SHIM = r'''
+#include <stdint.h>
+#include <vector>
+static std::vector<uint16_t> g_trace;
+static const void* g_first = nullptr;
+#include "webp_decode_traced.h"
+extern "C" int first_partition_trace(const unsigned char* data, size_t n,
+                                     int* records, short* coefs,
+                                     int* params, uint16_t* out, int cap) {
+  g_trace.clear();
+  int err = webp_host_decode(data, n, records, coefs, params);
+  if (err) return -err;
+  for (size_t i = 0; i < g_trace.size() && (int)i < cap; i++)
+    out[i] = g_trace[i];
+  return (int)g_trace.size();
+}
+'''
+
+
+def _first_partition(data: bytes):
+    """[(probability, bit)] of every read the decoder makes of a lossy
+    WebP's first partition: its header and every macroblock's modes."""
+    csrc = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
+        HERE))), "mpmvs_torch", "csrc")
+    with open(os.path.join(csrc, "webp_decode.h")) as f:
+        src = f.read()
+    for old, new in (
+            ("    return bit;\n  }\n  int literal(",
+             "    if (this == g_first) g_trace.push_back((uint16_t)(prob << 1 "
+             "| bit));\n    return bit;\n  }\n  int literal("),
+            ("  BoolDecoder& br = f->br;\n  br.init(d, first_len);",
+             "  BoolDecoder& br = f->br;\n  g_first = &br;\n"
+             "  br.init(d, first_len);")):
+        assert src.count(old) == 1, old
+        src = src.replace(old, new)
+    with tempfile.TemporaryDirectory() as tmp:
+        with open(os.path.join(tmp, "webp_decode_traced.h"), "w") as f:
+            f.write(src)
+        with open(os.path.join(tmp, "trace.cpp"), "w") as f:
+            f.write(_TRACE_SHIM)
+        so = os.path.join(tmp, "trace.so")
+        subprocess.run(["g++", "-O1", "-shared", "-fPIC", "-I", tmp, "-I",
+                        csrc, "-o", so, os.path.join(tmp, "trace.cpp")],
+                       check=True)
+        lib = ctypes.CDLL(so)
+        head = vp8_header(data)
+        mbs = ((head["width"] + 15) // 16) * ((head["height"] + 15) // 16)
+        records = np.zeros(4 * mbs, np.int32)
+        coefs = np.zeros(mbs * 25 * 16, np.int16)
+        params = np.zeros(49, np.int32)
+        out = np.zeros(1 << 22, np.uint16)
+        n = lib.first_partition_trace(
+            data, ctypes.c_size_t(len(data)), records.ctypes.data_as(_P),
+            coefs.ctypes.data_as(_P), params.ctypes.data_as(_P),
+            out.ctypes.data_as(_P), ctypes.c_int(len(out)))
+    assert 0 < n <= len(out), n
+    return [(int(v) >> 1, int(v) & 1) for v in out[:n]]
+
+
+def _bool_encode(symbols) -> bytes:
+    """RFC 6386 section 7.3's boolean encoder of [(probability, bit)]."""
+    out = bytearray()
+    rng, bottom, count = 255, 0, 24
+
+    def carry():
+        i = len(out) - 1
+        while out[i] == 255:
+            out[i] = 0
+            i -= 1
+        out[i] += 1
+
+    for prob, bit in symbols:
+        split = 1 + (((rng - 1) * prob) >> 8)
+        if bit:
+            bottom += split
+            rng -= split
+        else:
+            rng = split
+        while rng < 128:
+            rng <<= 1
+            if bottom & (1 << 31):
+                carry()
+            bottom = (bottom << 1) & 0xFFFFFFFF
+            count -= 1
+            if not count:
+                out.append(bottom >> 24)
+                bottom &= (1 << 24) - 1
+                count = 8
+    c, v = count, bottom
+    if v & (1 << (32 - c)):
+        carry()
+    v = (v << (c & 7)) & 0xFFFFFFFF
+    for _ in range(c >> 3):
+        v = (v << 8) & 0xFFFFFFFF
+    for _ in range(4):
+        out.append(v >> 24)
+        v = (v << 8) & 0xFFFFFFFF
+    return bytes(out)
+
+
+def with_lf_deltas(data: bytes, ref, mode) -> bytes:
+    """A simple-format lossy WebP of ``data``'s frame (one segment) with
+    the loop filter's reference deltas ``ref`` and mode deltas ``mode``
+    (4 each) in its header: the first partition's reads re-coded with the
+    deltas' bits where libwebp wrote use_lf_delta 0."""
+    syms = _first_partition(data)
+    head = vp8_header(data)
+    assert not head["use_segment"] and "lf_deltas" not in head
+    at = 2 + 1 + 1 + 6 + 3  # colour space, clamping, segmentation, filter
+    assert syms[at] == (128, 0)
+    bits = [(128, 1), (128, 1)]  # use_lf_delta, update
+    for d in list(ref) + list(mode):
+        bits.append((128, 1))
+        bits += [(128, (abs(d) >> i) & 1) for i in reversed(range(6))]
+        bits.append((128, int(d < 0)))
+    part = _bool_encode(syms[:at] + bits + syms[at + 1:])
+    vp8 = dict(chunks(data))[b"VP8 "]
+    tag = int.from_bytes(vp8[:3], "little")
+    frame = ((tag & 0x1F) | (len(part) << 5)).to_bytes(3, "little") + \
+        vp8[3:10] + part + vp8[10 + (tag >> 5):]
+    return riff([(b"VP8 ", frame)])
+
+
+def delta_fixtures():
+    """{name: (bytes, header fields)} of the frames with loop filter
+    deltas: a key frame's filter level moves by the reference delta of
+    intra frames, and by the mode delta of sub-block (B_PRED) MBs."""
+    base = encode(noisy(48, 64, 4), 10, filter_type=1, filter_strength=50,
+                  filter_sharpness=2)  # level 24
+    out = {}
+    # the levels 31 and 19; then 74 clipped to 63, and 11
+    for name, ref, mode in (("lf_deltas", (7, -3, 2, 0), (-12, 4, 0, -1)),
+                            ("lf_deltas_clipped", (50, 0, 0, 0),
+                             (-63, 0, 0, 0))):
+        out[name] = (with_lf_deltas(base, ref, mode),
+                     {"lf_deltas": list(ref + mode), "simple": 0,
+                      "sharpness": 2, "level": 24})
+    return out
+
+
+def write_deltas() -> None:
+    """Add :func:`delta_fixtures` with cv2.imread's arrays of each file to
+    ``cv2_arrays.npz`` and their header fields to ``fixtures.json``."""
+    import cv2
+
+    path = os.path.join(HERE, "cv2_arrays.npz")
+    arrays = dict(np.load(path))
+    with open(os.path.join(HERE, "fixtures.json")) as f:
+        manifest = json.load(f)
+    for name, (data, want) in delta_fixtures().items():
+        head = vp8_header(data)
+        bad = {k: (head[k], v) for k, v in want.items() if head[k] != v}
+        if bad:
+            raise AssertionError(f"{name}: the frame does not hold {bad}")
+        file = os.path.join(HERE, f"{name}.webp")
+        with open(file, "wb") as f:
+            f.write(data)
+        g = cv2.imread(file, cv2.IMREAD_GRAYSCALE)
+        c = cv2.imread(file, cv2.IMREAD_COLOR)
+        if g is None or c is None:
+            raise AssertionError(f"cv2 does not read {name}")
+        arrays[f"gray_{name}"], arrays[f"bgr_{name}"] = g, c
+        manifest[name] = head
+    np.savez_compressed(path, **arrays)
+    with open(os.path.join(HERE, "fixtures.json"), "w") as f:
+        json.dump(manifest, f, indent=1, sort_keys=True)
+        f.write("\n")
 
 
 # ----------------------------- the images -----------------------------
@@ -333,6 +513,11 @@ def refused():
 def main() -> int:
     import cv2
 
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--part", choices=("all", "deltas"), default="all")
+    if ap.parse_args().part == "deltas":
+        write_deltas()
+        return 0
     arrays, manifest = {}, {}
     for name, (data, want) in fixtures().items():
         head = vp8_header(data)
@@ -365,6 +550,7 @@ def main() -> int:
         with open(os.path.join(HERE, "refused", name), "wb") as f:
             f.write(data)
     print(f"{len(manifest)} fixtures, {len(refused())} refused")
+    write_deltas()
     return 0
 
 

@@ -33,8 +33,14 @@ Written into ``lossless/``:
   is wrong, a truncated VP8L, an over-subscribed and an incomplete prefix
   code, a repeated transform, 12 colour cache bits), each shown to be
   refused by cv2 here.
+
+``--part hand`` writes the two streams of :func:`hand_fixtures` alone,
+with cv2.imread's arrays of the file or its refusal: 1200 prefix-code
+groups (libwebp maps more than 1000 to the used ones) and a backward
+reference before the first pixel (refused).
 """
 
+import argparse
 import io
 import json
 import os
@@ -143,6 +149,56 @@ def _flat_code(w: BitWriter, n: int, used: int = 256):
 
 def _one_symbol(w: BitWriter, symbol: int):
     w.put(1, 1), w.put(0, 1), w.put(1, 1), w.put(symbol, 8)
+
+
+def _two_symbols(w: BitWriter, n: int, a: int, b: int):
+    """A normal prefix code of an n-symbol alphabet whose symbols a and b
+    have length 1 (complete): a code-length code of lengths 0 and 1, one
+    bit each, no max_symbol."""
+    w.put(0, 1)                      # normal
+    w.put(0, 4)                      # 4 code-length codes: 17, 18, 0, 1
+    for length in (0, 0, 1, 1):
+        w.put(length, 3)
+    w.put(0, 1)                      # no max_symbol
+    for s in range(n):
+        w.code(1 if s in (a, b) else 0, 1)
+
+
+def backref_before_first_pixel() -> bytes:
+    """A 4x4 VP8L image whose second pixel is a backward reference of
+    length 1 and distance 4 (distance code 1: a row up), which points
+    before the first pixel."""
+    w = BitWriter()
+    w.put(0x2F, 8), w.put(3, 14), w.put(3, 14), w.put(1, 1), w.put(0, 3)
+    w.put(0, 1), w.put(0, 1), w.put(0, 1)  # no transform, cache or meta
+    _two_symbols(w, 280, 0, 256)     # green: literal 0, length prefix 0
+    for _ in range(4):               # red, blue, alpha; distance prefix 0
+        _one_symbol(w, 0)
+    w.code(0, 1)                     # pixel 0: green 0 (the rest trivial)
+    w.code(1, 1)                     # pixel 1: a backward reference
+    return riff([(b"VP8L", w.data())])
+
+
+def many_groups(groups: int = 1200, size: int = 32,
+                bits: int = 2) -> bytes:
+    """A VP8L image of ``groups`` prefix-code groups (libwebp maps them to
+    the used ones when there are more than 1000): a size x size image in
+    blocks of 2^bits, each block's group one of 63 spread over them and
+    the last, every code of each group one symbol (the group's colour), so
+    the pixels take no bits."""
+    blocks = (-(-size >> bits)) ** 2
+    used = [k * (groups // blocks) for k in range(blocks - 1)] + [
+        groups - 1]
+    w = BitWriter()
+    w.put(0x2F, 8), w.put(size - 1, 14), w.put(size - 1, 14), w.put(1, 1)
+    w.put(0, 3)
+    w.put(0, 1), w.put(0, 1)         # no transform, no colour cache
+    w.put(1, 1), w.put(bits - 2, 3)  # meta prefix codes
+    _image(w, [(g & 255) << 8 | (g >> 8) << 16 for g in used], main=False)
+    for g in range(groups):
+        for v in (g & 255, (7 * g) & 255, (13 * g) & 255, 255, 0):
+            _one_symbol(w, v)
+    return riff([(b"VP8L", w.data())])
 
 
 def _image(w: BitWriter, pixels, cache_bits: int = 0, green_used: int = 256,
@@ -388,9 +444,57 @@ def describe(data: bytes, lib) -> dict:
     return d
 
 
+def hand_fixtures():
+    """({name: bytes} read, {name: bytes} refused) of the streams written
+    here for what libwebp's encoder never writes."""
+    return ({"groups_1200": many_groups()},
+            {"backref_before_first_pixel.webp":
+             backref_before_first_pixel()})
+
+
+def write_hand() -> None:
+    """Write :func:`hand_fixtures`, adding cv2.imread's arrays of each
+    file that cv2 reads to ``cv2_arrays.npz`` and what it holds to
+    ``fixtures.json``; the others under ``refused/``, refused by cv2."""
+    import cv2
+
+    read, refused_ = hand_fixtures()
+    path = os.path.join(OUT, "cv2_arrays.npz")
+    arrays = dict(np.load(path))
+    with open(os.path.join(OUT, "fixtures.json")) as f:
+        manifest = json.load(f)
+    with tempfile.TemporaryDirectory() as tmp:
+        lib = check_host_webp.build(tmp)
+        for name, data in read.items():
+            file = os.path.join(OUT, f"{name}.webp")
+            with open(file, "wb") as f:
+                f.write(data)
+            g = cv2.imread(file, cv2.IMREAD_GRAYSCALE)
+            c = cv2.imread(file, cv2.IMREAD_COLOR)
+            if g is None or c is None:
+                raise AssertionError(f"cv2 does not read {name}")
+            arrays[f"gray_{name}"], arrays[f"bgr_{name}"] = g, c
+            manifest[name] = describe(data, lib)
+    for name, data in refused_.items():
+        file = os.path.join(OUT, "refused", name)
+        with open(file, "wb") as f:
+            f.write(data)
+        if cv2.imread(file, cv2.IMREAD_COLOR) is not None:
+            raise AssertionError(f"cv2 reads refused/{name}")
+    np.savez_compressed(path, **arrays)
+    with open(os.path.join(OUT, "fixtures.json"), "w") as f:
+        json.dump(manifest, f, indent=1, sort_keys=True)
+        f.write("\n")
+
+
 def main() -> int:
     import cv2
 
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--part", choices=("all", "hand"), default="all")
+    if ap.parse_args().part == "hand":
+        write_hand()
+        return 0
     os.makedirs(os.path.join(OUT, "refused"), exist_ok=True)
     arrays, manifest = {}, {}
     with tempfile.TemporaryDirectory() as tmp:
@@ -429,6 +533,7 @@ def main() -> int:
         json.dump(manifest, f, indent=1, sort_keys=True)
         f.write("\n")
     print(f"{len(manifest)} fixtures, {len(refused())} refused")
+    write_hand()
     return 0
 
 

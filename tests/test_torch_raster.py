@@ -13,7 +13,14 @@ skipped without it), and ``raster_to_bgr_kernel`` converts the samples
   contiguous and planar, both byte orders, BigTIFF, orientations) read
   through ``images.tiff_rows`` and the
   plain twin gives cv2's grey and BGR arrays, 0 entries differing (the PNG
-  fixtures are held the same way in tests/test_torch_images.py).
+  fixtures are held the same way in tests/test_torch_images.py). The
+  TIFFs' arrays are ``cv2.imdecode``'s of the bytes, which are
+  ``cv2.imread``'s of the file but for the 14 TIFFs of orientations 5 to 8
+  (``orient5_lzw`` ... ``lab16_mm_deflate_pred2_orient6``), on which cv2
+  5.0.0's imread fails in both modes: for those imdecode is the oracle,
+  and the port's CPU read, which is imread, raises
+  (tests/test_torch_cpu_read.py); the ``short_none_*`` TIFFs hold imread's
+  arrays of the file.
 * The kernel's arithmetic, built for the host, equals the plain twin entry
   for entry on every PNG and TIFF fixture.
 * The grey of every 8-bit RGB triple (a 4096x4096 image made here) as a PNG
@@ -90,7 +97,9 @@ def _bytes(rel):
 
 
 def _cv2_arrays(rel):
-    """cv2.imread's (grey, BGR) of a fixture, from the npz beside it."""
+    """cv2's (grey, BGR) of a fixture, from the npz beside it: imread's
+    of the file, for the oriented TIFFs imdecode's (see the module's
+    doc)."""
     folder, name = os.path.split(rel)
     want = np.load(os.path.join(DATA, folder, "cv2_arrays.npz"))
     return want[f"gray_{name[:-4]}"], want[f"bgr_{name[:-4]}"]

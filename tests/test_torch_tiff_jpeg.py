@@ -67,7 +67,8 @@ REFUSED = {"jpeg_rgb420": "sampling factors",
            "jpeg12": "12-bit", "ycbcr24": "YCbCr samples of a layout",
            "ycbcr22_planar2": "YCbCr samples of a layout",
            "ycbcr11_alpha": "YCbCr samples of a layout",
-           "old_jpeg": "old-style JPEG"}
+           "old_jpeg": "old-style JPEG",
+           "jpeg_short_whole_strip1_cut_in_dht": "no scan"}
 
 
 def _module(path, name):
@@ -91,6 +92,10 @@ def _tiff(name):
 
 
 def _cv2_arrays(name):
+    """cv2's (grey, BGR): imdecode's of the bytes, imread's of the file
+    but for the orientations 5 to 8 (``jpeg_ycbcr22_orient6``,
+    ``jpeg_ycbcr22_tiles_orient7``), on which cv2 5.0.0's imread fails, so
+    imdecode is their oracle (tests/test_torch_cpu_read.py)."""
     want = np.load(os.path.join(TIFF_DIR, "cv2_arrays.npz"))
     return want[f"gray_{name}"], want[f"bgr_{name}"]
 
@@ -226,6 +231,21 @@ def test_chunked_bound_counts_the_samples_read(host, name):
     H, W = tj.size
     assert roofline.chunk_samples_read(tj.chunks, tj.factors, H, W) == \
         _samples_read(tj)
+
+
+def test_stream_of_fewer_rows_leaves_them_black(host):
+    """A strip whose JPEG frame holds 10 of its 16 rows: libtiff decodes
+    the frame's rows into cv2's zeroed buffer, so the rest are black; the
+    colour kernel takes each chunk's frame rows."""
+    tj = images.tiff_jpeg_coefficients(_tiff("jpeg_short_strip1_frame10"),
+                                       host[0])
+    assert tj.chunks.rows == (16, 10, 8)
+    g, bgr = _cv2_arrays("jpeg_short_strip1_frame10")
+    assert not bgr[26:32].any() and not g[26:32].any()
+    assert bgr[16:26].all(axis=-1).any(axis=-1).all()
+    full = images.tiff_jpeg_coefficients(_tiff("jpeg_ycbcr22_strips16_tables"),
+                                         host[0])
+    assert full.chunks.rows == ()
 
 
 @pytest.mark.parametrize("name", JPEG_NAMES + YCBCR_NAMES)

@@ -7,7 +7,7 @@ CPU: CIELab, old-style LZW, and compressed strips and tiles cut short.
   ``cv2.imread`` reads it, and the kernel's arithmetic built for the host
   equals the twin (tests/test_torch_raster.py holds every TIFF fixture so
   too); what stays refused (ICCLab, ITULab, the CIELab layouts libtiff's
-  RGBA reader does not read, corrupt old-style LZW, an uncompressed strip
+  RGBA reader does not read, corrupt old-style LZW, uncompressed data
   cut short) raises with its cause.
 * CIELab: libtiff's state (``images.cielab_tables``) and the conversion of
   every 8-bit (L*, a*, b*) triple and of 2^20 seeded 16-bit ones, against
@@ -17,6 +17,14 @@ CPU: CIELab, old-style LZW, and compressed strips and tiles cut short.
   as libtiff's decoders leave it; libtiff ignores the Predictor tag of
   uncompressed and PackBits data; 16-bit grey tiles clipped at the image's
   edge are read with libtiff's put16bitbwtile row skew.
+* Uncompressed strips and tiles cut short among several (``short_none_*``,
+  their arrays cv2.imread's of the file): libtiff estimates every byte
+  count where the first two differ (and a single strip's where it is short
+  of the image), a strip short of its rows reads as zeros, and a count of 0
+  or past the end of the file, or a tile short of its rows, fails the read.
+  cv2's array is a function of the file's bytes: the same in fresh
+  processes, after other reads, and equal to cv2's read of the file with
+  that strip's bytes zeroed (or its count whole, where estimated).
 * ``mpmvs_tpu.pipeline._load_view`` and the port's read the same grey, BGR
   and camera from a CIELab and from a cut-short workspace image.
 * On the card (``cuda``): the CIELab form against its twin on every
@@ -53,7 +61,12 @@ RARE_REFUSED = {"icclab": (4013, "ICCLab"), "itulab": (4013, "ITULab"),
                 "lab_l_only": (4023, "CIELab TIFF of other than three"),
                 "lab4": (4024, "CIELab TIFF of other than 8 or 16"),
                 "old_lzw_corrupt": (4005, "old-style LZW"),
-                "short_none": (4007, "uncompressed strip")}
+                "short_none": (4007, "uncompressed data"),
+                "short_none_tile3": (4007, "uncompressed data"),
+                "short_none_strip2_count0": (4007, "uncompressed data"),
+                "short_none_strip3_past_end": (4007, "uncompressed data"),
+                "short_none_rows7_estimate_past_end": (4007,
+                                                       "uncompressed data")}
 
 
 def _module(name):
@@ -74,6 +87,9 @@ def _bytes(name, folder=TIFF_DIR):
 
 
 def _cv2(name):
+    """cv2's (grey, BGR): imdecode's of the bytes (for
+    ``lab16_mm_deflate_pred2_orient6``, on which cv2 5.0.0's imread fails,
+    imdecode is the oracle), imread's of the file for ``short_none_*``."""
     want = np.load(os.path.join(TIFF_DIR, "cv2_arrays.npz"))
     return want[f"gray_{name}"], want[f"bgr_{name}"]
 
@@ -258,6 +274,90 @@ def test_load_view_of_rare_tiff_matches_jax(tmp_path, monkeypatch, host,
 
 
 # ----------------------------- on the card -----------------------------
+
+# the uncompressed fixtures cut short: (strip or tile cut, what cv2 makes
+# of it: "zeros" its rows read as zeros, "whole" its count estimated whole)
+SHORT_NONE = {"short_none_strip2_of_4": (2, "zeros"),
+              "short_none_strip3_of_4_last": (3, "zeros"),
+              "short_none_grey_strip2_1byte": (2, "zeros"),
+              "short_none_miniswhite_strip3": (3, "zeros"),
+              "short_none_grey16_mm_strip2": (2, "zeros"),
+              "short_none_palette_strip2": (2, "zeros"),
+              "short_none_rgba_strip3": (3, "zeros"),
+              "short_none_planar2_strip1": (1, "zeros"),
+              "short_none_two_strips_first": (0, "zeros"),
+              "short_none_strip0_of_4_estimated": (0, "whole"),
+              "short_none_tile1_estimated": (1, "whole"),
+              "short_none_single_strip_data_there": (0, "whole")}
+
+
+def _imread(data: bytes, tmp_path, name: str = "probe.tif"):
+    import cv2
+
+    path = str(tmp_path / name)
+    with open(path, "wb") as f:
+        f.write(data)
+    return cv2.imread(path, cv2.IMREAD_GRAYSCALE), cv2.imread(
+        path, cv2.IMREAD_COLOR)
+
+
+def test_short_uncompressed_fixtures_are_all_there():
+    assert set(SHORT_NONE) | {"short_none_rows7_estimated_short"} == {
+        k for k in RARE if k.startswith("short_none")}
+
+
+@pytest.mark.parametrize("name", sorted(SHORT_NONE))
+def test_short_uncompressed_read_is_cv2s_rule(tmp_path, name):
+    """cv2.imread of the file equals its read of the same file with the
+    cut chunk's bytes zeroed in full (or with its count whole, where libtiff
+    estimates the counts): what the host reader makes of it."""
+    data = _bytes(name)
+    index, rule = SHORT_NONE[name]
+    tags = TF.tags_of(data)
+    tiled = 325 in tags
+    offs, counts = tags[324 if tiled else 273], tags[325 if tiled else 279]
+    full = max(counts)
+    if rule == "whole" and len(counts) == 1:
+        full = len(data) - offs[0]  # the image's bytes, data beyond them
+    fixed = bytearray(data + bytes(max(0, offs[index] + full - len(data))))
+    if rule == "zeros":
+        fixed[offs[index]:offs[index] + full] = bytes(full)
+    fixed = TF.cut_chunk(bytes(fixed), index, full) if full <= 65535 else \
+        bytes(fixed)
+    want = _imread(bytes(fixed), tmp_path)
+    got = _cv2(name)
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+
+
+def test_cv2_read_of_short_strips_depends_on_the_bytes_alone(tmp_path):
+    """cv2.imread of every short uncompressed fixture in two fresh
+    processes, one reading them in reverse order after other TIFFs (whose
+    strips fill libtiff's buffers first): the committed arrays each time."""
+    import hashlib
+    import subprocess
+    import sys
+
+    names = sorted(k for k in RARE if k.startswith("short_none"))
+    others = [os.path.join(TIFF_DIR, f"{k}.tif") for k in
+              ("rgb8_adobe_deflate", "cmyk8_none", "short_lzw")]
+    code = ("import cv2, hashlib, sys\n"
+            "for p in sys.argv[1:]:\n"
+            "    a = [cv2.imread(p, m) for m in (0, 1)]\n"
+            "    print(' '.join(hashlib.sha256(x.tobytes()).hexdigest()\n"
+            "                   for x in a))\n")
+    paths = [os.path.join(TIFF_DIR, f"{k}.tif") for k in names]
+    want = [" ".join(hashlib.sha256(a.tobytes()).hexdigest()
+                     for a in _cv2(k)) for k in names]
+    for order in (paths, others + paths[::-1]):
+        out = subprocess.run([sys.executable, "-c", code, *order],
+                             capture_output=True, text=True,
+                             check=True).stdout.split("\n")
+        got = out[:len(order)][-len(paths):]
+        if order is not paths:
+            got = got[::-1]
+        assert got == want
+
 
 @pytest.fixture(scope="module")
 def dev():

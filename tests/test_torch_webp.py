@@ -129,6 +129,25 @@ def test_host_header_is_the_fixtures(host_webp, name):
     assert frame.records.shape == (got["mb_w"] * got["mb_h"], 4)
 
 
+@pytest.mark.parametrize("name", ["lf_deltas", "lf_deltas_clipped"])
+def test_loop_filter_deltas_are_read(host_webp, name):
+    """Frames whose header carries the loop filter's reference and mode
+    deltas (libwebp's encoder never writes them): the host decoder reads
+    them, the filter levels of intra and sub-block MBs move by them
+    (clipped to 0-63), and the read is cv2's."""
+    want = TOOL.header_fields()[name]["lf_deltas"]
+    frame, _ = images.webp_frame(_bytes(f"webp/{name}.webp"), host_webp)
+    level = frame.header["level"] + want[0]
+    lim = frame.params[24:48].reshape(4, 2, 3)[0]  # segment 0: i16, i4x4
+    for i4x4 in (0, 1):
+        lv = min(63, max(0, level + (want[4] if i4x4 else 0)))
+        assert lim[i4x4][0] == (2 * lv + lim[i4x4][1] if lv else 0)
+    g, bgr = TOOL.read(host_webp, _bytes(f"webp/{name}.webp"))
+    want_g, want_bgr = _cv2_arrays(name)
+    np.testing.assert_array_equal(bgr, want_bgr)
+    np.testing.assert_array_equal(g, want_g)
+
+
 def test_fixtures_cover_the_frame_features(host_webp):
     """Between them the fixtures hold both filters, every sharpness, no
     filter, each high-edge-variance threshold, 1-4 segments, 1/2/4/8 token

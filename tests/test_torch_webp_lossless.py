@@ -186,6 +186,15 @@ def test_host_full_size_lossless_is_cv2(host_webp):
     assert (sha(g), sha(bgr)) == (want["gray_sha256"], want["bgr_sha256"])
 
 
+def test_fixtures_hold_what_libwebps_encoder_never_writes():
+    """Written bit by bit: 1200 prefix-code groups (libwebp maps more than
+    1000 to the used ones), read as cv2 reads them, and a backward
+    reference before the first pixel, refused as cv2 refuses it."""
+    m = _manifest()["groups_1200"]
+    assert m["groups"] == 1200 and m["meta_bits"] == 2
+    assert "webp/lossless/refused/backref_before_first_pixel.webp" in REFUSED
+
+
 @pytest.mark.parametrize("rel", sorted(REFUSED))
 def test_host_lossless_read_refuses(host_webp, rel):
     """What cv2 refuses raises on the host path, naming WebP and why."""
