@@ -286,8 +286,8 @@ __global__ void ycc_to_bgr_kernel(jpeg_colour::Planes pl, int n, int form,
                          gray ? gray + i : nullptr);
 }
 
-// chunks: the fields of jpeg_colour::Chunks (8 ints), or NULL for one
-// chunk, the image; rows: each chunk's stream's rows on the card, or NULL.
+// chunks: the int fields of jpeg_colour::Chunks (7 ints), or NULL for one
+// chunk, the image; rows: each chunk's stream's rows on the card.
 extern "C" int ycc_to_bgr_launch(const unsigned char* const* ptrs,
                                  const int* geo, int n, int form,
                                  const int* chunks, const int* rows, int H,
@@ -298,8 +298,7 @@ extern "C" int ycc_to_bgr_launch(const unsigned char* const* ptrs,
   jpeg_colour::Planes pl = planes_of(ptrs, geo, n);
   if (chunks) {
     jpeg_colour::Chunks ck = {chunks[0], chunks[1], chunks[2], chunks[3],
-                              chunks[4], chunks[5], chunks[6], chunks[7],
-                              rows};
+                              chunks[4], chunks[5], chunks[6], rows};
     ycc_to_bgr_kernel<true><<<grid, block, 0, stream>>>(pl, n, form, ck, H,
                                                         W, bgr, gray);
   } else {

@@ -22,8 +22,9 @@
 // Chunks: a TIFF's JPEG-coded strips or tiles are each a JPEG of its own,
 // decoded on its own (tiff_jpeg.h), so each is upsampled on its own: a
 // neighbour is clamped to the pixel's own chunk (a strip's edge rows are
-// replicated as an image's are), the last strip's samples are its
-// stream's rows (which may pass the image's last row), and tiles are
+// replicated as an image's are), a chunk's samples are its stream's rows
+// (a last strip's may pass the image's last row; the rows past a shorter
+// stream are black), and tiles are
 // cropped at the image's right and bottom edges. Where the orientation
 // mirrors the image left-right, libtiff's tile reader mirrors each tile on
 // its own and OpenCV no more (tiff_decode.h), so `mirror` lays the tiles
@@ -81,14 +82,12 @@ struct Chunks {
   int tiled;   // 1: tiles, 0: strips
   int w, h;    // a chunk's pixels (a strip is the image's width)
   int across;  // chunks a row of them (1 for strips)
-  int last_h;  // the last strip's stream's rows (h for tiles)
   int n;       // chunks in all
   int mirror;  // tiles laid out in mirrored order (see above)
   int image_w; // the image's width
-  // each chunk's stream's rows where one is shorter than its chunk, or
-  // null; the rows past a stream are black, as libtiff leaves them (its
-  // JPEG codec decodes the frame's rows into the zeroed buffer of cv2's
-  // read)
+  // each chunk's stream's rows (its frame's height); the rows past a
+  // shorter stream are black, as libtiff leaves them (its JPEG codec
+  // decodes the frame's rows into the zeroed buffer of cv2's read)
   const int* rows;
 };
 
@@ -112,8 +111,7 @@ JPEG_HD Spot spot(const Chunks& k, int r, int col) {
     int x0 = tx * k.w, n = k.image_w - x0 < k.w ? k.image_w - x0 : k.w;
     s.c = n - 1 - s.c;
   }
-  s.rows = k.rows ? k.rows[s.chunk]
-                  : !k.tiled && s.chunk == k.n - 1 ? k.last_h : k.h;
+  s.rows = k.rows[s.chunk];
   return s;
 }
 

@@ -531,6 +531,10 @@ static void copy_bits(const uint8_t* src, size_t s0, uint8_t* dst, size_t d0,
 // strip whose count is 0, runs past the file or is short of the image
 // (ByteCountLooksBad), and for more than two contiguous chunks whose first
 // two counts differ and are not 0 ("Wrong StripByteCounts field").
+// libtiff then splits a single strip into virtual strips of about 8 KiB
+// (ChopUpSingleUncompressedStrip), which changes no verdict: a strip that
+// runs past the end of the file fails the read either way, and every
+// other strip reads whole (tests/test_torch_tiff_rare.py at 3200x2130).
 // scanline: a row's bytes (TIFFScanlineSize64), tile: a tile's.
 static uint64_t uncompressed_count(const Tiff& t, size_t len, int64_t c,
                                    uint64_t scanline, uint64_t tile,

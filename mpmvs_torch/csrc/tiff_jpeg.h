@@ -17,10 +17,10 @@
 //     JPEG sampling factors"); a stream larger than its strip or tile is
 //     refused as libtiff refuses it, except a last strip coded at full
 //     height, of which libtiff reads the first rows (the card's colour
-//     kernel upsamples it over its own rows, last_h); one of fewer rows
-//     libtiff decodes into the zeroed buffer of cv2's read, so the rows
-//     past it are black (the colour kernel takes each chunk's rows,
-//     tiff_jpeg_host_rows); one of another width is refused;
+//     kernel upsamples each chunk over its stream's rows); one of fewer
+//     rows libtiff decodes into the zeroed buffer of cv2's read, so the
+//     rows past it are black (tiff_jpeg_host_info gives each chunk's
+//     rows); one of another width is refused;
 //   * a stream cut short, or cut inside a marker segment, is read as
 //     libjpeg reads it from libtiff's source, which feeds a fake EOI past
 //     the end (jpeg_entropy.h);
@@ -54,7 +54,7 @@ namespace tiff_jpeg {
 
 // tiff_jpeg_host_info's output, in order
 enum Info {
-  kChunks, kComponents, kHmax, kVmax, kLastHeight,
+  kChunks, kComponents, kHmax, kVmax,
   kComp0,  // then per component: h, v, blocks across, blocks down
   kInfoLen = kComp0 + 4 * 3
 };
@@ -134,9 +134,11 @@ static int chunk(const File& f, size_t i, bool headers_only,
 }  // namespace tiff_jpeg
 
 // What the card needs to lay out a JPEG-compressed TIFF's coefficients
-// (tiff_jpeg::Info order, kInfoLen values): from every chunk's headers.
+// (tiff_jpeg::Info order, kInfoLen values) and each chunk's stream's rows
+// (its frame's height; rows holds the TIFF's chunk count, tiff_host_info's
+// kChunks): from every chunk's headers.
 extern "C" int tiff_jpeg_host_info(const unsigned char* data, size_t len,
-                                   long long* info) {
+                                   long long* info, int* rows) {
   tiff_jpeg::File f;
   int err = tiff_jpeg::open(data, len, &f);
   if (err) return err;
@@ -151,7 +153,7 @@ extern "C" int tiff_jpeg_host_info(const unsigned char* data, size_t len,
     info[tiff_jpeg::kComponents] = d.ncomp;
     info[tiff_jpeg::kHmax] = d.hmax;
     info[tiff_jpeg::kVmax] = d.vmax;
-    info[tiff_jpeg::kLastHeight] = d.height;
+    rows[i] = d.height;
     for (int k = 0; k < d.ncomp; k++) {
       long long* ci = info + tiff_jpeg::kComp0 + 4 * k;
       ci[0] = d.comp[k].h;
@@ -159,23 +161,6 @@ extern "C" int tiff_jpeg_host_info(const unsigned char* data, size_t len,
       ci[2] = d.comp[k].blocks_w;
       if (d.comp[k].blocks_h > ci[3]) ci[3] = d.comp[k].blocks_h;
     }
-  }
-  return 0;
-}
-
-// Each chunk's stream's rows (its frame's height), from its headers.
-extern "C" int tiff_jpeg_host_rows(const unsigned char* data, size_t len,
-                                   int* rows) {
-  tiff_jpeg::File f;
-  int err = tiff_jpeg::open(data, len, &f);
-  if (err) return err;
-  int64_t sub[2] = {f.t.info[tiff_decode::kSubH],
-                    f.t.info[tiff_decode::kSubV]};
-  for (size_t i = 0; i < f.chunks.size(); i++) {
-    jpeg_entropy::Decoder d;
-    err = tiff_jpeg::chunk(f, i, true, &d, sub);
-    if (err) return err;
-    rows[i] = d.height;
   }
   return 0;
 }

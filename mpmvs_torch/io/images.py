@@ -346,12 +346,10 @@ def bind_host(lib):
     lib.tiff_host_rationals.argtypes = [ctypes.c_char_p, sz, i, vp, i]
     lib.tiff_host_rationals.restype = i
     if hasattr(lib, "tiff_jpeg_host_info"):  # a build with tiff_jpeg.h
-        lib.tiff_jpeg_host_info.argtypes = [ctypes.c_char_p, sz, vp]
-        lib.tiff_jpeg_host_rows.argtypes = [ctypes.c_char_p, sz, vp]
+        lib.tiff_jpeg_host_info.argtypes = [ctypes.c_char_p, sz, vp, vp]
         lib.tiff_jpeg_host_decode.argtypes = [ctypes.c_char_p, sz, vp, vp,
                                               vp]
-        for fn in ("tiff_jpeg_host_info", "tiff_jpeg_host_rows",
-                   "tiff_jpeg_host_decode"):
+        for fn in ("tiff_jpeg_host_info", "tiff_jpeg_host_decode"):
             getattr(lib, fn).restype = i
     if hasattr(lib, "webp_host_header"):  # a build with webp_decode.h
         lib.webp_host_header.argtypes = [ctypes.c_char_p, sz, vp]
@@ -518,13 +516,12 @@ class Chunks(NamedTuple):
     width: int        # a chunk's pixels across (a strip's: the image's)
     height: int       # its rows (RowsPerStrip, or the tile's)
     across: int       # chunks a row of them (1 for strips)
-    last_height: int  # the rows of the last strip's stream (height: tiles)
     count: int        # chunks in all
     mirror: int       # tiles laid out mirrored (an orientation 2, 3, 6, 7)
     image_width: int
-    # each chunk's stream's rows where one is shorter than its chunk (the
-    # rows past it are black), else ()
-    rows: tuple = ()
+    # each chunk's stream's rows: a last strip's may pass the image, the
+    # rows past a shorter stream are black
+    rows: tuple
 
 
 def _chunk_planes(planes, factors, size, chunks: Chunks):
@@ -543,7 +540,7 @@ def _chunk_planes(planes, factors, size, chunks: Chunks):
     out = []
     for p, (rh, rv) in zip(planes, factors):
         h, w = -(-k.height // rv), -(-k.width // rh)
-        rows = max(h, -(-k.last_height // rv))
+        rows = max(h, -(-max(k.rows) // rv))
         if p.dtype != torch.uint8 or p.ndim != 2 or \
                 p.shape[0] % k.count or p.shape[0] // k.count < rows or \
                 p.shape[1] < w:
@@ -565,11 +562,7 @@ def _spots(chunks: Chunks, H: int, W: int, dev):
     ty = r // k.height
     tx = c // k.width if k.tiled else torch.zeros_like(c)
     chunk = ty * k.across + tx
-    if k.rows:
-        rows = torch.tensor(k.rows, device=dev)[chunk]
-    else:
-        rows = torch.where((chunk == k.count - 1) & (k.tiled == 0),
-                           k.last_height, k.height)
+    rows = torch.tensor(k.rows, device=dev)[chunk]
     col = c - tx * k.width
     if k.mirror:  # each tile's columns in order at its mirrored place
         col = torch.clamp(W - tx * k.width, max=k.width) - 1 - col
@@ -1089,6 +1082,14 @@ def _plane_args(planes, factors, geo=None, fancy: bool = True):
 FORM_RGB, FORM_OPENCV_GREY = 1, 2
 
 
+@functools.lru_cache(maxsize=64)
+def _rows_on(rows: tuple, device: torch.device) -> Tensor:
+    """A chunk layout's stream rows (``Chunks.rows``) on the card, copied
+    once a layout on the stream current then: a read of a layout seen
+    before, or the launch captured in a CUDA graph, copies nothing."""
+    return torch.tensor(rows, dtype=torch.int32, device=device)
+
+
 def colour_kernel(planes, factors, size, space: int,
                   chunks: Chunks = None,
                   fancy: bool = True) -> Tuple[Tensor, Tensor]:
@@ -1121,11 +1122,10 @@ def colour_kernel(planes, factors, size, space: int,
     ptrs, ints = _plane_args(planes, factors, geo, fancy)
     form = (FORM_RGB if rgb else 0) | (0 if chunks is None
                                        else FORM_OPENCV_GREY)
-    rows = torch.tensor(chunks.rows, dtype=torch.int32, device=dev) \
-        if chunks is not None and chunks.rows else None
+    rows = None if chunks is None else _rows_on(chunks.rows, dev)
     err = _library().ycc_to_bgr_launch(
         ptrs, ints, len(planes), form,
-        None if chunks is None else (ctypes.c_int * 8)(*chunks[:8]),
+        None if chunks is None else (ctypes.c_int * 7)(*chunks[:7]),
         None if rows is None else rows.data_ptr(), H, W,
         bgr.data_ptr(), None if gray is None else gray.data_ptr(),
         _stream(planes[0]))
@@ -1407,7 +1407,7 @@ class TiffJpeg(NamedTuple):
 
 
 TIFF_INFO_LEN = 22        # tiff_decode::kInfoLen
-TIFF_JPEG_INFO_LEN = 17   # tiff_jpeg::kInfoLen
+TIFF_JPEG_INFO_LEN = 16   # tiff_jpeg::kInfoLen
 
 
 def _tiff_info(data: bytes, lib) -> list:
@@ -1438,23 +1438,20 @@ def tiff_jpeg_coefficients(data: bytes, lib, tiff_info=None) -> TiffJpeg:
     if comp != 7:
         raise ValueError(f"not a JPEG-compressed TIFF (Compression {comp})")
     info = (ctypes.c_longlong * TIFF_JPEG_INFO_LEN)()
-    _check(lib.tiff_jpeg_host_info(data, len(data), info), "TIFF read")
-    count, n, hmax, vmax, last_h = list(info[:5])
-    comps = [list(info[5 + 4 * k:9 + 4 * k]) for k in range(n)]
+    rows = (ctypes.c_int * n_chunks)()
+    _check(lib.tiff_jpeg_host_info(data, len(data), info, rows),
+           "TIFF read")
+    count, n, hmax, vmax = list(info[:4])
+    comps = [list(info[4 + 4 * k:8 + 4 * k]) for k in range(n)]
     coefs = [np.empty((count * bh, bw, 64), np.int16)
              for _, _, bw, bh in comps]
     qt = np.empty((n, 64), np.uint16)
     ptrs = (ctypes.c_void_p * 3)(*[c.ctypes.data for c in coefs])
     _check(lib.tiff_jpeg_host_decode(data, len(data), info, ptrs,
                                      qt.ctypes.data), "TIFF read")
-    rows = (ctypes.c_int * count)()
-    _check(lib.tiff_jpeg_host_rows(data, len(data), rows), "TIFF read")
-    full = [ch if tiled else min(ch, H - k * ch) for k in range(count)]
-    chunks = Chunks(int(tiled), cw, ch, -(-W // cw) if tiled else 1,
-                    ch if tiled else last_h, count,
+    chunks = Chunks(int(tiled), cw, ch, -(-W // cw) if tiled else 1, count,
                     int(bool(tiled) and orientation in (2, 3, 6, 7)), W,
-                    tuple(rows) if any(r < f for r, f in zip(rows, full))
-                    else ())
+                    tuple(rows))
     return TiffJpeg(tuple(coefs), qt,
                     tuple((hmax // h, vmax // v) for h, v, _, _ in comps),
                     chunks, (H, W), SPACE_RGB if pm == 2 else SPACE_YCC,

@@ -889,7 +889,8 @@ def run_colour(reps: int, check: bool, H: int = 2130, W: int = 3200) -> list:
              for name, factors, space in COLOUR_CASES]
     if hasattr(images, "Chunks"):
         n = -(-H // 16)
-        k = images.Chunks(0, W, 16, 1, H - 16 * (n - 1), n, 0, W)
+        k = images.Chunks(0, W, 16, 1, n, 0, W,
+                          (16,) * (n - 1) + (H - 16 * (n - 1),))
         factors = ((1, 1), (2, 2), (2, 2))
         cases.append(("chunks_420", [rand(n * 16 // rv, -(-W // rh))
                                      for rh, rv in factors],

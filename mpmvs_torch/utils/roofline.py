@@ -192,12 +192,11 @@ def chunk_samples_read(chunks, factors, H: int, W: int) -> int:
     for rh, rv in factors:
         w = -(-k.width // rh)
         fancy = _fancy(w, rh, rv)
-        across = sum(touched(c, rh, fancy and rh == 2, w) for c in cols)
         for t, ch in enumerate(rows):
-            stream = k.last_height if not k.tiled and t == down - 1 \
-                else k.height
-            total += across * touched(ch, rv, fancy and rv == 2,
-                                      -(-stream // rv))
+            for x, c in enumerate(cols):
+                stream = k.rows[t * len(cols) + x]
+                total += touched(c, rh, fancy and rh == 2, w) * touched(
+                    ch, rv, fancy and rv == 2, -(-stream // rv))
     return total
 
 

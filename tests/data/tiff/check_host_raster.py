@@ -113,8 +113,8 @@ extern "C" void raster_pixels(const uint8_t* raster, const int* ints,
     }
 }
 // ycc_to_bgr_kernel's chunked work, thread by thread: n planes, n x 6
-// ints (jpeg_colour::Plane), form (YccForm bits), chunks (8 ints), rows
-// (each chunk's stream's rows, or NULL)
+// ints (jpeg_colour::Plane), form (YccForm bits), chunks (7 ints), rows
+// (each chunk's stream's rows)
 extern "C" void chunk_pixels(const uint8_t* const* ptrs, const int* geo,
                              int n, int form, const int* chunks,
                              const int* rows, int H, int W, uint8_t* bgr,
@@ -125,8 +125,7 @@ extern "C" void chunk_pixels(const uint8_t* const* ptrs, const int* geo,
     pl.c[i] = {ptrs[i], g[0], g[1], g[2], g[3], g[4], g[5]};
   }
   jpeg_colour::Chunks ck = {chunks[0], chunks[1], chunks[2], chunks[3],
-                            chunks[4], chunks[5], chunks[6], chunks[7],
-                            rows};
+                            chunks[4], chunks[5], chunks[6], rows};
   for (int r = 0; r < H; r++)
     for (int col = 0; col < W; col++) {
       size_t i = (size_t)r * W + col;
@@ -206,10 +205,9 @@ def chunk_kernel_host(lib, tj, planes):
             len(planes) == 3 else 0) | images.FORM_OPENCV_GREY
     bgr = np.zeros((H, W, 3), np.uint8)
     g = np.zeros((H, W), np.uint8)
-    rows = (ctypes.c_int * len(tj.chunks.rows))(*tj.chunks.rows) \
-        if tj.chunks.rows else None
+    rows = (ctypes.c_int * len(tj.chunks.rows))(*tj.chunks.rows)
     lib.chunk_pixels(ptrs, ints, len(planes), form,
-                     (ctypes.c_int * 8)(*tj.chunks[:8]), rows, H, W,
+                     (ctypes.c_int * 7)(*tj.chunks[:7]), rows, H, W,
                      ctypes.c_void_p(bgr.ctypes.data),
                      ctypes.c_void_p(g.ctypes.data))
     return g, bgr

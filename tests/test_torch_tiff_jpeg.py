@@ -139,7 +139,7 @@ def test_tiff_jpeg_layout(host):
     lib = host[0]
     tj = images.tiff_jpeg_coefficients(_tiff("jpeg_ycbcr22_strips16_tables"),
                                        lib)
-    assert tj.chunks == images.Chunks(0, 45, 16, 1, 5, 3, 0, 45)
+    assert tj.chunks == images.Chunks(0, 45, 16, 1, 3, 0, 45, (16, 16, 5))
     assert tj.size == (37, 45) and tj.space == images.SPACE_YCC
     assert tj.factors == ((1, 1), (2, 2), (2, 2))
     assert [c.shape for c in tj.coefs] == [(6, 6, 64), (3, 3, 64),
@@ -147,7 +147,7 @@ def test_tiff_jpeg_layout(host):
     assert tj.qt.shape == (3, 64) and tj.orientation == 1
     tiles = images.tiff_jpeg_coefficients(
         _tiff("jpeg_ycbcr22_tiles_orient2"), lib)
-    assert tiles.chunks == images.Chunks(1, 32, 16, 2, 16, 6, 1, 45)
+    assert tiles.chunks == images.Chunks(1, 32, 16, 2, 6, 1, 45, (16,) * 6)
     grey = images.tiff_jpeg_coefficients(_tiff("jpeg_grey_tiles32x16"), lib)
     assert len(grey.coefs) == 1 and grey.factors == ((1, 1),)
     rgb = images.tiff_jpeg_coefficients(_tiff("jpeg_rgb_strips16_tables"),
@@ -245,7 +245,7 @@ def test_stream_of_fewer_rows_leaves_them_black(host):
     assert bgr[16:26].all(axis=-1).any(axis=-1).all()
     full = images.tiff_jpeg_coefficients(_tiff("jpeg_ycbcr22_strips16_tables"),
                                          host[0])
-    assert full.chunks.rows == ()
+    assert full.chunks.rows == (16, 16, 5)
 
 
 @pytest.mark.parametrize("name", JPEG_NAMES + YCBCR_NAMES)
@@ -326,9 +326,11 @@ def test_conversion_source_is_the_phase_8d_layout(host):
     """chip_smoke.py's phase 8d source: 3200x2130 YCbCr at (2, 2), 134
     strips of 16 rows, one JPEGTables tag; its headers only."""
     info = (images.ctypes.c_longlong * images.TIFF_JPEG_INFO_LEN)()
+    rows = (images.ctypes.c_int * 134)()
     data = _bytes(CONVERSION)
-    assert host[0].tiff_jpeg_host_info(data, len(data), info) == 0
-    assert list(info[:5]) == [134, 3, 2, 2, 2130 - 133 * 16]
+    assert host[0].tiff_jpeg_host_info(data, len(data), info, rows) == 0
+    assert list(info[:4]) == [134, 3, 2, 2]
+    assert list(rows) == [16] * 133 + [2130 - 133 * 16]
     fields = images._tiff_info(data, host[0])
     assert (fields[0], fields[1], fields[4], fields[6], fields[11]) == (
         3200, 2130, 6, 7, 16)
@@ -381,6 +383,26 @@ def _chunked_equal(dev, data):
 @pytest.mark.parametrize("name", JPEG_NAMES)
 def test_card_chunked_colour_equals_plain(dev, name):
     assert _chunked_equal(dev, _tiff(name)) == [0, 0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["jpeg_ycbcr22_strips16_tables",
+                                  "jpeg_short_strip1_frame10"])
+def test_card_chunked_colour_captures_in_a_graph(dev, name):
+    """After a read of its layout the chunked launch copies nothing to the
+    card, so a CUDA graph captures it (phase 8d times it so), and the
+    graph's replay writes what the launch wrote."""
+    tj = images.tiff_jpeg_coefficients(_tiff(name), images._library())
+    planes = images.tiff_jpeg_planes(tj, dev)
+    args = (planes, tj.factors, tj.size, tj.space, tj.chunks)
+    want = images.colour_kernel(*args)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = images.colour_kernel(*args)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert [int((a != b).sum()) for a, b in zip(got, want)] == [0, 0]
 
 
 @pytest.mark.cuda

@@ -33,8 +33,10 @@ CPU: CIELab, old-style LZW, and compressed strips and tiles cut short.
     python -m pytest --noconftest -m cuda tests/test_torch_tiff_rare.py
 """
 
+import functools
 import importlib.util
 import os
+import re
 import shutil
 
 import numpy as np
@@ -357,6 +359,74 @@ def test_cv2_read_of_short_strips_depends_on_the_bytes_alone(tmp_path):
         if order is not paths:
             got = got[::-1]
         assert got == want
+
+
+@functools.lru_cache(maxsize=None)
+def _full_size():
+    """3200x2130 RGB, grey-16 and palette TIFFs of one strip, of 16-row
+    strips and of 256x256 tiles, and the fixture maker (make_fixtures.py
+    needs cv2, so it is loaded here, not at import)."""
+    mf = _module("make_fixtures")
+    rgb = mf.picture(2130, 3200, 5)
+    g16 = rgb[..., 0].astype(np.uint16) * 257 + 3
+    cmap = (np.arange(3 * 256).reshape(3, 256) * 85 % 65536).astype(
+        np.uint16)
+    return mf, {
+        "one": TF.tiff_bytes(rgb),
+        "one_grey16": TF.tiff_bytes(g16, photometric=1),
+        "strips16": TF.tiff_bytes(rgb, rows_per_strip=16),
+        "strips16_grey16": TF.tiff_bytes(g16, photometric=1,
+                                         rows_per_strip=16),
+        "strips16_palette": TF.tiff_bytes(rgb[..., 1].copy(), photometric=3,
+                                          colormap=cmap, rows_per_strip=16),
+        "tiles256": TF.tiff_bytes(rgb, tile=(256, 256))}
+
+
+# (source, how it is cut): mf._short's (index, keep), or ("count", index,
+# byte count) for mf._with_count, or ("end", bytes taken off the file)
+# before the count is set whole
+FULL_SIZE_CUTS = {
+    "one_cut_half": ("one", 0, 1 / 2),
+    "one_count_short_data_there": ("one", "count", 0, 100),
+    "one_count_past_end": ("one", "end", 5000),
+    "one_grey16_cut": ("one_grey16", 0, 1 / 3),
+    "one_grey16_count_short_data_there": ("one_grey16", "count", 0, 100),
+    "strips16_strip2_half": ("strips16", 2, 1 / 2),
+    "strips16_strip0_half": ("strips16", 0, 1 / 2),
+    "strips16_last_half": ("strips16", -1, 1 / 2),
+    "strips16_strip2_count0": ("strips16", "count", 2, 0),
+    "strips16_grey16_strip5": ("strips16_grey16", 5, 1 / 2),
+    "strips16_palette_strip9": ("strips16_palette", 9, 1 / 2),
+    "tiles256_tile1": ("tiles256", 1, 1 / 5),
+    "tiles256_tile3": ("tiles256", 3, 1 / 5)}
+
+
+@pytest.mark.parametrize("name", sorted(FULL_SIZE_CUTS))
+def test_short_uncompressed_rule_holds_at_full_size(host, tmp_path, name):
+    """At 3200x2130 libtiff splits a single uncompressed strip into virtual
+    strips of about 8 KiB (ChopUpSingleUncompressedStrip, after the byte
+    count's estimate), and each of the multi-strip and tiled files' chunks
+    is far above that: the host read still refuses where cv2.imread of the
+    file returns None and is cv2's array where it reads."""
+    mf, sources = _full_size()
+    source, *how = FULL_SIZE_CUTS[name]
+    data = sources[source]
+    if how[0] == "count":
+        data = mf._with_count(data, how[1], how[2])
+    elif how[0] == "end":
+        count = TF.tags_of(data)[279][0]
+        data = mf._with_count(data[:-how[1]], 0, count)
+    else:
+        data = mf._short(data, *how)
+    want = _imread(data, tmp_path)
+    if want[0] is None:
+        assert want[1] is None
+        with pytest.raises(ValueError, match=re.escape(images._CODE_ERRORS[4007])):
+            TOOL.read(host, data)
+        return
+    gray, bgr = TOOL.read(host, data)
+    np.testing.assert_array_equal(gray, want[0])
+    np.testing.assert_array_equal(bgr, want[1])
 
 
 @pytest.fixture(scope="module")
