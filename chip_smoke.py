@@ -12,8 +12,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    JPEG decoder's IDCT kernel and its colour kernels of one or three
    components and of four, the encoder's colour and
    forward-DCT kernels, the raster kernel of PNG and TIFF reads, the
-   host's entropy coding, PNG unfilter and TIFF decoder), started together,
-   with their time and register reports.
+   host's entropy coding, PNG unfilter and TIFF decoder, the JPEG 2000
+   host decoder, ``j2k_idwt_kernel`` and ``j2k_colour_kernel``), started
+   together, with their time and register reports.
 1b. The image fixtures on the card against what cv2 gives: the JPEGs of
    ``tests/data/jpeg`` decoded against ``decoded.npz`` (entries that differ
    and the largest difference, grey and BGR) with the IDCT and colour
@@ -48,7 +49,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``tiff/refused``, ``bmp/refused`` and ``pnm/refused`` raising; the
    WebPs first held to cv2 here (loop-filter deltas, 1200 prefix-code
    groups) with each kernel against its twin, and a VP8L back-reference
-   before the first pixel raising. No entry or byte may differ.
+   before the first pixel raising; every JPEG 2000 file of
+   ``tests/data/jp2`` (JP2 and raw codestreams) read to cv2's arrays with
+   ``j2k_idwt_kernel`` (each level) and ``j2k_colour_kernel`` against their
+   twins on each, the cut lengths cv2 reads (``cuts.json``) to its arrays,
+   ``jp2/refused`` raising with each file's code. No entry or byte may
+   differ.
 2. NCC kernel vs plain: ``ncc_eval_multi`` on the card against its plain
    PyTorch version at K in {1, 5, 9}, S = 10, scales 0 and 2, on
    ground-truth and random planes at the default footprint cap, through
@@ -234,6 +240,23 @@ Phases, in order; any failure raises and the script exits non-zero:
    set to 0 just before (smoothing 3, IDCT 3, colour 1, no plain call),
    its hashes cv2's; each kernel against its twin and from a CUDA graph
    beside its bound; the read split on the host clock.
+8g. JPEG 2000 sources (after 8f, adding no solved view): the committed
+   ``tests/data/jp2/conversion/plane_3200x2130_lossless.jp2`` (8b's source
+   as cv2.imwrite's lossless JP2: 5/3, no colour transform),
+   ``plane_3200x2130_97_rpcl.jp2`` (Pillow: 9/7, ICT, 1024x1024 tiles,
+   RPCL, 128x128 precincts, three rate layers) and
+   ``plane_3200x2130_53_rct.jp2`` (Pillow: 5/3, RCT, one tile, LRCP,
+   three rate layers), each through the
+   converter's image step and the pipeline's read, the counters set to 0
+   just before: every hash must be cv2's (``conversion/cv2.json``);
+   launches: ``j2k_idwt_kernel`` two a level a read (form ``53`` or
+   ``97``), ``j2k_colour_kernel`` one a read (``none``, ``ict`` or
+   ``rct``), no
+   plain call; both kernels against their twins at full size (no entry may
+   differ), timed with CUDA events and from a CUDA graph beside their
+   bounds (``roofline.j2k_idwt_bound``, ``j2k_colour_bound``) and the
+   twins; each read split into the host's parse and tier-1, the copy, each
+   level, the colour launch and the whole decode.
 9. Multi-GPU (after phase 8, on its converted workspace): (a) the NCC
    kernel (tile and view-major launches, K=9) and the fused sorted path
    with one zero-extent source (the sharded pipeline's padding: all-zero
@@ -341,6 +364,10 @@ LOSSLESS_SOURCE = os.path.join(HERE, "tests", "data", "webp", "conversion",
 # it (tests/data/jpeg/make_arith_lossless.py), and two lossless streams of
 # the same pixels written here by tests/data/jpeg/jpeg_file.py; cv2's hashes
 # of all three in cv2.json beside the first
+JP2_CONVERSION = os.path.join(HERE, "tests", "data", "jp2", "conversion")
+JP2_SOURCES = {"lossless": "plane_3200x2130_lossless.jp2",
+               "97_rpcl": "plane_3200x2130_97_rpcl.jp2",
+               "53_rct": "plane_3200x2130_53_rct.jp2"}
 CUT_SOURCE = os.path.join(HERE, "tests", "data", "jpeg", "conversion",
                           "plane_3200x2130_progressive_cut.jpg")
 ARITH_SOURCE = os.path.join(HERE, "tests", "data", "jpeg", "conversion",
@@ -1624,6 +1651,7 @@ def phase_fixtures():
             refused.append(f"{sub}/refused/{fname}")
             log(f"  {sub}/refused/{fname}: raises ({causes[0]})")
     coding.update(webp_fixtures(data_dir, out, against))
+    coding.update(jp2_fixtures(data_dir, out, against))
     bad = {name: r for name, r in out.items()
            if any(v[0] for v in r.values())}
     if bad or enc_bad:
@@ -1753,6 +1781,90 @@ def webp_fixtures(data_dir: str, out: dict, against) -> dict:
     log(f"  WebP loop-filter deltas, 1200 prefix-code groups and a backward "
         f"reference before the first pixel: {counts}; kernels equal their "
         f"twins")
+    return counts
+
+
+def jp2_fixtures(data_dir: str, out: dict, against) -> dict:
+    """Phase 1b's JPEG 2000 reads: every fixture of tests/data/jp2 (JP2
+    files and raw codestreams, cv2's and Pillow's writes) read on the card
+    (``images.decode``: grey and BGR) to cv2's arrays, with
+    ``j2k_idwt_kernel`` (each level's launches) and ``j2k_colour_kernel``
+    against their twins on each file; the cut lengths cv2 reads
+    (``cuts.json``: the codestream ends right after a SOT marker) to its
+    arrays, the byte before each refused; ``refused/`` raising in both
+    entries with each file's code. Adds each read's (entries differing, of,
+    largest) to ``out``; returns the counts."""
+    import numpy as np
+    import torch
+    from mpmvs_torch.io import images
+
+    dev = torch.device("cuda", 0)
+    folder = os.path.join(data_dir, "jp2")
+    lib = images._library()
+    want = np.load(os.path.join(folder, "cv2_arrays.npz"))
+    counts = {"jp2_read": 0, "jp2_levels_equal_plain": 0,
+              "jp2_colour_equal_plain": 0, "jp2_cut_read": 0,
+              "jp2_refused": 0}
+
+    def read(*parts):
+        with open(os.path.join(folder, *parts), "rb") as f:
+            return f.read()
+
+    for name in sorted(f for f in os.listdir(folder)
+                       if f.endswith((".jp2", ".j2k"))):
+        data = read(name)
+        gray, bgr = images.decode(data, dev)
+        out[f"jp2/{name}"] = {"gray": against(gray, want[f"gray_{name}"]),
+                              "bgr": against(bgr, want[f"bgr_{name}"])}
+        img = images.j2k_host_image(data, lib)
+        coef, sched, col = images.j2k_upload(img, dev)
+        scratch = torch.empty_like(coef)
+        for lv in sched:
+            twin = images.j2k_idwt_plain(coef, lv)
+            images.j2k_idwt_kernel(coef, scratch, lv)
+            if not torch.equal(coef, twin):
+                raise AssertionError(f"jp2/{name}: j2k_idwt_kernel vs its "
+                                     f"twin differ at level {lv.level}")
+            counts["jp2_levels_equal_plain"] += 1
+        if any(not torch.equal(a, b) for a, b in zip(
+                images.j2k_colour_kernel(coef, col),
+                images.j2k_colour_plain(coef, col))):
+            raise AssertionError(f"jp2/{name}: j2k_colour_kernel vs its "
+                                 f"twin differ")
+        counts["jp2_colour_equal_plain"] += 1
+        counts["jp2_read"] += 1
+    with open(os.path.join(folder, "cuts.json")) as f:
+        cuts = json.load(f)
+    arrays = np.load(os.path.join(folder, "cuts_arrays.npz"))
+    for name, rec in cuts.items():
+        data = read(name)
+        for length in rec["cv2_reads"]:
+            gray, bgr = images.decode(data[:length], dev)
+            out[f"jp2/{name}[:{length}]"] = {
+                "gray": against(gray, arrays[f"gray_{name}_{length}"]),
+                "bgr": against(bgr, arrays[f"bgr_{name}_{length}"])}
+            try:
+                images.decode(data[:length - 1], dev)
+            except ValueError:
+                counts["jp2_cut_read"] += 1
+                continue
+            raise AssertionError(f"jp2/{name} cut to {length - 1} was read")
+    with open(os.path.join(folder, "refused", "refused.json")) as f:
+        refused = json.load(f)
+    for name, rec in refused.items():
+        data = read("refused", name)
+        for fn in (images.decode_colour, images.decode):
+            try:
+                fn(data, dev)
+            except ValueError as e:
+                if images._CODE_ERRORS[rec["code"]] not in str(e):
+                    raise AssertionError(f"jp2/refused/{name}: refused for "
+                                         f"another cause: {e}")
+                continue
+            raise AssertionError(f"jp2/refused/{name} was read")
+        counts["jp2_refused"] += 1
+    log(f"  JPEG 2000 fixtures: {counts}; every read equal to cv2's "
+        f"arrays, each kernel equal to its twin")
     return counts
 
 
@@ -2101,6 +2213,12 @@ def phase_files(params, root: str):
         "LZW TIFF through the converter's image step and the pipeline's "
         "read; the smoothing kernel and the CIELab form vs their twins")
     rare_parts = phase_rare_parts(dev)
+    log("phase 8g: the JPEG 2000 sources (lossless 5/3, 9/7 ICT tiled "
+        "RPCL with layers, 5/3 RCT with layers) through the converter's "
+        "image step and "
+        "the pipeline's read; the inverse-wavelet and colour kernels vs "
+        "their twins")
+    jp2_parts = phase_jp2_parts(dev)
     expected = V * (NCC_PHOTOMETRIC + 2 * NCC_GEOM) + n_prior * NCC_PRIOR
     bad = {v: e for v, e in rel.items() if not e < 0.01}
     log(f"  launches: NCC {ncc[0]} (schedule implies {expected}), plain "
@@ -2158,7 +2276,8 @@ def phase_files(params, root: str):
                cmyk_launches=sum(four.values()), ycck=ycck_parts,
                ycck_read=ycck_read, webp=webp_parts,
                lossless=lossless_parts, tiff_jpeg=tiff_jpeg_parts,
-               jpeg_coding=jpeg_coding_parts, rare=rare_parts)
+               jpeg_coding=jpeg_coding_parts, rare=rare_parts,
+               jp2=jp2_parts)
     return out
 
 
@@ -3689,6 +3808,198 @@ def phase_rare_parts(dev):
     return out
 
 
+def _jp2_cv2() -> dict:
+    """The sha-256 of each JP2_SOURCES file, of cv2.imread's grey and BGR
+    arrays of it and of the JAX converter's workspace image of it."""
+    with open(os.path.join(JP2_CONVERSION, "cv2.json")) as f:
+        return json.load(f)
+
+
+def phase_jp2_parts(dev):
+    """Phase 8g: the three committed 3200x2130 JPEG 2000 sources (phase
+    8b's source as cv2 reads it: a lossless 5/3 JP2 written by cv2.imwrite,
+    no colour transform; a 9/7 ICT JP2 written by Pillow with 1024x1024
+    tiles, RPCL order, 128x128 precincts and three rate layers; a 5/3 RCT
+    JP2 written by Pillow, one tile, three rate layers) on the card. With the counters set to 0 just before: the converter's image
+    step of each (named ``.jp2``: the read, then the JPEG encode) and the
+    pipeline's read; the hashes of each read's grey and BGR and of each
+    workspace image must be cv2's (tests/data/jp2/conversion/cv2.json).
+    Launches: j2k_idwt_kernel two a level and wavelet (rows, then
+    columns), j2k_colour_kernel one, a read; no plain call. Then each kernel against its twin at full size
+    (no entry may differ), timed with CUDA events and from a CUDA graph
+    beside its bound and its twin; and each read split, host clock around
+    synchronised calls: the host's parse and tier-1, the copy to the card,
+    each level's two launches, the colour launch and the whole decode."""
+    import numpy as np
+    import torch
+    from mpmvs_torch.io import images
+    from mpmvs_torch.preprocess import convert
+    from mpmvs_torch.utils.roofline import j2k_colour_bound, j2k_idwt_bound
+    from mpmvs_torch.utils.trace import cuda_graph_ms, cuda_time_ms
+
+    want = _jp2_cv2()
+    data = {}
+    for key, name in JP2_SOURCES.items():
+        with open(os.path.join(JP2_CONVERSION, name), "rb") as f:
+            data[key] = f.read()
+        if hashlib.sha256(data[key]).hexdigest() != \
+                want[key]["source_sha256"]:
+            raise AssertionError(f"phase 8g's {name} is not the file whose "
+                                 f"cv2 reads were recorded")
+    lib = images._library()
+    imgs = {k: images.j2k_host_image(v, lib) for k, v in data.items()}
+    expected_idwt, expected_forms = 0, {}
+    for img in imgs.values():
+        sched, col = images.j2k_schedule(img), images.j2k_colour_form(img)
+        for lv in sched:  # two reads a source, two launches a level
+            expected_forms[str(lv.form)] = \
+                expected_forms.get(str(lv.form), 0) + 4
+        expected_forms[col.form] = expected_forms.get(col.form, 0) + 2
+        expected_idwt += 4 * len(sched)
+    counters = {"j2k": images.J2K_COUNTS, "enc_colour": images.YCC_COUNTS,
+                "fdct": images.FDCT_COUNTS}
+    with tempfile.TemporaryDirectory(prefix="mpmvs_jp2_") as tmp:
+        srcs = {k: os.path.join(tmp, f"IMG_{k}.jp2") for k in data}
+        for k, path in srcs.items():
+            with open(path, "wb") as f:
+                f.write(data[k])
+        for c in list(counters.values()) + [images.CODEC_COUNTS]:
+            c.reset()
+        ws, reads, secs = {}, {}, {}
+        for k, path in srcs.items():
+            t1 = time.perf_counter()
+            convert.convert_image(path, os.path.join(tmp, "ws.jpg"), dev)
+            secs[f"convert_{k}_s"] = time.perf_counter() - t1
+            with open(os.path.join(tmp, "ws.jpg"), "rb") as f:
+                ws[k] = hashlib.sha256(f.read()).hexdigest()
+            t1 = time.perf_counter()
+            reads[k] = images.read_image(path, dev)
+            torch.cuda.synchronize()
+            secs[f"read_{k}_s"] = time.perf_counter() - t1
+        launches = {k: (v.kernel, v.plain, dict(v.forms))
+                    for k, v in counters.items()}
+        codec = dict(images.CODEC_COUNTS.forms)
+    equal_cv2 = {}
+    for k in data:
+        equal_cv2.update({
+            f"{k}_gray": sha256_of(reads[k][0]) == want[k]["gray_sha256"],
+            f"{k}_bgr": sha256_of(reads[k][1]) == want[k]["bgr_sha256"],
+            f"{k}_workspace": ws[k] == want[k]["workspace_sha256"]})
+    expected = (expected_idwt + len(data) * 2, 0, expected_forms)
+    log(f"  JPEG 2000 sources ({ {k: len(v) for k, v in data.items()} } "
+        f"bytes): {secs}; equal to cv2's (each read's grey and BGR, each "
+        f"converted workspace image): {equal_cv2}; launches (kernel, plain, "
+        f"forms) {launches} (j2k expected {expected}); codec calls {codec}")
+    if not all(equal_cv2.values()):
+        raise AssertionError(f"phase 8g differs from cv2: {equal_cv2}")
+    if launches["j2k"] != expected or codec.get("jp2") != 2 * len(data) or \
+            launches["enc_colour"][1] or launches["fdct"][1] or \
+            launches["enc_colour"][0] != len(data):
+        raise AssertionError(f"phase 8g launches {launches}, codec calls "
+                             f"{codec}: expected j2k {expected}, "
+                             f"{2 * len(data)} JPEG 2000 reads and "
+                             f"{len(data)} encodes")
+    out = {"size": list(reads["lossless"][1].shape[1::-1]),
+           "bytes": {k: len(v) for k, v in data.items()}, **secs,
+           "equal_cv2": equal_cv2, "launches": launches, "codec": codec}
+
+    # each kernel against its twin at full size, timed; each read's parts
+    for k, img in imgs.items():
+        coef0, sched, col = images.j2k_upload(img, dev)
+        coef, scratch = coef0.clone(), torch.empty_like(coef0)
+        err, plain_ms = [], 0.0
+        for lv in sched:
+            twin, ms = cuda_timed(lambda: images.j2k_idwt_plain(coef, lv))
+            plain_ms += ms
+            images.j2k_idwt_kernel(coef, scratch, lv)
+            err.append(differing(coef, twin))
+        cgot = images.j2k_colour_kernel(coef, col)
+        ctwin, cplain_ms = cuda_timed(lambda: images.j2k_colour_plain(coef,
+                                                                      col))
+        cerr = [differing(a, b) for a, b in zip(cgot, ctwin)]
+        if any(e[0] for e in err + cerr):
+            raise AssertionError(f"phase 8g {k}: kernels vs twins at full "
+                                 f"size: IDWT {err}, colour {cerr}")
+        work = coef0.clone()
+        idwt = lambda: [images.j2k_idwt_kernel(work, scratch, lv)
+                        for lv in sched]
+        colour = lambda: images.j2k_colour_kernel(coef, col)
+        bnds = [j2k_idwt_bound(lv) for lv in sched]
+        levels = []
+        for lv, bnd in zip(sched, bnds):
+            one = lambda lv=lv: images.j2k_idwt_kernel(work, scratch, lv)
+            levels.append({"level": lv.level, "form": lv.form,
+                           "jobs": lv.jobs.numel() // 8, "rows": lv.rows,
+                           "cols": lv.cols, "ms": cuda_time_ms(one, 20),
+                           "graph_ms": cuda_graph_ms(one, 10),
+                           "bound_ms": bnd[0], "bound_by": bnd[1]})
+        idwt_bnd = (sum(b[0] for b in bnds),
+                    "operations" if any(b[1] == "operations" for b in bnds)
+                    else "bytes")
+        cbnd = j2k_colour_bound(col)
+        row = {"form": str(sched[0].form), "colour_form": col.form,
+               "tiles": int(img.info[5] * img.info[6]),
+               "code_blocks": int(img.info[14]), "levels": levels,
+               "idwt": {"launches_a_read": 2 * len(sched),
+                        "ms": cuda_time_ms(idwt, 20),
+                        "graph_ms": cuda_graph_ms(idwt, 10),
+                        "plain_ms": plain_ms, "bound_ms": idwt_bnd[0],
+                        "bound_by": idwt_bnd[1], "vs_plain": err,
+                        "max_abs_err": max(e[1] for e in err)},
+               "colour": {"ms": cuda_time_ms(colour, 20),
+                          "graph_ms": cuda_graph_ms(colour, 10),
+                          "plain_ms": cplain_ms, "bound_ms": cbnd[0],
+                          "bound_by": cbnd[1], "vs_plain": cerr,
+                          "max_abs_err": max(e[1] for e in cerr)}}
+        parts = {p: [] for p in ("host_parse_tier1_ms", "copy_to_card_ms",
+                                 "idwt_ms", "colour_ms", "decode_ms")}
+        level_ms = [[] for _ in sched]
+        for _ in range(3):
+            torch.cuda.synchronize()
+            marks = [time.perf_counter()]
+            im = images.j2k_host_image(data[k], lib)
+            marks.append(time.perf_counter())
+            c2, s2, col2 = images.j2k_upload(im, dev)
+            sc2 = torch.empty_like(c2)
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+            for i, lv in enumerate(s2):
+                t0 = time.perf_counter()
+                images.j2k_idwt_kernel(c2, sc2, lv)
+                torch.cuda.synchronize()
+                level_ms[i].append((time.perf_counter() - t0) * 1e3)
+            marks.append(time.perf_counter())
+            images.j2k_colour_kernel(c2, col2)
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+            images.decode(data[k], dev)
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+            for p, a, b in zip(parts, marks, marks[1:]):
+                parts[p].append((b - a) * 1e3)
+        row["read_parts"] = dict(parts, idwt_level_ms=level_ms)
+        out[k] = row
+        i, c = row["idwt"], row["colour"]
+        log(f"  {JP2_SOURCES[k]} ({row['tiles']} tiles, "
+            f"{row['code_blocks']} code-blocks): read split (host clock): "
+            f"host parse and tier-1 "
+            f"{np.round(parts['host_parse_tier1_ms'], 1)} ms, copy "
+            f"{np.round(parts['copy_to_card_ms'], 2)} ms, IDWT levels "
+            f"{[np.round(m, 3).tolist() for m in level_ms]} ms, colour "
+            f"{np.round(parts['colour_ms'], 3)} ms, decode "
+            f"{np.round(parts['decode_ms'], 1)} ms; j2k_idwt_kernel "
+            f"({row['form']}, {i['launches_a_read']} launches): CUDA events "
+            f"{i['ms']:.4f} ms, graph {i['graph_ms']:.4f} ms (bound "
+            f"{i['bound_ms']:.4f} ({i['bound_by']}), share "
+            f"{i['bound_ms'] / i['graph_ms']:.4f}; twin {i['plain_ms']:.1f} "
+            f"ms, equal); j2k_colour_kernel ({row['colour_form']}): CUDA "
+            f"events {c['ms']:.4f} ms, graph {c['graph_ms']:.4f} ms (bound "
+            f"{c['bound_ms']:.4f} ({c['bound_by']}), share "
+            f"{c['bound_ms'] / c['graph_ms']:.4f}; twin {c['plain_ms']:.1f} "
+            f"ms, equal)")
+    return out
+
+
 def phase_dummy_source(files, params):
     """Phase 9 (a): the NCC kernel (both launches) and the fused sorted
     path at 3200x2130 with one zero-extent source, phase 8's view 0 with
@@ -3942,6 +4253,7 @@ def main(argv=None) -> int:
         files["enc"], files["png"], files["raster"], files["webp"],
         files["lossless"], files["tiff_jpeg"], files["jpeg_coding"],
         files["rare"])
+    jp2 = files["jp2"]
     codec_kernel = lambda k: {
         "source": "mpmvs_torch/csrc/jpeg_codec.cu",
         "launches": files[f"{k}_launches"], "ms": files[f"{k}_ms"],
@@ -3978,6 +4290,7 @@ def main(argv=None) -> int:
         "jpeg_coding_read": {k: v for k, v in jc.items() if k != "forms"},
         "rare_read": {k: v for k, v in rare.items()
                       if k != "jpeg_smooth"},
+        "jp2_read": jp2,
         "jpeg_coding_fixtures_equal_cv2":
             fixture_facts["jpeg_coding_fixtures"],
         "image": [W_FULL, H_FULL], "calls_phase8": files["codec"],
@@ -4229,7 +4542,37 @@ def main(argv=None) -> int:
               graph_ms=rare["lab_3200x2130.tif"]["graph_ms"],
               scope="the samples of phase 8f's 3200x2130 8-bit CIELab "
               "TIFF, one launch; launches: the converter's read and the "
-              "pipeline's")]}))
+              "pipeline's")] + [
+        entry(name, "jpeg_codec.cu", "none: cv2.imread (of a JPEG 2000 "
+              "file: mpmvs_tpu/pipeline.py:60, mpmvs_tpu/preprocess/convert."
+              f"py:161); the arithmetic in mpmvs_torch/csrc/{header}",
+              sum(jp2["launches"]["j2k"][2].get(f, 0)
+                  for f in {f for f, _ in forms}),
+              max(jp2[k][part]["max_abs_err"] for k in JP2_SOURCES),
+              jp2["97_rpcl"][part]["ms"], jp2["97_rpcl"][part]["plain_ms"],
+              (jp2["97_rpcl"][part]["bound_ms"],
+               jp2["97_rpcl"][part]["bound_by"]), form=forms[1][0],
+              graph_ms=jp2["97_rpcl"][part]["graph_ms"], scope=scope,
+              forms=[{"form": f, "source": JP2_SOURCES[k],
+                      "launches": jp2["launches"]["j2k"][2].get(f, 0),
+                      **{m: jp2[k][part][m] for m in (
+                          "ms", "graph_ms", "plain_ms", "bound_ms",
+                          "bound_by", "max_abs_err")}}
+                     for f, k in forms])
+        for name, part, header, forms, scope in (
+            ("j2k_idwt", "idwt", "j2k_idwt.h",
+             (("53", "lossless"), ("97", "97_rpcl"), ("53", "53_rct")),
+             "every level of phase 8g's 3200x2130 9/7 source (12 tiles of 3 "
+             "components, 5 levels: 10 launches, rows then columns a "
+             "level); the 5/3 sources' beside it (a form's launches count "
+             "both 5/3 sources); launches: the converter's reads and the "
+             "pipeline's"),
+            ("j2k_colour", "colour", "j2k_colour.h",
+             (("none", "lossless"), ("ict", "97_rpcl"), ("rct", "53_rct")),
+             "phase 8g's 3200x2130 9/7 source (ICT), grey and BGR in one "
+             "launch; the lossless source's (no colour transform: cv2's "
+             "writer sets none) and the 5/3 RCT source's beside it; "
+             "launches: the converter's reads and the pipeline's"))]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -1,6 +1,6 @@
 // JPEG decode and encode on the card for the port's workspace I/O (sm_90a),
-// the host half of its PNG and TIFF reads, and its lossy, lossless and
-// animated WebP reads.
+// the host half of its PNG and TIFF reads, its lossy, lossless and
+// animated WebP reads, and its JPEG 2000 reads.
 //
 // No TPU kernel has this work: the JAX package reads and writes images with
 // OpenCV (cv2.imread / cv2.imwrite, which code JPEGs with libjpeg-turbo).
@@ -92,11 +92,37 @@
 // colour image by libpng's or OpenCV's arithmetic), one thread a pixel. It
 // reads at most 8 bytes a pixel and writes 4.
 //
+// JPEG 2000 reads (a JP2 file or a raw codestream, as OpenJPEG 2.5 decodes
+// it and OpenCV converts it):
+//   * the host parses the file and runs tier-2 and tier-1 (j2k_decode.h,
+//     j2k_t1.h): every tile-component's wavelet coefficients, dequantized,
+//     in one array of 32-bit words (int32 after the 5/3 wavelet, float
+//     after the 9/7 one), copied to the card once with the tables that say
+//     where each tile-component and each level lies;
+//   * j2k_idwt_kernel runs one level of the inverse wavelet transform of
+//     every tile-component that has it, lowest level first: a launch over
+//     every row (one thread a row, from the array into a scratch array of
+//     the same layout), then a launch over every column (one thread a
+//     column, back into the array), each line interleaved and lifted as
+//     OpenJPEG's dwt.c lifts it (j2k_idwt.h), a template form for each
+//     wavelet. Its float arithmetic is one IEEE operation after another
+//     (__fmul_rn / __fadd_rn);
+//   * j2k_colour_kernel, one thread a pixel, finds the pixel's tile, undoes
+//     the tile's colour transform (RCT or ICT), shifts and clamps each
+//     component as OpenJPEG does, narrows it as OpenCV does and writes the
+//     BGR and the grey images in one launch (j2k_colour.h).
+// What bounds them: bytes. A level needs its coefficients read once and
+// written once, 8 bytes a coefficient; the two launches move 16, since the
+// rows go through the scratch array and back. The colour kernel reads 4
+// bytes a component and writes 4 a pixel (BGR and grey). Tier-1 on the
+// host takes far longer than any of them.
+//
 // The C interface below is bound with ctypes by mpmvs_torch/io/images.py.
 // Every function returns 0 or an error code: a decode error of
 // jpeg_entropy.h (2001-2014), an encode or PNG error (2010, 3001-3002), a
 // TIFF error (4001-4024), a WebP error (webp_decode.h, 5001-5007;
-// webp_lossless.h, 5008-5011) or a CUDA error offset by 1000.
+// webp_lossless.h, 5008-5011), a JPEG 2000 error (j2k_decode.h,
+// 6001-6012, 6014) or a CUDA error offset by 1000.
 
 #include <cuda_runtime.h>
 
@@ -104,6 +130,10 @@
 #include <stdlib.h>
 #include <string.h>
 
+#include "j2k_colour.h"
+#include "j2k_decode.h"
+#include "j2k_idwt.h"
+#include "j2k_t1.h"
 #include "jpeg_colour.h"
 #include "jpeg_encode.h"
 #include "jpeg_entropy.h"
@@ -999,6 +1029,93 @@ extern "C" int ljpeg_wavefront_launch(const short* const* d,
   for (int i = 0; i < n; i++) bands += (pl.c[i].h + 31) / 32;
   ljpeg_wavefront_kernel<<<bands < 1024 ? bands : 1024, 32, 0, stream>>>(
       pl, p, sync);
+  cudaError_t e = cudaGetLastError();
+  return e == cudaSuccess ? 0 : CODEC_CUDA_ERR + (int)e;
+}
+
+// One level's rows (pass 0: a, the level's bands, into b, interleaved and
+// lifted) or columns (pass 1: b into a) of every tile-component of a
+// launch, one thread a line. jobs: 8 ints a tile-component (its offset in
+// words and width, the level's width and height, its low-pass columns and
+// rows, the parities of its origin); starts: the first line of each job,
+// rows (njobs values) then columns (njobs values), in a 1-D grid of total
+// lines.
+template <int kForm>
+__global__ void j2k_idwt_kernel(uint32_t* __restrict__ a,
+                                uint32_t* __restrict__ b,
+                                const int* __restrict__ jobs,
+                                const long long* __restrict__ starts,
+                                int njobs, int pass, long long total) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= total) return;
+  const long long* s = starts + (pass ? njobs : 0);
+  int lo = 0, hi = njobs - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (s[mid] <= i)
+      lo = mid;
+    else
+      hi = mid - 1;
+  }
+  const int* J = jobs + 8 * lo;
+  const long k = (long)(i - s[lo]);
+  const long off = J[0], w = J[1];
+  if (kForm == 53) {
+    int32_t *A = (int32_t*)a + off, *B = (int32_t*)b + off;
+    if (pass == 0)
+      j2k_idwt::line53(A + k * w, 1, B + k * w, 1, J[4], J[2], J[6]);
+    else
+      j2k_idwt::line53(B + k, w, A + k, w, J[5], J[3], J[7]);
+  } else {
+    float *A = (float*)a + off, *B = (float*)b + off;
+    if (pass == 0)
+      j2k_idwt::line97(A + k * w, 1, B + k * w, 1, J[4], J[2], J[6]);
+    else
+      j2k_idwt::line97(B + k, w, A + k, w, J[5], J[3], J[7]);
+  }
+}
+
+extern "C" int j2k_idwt_launch(void* a, void* b, const int* jobs,
+                               const long long* starts, int njobs, int pass,
+                               long long total, int form,
+                               cudaStream_t stream) {
+  if (total <= 0) return 0;
+  dim3 block(128);
+  dim3 grid((unsigned)((total + 127) / 128));
+  if (form == 53)
+    j2k_idwt_kernel<53><<<grid, block, 0, stream>>>(
+        (uint32_t*)a, (uint32_t*)b, jobs, starts, njobs, pass, total);
+  else
+    j2k_idwt_kernel<97><<<grid, block, 0, stream>>>(
+        (uint32_t*)a, (uint32_t*)b, jobs, starts, njobs, pass, total);
+  cudaError_t e = cudaGetLastError();
+  return e == cudaSuccess ? 0 : CODEC_CUDA_ERR + (int)e;
+}
+
+// One thread a pixel of the (H, W) image: cv2's BGR (H, W, 3) and grey
+// (H, W). tiles: j2k_colour::kTileInts ints a tile; params: the fields of
+// j2k_colour::Params in order.
+__global__ void j2k_colour_kernel(const uint32_t* __restrict__ coef,
+                                  const int* __restrict__ tiles,
+                                  j2k_colour::Params p,
+                                  uint8_t* __restrict__ bgr,
+                                  uint8_t* __restrict__ grey) {
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= (size_t)p.W * p.H) return;
+  const int y = (int)(i / p.W), x = (int)(i % p.W);
+  j2k_colour::pixel(coef, tiles, p, x, y, bgr + 3 * i, grey + i);
+}
+
+extern "C" int j2k_colour_launch(const void* coef, const int* tiles,
+                                 const int* params, void* bgr, void* grey,
+                                 cudaStream_t stream) {
+  j2k_colour::Params p;
+  memcpy(&p, params, sizeof p);
+  const size_t n = (size_t)p.W * p.H;
+  dim3 block(256);
+  dim3 grid((unsigned)((n + 255) / 256));
+  j2k_colour_kernel<<<grid, block, 0, stream>>>(
+      (const uint32_t*)coef, tiles, p, (uint8_t*)bgr, (uint8_t*)grey);
   cudaError_t e = cudaGetLastError();
   return e == cudaSuccess ? 0 : CODEC_CUDA_ERR + (int)e;
 }

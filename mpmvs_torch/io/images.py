@@ -1,5 +1,5 @@
-"""Image files of a workspace: JPEG, PNG, TIFF, WebP, BMP and PNM reads,
-JPEG and PNG writes.
+"""Image files of a workspace: JPEG, PNG, TIFF, WebP, BMP, PNM and JPEG
+2000 reads, JPEG and PNG writes.
 
 The JAX package reads and writes images with OpenCV. Here the device picks
 the codec:
@@ -82,6 +82,26 @@ the codec:
         (``vp8l_colour_kernel``), and makes cv2's BGR (alpha dropped) and
         grey on the canvas (``webp_argb_to_bgr_kernel``); a lossy first
         frame takes the lossy kernels and is placed on the canvas;
+      - JPEG 2000 reads (a JP2 file or a raw codestream, as OpenJPEG 2.5
+        inside cv2 decodes it, then OpenCV's conversion): the host parses
+        the boxes and markers and runs tier-2 and tier-1
+        (``csrc/j2k_decode.h``, ``csrc/j2k_t1.h``: every progression
+        order, precincts, layers, tiles, the MQ decoder's three passes
+        with midpoint reconstruction and OpenJPEG's dequantization,
+        :func:`j2k_host_image`), the
+        coefficients go to the card in one copy, ``j2k_idwt_kernel`` runs
+        each level of the inverse 5/3 or 9/7 wavelet over every
+        tile-component, rows then columns (:func:`j2k_schedule`), and
+        ``j2k_colour_kernel`` undoes the RCT or ICT, shifts, clamps and
+        narrows as OpenJPEG and OpenCV do and writes BGR and grey
+        (``csrc/jpeg_codec.cu``, ``j2k_idwt.h``, ``j2k_colour.h``); a
+        codestream cut anywhere but right after a tile-part's next
+        marker is refused, as OpenJPEG's strict mode refuses it, and so
+        are the marker segments OpenJPEG rejects, the layouts cv2 refuses
+        (an image offset, signed or under-8-bit samples) and those the
+        card leaves out (code-block styles other than 0, HTJ2K, RGN, POC,
+        PPM, PPT, palettes, CMYK, sYCC and e-sYCC, components of unequal
+        precision);
       - JPEG writes: cv2.imencode's bytes (4:2:0 colour or grey, standard
         Huffman tables) from the card's colour conversion and downsampling
         (``bgr_to_ycc_kernel``) and forward DCT and quantization
@@ -125,7 +145,8 @@ Each kernel has a plain PyTorch version beside it, for the tests
 :func:`vp8_reconstruct_plain`, :func:`vp8_loop_filter_plain`,
 :func:`webp_yuv_to_bgr_plain`, :func:`vp8l_predictor_plain`,
 :func:`vp8l_colour_plain`, :func:`webp_argb_to_bgr_plain`,
-:func:`ljpeg_undiff_plain`). ``COUNTS`` counts
+:func:`ljpeg_undiff_plain`, :func:`j2k_idwt_plain`,
+:func:`j2k_colour_plain`). ``COUNTS`` counts
 launches of the colour kernels (form ``"rgb"`` for RGB components,
 ``"cmyk"`` and ``"ycck"`` for ``cmyk_to_bgr_kernel``) and their plain calls
 (the four-component ones by form in ``plain_forms``), ``SMOOTH_COUNTS``,
@@ -142,10 +163,12 @@ PNM and WebP reads (``forms["png"]``, ``forms["tiff"]``,
 ``forms["tiff_jpeg"]`` for a JPEG-compressed TIFF, ``forms["bmp"]``,
 ``forms["pnm"]``, ``forms["webp"]`` for a lossy still file,
 ``"webp_lossless"`` for a lossless one, ``"webp_animated"`` for an
-animated one) and encodes (``forms["encode"]``). ``COUNTS`` names the
-chunked colour forms ``"chunks"`` and ``"chunks_rgb"``, and
-``RASTER_COUNTS`` the raster forms ``"ycbcr"``, ``"bmp16"``, ``"bgr"``
-and ``"cielab"``.
+animated one, ``"jp2"`` for a JPEG 2000 one) and encodes
+(``forms["encode"]``); ``J2K_COUNTS`` the JPEG 2000 kernels' launches
+(forms ``"53"`` and ``"97"``, ``"rct"``, ``"ict"`` and ``"none"``).
+``COUNTS`` names the chunked colour forms ``"chunks"`` and
+``"chunks_rgb"``, and ``RASTER_COUNTS`` the raster forms ``"ycbcr"``,
+``"bmp16"``, ``"bgr"`` and ``"cielab"``.
 """
 
 from __future__ import annotations
@@ -178,6 +201,10 @@ CODEC_COUNTS = nvcc.LaunchCounts()
 SMOOTH_COUNTS = nvcc.LaunchCounts()
 RASTER_COUNTS = nvcc.LaunchCounts()
 LJPEG_COUNTS = nvcc.LaunchCounts()
+# JPEG 2000: J2K_COUNTS counts both of its kernels' launches, by form:
+# "53" and "97" for j2k_idwt_kernel (two a level: rows, then columns),
+# "rct", "ict" and "none" for j2k_colour_kernel
+J2K_COUNTS = nvcc.LaunchCounts()
 # what the host codes of csrc/ name (a JPEG's, PNG's, TIFF's or WebP's
 # cause of refusal)
 _CODE_ERRORS = {
@@ -290,11 +317,51 @@ _CODE_ERRORS = {
           "(over-subscribed, incomplete or empty)",
     5011: "a malformed lossless WebP (VP8L: a transform repeated, colour "
           "cache bits outside 1-11, or a back-reference outside the "
-          "image), which libwebp refuses too"}
+          "image), which libwebp refuses too",
+    6001: "a JPEG 2000 file cut short (a box, marker segment or tile-part "
+          "runs past the end, no marker follows the last tile-part, or a "
+          "marker other than SOT or EOC follows a tile with data after "
+          "it), which OpenJPEG's strict mode, and so cv2, refuses too",
+    6002: "a malformed JPEG 2000 file (not a JP2 file or codestream, no "
+          "ftyp box after the signature, no jp2h or ihdr box, an ihdr box "
+          "whose width or height is not the codestream's, or a field out "
+          "of range)",
+    6003: "a JPEG 2000 codestream of a code-block style other than 0 "
+          "(bypass, reset, termination, vertically causal contexts or "
+          "segmentation symbols), which the card does not read",
+    6004: "an HTJ2K codestream (Part 15: a CAP marker or high-throughput "
+          "code-blocks), which the card does not read",
+    6005: "a JPEG 2000 codestream with an RGN, POC, PPM or PPT marker, or "
+          "coding or quantization markers in a tile-part header, which the "
+          "card does not read",
+    6006: "a JP2 file of a colour space other than sRGB and greyscale (sYCC, "
+          "e-sYCC, CMYK), which the card does not read",
+    6007: "a JP2 file with a palette (pclr, cmap) or a channel definition "
+          "that reorders channels, which the card does not read",
+    6008: "a JPEG 2000 image with an offset or subsampled components, which "
+          "cv2 refuses too (tiles are not supported)",
+    6009: "a JPEG 2000 image of signed components or of components "
+          "under 8 bits, which cv2 refuses too, or of more than 16 bits, "
+          "which the card does not read",
+    6010: "a JPEG 2000 codestream whose packets break the rules (a header "
+          "past its limits, or data past the end of its tile), which "
+          "OpenJPEG's strict mode refuses too",
+    6011: "a JPEG 2000 codestream whose colour transform OpenJPEG refuses "
+          "or skips (a custom one, or components of unequal resolutions or "
+          "wavelets)",
+    6012: "a JPEG 2000 image of more than 2^28 samples, or partitioned "
+          "into more than 2^24 precincts or code-blocks",
+    6013: "a JPEG 2000 image of one or two components that is not a "
+          "greyscale JP2 (a raw codestream, or a JP2 file without a colr "
+          "box), which cv2 reads in grey only: IMREAD_COLOR fails",
+    6014: "a JPEG 2000 image of components of unequal precision, which "
+          "the card does not read"}
 
 _MAGIC = ((b"\xff\xd8\xff", "JPEG"), (b"\x89PNG\r\n\x1a\n", "PNG"),
           (b"II*\x00", "TIFF"), (b"MM\x00*", "TIFF"), (b"II+\x00", "TIFF"),
           (b"MM\x00+", "TIFF"), (b"BM", "BMP"),
+          (b"\x00\x00\x00\x0cjP  \r\n\x87\n", "JP2"),
+          (b"\xff\x4f\xff\x51", "J2K"),
           (b"GIF8", "GIF"), (b"PF", "PFM"), (b"Pf", "PFM"))
 # the netpbm formats as OpenCV's decoders tell them: P, a digit, whitespace
 _PNM = {b"1": "PBM", b"2": "PGM", b"3": "PPM", b"4": "PBM", b"5": "PGM",
@@ -321,8 +388,9 @@ def image_format(data: bytes) -> str:
 def bind_host(lib):
     """Set the ctypes signatures of the codec's host functions (no CUDA:
     the encoder's entropy coding, the PNG unfilter and de-interlace, the
-    TIFF reader, the EXIF reader, the WebP entropy decode) on a library
-    that has them, the card's or a host build of the headers."""
+    TIFF reader, the EXIF reader, the WebP entropy decode, the JPEG 2000
+    parse and tier-1) on a library that has them, the card's or a host
+    build of the headers."""
     vp, i, sz = ctypes.c_void_p, ctypes.c_int, ctypes.c_size_t
     lib.jpeg_quality_tables.argtypes = [i, vp]
     lib.jpeg_quality_tables.restype = None
@@ -359,6 +427,15 @@ def bind_host(lib):
     if hasattr(lib, "vp8l_host_decode"):  # a build with webp_lossless.h
         lib.vp8l_host_decode.argtypes = [ctypes.c_char_p, sz, vp, vp, vp, vp]
         lib.vp8l_host_decode.restype = i
+    if hasattr(lib, "j2k_host_decode"):  # a build with j2k_decode.h
+        lib.j2k_host_decode.argtypes = [ctypes.c_char_p, sz,
+                                        ctypes.POINTER(vp), vp]
+        lib.j2k_host_levels.argtypes = [vp]
+        lib.j2k_host_tables.argtypes = [vp, vp, vp, vp]
+        for fn in ("j2k_host_decode", "j2k_host_levels", "j2k_host_tables"):
+            getattr(lib, fn).restype = i
+        lib.j2k_host_free.argtypes = [vp]
+        lib.j2k_host_free.restype = None
     return lib
 
 
@@ -392,6 +469,9 @@ def _library():
     lib.vp8l_predictor_launch.argtypes = [vp, vp, i, i, i, vp, vp, vp]
     lib.vp8l_colour_launch.argtypes = [vp, vp, vp, vp, vp]
     lib.webp_argb_to_bgr_launch.argtypes = [vp, i, i, i, i, i, i, vp, vp, vp]
+    lib.j2k_idwt_launch.argtypes = [vp, vp, vp, vp, i, i, ctypes.c_longlong,
+                                    i, vp]
+    lib.j2k_colour_launch.argtypes = [vp, vp, vp, vp, vp, vp]
     for fn in ("jpeg_host_decode", "jpeg_host_upload", "idct_islow_launch",
                "ycc_to_bgr_launch", "cmyk_to_bgr_launch", "bgr_to_ycc_launch",
                "fdct_islow_launch", "raster_to_bgr_launch",
@@ -400,7 +480,8 @@ def _library():
                "vp8l_colour_launch", "webp_argb_to_bgr_launch",
                "jpeg_host_lossless", "jpeg_host_smoothing",
                "jpeg_smooth_launch", "ljpeg_scan_launch",
-               "ljpeg_wavefront_launch"):
+               "ljpeg_wavefront_launch", "j2k_idwt_launch",
+               "j2k_colour_launch"):
         getattr(lib, fn).restype = i
     return lib
 
@@ -3338,6 +3419,331 @@ def _decode_webp(data: bytes, device) -> Tuple[Tensor, Tensor]:
     return orient(gray, orientation), orient(bgr, orientation)
 
 
+# ------------------------------ JPEG 2000 ------------------------------
+
+J2K_INFO_LEN = 16   # j2k::kInfoLen
+J2K_TC_INTS = 10    # j2k::kTcInts
+J2K_LEVEL_INTS = 8  # j2k::kLevelInts
+J2K_TILE_INTS = 11  # j2k_colour::kTileInts
+J2K_K = 1.230174105          # OpenJPEG's dwt.c constants (j2k_idwt.h)
+J2K_TWO_INVK = 1.625732422
+J2K_LIFTS = (-0.443506852, -0.882911075, 0.052980118, 1.586134342)
+_J2K_FORMS = {1: 53, 0: 97}
+
+
+class J2kImage(NamedTuple):
+    """A JPEG 2000 file after the host's tier-2 and tier-1
+    (``csrc/j2k_decode.h``): ``info`` (:data:`J2K_INFO_LEN` ints: width,
+    height, components, precision, the JP2 colour space (0 for a raw
+    codestream, 16 sRGB, 17 greyscale), tiles across and down, tile width
+    and height, tile origin, the colour transform, words, levels,
+    code-blocks, progression), ``tcs`` (a row of :data:`J2K_TC_INTS` a
+    tile-component, tile-major: offset in words, width, height, origin,
+    resolutions, wavelet (1: 5/3, 0: 9/7), tile, component), ``levels`` (a
+    row of :data:`J2K_LEVEL_INTS` a level of each tile-component, lowest
+    first: tile-component, level, width, height, low-pass columns and rows,
+    the parities of the level's origin) and ``coef``, every
+    tile-component's dequantized coefficients as 32-bit words (int32 for
+    5/3, float for 9/7)."""
+
+    info: np.ndarray
+    tcs: np.ndarray
+    levels: np.ndarray
+    coef: np.ndarray
+
+
+class J2kLevel(NamedTuple):
+    """One level of one wavelet over every tile-component that has it: the
+    launches of :func:`j2k_idwt_kernel` (rows, then columns). ``jobs``: a
+    row of 8 ints a tile-component (offset in words, width, the level's
+    width and height, low-pass columns and rows, origin parities);
+    ``starts``: the first row of each job, then the first column;
+    ``rows`` and ``cols``: the lines of each launch."""
+
+    level: int
+    form: int  # 53 or 97
+    jobs: object  # (n, 8) int32, numpy or a tensor
+    starts: object  # (2 n,) int64
+    rows: int
+    cols: int
+
+
+class J2kColour(NamedTuple):
+    """What :func:`j2k_colour_kernel` takes besides the words: ``tiles`` (a
+    row of :data:`J2K_TILE_INTS` a tile: origin, width, colour transform,
+    each read component's offset and wavelet, and 1 where the codestream
+    holds the tile, 0 where it stopped before it) and ``params`` (the
+    fields of ``j2k_colour::Params``: width, height, tiles across, tile
+    width and height, precision, OpenCV's shift, BGR of three components
+    or component 0 three times, grey by cvtColor or component 0, components
+    read)."""
+
+    tiles: object  # (tiles, 11) int32
+    params: Tuple[int, ...]
+    form: str  # "rct", "ict" or "none"
+
+
+def j2k_host_image(data: bytes, lib) -> J2kImage:
+    """Parse and entropy-decode a JPEG 2000 file on the host; raises,
+    naming why, what cv2 or the card refuses."""
+    info = np.zeros(J2K_INFO_LEN, np.int32)
+    handle = ctypes.c_void_p()
+    _check(lib.j2k_host_decode(data, len(data), ctypes.byref(handle),
+                               info.ctypes.data), "JPEG 2000 decode")
+    try:
+        ntc = int(info[5] * info[6] * info[2])
+        tcs = np.zeros((ntc, J2K_TC_INTS), np.int32)
+        levels = np.zeros((lib.j2k_host_levels(handle), J2K_LEVEL_INTS),
+                          np.int32)
+        coef = np.empty(int(info[12]), np.uint32)
+        lib.j2k_host_tables(handle, tcs.ctypes.data, levels.ctypes.data,
+                            coef.ctypes.data)
+    finally:
+        lib.j2k_host_free(handle)
+    return J2kImage(info, tcs, levels, coef)
+
+
+def j2k_schedule(img: J2kImage) -> list:
+    """The inverse wavelet's launches of an image, lowest level first, a
+    :class:`J2kLevel` (numpy tables) for each level and wavelet."""
+    out = []
+    for level in range(1, int(img.info[13]) + 1):
+        for qmf, form in _J2K_FORMS.items():
+            rows = [l for l in img.levels
+                    if l[1] == level and img.tcs[l[0], 6] == qmf]
+            if not rows:
+                continue
+            jobs = np.array([[img.tcs[l[0], 0], img.tcs[l[0], 1], *l[2:]]
+                             for l in rows], np.int32)
+            starts = np.concatenate([[0], np.cumsum(jobs[:, 3])[:-1],
+                                     [0], np.cumsum(jobs[:, 2])[:-1]])
+            out.append(J2kLevel(level, form, jobs, starts.astype(np.int64),
+                                int(jobs[:, 3].sum()),
+                                int(jobs[:, 2].sum())))
+    return out
+
+
+def j2k_colour_form(img: J2kImage, colour: bool = True) -> J2kColour:
+    """The colour kernel's tables of an image (numpy), by cv2's rules: three
+    or more components (sRGB or a raw codestream) give the B, G, R of
+    components 2, 1, 0 and OpenCV's grey of them; a greyscale JP2 gives
+    component 0 for both; one or two components otherwise give component
+    0's grey, and raise (6013) when ``colour`` asks for BGR."""
+    info = img.info
+    W, H, nc, prec, space = (int(v) for v in info[:5])  # space 0: no colr
+    tw, th = int(info[5]), int(info[6])
+    rgb = nc >= 3 and space != 17
+    if colour and nc < 3 and space != 17:
+        _check(6013, "JPEG 2000 decode")
+    ncomp = 3 if nc >= 3 else 1
+    tiles = np.zeros((tw * th, J2K_TILE_INTS), np.int32)
+    tcs = img.tcs.reshape(tw * th, nc, J2K_TC_INTS)
+    tiles[:, 0], tiles[:, 1], tiles[:, 2] = (tcs[:, 0, 3], tcs[:, 0, 4],
+                                             tcs[:, 0, 1])
+    tiles[:, 3] = int(info[11])
+    for c in range(ncomp):
+        tiles[:, 4 + 2 * c] = tcs[:, c, 0]
+        tiles[:, 5 + 2 * c] = tcs[:, c, 6]
+    tiles[:, 10] = tcs[:, 0, 9]
+    params = (W, H, tw, int(info[7]), int(info[8]), prec, max(prec - 8, 0),
+              int(rgb), int(rgb), ncomp)
+    form = "none" if not (info[11] and ncomp == 3) else \
+        "rct" if tcs[0, 0, 6] == 1 else "ict"
+    return J2kColour(tiles, params, form)
+
+
+def j2k_upload(img: J2kImage, dev):
+    """An image's words on the card (int32 tensor), its schedule and its
+    colour tables: the words in one copy, every table (the jobs of each
+    launch, the tiles) in one int32 copy and the launches' starts in one
+    int64 copy."""
+    sched, col = j2k_schedule(img), j2k_colour_form(img)
+    coef = torch.from_numpy(img.coef.view(np.int32)).to(dev)
+    ints = np.concatenate([lv.jobs.ravel() for lv in sched] +
+                          [col.tiles.ravel()]).astype(np.int32)
+    longs = np.concatenate([lv.starts for lv in sched] +
+                           [np.zeros(0, np.int64)])
+    ints_d = torch.from_numpy(ints).to(dev)
+    longs_d = torch.from_numpy(longs).to(dev)
+    out, at, at2 = [], 0, 0
+    for lv in sched:
+        n = lv.jobs.size
+        out.append(lv._replace(jobs=ints_d[at:at + n],
+                               starts=longs_d[at2:at2 + len(lv.starts)]))
+        at, at2 = at + n, at2 + len(lv.starts)
+    return coef, out, col._replace(tiles=ints_d[at:])
+
+
+def _j2k_line_plain(x: Tensor, sn: int, cas: int, form: int) -> Tensor:
+    """Lines (the rows of x) of one level interleaved and lifted as
+    ``j2k_idwt::line53`` / ``line97``: new tensor."""
+    n = x.shape[1]
+    out = torch.empty_like(x)
+    out[:, cas::2] = x[:, :sn]
+    out[:, 1 - cas::2] = x[:, sn:]
+    dn = n - sn
+    if n == 0:
+        return out
+    if n == 1:
+        return torch.div(out, 2, rounding_mode="trunc") \
+            if form == 53 and cas else out
+    if form == 97 and not ((dn > 0 or sn > 1) if cas == 0 else
+                           (sn > 0 or dn > 1)):
+        return out
+    dev = x.device
+    low = torch.arange(cas, n, 2, device=dev)
+    high = torch.arange(1 - cas, n, 2, device=dev)
+
+    def sides(p):
+        return (torch.where(p > 0, p - 1, p + 1),
+                torch.where(p + 1 < n, p + 1, p - 1))
+
+    (ll, lr), (hl, hr) = sides(low), sides(high)
+    if form == 53:
+        out[:, low] -= (out[:, ll] + out[:, lr] + 2) >> 2
+        out[:, high] += (out[:, hl] + out[:, hr]) >> 1
+        return out
+    f32 = lambda v: torch.tensor(v, dtype=torch.float32, device=dev)
+    out[:, low] = out[:, low] * f32(J2K_K)
+    out[:, high] = out[:, high] * f32(J2K_TWO_INVK)
+    for k, c in enumerate(J2K_LIFTS):
+        p, l, r = (low, ll, lr) if k % 2 == 0 else (high, hl, hr)
+        out[:, p] = out[:, p] + (out[:, l] + out[:, r]) * f32(c)
+    return out
+
+
+def j2k_idwt_plain(coef: Tensor, lv: J2kLevel) -> Tensor:
+    """The plain version of one level's two :func:`j2k_idwt_kernel`
+    launches: every tile-component of ``lv``, its rows then its columns,
+    on a copy of ``coef`` (int32 words; float ones viewed as such for the
+    9/7 wavelet), which it returns."""
+    J2K_COUNTS.plain += 1
+    J2K_COUNTS.plain_forms[str(lv.form)] = \
+        J2K_COUNTS.plain_forms.get(str(lv.form), 0) + 1
+    out = coef.clone()
+    words = out if lv.form == 53 else out.view(torch.float32)
+    jobs = np.asarray(lv.jobs.cpu() if isinstance(lv.jobs, Tensor) else
+                      lv.jobs).reshape(-1, 8).tolist()
+    for off, w, rw, rh, sn, snv, ch, cv in jobs:
+        a = words[off:off + w * rh].view(rh, w)[:, :rw]
+        a[:] = _j2k_line_plain(a, sn, ch, lv.form)
+        a[:] = _j2k_line_plain(a.t(), snv, cv, lv.form).t()
+    return out
+
+
+def _j2k_arg(t, dtype, what: str, like: Tensor = None) -> None:
+    """Raise unless ``t`` is a contiguous CUDA tensor of ``dtype`` (on
+    ``like``'s device)."""
+    if not isinstance(t, Tensor) or t.device.type != "cuda" or \
+            t.dtype != dtype or not t.is_contiguous() or \
+            (like is not None and t.device != like.device):
+        got = (f"{t.dtype} {tuple(t.shape)} on {t.device}"
+               if isinstance(t, Tensor) else type(t).__name__)
+        on = f" on {like.device}" if like is not None else ""
+        raise ValueError(f"{what} must be a contiguous {dtype} CUDA "
+                         f"tensor{on}, got {got}")
+
+
+def j2k_idwt_kernel(coef: Tensor, scratch: Tensor, lv: J2kLevel) -> None:
+    """One level of the inverse wavelet transform over every tile-component
+    of ``lv`` on the card, in place on ``coef`` (``scratch``: words of the
+    same size): a launch over the rows, then one over the columns
+    (``csrc/jpeg_codec.cu``, ``j2k_idwt.h``)."""
+    _j2k_arg(coef, torch.int32, "j2k_idwt_kernel's words")
+    _j2k_arg(scratch, torch.int32, "j2k_idwt_kernel's scratch", coef)
+    _j2k_arg(lv.jobs, torch.int32, "j2k_idwt_kernel's jobs", coef)
+    _j2k_arg(lv.starts, torch.int64, "j2k_idwt_kernel's starts", coef)
+    if scratch.numel() < coef.numel():
+        raise ValueError("j2k_idwt_kernel's scratch is smaller than its "
+                         "words")
+    lib = _library()
+    njobs = lv.jobs.numel() // 8
+    for npass, total in ((0, lv.rows), (1, lv.cols)):
+        _check(lib.j2k_idwt_launch(coef.data_ptr(), scratch.data_ptr(),
+                                   lv.jobs.data_ptr(), lv.starts.data_ptr(),
+                                   njobs, npass, total, lv.form,
+                                   _stream(coef)), "j2k_idwt_kernel")
+        J2K_COUNTS.launched(str(lv.form))
+
+
+def j2k_colour_plain(coef: Tensor, col: J2kColour) -> Tuple[Tensor, Tensor]:
+    """The plain version of :func:`j2k_colour_kernel`: (grey (H, W), BGR
+    (H, W, 3)) uint8 of the transformed words (int32 tensor)."""
+    J2K_COUNTS.plain += 1
+    J2K_COUNTS.plain_forms[col.form] = \
+        J2K_COUNTS.plain_forms.get(col.form, 0) + 1
+    W, H, tw, XT, YT, prec, shift, rgb, grey_rgb, ncomp = col.params
+    dev = coef.device
+    tiles = torch.as_tensor(col.tiles, device=dev).view(-1, J2K_TILE_INTS)
+    tiles = tiles.to(torch.int64)
+    y = torch.arange(H, device=dev)[:, None]
+    x = torch.arange(W, device=dev)[None, :]
+    t = tiles[(y // YT) * tw + x // XT]
+    at = (y - t[..., 1]) * t[..., 2] + (x - t[..., 0])
+    iv = [coef[t[..., 4 + 2 * c] + at] for c in range(ncomp)]
+    fv = [v.view(torch.float32) for v in iv]
+    rev = t[..., 5] == 1
+    if ncomp == 3:
+        mct = t[..., 3] != 0
+        g = iv[0] - ((iv[1] + iv[2]) >> 2)
+        rct = (iv[2] + g, g, iv[1] + g)
+        f32 = lambda v: torch.tensor(v, dtype=torch.float32, device=dev)
+        y0, u, v = fv
+        ict = (y0 + v * f32(1.402), y0 - u * f32(0.34413) - v * f32(0.71414),
+               y0 + u * f32(1.772))
+        iv = [torch.where(mct & rev, a, b) for a, b in zip(rct, iv)]
+        fv = [torch.where(mct & ~rev, a, b) for a, b in zip(ict, fv)]
+    hi, dc = (1 << prec) - 1, 1 << (prec - 1)
+    s = []
+    for c in range(ncomp):
+        f = fv[c]
+        rounded = torch.round(f).clamp(-2.0 ** 40, 2.0 ** 40).to(torch.int64)
+        lossy = torch.where(f > 2147483647.0, torch.full_like(rounded, hi),
+                            torch.where(f < -2147483648.0,
+                                        torch.zeros_like(rounded),
+                                        (rounded + dc).clamp(0, hi)))
+        exact = (iv[c].to(torch.int64) + dc).clamp(0, hi)
+        s.append(torch.where(t[..., 5 + 2 * c] == 1, exact, lossy) >> shift)
+    held = t[..., 10] != 0
+    s = [torch.where(held, v, torch.zeros_like(v)) for v in s]
+    b, g, r = (s[2], s[1], s[0]) if rgb else (s[0], s[0], s[0])
+    bgr = torch.stack([b, g, r], -1).to(torch.uint8)
+    grey = ((r * 9798 + g * 19235 + b * 3735 + 16384) >> 15) if grey_rgb \
+        else s[0]
+    return grey.to(torch.uint8), bgr
+
+
+def j2k_colour_kernel(coef: Tensor, col: J2kColour) -> Tuple[Tensor, Tensor]:
+    """(grey (H, W), BGR (H, W, 3)) uint8 on the card from the transformed
+    words: one launch of ``j2k_colour_kernel`` (``csrc/jpeg_codec.cu``,
+    ``j2k_colour.h``)."""
+    _j2k_arg(coef, torch.int32, "j2k_colour_kernel's words")
+    _j2k_arg(col.tiles, torch.int32, "j2k_colour_kernel's tiles", coef)
+    W, H, tw, _, YT = col.params[:5]
+    if col.tiles.numel() != tw * -(-H // YT) * J2K_TILE_INTS:
+        raise ValueError(f"j2k_colour_kernel takes {J2K_TILE_INTS} ints a "
+                         f"tile, {tw} x {-(-H // YT)} tiles, got "
+                         f"{col.tiles.numel()}")
+    bgr = torch.empty((H, W, 3), dtype=torch.uint8, device=coef.device)
+    grey = torch.empty((H, W), dtype=torch.uint8, device=coef.device)
+    params = np.array(col.params, np.int32)
+    _check(_library().j2k_colour_launch(
+        coef.data_ptr(), col.tiles.data_ptr(), params.ctypes.data,
+        bgr.data_ptr(), grey.data_ptr(), _stream(coef)), "j2k_colour_kernel")
+    J2K_COUNTS.launched(col.form)
+    return grey, bgr
+
+
+def _decode_jp2(data: bytes, device) -> Tuple[Tensor, Tensor]:
+    img = j2k_host_image(data, _library())
+    coef, sched, col = j2k_upload(img, _cuda_device(device))
+    scratch = torch.empty_like(coef)
+    for lv in sched:
+        j2k_idwt_kernel(coef, scratch, lv)
+    CODEC_COUNTS.launched("jp2")
+    return j2k_colour_kernel(coef, col)
+
+
 def decode(data: bytes, device) -> Tuple[Tensor, Tensor]:
     """(grey (H, W), BGR (H, W, 3)) uint8 tensors on ``device`` from a
     file's bytes: what ``cv2.imread`` gives with ``IMREAD_GRAYSCALE`` and
@@ -3346,13 +3752,15 @@ def decode(data: bytes, device) -> Tuple[Tensor, Tensor]:
     reads in both modes: grey and RGB lossless files raise, naming the mode
     cv2 refuses); PNG; TIFF (uncompressed, LZW, Deflate, PackBits and
     JPEG-compressed; grey, RGB, palette, CMYK and YCbCr; signed samples as
-    their bits); WebP (lossy, lossless, and the first frame of an animated
-    file on its canvas); BMP; and PBM, PGM and PPM (P1 to P6). A file cut
-    short reads as ``cv2.imread`` reads it from a file (see the module's
-    doc): a JPEG cut inside a marker segment by libjpeg's rule for the
-    segment completed with the fake EOI's bytes, a JPEG TIFF's stream of
-    fewer rows than its chunk with the rest black, an uncompressed TIFF
-    strip short of its rows as zeros. On the CPU: ``cv2.imdecode`` of the
+    their bits); JPEG 2000 (JP2 files and raw codestreams; a raw one of one
+    or two components, which cv2 reads in grey only, raises); WebP (lossy,
+    lossless, and the first frame of an animated file on its canvas); BMP;
+    and PBM, PGM and PPM (P1 to P6). A file cut short reads as
+    ``cv2.imread`` reads it from a file (see the module's doc): a JPEG cut
+    inside a marker segment by libjpeg's rule for the segment completed
+    with the fake EOI's bytes, a JPEG TIFF's stream of fewer rows than its
+    chunk with the rest black, an uncompressed TIFF strip short of its
+    rows as zeros. On the CPU: ``cv2.imdecode`` of the
     bytes, which refuses a JPEG cut short (:func:`read_image` reads the
     path with ``cv2.imread``)."""
     dev = torch.device(device)
@@ -3373,9 +3781,12 @@ def decode(data: bytes, device) -> Tuple[Tensor, Tensor]:
         return _decode_raster(data, dev)
     if kind == "WebP":
         return _decode_webp(data, dev)
+    if kind in ("JP2", "J2K"):
+        return _decode_jp2(data, dev)
     if kind != "JPEG":
-        raise ValueError(f"not a JPEG, PNG, TIFF, WebP, BMP, PBM, PGM or PPM "
-                         f"({kind}): the card's codec reads those only")
+        raise ValueError(f"not a JPEG, PNG, TIFF, WebP, BMP, PBM, PGM, PPM "
+                         f"or JPEG 2000 ({kind}): the card's codec reads "
+                         f"those only")
     return _decode_jpeg(data, dev)
 
 
@@ -3392,6 +3803,8 @@ def decode_colour(data: bytes, device) -> Tensor:
         return _decode_raster(data, dev)[1]
     if dev.type == "cuda" and image_format(data) == "WebP":
         return _decode_webp(data, dev)[1]
+    if dev.type == "cuda" and image_format(data) in ("JP2", "J2K"):
+        return _decode_jp2(data, dev)[1]
     if dev.type == "cpu":
         import cv2
 

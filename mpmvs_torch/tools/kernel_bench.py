@@ -6,7 +6,10 @@ cost (``csrc/geom_cost.cu``, ``--kernel geom``), and the lossless WebP
 predictor (``csrc/jpeg_codec.cu``, ``--kernel vp8l``: random images from
 one band of 32 rows to 3200x2130, no scene), and the JPEG colour kernels
 (``--kernel colour``: ``ycc_to_bgr_kernel`` and ``cmyk_to_bgr_kernel`` on
-random 3200x2130 planes, no scene).
+random 3200x2130 planes, no scene), and the JPEG 2000 kernels
+(``csrc/jpeg_codec.cu``, ``--kernel j2k``: each level of
+``j2k_idwt_kernel`` and ``j2k_colour_kernel`` on the three 3200x2130
+sources of ``tests/data/jp2/conversion``, no scene).
 
 Port of tools/kernel_bench.py (the JAX package's Pallas-kernel bench):
 the same operating point (``make_plane_scene`` at 3200x2130 with 11
@@ -916,6 +919,62 @@ def run_colour(reps: int, check: bool, H: int = 2130, W: int = 3200) -> list:
     return out
 
 
+J2K_SOURCES = ("plane_3200x2130_lossless.jp2", "plane_3200x2130_97_rpcl.jp2",
+               "plane_3200x2130_53_rct.jp2")
+
+
+def run_j2k(reps: int, check: bool) -> list:
+    """The JPEG 2000 kernels on the three 3200x2130 sources of
+    ``tests/data/jp2/conversion`` (a lossless 5/3 file with no colour
+    transform, a tiled 9/7 ICT one, a rate-limited 5/3 RCT one), after the host's parse and tier-1:
+    each level's two ``j2k_idwt_kernel`` launches and the
+    ``j2k_colour_kernel`` launch, their CUDA-event ms (``ms``) and ms from
+    a CUDA graph (``graph_ms``) beside the bounds of ``utils.roofline``,
+    and with ``check`` the entries that differ from the twins
+    (``images.j2k_idwt_plain``, ``j2k_colour_plain``). The levels run in
+    place, so a timed level transforms its own output again: the same work
+    on other values."""
+    from mpmvs_torch.io import images
+    from mpmvs_torch.utils import roofline
+    from mpmvs_torch.utils.trace import cuda_graph_ms, cuda_time_ms
+
+    folder = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.dirname(os.path.abspath(__file__)))), "tests", "data", "jp2",
+        "conversion")
+    dev = torch.device("cuda")
+    out = []
+    for name in J2K_SOURCES:
+        with open(os.path.join(folder, name), "rb") as f:
+            img = images.j2k_host_image(f.read(), images._library())
+        coef, sched, col = images.j2k_upload(img, dev)
+        scratch = torch.empty_like(coef)
+        for lv in sched:
+            want = images.j2k_idwt_plain(coef, lv) if check else None
+            images.j2k_idwt_kernel(coef, scratch, lv)
+            work = coef.clone()
+            fn = lambda: images.j2k_idwt_kernel(work, scratch, lv)
+            bnd = roofline.j2k_idwt_bound(lv)
+            r = dict(kernel="j2k_idwt", source=name, level=lv.level,
+                     form=lv.form, jobs=lv.jobs.numel() // 8, rows=lv.rows,
+                     cols=lv.cols, ms=cuda_time_ms(fn, reps),
+                     graph_ms=cuda_graph_ms(fn, reps), bound_ms=bnd[0],
+                     bound_by=bnd[1])
+            if check:
+                r["entries_differing"] = int((coef != want).sum())
+            out.append(r)
+        fn = lambda: images.j2k_colour_kernel(coef, col)
+        bnd = roofline.j2k_colour_bound(col)
+        r = dict(kernel="j2k_colour", source=name, form=col.form,
+                 ms=cuda_time_ms(fn, reps), graph_ms=cuda_graph_ms(fn, reps),
+                 bound_ms=bnd[0], bound_by=bnd[1])
+        if check:
+            r["entries_differing"] = sum(
+                int((a != b).sum()) for a, b in zip(
+                    fn(), images.j2k_colour_plain(coef, col)))
+        out.append(r)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--height", type=int, default=2130)
@@ -939,7 +998,7 @@ def main(argv=None) -> int:
                     help="also compare with the plain version")
     ap.add_argument("--kernel", default="ncc",
                     choices=("ncc", "sorted", "bilateral", "geom", "vp8l",
-                             "colour"))
+                             "colour", "j2k"))
     ap.add_argument("--sorted-cases", default=",".join(SORTED_CASES),
                     help=f"comma-separated, of {list(SORTED_CASES)}")
     ap.add_argument("--sass", action="store_true",
@@ -955,11 +1014,12 @@ def main(argv=None) -> int:
     from mpmvs_torch.tools import build_kernels
 
     build_kernels(torch.device("cuda"), verbose=True)
-    if args.kernel in ("vp8l", "colour"):  # no scene: random images
+    if args.kernel in ("vp8l", "colour", "j2k"):  # no scene
         from mpmvs_torch.tools import device_record
 
         rec = device_record(torch.device("cuda", 0))
-        run = run_vp8l if args.kernel == "vp8l" else run_colour
+        run = {"vp8l": run_vp8l, "colour": run_colour,
+               "j2k": run_j2k}[args.kernel]
         for res in run(4 * args.reps, args.check):
             res.update(kind=rec["kind"], nvidia_smi=rec["nvidia_smi"])
             print(json.dumps(res), flush=True)

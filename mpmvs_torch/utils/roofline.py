@@ -293,3 +293,34 @@ def cielab_bound(form):
     written, against CIELAB_OPS float operations a pixel."""
     return max(raster_bound(form, 4 * 1505),
                bound(CIELAB_OPS * form.width * form.height, 0))
+
+
+# float operations of one 9/7 sample of a line: its scale, then the two of
+# the four lifting steps that update it (an add, a multiply, an add each)
+J2K_97_OPS = 1 + 2 * 3
+
+
+def j2k_idwt_bound(lv):
+    """One level of the inverse DWT, as ``j2k_idwt_kernel``'s two launches
+    compute it (an ``io.images.J2kLevel``): the level's coefficients read
+    once and written once, 4 bytes each way (the kernel's rows go through a
+    scratch array and back, 16 bytes a coefficient, which the bound does
+    not count), and for the 9/7 wavelet J2K_97_OPS float operations a
+    coefficient for the rows and as many for the columns. The 5/3
+    wavelet's int32 work has no peak in the table: bytes alone."""
+    n = float(sum(j[2] * j[3] for j in lv.jobs.reshape(-1, 8).tolist()))
+    return bound(2 * J2K_97_OPS * n if lv.form == 97 else 0, 8 * n)
+
+
+# float operations of one pixel of the ICT (j2k_colour.h): two multiplies
+# and an add for R and B, two multiplies and two subtractions for G
+J2K_ICT_OPS = 2 + 4 + 2
+
+
+def j2k_colour_bound(col):
+    """One launch of ``j2k_colour_kernel`` (an ``io.images.J2kColour``): 4
+    bytes of each component read a pixel, BGR and grey written, against the
+    ICT's J2K_ICT_OPS float operations a pixel where it runs."""
+    W, H, ncomp = col.params[0], col.params[1], col.params[9]
+    return bound(J2K_ICT_OPS * W * H if col.form == "ict" else 0,
+                 (4 * ncomp + 4) * W * H)

@@ -9,7 +9,10 @@ package's is (``mpmvs_tpu/pipeline.py`` ``_load_view``, its converter).
 * ``mpmvs_tpu.pipeline._load_view`` and the port's read the same grey,
   BGR and camera from a workspace whose view 0 is a cut progressive JPEG.
 * The JAX converter and the port's on the CPU write the same workspace,
-  byte for byte, from cut JPEG sources that are re-encoded.
+  byte for byte, from cut JPEG sources that are re-encoded, and from JPEG
+  2000 sources (a JP2 file, a raw codestream).
+* ``_load_view`` of both packages reads the same arrays from a view that
+  is a JPEG 2000 file (cv2.imread goes by the bytes, not the name).
 """
 
 import os
@@ -32,7 +35,8 @@ torch.set_num_threads(1)
 DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
 JPEG = os.path.join(DATA, "jpeg")
 IMAGE_EXTS = (".jpg", ".jpeg", ".png", ".tif", ".tiff", ".webp", ".bmp",
-              ".pbm", ".pgm", ".ppm", ".pam", ".gif")
+              ".pbm", ".pgm", ".ppm", ".pam", ".gif", ".jp2", ".j2k")
+JP2 = os.path.join(DATA, "jp2")
 
 
 def _image_files():
@@ -153,6 +157,66 @@ def test_conversion_of_cut_sources_matches_jax(tmp_path):
                             cv2.IMREAD_COLOR) is None
         shutil.copyfile(src, os.path.join(dense, "images", f"img{i}.jpeg"))
         text = text.replace(f" img{i}.jpg\n", f" img{i}.jpeg\n")
+    with open(path, "w") as f:
+        f.write(text)
+    out_t, out_j = str(tmp_path / "ws_t"), str(tmp_path / "ws_j")
+    os.makedirs(out_j)
+    jax_convert(dense, out_j, log=lambda *a: None)
+    convert.convert_colmap(dense, out_t, log=lambda *a: None, device="cpu")
+    got, want = _tree(out_t), _tree(out_j)
+    assert sorted(got) == sorted(want)
+    assert len([k for k in got if k.startswith("images")]) == 4
+    for k in want:
+        assert got[k] == want[k], k
+
+
+@pytest.mark.parametrize("name", ["pil_tiles_17x13_97.jp2",
+                                  "pil_rgb_97_layers.j2k",
+                                  "pil_stops_after_sot.jp2"])
+def test_load_view_of_jpeg_2000_matches_jax(tmp_path, name):
+    """The JAX package's _load_view and the port's on the CPU read the same
+    grey, BGR and camera from a workspace whose view 0 is a JPEG 2000
+    file."""
+    from mpmvs_tpu import pipeline as jpipeline
+
+    ws = str(tmp_path)
+    os.makedirs(os.path.join(ws, "images"))
+    os.makedirs(os.path.join(ws, "cams"))
+    src = os.path.join(JP2, name)
+    shutil.copyfile(src, os.path.join(ws, "images", "00000000.jpg"))
+    grey = cv2.imread(src, cv2.IMREAD_GRAYSCALE)
+    scene = make_plane_scene(num_views=1, height=grey.shape[0],
+                             width=grey.shape[1], seed=5)
+    write_cam_txt(os.path.join(ws, "cams", "00000000_cam.txt"),
+                  scene.cameras.view(0))
+    got = tpipeline._load_view(ws, 0, 3200, "cpu")
+    want = jpipeline._load_view(ws, 0, 3200)
+    np.testing.assert_array_equal(got.image, np.asarray(want.image))
+    np.testing.assert_array_equal(got.color, np.asarray(want.color))
+    np.testing.assert_array_equal(got.image, grey)
+
+
+def test_conversion_of_jpeg_2000_sources_matches_jax(tmp_path):
+    """The JAX converter and the port's on the CPU re-encode JPEG 2000
+    sources (named ``.jp2`` and ``.j2k``) to the same workspace, byte for
+    byte."""
+    from mpmvs_tpu.preprocess.convert import convert_colmap as jax_convert
+    from mpmvs_torch.preprocess import convert
+    from test_torch_preprocess import _tree, _write_text_model
+
+    dense = os.path.join(str(tmp_path), "dense")
+    _write_text_model(os.path.join(dense, "sparse"))
+    os.makedirs(os.path.join(dense, "images"))
+    sources = ["pil_rgb_97.jp2", "pil_rgb_97_layers.j2k", "cv2_grey.jp2",
+               "pil_tiles_17x13_97.jp2"]
+    path = os.path.join(dense, "sparse", "images.txt")
+    with open(path) as f:
+        text = f.read()
+    for i, name in enumerate(sources):
+        ext = os.path.splitext(name)[1]
+        shutil.copyfile(os.path.join(JP2, name),
+                        os.path.join(dense, "images", f"img{i}{ext}"))
+        text = text.replace(f" img{i}.jpg\n", f" img{i}{ext}\n")
     with open(path, "w") as f:
         f.write(text)
     out_t, out_j = str(tmp_path / "ws_t"), str(tmp_path / "ws_j")

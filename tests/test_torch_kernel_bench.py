@@ -259,7 +259,8 @@ def test_geom_cases_build(case):
             float(real.mean()) < 0.5)
 
 
-@pytest.mark.parametrize("kernel", ["sorted", "bilateral", "geom", "colour"])
+@pytest.mark.parametrize("kernel", ["sorted", "bilateral", "geom", "colour",
+                                    "j2k"])
 def test_kernel_cases_exit_nonzero_without_cuda(kernel):
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-m",
@@ -282,4 +283,15 @@ def test_colour_cases_equal_plain():
     assert [r["case"] for r in rows] == [c[0] for c in
                                          kernel_bench.COLOUR_CASES] + [
                                              "chunks_420"]
+    assert all(r["entries_differing"] == 0 for r in rows)
+
+
+@pytest.mark.cuda
+def test_j2k_cases_equal_plain():
+    """``--kernel j2k``: every level of the three sources and the three
+    colour forms equal their twins."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    rows = kernel_bench.run_j2k(2, True)
+    assert {r["form"] for r in rows} == {53, 97, "none", "ict", "rct"}
     assert all(r["entries_differing"] == 0 for r in rows)
